@@ -1,0 +1,86 @@
+"""comorag_torch's Hopper kernels against their plain PyTorch versions, on
+the card. Marked ``cuda``: these build the CUDA sources with nvcc and skip
+where no card is visible (a CUDA kernel has no interpret mode on the CPU).
+
+Run on a machine with an H100: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+Tolerance: bf16 2e-2 (the compute dtype's resolution at these magnitudes,
+as tests/test_tpu_compiled.py holds the TPU kernels).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _ragged_mask(b, s, rng):
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[0] = s
+    return (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+
+
+# dh=20: the scalar-load path (dh % 8 != 0); dh=24, 160: zero-padded head dims
+@pytest.mark.parametrize("b,s,heads,dh", [(2, 64, 2, 64), (3, 40, 4, 32), (2, 128, 12, 64),
+                                          (2, 70, 2, 20), (2, 100, 3, 24), (1, 96, 2, 160)])
+def test_encoder_attention_kernel_matches_plain(cuda_device, b, s, heads, dh):
+    from comorag_torch.ops import attention
+
+    rng = np.random.default_rng(0)
+    h = heads * dh
+    q, k, v = (torch.tensor(rng.standard_normal((b, s, h)), dtype=torch.bfloat16, device=cuda_device)
+               for _ in range(3))
+    mask = torch.tensor(_ragged_mask(b, s, rng), device=cuda_device)
+    before = attention.LAUNCHES.value
+    got = attention.encoder_attention(q, k, v, mask, heads)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES.value == before + 1
+    ref = attention.encoder_attention_plain(q, k, v, mask, heads)
+    np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+
+
+# 32-row tiles (h=128, 256) and 48-row tiles (h divisible by 192), ragged row counts
+@pytest.mark.parametrize("n,h,inter", [(128, 128, 256), (100, 256, 512), (40, 384, 256),
+                                       (64, 768, 3072), (77, 1024, 4096)])
+def test_encoder_ffn_kernel_matches_plain(cuda_device, n, h, inter):
+    from comorag_torch.ops import ffn
+
+    rng = np.random.default_rng(1)
+
+    def t(shape, scale=1.0, dtype=torch.float32):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device=cuda_device)
+
+    xres = t((n, h), dtype=torch.bfloat16)
+    w1 = t((h, inter), 0.05, torch.bfloat16)
+    w2 = t((inter, h), 0.05, torch.bfloat16)
+    s1, n1, s2, n2 = 1.0 + t((h,), 0.1), t((h,), 0.1), 1.0 + t((h,), 0.1), t((h,), 0.1)
+    b1, b2 = t((inter,), 0.1), t((h,), 0.1)
+    before = ffn.LAUNCHES.value
+    got = ffn.encoder_ffn(xres, s1, n1, w1, b1, w2, b2, s2, n2)
+    torch.cuda.synchronize()
+    assert ffn.LAUNCHES.value == before + 1
+    ref = ffn.encoder_ffn_plain(xres, s1, n1, w1, b1, w2, b2, s2, n2)
+    np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_kernels_reject_what_they_do_not_take(cuda_device):
+    from comorag_torch.ops import attention, ffn
+
+    q = torch.zeros(2, 16, 128, device=cuda_device)  # fp32: the kernel is bf16-only
+    with pytest.raises(TypeError):
+        attention.encoder_attention(q, q, q, torch.ones(2, 16, device=cuda_device), 2)
+    x = torch.zeros(32, 96, dtype=torch.bfloat16, device=cuda_device)  # hidden 96
+    w1 = torch.zeros(96, 256, dtype=torch.bfloat16, device=cuda_device)
+    w2 = torch.zeros(256, 96, dtype=torch.bfloat16, device=cuda_device)
+    v96 = torch.zeros(96, device=cuda_device)
+    with pytest.raises(ValueError):
+        ffn.encoder_ffn(x, v96, v96, w1, torch.zeros(256, device=cuda_device), w2, v96, v96, v96)

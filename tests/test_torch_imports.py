@@ -1,0 +1,66 @@
+"""comorag_torch must run without jax (the port never imports it) and
+without transformers (needed only for ``bge:<local path>`` checkpoints).
+
+A subprocess installs a meta-path finder that raises ImportError for both,
+imports every comorag_torch module, runs the CLI's ``--help``, indexes and
+answers the moonlantern set on the CPU with the hash encoder, and checks
+that neither package was loaded. httpx and pyarrow are not blocked: the
+reused host modules need them (the OpenAI client, the parquet store), and
+the H100 machine has them installed.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent(
+    """
+    import importlib, importlib.abc, os, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "transformers")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Block())
+
+    import comorag_torch
+    modules = [m.name for m in pkgutil.walk_packages(comorag_torch.__path__, "comorag_torch.")]
+    for name in modules:
+        importlib.import_module(name)
+
+    from comorag_torch.cli import run
+    sys.argv = ["run", "--help"]
+    try:
+        run.main()
+    except SystemExit as e:
+        assert e.code == 0, e.code
+
+    from comorag_tpu.config import ComoConfig
+    tmp = os.environ["PORT_TMP"]
+    cfg = ComoConfig(llm_name="fake", embedding_model_name="hash", embedding_dim=64,
+                     save_dir=os.path.join(tmp, "save"), output_dir=os.path.join(tmp, "out"),
+                     max_meta_loop_iterations=1, gmm_max_clusters=4, gmm_em_iterations=10)
+    results = run.process_dataset(os.environ["PORT_DATA"], cfg, device="cpu")
+    assert len(results) == 4 and all(r["output"] for r in results), results
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("OK", len(modules), "modules")
+    """
+)
+
+
+def test_port_runs_without_jax_or_transformers(tmp_path):
+    env = dict(os.environ, PORT_TMP=str(tmp_path),
+               PORT_DATA=os.path.join(REPO, "dataset", "moonlantern", "moonlantern_1"),
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "OK" in proc.stdout
