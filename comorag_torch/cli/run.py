@@ -135,11 +135,11 @@ def main() -> None:
     parser.add_argument("--max_tokens_sem", type=int, default=2000)
     parser.add_argument("--max_tokens_epi", type=int, default=2000)
     parser.add_argument("--embedding_dtype", default="float32", choices=["float32", "bfloat16", "int8"],
-                        help="retrieval index storage/scoring dtype (int8 on CUDA needs an unported kernel)")
+                        help="retrieval index storage/scoring dtype (int8: per-row quantized rows)")
     parser.add_argument("--topk_method", default="xla", choices=["xla", "pallas"],
-                        help="'pallas' names the streaming MIPS kernel (not ported: raises on CUDA)")
+                        help="'pallas': the streaming MIPS top-k kernels (csrc/mips_topk.cu) on --device cuda")
     parser.add_argument("--scan_dtype", default=None, choices=["int8", "bfloat16"],
-                        help="two-pass retrieval request; the port serves it exact single-pass")
+                        help="certified two-pass retrieval scan (default: the config's 'auto')")
     parser.add_argument("--retrieval_only", action="store_true",
                         help="skip the LLM answer loop; dump tri-layer retrieval per question")
     parser.add_argument("--mesh_shape", default=None,

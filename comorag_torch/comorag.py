@@ -360,7 +360,8 @@ class ComoRAG:
 
     def _build_graph(self, chunk_ids, chunk_triples, per_chunk_entities) -> None:
         meta_path = self._graph_prefix + "_meta.json"
-        fp = self._graph_fingerprint(chunk_ids, chunk_triples)
+        with trace.span("graph.fingerprint"):
+            fp = self._graph_fingerprint(chunk_ids, chunk_triples)
         if self.graph is not None:
             try:
                 with open(meta_path, encoding="utf-8") as f:
@@ -413,11 +414,12 @@ class ComoRAG:
             )
             for key, value in self.graph.info().items():
                 trace.gauge(f"graph.census.{key}", value)
-        self.graph.save(self._graph_prefix)
-        tmp_meta = meta_path + ".tmp"
-        with open(tmp_meta, "w", encoding="utf-8") as f:
-            json.dump({"fingerprint": fp, "signature": self.graph.signature()}, f)
-        os.replace(tmp_meta, meta_path)  # atomic, like the semantic-tree meta
+        with trace.span("graph.save"):
+            self.graph.save(self._graph_prefix)
+            tmp_meta = meta_path + ".tmp"
+            with open(tmp_meta, "w", encoding="utf-8") as f:
+                json.dump({"fingerprint": fp, "signature": self.graph.signature()}, f)
+            os.replace(tmp_meta, meta_path)  # atomic, like the semantic-tree meta
         logger.info("Graph: %s", self.graph.info())
 
     # ----------------------------------------------------------------- engine

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
@@ -26,6 +27,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -53,6 +55,8 @@ def library_path(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` (compiled on first call)."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -70,6 +74,13 @@ def load(name: str) -> ctypes.CDLL:
         lib.comorag_error_string.argtypes = [ctypes.c_int]
         _libs[name] = lib
         return lib
+
+
+def load_all(names) -> list:
+    """``load`` for several sources at once: one nvcc per source, all
+    started together."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(load, names))
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

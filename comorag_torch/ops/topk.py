@@ -6,13 +6,16 @@ padded and no row mask exists. Every selection is exact and breaks ties
 toward the LOWEST id, the order ``lax.top_k`` gives; ``torch.topk`` makes
 no promise about tie order, so ``exact_topk`` fixes it explicitly.
 
-The certified two-pass scan (topk.py:361-505) is not ported yet; the
-index serves exact single-pass scores instead, which yield the same ids.
+The certified two-pass (topk.py:172-280, :361-505) is here as plain
+torch: the build-time scan copies and their error bounds are numpy host
+functions, the scan, rescore and exactness flag are torch programs. The
+packed int32 result buffer (``_pack``) is TPU-only; results come back as
+separate tensors.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,3 +76,139 @@ def stats_from_scores(scores: torch.Tensor, k: int):
     host while the dense matrix stays on the device for the PPR prior."""
     vals, idx = exact_topk(scores, k)
     return vals, idx, scores.amin(dim=1), scores.sum(dim=1, dtype=torch.float32)
+
+
+def int8_topk(queries: torch.Tensor, corpus_q: torch.Tensor, scales: torch.Tensor, k: int):
+    """Top-k over a per-row int8 corpus (topk.py:264): the int8 scan
+    numerics of ``int8_scores``, then an exact top-k."""
+    return exact_topk(int8_scores(queries, corpus_q, scales), k)
+
+
+# ------------------------------------------------------- certified two-pass
+def _scan_eps(dim: int) -> float:
+    """Arithmetic-error allowance per unit ``qnorm * row_norm`` (topk.py:172):
+    the query hi/lo bf16 split leaves a relative 2^-18 residual and each
+    fp32-summed dot adds at most d*2^-24; 4x covers all of them."""
+    return 2.0 ** -18 + 4.0 * dim * 2.0 ** -24
+
+
+RESIDUAL_FOLD = 256.0  # topk.py:181: channel 2 sits at s1/256, a power of two
+
+
+def quantize_int8_residual(corpus: np.ndarray, block: int = 32768) -> Tuple[np.ndarray, np.ndarray, float]:
+    """Dual-int8 residual quantization for the certified scan (topk.py:185):
+    row ~= s1 * (q1 + q2/256). Returns ``(cat [N, 2d] int8 = [q1 | q2],
+    s1 [N] f32, bound)`` with |true - scan| <= ||q|| * bound for every
+    query and row (Cauchy-Schwarz on the exact float64 residual plus the
+    arithmetic terms of ``_scan_eps``)."""
+    c32 = np.asarray(corpus, np.float32)
+    n, d = c32.shape if c32.ndim == 2 else (c32.shape[0], 1)
+    c32 = c32.reshape(n, d)
+    cat = np.empty((n, 2 * d), np.int8)
+    s1 = np.empty(n, np.float32)
+    beta_max = 0.0  # max_j ||e2_j||_2 (f64)
+    chi_max = 0.0   # max_j ||s1*(q1 + q2/256)||_2
+    for i in range(0, n, block):
+        x = c32[i : i + block].astype(np.float64)
+        a1 = np.abs(x).max(axis=1) / 127.0
+        a1 = np.where(a1 == 0, 1.0, a1)
+        a1 = a1.astype(np.float32).astype(np.float64)  # the device folds f32
+        b1 = np.clip(np.rint(x / a1[:, None]), -127, 127)
+        b2 = np.clip(np.rint((x / a1[:, None] - b1) * RESIDUAL_FOLD), -127, 127)
+        hat = a1[:, None] * (b1 + b2 / RESIDUAL_FOLD)
+        e2 = x - hat
+        beta_max = max(beta_max, float(np.sqrt((e2 * e2).sum(axis=1)).max(initial=0.0)))
+        chi_max = max(chi_max, float(np.sqrt((hat * hat).sum(axis=1)).max(initial=0.0)))
+        cat[i : i + block, :d] = b1.astype(np.int8)
+        cat[i : i + block, d:] = b2.astype(np.int8)
+        s1[i : i + block] = a1.astype(np.float32)
+    bound = beta_max + _scan_eps(d) * max(chi_max, 1e-30)
+    return cat, s1, float(bound)
+
+
+def bf16_scan_corpus(corpus: np.ndarray, block: int = 32768) -> Tuple[torch.Tensor, float]:
+    """bf16 scan copy (round to nearest even, torch's cast) and its sound
+    certificate bound (topk.py:245), computed in float64 from the cast
+    values. Returns ``(hat [N, d] bf16 on the CPU, bound)``."""
+    c32 = np.asarray(corpus, np.float32)
+    c32 = c32.reshape(c32.shape[0], -1)
+    hat16 = torch.empty(c32.shape, dtype=torch.bfloat16)
+    beta_max = chi_max = 0.0
+    for i in range(0, c32.shape[0], block):
+        x = torch.tensor(c32[i : i + block])
+        hat16[i : i + block] = x.to(torch.bfloat16)
+        hat = hat16[i : i + block].double()
+        e = x.double() - hat
+        if len(hat):
+            beta_max = max(beta_max, float(e.square().sum(dim=1).sqrt().max()))
+            chi_max = max(chi_max, float(hat.square().sum(dim=1).sqrt().max()))
+    return hat16, beta_max + _scan_eps(c32.shape[1]) * max(chi_max, 1e-30)
+
+
+def _bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, D] bf16 . b [N, D] (bf16, or int8: exact in bf16) -> fp32 [M, N]:
+    exact products, fp32 sums (JAX's ``preferred_element_type=f32``). On
+    CUDA one bf16 matmul with an fp32 output; on the CPU an fp32 matmul of
+    the same (exactly representable) values."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b.to(torch.bfloat16).T, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float().T)
+
+
+def certified_scan(queries: torch.Tensor, scan_mat: torch.Tensor, scales: Optional[torch.Tensor]) -> torch.Tensor:
+    """The certified compressed scan (topk.py:361), [P, N] fp32: queries
+    split hi/lo into bf16 and stacked to [2P, d] so the scan copy is read
+    once; with ``scales`` the scan copy is the [N, 2d] int8 residual layout
+    and the query copies are feature-concatenated with the exact 1/256
+    fold ([q, q/256]), then scaled per row; without, a [N, d] bf16 cast."""
+    p = queries.shape[0]
+    q32 = queries.float()
+    q_hi = q32.to(torch.bfloat16)
+    q_lo = (q32 - q_hi.float()).to(torch.bfloat16)
+    qs = torch.cat([q_hi, q_lo], dim=0)
+    if scales is not None:
+        qs = torch.cat([qs, qs * (1.0 / RESIDUAL_FOLD)], dim=1)
+    dd = _bf16_dot(qs, scan_mat)
+    s = dd[:p] + dd[p:]
+    if scales is not None:
+        s = s * scales[None, :]
+    return s
+
+
+def two_pass_core(queries: torch.Tensor, scan_mat: torch.Tensor, scales: Optional[torch.Tensor],
+                  corpus_f32: torch.Tensor, k: int, candidates: int):
+    """Scan -> pool of ``candidates`` rows -> exact fp32 rescore (topk.py:389).
+    Returns (rescored [P, k'], ids [P, k'], pool boundary scan value [P],
+    qnorm [P], immune [P] bool: rows that can never flag, because the pool
+    covered every row or the query is all zero)."""
+    n = corpus_f32.shape[0]
+    c = min(candidates, n)
+    q32 = queries.float()
+    s = certified_scan(q32, scan_mat, scales)
+    cand = exact_topk(s, c)[1]
+    boundary = s.gather(1, cand).amin(dim=1)
+    pool = corpus_f32[cand]  # [P, C, d] fp32
+    exact = torch.bmm(pool, q32[:, :, None])[:, :, 0]
+    rv, pos = exact_topk(exact, min(k, c))
+    idx = cand.gather(1, pos)
+    qnorm = q32.square().sum(dim=1).sqrt()
+    immune = (qnorm == 0) | (c >= n)
+    return rv, idx, boundary, qnorm, immune
+
+
+def exactness_flag(boundary: torch.Tensor, kth_value: torch.Tensor, qnorm: torch.Tensor,
+                   bound: torch.Tensor, immune: torch.Tensor) -> torch.Tensor:
+    """[P] int32: 1 where the two-pass result is not certifiably exact
+    (topk.py:471). Every row outside the pool scans at or below
+    ``boundary`` and |true - scan| <= qnorm * bound, so a k-th rescored
+    value that clears the boundary by more than that cannot be beaten."""
+    ambiguous = kth_value - boundary <= qnorm * bound
+    return (ambiguous & ~immune).to(torch.int32)
+
+
+def two_pass_topk(queries: torch.Tensor, scan_mat: torch.Tensor, scales: Optional[torch.Tensor],
+                  corpus_f32: torch.Tensor, bound: torch.Tensor, k: int, candidates: int):
+    """The single-device certified two-pass (topk.py:434
+    ``make_packed_two_pass_topk``): (scores [P, k'], ids [P, k'], flag [P])."""
+    rv, idx, boundary, qnorm, immune = two_pass_core(queries, scan_mat, scales, corpus_f32, k, candidates)
+    return rv, idx, exactness_flag(boundary, rv[:, -1], qnorm, bound, immune)

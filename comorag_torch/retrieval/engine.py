@@ -128,7 +128,7 @@ class RetrievalEngine:
         if self._ready:  # double-check under the lock
             return
         kw = dict(device=self.device, dtype=self.config.embedding_dtype, method=self.config.topk_method,
-                  scan_dtype=self.config.scan_dtype)
+                  scan_dtype=self.config.scan_dtype, tile_n=self.config.topk_block_rows)
         self.ver_index = MipsIndex(self.ver_store.matrix, **kw)
         self.passage_node_keys = self.ver_store.get_all_ids()
 

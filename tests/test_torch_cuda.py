@@ -72,6 +72,80 @@ def test_encoder_ffn_kernel_matches_plain(cuda_device, n, h, inter):
                                atol=2e-2, rtol=2e-2)
 
 
+def _normalized(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+# the tie-tolerant rule of ops/mips.check_topk: scores to 1e-5 + 1e-5*|plain|,
+# ids equal wherever the plain ranking is separated by more than 1e-5
+@pytest.mark.parametrize("n", [511, 4096, 70_001])
+@pytest.mark.parametrize("p,d,k", [(1, 64, 1), (5, 768, 50), (16, 64, 256), (130, 768, 50),
+                                   (16, 768, 256), (130, 64, 1)])
+def test_mips_topk_kernels_match_plain(cuda_device, n, p, d, k):
+    from comorag_torch.ops import mips
+    from comorag_torch.ops.topk import dense_scores, int8_scores, quantize_int8
+
+    rng = np.random.default_rng(n + p + d + k)
+    corpus = _normalized(rng, (n, d))
+    k = min(k, n)
+    q = torch.tensor(_normalized(rng, (p, d)), device=cuda_device)
+    c32 = torch.tensor(corpus, device=cuda_device)
+    before = mips.LAUNCHES.value
+    s, i = mips.mips_topk(q, c32, k)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES.value == before + 1
+    mips.check_topk(s, i, dense_scores(q, c32), "fp32")
+    c16 = c32.to(torch.bfloat16)
+    s, i = mips.mips_topk(q, c16, k)
+    mips.check_topk(s, i, dense_scores(q, c16), "bf16")
+    cq, sc = (torch.tensor(a, device=cuda_device) for a in quantize_int8(corpus))
+    before = mips.INT8_LAUNCHES.value
+    s, i = mips.mips_topk_int8(q, cq, sc, k)
+    torch.cuda.synchronize()
+    assert mips.INT8_LAUNCHES.value == before + 1
+    mips.check_topk(s, i, int8_scores(q, cq, sc), "int8")
+
+
+# d % 4 != 0: the scalar load path; 40 queries at d = 64: the wide scan (k <= 64)
+@pytest.mark.parametrize("d,p", [(3, 1), (64, 1), (100, 1), (64, 40)])
+def test_mips_topk_duplicates_tie_to_lowest_id(cuda_device, d, p):
+    from comorag_torch.ops import mips
+    from comorag_torch.ops.topk import quantize_int8
+
+    rng = np.random.default_rng(d)
+    corpus = _normalized(rng, (5000, d)) * 0.25
+    dup_ids = np.sort(rng.choice(5000, 300, replace=False))
+    corpus[dup_ids] = corpus[dup_ids[0]] * 4.0
+    q = torch.tensor(np.repeat(corpus[dup_ids[:1]] * 2.0, p, axis=0), device=cuda_device)
+    for k in (1, 40, 64, 256):
+        _, i = mips.mips_topk(q, torch.tensor(corpus, device=cuda_device), k)
+        np.testing.assert_array_equal(i.cpu().numpy(), np.tile(dup_ids[:k], (p, 1)))
+        cq, sc = (torch.tensor(a, device=cuda_device) for a in quantize_int8(corpus))
+        _, i = mips.mips_topk_int8(q, cq, sc, k)
+        np.testing.assert_array_equal(i.cpu().numpy(), np.tile(dup_ids[:k], (p, 1)))
+
+
+def test_pallas_index_routes_through_the_kernels(cuda_device):
+    from comorag_torch.ops import mips
+    from comorag_torch.retrieval.index import MipsIndex
+
+    rng = np.random.default_rng(3)
+    corpus = _normalized(rng, (3000, 64))
+    q = _normalized(rng, (7, 64))
+    plain = MipsIndex(corpus, device="cpu", scan_dtype=None)
+    for dtype, counter in (("float32", mips.LAUNCHES), ("int8", mips.INT8_LAUNCHES)):
+        index = MipsIndex(corpus, device=cuda_device, dtype=dtype, method="pallas")
+        assert index.method == "pallas"
+        before = counter.value
+        s, i = index.topk(q, 10)
+        assert counter.value == before + 1
+        if dtype == "float32":
+            s_ref, i_ref = plain.topk(q, 10)
+            np.testing.assert_array_equal(i, i_ref)
+            np.testing.assert_allclose(s, s_ref, atol=1e-5, rtol=1e-5)
+
+
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     from comorag_torch.ops import attention, ffn
 
@@ -84,3 +158,11 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     v96 = torch.zeros(96, device=cuda_device)
     with pytest.raises(ValueError):
         ffn.encoder_ffn(x, v96, v96, w1, torch.zeros(256, device=cuda_device), w2, v96, v96, v96)
+
+    from comorag_torch.ops import mips
+
+    corpus = torch.zeros(1000, 64, device=cuda_device)
+    with pytest.raises(ValueError):  # k above the kernels' 256
+        mips.mips_topk(torch.zeros(2, 64, device=cuda_device), corpus, 257)
+    with pytest.raises(TypeError):  # fp64 rows
+        mips.mips_topk(torch.zeros(2, 64, device=cuda_device), corpus.double(), 5)

@@ -1,8 +1,9 @@
 """comorag_torch's MipsIndex against the JAX MipsIndex on the same corpus.
 
-At N=2048 the JAX index serves the certified int8 two-pass (scan "auto"),
-the port the exact single-pass: ids must be exactly equal, ties go to the
-lowest id, scores agree to 1e-5.
+At N=2048 both indexes serve the certified int8 two-pass (scan "auto"):
+ids must be exactly equal, ties go to the lowest id, scores agree to 1e-5.
+``resolve_route`` must give the (method, scan_dtype) the JAX index resolves
+to, on the CPU and on "cuda" (the JAX index's on-TPU branch).
 """
 
 import numpy as np
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from comorag_torch.retrieval.index import MipsIndex as TorchIndex
+from comorag_torch.retrieval.index import resolve_route
 from comorag_tpu.retrieval.index import MipsIndex as JaxIndex
 
 N, D = 2048, 64
@@ -33,7 +35,7 @@ def pair():
 
 def test_topk_and_topk_many_match_jax(pair):
     t, j = pair
-    assert j.scan_dtype == "int8"  # the JAX side really is the two-pass
+    assert j.scan_dtype == t.scan_dtype == "int8"  # both really are the two-pass
     q = _queries(13)
     (st, it), (sj, ij) = t.topk(q, 10), j.topk(q, 10)
     np.testing.assert_array_equal(it, ij)
@@ -101,17 +103,54 @@ def test_bf16_storage_and_device_queries_match_jax():
     np.testing.assert_allclose(st, sj, atol=1e-5, rtol=0)
 
 
-def test_unported_kernels_raise_on_cuda_and_run_plain_on_cpu():
+@pytest.mark.parametrize("device_type", ["cpu", "cuda"])
+@pytest.mark.parametrize("scan", ["auto", "int8", "bfloat16", None])
+@pytest.mark.parametrize("method", ["xla", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n", [0, 511, 512, 1023, 1024, 4096])
+def test_resolve_route_matches_jax(monkeypatch, n, dtype, method, scan, device_type):
+    import jax
+
+    if device_type == "cuda":  # the JAX index's on-TPU branch (index.py:279)
+        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    j = JaxIndex(np.ones((n, 2), np.float32), dtype=dtype, method=method, scan_dtype=scan)
+    assert resolve_route(n, dtype, method, scan, device_type) == (j.method, j.scan_dtype)
+
+
+def test_pallas_and_int8_serve_plain_on_cpu():
+    """The CPU resolves method="pallas" to the plain route, as JAX resolves
+    it off the TPU; int8 storage with method="xla" is served by plain
+    torch on every device (``resolve_route`` gives ("xla", None) on CUDA)."""
     corpus = _corpus()[:600]
-    for kw in ({"method": "pallas"}, {"dtype": "int8"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-            TorchIndex(corpus, device="cuda", **kw)
     q = _queries(3, seed=9)
     t = TorchIndex(corpus, device="cpu", method="pallas")
-    j = JaxIndex(corpus, method="pallas")  # resolves to XLA off the TPU
+    j = JaxIndex(corpus, method="pallas")
+    assert t.method == j.method == "xla"
     np.testing.assert_array_equal(t.topk(q, 8)[1], j.topk(q, 8)[1])
     t8, j8 = TorchIndex(corpus, device="cpu", dtype="int8"), JaxIndex(corpus, dtype="int8")
     np.testing.assert_allclose(t8.scores(q), j8.scores(q), atol=1e-5, rtol=0)
+    (st, it), (sj, ij) = t8.topk(q, 8), j8.topk(q, 8)
+    np.testing.assert_array_equal(it, ij)
+    np.testing.assert_allclose(st, sj, atol=1e-5, rtol=0)
+    assert resolve_route(600, "int8", "xla", "auto", "cuda") == ("xla", None)
+
+
+def test_exact_scan_candidates_and_tile_n_are_accepted(pair):
+    """``exact=False`` is served exact (JAX's approximate selection exists
+    only on the TPU); ``scan_candidates`` widens the two-pass pool as in
+    JAX; ``tile_n`` rounds as JAX rounds it."""
+    corpus = _corpus(seed=10)
+    q = _queries(5, seed=11)
+    t = TorchIndex(corpus, device="cpu", scan_candidates=200, tile_n=100)
+    j = JaxIndex(corpus, scan_candidates=200, tile_n=100)
+    assert t.tile_n == j.tile_n == 128 and t.scan_candidates == 200
+    (st, it), (sj, ij) = t.topk(q, 10, exact=False), j.topk(q, 10, exact=True)
+    np.testing.assert_array_equal(it, ij)
+    np.testing.assert_allclose(st, sj, atol=1e-5, rtol=0)
+    for (st, it), (sj, ij) in zip(t.topk_many([q[:2], q[2:]], 6, exact=False), j.topk_many([q[:2], q[2:]], 6)):
+        np.testing.assert_array_equal(it, ij)
+    tp, jp = pair
+    np.testing.assert_array_equal(tp.topk_async(q, 4, exact=False).result()[1], jp.topk(q, 4)[1])
 
 
 def test_empty_index():

@@ -1,0 +1,100 @@
+"""comorag_torch.ops.mips (the streaming top-k kernels' plain versions)
+against the JAX Pallas kernels run in interpret mode and the XLA top-k.
+
+The JAX kernels take a corpus padded to whole tiles with ``n_valid`` real
+rows and a query batch that is a multiple of 8: the test pads both and
+compares the real rows; the port takes true sizes. Tolerances: ids exactly
+equal; scores 1e-5 against ``dense_topk`` / ``int8_topk`` (the same fp32
+sums in another order); 1e-3 against the interpreted fp32 TPU kernel,
+whose bf16x3 split of the fp32 product is not exact (JAX's own test allows
+1e-2).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from comorag_torch.ops import mips
+from comorag_torch.ops.topk import quantize_int8
+from comorag_tpu.ops.pallas_topk import pallas_mips_topk, pallas_mips_topk_int8
+from comorag_tpu.ops.topk import dense_topk, int8_topk
+from comorag_tpu.ops.topk import quantize_int8 as jax_quantize_int8
+
+P, N_PAD, N_VALID, D, K = 8, 1024, 900, 128, 20
+
+
+def _normalized(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(0)
+    corpus = np.zeros((N_PAD, D), np.float32)
+    corpus[:N_VALID] = _normalized(rng, (N_VALID, D))
+    q = _normalized(rng, (5, D))  # 5 real queries, padded to 8 for the JAX kernels
+    q_pad = np.zeros((P, D), np.float32)
+    q_pad[:5] = q
+    return corpus, q, q_pad
+
+
+def test_fp32_plain_matches_interpreted_tpu_kernel_and_dense_topk(data):
+    corpus, q, q_pad = data
+    s, i = mips.mips_topk(torch.as_tensor(q), torch.as_tensor(corpus[:N_VALID]), K)
+    sk, ik = pallas_mips_topk(q_pad, corpus, np.int32(N_VALID), K, interpret=True)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ik)[:5])
+    np.testing.assert_allclose(s.numpy(), np.asarray(sk)[:5], atol=1e-3, rtol=0)
+    sd, idd = dense_topk(q, corpus, np.int32(N_VALID), K)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(idd))
+    np.testing.assert_allclose(s.numpy(), np.asarray(sd), atol=1e-5, rtol=0)
+
+
+def test_int8_plain_matches_interpreted_tpu_kernel_and_int8_topk(data):
+    corpus, q, q_pad = data
+    cq, sc = quantize_int8(corpus[:N_VALID])
+    jq, jsc = jax_quantize_int8(corpus)
+    np.testing.assert_array_equal(cq, np.asarray(jq)[:N_VALID])
+    s, i = mips.mips_topk_int8(torch.as_tensor(q), torch.as_tensor(cq), torch.as_tensor(sc), K)
+    sk, ik = pallas_mips_topk_int8(q_pad, jq, jsc.reshape(1, -1), np.int32(N_VALID), K, interpret=True)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ik)[:5])
+    np.testing.assert_allclose(s.numpy(), np.asarray(sk)[:5], atol=1e-5, rtol=0)
+    sd, idd = int8_topk(q, jq, jsc, np.int32(N_VALID), K)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(idd))
+    np.testing.assert_allclose(s.numpy(), np.asarray(sd), atol=1e-5, rtol=0)
+
+
+def test_identical_rows_tie_to_the_lowest_ids():
+    """As tests/test_pallas_native.py:54: every row scores the same, so the
+    top-k is ids 0..k-1 in order, for fp32, bf16 and int8 rows."""
+    corpus = np.ones((300, 16), np.float32)
+    q = torch.ones((3, 16))
+    for s, i in (mips.mips_topk(q, torch.as_tensor(corpus), 12),
+                 mips.mips_topk(q, torch.as_tensor(corpus).to(torch.bfloat16), 12),
+                 mips.mips_topk_int8(q, *(torch.as_tensor(a) for a in quantize_int8(corpus)), 12)):
+        np.testing.assert_array_equal(i.numpy(), np.tile(np.arange(12), (3, 1)))
+        np.testing.assert_allclose(s.numpy(), 16.0, atol=1e-5)
+    _, ik = pallas_mips_topk(np.ones((8, 16), np.float32), np.ones((512, 16), np.float32),
+                             np.int32(300), 12, interpret=True)
+    np.testing.assert_array_equal(np.asarray(ik)[:3], np.tile(np.arange(12), (3, 1)))
+
+
+def test_cpu_tensors_run_the_plain_version_without_counting(data):
+    corpus, q, _ = data
+    before = (mips.LAUNCHES.value, mips.INT8_LAUNCHES.value)
+    mips.mips_topk(torch.as_tensor(q), torch.as_tensor(corpus), 5)
+    mips.mips_topk_int8(torch.as_tensor(q), *(torch.as_tensor(a) for a in quantize_int8(corpus)), 5)
+    assert (mips.LAUNCHES.value, mips.INT8_LAUNCHES.value) == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        mips.mips_topk(torch.zeros(2, 4, device="meta"), torch.zeros(9, 4, device="meta"), 3)
+
+
+def test_check_topk_accepts_swapped_near_ties_and_rejects_wrong_ids():
+    scores = torch.tensor([[5.0, 3.0, 3.0 + 5e-7, 1.0, 0.0]])
+    s, i = torch.tensor([[5.0, 3.0, 3.0]]), torch.tensor([[0, 1, 2]])  # ranks 1-2 swapped
+    assert mips.check_topk(s, i, scores, "near tie") <= 1e-6
+    with pytest.raises(AssertionError, match="separated"):  # ranks 1-2 are 1.5e-5 apart
+        mips.check_topk(torch.tensor([[5.0, 3.0, 3.000015]]), torch.tensor([[0, 1, 2]]),
+                        torch.tensor([[5.0, 3.0, 3.000015, 1.0]]), "wrong")
+    with pytest.raises(AssertionError, match="twice"):
+        mips.check_topk(torch.tensor([[5.0, 3.0]]), torch.tensor([[0, 0]]), scores, "dup")

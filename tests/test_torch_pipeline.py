@@ -5,6 +5,9 @@ bundled moonlantern set with the FakeLLM, index then meta-loop QA.
     and the ``try_answer`` answers are identical.
 (b) a tiny BGE encoder on weights converted from JAX (``params_from_jax``),
     fp32: the answers are identical and so are the top-5 veridical ids.
+(c) the hash encoder under the retrieval routes ``topk_method="pallas"`` +
+    ``embedding_dtype="int8"`` and ``scan_dtype="bfloat16"``: per-layer
+    ``tri_retrieve_batch`` results and the answers are identical.
 """
 
 import os
@@ -54,6 +57,19 @@ def test_hash_encoder_slice_matches_jax(tmp_path):
     answers = [s.answer for s in t.try_answer(QUERIES)]
     assert answers == [s.answer for s in j.try_answer(QUERIES)]
     assert all("### Final Answer" in a for a in answers)
+
+
+@pytest.mark.parametrize("route", [dict(topk_method="pallas", embedding_dtype="int8"),
+                                   dict(scan_dtype="bfloat16")], ids=["pallas-int8", "scan-bf16"])
+def test_hash_encoder_retrieval_routes_match_jax(tmp_path, route):
+    kw = dict(embedding_model_name="hash", embedding_dim=128, **route)
+    t = TorchRAG(_config(tmp_path, "torch", **kw), device="cpu")
+    j = JaxRAG(_config(tmp_path, "jax", **kw))
+    t.index(DOCS)
+    j.index(DOCS)
+    for rt, rj in zip(t.engine.tri_retrieve_batch(QUERIES), j.engine.tri_retrieve_batch(QUERIES)):
+        assert (rt.veridical, rt.semantic, rt.episodic) == (rj.veridical, rj.semantic, rj.episodic)
+    assert [s.answer for s in t.try_answer(QUERIES)] == [s.answer for s in j.try_answer(QUERIES)]
 
 
 def test_tiny_bge_slice_matches_jax(tmp_path):
