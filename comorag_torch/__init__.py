@@ -3,9 +3,10 @@
 Module names mirror ``comorag_tpu`` so each counterpart is easy to find:
 ``comorag_torch.ops.topk`` ports ``comorag_tpu.ops.topk`` and so on. The
 JAX package stays the reference; this package imports torch and never
-jax. Host modules of the JAX package that never touch jax (config,
-prompts, agents, OpenIE, the LLM clients, the embedding store, the
-timeline, the native PPR solver) are imported from it as they are.
+jax, and nothing of ``comorag_tpu`` either: the host modules that never
+touch jax (config, prompts, agents, OpenIE, the LLM clients, the
+embedding store, the timeline, the native PPR solver) are copies kept in
+this package, each naming its counterpart.
 
 Every Pallas kernel on the main path has a hand-written Hopper kernel here
 (``csrc/*.cu``), built with nvcc at first use; each wrapper runs its
@@ -15,8 +16,8 @@ CPU tensor.
 
 __version__ = "0.1.0"
 
-from comorag_tpu.config import ComoConfig
-from comorag_tpu.utils import trace
+from comorag_torch.config import ComoConfig
+from comorag_torch.utils import trace
 
 
 def __getattr__(name):

@@ -4,6 +4,7 @@ Port of ``comorag_tpu/cli/run.py``: the same flags plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch path). Usage:
 
     python -m comorag_torch.cli.run --base_path DIR --llm_name fake --device cuda
+    python -m comorag_torch.cli.run --base_path DIR --llm_name jax-tiny --device cuda
 
 Capability parity with the reference's main_openai.py (process_dataset +
 per-subset loop) plus an actual CLI (the reference requires editing the
@@ -19,9 +20,9 @@ import os
 from typing import List, Set
 
 from comorag_torch.comorag import ComoRAG
-from comorag_tpu.config import ComoConfig
-from comorag_tpu.utils.jsonio import load_jsonl
-from comorag_tpu.utils.logging import get_logger
+from comorag_torch.config import ComoConfig
+from comorag_torch.utils.jsonio import load_jsonl
+from comorag_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
@@ -53,7 +54,7 @@ def process_dataset(dataset_path: str, config: ComoConfig, device: str = "cuda",
                     retrieval_only: bool = False) -> List[dict]:
     # Per-dataset trace: without a reset, every later subset's trace.json
     # silently accumulates all earlier subsets' timings.
-    from comorag_tpu.utils import trace
+    from comorag_torch.utils import trace
 
     trace.reset()
     corpus = load_jsonl(os.path.join(dataset_path, "corpus.jsonl"))
@@ -145,7 +146,7 @@ def main() -> None:
     parser.add_argument("--mesh_shape", default=None,
                         help="device mesh for sharded retrieval (not ported: the port runs on one device)")
     parser.add_argument("--speculative_decoding", action="store_true",
-                        help="in-process engine option (that engine is not ported yet)")
+                        help="in-process engine (jax-offline, jax-tiny, jax:<ckpt>): prompt-lookup speculative decoding")
     parser.add_argument("--device", default="cuda",
                         help="torch device: 'cuda' (default; fails without a card) or 'cpu'")
     args = parser.parse_args()

@@ -29,9 +29,9 @@ import torch
 
 from comorag_torch.ops.gmm import fit_gmm_bic
 from comorag_torch.ops.projection import random_projection
-from comorag_tpu.llm.summarize import Summarizer
-from comorag_tpu.utils import trace
-from comorag_tpu.utils.logging import get_logger
+from comorag_torch.llm.summarize import Summarizer
+from comorag_torch.utils import trace
+from comorag_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
@@ -120,7 +120,7 @@ class SemanticTree:
         self.batch_size = batch_size
         self.max_context_tokens = max_context_tokens
         self.device = device
-        from comorag_tpu.utils.text import TokenCounter
+        from comorag_torch.utils.text import TokenCounter
 
         self.tokens = token_counter or TokenCounter()
         # count of cluster summaries whose LLM call errored across build();

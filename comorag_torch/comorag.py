@@ -43,20 +43,20 @@ from comorag_torch.llm import get_llm
 from comorag_torch.memory.pool import NO_MEMORY_SENTINEL, MemoryNode, MemoryPool, NodeType
 from comorag_torch.models.registry import get_encoder
 from comorag_torch.retrieval.engine import RetrievalEngine, RetrievalWindow
-from comorag_tpu.agents.pool_agent import PoolAgent
-from comorag_tpu.agents.probe_agent import ProbeAgent
-from comorag_tpu.config import ComoConfig
-from comorag_tpu.ie.openie import OpenIE
-from comorag_tpu.llm.summarize import Summarizer
-from comorag_tpu.prompts.manager import PromptManager
-from comorag_tpu.rerank import FactFilter
-from comorag_tpu.store.embedding_store import EmbeddingStore
-from comorag_tpu.timeline.summarizer import TimelineSummarizer
-from comorag_tpu.types import QuerySolution
-from comorag_tpu.utils.hashing import content_hash
-from comorag_tpu.utils.logging import get_logger
-from comorag_tpu.utils import trace
-from comorag_tpu.utils.text import TokenCounter, text_processing
+from comorag_torch.agents.pool_agent import PoolAgent
+from comorag_torch.agents.probe_agent import ProbeAgent
+from comorag_torch.config import ComoConfig
+from comorag_torch.ie.openie import OpenIE
+from comorag_torch.llm.summarize import Summarizer
+from comorag_torch.prompts.manager import PromptManager
+from comorag_torch.rerank import FactFilter
+from comorag_torch.store.embedding_store import EmbeddingStore
+from comorag_torch.timeline.summarizer import TimelineSummarizer
+from comorag_torch.types import QuerySolution
+from comorag_torch.utils.hashing import content_hash
+from comorag_torch.utils.logging import get_logger
+from comorag_torch.utils import trace
+from comorag_torch.utils.text import TokenCounter, text_processing
 
 logger = get_logger(__name__)
 
@@ -93,7 +93,7 @@ class ComoRAG:
         self.device = resolve_device(device)
         os.makedirs(self.config.working_dir, exist_ok=True)
 
-        self.llm = llm if llm is not None else get_llm(self.config)
+        self.llm = llm if llm is not None else get_llm(self.config, self.device)
         self.encoder = encoder if encoder is not None else get_encoder(self.config, self.device)
         self.prompts = PromptManager()
         self.openie = OpenIE(self.llm, self.prompts, response_format=self.config.response_format)

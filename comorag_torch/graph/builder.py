@@ -34,8 +34,8 @@ import numpy as np
 import torch
 
 from comorag_torch.retrieval.index import MipsIndex
-from comorag_tpu.utils.hashing import content_hash
-from comorag_tpu.utils.logging import get_logger
+from comorag_torch.utils.hashing import content_hash
+from comorag_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 

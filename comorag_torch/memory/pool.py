@@ -21,8 +21,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from comorag_torch.ops.similarity import cosine_similarity_np
-from comorag_tpu.utils.hashing import content_hash
-from comorag_tpu.utils.logging import get_logger
+from comorag_torch.utils.hashing import content_hash
+from comorag_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 

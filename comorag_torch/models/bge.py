@@ -27,7 +27,7 @@ from torch import nn
 from comorag_torch.device import HostCopy
 from comorag_torch.ops.attention import encoder_attention, encoder_attention_plain
 from comorag_torch.ops.ffn import encoder_ffn, fused_ffn_supported, layer_norm
-from comorag_tpu.models.base import BaseEncoder
+from comorag_torch.models.base import BaseEncoder
 
 
 @dataclasses.dataclass(frozen=True)

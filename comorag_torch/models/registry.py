@@ -11,9 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from comorag_tpu.config import ComoConfig
-from comorag_tpu.models.base import BaseEncoder
-from comorag_tpu.models.hash_encoder import HashEncoder
+from comorag_torch.config import ComoConfig
+from comorag_torch.models.base import BaseEncoder
+from comorag_torch.models.hash_encoder import HashEncoder
 
 
 def get_encoder(config: ComoConfig, device: torch.device) -> BaseEncoder:
@@ -40,7 +40,7 @@ def _build_encoder(config: ComoConfig, device: torch.device) -> BaseEncoder:
             compute_dtype=torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32,
         )
     if name.startswith("openai:") or name.startswith("text-embedding"):
-        from comorag_tpu.models.remote import RemoteEncoder
+        from comorag_torch.models.remote import RemoteEncoder
 
         model = name.split(":", 1)[1] if ":" in name else name
         return RemoteEncoder(model=model, base_url=config.embedding_base_url,

@@ -18,7 +18,7 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from comorag_tpu.utils.logging import get_logger
+from comorag_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 

@@ -1,0 +1,248 @@
+"""int4 (nibble-packed) weight products: the decoder's 4-bit weights.
+
+Port of ``comorag_tpu/ops/pallas_int4.py`` (``int4_matmul`` :132 and
+``int4_fused_layer_tail`` :365). The layout is the JAX package's, byte
+for byte: a weight [in, out] is stored as packed [in/2, out] int8 with
+interleaved input-row pairs, ``byte[r] = (w[2r+1] << 4) | (w[2r] & 0xF)``,
+and fp32 scales [in/group_size, out].
+
+``int4_matmul`` and ``int4_fused_layer_tail`` launch the hand-written
+Hopper kernels (``csrc/int4.cu``) for CUDA tensors and run their plain
+versions for CPU tensors; there is no fallback from one to the other. The
+plain versions repeat the kernels' arithmetic: x rounded to bf16, each
+group's product summed in fp32 (bf16 x bf16 products are exact in fp32),
+times the group's scale row, added to the running fp32 sum.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from comorag_torch.ops import build
+
+LAUNCHES = build.LaunchCounter("int4_matmul")
+TAIL_LAUNCHES = build.LaunchCounter("int4_fused_layer_tail")
+SOURCE = "comorag_torch/csrc/int4.cu"
+REPLACES = "comorag_tpu/ops/pallas_int4.py:132"
+TAIL_REPLACES = "comorag_tpu/ops/pallas_int4.py:365"
+
+_ACTS = {"silu": 0, "gelu_tanh": 1, "gelu": 2}
+_KERNEL_K_STEP = 64  # the kernels stage K in slabs of 64: group_size must divide by it
+
+
+def quantize_int4_grouped(w: torch.Tensor, group_size: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(input-group, out-channel) symmetric int4 quantization on w's
+    device. w [..., in, out] (in divisible by group_size, group_size even)
+    -> (packed [..., in/2, out] int8, scales [..., in/group_size, out] f32),
+    as ``pallas_int4.quantize_int4_grouped``."""
+    *lead, d_in, d_out = w.shape
+    assert d_in % group_size == 0 and group_size % 2 == 0, (d_in, group_size)
+    arr = w.to(torch.float32).reshape(*lead, d_in // group_size, group_size, d_out)
+    amax = arr.abs().amax(dim=-2, keepdim=True)
+    scale = amax / 7.0 + 1e-12
+    q = torch.clamp(torch.round(arr / scale), -7, 7).to(torch.int32).reshape(*lead, d_in, d_out)
+    lo, hi = q[..., 0::2, :], q[..., 1::2, :]  # even input rows -> low nibbles
+    packed = ((lo & 0xF) | ((hi & 0xF) << 4)).to(torch.uint8).view(torch.int8)
+    return packed.contiguous(), scale.squeeze(-2).contiguous()
+
+
+def unpack_rows(packed: torch.Tensor) -> torch.Tensor:
+    """int8 [..., R, C] -> int32 [..., 2R, C] with byte r's nibbles at rows
+    (2r, 2r+1), both sign-extended."""
+    v = packed.to(torch.int32)
+    lo = ((v & 0xF) ^ 8) - 8
+    hi = v >> 4
+    *lead, r, c = packed.shape
+    return torch.stack([lo, hi], dim=-2).reshape(*lead, 2 * r, c)
+
+
+def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor, group_size: int = 128) -> torch.Tensor:
+    """[..., in/2, out] packed + [..., in/gs, out] scales -> [..., in, out] f32."""
+    *lead, half, d_out = packed.shape
+    w = unpack_rows(packed).to(torch.float32).reshape(*lead, -1, group_size, d_out)
+    return (w * scales.to(torch.float32).unsqueeze(-2)).reshape(*lead, half * 2, d_out)
+
+
+def group_size_of(packed: torch.Tensor, scales: torch.Tensor) -> int:
+    return (packed.shape[-2] * 2) // scales.shape[-2]
+
+
+def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                      group_size: int = 128) -> torch.Tensor:
+    """x [M, in] @ dequant(packed, scales) -> [M, out] f32 in the kernel's
+    order: x rounded to bf16, per-group fp32 products, times the group's
+    scale row, summed over groups first to last."""
+    m, d_in = x.shape
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    rows = group_size // 2
+    acc = None
+    for g in range(d_in // group_size):
+        w = unpack_rows(packed[g * rows:(g + 1) * rows]).to(torch.float32)
+        d = torch.matmul(xb[:, g * group_size:(g + 1) * group_size], w) * scales[g].to(torch.float32)
+        acc = d if acc is None else acc + d
+    return acc
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("int4")
+    if lib.comorag_int4_matmul.argtypes is None:
+        mm = lib.comorag_int4_matmul
+        mm.restype = ctypes.c_int
+        mm.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        tail = lib.comorag_int4_fused_layer_tail
+        tail.restype = ctypes.c_int
+        tail.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+def _check_weight(name: str, packed: torch.Tensor, scales: torch.Tensor, d_in: int, d_out: int,
+                  group_size: int, device: torch.device) -> None:
+    if packed.dtype != torch.int8 or tuple(packed.shape) != (d_in // 2, d_out):
+        raise ValueError(f"{name}: packed must be int8 [{d_in // 2}, {d_out}], "
+                         f"got {packed.dtype} {tuple(packed.shape)}")
+    if scales.dtype != torch.float32 or tuple(scales.shape) != (d_in // group_size, d_out):
+        raise ValueError(f"{name}: scales must be float32 [{d_in // group_size}, {d_out}], "
+                         f"got {scales.dtype} {tuple(scales.shape)}")
+    for t in (packed, scales):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: weights must be contiguous on {device}")
+    if group_size % _KERNEL_K_STEP or d_in % group_size:
+        raise ValueError(f"{name}: the kernel takes group_size a multiple of {_KERNEL_K_STEP} "
+                         f"dividing in={d_in}, got group_size={group_size}")
+
+
+def _bf16_rows(name: str, x: torch.Tensor) -> torch.Tensor:
+    xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        raise ValueError(f"{name}: activation rows must be 16-byte aligned")
+    return xb
+
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                group_size: int = 128) -> torch.Tensor:
+    """x [M, in] @ dequant(packed, scales) -> [M, out] f32. CUDA tensors
+    launch the kernel (any M; ``in`` a multiple of group_size, group_size a
+    multiple of 64); CPU tensors run ``int4_matmul_plain``."""
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, packed, scales, group_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_matmul: unsupported device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"int4_matmul: x must be [M, in], got {tuple(x.shape)}")
+    m, d_in = x.shape
+    d_out = packed.shape[-1]
+    _check_weight("int4_matmul", packed, scales, d_in, d_out, group_size, x.device)
+    xb = _bf16_rows("int4_matmul", x)
+    out = torch.empty(m, d_out, dtype=torch.float32, device=x.device)
+    lib = _lib()
+    rc = lib.comorag_int4_matmul(xb.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                                 m, d_out, d_in, group_size,
+                                 torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, rc, "int4_matmul")
+    LAUNCHES.add()
+    return out
+
+
+# ---------------------------------------------------------------- fused tail
+def fused_tail_supported(hidden: int, intermediate: int, group_size: int, m: int,
+                         tile_n: int = 512) -> bool:
+    """The JAX package's static shape gate (pallas_int4.py:234): decode-sized
+    M and tile-aligned widths. The decoder takes the fused tail where this
+    holds, as the TPU route does."""
+    return (
+        m <= 64
+        and tile_n % group_size == 0
+        and hidden % tile_n == 0
+        and intermediate % tile_n == 0
+        and hidden % group_size == 0
+        and intermediate % group_size == 0
+    )
+
+
+def activation(g: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "silu":
+        return torch.nn.functional.silu(g)
+    if act == "gelu_tanh":
+        return torch.nn.functional.gelu(g, approximate="tanh")
+    if act == "gelu":
+        return torch.nn.functional.gelu(g, approximate="none")
+    raise ValueError(f"unknown act {act!r}")
+
+
+def int4_fused_layer_tail_plain(ctx, x_res, norm_w, o_packed, o_scale, gu_packed, gu_scale,
+                                down_packed, down_scale, group_size: int = 128, eps: float = 1e-6,
+                                unit_offset: bool = False, act: str = "silu") -> torch.Tensor:
+    """x_res + FFN(RMSNorm(x_res + ctx @ O)) -> [M, H] f32 with the TPU
+    kernel's rounding points: ctx -> bf16, xmid and the norm in f32,
+    xn -> bf16, gate/up f32, h -> bf16, down f32 plus xmid."""
+    inter = down_packed.shape[0] * 2
+    xmid = x_res.to(torch.float32) + int4_matmul_plain(ctx, o_packed, o_scale, group_size)
+    var = (xmid * xmid).mean(dim=-1, keepdim=True)
+    normed = xmid * torch.rsqrt(var + eps)
+    w32 = norm_w.to(torch.float32)
+    xn = normed * (1.0 + w32) if unit_offset else normed * w32
+    gu = int4_matmul_plain(xn, gu_packed, gu_scale, group_size)  # xn -> bf16 inside
+    h = activation(gu[:, :inter], act) * gu[:, inter:]
+    return xmid + int4_matmul_plain(h, down_packed, down_scale, group_size)  # h -> bf16 inside
+
+
+def int4_fused_layer_tail(
+    ctx: torch.Tensor,          # [M, H] float (attention output, pre-o-proj)
+    x_res: torch.Tensor,        # [M, H] float (residual into the attention add)
+    norm_w: torch.Tensor,       # [H] ffn_norm weight
+    o_packed: torch.Tensor, o_scale: torch.Tensor,
+    gu_packed: torch.Tensor, gu_scale: torch.Tensor,
+    down_packed: torch.Tensor, down_scale: torch.Tensor,
+    group_size: int = 128,
+    eps: float = 1e-6,
+    unit_offset: bool = False,
+    act: str = "silu",
+) -> torch.Tensor:
+    """x_res + FFN(norm(x_res + ctx @ o)) -> [M, H] f32. CUDA tensors run
+    one cooperative kernel launch (M <= 64); CPU tensors the plain version."""
+    if ctx.device.type == "cpu":
+        return int4_fused_layer_tail_plain(ctx, x_res, norm_w, o_packed, o_scale, gu_packed, gu_scale,
+                                           down_packed, down_scale, group_size, eps, unit_offset, act)
+    if ctx.device.type != "cuda":
+        raise ValueError(f"int4_fused_layer_tail: unsupported device {ctx.device}")
+    if act not in _ACTS:
+        raise ValueError(f"unknown act {act!r}")
+    m, hidden = ctx.shape
+    inter = down_packed.shape[0] * 2
+    if m > 64 or hidden % 64 or inter % 64:
+        raise ValueError(f"int4_fused_layer_tail: the kernel takes M <= 64 and H, I multiples of 64, "
+                         f"got M={m}, H={hidden}, I={inter}")
+    dev = ctx.device
+    _check_weight("int4_fused_layer_tail o", o_packed, o_scale, hidden, hidden, group_size, dev)
+    _check_weight("int4_fused_layer_tail gate/up", gu_packed, gu_scale, hidden, 2 * inter, group_size, dev)
+    _check_weight("int4_fused_layer_tail down", down_packed, down_scale, inter, hidden, group_size, dev)
+    ctx_b = _bf16_rows("int4_fused_layer_tail", ctx)
+    xres = x_res.to(torch.float32).contiguous()
+    nw = norm_w.to(torch.float32).contiguous()
+    if tuple(xres.shape) != (m, hidden) or nw.numel() != hidden or xres.device != dev or nw.device != dev:
+        raise ValueError("int4_fused_layer_tail: x_res must be [M, H] and norm_w [H] on ctx's device")
+    out = torch.empty(m, hidden, dtype=torch.float32, device=dev)
+    xmid = torch.empty(m, hidden, dtype=torch.float32, device=dev)
+    xn = torch.empty(m, hidden, dtype=torch.bfloat16, device=dev)
+    h = torch.empty(m, inter, dtype=torch.bfloat16, device=dev)
+    lib = _lib()
+    rc = lib.comorag_int4_fused_layer_tail(
+        ctx_b.data_ptr(), xres.data_ptr(), nw.data_ptr(), o_packed.data_ptr(), o_scale.data_ptr(),
+        gu_packed.data_ptr(), gu_scale.data_ptr(), down_packed.data_ptr(), down_scale.data_ptr(),
+        out.data_ptr(), xmid.data_ptr(), xn.data_ptr(), h.data_ptr(), m, hidden, inter, group_size,
+        float(eps), int(bool(unit_offset)), _ACTS[act], _sm_count(dev),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, rc, "int4_fused_layer_tail")
+    TAIL_LAUNCHES.add()
+    return out

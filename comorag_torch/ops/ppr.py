@@ -10,8 +10,8 @@ with ``P`` the weight-row-normalized transition matrix of the arc list and
 (one column per reset vector) and computes ``P^T x`` as an ``index_add_``
 of per-arc contributions over dst-sorted arcs, in fp32; it stops when the
 worst column's L1 step is at most the tolerance, checked every step like
-the JAX while_loop. The host route is the reused ``comorag_tpu.native``
-solver. The TPU-only layout devices of the JAX solver (planar uint16
+the JAX while_loop. The host route is the port's copy of the native
+solver (``comorag_torch.native``). The TPU-only layout devices of the JAX solver (planar uint16
 state, VMEM-budget batch chunking, lane-width batch padding) are not
 carried: none changes a result.
 """
@@ -77,7 +77,7 @@ class PPRGraph:
         self.tol = tol
         self._native = None
         if backend in ("auto", "native"):
-            from comorag_tpu import native as _native
+            from comorag_torch import native as _native
 
             self._native = _native if _native.available() else None
         self._src_host = np.asarray(src, np.int32)

@@ -35,13 +35,13 @@ from comorag_torch.graph.builder import GraphData
 from comorag_torch.ops.ppr import PPRGraph
 from comorag_torch.ops.similarity import min_max_normalize, min_max_normalize_rows_np
 from comorag_torch.retrieval.index import MipsIndex
-from comorag_tpu.config import ComoConfig
-from comorag_tpu.prompts.linking import get_query_instruction
-from comorag_tpu.store.embedding_store import EmbeddingStore
-from comorag_tpu.utils.hashing import content_hash
-from comorag_tpu.utils.logging import get_logger
-from comorag_tpu.utils.reqwindow import RequestWindow
-from comorag_tpu.utils import trace
+from comorag_torch.config import ComoConfig
+from comorag_torch.prompts.linking import get_query_instruction
+from comorag_torch.store.embedding_store import EmbeddingStore
+from comorag_torch.utils.hashing import content_hash
+from comorag_torch.utils.logging import get_logger
+from comorag_torch.utils.reqwindow import RequestWindow
+from comorag_torch.utils import trace
 
 logger = get_logger(__name__)
 

@@ -42,8 +42,8 @@ from comorag_torch.ops.topk import (
     topk_min_from_scores,
     two_pass_topk,
 )
-from comorag_tpu.utils import trace
-from comorag_tpu.utils.logging import get_logger
+from comorag_torch.utils import trace
+from comorag_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 

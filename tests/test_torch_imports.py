@@ -1,12 +1,14 @@
-"""comorag_torch must run without jax (the port never imports it) and
-without transformers (needed only for ``bge:<local path>`` checkpoints).
+"""comorag_torch must run without jax, without the JAX package
+comorag_tpu (the port keeps its own copies of the host modules) and without
+transformers (needed only for local HuggingFace checkpoints).
 
-A subprocess installs a meta-path finder that raises ImportError for both,
-imports every comorag_torch module, runs the CLI's ``--help``, indexes and
-answers the moonlantern set on the CPU with the hash encoder, and checks
-that neither package was loaded. httpx and pyarrow are not blocked: the
-reused host modules need them (the OpenAI client, the parquet store), and
-the H100 machine has them installed.
+A subprocess installs a meta-path finder that raises ImportError for all
+of them, imports every comorag_torch module (the generation engine, its
+server and the decoder among them), runs the CLI's ``--help``, indexes and
+answers the moonlantern set on the CPU with the hash encoder, runs one
+short ``jax-tiny`` generation on the CPU, and checks that none of them was
+loaded. httpx and pyarrow are not blocked: the host modules need them (the
+OpenAI client, the parquet store), and the H100 machine has them installed.
 """
 
 import os
@@ -20,7 +22,7 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, os, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "transformers")
+    BLOCKED = ("jax", "jaxlib", "transformers", "comorag_tpu")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -42,13 +44,20 @@ SCRIPT = textwrap.dedent(
     except SystemExit as e:
         assert e.code == 0, e.code
 
-    from comorag_tpu.config import ComoConfig
+    from comorag_torch.config import ComoConfig
     tmp = os.environ["PORT_TMP"]
     cfg = ComoConfig(llm_name="fake", embedding_model_name="hash", embedding_dim=64,
                      save_dir=os.path.join(tmp, "save"), output_dir=os.path.join(tmp, "out"),
                      max_meta_loop_iterations=1, gmm_max_clusters=4, gmm_em_iterations=10)
     results = run.process_dataset(os.environ["PORT_DATA"], cfg, device="cpu")
     assert len(results) == 4 and all(r["output"] for r in results), results
+
+    import comorag_torch.llm.offline, comorag_torch.llm.serving, comorag_torch.models.decoder
+    from comorag_torch.llm import get_llm
+    llm = get_llm(ComoConfig(llm_name="jax-tiny", save_dir=tmp), device="cpu")
+    reply = llm.infer([{"role": "user", "content": "Name the record."}], max_tokens=12)
+    assert reply.metadata["finish_reason"] in ("stop", "length") and reply.metadata["completion_tokens"] > 0
+    llm.close()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("OK", len(modules), "modules")

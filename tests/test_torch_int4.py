@@ -1,0 +1,165 @@
+"""comorag_torch.ops.int4 against comorag_tpu.ops.pallas_int4.
+
+The same numpy weights and activations go through both packages:
+- packed bytes equal exactly, scales to 1e-7 relative;
+- ``dequantize_int4`` is exact;
+- ``int4_matmul``'s plain version against JAX's ``interpret=True`` route:
+  both round x to bf16 and sum in fp32, JAX applies the scales to the
+  weights before one dot and the port to each group's product, so they
+  differ by fp32 rounding only: 1e-5 + 1e-5*|jax|;
+- ``int4_fused_layer_tail``'s plain version against JAX ``interpret=True``:
+  the port rounds ctx, xn and h to bf16 as the TPU kernel does, JAX's
+  portable route keeps them in fp32, so the bf16 rule scaled to the
+  output's magnitude, |d| <= 2e-2 * max|jax| + 2e-2 * |jax| (each bf16
+  rounding errs relative to the sums it feeds, not to the element);
+The CUDA-marked cases hold the kernels against the plain versions on a
+card and skip elsewhere.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from comorag_torch.ops import int4 as tint4
+from comorag_tpu.ops import pallas_int4 as jint4
+
+BF16_TOL = 2e-2
+
+
+def _weights(rng, d_in, d_out, gs=128):
+    w = (rng.standard_normal((d_in, d_out)) * 0.05).astype(np.float32)
+    jp, js = jint4.quantize_int4_grouped(jnp.asarray(w), gs)
+    tp, ts = tint4.quantize_int4_grouped(torch.tensor(w), gs)
+    return w, (np.asarray(jp), np.asarray(js)), (tp, ts)
+
+
+@pytest.mark.parametrize("d_in,d_out,gs", [(256, 384, 128), (128, 259, 64), (64, 70, 16)])
+def test_quantize_packing_is_byte_identical(d_in, d_out, gs):
+    rng = np.random.default_rng(d_in + d_out)
+    _, (jp, js), (tp, ts) = _weights(rng, d_in, d_out, gs)
+    assert tp.dtype == torch.int8 and tuple(tp.shape) == jp.shape
+    np.testing.assert_array_equal(tp.numpy(), jp)
+    np.testing.assert_allclose(ts.numpy(), js, rtol=1e-7, atol=0)
+
+
+def test_quantize_stacked_layers_matches_per_layer():
+    rng = np.random.default_rng(3)
+    w = (rng.standard_normal((3, 256, 96)) * 0.05).astype(np.float32)
+    tp, ts = tint4.quantize_int4_grouped(torch.tensor(w), 128)
+    for layer in range(3):
+        jp, js = jint4.quantize_int4_grouped(jnp.asarray(w[layer]), 128)
+        np.testing.assert_array_equal(tp[layer].numpy(), np.asarray(jp))
+        np.testing.assert_allclose(ts[layer].numpy(), np.asarray(js), rtol=1e-7, atol=0)
+
+
+def test_dequantize_is_exact():
+    rng = np.random.default_rng(1)
+    _, (jp, js), (tp, ts) = _weights(rng, 256, 200)
+    np.testing.assert_array_equal(tint4.dequantize_int4(tp, ts, 128).numpy(),
+                                  np.asarray(jint4.dequantize_int4(jnp.asarray(jp), jnp.asarray(js), 128)))
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 130])
+def test_int4_matmul_plain_matches_jax_interpret(m):
+    rng = np.random.default_rng(m)
+    _, (jp, js), (tp, ts) = _weights(rng, 512, 600)  # ragged out: 600 is no tile multiple
+    x = rng.standard_normal((m, 512)).astype(np.float32)
+    want = np.asarray(jint4.int4_matmul(jnp.asarray(x), jnp.asarray(jp), jnp.asarray(js), interpret=True))
+    before = tint4.LAUNCHES.value
+    got = tint4.int4_matmul(torch.tensor(x), tp, ts, 128)
+    assert tint4.LAUNCHES.value == before  # the CPU runs the plain version
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, 600)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def _tail_inputs(rng, m, hidden=512, inter=1024):
+    ctx = rng.standard_normal((m, hidden)).astype(np.float32)
+    xres = rng.standard_normal((m, hidden)).astype(np.float32)
+    nw = (1.0 + 0.1 * rng.standard_normal(hidden)).astype(np.float32)
+    mats = [_weights(rng, hidden, hidden), _weights(rng, hidden, 2 * inter), _weights(rng, inter, hidden)]
+    return ctx, xres, nw, mats
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("act", ["silu", "gelu_tanh", "gelu"])
+@pytest.mark.parametrize("unit_offset", [False, True])
+def test_fused_tail_plain_matches_jax_interpret(m, act, unit_offset):
+    rng = np.random.default_rng(m)
+    ctx, xres, nw, mats = _tail_inputs(rng, m)
+    jw = [a for _, j, _ in mats for a in map(jnp.asarray, j)]
+    tw = [a for _, _, t in mats for a in t]
+    want = np.asarray(jint4.int4_fused_layer_tail(
+        jnp.asarray(ctx), jnp.asarray(xres), jnp.asarray(nw), *jw, group_size=128, eps=1e-5,
+        unit_offset=unit_offset, act=act, interpret=True))
+    got = tint4.int4_fused_layer_tail(torch.tensor(ctx), torch.tensor(xres), torch.tensor(nw), *tw,
+                                      group_size=128, eps=1e-5, unit_offset=unit_offset, act=act)
+    assert tuple(got.shape) == (m, 512)
+    np.testing.assert_allclose(got.numpy(), want, rtol=BF16_TOL, atol=BF16_TOL * np.abs(want).max())
+
+
+def test_fused_tail_gate_matches_jax():
+    for args in [(4096, 14336, 128, 8), (4096, 14336, 128, 65), (256, 1024, 128, 8),
+                 (512, 1024, 128, 64), (512, 1024, 64, 1)]:
+        assert tint4.fused_tail_supported(*args) == jint4.fused_tail_supported(*args)
+
+
+# ---------------------------------------------------------------- on a card
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _close(got, ref, scaled=False):
+    """The bf16 rule; ``scaled``: its absolute term scaled to max |plain|."""
+    g, r = got.float().cpu().numpy(), ref.float().cpu().numpy()
+    np.testing.assert_allclose(g, r, rtol=BF16_TOL, atol=BF16_TOL * (np.abs(r).max() if scaled else 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d_in,d_out,gs", [(1, 256, 384, 128), (8, 512, 600, 128), (16, 128, 259, 64),
+                                             (40, 512, 256, 128), (130, 512, 600, 128), (300, 1024, 512, 64)])
+def test_int4_matmul_kernel_matches_plain(cuda_device, m, d_in, d_out, gs):
+    rng = np.random.default_rng(m + d_out)
+    _, _, (tp, ts) = _weights(rng, d_in, d_out, gs)
+    tp, ts = tp.to(cuda_device), ts.to(cuda_device)
+    x = torch.tensor(rng.standard_normal((m, d_in)), dtype=torch.float32, device=cuda_device)
+    before = tint4.LAUNCHES.value
+    got = tint4.int4_matmul(x, tp, ts, gs)
+    torch.cuda.synchronize()
+    assert tint4.LAUNCHES.value == before + 1
+    _close(got, tint4.int4_matmul_plain(x, tp, ts, gs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 17, 64])
+@pytest.mark.parametrize("act,unit_offset", [("silu", False), ("gelu_tanh", True), ("gelu", False)])
+def test_fused_tail_kernel_matches_plain(cuda_device, m, act, unit_offset):
+    rng = np.random.default_rng(m)
+    ctx, xres, nw, mats = _tail_inputs(rng, m)
+    tw = [a.to(cuda_device) for _, _, t in mats for a in t]
+    args = [torch.tensor(a, device=cuda_device) for a in (ctx, xres, nw)] + tw
+    kw = dict(group_size=128, eps=1e-5, unit_offset=unit_offset, act=act)
+    before = tint4.TAIL_LAUNCHES.value
+    got = tint4.int4_fused_layer_tail(*args, **kw)
+    torch.cuda.synchronize()
+    assert tint4.TAIL_LAUNCHES.value == before + 1
+    # kernel and plain round xn and h to bf16 at the same points, but an fp32
+    # sum in another order can flip one rounding, which the later products
+    # carry: hence the rule scaled to the output's magnitude, as on the CPU
+    _close(got, tint4.int4_fused_layer_tail_plain(*args, **kw), scaled=True)
+
+
+@pytest.mark.cuda
+def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
+    x = torch.zeros(4, 96, device=cuda_device)
+    packed = torch.zeros(48, 64, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):  # group size 32 is no multiple of the kernel's 64-deep slab
+        tint4.int4_matmul(x, packed, torch.zeros(3, 64, device=cuda_device), 32)
+    ctx = torch.zeros(65, 512, device=cuda_device)
+    w = torch.zeros(256, 512, dtype=torch.int8, device=cuda_device)
+    s = torch.zeros(4, 512, device=cuda_device)
+    with pytest.raises(ValueError):  # M above 64
+        tint4.int4_fused_layer_tail(ctx, ctx, torch.ones(512, device=cuda_device), w, s, w, s, w, s)

@@ -8,6 +8,11 @@ bundled moonlantern set with the FakeLLM, index then meta-loop QA.
 (c) the hash encoder under the retrieval routes ``topk_method="pallas"`` +
     ``embedding_dtype="int8"`` and ``scan_dtype="bfloat16"``: per-layer
     ``tri_retrieve_batch`` results and the answers are identical.
+(d) persisted artifacts are interchangeable: the parquet stores and
+    ``graph.npz`` / ``graph.json`` written by the JAX package load in the
+    port, which then skips the rebuild and answers as the JAX package does.
+
+Each side takes its own package's ``ComoConfig``.
 """
 
 import os
@@ -17,9 +22,10 @@ import numpy as np
 import pytest
 
 from comorag_torch.comorag import ComoRAG as TorchRAG
+from comorag_torch.config import ComoConfig as TorchConfig
 from comorag_torch.models import bge as tbge
 from comorag_tpu.comorag import ComoRAG as JaxRAG
-from comorag_tpu.config import ComoConfig
+from comorag_tpu.config import ComoConfig as JaxConfig
 from comorag_tpu.models import bge as jbge
 from comorag_tpu.utils.jsonio import load_jsonl
 
@@ -30,7 +36,8 @@ QUERIES = [q["question"] for q in load_jsonl(os.path.join(DATA, "qas.jsonl"))]
 
 
 def _config(root, tag, **kw):
-    return ComoConfig(llm_name="fake", need_cluster=True, save_dir=str(root / tag / "outputs"),
+    cls = TorchConfig if tag == "torch" else JaxConfig
+    return cls(llm_name="fake", need_cluster=True, save_dir=str(root / tag / "outputs"),
                       output_dir=str(root / tag / "results"), max_meta_loop_iterations=2,
                       gmm_max_clusters=4, gmm_em_iterations=20, **kw)
 
@@ -88,6 +95,23 @@ def test_tiny_bge_slice_matches_jax(tmp_path):
     for rt, rj in zip(t.engine.tri_retrieve_batch(QUERIES, ver_top_k=5),
                       j.engine.tri_retrieve_batch(QUERIES, ver_top_k=5)):
         assert rt.veridical == rj.veridical
+    assert [s.answer for s in t.try_answer(QUERIES)] == [s.answer for s in j.try_answer(QUERIES)]
+
+
+def test_artifacts_written_by_jax_load_in_the_port(tmp_path):
+    kw = dict(embedding_model_name="hash", embedding_dim=128)
+    j = JaxRAG(_config(tmp_path, "jax", **kw))
+    j.index(DOCS)
+    shared = _config(tmp_path, "jax", **kw)
+    t = TorchRAG(TorchConfig.from_dict(shared.to_dict()), device="cpu")
+    assert t.graph is not None
+    assert _store_ids(t) == _store_ids(j)
+    np.testing.assert_array_equal(t.graph.src, j.graph.src)
+    np.testing.assert_array_equal(t.graph.weights, j.graph.weights)
+    np.testing.assert_array_equal(t.ver_store.matrix, j.ver_store.matrix)
+    graph = t.graph
+    t.index(DOCS)
+    assert t.graph is graph  # up to date: loaded, not rebuilt
     assert [s.answer for s in t.try_answer(QUERIES)] == [s.answer for s in j.try_answer(QUERIES)]
 
 

@@ -18,7 +18,8 @@ from comorag_torch.ops import topk as ttopk
 from comorag_torch.retrieval.index import MipsIndex as TorchIndex
 from comorag_tpu.ops import topk as jtopk
 from comorag_tpu.retrieval.index import MipsIndex as JaxIndex
-from comorag_tpu.utils import trace
+from comorag_torch.utils import trace as torch_trace
+from comorag_tpu.utils import trace as jax_trace
 
 
 def _normalized(rng, shape):
@@ -123,15 +124,16 @@ def test_two_pass_call_matches_jax(scan):
 
 
 # ------------------------------------------------------ index scenarios
-def _counters():
+def _counters(trace):
     return {k: v for k, v in trace.summary()["counters"].items() if k.startswith("two_pass.")}
 
 
-def _run(make, corpus, calls, **kw):
+def _run(make, trace, corpus, calls, **kw):
     """Build an index with ``make`` and run ``calls`` ([(queries, k)]);
     observe per call the results, the flagged rows, the margin and the fp32
-    fallback, plus the two_pass.* counter deltas of the whole run."""
-    before = _counters()
+    fallback, plus the two_pass.* counter deltas of the whole run (read from
+    ``trace``, the index's own package's counters)."""
+    before = _counters(trace)
     index = make(corpus, **kw)
     obs = []
     for q, k in calls:
@@ -140,7 +142,7 @@ def _run(make, corpus, calls, **kw):
         state = getattr(h, "_rescue_state", None)
         rows = None if state is None else state[0].tolist()
         obs.append((np.asarray(s), np.asarray(i), rows, index._tie_margin, index._scan_off))
-    after = _counters()
+    after = _counters(trace)
     deltas = {k: after.get(k, 0) - before.get(k, 0) for k in after if after.get(k, 0) != before.get(k, 0)}
     return obs, deltas, index.scan_dtype
 
@@ -150,8 +152,8 @@ def _both(corpus, calls, same_ids=True, **kw):
     near-duplicates whose true scores differ below fp32 resolution: the
     order among them then follows each matmul's summation order, so only
     the scores (rank by rank) are compared, with everything else."""
-    t = _run(lambda c, **a: TorchIndex(c, device="cpu", **a), corpus, calls, **kw)
-    j = _run(JaxIndex, corpus, calls, **kw)
+    t = _run(lambda c, **a: TorchIndex(c, device="cpu", **a), torch_trace, corpus, calls, **kw)
+    j = _run(JaxIndex, jax_trace, corpus, calls, **kw)
     (t_obs, t_deltas, t_scan), (j_obs, j_deltas, j_scan) = t, j
     assert t_scan == j_scan
     assert t_deltas == j_deltas
@@ -235,12 +237,12 @@ def test_topk_many_coalescing_matches_jax():  # tests/test_topk.py:573
     batches.append(q_dup.astype(np.float32))
     t, j = TorchIndex(corpus, device="cpu"), JaxIndex(corpus)
     for group_rows in (32, 1):
-        before = _counters()
+        t_before, j_before = _counters(torch_trace), _counters(jax_trace)
         got = t.topk_many(batches, k=5, group_rows=group_rows)
-        mid = _counters()
         want = j.topk_many(batches, k=5, group_rows=group_rows)
-        after = _counters()
-        assert {k: mid[k] - before.get(k, 0) for k in mid} == {k: after[k] - mid.get(k, 0) for k in after}
+        t_after, j_after = _counters(torch_trace), _counters(jax_trace)
+        assert ({k: v - t_before.get(k, 0) for k, v in t_after.items() if v != t_before.get(k, 0)}
+                == {k: v - j_before.get(k, 0) for k, v in j_after.items() if v != j_before.get(k, 0)})
         for (ts, ti), (js, ji) in zip(got, want):
             np.testing.assert_array_equal(ti, ji)
             np.testing.assert_allclose(ts, js, atol=1e-5, rtol=0)
