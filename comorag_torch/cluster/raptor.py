@@ -27,6 +27,7 @@ from typing import Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from comorag_torch.device import resolve_device
 from comorag_torch.ops.gmm import fit_gmm_bic
 from comorag_torch.ops.projection import random_projection
 from comorag_torch.llm.summarize import Summarizer
@@ -108,7 +109,7 @@ class SemanticTree:
         batch_size: int = 32,
         max_context_tokens: int = 3500,
         token_counter=None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ):
         self.encoder = encoder
         self.summarizer = summarizer
@@ -119,7 +120,7 @@ class SemanticTree:
         self.em_iters = em_iters
         self.batch_size = batch_size
         self.max_context_tokens = max_context_tokens
-        self.device = device
+        self.device = resolve_device(device)
         from comorag_torch.utils.text import TokenCounter
 
         self.tokens = token_counter or TokenCounter()

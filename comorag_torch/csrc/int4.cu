@@ -30,13 +30,35 @@
 //
 // The fused layer tail, x_res + FFN(RMSNorm(x_res + ctx @ O)), is one
 // cooperative launch (the TPU kernel exists to be one invocation instead
-// of three): every block of a grid that fits the card at once walks the
-// column tiles of each stage, with a grid-wide barrier between the o
-// product (+ residual into an fp32 xmid workspace), the RMSNorm (into a
-// bf16 xn workspace), the gate/up tiles (act(gate) * up into a bf16 h
-// workspace) and the down tiles (+ xmid). The rounding points are the TPU
-// kernel's: ctx -> bf16, xmid and the norm in fp32, xn -> bf16, gate/up in
-// fp32, h -> bf16, down in fp32 plus xmid.
+// of three). At decode it is bound by its weight bytes (~102 MB of packed
+// weights and scales per call at Llama-3.1-8B width, 30.7 us at 3.35
+// TB/s), so its design is about keeping every SM's memory pipe full:
+// - split-K: a work item is (128-column tile, K split) and a split is a
+//   run of whole scale groups; ops/int4.tail_plan picks the split count
+//   that gives every block an item at the least cost. fp32 partials go to
+//   a workspace, and the tile's last split to arrive (an integer ticket)
+//   sums them in split order, adding x_res (o) or xmid (down), so the
+//   result is deterministic (no float atomics);
+// - gate and up are read in one K walk and act(gate) * up formed where
+//   their sums meet;
+// - the copy engine moves the bytes: one thread a block issues each
+//   64-input step as TMA boxes (the packed rows [32][128 bytes], 128-byte
+//   swizzled; the activations [tokens][64] bf16, rows past M zero) and a
+//   bulk copy of the scale row, into a ring of 7-10 stages completed on
+//   mbarriers that runs across item boundaries. Small copies do not do:
+//   512-byte bulk copies measured ~40 ns each per SM;
+// - a persistent grid of two blocks of 4 warps an SM up to 32 tokens (one
+//   warp per scheduler leaves the unpack and product chain exposed), one
+//   of 8 warps above;
+// - the product is W^T x^T: weights are the m16n8k16 A operand (16 output
+//   columns a tile) and the tokens its 8-wide N, so M = 8 wastes no
+//   tensor-core rows; a lane reads whole 32-bit words of the JAX packing
+//   (4 adjacent columns of one packed row) and turns each byte into a
+//   bf16 pair with one PRMT, one LOP3 and one HSUB2 (nibble_pair), exact.
+// The rounding points are the TPU kernel's: ctx -> bf16, xmid and the
+// norm in fp32, xn -> bf16, gate/up in fp32, h -> bf16, down in fp32 plus
+// xmid. Grid-wide barriers separate the o product, the RMSNorm, gate/up
+// and down.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -45,6 +67,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "tma_sm90.cuh"
 
 namespace cg = cooperative_groups;
 using namespace comorag;
@@ -255,114 +278,437 @@ __device__ __forceinline__ float activation(float g, int act) {
   return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));  // exact gelu
 }
 
-template <class C>
-__global__ void __launch_bounds__(C::THREADS)
-fused_tail_kernel(const bf16* __restrict__ ctx, const float* __restrict__ xres,
-                  const float* __restrict__ norm_w, const int8_t* __restrict__ oP,
-                  const float* __restrict__ oS, const int8_t* __restrict__ guP,
-                  const float* __restrict__ guS, const int8_t* __restrict__ dP,
-                  const float* __restrict__ dS, float* __restrict__ out,
-                  float* __restrict__ xmid, bf16* __restrict__ xn, bf16* __restrict__ h, int M,
-                  int H, int I, int gs, float eps, int unit_offset, int act) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float red[C::THREADS / 32];
-  cg::grid_group grid = cg::this_grid();
-  float acc[C::MF][C::NF][4];
+// ------------------------------------------------------------- fused tail
+namespace tail {
 
-  // 1. xmid = x_res + ctx @ O
-  for (int tile = blockIdx.x; tile < H / C::BN; tile += gridDim.x) {
-    const int n0 = tile * C::BN;
-    zero<C>(acc);
-    tile_mma<C>(ctx, M, H, oP, oS, H, gs, 0, n0, true, acc, smem);
-    for_each_pair<C>(acc, 0, n0, [&](int row, int col, float v0, float v1) {
-      if (row >= M) return;
-      const size_t o = (size_t)row * H + col;
-      xmid[o] = v0 + xres[o];
-      xmid[o + 1] = v1 + xres[o + 1];
-    });
+constexpr int KS = 64;                // inputs per pipeline step (one step never straddles a group)
+constexpr int BN = 128;               // output columns per work item (gate/up: 128 of each)
+constexpr int BOX = (KS / 2) * BN;    // one packed-weight TMA box: 32 rows x 128 bytes
+constexpr int MAX_TOKENS = 64;
+
+// NT token tiles of 8 per warp, WT warps along the tokens, 4 warps of 32
+// columns along the 128-column tile; STAGES steps in the ring. A stage
+// holds the step's x box ([MP tokens][64 inputs] bf16, rows past M read
+// as zeros), its packed-weight boxes (gate and up: two) and its scale row,
+// the boxes 128-byte swizzled by TMA.
+template <int NT_, int WT_, int STAGES_, int BLOCKS_>
+struct Cfg {
+  static constexpr int NT = NT_, WT = WT_, STAGES = STAGES_;
+  static constexpr int BLOCKS = BLOCKS_;  // blocks an SM is to hold (the launch asks the occupancy query)
+  static constexpr int WARPS = 4 * WT, THREADS = 32 * WARPS;
+  static constexpr int MP = 8 * NT * WT;
+  static constexpr int X_BYTES = MP * 128;
+  static constexpr int W_BYTES = 2 * BOX;
+  static constexpr int S_BYTES = 2 * BN * 4;
+  static constexpr int STAGE = (X_BYTES + W_BYTES + S_BYTES + 1023) / 1024 * 1024;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
+  static_assert(X_BYTES % 1024 == 0, "boxes 1024-byte aligned");
+};
+
+// two blocks of 4 warps an SM up to 32 tokens (the unpack and product
+// chain of a step needs more than one warp per scheduler to hide its
+// latency), one block of 8 warps above
+using Cfg8 = Cfg<1, 1, 10, 2>;   // M <= 8
+using Cfg16 = Cfg<2, 1, 9, 2>;   // M <= 16
+using Cfg32 = Cfg<4, 1, 7, 2>;   // M <= 32
+using Cfg64 = Cfg<4, 2, 10, 1>;  // M <= 64
+
+__device__ __forceinline__ uint32_t ld32s(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Byte j of a packed word as the bf16 pair (low nibble, high nibble) of
+// signed values: PRMT puts the byte's low nibble in bits 0-3 and its high
+// nibble in bits 16-19, one LOP3 masks them, flips bit 3 (two's complement
+// -> offset binary) and ORs in bf16 128.0 (0x4300), giving 128 + (n ^ 8) =
+// n + 136; one HSUB2 of (136, 136) leaves n. Every step is exact, so the
+// tensor cores sum n * x as the TPU kernel does.
+template <int J>
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w_hi) {
+  constexpr uint32_t sel = J | (J << 4) | ((4 + J) << 8) | ((4 + J) << 12);
+  const uint32_t biased = (__byte_perm(w, w_hi, sel) & 0x000F000Fu) ^ 0x43084308u;
+  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
+                                   __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+struct Gemm {
+  const float* S;      // [K/gs, N] scales
+  int K, N;
+  int second;          // column offset of the second block (gate/up: I), else -1
+  int tiles, splits;
+  float* ws;           // [splits, M, N] fp32 partials
+  unsigned* tickets;   // [tiles], 0 between launches
+};
+
+enum Stage { O_PROJ = 0, GATE_UP = 1, DOWN = 2 };
+
+struct Args {
+  CUtensorMap xmap[3];  // per stage: x [M, K] bf16 (ctx, xn, h), boxes [MP][64]
+  CUtensorMap pmap[3];  // per stage: packed [K/2, N] int8, boxes [32][128]
+  const float* xres;
+  const float* norm_w;
+  float* out;
+  float* xmid;    // [M, H] fp32
+  bf16* xn;       // [M, H]
+  bf16* h;        // [M, I]
+  float* sq;      // [H / BN, M] per-tile sums of squares of xmid
+  Gemm g[3];
+  int M, H, I, gs, unit_offset, act;
+  float eps;
+};
+
+// Walks the steps of this block's work items (item = blockIdx.x + r * gridDim.x;
+// tile = item % tiles, split = item / tiles; split s holds the groups
+// [s * G / splits, (s + 1) * G / splits) of G = K / gs, as ops/int4.tail_plan).
+struct Cursor {
+  int item, total, tiles, splits, groups, gs, k, kend;
+  __device__ Cursor(const Gemm& g, int gs_)
+      : item(blockIdx.x), total(g.tiles * g.splits), tiles(g.tiles), splits(g.splits), groups(g.K / gs_),
+        gs(gs_) {
+    begin();
   }
-  grid.sync();
-
-  // 2. xn = RMSNorm(xmid) -> bf16, one block per row
-  for (int row = blockIdx.x; row < M; row += gridDim.x) {
-    const float* xr = xmid + (size_t)row * H;
-    float sq = 0.f;
-    for (int c = threadIdx.x; c < H; c += C::THREADS) sq += xr[c] * xr[c];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = sq;
-    __syncthreads();
-    float total = 0.f;
-#pragma unroll
-    for (int w = 0; w < C::THREADS / 32; ++w) total += red[w];
-    __syncthreads();
-    const float inv = rsqrtf(total / H + eps);
-    for (int c = threadIdx.x; c < H; c += C::THREADS) {
-      const float normed = xr[c] * inv;
-      const float w = norm_w[c];
-      xn[(size_t)row * H + c] = __float2bfloat16(unit_offset ? normed * (1.f + w) : normed * w);
+  __device__ void begin() {
+    if (item >= total) return;
+    const int s = item / tiles;
+    k = (s * groups / splits) * gs;
+    kend = ((s + 1) * groups / splits) * gs;
+  }
+  __device__ bool valid() const { return item < total; }
+  __device__ bool last() const { return k + KS >= kend; }
+  __device__ int tile() const { return item % tiles; }
+  __device__ int split() const { return item / tiles; }
+  __device__ void next() {
+    k += KS;
+    if (k >= kend) {
+      item += gridDim.x;
+      begin();
     }
   }
-  grid.sync();
+};
 
-  // 3. h = act(xn @ gate) * (xn @ up) -> bf16; gate and up are the column
-  //    halves [0, I) and [I, 2I) of the fused gate/up weight
-  for (int tile = blockIdx.x; tile < I / C::BN; tile += gridDim.x) {
-    const int n0 = tile * C::BN;
-    float up[C::MF][C::NF][4];
-    zero<C>(acc);
-    zero<C>(up);
-    tile_mma<C>(xn, M, H, guP, guS, 2 * I, gs, 0, n0, true, acc, smem);
-    tile_mma<C>(xn, M, H, guP, guS, 2 * I, gs, 0, I + n0, true, up, smem);
-#pragma unroll
-    for (int i = 0; i < C::MF; ++i)
-#pragma unroll
-      for (int n = 0; n < C::NF; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] = activation(acc[i][n][e], act) * up[i][n][e];
-    for_each_pair<C>(acc, 0, n0, [&](int row, int col, float v0, float v1) {
-      if (row >= M) return;
-      *reinterpret_cast<uint32_t*>(h + (size_t)row * I + col) = pack_bf16(v0, v1);
-    });
-  }
-  grid.sync();
+// Output column of column `col` of a staged row ([0, BN): the first
+// block at n0, [BN, 2 BN): the second block)
+__device__ __forceinline__ int out_col(const Gemm& g, int n0, int col) {
+  return (col < BN ? n0 : g.second + n0 - BN) + col;
+}
 
-  // 4. out = xmid + h @ down
-  for (int tile = blockIdx.x; tile < H / C::BN; tile += gridDim.x) {
-    const int n0 = tile * C::BN;
-    zero<C>(acc);
-    tile_mma<C>(h, M, I, dP, dS, H, gs, 0, n0, true, acc, smem);
-    for_each_pair<C>(acc, 0, n0, [&](int row, int col, float v0, float v1) {
-      if (row >= M) return;
-      const size_t o = (size_t)row * H + col;
-      out[o] = v0 + xmid[o];
-      out[o + 1] = v1 + xmid[o + 1];
-    });
+// One step into a ring stage, issued by one thread: the x box, NB packed
+// boxes and NB scale rows, all completing on the stage's barrier.
+template <class C, int NB, int STAGE_ID>
+__device__ __forceinline__ void issue_step(unsigned char* stage, uint64_t* bar, const Args& A, const Cursor& c) {
+  const Gemm& g = A.g[STAGE_ID];
+  const int n0 = c.tile() * BN;
+  mbar_expect_tx(bar, C::X_BYTES + NB * BOX + NB * BN * 4);
+  tma_load_2d(stage, &A.xmap[STAGE_ID], bar, c.k, 0);
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb) {
+    tma_load_2d(stage + C::X_BYTES + cb * BOX, &A.pmap[STAGE_ID], bar, out_col(g, n0, cb * BN), c.k / 2);
+    bulk_copy(stage + C::X_BYTES + C::W_BYTES + cb * BN * 4, g.S + (size_t)(c.k / A.gs) * g.N + out_col(g, n0, cb * BN),
+              BN * 4, bar);
   }
 }
 
+// Accumulators of one warp: [column block][tile A/B][token tile][4]. Of
+// the warp's 32 columns, tile A of a lane covers columns 4g, 4g+1 (rows g,
+// g+8 of the m16n8k16 product W^T x^T), tile B columns 4g+2, 4g+3; a lane
+// holds tokens 2t, 2t+1 of each token tile.
+template <class C, int NB>
+struct Acc {
+  float v[NB][2][C::NT][4];
+  __device__ void zero() {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int n = 0; n < C::NT; ++n) v[b][a][n][0] = v[b][a][n][1] = v[b][a][n][2] = v[b][a][n][3] = 0.f;
+  }
+};
+
+template <class C, int NB>
+__device__ __forceinline__ void compute_step(const unsigned char* stage, const Cursor& c, int gs,
+                                             Acc<C, NB>& acc, Acc<C, NB>& gacc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3, ng = warp % 4, wt = warp / 4;
+  const unsigned char* wsm = stage + C::X_BYTES;
+#pragma unroll
+  for (int s = 0; s < KS / 16; ++s) {
+    uint32_t b[C::NT][2];
+#pragma unroll
+    for (int n = 0; n < C::NT; ++n) {
+      const int row = wt * 8 * C::NT + n * 8 + g8, byte = (s * 16 + 2 * t4) * 2;
+      b[n][0] = ld32s(stage + swizzle128(row, byte));
+      b[n][1] = ld32s(stage + swizzle128(row, byte + 16));
+    }
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      const unsigned char* box = wsm + cb * BOX;
+      const uint32_t w0 = ld32s(box + swizzle128(s * 8 + t4, ng * 32 + 4 * g8));
+      const uint32_t w1 = ld32s(box + swizzle128(s * 8 + t4 + 4, ng * 32 + 4 * g8));
+      const uint32_t h0 = w0 >> 4, h1 = w1 >> 4;
+      const uint32_t aA[4] = {nibble_pair<0>(w0, h0), nibble_pair<1>(w0, h0), nibble_pair<0>(w1, h1),
+                              nibble_pair<1>(w1, h1)};
+      const uint32_t aB[4] = {nibble_pair<2>(w0, h0), nibble_pair<3>(w0, h0), nibble_pair<2>(w1, h1),
+                              nibble_pair<3>(w1, h1)};
+#pragma unroll
+      for (int n = 0; n < C::NT; ++n) {
+        mma_bf16(gacc.v[cb][0][n], aA, b[n][0], b[n][1]);
+        mma_bf16(gacc.v[cb][1][n], aB, b[n][0], b[n][1]);
+      }
+    }
+  }
+  if ((c.k + KS) % gs == 0) {  // the group's last step: apply its scales
+    const float* ss = reinterpret_cast<const float*>(stage + C::X_BYTES + C::W_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      const float4 sc = *reinterpret_cast<const float4*>(ss + cb * BN + ng * 32 + 4 * g8);
+#pragma unroll
+      for (int n = 0; n < C::NT; ++n) {
+        float* a = acc.v[cb][0][n];
+        float* b2 = acc.v[cb][1][n];
+        float* ga = gacc.v[cb][0][n];
+        float* gb = gacc.v[cb][1][n];
+        a[0] += ga[0] * sc.x; a[1] += ga[1] * sc.x; a[2] += ga[2] * sc.y; a[3] += ga[3] * sc.y;
+        b2[0] += gb[0] * sc.z; b2[1] += gb[1] * sc.z; b2[2] += gb[2] * sc.w; b2[3] += gb[3] * sc.w;
+        ga[0] = ga[1] = ga[2] = ga[3] = gb[0] = gb[1] = gb[2] = gb[3] = 0.f;
+      }
+    }
+  }
+}
+
+// Writes this warp's part of the item's partial to the workspace and
+// takes a ticket; the tile's last split sums the workspace in split order
+// and finishes the stage's function there.
+template <class C, int NB, int STAGE_ID>
+__device__ void finish_item(const Args& A, const Cursor& c, const Acc<C, NB>& acc, unsigned* flag) {
+  const Gemm& g = A.g[STAGE_ID];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3, ng = warp % 4, wt = warp / 4;
+  const int M = A.M, n0 = c.tile() * BN;
+  float* ws = g.ws + (size_t)c.split() * M * g.N;
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+    for (int n = 0; n < C::NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int tok = wt * 8 * C::NT + n * 8 + 2 * t4 + e;
+        if (tok < M)
+          *reinterpret_cast<float4*>(ws + (size_t)tok * g.N + out_col(g, n0, cb * BN + ng * 32 + 4 * g8)) =
+              make_float4(acc.v[cb][0][n][e], acc.v[cb][0][n][2 + e], acc.v[cb][1][n][e], acc.v[cb][1][n][2 + e]);
+      }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicInc(g.tickets + c.tile(), g.splits - 1) == (unsigned)(g.splits - 1);
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  auto split_sum = [&](int tok, int col) {  // 4 columns' partials summed in split order
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 16
+    for (int s = 0; s < g.splits; ++s) {
+      const float4 p = __ldcg(reinterpret_cast<const float4*>(g.ws + ((size_t)s * M + tok) * g.N + col));
+      v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+    }
+    return v;
+  };
+  constexpr int Q4 = BN / 4;  // float4 columns of the tile
+  if (STAGE_ID == O_PROJ) {
+    // xmid = x_res + ctx @ O for this tile, and its sum of squares per
+    // token: a warp per token, a lane per 4 of the tile's 128 columns
+    static_assert(Q4 == 32, "one float4 column per lane");
+    for (int tok = warp; tok < M; tok += C::WARPS) {
+      const int col = n0 + 4 * lane;
+      const size_t o = (size_t)tok * A.H + col;
+      const float4 r = *reinterpret_cast<const float4*>(A.xres + o), p = split_sum(tok, col);
+      const float4 v = make_float4(r.x + p.x, r.y + p.y, r.z + p.z, r.w + p.w);
+      *reinterpret_cast<float4*>(A.xmid + o) = v;
+      float q = v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
+      if (lane == 0) A.sq[c.tile() * M + tok] = q;
+    }
+  } else if (STAGE_ID == GATE_UP) {
+    for (int i = threadIdx.x; i < M * Q4; i += C::THREADS) {
+      const int tok = i / Q4, col = n0 + 4 * (i % Q4);
+      const float4 gt = split_sum(tok, col), up = split_sum(tok, g.second + col);
+      bf16* h = A.h + (size_t)tok * A.I + col;
+      *reinterpret_cast<uint32_t*>(h) = pack_bf16(activation(gt.x, A.act) * up.x, activation(gt.y, A.act) * up.y);
+      *reinterpret_cast<uint32_t*>(h + 2) =
+          pack_bf16(activation(gt.z, A.act) * up.z, activation(gt.w, A.act) * up.w);
+    }
+  } else {
+    for (int i = threadIdx.x; i < M * Q4; i += C::THREADS) {
+      const int tok = i / Q4, col = n0 + 4 * (i % Q4);
+      const size_t o = (size_t)tok * A.H + col;
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(A.xmid + o)), p = split_sum(tok, col);
+      *reinterpret_cast<float4*>(A.out + o) = make_float4(x.x + p.x, x.y + p.y, x.z + p.z, x.w + p.w);
+    }
+  }
+}
+
+// One product stage over all of this block's work items, with the ring
+// running across item boundaries (the next item's loads overlap this
+// item's finish). `steps` counts the ring's steps over the whole launch
+// (slot steps % STAGES, barrier parity (steps / STAGES) & 1).
+template <class C, int NB, int STAGE_ID>
+__device__ void run_stage(const Args& A, unsigned char* ring, uint64_t* full, int& steps, unsigned* flag) {
+  const Gemm& g = A.g[STAGE_ID];
+  Acc<C, NB> acc, gacc;
+  acc.zero();
+  gacc.zero();
+  Cursor ld(g, A.gs), cs(g, A.gs);
+  const bool loader = threadIdx.x == 0;
+  int issued = steps;
+  for (int s = 0; s < C::STAGES - 1 && ld.valid(); ++s, ++issued, ld.next())
+    if (loader) issue_step<C, NB, STAGE_ID>(ring + (issued % C::STAGES) * C::STAGE, &full[issued % C::STAGES], A, ld);
+  for (; cs.valid(); ++steps) {
+    const int slot = steps % C::STAGES;
+    mbar_wait(&full[slot], (steps / C::STAGES) & 1);
+    __syncthreads();  // everyone is past the previous step: its slot may be refilled
+    if (ld.valid()) {
+      if (loader)
+        issue_step<C, NB, STAGE_ID>(ring + (issued % C::STAGES) * C::STAGE, &full[issued % C::STAGES], A, ld);
+      ++issued;
+      ld.next();
+    }
+    compute_step<C, NB>(ring + slot * C::STAGE, cs, A.gs, acc, gacc);
+    if (cs.last()) {
+      finish_item<C, NB, STAGE_ID>(A, cs, acc, flag);
+      acc.zero();
+    }
+    cs.next();
+  }
+  __syncthreads();
+}
+
 template <class C>
-int launch_tail(const void* ctx, const void* xres, const void* norm_w, const void* oP,
-                const void* oS, const void* guP, const void* guS, const void* dP, const void* dS,
-                void* out, void* xmid, void* xn, void* h, int M, int H, int I, int gs, float eps,
-                int unit_offset, int act, int sm_count, cudaStream_t stream) {
-  auto kernel = fused_tail_kernel<C>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+__global__ void __launch_bounds__(C::THREADS, C::BLOCKS) fused_tail_kernel(const __grid_constant__ Args A) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ unsigned flag;
+  __shared__ __align__(8) uint64_t full[C::STAGES];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  cg::grid_group grid = cg::this_grid();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int steps = 0;
+
+  // 1. xmid = x_res + ctx @ O (the tile's last split), sums of squares per tile
+  run_stage<C, 1, O_PROJ>(A, ring, full, steps, &flag);
+  grid.sync();
+
+  // 2. xn = RMSNorm(xmid) -> bf16: items of (token, 512 columns)
+  const int chunks = A.H / 512, o_tiles = A.H / BN;
+  for (int item = blockIdx.x; item < A.M * chunks; item += gridDim.x) {
+    const int tok = item / chunks, c0 = (item % chunks) * 512;
+    float total = 0.f;
+    for (int t = 0; t < o_tiles; ++t) total += __ldcg(A.sq + t * A.M + tok);
+    const float inv = rsqrtf(total / A.H + A.eps);
+    for (int c = c0 + threadIdx.x; c < c0 + 512; c += C::THREADS) {
+      const float normed = __ldcg(A.xmid + (size_t)tok * A.H + c) * inv;
+      const float w = A.norm_w[c];
+      A.xn[(size_t)tok * A.H + c] = __float2bfloat16(A.unit_offset ? normed * (1.f + w) : normed * w);
+    }
+  }
+  // xn is read next by the copy engine: order these generic writes first
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  grid.sync();
+
+  // 3. h = act(xn @ gate) * (xn @ up) -> bf16, gate and up read in one K walk
+  run_stage<C, 2, GATE_UP>(A, ring, full, steps, &flag);
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");  // h, as xn
+  grid.sync();
+
+  // 4. out = xmid + h @ down (the tile's last split)
+  run_stage<C, 1, DOWN>(A, ring, full, steps, &flag);
+}
+
+// Per device, once: the kernel's shared-memory limit and how many blocks
+// an SM holds (the cooperative grid is that times the SM count).
+template <class C>
+cudaError_t blocks_per_sm(int* blocks) {
+  static int per_sm[64] = {0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, C::THREADS, C::SMEM);
+  if (device >= 64) return cudaErrorInvalidDevice;
+  if (per_sm[device] == 0) {
+    err = cudaFuncSetAttribute(fused_tail_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[device], fused_tail_kernel<C>, C::THREADS,
+                                                          C::SMEM);
+    if (err != cudaSuccess) return err;
+    if (per_sm[device] <= 0) return cudaErrorCooperativeLaunchTooLarge;
+  }
+  *blocks = per_sm[device];
+  return cudaSuccess;
+}
+
+template <class C>
+int launch(Args& A, int sm_count, cudaStream_t stream) {
+  int blocks = 0;
+  cudaError_t err = blocks_per_sm<C>(&blocks);
   if (err != cudaSuccess) return err;
-  if (per_sm <= 0) return cudaErrorCooperativeLaunchTooLarge;
-  const dim3 grid(per_sm * sm_count);
-  void* args[] = {&ctx, &xres, &norm_w, &oP, &oS, &guP, &guS, &dP, &dS, &out, &xmid, &xn,
-                  &h, &M, &H, &I, &gs, &eps, &unit_offset, &act};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid, dim3(C::THREADS),
-                                    args, C::SMEM, stream);
+  void* args[] = {&A};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_tail_kernel<C>), dim3(blocks * sm_count),
+                                    dim3(C::THREADS), args, C::SMEM, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+int token_rows(int M) { return M <= 8 ? Cfg8::MP : M <= 16 ? Cfg16::MP : M <= 32 ? Cfg32::MP : Cfg64::MP; }
+
+// The step's x box ([rows][64] bf16 of [M, K]) and packed-weight box
+// ([32][128] bytes of [K/2, N])
+cudaError_t x_map(CUtensorMap* map, const void* x, int M, int K) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M}, strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {KS, (cuuint32_t)token_rows(M)};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, dims, strides, box);
+}
+cudaError_t p_map(CUtensorMap* map, const void* packed, int K, int N) {
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K / 2}, strides[1] = {(cuuint64_t)N};
+  const cuuint32_t box[2] = {BN, KS / 2};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, packed, dims, strides, box);
+}
+
+// Workspace layout (bytes, each part 16-byte aligned): xmid, sq, the three
+// partial buffers, xn, h.
+struct Layout {
+  size_t xmid, sq, ws[3], xn, h, total;
+  Layout(int M, int H, int I, const int* splits) {
+    size_t at = 0;
+    auto take = [&](size_t bytes) {
+      const size_t here = at;
+      at += (bytes + 15) / 16 * 16;
+      return here;
+    };
+    xmid = take((size_t)M * H * 4);
+    sq = take((size_t)(H / BN) * M * 4);
+    ws[O_PROJ] = take((size_t)splits[0] * M * H * 4);
+    ws[GATE_UP] = take((size_t)splits[1] * M * 2 * I * 4);
+    ws[DOWN] = take((size_t)splits[2] * M * H * 4);
+    xn = take((size_t)M * H * 2);
+    h = take((size_t)M * I * 2);
+    total = at;
+  }
+};
+
+bool valid_shape(int M, int H, int I, int gs, const int* splits) {
+  if (M <= 0 || M > MAX_TOKENS || H % 512 != 0 || I % 512 != 0 || gs <= 0 || gs % KS != 0 || H % gs != 0 ||
+      I % gs != 0)
+    return false;
+  const int groups[3] = {H / gs, H / gs, I / gs};
+  for (int s = 0; s < 3; ++s)
+    if (splits[s] < 1 || splits[s] > groups[s]) return false;
+  return true;
+}
+
+}  // namespace tail
 }  // namespace
 
 extern "C" const char* comorag_error_string(int code) {
@@ -383,24 +729,73 @@ extern "C" int comorag_int4_matmul(const void* x, const void* packed, const void
   return launch_matmul<CfgPrefill>(x, packed, scales, out, M, N, K, gs, st);
 }
 
-// ctx: [M, H] bf16; xres, xmid, out: [M, H] fp32; norm_w: [H] fp32;
-// o: [H/2, H] int8 + [H/gs, H]; gu: [H/2, 2I] + [H/gs, 2I]; down: [I/2, H]
-// + [I/gs, H]; xn: [M, H] bf16 and h: [M, I] bf16 workspaces. M <= 64;
-// H and I multiples of 64; gs a multiple of 64 dividing H and I. act: 0
-// silu, 1 gelu (tanh), 2 gelu (erf). One cooperative launch on `stream`.
+// ctx: [M, H] bf16; xres, out: [M, H] fp32; norm_w: [H] fp32; o: [H/2, H]
+// int8 + [H/gs, H]; gu: [H/2, 2I] + [H/gs, 2I]; down: [I/2, H] + [I/gs, H];
+// every pointer 16-byte aligned. M <= 64; H and I multiples of 512; gs a
+// multiple of 64 dividing H and I. splits: the K splits of the o,
+// gate/up and down stages (ops/int4.tail_plan). workspace:
+// comorag_int4_tail_workspace_bytes bytes; tickets: (2H + I) / 128
+// unsigned ints, zero before the first launch (each launch leaves them
+// zero). act: 0 silu, 1 gelu (tanh), 2 gelu (erf). One cooperative launch
+// on `stream`.
+extern "C" long long comorag_int4_tail_workspace_bytes(int M, int H, int I, int so, int sgu, int sd) {
+  const int splits[3] = {so, sgu, sd};
+  return static_cast<long long>(tail::Layout(M, H, I, splits).total);
+}
+
+// The work items' geometry, for ops/int4.tail_plan: output columns of one
+// item, and blocks an SM holds at M tokens on the current device (a
+// negative cudaError_t on failure).
+extern "C" int comorag_int4_tail_tile_n() { return tail::BN; }
+
+extern "C" int comorag_int4_tail_blocks_per_sm(int M) {
+  if (M <= 0 || M > tail::MAX_TOKENS) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err = M <= 8    ? tail::blocks_per_sm<tail::Cfg8>(&blocks)
+                          : M <= 16 ? tail::blocks_per_sm<tail::Cfg16>(&blocks)
+                          : M <= 32 ? tail::blocks_per_sm<tail::Cfg32>(&blocks)
+                                    : tail::blocks_per_sm<tail::Cfg64>(&blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 extern "C" int comorag_int4_fused_layer_tail(const void* ctx, const void* xres, const void* norm_w,
                                              const void* oP, const void* oS, const void* guP,
                                              const void* guS, const void* dP, const void* dS,
-                                             void* out, void* xmid, void* xn, void* h, int M,
-                                             int H, int I, int gs, float eps, int unit_offset,
-                                             int act, int sm_count, void* stream) {
-  if (M <= 0 || M > 64 || H % 64 != 0 || I % 64 != 0 || gs <= 0 || gs % KT != 0 || H % gs != 0 ||
-      I % gs != 0 || act < 0 || act > 2 || sm_count <= 0)
+                                             void* out, void* workspace, void* tickets, int M, int H,
+                                             int I, int gs, int so, int sgu, int sd, float eps,
+                                             int unit_offset, int act, int sm_count, void* stream) {
+  const int splits[3] = {so, sgu, sd};
+  if (!tail::valid_shape(M, H, I, gs, splits) || act < 0 || act > 2 || sm_count <= 0)
     return cudaErrorInvalidValue;
+  using tail::BN;
+  const tail::Layout L(M, H, I, splits);
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  unsigned* tk = static_cast<unsigned*>(tickets);
+  tail::Args A;
+  A.xres = static_cast<const float*>(xres);
+  A.norm_w = static_cast<const float*>(norm_w);
+  A.out = static_cast<float*>(out);
+  A.xmid = reinterpret_cast<float*>(ws + L.xmid);
+  A.sq = reinterpret_cast<float*>(ws + L.sq);
+  A.xn = reinterpret_cast<bf16*>(ws + L.xn);
+  A.h = reinterpret_cast<bf16*>(ws + L.h);
+  A.M = M; A.H = H; A.I = I; A.gs = gs; A.unit_offset = unit_offset; A.act = act; A.eps = eps;
+  A.g[tail::O_PROJ] = {static_cast<const float*>(oS), H, H, -1, H / BN, so,
+                       reinterpret_cast<float*>(ws + L.ws[tail::O_PROJ]), tk};
+  A.g[tail::GATE_UP] = {static_cast<const float*>(guS), H, 2 * I, I, I / BN, sgu,
+                        reinterpret_cast<float*>(ws + L.ws[tail::GATE_UP]), tk + H / BN};
+  A.g[tail::DOWN] = {static_cast<const float*>(dS), I, H, -1, H / BN, sd,
+                     reinterpret_cast<float*>(ws + L.ws[tail::DOWN]), tk + H / BN + I / BN};
+  cudaError_t err = tail::x_map(&A.xmap[tail::O_PROJ], ctx, M, H);
+  if (err == cudaSuccess) err = tail::x_map(&A.xmap[tail::GATE_UP], A.xn, M, H);
+  if (err == cudaSuccess) err = tail::x_map(&A.xmap[tail::DOWN], A.h, M, I);
+  if (err == cudaSuccess) err = tail::p_map(&A.pmap[tail::O_PROJ], oP, H, H);
+  if (err == cudaSuccess) err = tail::p_map(&A.pmap[tail::GATE_UP], guP, H, 2 * I);
+  if (err == cudaSuccess) err = tail::p_map(&A.pmap[tail::DOWN], dP, I, H);
+  if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 16)
-    return launch_tail<CfgDecode>(ctx, xres, norm_w, oP, oS, guP, guS, dP, dS, out, xmid, xn, h,
-                                  M, H, I, gs, eps, unit_offset, act, sm_count, st);
-  return launch_tail<CfgMid>(ctx, xres, norm_w, oP, oS, guP, guS, dP, dS, out, xmid, xn, h, M, H,
-                             I, gs, eps, unit_offset, act, sm_count, st);
+  if (M <= 8) return tail::launch<tail::Cfg8>(A, sm_count, st);
+  if (M <= 16) return tail::launch<tail::Cfg16>(A, sm_count, st);
+  if (M <= 32) return tail::launch<tail::Cfg32>(A, sm_count, st);
+  return tail::launch<tail::Cfg64>(A, sm_count, st);
 }

@@ -140,7 +140,7 @@ class TorchOfflineLLM(BaseLLM):
 
         self.device = resolve_device(device)
         if model_name_or_path is not None:
-            params, arch = decoder.load_hf_decoder_checkpoint(model_name_or_path)
+            params, arch = decoder.load_hf_decoder_checkpoint(model_name_or_path, device="cpu")
             if tokenizer is None:
                 from transformers import AutoTokenizer
 

@@ -29,6 +29,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from comorag_torch.device import resolve_device
 from comorag_torch.ops import int4 as int4_ops
 
 
@@ -710,10 +711,11 @@ def generate_speculative(
 
 
 # ------------------------------------------------------- HF weight conversion
-def load_hf_decoder_checkpoint(model_name_or_path: str, device: Union[str, torch.device] = "cpu"):
+def load_hf_decoder_checkpoint(model_name_or_path: str, device: Union[str, torch.device] = "cuda"):
     """A local HuggingFace llama-, mistral-, qwen2-, qwen3- or gemma-family
     causal-LM checkpoint as (params, DecoderArch), with the JAX package's
     family detection and refusals. ``transformers`` is imported here only."""
+    device = resolve_device(device)
     from transformers import AutoConfig, AutoModelForCausalLM
 
     hf_config = AutoConfig.from_pretrained(model_name_or_path)

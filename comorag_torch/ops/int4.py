@@ -100,8 +100,15 @@ def _lib() -> ctypes.CDLL:
         mm.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         tail = lib.comorag_int4_fused_layer_tail
         tail.restype = ctypes.c_int
-        tail.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+        tail.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ws = lib.comorag_int4_tail_workspace_bytes
+        ws.restype = ctypes.c_longlong
+        ws.argtypes = [ctypes.c_int] * 6
+        lib.comorag_int4_tail_tile_n.restype = ctypes.c_int
+        lib.comorag_int4_tail_tile_n.argtypes = []
+        lib.comorag_int4_tail_blocks_per_sm.restype = ctypes.c_int
+        lib.comorag_int4_tail_blocks_per_sm.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -196,6 +203,100 @@ def int4_fused_layer_tail_plain(ctx, x_res, norm_w, o_packed, o_scale, gu_packed
     return xmid + int4_matmul_plain(h, down_packed, down_scale, group_size)  # h -> bf16 inside
 
 
+TAIL_MAX_M = 64
+
+
+def split_bounds(k: int, group_size: int, splits: int) -> list:
+    """The [k0, k1) input ranges of a stage's K splits: split s holds the
+    scale groups [s * G // splits, (s + 1) * G // splits) of G = k /
+    group_size, as the kernel's Cursor cuts them."""
+    groups = k // group_size
+    return [((s * groups // splits) * group_size, ((s + 1) * groups // splits) * group_size)
+            for s in range(splits)]
+
+
+def _splits_for(tiles: int, groups: int, sm_count: int, slots: int, m: int, group_size: int) -> int:
+    """The K split count of one stage: enough (tile, split) items to give
+    every SM one, and among those the count that costs the busiest of the
+    card's block slots the fewest bytes per output column: its items'
+    weight bytes (one group added per item for its fill) plus the last
+    split's read of every partial (splits x m fp32). Ties go to fewer
+    splits. A stage whose tiles x groups cannot reach sm_count takes every
+    group as its own split."""
+    best = None
+    for s in range(1, groups + 1):
+        if tiles * s < sm_count:
+            continue
+        cost = -(-tiles * s // slots) * (-(-groups // s) + 1) * (group_size // 2) + s * m * 4
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return groups if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_splits(m: int, hidden: int, inter: int, group_size: int, sm_count: int, tile_n: int,
+                 blocks_per_sm: int) -> Tuple[int, int, int]:
+    slots = sm_count * blocks_per_sm
+    return tuple(_splits_for(n // tile_n, k // group_size, sm_count, slots, m, group_size)
+                 for k, n in ((hidden, hidden), (hidden, inter), (inter, hidden)))
+
+
+def tail_plan(m: int, hidden: int, inter: int, group_size: int, sm_count: int, tile_n: int,
+              blocks_per_sm: int) -> dict:
+    """Work items of the fused-tail kernel: per stage, its K, its column
+    tiles of ``tile_n`` outputs (gate/up: that many columns of each) and
+    its K splits on group boundaries, chosen for a card of ``sm_count``
+    SMs of ``blocks_per_sm`` block slots each. The kernel reports its
+    ``tile_n`` and ``blocks_per_sm`` (``_tail_geometry``)."""
+    stages = {}
+    shapes = (("o", hidden, hidden), ("gate_up", hidden, inter), ("down", inter, hidden))
+    splits = _tail_splits(m, hidden, inter, group_size, sm_count, tile_n, blocks_per_sm)
+    for (name, k, n), s in zip(shapes, splits):
+        tiles = n // tile_n
+        stages[name] = {"k": k, "tiles": tiles, "splits": s, "items": tiles * s,
+                        "bounds": split_bounds(k, group_size, s)}
+    return {"m": m, "k_step": _KERNEL_K_STEP, "tile_n": tile_n, "stages": stages}
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_geometry(device: torch.device, m: int) -> Tuple[int, int]:
+    """(output columns of a work item, blocks an SM holds at m tokens) as
+    the built kernel reports them on ``device``."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        blocks = lib.comorag_int4_tail_blocks_per_sm(m)
+    if blocks <= 0:
+        build.check(lib, -blocks, "int4_fused_layer_tail")
+    return lib.comorag_int4_tail_tile_n(), blocks
+
+
+def split_partials_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, group_size: int,
+                         bounds) -> torch.Tensor:
+    """x [M, k] @ dequant(W) as the kernel forms it: one fp32 partial per
+    K split (``int4_matmul_plain`` over the split's rows), summed in split
+    order."""
+    acc = None
+    for k0, k1 in bounds:
+        g0, g1 = k0 // group_size, k1 // group_size
+        part = int4_matmul_plain(x[:, k0:k1], packed[k0 // 2:k1 // 2], scales[g0:g1], group_size)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+_tickets: dict = {}
+
+
+def _tail_tickets(device: torch.device, stream: int, count: int) -> torch.Tensor:
+    """The kernel's per-tile tickets for one (device, stream): zeroed once;
+    each launch leaves them zero again."""
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < count:
+        t = torch.zeros(count, dtype=torch.int32, device=device)
+        _tickets[key] = t
+    return t
+
+
 def int4_fused_layer_tail(
     ctx: torch.Tensor,          # [M, H] float (attention output, pre-o-proj)
     x_res: torch.Tensor,        # [M, H] float (residual into the attention add)
@@ -219,9 +320,9 @@ def int4_fused_layer_tail(
         raise ValueError(f"unknown act {act!r}")
     m, hidden = ctx.shape
     inter = down_packed.shape[0] * 2
-    if m > 64 or hidden % 64 or inter % 64:
-        raise ValueError(f"int4_fused_layer_tail: the kernel takes M <= 64 and H, I multiples of 64, "
-                         f"got M={m}, H={hidden}, I={inter}")
+    if m > TAIL_MAX_M or hidden % 512 or inter % 512:
+        raise ValueError(f"int4_fused_layer_tail: the kernel takes M <= {TAIL_MAX_M} and H, I multiples of "
+                         f"512, got M={m}, H={hidden}, I={inter}")
     dev = ctx.device
     _check_weight("int4_fused_layer_tail o", o_packed, o_scale, hidden, hidden, group_size, dev)
     _check_weight("int4_fused_layer_tail gate/up", gu_packed, gu_scale, hidden, 2 * inter, group_size, dev)
@@ -231,17 +332,21 @@ def int4_fused_layer_tail(
     nw = norm_w.to(torch.float32).contiguous()
     if tuple(xres.shape) != (m, hidden) or nw.numel() != hidden or xres.device != dev or nw.device != dev:
         raise ValueError("int4_fused_layer_tail: x_res must be [M, H] and norm_w [H] on ctx's device")
-    out = torch.empty(m, hidden, dtype=torch.float32, device=dev)
-    xmid = torch.empty(m, hidden, dtype=torch.float32, device=dev)
-    xn = torch.empty(m, hidden, dtype=torch.bfloat16, device=dev)
-    h = torch.empty(m, inter, dtype=torch.bfloat16, device=dev)
+    if any(t.data_ptr() % 16 for t in (xres, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale)):
+        raise ValueError("int4_fused_layer_tail: x_res and the weights must be 16-byte aligned (TMA copies)")
+    tile_n, blocks = _tail_geometry(dev, m)
+    splits = _tail_splits(m, hidden, inter, group_size, _sm_count(dev), tile_n, blocks)
     lib = _lib()
+    out = torch.empty(m, hidden, dtype=torch.float32, device=dev)
+    workspace = torch.empty(lib.comorag_int4_tail_workspace_bytes(m, hidden, inter, *splits),
+                            dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = _tail_tickets(dev, stream, (2 * hidden + inter) // tile_n)
     rc = lib.comorag_int4_fused_layer_tail(
         ctx_b.data_ptr(), xres.data_ptr(), nw.data_ptr(), o_packed.data_ptr(), o_scale.data_ptr(),
         gu_packed.data_ptr(), gu_scale.data_ptr(), down_packed.data_ptr(), down_scale.data_ptr(),
-        out.data_ptr(), xmid.data_ptr(), xn.data_ptr(), h.data_ptr(), m, hidden, inter, group_size,
-        float(eps), int(bool(unit_offset)), _ACTS[act], _sm_count(dev),
-        torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), workspace.data_ptr(), tickets.data_ptr(), m, hidden, inter, group_size, *splits,
+        float(eps), int(bool(unit_offset)), _ACTS[act], _sm_count(dev), stream,
     )
     build.check(lib, rc, "int4_fused_layer_tail")
     TAIL_LAUNCHES.add()

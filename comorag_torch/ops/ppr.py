@@ -23,6 +23,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from comorag_torch.device import resolve_device
 from comorag_torch.ops.topk import exact_topk
 
 # batch x arcs at which the device solve beats the native host solver, as
@@ -66,13 +67,13 @@ class PPRGraph:
         max_iters: int = 128,
         tol: float = 1e-10,
         backend: str = "auto",
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ):
         """backend: 'device' (torch), 'native' (C++ float64 host solver), or
         'auto' — native for batches under the crossover, device above it."""
         self.n_nodes = n_nodes
         self.backend = backend
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.max_iters = max_iters
         self.tol = tol
         self._native = None

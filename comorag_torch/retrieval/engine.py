@@ -36,6 +36,7 @@ from comorag_torch.ops.ppr import PPRGraph
 from comorag_torch.ops.similarity import min_max_normalize, min_max_normalize_rows_np
 from comorag_torch.retrieval.index import MipsIndex
 from comorag_torch.config import ComoConfig
+from comorag_torch.device import resolve_device
 from comorag_torch.prompts.linking import get_query_instruction
 from comorag_torch.store.embedding_store import EmbeddingStore
 from comorag_torch.utils.hashing import content_hash
@@ -89,7 +90,7 @@ class RetrievalEngine:
         epi_store: Optional[EmbeddingStore] = None,
         graph: Optional[GraphData] = None,
         fact_filter=None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ):
         self.config = config
         self.encoder = encoder
@@ -99,7 +100,7 @@ class RetrievalEngine:
         self.epi_store = epi_store
         self.graph = graph
         self.fact_filter = fact_filter
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._ready = False
         # LRU query-embedding cache behind a lock: the QA loop reads and
         # writes it from up to 16 threads, and a long multi-dataset run

@@ -29,7 +29,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from comorag_torch.device import HostCopy
+from comorag_torch.device import HostCopy, resolve_device
 from comorag_torch.ops import mips
 from comorag_torch.ops.topk import (
     bf16_scan_corpus,
@@ -249,14 +249,14 @@ class MipsIndex:
     def __init__(
         self,
         matrix: np.ndarray,  # [N, d] float32 (host)
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
         dtype: str = "float32",  # "float32" | "bfloat16" | "int8" storage/scoring
         method: str = "xla",  # "xla" | "pallas" (the streaming top-k kernels)
         scan_dtype: Optional[str] = "auto",  # "auto" | "int8" | "bfloat16" | None: certified two-pass
         scan_candidates: Optional[int] = None,  # floor of the two-pass candidate pool per query
         tile_n: int = 512,  # the TPU kernel's corpus tile (ComoConfig.topk_block_rows)
     ):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         matrix = np.asarray(matrix, np.float32)
         self.n = int(matrix.shape[0])
         self.dim = int(matrix.shape[1]) if matrix.ndim == 2 and matrix.shape[1] else 1

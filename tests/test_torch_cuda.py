@@ -27,9 +27,13 @@ def _ragged_mask(b, s, rng):
     return (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
 
 
-# dh=20: the scalar-load path (dh % 8 != 0); dh=24, 160: zero-padded head dims
+# every case has a ragged mask; S = 512, 32, 1, 130 and S that are no multiple
+# of the 128- or 64-key tile; dh=20: the plain-load path (dh % 8 != 0);
+# dh=24, 32, 160: head dims zero-padded to the 64-column swizzle atom
 @pytest.mark.parametrize("b,s,heads,dh", [(2, 64, 2, 64), (3, 40, 4, 32), (2, 128, 12, 64),
-                                          (2, 70, 2, 20), (2, 100, 3, 24), (1, 96, 2, 160)])
+                                          (2, 70, 2, 20), (2, 100, 3, 24), (1, 96, 2, 160),
+                                          (2, 512, 2, 64), (4, 32, 12, 64), (3, 1, 2, 64), (2, 130, 2, 64),
+                                          (2, 300, 3, 32), (2, 257, 2, 20), (1, 333, 2, 160)])
 def test_encoder_attention_kernel_matches_plain(cuda_device, b, s, heads, dh):
     from comorag_torch.ops import attention
 

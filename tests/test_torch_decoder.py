@@ -288,7 +288,7 @@ def test_hf_llama_loader_matches_transformers(tmp_path):
     torch.manual_seed(3)
     model = LlamaForCausalLM(cfg).eval()
     model.save_pretrained(tmp_path / "tiny_llama3")
-    params, arch = tdec.load_hf_decoder_checkpoint(str(tmp_path / "tiny_llama3"))
+    params, arch = tdec.load_hf_decoder_checkpoint(str(tmp_path / "tiny_llama3"), device="cpu")
     assert arch.num_kv_heads == 2 and arch.rope_scaling == ("llama3", 8.0, 1.0, 4.0, 32.0)
     prompt = np.random.default_rng(5).integers(0, 128, size=48).tolist()
     with torch.no_grad():

@@ -73,11 +73,11 @@ def test_int4_matmul_plain_matches_jax_interpret(m):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def _tail_inputs(rng, m, hidden=512, inter=1024):
+def _tail_inputs(rng, m, hidden=512, inter=1024, gs=128):
     ctx = rng.standard_normal((m, hidden)).astype(np.float32)
     xres = rng.standard_normal((m, hidden)).astype(np.float32)
     nw = (1.0 + 0.1 * rng.standard_normal(hidden)).astype(np.float32)
-    mats = [_weights(rng, hidden, hidden), _weights(rng, hidden, 2 * inter), _weights(rng, inter, hidden)]
+    mats = [_weights(rng, hidden, hidden, gs), _weights(rng, hidden, 2 * inter, gs), _weights(rng, inter, hidden, gs)]
     return ctx, xres, nw, mats
 
 
@@ -95,6 +95,74 @@ def test_fused_tail_plain_matches_jax_interpret(m, act, unit_offset):
     got = tint4.int4_fused_layer_tail(torch.tensor(ctx), torch.tensor(xres), torch.tensor(nw), *tw,
                                       group_size=128, eps=1e-5, unit_offset=unit_offset, act=act)
     assert tuple(got.shape) == (m, 512)
+    np.testing.assert_allclose(got.numpy(), want, rtol=BF16_TOL, atol=BF16_TOL * np.abs(want).max())
+
+
+# the decoder's widths: Llama-3.1-8B (chip_smoke.py's server) and DecoderArch's default
+_WIDTHS = [(4096, 14336), (2048, 5632)]
+# the fused-tail kernel's geometry on an H100 as csrc/int4.cu builds it (the
+# library reports it: test_tail_geometry_is_the_kernels holds these on a card)
+_TILE_N = 128
+
+
+def _blocks_per_sm(m):
+    return 2 if m <= 32 else 1
+
+
+def _plan(m, hidden, inter, gs):
+    return tint4.tail_plan(m, hidden, inter, gs, 132, _TILE_N, _blocks_per_sm(m))
+
+
+@pytest.mark.parametrize("hidden,inter", _WIDTHS + [(1024, 2560), (512, 1024)])
+@pytest.mark.parametrize("m", [1, 8, 17, 64])
+@pytest.mark.parametrize("gs", [64, 128, 512])
+def test_tail_plan_splits_cover_k_once_on_group_boundaries(hidden, inter, m, gs):
+    plan = _plan(m, hidden, inter, gs)
+    assert gs % plan["k_step"] == 0  # a pipeline step never straddles a scale group
+    for name, k, n in (("o", hidden, hidden), ("gate_up", hidden, inter), ("down", inter, hidden)):
+        stage = plan["stages"][name]
+        assert stage["k"] == k and stage["tiles"] * plan["tile_n"] == n
+        bounds = stage["bounds"]
+        assert len(bounds) == stage["splits"] and stage["items"] == stage["tiles"] * stage["splits"]
+        assert bounds[0][0] == 0 and bounds[-1][1] == k
+        for (k0, k1), (n0, _) in zip(bounds, bounds[1:] + [(k, None)]):
+            assert k1 == n0 and k0 < k1 and k0 % gs == 0 and k1 % gs == 0
+
+
+@pytest.mark.parametrize("hidden,inter", _WIDTHS)
+@pytest.mark.parametrize("m", [8, 64])
+def test_tail_plan_fills_every_sm(hidden, inter, m):
+    plan = _plan(m, hidden, inter, 128)
+    for name, stage in plan["stages"].items():
+        assert stage["items"] >= 132, (name, stage["tiles"], stage["splits"])
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("act,unit_offset", [("silu", False), ("gelu_tanh", True), ("gelu", False)])
+def test_split_partials_in_plan_order_match_jax(m, act, unit_offset):
+    """The kernel's arithmetic on the CPU: each stage as fp32 partials over
+    the plan's K splits (here the most splits a 132-SM card is given at
+    this width), summed in split order, at the kernel's rounding points.
+    Held against JAX's fused-tail reference (its XLA route), which keeps
+    ctx, xn and h in fp32: each bf16 rounding errs relative to the sums it
+    feeds, hence the bf16 rule scaled to max |jax|, as for the plain tail."""
+    rng = np.random.default_rng(100 + m)
+    hidden, inter, gs = 512, 1024, 64
+    ctx, xres, nw, mats = _tail_inputs(rng, m, hidden, inter, gs)
+    jw = [a for _, j, _ in mats for a in map(jnp.asarray, j)]
+    want = np.asarray(jint4.int4_fused_layer_tail(
+        jnp.asarray(ctx), jnp.asarray(xres), jnp.asarray(nw), *jw, group_size=gs, eps=1e-5,
+        unit_offset=unit_offset, act=act, interpret=True))
+    plan = _plan(m, hidden, inter, gs)["stages"]
+    assert plan["o"]["splits"] > 1 and plan["down"]["splits"] > 1
+    (op, os_), (gp, gsc), (dp, ds) = (t for _, _, t in mats)
+    xmid = torch.tensor(xres) + tint4.split_partials_plain(torch.tensor(ctx), op, os_, gs, plan["o"]["bounds"])
+    normed = xmid * torch.rsqrt((xmid * xmid).mean(dim=-1, keepdim=True) + 1e-5)
+    w = torch.tensor(nw)
+    xn = normed * (1.0 + w) if unit_offset else normed * w
+    gu = tint4.split_partials_plain(xn, gp, gsc, gs, plan["gate_up"]["bounds"])
+    h = tint4.activation(gu[:, :inter], act) * gu[:, inter:]
+    got = xmid + tint4.split_partials_plain(h, dp, ds, gs, plan["down"]["bounds"])
     np.testing.assert_allclose(got.numpy(), want, rtol=BF16_TOL, atol=BF16_TOL * np.abs(want).max())
 
 
@@ -134,11 +202,12 @@ def test_int4_matmul_kernel_matches_plain(cuda_device, m, d_in, d_out, gs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 8, 17, 64])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 64])
 @pytest.mark.parametrize("act,unit_offset", [("silu", False), ("gelu_tanh", True), ("gelu", False)])
-def test_fused_tail_kernel_matches_plain(cuda_device, m, act, unit_offset):
+@pytest.mark.parametrize("hidden,inter", [(512, 1024), (1024, 2560)])
+def test_fused_tail_kernel_matches_plain(cuda_device, m, act, unit_offset, hidden, inter):
     rng = np.random.default_rng(m)
-    ctx, xres, nw, mats = _tail_inputs(rng, m)
+    ctx, xres, nw, mats = _tail_inputs(rng, m, hidden, inter)
     tw = [a.to(cuda_device) for _, _, t in mats for a in t]
     args = [torch.tensor(a, device=cuda_device) for a in (ctx, xres, nw)] + tw
     kw = dict(group_size=128, eps=1e-5, unit_offset=unit_offset, act=act)
@@ -150,6 +219,12 @@ def test_fused_tail_kernel_matches_plain(cuda_device, m, act, unit_offset):
     # sum in another order can flip one rounding, which the later products
     # carry: hence the rule scaled to the output's magnitude, as on the CPU
     _close(got, tint4.int4_fused_layer_tail_plain(*args, **kw), scaled=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 33, 64])
+def test_tail_geometry_is_the_kernels(cuda_device, m):
+    assert tint4._tail_geometry(cuda_device, m) == (_TILE_N, _blocks_per_sm(m))
 
 
 @pytest.mark.cuda
