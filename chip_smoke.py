@@ -14,7 +14,10 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      tests/test_tpu_compiled.py), and the median of 20 CUDA-event-timed
      samples of 10 calls each; attention beside SDPA with the same additive
      mask, its bound counting k and v up to each row's last valid key (the
-     kernel skips the key tiles after it: they add exactly 0);
+     kernel skips the key tiles after it: they add exactly 0); the FFN
+     beside its two products alone as torch.matmul runs them (a yardstick
+     of the tensor-core rate the port never calls), with its K splits and
+     the wrapper's host time per call (200 calls, no sync);
   4. the bert-base encoder (encode_pooled, B=64, S=512, seeded random
      weights) through the kernels vs the plain path: per-row cosine >= 0.999,
      texts/s of both;
@@ -183,6 +186,40 @@ def ragged_mask(b: int, s: int, gen: torch.Generator, device) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ phase 3
+def host_us(fn, calls: int = 200) -> float:
+    """Host wall time per call of ``calls`` back-to-back calls with no
+    sync (what the wrapper costs the thread that launches it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def ffn_inputs(n: int, device, h: int = 768, inter: int = 3072) -> tuple:
+    """encoder_ffn's arguments for n rows of bert-base activations: xres,
+    w1, w2 bf16 (weights of std 0.02), the vectors fp32, seeded."""
+    gen = torch.Generator().manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    xres = randn(n, h).to(torch.bfloat16)
+    w1, w2 = randn(h, inter, scale=0.02).to(torch.bfloat16), randn(inter, h, scale=0.02).to(torch.bfloat16)
+    b1, b2 = randn(inter, scale=0.02), randn(h, scale=0.02)
+    s1, n1, s2, n2 = 1.0 + randn(h, scale=0.1), randn(h, scale=0.1), 1.0 + randn(h, scale=0.1), randn(h, scale=0.1)
+    return xres, s1, n1, w1, b1, w2, b2, s2, n2
+
+
+def ffn_bound(n: int, h: int, inter: int) -> dict:
+    """x read and out written in bf16, both weights in bf16, vectors fp32;
+    two products."""
+    return bound(2 * n * h * 2 + 2 * h * inter * 2 + (5 * h + inter) * 4, 4 * n * h * inter, "bf16")
+
+
 def phase_kernels(device, b: int, s: int) -> dict:
     """Both kernels vs their plain versions on a [b, s] batch of bert-base
     activations (h 768, 12 heads, FFN 3072)."""
@@ -232,21 +269,25 @@ def phase_kernels(device, b: int, s: int) -> dict:
     attn["max_abs_err"] = max(attn["max_abs_err"], attn["full_mask_max_abs_err"])
     del got, ref, q, k, v, qh, kh, vh
 
-    xres = randn(b * s, h).to(torch.bfloat16)
-    w1, w2 = randn(h, inter, scale=0.02).to(torch.bfloat16), randn(inter, h, scale=0.02).to(torch.bfloat16)
-    b1, b2 = randn(inter, scale=0.02), randn(h, scale=0.02)
-    s1, n1, s2, n2 = 1.0 + randn(h, scale=0.1), randn(h, scale=0.1), 1.0 + randn(h, scale=0.1), randn(h, scale=0.1)
-    args = (xres, s1, n1, w1, b1, w2, b2, s2, n2)
+    args = ffn_inputs(b * s, device)
     got = ffn.encoder_ffn(*args)
     ref = ffn.encoder_ffn_plain(*args)
+    xres, s1, n1, w1, b1, w2 = args[:6]
+    x1 = ffn.layer_norm(xres.float(), s1, n1, 1e-12).to(torch.bfloat16)
+    mid = torch.nn.functional.gelu(torch.matmul(x1, w1).float() + b1).to(torch.bfloat16)
     mlp = {
         "max_abs_err": compare(got, ref, "encoder_ffn"),
         "ms": median_ms(lambda: ffn.encoder_ffn(*args)),
         "plain_ms": median_ms(lambda: ffn.encoder_ffn_plain(*args)),
         "library_ms": None,  # no single PyTorch call computes LN-FFN-residual-LN
-        # x read and out written in bf16, both weights in bf16, vectors fp32; two products
-        **bound(2 * b * s * h * 2 + 2 * h * inter * 2 + (5 * h + inter) * 4, 4 * b * s * h * inter, "bf16"),
+        # the yardstick of the tensor-core rate: the two products alone, as torch.matmul runs them
+        "products_library_ms": median_ms(lambda: (torch.matmul(x1, w1), torch.matmul(mid, w2))),
+        "host_us": host_us(lambda: ffn.encoder_ffn(*args)),
+        "splits": ffn.ffn_plan(b * s, h, inter, ffn._sm_count(device), *ffn._tiles())["splits"],
+        **ffn_bound(b * s, h, inter),
     }
+    mlp["roofline_share"] = mlp["bound_ms"] / mlp["ms"]
+    del got, ref, x1, mid, args
     print(f"phase 3 kernels vs plain (bf16, tol 2e-2 + 2e-2*|plain|): "
           f"attention [{b},{s},{h}]x{heads} heads max_abs_err={attn['max_abs_err']:.4g} "
           f"kernel {attn['ms']:.4f} ms plain {attn['plain_ms']:.4f} ms sdpa {attn['library_ms']:.4f} ms "
@@ -256,7 +297,9 @@ def phase_kernels(device, b: int, s: int) -> dict:
           f"({attn['full_mask_bound_by']}) | "
           f"ffn [{b * s},{h}]->{inter} max_abs_err={mlp['max_abs_err']:.4g} "
           f"kernel {mlp['ms']:.4f} ms plain {mlp['plain_ms']:.4f} ms "
-          f"bound {mlp['bound_ms']:.4f} ms ({mlp['bound_by']})", flush=True)
+          f"bound {mlp['bound_ms']:.4f} ms ({mlp['bound_by']}) share {mlp['roofline_share']:.3f} "
+          f"products alone (torch.matmul) {mlp['products_library_ms']:.4f} ms; {mlp['splits']} K split(s); "
+          f"wrapper host {mlp['host_us']:.1f} us a call", flush=True)
     return {"encoder_attention": attn, "encoder_ffn": mlp}
 
 
@@ -1156,7 +1199,9 @@ def main() -> None:
         entries.append({"name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
                         "launches": slice_out["launches"][name], **kernels[name],
                         "max_abs_err": max(kernels[name]["max_abs_err"], small[name]["max_abs_err"]),
-                        "small_batch_ms": small[name]["ms"], "small_batch_plain_ms": small[name]["plain_ms"]})
+                        **{f"small_batch_{k}": small[name][k]
+                           for k in ("ms", "plain_ms", "bound_ms", "products_library_ms", "host_us", "splits")
+                           if k in small[name]}})
     for counter, replaces, run in ((mips.LAUNCHES, mips.REPLACES, "fp32"),
                                    (mips.INT8_LAUNCHES, mips.INT8_REPLACES, "int8")):
         name = counter.name

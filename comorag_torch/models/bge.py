@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from comorag_torch.device import HostCopy
+from comorag_torch.device import HostCopy, resolve_device
 from comorag_torch.ops.attention import encoder_attention, encoder_attention_plain
 from comorag_torch.ops.ffn import encoder_ffn, fused_ffn_supported, layer_norm
 from comorag_torch.models.base import BaseEncoder
@@ -301,7 +301,7 @@ class BGETorchEncoder(BaseEncoder):
             params, arch = load_hf_checkpoint(model_name_or_path)
         arch = arch or params.arch
         self.arch = arch
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.model = params.to(self.device).cast_matrices_(compute_dtype).eval()
         self.fingerprint_extra = (

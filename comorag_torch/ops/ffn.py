@@ -1,25 +1,33 @@
-"""Fused encoder FFN half-layer: LN -> x@W1+b1 -> GELU -> @W2+b2 -> residual -> LN.
+"""Encoder FFN half-layer: LN -> x@W1+b1 -> GELU -> @W2+b2 -> residual -> LN.
 
 Port of ``comorag_tpu/ops/pallas_ffn.py`` (``fused_encoder_ffn`` :112).
-``encoder_ffn`` launches the hand-written Hopper kernel
-(``csrc/encoder_ffn.cu``) for CUDA tensors and runs ``encoder_ffn_plain``
-for CPU tensors; there is no fallback from one to the other.
+``encoder_ffn`` launches the hand-written Hopper kernels
+(``csrc/encoder_ffn.cu``: two row passes around one wgmma GEMM used for
+both products, with the second product's K splits chosen by ``ffn_plan``)
+for CUDA tensors and runs ``encoder_ffn_plain`` for CPU tensors; there is
+no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
 from comorag_torch.ops import build
+# [k0, k1) of each K split, cut on multiples of a step as every split-K kernel of the port cuts them
+from comorag_torch.ops.int4 import split_bounds
 
 LAUNCHES = build.LaunchCounter("encoder_ffn")
 SOURCE = "comorag_torch/csrc/encoder_ffn.cu"
 REPLACES = "comorag_tpu/ops/pallas_ffn.py:112"
 
 _KERNEL_HIDDEN = (128, 256, 384, 512, 640, 768, 896, 1024)
+# the H100 SXM's published dense bf16 rate and memory rate, for ffn_plan's choice of splits
+_PEAK_FLOPS = 989e12
+_HBM_BYTES_PER_S = 3.35e12
 
 
 def layer_norm(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
@@ -32,9 +40,9 @@ def layer_norm(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: 
 
 
 def fused_ffn_supported(hidden: int, inter: int) -> bool:
-    """Shapes the kernel takes: hidden a multiple of 128 up to 1024 (the
-    warps split hidden's output columns in 16-wide fragments) and inter a
-    multiple of 128 (the chunk width of the mid tile)."""
+    """Shapes the kernel takes: hidden a multiple of 128 up to 1024 (a
+    row pass holds a row in one warp, 4 columns a lane per 128) and inter a
+    multiple of 128."""
     return hidden in _KERNEL_HIDDEN and inter % 128 == 0
 
 
@@ -57,6 +65,61 @@ def encoder_ffn_plain(xres, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale, ln2_
     return out.to(dt).reshape(shape)
 
 
+def encoder_ffn_split_plain(xres, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale, ln2_bias, bounds,
+                            eps: float = 1e-12) -> torch.Tensor:
+    """The kernel's order of work in plain PyTorch: both products with fp32
+    sums of the operands as rounded to xres's dtype, the second as one fp32
+    partial per K range of ``bounds`` (``ffn_plan``'s ``bounds``), summed
+    in split order; the rounding points of ``encoder_ffn_plain``."""
+    shape = xres.shape
+    dt = xres.dtype
+    xr = xres.reshape(-1, shape[-1])
+    x1 = layer_norm(xr.float(), ln1_scale.float(), ln1_bias.float(), eps).to(dt)
+    mid = torch.matmul(x1.float(), w1.to(dt).float()) + b1.float()
+    mid = torch.nn.functional.gelu(mid, approximate="none").to(dt).float()
+    w2f = w2.to(dt).float()
+    f = None
+    for k0, k1 in bounds:
+        part = torch.matmul(mid[:, k0:k1], w2f[k0:k1])
+        f = part if f is None else f + part
+    out = layer_norm(x1.float() + (f + b2.float()), ln2_scale.float(), ln2_bias.float(), eps)
+    return out.to(dt).reshape(shape)
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_plan(n: int, hidden: int, inter: int, sm_count: int, tile_m: int, tile_n: int, k_step: int) -> dict:
+    """The kernel's work on a card of ``sm_count`` SMs, given its GEMM's
+    work item of ``tile_m`` x ``tile_n`` outputs and ``k_step`` K a stage
+    (as the built library reports them, ``_tiles``): output tiles per
+    product, the K splits of the second product and their bounds, the
+    workspace bytes.
+
+    The second product's output [n, hidden] is narrow. Where its tiles do
+    not fill the card, its K (inter) is split so that more SMs work; each
+    split writes an fp32 partial that the finishing row pass reads back.
+    The split count is the one with the least time at the card's published
+    peaks: waves of (tile, split) items over the SMs, each item its K
+    blocks plus one for its fill and epilogue, plus the partials written
+    and read once. Ties go to fewer splits; a product whose tiles fill the
+    card is not split."""
+    row_tiles = -(-n // tile_m)
+    tiles1 = row_tiles * -(-inter // tile_n)
+    tiles2 = row_tiles * -(-hidden // tile_n)
+    blocks = inter // k_step
+    block_s = 2.0 * tile_m * tile_n * k_step * sm_count / _PEAK_FLOPS
+    splits, best = 1, None
+    for s in range(1, blocks + 1 if tiles2 < sm_count else 2):
+        cost = -(-tiles2 * s // sm_count) * (-(-blocks // s) + 1) * block_s + 2 * s * n * hidden * 4 / _HBM_BYTES_PER_S
+        if best is None or cost < best:
+            splits, best = s, cost
+    return {
+        "n": n, "tile_m": tile_m, "tile_n": tile_n, "k_step": k_step,
+        "gemm1_tiles": tiles1, "gemm2_tiles": tiles2, "splits": splits,
+        "bounds": split_bounds(inter, k_step, splits),
+        "workspace_bytes": {"x1": n * hidden * 2, "mid": n * inter * 2, "partials": splits * n * hidden * 4},
+    }
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -67,12 +130,18 @@ def _lib() -> ctypes.CDLL:
     fn = lib.comorag_encoder_ffn_bf16
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        ws = lib.comorag_encoder_ffn_workspace_bytes
-        ws.restype = ctypes.c_longlong
-        ws.argtypes = [ctypes.c_int] * 4
+        lib.comorag_encoder_ffn_tile.restype = ctypes.c_int
+        lib.comorag_encoder_ffn_tile.argtypes = [ctypes.c_int]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tiles() -> Tuple[int, int, int]:
+    """(tile rows, tile columns, K a stage) of the built kernel's GEMM."""
+    lib = _lib()
+    return tuple(lib.comorag_encoder_ffn_tile(i) for i in range(3))
 
 
 def encoder_ffn(
@@ -117,22 +186,22 @@ def encoder_ffn(
     for name, t in tensors.items():
         if t.device != xres.device or not t.is_contiguous():
             raise ValueError(f"encoder_ffn: {name} must be contiguous on {xres.device}")
-        if t.data_ptr() % 32:
-            raise ValueError(f"encoder_ffn: {name} must be 32-byte aligned for WMMA loads")
+        if t.data_ptr() % 16:
+            raise ValueError(f"encoder_ffn: {name} must be 16-byte aligned for TMA and vector loads")
     n = xres.numel() // h
-    out = torch.empty_like(xres)
     lib = _lib()
-    # few row tiles: the kernel splits the intermediate dim over more
-    # blocks and sums their partial products through this fp32 workspace
     sm_count = _sm_count(xres.device)
-    ws_bytes = lib.comorag_encoder_ffn_workspace_bytes(n, h, inter, sm_count)
-    workspace = (torch.empty(ws_bytes, dtype=torch.uint8, device=xres.device)
-                 if ws_bytes > 0 else None)
+    plan = ffn_plan(n, h, inter, sm_count, *_tiles())
+    dev = xres.device
+    out = torch.empty_like(xres)
+    x1 = torch.empty(n, h, dtype=torch.bfloat16, device=dev)
+    mid = torch.empty(n, inter, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(plan["splits"], n, h, dtype=torch.float32, device=dev)
     rc = lib.comorag_encoder_ffn_bf16(
         xres.data_ptr(), ln1_scale.data_ptr(), ln1_bias.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln2_scale.data_ptr(),
-        ln2_bias.data_ptr(), out.data_ptr(), None if workspace is None else workspace.data_ptr(),
-        n, h, inter, float(eps), sm_count, torch.cuda.current_stream(xres.device).cuda_stream,
+        ln2_bias.data_ptr(), out.data_ptr(), x1.data_ptr(), mid.data_ptr(), part.data_ptr(),
+        n, h, inter, plan["splits"], float(eps), sm_count, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "encoder_ffn")
     LAUNCHES.add()

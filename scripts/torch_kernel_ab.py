@@ -1,18 +1,21 @@
-"""A/B timing of comorag_torch's encoder attention and int4 fused layer
-tail against an earlier version of the same CUDA sources, in one process
-on one card.
+"""A/B timing of comorag_torch's encoder FFN, encoder attention and int4
+fused layer tail against an earlier version of the same CUDA sources, in
+one process on one card.
 
     git archive <commit> comorag_torch/csrc | tar -x -C build/ab_old
-    python scripts/torch_kernel_ab.py --old-csrc build/ab_old/comorag_torch/csrc
+    python scripts/torch_kernel_ab.py --old-csrc build/ab_old/comorag_torch/csrc [--kernels ffn attention tail]
 
 The earlier sources are built with the same nvcc flags into the build
 directory. Each kernel runs through the same wrapper for both (the library
-is swapped under ``ops.attention`` and ``ops.int4``), except a fused tail
-with the first design's C interface (commit a8e4f4b: no
-``comorag_int4_tail_tile_n``), which is called directly, with its
-workspaces made once outside the timed loop. Times are medians of CUDA-event samples (chip_smoke's
-``median_ms``), taken in turns: earlier, current, current, earlier. Prints
-one JSON line per shape and the card's nvidia-smi name and power limit.
+is swapped under ``ops.ffn``, ``ops.attention`` and ``ops.int4``), except
+where the earlier source has another C interface, which is then called
+directly, with its workspaces made once outside the timed loop: a fused
+tail with the first design's (commit a8e4f4b: no
+``comorag_int4_tail_tile_n``) and an FFN with the fused mma.sync design's
+(up to commit 864f5f5: no ``comorag_encoder_ffn_tile``). Times are
+medians of CUDA-event samples (chip_smoke's ``median_ms``), taken in
+turns: earlier, current, current, earlier. Prints one JSON line per shape
+and the card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
@@ -23,14 +26,16 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from chip_smoke import llama_8b, median_ms, nvidia_smi_line, ragged_mask, rule_ratio, tail_bound  # noqa: E402
-from comorag_torch.ops import attention, build, int4  # noqa: E402
+from chip_smoke import (ffn_bound, ffn_inputs, llama_8b, median_ms, nvidia_smi_line, ragged_mask,  # noqa: E402
+                        rule_ratio, tail_bound)
+from comorag_torch.ops import attention, build, ffn, int4  # noqa: E402
 
 
 def build_old(csrc: str, name: str) -> ctypes.CDLL:
@@ -76,6 +81,47 @@ def attention_ab(old_lib: ctypes.CDLL, device) -> list:
                             through_wrapper("encoder_attention", new_lib, run))}
             rows.append(r)
     build._libs["encoder_attention"] = new_lib
+    return rows
+
+
+def ffn_ab(old_lib: ctypes.CDLL, device) -> list:
+    new_lib = ffn._lib()
+    same_interface = hasattr(old_lib, "comorag_encoder_ffn_tile")
+    if not same_interface:
+        fn = old_lib.comorag_encoder_ffn_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ws = old_lib.comorag_encoder_ffn_workspace_bytes
+        ws.restype = ctypes.c_longlong
+        ws.argtypes = [ctypes.c_int] * 4
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = []
+    for b, s in ((64, 512), (32, 32)):
+        args = ffn_inputs(b * s, device)
+        n, h, inter = b * s, args[0].shape[1], args[3].shape[1]
+        out = torch.empty_like(args[0])
+        ws_bytes = 0 if same_interface else old_lib.comorag_encoder_ffn_workspace_bytes(n, h, inter, sms)
+        workspace = torch.empty(max(ws_bytes, 1), dtype=torch.uint8, device=device)
+
+        def old():
+            rc = fn(*(a.data_ptr() for a in args), out.data_ptr(), workspace.data_ptr() if ws_bytes > 0 else None,
+                    n, h, inter, 1e-12, sms, torch.cuda.current_stream(device).cuda_stream)
+            build.check(old_lib, rc, "earlier encoder_ffn")
+            return out
+
+        def new():
+            return ffn.encoder_ffn(*args)
+
+        if same_interface:
+            old = through_wrapper("encoder_ffn", old_lib, new)
+        plain = ffn.encoder_ffn_plain(*args)
+        ear = old().clone()
+        build._libs["encoder_ffn"] = new_lib
+        cur = new()
+        rows.append({"kernel": "encoder_ffn", "shape": [n, h], "inter": inter, **ffn_bound(n, h, inter),
+                     **in_turns(old, through_wrapper("encoder_ffn", new_lib, new)),
+                     "earlier_rule_ratio": rule_ratio(ear, plain), "current_rule_ratio": rule_ratio(cur, plain)})
+    build._libs["encoder_ffn"] = new_lib
     return rows
 
 
@@ -141,17 +187,27 @@ def tail_ab(old_lib: ctypes.CDLL, device) -> list:
     return rows
 
 
+# kernel -> (its csrc source, its A/B)
+RUNS = {"attention": ("encoder_attention", attention_ab), "ffn": ("encoder_ffn", ffn_ab),
+        "tail": ("int4", tail_ab)}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--old-csrc", required=True, help="directory holding the earlier csrc/*.cu and *.cuh")
+    p.add_argument("--kernels", nargs="+", choices=sorted(RUNS), default=sorted(RUNS),
+                   help="which kernels to time (default: all)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: needs a CUDA card")
     device = torch.device("cuda", 0)
-    build.load_all(("encoder_attention", "int4"))
-    old_attn, old_int4 = build_old(args.old_csrc, "encoder_attention"), build_old(args.old_csrc, "int4")
-    for row in attention_ab(old_attn, device) + tail_ab(old_int4, device):
-        print(json.dumps(row), flush=True)
+    sources = [RUNS[k][0] for k in args.kernels]
+    build.load_all(sources)
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        old_libs = list(pool.map(lambda name: build_old(args.old_csrc, name), sources))
+    for k, old_lib in zip(args.kernels, old_libs):
+        for row in RUNS[k][1](old_lib, device):
+            print(json.dumps(row), flush=True)
     print(nvidia_smi_line())
 
 

@@ -51,29 +51,61 @@ def test_encoder_attention_kernel_matches_plain(cuda_device, b, s, heads, dh):
                                atol=2e-2, rtol=2e-2)
 
 
-# 32-row tiles (h=128, 256) and 48-row tiles (h divisible by 192), ragged row counts
-@pytest.mark.parametrize("n,h,inter", [(128, 128, 256), (100, 256, 512), (40, 384, 256),
-                                       (64, 768, 3072), (77, 1024, 4096)])
-def test_encoder_ffn_kernel_matches_plain(cuda_device, n, h, inter):
-    from comorag_torch.ops import ffn
-
-    rng = np.random.default_rng(1)
-
+def _ffn_inputs(rng, n, h, inter, device):
     def t(shape, scale=1.0, dtype=torch.float32):
-        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device=cuda_device)
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device=device)
 
     xres = t((n, h), dtype=torch.bfloat16)
     w1 = t((h, inter), 0.05, torch.bfloat16)
     w2 = t((inter, h), 0.05, torch.bfloat16)
     s1, n1, s2, n2 = 1.0 + t((h,), 0.1), t((h,), 0.1), 1.0 + t((h,), 0.1), t((h,), 0.1)
     b1, b2 = t((inter,), 0.1), t((h,), 0.1)
+    return xres, s1, n1, w1, b1, w2, b2, s2, n2
+
+
+# ragged row counts (no multiple of the 128-row tile), hidden sizes that are
+# no multiple of the tile's columns (128, 384), and plans with and without K
+# splits of the second product (on 132 SMs: 4,100 rows at h >= 768 fill the
+# card unsplit; the others split)
+@pytest.mark.parametrize("n,h,inter", [(128, 128, 256), (100, 256, 512), (40, 384, 256), (64, 768, 3072),
+                                       (77, 1024, 4096)]
+                         + [(n, h, 4 * h) for n in (77, 1000, 4100) for h in (128, 384, 768, 1024)])
+def test_encoder_ffn_kernel_matches_plain(cuda_device, n, h, inter):
+    from comorag_torch.ops import ffn
+
+    args = _ffn_inputs(np.random.default_rng(1), n, h, inter, cuda_device)
     before = ffn.LAUNCHES.value
-    got = ffn.encoder_ffn(xres, s1, n1, w1, b1, w2, b2, s2, n2)
+    got = ffn.encoder_ffn(*args)
     torch.cuda.synchronize()
     assert ffn.LAUNCHES.value == before + 1
-    ref = ffn.encoder_ffn_plain(xres, s1, n1, w1, b1, w2, b2, s2, n2)
+    ref = ffn.encoder_ffn_plain(*args)
     np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
                                atol=2e-2, rtol=2e-2)
+    plan = ffn.ffn_plan(n, h, inter, ffn._sm_count(cuda_device), *ffn._tiles())
+    split_ref = ffn.encoder_ffn_split_plain(*args, plan["bounds"])
+    np.testing.assert_allclose(got.float().cpu().numpy(), split_ref.float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+
+
+# the library called with each split count, whatever the plan would choose
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 48])
+def test_encoder_ffn_every_split_count_matches_plain(cuda_device, splits):
+    from comorag_torch.ops import build, ffn
+
+    n, h, inter = 300, 768, 3072
+    args = _ffn_inputs(np.random.default_rng(2), n, h, inter, cuda_device)
+    lib = ffn._lib()
+    out = torch.empty_like(args[0])
+    x1 = torch.empty(n, h, dtype=torch.bfloat16, device=cuda_device)
+    mid = torch.empty(n, inter, dtype=torch.bfloat16, device=cuda_device)
+    part = torch.empty(splits, n, h, device=cuda_device)
+    rc = lib.comorag_encoder_ffn_bf16(*(a.data_ptr() for a in args), out.data_ptr(), x1.data_ptr(),
+                                      mid.data_ptr(), part.data_ptr(), n, h, inter, splits, 1e-12,
+                                      ffn._sm_count(cuda_device), torch.cuda.current_stream().cuda_stream)
+    build.check(lib, rc, "encoder_ffn")
+    torch.cuda.synchronize()
+    ref = ffn.encoder_ffn_split_plain(*args, ffn.split_bounds(inter, ffn._tiles()[2], splits))
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(), atol=2e-2, rtol=2e-2)
 
 
 def _normalized(rng, shape):

@@ -8,7 +8,7 @@ import torch
 
 from comorag_torch.cluster.raptor import SemanticTree
 from comorag_torch.config import ComoConfig
-from comorag_torch.models import decoder
+from comorag_torch.models import bge, decoder
 from comorag_torch.ops.ppr import PPRGraph
 from comorag_torch.retrieval.engine import RetrievalEngine
 from comorag_torch.retrieval.index import MipsIndex
@@ -33,6 +33,11 @@ def _semantic_tree(tmp_path, **kw):
     return SemanticTree(encoder=None, summarizer=None, **kw)
 
 
+def _bge_encoder(tmp_path, **kw):
+    params = bge.init_params(bge.EncoderArch.tiny(), torch.Generator().manual_seed(0))
+    return bge.BGETorchEncoder(params=params, **kw)
+
+
 def _hf_checkpoint(tmp_path, **kw):
     from transformers import LlamaConfig, LlamaForCausalLM
 
@@ -45,6 +50,7 @@ def _hf_checkpoint(tmp_path, **kw):
 
 
 ENTRY_POINTS = {
+    "BGETorchEncoder": _bge_encoder,
     "MipsIndex": _mips_index,
     "RetrievalEngine": _retrieval_engine,
     "PPRGraph": _ppr_graph,
