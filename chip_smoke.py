@@ -51,16 +51,22 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      in bf16 (random packed weights, scales for weights of std ~0.02):
      int4_matmul at M = 8 (qkv 4096->6144, lm_head 4096->128256) and
      M = 4096 (qkv, o 4096->4096, gate/up 4096->28672, down 14336->4096),
-     int4_fused_layer_tail at M = 8 and 64, under the bf16 rule; kernel ms
+     and at phase 11's tiny lm_head (256->259, the mma_sync route) at M = 2
+     and 512, int4_fused_layer_tail at M = 8 and 64, under the bf16 rule; kernel ms
      (cycling through 32 layers' weights, past the 50 MB L2), plain ms,
-     bound ms and what sets it, roofline share;
+     bound ms and what sets it, roofline share; for int4_matmul also its
+     route (ops/int4.int4_matmul_route) and K splits, the wrapper's host
+     time per call (200 calls, no sync) and two yardsticks that are not the
+     same function: bf16 torch.matmul on the dequantized weight and
+     torch._weight_int4pack_mm (bf16 scales and output) where this torch
+     has it, else "none" and why; that one is int4_matmul's library_ms;
  10. the generation server at Llama-3.1-8B width (32 layers, seeded random
      bf16 weights made on the card, int4 with group 128):
      GenerationServer(TorchOfflineLLM(param_dtype="int4", bf16 compute))
      answers 8 requests submitted from 8 threads at once (512-token prompt
      bucket, 64 new tokens); no response is an error, every response has
      completion tokens, both int4 kernels launched; prefill and decode
-     tok/s and the llm.* counters, then the same batch on the int4 plain
+     tok/s, int4_matmul's launches per route and the llm.* counters, then the same batch on the int4 plain
      path and on bf16 weights (torch.matmul); the requests' last-prompt
      logits (int4_matmul) and first decode step's logits (the fused tail)
      through the kernels against the plain versions in fp32 compute
@@ -73,8 +79,10 @@ Phases, one line each (any failed check raises and the exit code is not 0):
  11. the jax-tiny route on the card: ``python -m comorag_torch.cli.run
      --llm_name jax-tiny --device cuda`` over dataset/moonlantern (answers
      back, entity and fact stores non-empty), the tiny engine on int4
-     weights (int4_matmul launches, the fused tail's gate is false at
-     H = 256), speculative decoding equal to plain greedy.
+     weights (int4_matmul launches on its mma_sync route among others, the
+     fused tail's gate is false at H = 256; the first call of each route
+     and shape is held against int4_matmul_plain at its own inputs),
+     speculative decoding equal to plain greedy.
 Then it checks that no module of jax or of the JAX package was loaded, and
 prints the kernels JSON line (every kernel with its launches on the main
 path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms), the
@@ -710,6 +718,21 @@ def llama_8b(layers: int = 32) -> decoder.DecoderArch:
                                rope_scaling=("llama3", 8.0, 1.0, 4.0, 8192.0))
 
 
+# int4_matmul's main-path shapes: (M, weight) at decode and at prefill
+INT4_MATMUL_SHAPES = ((8, "qkv"), (8, "lm_head"), (4096, "qkv"), (4096, "o"), (4096, "gate_up"), (4096, "down"))
+# phase 11's tiny engine's lm_head (hidden 256 -> a 259-token vocabulary:
+# the mma_sync route) at decode (a batch of 2) and a 512-token prefill chunk
+TINY_HEAD_SHAPES = ((2, "tiny_lm_head"), (512, "tiny_lm_head"))
+
+
+def int4_matmul_dims(arch, name: str) -> tuple:
+    """(K, N) of one of the decoder's int4 products at ``arch``'s widths."""
+    h, inter = arch.hidden_size, arch.intermediate_size
+    qkv = (arch.num_heads + 2 * arch.num_kv_heads) * arch.head_dim
+    return {"qkv": (h, qkv), "o": (h, h), "gate_up": (h, 2 * inter), "down": (inter, h),
+            "lm_head": (h, arch.vocab_size), "tiny_lm_head": (256, 259)}[name]
+
+
 def cycling(fn, n: int):
     """A call that walks ``fn(0), fn(1), ...`` round-robin over n layers'
     weights, so a timing does not run out of the 50 MB L2."""
@@ -733,41 +756,83 @@ def tail_bound(m: int, h: int, i: int, gs: int = 128) -> dict:
     return bound(m * h * (2 + 4 + 4) + h * 4 + weights, 2 * m * (h * h + h * 2 * i + i * h), "bf16")
 
 
+def matmul_splits(device, m: int, k: int, n: int, route: str) -> int:
+    """K splits of the route's launch: matmul_plan's on the split-K route, else 1."""
+    if route != "splitk":
+        return 1
+    return int4.matmul_plan(m, k, n, 128, int4._sm_count(device), *int4._splitk_geometry(device, m))["splits"]
+
+
+def int4_yardsticks(x, packed, scales, ref, gs: int = 128) -> dict:
+    """Two PyTorch calls beside int4_matmul, neither the same function: bf16
+    torch.matmul on the dequantized weight (rounds the weight, and sums
+    across groups, otherwise), and torch._weight_int4pack_mm (tinygemm:
+    scales rounded to bf16, bf16 output) where this torch has it for CUDA,
+    else "none" and why. Times of one weight (not cycled)."""
+    wd = int4.dequantize_int4(packed, scales, gs).to(torch.bfloat16)
+    out = {"bf16_matmul_ms": median_ms(lambda: torch.matmul(x, wd), runs=10)}
+    del wd
+    if packed.shape[1] % 8:
+        out["int4pack_mm"] = f"none (tinygemm packs 8-column tiles; N = {packed.shape[1]} is no multiple of 8)"
+        out["int4pack_mm_ms"] = None
+        return out
+    try:
+        q = (int4.unpack_rows(packed) + 8).t().contiguous()  # [N, K] in 0..15: w = (q - 8) * scale
+        w_uint8 = ((q[:, 0::2] << 4) | q[:, 1::2]).to(torch.uint8).contiguous()
+        wq = torch._convert_weight_to_int4pack(w_uint8, 8)
+        sz = torch.stack([scales.to(torch.bfloat16), torch.zeros_like(scales, dtype=torch.bfloat16)], -1).contiguous()
+        got = torch._weight_int4pack_mm(x, wq, gs, sz)
+        torch.cuda.synchronize()
+        ms = median_ms(lambda: torch._weight_int4pack_mm(x, wq, gs, sz), runs=10)
+        out["int4pack_mm"] = (f"{ms:.4f} ms (max abs diff from plain {float((got.float() - ref).abs().max()):.4g}, "
+                              f"worst ratio to the bf16 rule {rule_ratio(got, ref):.3f})")
+        out["int4pack_mm_ms"] = ms
+        del q, w_uint8, wq, got
+    except Exception as e:  # a yardstick only: its absence is reported, never fatal
+        out["int4pack_mm"] = f"none ({type(e).__name__}: {str(e)[:120]})"
+        out["int4pack_mm_ms"] = None
+    return out
+
+
 def phase_int4_kernels(device) -> dict:
     """Both int4 kernels against their plain versions at Llama-3.1-8B's
     shapes (random packed weights, scales giving weights of std ~0.02):
     int4_matmul at decode (M = 8: qkv, lm_head) and prefill (M = 4096: qkv,
-    o, gate/up, down), the fused tail at M = 8 and 64. Kernel times cycle
-    through 32 layers' weights."""
+    o, gate/up, down), and at the tiny engine's lm_head (the mma_sync
+    route); the fused tail at M = 8 and 64. Kernel times cycle through 32
+    layers' weights."""
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     arch = llama_8b()
     h, inter, layers = arch.hidden_size, arch.intermediate_size, arch.num_layers
-    qkv_out = (arch.num_heads + 2 * arch.num_kv_heads) * arch.head_dim
 
     def weights(k, n, count):
         packed = torch.randint(-128, 128, (count, k // 2, n), generator=gen, device=device, dtype=torch.int8)
         scales = torch.empty(count, k // 128, n, device=device).uniform_(0.003, 0.006, generator=gen)
         return packed, scales
 
-    w = {"qkv": weights(h, qkv_out, layers), "o": weights(h, h, layers),
-         "gate_up": weights(h, 2 * inter, layers), "down": weights(inter, h, layers),
-         "lm_head": weights(h, arch.vocab_size, 1)}
+    w = {name: weights(*int4_matmul_dims(arch, name), 1 if name.endswith("lm_head") else layers)
+         for name in ("qkv", "o", "gate_up", "down", "lm_head", "tiny_lm_head")}
     mm = []
-    for m, name in ((8, "qkv"), (8, "lm_head"), (4096, "qkv"), (4096, "o"), (4096, "gate_up"), (4096, "down")):
+    for m, name in INT4_MATMUL_SHAPES + TINY_HEAD_SHAPES:
         packed, scales = w[name]
         k, n = packed.shape[1] * 2, packed.shape[2]
         x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
         got = int4.int4_matmul(x, packed[0], scales[0])
         ref = int4.int4_matmul_plain(x, packed[0], scales[0])
         torch.cuda.synchronize()
-        r = {"M": m, "weight": name, "K": k, "N": n,
+        route = int4.int4_matmul_route(m, n)
+        r = {"M": m, "weight": name, "K": k, "N": n, "route": route, "splits": matmul_splits(device, m, k, n, route),
              "max_abs_err": compare(got, ref, f"int4_matmul M={m} {name}"),
              "ms": median_ms(cycling(lambda i: int4.int4_matmul(x, packed[i], scales[i]), packed.shape[0])),
              "plain_ms": median_ms(lambda: int4.int4_matmul_plain(x, packed[0], scales[0]), runs=3, reps=1, warmup=1),
-             "library_ms": None, **int4_bound(m, k, n)}
+             "host_us": host_us(lambda: int4.int4_matmul(x, packed[0], scales[0])),
+             **int4_yardsticks(x, packed[0], scales[0], ref), **int4_bound(m, k, n)}
+        # the library call: tinygemm, the same formula ((q - 8) * scale a group) with bf16 scales and output
+        r["library_ms"] = r["int4pack_mm_ms"]
         r["roofline_share"] = r["bound_ms"] / r["ms"]
         mm.append(r)
         del got, ref, x
+        torch.cuda.empty_cache()
     tail = []
     for m in (8, 64):
         ctx = torch.randn(m, h, generator=gen, device=device).to(torch.bfloat16)
@@ -792,12 +857,18 @@ def phase_int4_kernels(device) -> dict:
     del w
     torch.cuda.empty_cache()
     for r in mm + tail:
-        what = (f"int4_matmul M={r['M']} {r['weight']} {r['K']}->{r['N']}" if "weight" in r
+        what = (f"int4_matmul M={r['M']} {r['weight']} {r['K']}->{r['N']} route {r['route']} "
+                f"({r['splits']} K split(s))" if "weight" in r
                 else f"int4_fused_layer_tail M={r['M']} H={r['H']} I={r['I']}")
         ratio = f" (worst ratio to the rule {r['rule_ratio']:.3f})" if "rule_ratio" in r else ""
+        extra = ""
+        if "weight" in r:
+            extra = (f"; wrapper host {r['host_us']:.1f} us a call; yardsticks (not this function): bf16 torch.matmul "
+                     f"on the dequantized weight {r['bf16_matmul_ms']:.4f} ms, torch._weight_int4pack_mm "
+                     f"{r['int4pack_mm']}")
         print(f"phase 9 {what}: max_abs_err={r['max_abs_err']:.4g}{ratio} kernel {r['ms']:.4f} ms plain "
               f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}) roofline share "
-              f"{r['roofline_share']:.3f}", flush=True)
+              f"{r['roofline_share']:.3f}{extra}", flush=True)
     return {"int4_matmul": mm, "int4_fused_layer_tail": tail}
 
 
@@ -904,7 +975,7 @@ def serve_concurrently(engine, prompts, max_tokens: int) -> list:
 
 def serve_route(engine, prompts, max_tokens: int, route: str) -> dict:
     trace.reset()
-    for counter in (int4.LAUNCHES, int4.TAIL_LAUNCHES):
+    for counter in (int4.LAUNCHES, int4.TAIL_LAUNCHES, *int4.ROUTE_LAUNCHES.values()):
         counter.reset()
     with error_responses() as errors, timed_generation() as rec, \
             (plain_int4() if route == "int4_plain" else contextlib.nullcontext()):
@@ -912,6 +983,7 @@ def serve_route(engine, prompts, max_tokens: int, route: str) -> dict:
         responses = serve_concurrently(engine, prompts, max_tokens)
         wall = time.perf_counter() - t0
     launches = {c.name: c.value for c in (int4.LAUNCHES, int4.TAIL_LAUNCHES)}
+    route_launches = {c.name: c.value for c in int4.ROUTE_LAUNCHES.values()}
     if errors or len(responses) != len(prompts) or any(r is None for r in responses):
         raise AssertionError(f"{route}: {len(errors)} error responses ({errors[:2]}) of {len(prompts)} requests")
     recorded = {name: len(by_row(rec[name])) for name in ("logits", "tokens")}
@@ -926,7 +998,8 @@ def serve_route(engine, prompts, max_tokens: int, route: str) -> dict:
     return {"wall_s": wall, "prefill_s": rec["prefill_s"], "decode_s": decode_s,
             "prefill_tok_s": counters["llm.prompt_tokens"] / rec["prefill_s"],
             "decode_tok_s": counters["llm.completion_tokens"] / decode_s,
-            "completion_tokens": completions, "launches": launches, "llm_counters": counters,
+            "completion_tokens": completions, "launches": launches, "route_launches": route_launches,
+            "llm_counters": counters,
             "logits": rec["logits"], "tokens": rec["tokens"]}
 
 
@@ -1085,12 +1158,16 @@ def phase_server(device, layers: int = 32, max_tokens: int = 64) -> dict:
     served = served_comparison(runs["int4_kernels"], runs["int4_plain"])
     out = {"layers": layers, "build_s": build_s, "served_logits_bf16": served, "logits_fp32": checked,
            "witnesses": logit_witnesses(device, prompts, max_tokens), "launches": launches,
+           "route_launches": runs["int4_kernels"]["route_launches"],
            "runs": {k: {f: v for f, v in r.items() if f not in ("logits", "tokens")} for k, r in runs.items()}}
     for name, r in out["runs"].items():
         print(f"phase 10 server {name} (Llama-3.1-8B width, {layers} layers, 8 requests x {max_tokens} tokens, "
               f"512-token bucket): prefill {r['prefill_tok_s']:.1f} tok/s, decode {r['decode_tok_s']:.1f} tok/s, "
-              f"wall {r['wall_s']:.3f} s; kernel launches {r['launches']}; {json.dumps(r['llm_counters'])}",
-              flush=True)
+              f"wall {r['wall_s']:.3f} s; kernel launches {r['launches']}, int4_matmul by route "
+              f"{r['route_launches']}; {json.dumps(r['llm_counters'])}", flush=True)
+    tok_s = {name: {"prefill": r["prefill_tok_s"], "decode": r["decode_tok_s"]}
+             for name, r in out["runs"].items()}
+    print(f"phase 10 tok/s, int4 kernels beside int4 plain and bf16 weights: {json.dumps(tok_s)}", flush=True)
     print(f"phase 10 weights made and quantized in {build_s:.3f} s; kernels vs plain, logits of the 8 requests "
           f"at {layers} layers: fp32 compute, last prompt and first decode step (checked) {json.dumps(checked)}; "
           f"as served in bf16 compute (reported) {json.dumps(served)}", flush=True)
@@ -1100,6 +1177,28 @@ def phase_server(device, layers: int = 32, max_tokens: int = 64) -> dict:
 
 
 # ----------------------------------------------------------------- phase 11
+@contextlib.contextmanager
+def recorded_int4_calls():
+    """Keeps the arguments of the first int4_matmul call of each (route, M,
+    K, N) made inside the block (the wrapper runs unchanged), so that each
+    can be held against int4_matmul_plain afterwards at the main path's
+    own inputs."""
+    calls = {}
+    kernel = int4.int4_matmul
+
+    def recorded(x, packed, scales, group_size=128):
+        key = (int4.int4_matmul_route(x.shape[0], packed.shape[-1]), x.shape[0], x.shape[1], packed.shape[-1])
+        if key not in calls:
+            calls[key] = (x.clone(), packed, scales, group_size)
+        return kernel(x, packed, scales, group_size)
+
+    int4.int4_matmul = recorded
+    try:
+        yield calls
+    finally:
+        int4.int4_matmul = kernel
+
+
 def phase_tiny(device, workdir: str) -> dict:
     """The jax-tiny route on the card: the CLI's meta loop over
     dataset/moonlantern (answers back, guided OpenIE fills the entity and
@@ -1142,14 +1241,23 @@ def phase_tiny(device, workdir: str) -> dict:
     def texts(engine):
         return [r.text for prompts, tmpl in batches for r in engine._generate_batch(prompts, 256, tmpl, 0.0)]
 
-    for counter in (int4.LAUNCHES, int4.TAIL_LAUNCHES):
+    counters = (int4.LAUNCHES, int4.TAIL_LAUNCHES, *int4.ROUTE_LAUNCHES.values())
+    for counter in counters:
         counter.reset()
-    int4_texts = texts(TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", max_new_tokens=384,
-                                       device=device))
-    int4_launches = {c.name: c.value for c in (int4.LAUNCHES, int4.TAIL_LAUNCHES)}
-    if int4_launches[int4.LAUNCHES.name] <= 0 or int4_launches[int4.TAIL_LAUNCHES.name] != 0:
-        raise AssertionError(f"tiny int4 engine: expected int4_matmul launches and no fused tail "
-                             f"(H = {arch.hidden_size}): {int4_launches}")
+    with recorded_int4_calls() as calls:
+        int4_texts = texts(TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", max_new_tokens=384,
+                                           device=device))
+    int4_launches = {c.name: c.value for c in counters}
+    if (int4_launches[int4.LAUNCHES.name] <= 0 or int4_launches[int4.TAIL_LAUNCHES.name] != 0
+            or int4.ROUTE_LAUNCHES["mma_sync"].value <= 0):
+        raise AssertionError(f"tiny int4 engine: expected int4_matmul launches (its mma_sync route among them) "
+                             f"and no fused tail (H = {arch.hidden_size}): {int4_launches}")
+    int4_checks = []
+    for (route, m, k, n), (x, packed, scales, gs) in sorted(calls.items()):
+        got = int4.int4_matmul(x, packed, scales, gs)
+        torch.cuda.synchronize()
+        int4_checks.append({"route": route, "M": m, "K": k, "N": n, "max_abs_err": compare(
+            got, int4.int4_matmul_plain(x, packed, scales, gs), f"tiny int4_matmul {route} M={m} {k}->{n}")})
     trace.reset()
     plain = texts(TorchOfflineLLM(params=params, arch=arch, max_new_tokens=384, device=device))
     plain_steps = trace.summary()["counters"]["llm.decode_steps"]
@@ -1159,7 +1267,8 @@ def phase_tiny(device, workdir: str) -> dict:
     if spec != plain:
         raise AssertionError("speculative decoding gave other texts than plain greedy on the tiny checkpoint")
     out = {"cli_s": cli_s, "answers": len(results), "stores": stores, "cli_llm_counters": llm_counters,
-           "int4_launches": int4_launches, "int4_same_texts_as_fp32": sum(a == b for a, b in zip(int4_texts, plain)),
+           "int4_launches": int4_launches, "int4_matmul_vs_plain": int4_checks,
+           "int4_same_texts_as_fp32": sum(a == b for a, b in zip(int4_texts, plain)),
            "texts": len(plain), "plain_decode_steps": plain_steps, "spec_decode_steps": spec_steps}
     print(f"phase 11 jax-tiny on the card: {json.dumps(out)}", flush=True)
     return out
@@ -1191,7 +1300,7 @@ def main() -> None:
     int4_kernels = phase_int4_kernels(device)
     server = phase_server(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        phase_tiny(device, workdir)
+        tiny = phase_tiny(device, workdir)
 
     entries = []
     for mod in (attention, ffn):
@@ -1216,9 +1325,12 @@ def main() -> None:
     for counter, replaces, rows in ((int4.LAUNCHES, int4.REPLACES, int4_kernels["int4_matmul"]),
                                     (int4.TAIL_LAUNCHES, int4.TAIL_REPLACES, int4_kernels["int4_fused_layer_tail"])):
         head = rows[0]  # decode, M = 8: the serving loop's shape
+        tiny_checks = tiny["int4_matmul_vs_plain"] if counter is int4.LAUNCHES else []
         entries.append({"name": counter.name, "route": "cuda", "source": int4.SOURCE, "replaces": replaces,
                         "launches": server["launches"][counter.name],
-                        "max_abs_err": max(r["max_abs_err"] for r in rows),
+                        **({"launches_by_route": server["route_launches"], "tiny_engine_checks": tiny_checks}
+                           if counter is int4.LAUNCHES else {}),
+                        "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks),
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         "shapes": rows})
 

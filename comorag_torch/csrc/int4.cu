@@ -17,17 +17,42 @@
 // for its lm_head, 3.35 TB/s); at prefill (M = B x 512) the products,
 // 2*M*K*N operations at the bf16 tensor-core rate.
 //
-// What the design does about it: a block owns a [BM, BN] output tile and
-// walks K in slabs of 64 through a cp.async ring of shared-memory stages
-// (the x rows as bf16, the packed bytes as they are: each byte crosses
-// device memory once). The m16n8k16 B fragment of a lane is (k 2t, 2t+1;
-// n g) and (k 2t+8, 2t+9; n g): exactly the two nibbles of packed bytes
-// (t, g) and (t+4, g), so a lane turns one shared-memory byte into one
-// bf16 pair in registers and the tensor cores never wait on a dequantized
-// copy. Tiles: 16 x 64 for M <= 16, 64 x 64 up to 64 rows, 128 x 128
-// above. First version: mma.sync, no wgmma or TMA, no split of K for the
-// decode shapes whose column tiles do not fill 132 SMs.
-//
+// int4_matmul has three routes, chosen by shape in ops/int4.int4_matmul:
+// - decode, M <= 64 and N a multiple of 256: one stage of the fused tail's
+//   split-K streaming code below (splitk::product_kernel, an ordinary
+//   launch over a persistent grid): work items of two 128-column boxes
+//   side by side (256-byte runs of each packed row: 128-byte runs, rows
+//   N bytes apart, streamed at a third of the card's rate) split along K
+//   on scale-group boundaries (ops/int4.matmul_plan), TMA boxes in a ring
+//   on mbarriers, the weights as the m16n8k16 A operand and the tokens as
+//   its 8-wide N (W^T x^T), the exact nibble unpack, fp32 partials summed
+//   in split order by the tile's last split to arrive (at one split the
+//   sums go to out directly);
+// - prefill, M > 64 and N a multiple of 128: prefill::matmul_kernel, a
+//   warp-specialized persistent kernel on wgmma. Still W^T x^T: an output
+//   tile is out^T [128 columns][128 tokens]. One producer thread keeps a
+//   ring of TMA stages in flight (x's [128 tokens][64 inputs] box, the
+//   packed [32 rows][128 bytes] box, the scale row); two consumer
+//   warpgroups own 64 columns each and issue m64n128k16 wgmma with the
+//   weights as the register operand (a lane's two columns are one 16-bit
+//   element of a packed row: one ldmatrix.trans gives a lane its bytes of
+//   a whole stage) and x as the K-major shared-memory operand. Scale
+//   groups alternate between two accumulators: group j is folded into the
+//   running sum, times its scales, beside group j + 1's first products.
+//   Each stage's products are waited for before the next stage's A
+//   registers are written (wgmma reads them asynchronously), with the
+//   next stage's bytes already loaded; setmaxnreg moves the producer's
+//   registers to the consumers; the epilogue stages out^T through shared
+//   memory for 16-byte row stores;
+// - every other shape (N no multiple of 256 up to 64 rows, of 128 above,
+//   e.g. a 259-token vocabulary): the first design, int4_matmul_kernel. A block owns a
+//   [BM, BN] output tile and walks K in slabs of 64 through a cp.async
+//   ring (the x rows as bf16, the packed bytes as they are); the
+//   m16n8k16 B fragment of a lane, (k 2t, 2t+1; n g) and (k 2t+8, 2t+9;
+//   n g), is exactly the two nibbles of packed bytes (t, g) and (t+4, g).
+//   Tiles: 16 x 64 for M <= 16, 64 x 64 up to 64 rows, 128 x 128 above;
+//   mma.sync, no split of K.
+
 // The fused layer tail, x_res + FFN(RMSNorm(x_res + ctx @ O)), is one
 // cooperative launch (the TPU kernel exists to be one invocation instead
 // of three). At decode it is bound by its weight bytes (~102 MB of packed
@@ -66,8 +91,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_sm90.cuh"
 #include "tma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace cg = cooperative_groups;
 using namespace comorag;
@@ -279,7 +307,7 @@ __device__ __forceinline__ float activation(float g, int act) {
 }
 
 // ------------------------------------------------------------- fused tail
-namespace tail {
+namespace splitk {
 
 constexpr int KS = 64;                // inputs per pipeline step (one step never straddles a group)
 constexpr int BN = 128;               // output columns per work item (gate/up: 128 of each)
@@ -289,8 +317,8 @@ constexpr int MAX_TOKENS = 64;
 // NT token tiles of 8 per warp, WT warps along the tokens, 4 warps of 32
 // columns along the 128-column tile; STAGES steps in the ring. A stage
 // holds the step's x box ([MP tokens][64 inputs] bf16, rows past M read
-// as zeros), its packed-weight boxes (gate and up: two) and its scale row,
-// the boxes 128-byte swizzled by TMA.
+// as zeros), up to two packed-weight boxes (gate and up; a product item's
+// two) and their scale rows, the boxes 128-byte swizzled by TMA.
 template <int NT_, int WT_, int STAGES_, int BLOCKS_>
 struct Cfg {
   static constexpr int NT = NT_, WT = WT_, STAGES = STAGES_;
@@ -336,24 +364,38 @@ struct Gemm {
   const float* S;      // [K/gs, N] scales
   int K, N;
   int second;          // column offset of the second block (gate/up: I), else -1
+  int span;            // output columns a tile advances (a product item's boxes lie side by side)
   int tiles, splits;
   float* ws;           // [splits, M, N] fp32 partials
   unsigned* tickets;   // [tiles], 0 between launches
 };
 
-enum Stage { O_PROJ = 0, GATE_UP = 1, DOWN = 2 };
+// The tail's three stages, and PRODUCT: out = x @ W alone (int4_matmul's
+// decode route, one stage in a launch of its own), whose items are
+// PRODUCT_NB boxes of BN columns side by side (wider runs of each packed
+// row)
+enum Stage { O_PROJ = 0, GATE_UP = 1, DOWN = 2, PRODUCT = 3 };
+constexpr int PRODUCT_NB = 2;  // a stage holds two boxes
+constexpr int PRODUCT_TILE = PRODUCT_NB * BN;
+// The product's rings: at M <= 8 more blocks of fewer stages stream
+// faster (5 x 4 and 4 x 4 beat the tail's 2 x 10 at lm_head: PERF.md); above,
+// the tail's, untuned
+using P8 = Cfg<1, 1, 4, 5>;
+using P16 = Cfg16;
+using P32 = Cfg32;
+using P64 = Cfg64;
 
 struct Args {
-  CUtensorMap xmap[3];  // per stage: x [M, K] bf16 (ctx, xn, h), boxes [MP][64]
-  CUtensorMap pmap[3];  // per stage: packed [K/2, N] int8, boxes [32][128]
+  CUtensorMap xmap[4];  // per stage: x [M, K] bf16 (ctx, xn, h; the product's x), boxes [MP][64]
+  CUtensorMap pmap[4];  // per stage: packed [K/2, N] int8, boxes [32][128]
   const float* xres;
   const float* norm_w;
-  float* out;
+  float* out;     // [M, H] fp32 (the product: [M, N])
   float* xmid;    // [M, H] fp32
   bf16* xn;       // [M, H]
   bf16* h;        // [M, I]
   float* sq;      // [H / BN, M] per-tile sums of squares of xmid
-  Gemm g[3];
+  Gemm g[4];
   int M, H, I, gs, unit_offset, act;
   float eps;
 };
@@ -388,9 +430,10 @@ struct Cursor {
 };
 
 // Output column of column `col` of a staged row ([0, BN): the first
-// block at n0, [BN, 2 BN): the second block)
+// block at n0, [BN, 2 BN): the second block; without a second block the
+// boxes lie side by side from n0)
 __device__ __forceinline__ int out_col(const Gemm& g, int n0, int col) {
-  return (col < BN ? n0 : g.second + n0 - BN) + col;
+  return (col < BN || g.second < 0 ? n0 : g.second + n0 - BN) + col;
 }
 
 // One step into a ring stage, issued by one thread: the x box, NB packed
@@ -398,7 +441,7 @@ __device__ __forceinline__ int out_col(const Gemm& g, int n0, int col) {
 template <class C, int NB, int STAGE_ID>
 __device__ __forceinline__ void issue_step(unsigned char* stage, uint64_t* bar, const Args& A, const Cursor& c) {
   const Gemm& g = A.g[STAGE_ID];
-  const int n0 = c.tile() * BN;
+  const int n0 = c.tile() * g.span;
   mbar_expect_tx(bar, C::X_BYTES + NB * BOX + NB * BN * 4);
   tma_load_2d(stage, &A.xmap[STAGE_ID], bar, c.k, 0);
 #pragma unroll
@@ -479,14 +522,16 @@ __device__ __forceinline__ void compute_step(const unsigned char* stage, const C
 
 // Writes this warp's part of the item's partial to the workspace and
 // takes a ticket; the tile's last split sums the workspace in split order
-// and finishes the stage's function there.
+// and finishes the stage's function there. A product of one split writes
+// its sums to out directly (no workspace, no ticket).
 template <class C, int NB, int STAGE_ID>
 __device__ void finish_item(const Args& A, const Cursor& c, const Acc<C, NB>& acc, unsigned* flag) {
   const Gemm& g = A.g[STAGE_ID];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g8 = lane >> 2, t4 = lane & 3, ng = warp % 4, wt = warp / 4;
-  const int M = A.M, n0 = c.tile() * BN;
-  float* ws = g.ws + (size_t)c.split() * M * g.N;
+  const int M = A.M, n0 = c.tile() * g.span;
+  const bool direct = STAGE_ID == PRODUCT && g.splits == 1;
+  float* ws = direct ? A.out : g.ws + (size_t)c.split() * M * g.N;
 #pragma unroll
   for (int cb = 0; cb < NB; ++cb)
 #pragma unroll
@@ -498,6 +543,7 @@ __device__ void finish_item(const Args& A, const Cursor& c, const Acc<C, NB>& ac
           *reinterpret_cast<float4*>(ws + (size_t)tok * g.N + out_col(g, n0, cb * BN + ng * 32 + 4 * g8)) =
               make_float4(acc.v[cb][0][n][e], acc.v[cb][0][n][2 + e], acc.v[cb][1][n][e], acc.v[cb][1][n][2 + e]);
       }
+  if (direct) return;
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) *flag = atomicInc(g.tickets + c.tile(), g.splits - 1) == (unsigned)(g.splits - 1);
@@ -537,6 +583,11 @@ __device__ void finish_item(const Args& A, const Cursor& c, const Acc<C, NB>& ac
       *reinterpret_cast<uint32_t*>(h) = pack_bf16(activation(gt.x, A.act) * up.x, activation(gt.y, A.act) * up.y);
       *reinterpret_cast<uint32_t*>(h + 2) =
           pack_bf16(activation(gt.z, A.act) * up.z, activation(gt.w, A.act) * up.w);
+    }
+  } else if (STAGE_ID == PRODUCT) {
+    for (int i = threadIdx.x; i < M * NB * Q4; i += C::THREADS) {
+      const int tok = i / (NB * Q4), col = n0 + 4 * (i % (NB * Q4));
+      *reinterpret_cast<float4*>(A.out + (size_t)tok * g.N + col) = split_sum(tok, col);
     }
   } else {
     for (int i = threadIdx.x; i < M * Q4; i += C::THREADS) {
@@ -583,19 +634,26 @@ __device__ void run_stage(const Args& A, unsigned char* ring, uint64_t* full, in
   __syncthreads();
 }
 
+// The ring in dynamic shared memory (1024-byte aligned for the swizzled
+// boxes), its barriers set up before any copy is issued
 template <class C>
-__global__ void __launch_bounds__(C::THREADS, C::BLOCKS) fused_tail_kernel(const __grid_constant__ Args A) {
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ unsigned flag;
-  __shared__ __align__(8) uint64_t full[C::STAGES];
-  unsigned char* ring = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  cg::grid_group grid = cg::this_grid();
+__device__ __forceinline__ unsigned char* ring_setup(unsigned char* smem_raw, uint64_t* full) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::STAGES; ++s) mbar_init(&full[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::BLOCKS) fused_tail_kernel(const __grid_constant__ Args A) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ unsigned flag;
+  __shared__ __align__(8) uint64_t full[C::STAGES];
+  unsigned char* ring = ring_setup<C>(smem_raw, full);
+  cg::grid_group grid = cg::this_grid();
   int steps = 0;
 
   // 1. xmid = x_res + ctx @ O (the tile's last split), sums of squares per tile
@@ -628,9 +686,29 @@ __global__ void __launch_bounds__(C::THREADS, C::BLOCKS) fused_tail_kernel(const
   run_stage<C, 1, DOWN>(A, ring, full, steps, &flag);
 }
 
-// Per device, once: the kernel's shared-memory limit and how many blocks
-// an SM holds (the cooperative grid is that times the SM count).
+// int4_matmul's decode route: one PRODUCT stage over a persistent grid.
+// It needs no grid barrier, so it is an ordinary launch.
 template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::BLOCKS) product_kernel(const __grid_constant__ Args A) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ unsigned flag;
+  __shared__ __align__(8) uint64_t full[C::STAGES];
+  unsigned char* ring = ring_setup<C>(smem_raw, full);
+  int steps = 0;
+  run_stage<C, PRODUCT_NB, PRODUCT>(A, ring, full, steps, &flag);
+}
+
+template <class C, bool PROD>
+const void* kernel_of() {
+  if constexpr (PROD)
+    return reinterpret_cast<const void*>(product_kernel<C>);
+  else
+    return reinterpret_cast<const void*>(fused_tail_kernel<C>);
+}
+
+// Per device and kernel, once: its shared-memory limit and how many blocks
+// an SM holds (the persistent grid is that times the SM count).
+template <class C, bool PROD>
 cudaError_t blocks_per_sm(int* blocks) {
   static int per_sm[64] = {0};
   int device = 0;
@@ -638,10 +716,9 @@ cudaError_t blocks_per_sm(int* blocks) {
   if (err != cudaSuccess) return err;
   if (device >= 64) return cudaErrorInvalidDevice;
   if (per_sm[device] == 0) {
-    err = cudaFuncSetAttribute(fused_tail_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[device], fused_tail_kernel<C>, C::THREADS,
-                                                          C::SMEM);
+    const void* k = kernel_of<C, PROD>();
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[device], k, C::THREADS, C::SMEM);
     if (err != cudaSuccess) return err;
     if (per_sm[device] <= 0) return cudaErrorCooperativeLaunchTooLarge;
   }
@@ -652,13 +729,37 @@ cudaError_t blocks_per_sm(int* blocks) {
 template <class C>
 int launch(Args& A, int sm_count, cudaStream_t stream) {
   int blocks = 0;
-  cudaError_t err = blocks_per_sm<C>(&blocks);
+  cudaError_t err = blocks_per_sm<C, false>(&blocks);
   if (err != cudaSuccess) return err;
   void* args[] = {&A};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_tail_kernel<C>), dim3(blocks * sm_count),
                                     dim3(C::THREADS), args, C::SMEM, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <class C>
+int launch_product(const Args& A, int sm_count, cudaStream_t stream) {
+  int blocks = 0;
+  const cudaError_t err = blocks_per_sm<C, true>(&blocks);
+  if (err != cudaSuccess) return err;
+  const int items = A.g[PRODUCT].tiles * A.g[PRODUCT].splits;
+  product_kernel<C><<<items < blocks * sm_count ? items : blocks * sm_count, C::THREADS, C::SMEM, stream>>>(A);
+  return cudaGetLastError();
+}
+
+// Blocks an SM holds at M tokens, of the fused tail or of the product
+template <bool PROD>
+cudaError_t blocks_at(int M, int* blocks) {
+  if constexpr (PROD)
+    return M <= 8    ? blocks_per_sm<P8, true>(blocks)
+           : M <= 16 ? blocks_per_sm<P16, true>(blocks)
+           : M <= 32 ? blocks_per_sm<P32, true>(blocks)
+                     : blocks_per_sm<P64, true>(blocks);
+  return M <= 8    ? blocks_per_sm<Cfg8, false>(blocks)
+         : M <= 16 ? blocks_per_sm<Cfg16, false>(blocks)
+         : M <= 32 ? blocks_per_sm<Cfg32, false>(blocks)
+                   : blocks_per_sm<Cfg64, false>(blocks);
 }
 
 int token_rows(int M) { return M <= 8 ? Cfg8::MP : M <= 16 ? Cfg16::MP : M <= 32 ? Cfg32::MP : Cfg64::MP; }
@@ -708,17 +809,261 @@ bool valid_shape(int M, int H, int I, int gs, const int* splits) {
   return true;
 }
 
-}  // namespace tail
+}  // namespace splitk
+
+// ------------------------------------------- prefill: wgmma, weights in registers
+namespace prefill {
+
+constexpr int BT = 128;                   // tokens of an output tile: wgmma's N
+constexpr int BN = 128;                   // output columns of a tile: two consumers of 64 (wgmma's M)
+constexpr int KS = 64;                    // inputs of a ring stage (a group holds gs / KS stages)
+constexpr int X_BYTES = BT * KS * 2;      // x box [128 tokens][64] bf16, K-major, 128-byte swizzled
+constexpr int P_BYTES = (KS / 2) * BN;    // packed box [32 rows][128 bytes], 128-byte swizzled
+constexpr int S_BYTES = BN * 4;           // the stage's scale row
+constexpr int STAGE = (X_BYTES + P_BYTES + S_BYTES + 1023) / 1024 * 1024;
+constexpr int STAGES = 7;
+constexpr int OLD = 68;                   // staged output row stride in floats (conflict-free float2 writes)
+constexpr int OUT_BYTES = BT * OLD * 4;   // one consumer's staged [128 tokens][64 columns] fp32
+constexpr int OFF_OUT = STAGES * STAGE;
+constexpr int OFF_BAR = OFF_OUT + 2 * OUT_BYTES;
+constexpr int SMEM = OFF_BAR + 2 * STAGES * 8 + 1024;  // + alignment slack
+constexpr int THREADS = 384;              // producer warpgroup + two consumers
+// setmaxnreg: a thread starts with CAP registers (what the launch bounds
+// leave, one block an SM); the producer keeps 40 and the consumers share
+// the rest
+constexpr int CAP = 65536 / THREADS / 8 * 8;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = (CAP * THREADS - 128 * PRODUCER_REGS) / 256 / 8 * 8;
+static_assert(SMEM <= 232448, "shared-memory plan exceeds a block's 227 KB");
+
+// Item w: token tile m0, column tile n0. Items walk the column tiles of a
+// token tile first, so blocks running side by side share their x tile in L2.
+struct Tile {
+  int m0, n0;
+  __device__ Tile(int w, int tn) : m0((w / tn) * BT), n0((w % tn) * BN) {}
+};
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// The packed bytes of a stage's four 16-deep steps for this lane, with one
+// ldmatrix. Warp w's A rows g and g + 8 are columns 16w + 2g and 16w + 2g + 1
+// of the consumer's 64 (a permutation the epilogue undoes), so a lane's two
+// columns are one 16-bit element of a packed row, and step ks needs rows
+// 8ks + t (k 2t, 2t + 1) and 8ks + t + 4 (k 2t + 8, 2t + 9) of it. Matrix ks
+// of an .x4 .trans load has those rows as its rows 2t and 2t + 1 and the
+// warp's 8 elements as its columns, so lane (g, t) receives one word whose
+// bytes are A's rows g, g + 8 at k 2t.. and rows g, g + 8 at k 2t + 8..
+__device__ __forceinline__ void load_words(uint32_t (&w)[4], const unsigned char* box, int chunk, int lane) {
+  const int r = lane % 8;
+  const uint32_t addr = smem_u32(box + swizzle128(8 * (lane / 8) + r / 2 + 4 * (r % 2), chunk));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// The A fragments of the four steps from load_words' words: byte j of a
+// word is fragment register j (nibble_pair<j>)
+__device__ __forceinline__ void unpack_words(uint32_t (&a)[4][4], const uint32_t (&w)[4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint32_t h = w[ks] >> 4;
+    a[ks][0] = splitk::nibble_pair<0>(w[ks], h);
+    a[ks][1] = splitk::nibble_pair<1>(w[ks], h);
+    a[ks][2] = splitk::nibble_pair<2>(w[ks], h);
+    a[ks][3] = splitk::nibble_pair<3>(w[ks], h);
+  }
+}
+
+// Keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous products and their waits
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// acc += g times this lane's two column scales (accumulator rows g8 and
+// g8 + 8: i / 2 even and odd)
+__device__ __forceinline__ void fold(float (&acc)[64], const float (&g)[64], float2 sc) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] += g[i] * ((i / 2) % 2 ? sc.y : sc.x);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+matmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap pmap,
+              const float* __restrict__ S, float* __restrict__ out, int M, int N, int K, int gs) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* empty = full + STAGES;
+  const int tn = N / BN, items = (M + BT - 1) / BT * tn, kbs = K / KS;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    int it = 0;  // stages filled so far
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+      const Tile u(w, tn);
+      for (int kb = 0; kb < kbs; ++kb, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], X_BYTES + P_BYTES + S_BYTES);
+        unsigned char* st = smem + s * STAGE;
+        tma_load_2d(st, &xmap, &full[s], kb * KS, u.m0);
+        tma_load_2d(st + X_BYTES, &pmap, &full[s], u.n0, kb * (KS / 2));
+        bulk_copy(st + X_BYTES + P_BYTES, S + (size_t)(kb * KS / gs) * N + u.n0, S_BYTES, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int c = wg - 1;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int byte = 64 * c + 16 * warp + 2 * g8;  // this lane's two columns of the tile
+  const uint32_t base = smem_u32(smem);
+  float* staged = reinterpret_cast<float*>(smem + OFF_OUT + c * OUT_BYTES);
+  // Scale group j sums into gacc[j % 2], and is folded into the running sum
+  // while group j + 1's first products run. A stage's products are waited
+  // for before the next stage's A registers are written (wgmma reads them
+  // asynchronously); the next stage's words are loaded, and the previous
+  // group folded, while they run.
+  float gacc[2][64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) gacc[0][i] = gacc[1][i] = 0.f;
+  const int groups = K / gs, spg = gs / KS;
+  int it = 0;  // stages consumed so far
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const Tile u(w, tn);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float2 sc = make_float2(0.f, 0.f);  // the scales of the last group finished, for its fold
+    uint32_t words[KS / 16];
+    mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+    load_words(words, smem + (it % STAGES) * STAGE + X_BYTES, 64 * c + 16 * warp, lane);
+    auto group = [&](int j, auto buf) {
+      constexpr int B = decltype(buf)::value;
+      for (int q = 0; q < spg; ++q, ++it) {
+        const int s = it % STAGES;
+        const unsigned char* st = smem + s * STAGE;
+        uint32_t a[KS / 16][4];
+        unpack_words(a, words);
+        fence_operands(gacc[B]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KS / 16; ++ks)
+          wgmma_rs128(gacc[B], a[ks], sw128_desc(base + s * STAGE + ks * 32, 16, 8 * 128), !(q == 0 && ks == 0));
+        wgmma_commit();
+        if (q == 0 && j > 0) fold(acc, gacc[B ^ 1], sc);
+        if (q + 1 == spg) sc = *reinterpret_cast<const float2*>(st + X_BYTES + P_BYTES + 4 * byte);
+        if (j * spg + q + 1 < kbs) {
+          const int n = (it + 1) % STAGES;
+          mbar_wait(&full[n], ((it + 1) / STAGES) & 1);
+          load_words(words, smem + n * STAGE + X_BYTES, 64 * c + 16 * warp, lane);
+        }
+        wgmma_wait<0>();
+        fence_operands(gacc[0]);
+        fence_operands(gacc[1]);
+        mbar_arrive(&empty[s]);  // the stage's products are done: it goes back to the producer
+      }
+    };
+    for (int j = 0; j < groups; j += 2) {
+      group(j, std::integral_constant<int, 0>{});
+      if (j + 1 < groups) group(j + 1, std::integral_constant<int, 1>{});
+    }
+    if ((groups - 1) % 2)
+      fold(acc, gacc[1], sc);
+    else
+      fold(acc, gacc[0], sc);
+
+    // acc[4j + 2h + e] is column 16 warp + 2 g8 + h of this consumer's 64,
+    // token 8j + 2 t4 + e: staged as [token][column], then stored as rows of
+    // 16-byte pieces, rows past M dropped
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(staged + (8 * j + 2 * t4 + e) * OLD + 16 * warp + 2 * g8) =
+            make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+    bar_sync(1 + c, 128);
+    for (int i = t; i < BT * 16; i += 128) {
+      const int tok = i / 16, q = i % 16;
+      if (u.m0 + tok < M)
+        *reinterpret_cast<float4*>(out + (size_t)(u.m0 + tok) * N + u.n0 + 64 * c + 4 * q) =
+            *reinterpret_cast<const float4*>(staged + tok * OLD + 4 * q);
+    }
+    bar_sync(1 + c, 128);  // the staging is read before the next tile writes it
+  }
+}
+
+// Per device, once: the shared-memory limit, and the check that the kernel
+// was compiled to CAP registers (setmaxnreg.inc would wait forever if the
+// block started with fewer than it hands round).
+cudaError_t prepare() {
+  static bool ready[64] = {false};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (ready[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, matmul_kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs != CAP) return cudaErrorInvalidConfiguration;
+  ready[device] = true;
+  return cudaSuccess;
+}
+
+int launch(const void* x, const void* packed, const void* scales, void* out, int M, int N, int K, int gs,
+           int sm_count, cudaStream_t stream) {
+  cudaError_t err = prepare();
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap, pmap;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M}, strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {KS, BT};
+  err = make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, dims, strides, box);
+  if (err == cudaSuccess) err = splitk::p_map(&pmap, packed, K, N);
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)((M + BT - 1) / BT) * (N / BN);
+  if (items > (1ll << 31) - 1) return cudaErrorInvalidValue;
+  matmul_kernel<<<(int)(items < sm_count ? items : sm_count), THREADS, SMEM, stream>>>(
+      xmap, pmap, static_cast<const float*>(scales), static_cast<float*>(out), M, N, K, gs);
+  return cudaGetLastError();
+}
+
+}  // namespace prefill
 }  // namespace
 
 extern "C" const char* comorag_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// int4_matmul, one entry per route (ops/int4.int4_matmul picks by shape).
 // x: [M, K] bf16 (16-byte aligned rows); packed: [K/2, N] int8; scales:
 // [K/gs, N] fp32; out: [M, N] fp32. K a multiple of gs, gs a multiple of
-// 64. Returns a cudaError_t (0 on success); launches on `stream`, never
-// syncs.
+// 64. Each returns a cudaError_t (0 on success), launches on `stream` and
+// never syncs.
+//
+// The mma.sync route: any M and N.
 extern "C" int comorag_int4_matmul(const void* x, const void* packed, const void* scales,
                                    void* out, int M, int N, int K, int gs, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || gs <= 0 || gs % KT != 0 || K % gs != 0)
@@ -727,6 +1072,56 @@ extern "C" int comorag_int4_matmul(const void* x, const void* packed, const void
   if (M <= 16) return launch_matmul<CfgDecode>(x, packed, scales, out, M, N, K, gs, st);
   if (M <= 64) return launch_matmul<CfgMid>(x, packed, scales, out, M, N, K, gs, st);
   return launch_matmul<CfgPrefill>(x, packed, scales, out, M, N, K, gs, st);
+}
+
+// The decode route: M <= 64, N a multiple of the item's columns
+// (comorag_int4_matmul_splitk_tile_n), every pointer 16-byte aligned.
+// splits: K splits on group boundaries, 1 <= splits <= K / gs
+// (ops/int4.matmul_plan). workspace: splits * M * N fp32; tickets: one
+// unsigned int per item column tile, zero before the first launch (each launch leaves them
+// zero); at one split neither is read (may be null). sm_count: SMs for the persistent grid.
+extern "C" int comorag_int4_matmul_splitk(const void* x, const void* packed, const void* scales, void* out,
+                                          void* workspace, void* tickets, int M, int N, int K, int gs, int splits,
+                                          int sm_count, void* stream) {
+  if (M <= 0 || M > splitk::MAX_TOKENS || N <= 0 || N % splitk::PRODUCT_TILE != 0 || gs <= 0 || gs % splitk::KS != 0 ||
+      K <= 0 || K % gs != 0 || splits < 1 || splits > K / gs || sm_count <= 0)
+    return cudaErrorInvalidValue;
+  splitk::Args A{};
+  A.out = static_cast<float*>(out);
+  A.M = M;
+  A.gs = gs;
+  A.g[splitk::PRODUCT] = {static_cast<const float*>(scales), K, N, -1, splitk::PRODUCT_TILE, N / splitk::PRODUCT_TILE, splits,
+                          static_cast<float*>(workspace), static_cast<unsigned*>(tickets)};
+  cudaError_t err = splitk::x_map(&A.xmap[splitk::PRODUCT], x, M, K);
+  if (err == cudaSuccess) err = splitk::p_map(&A.pmap[splitk::PRODUCT], packed, K, N);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 8) return splitk::launch_product<splitk::P8>(A, sm_count, st);
+  if (M <= 16) return splitk::launch_product<splitk::P16>(A, sm_count, st);
+  if (M <= 32) return splitk::launch_product<splitk::P32>(A, sm_count, st);
+  return splitk::launch_product<splitk::P64>(A, sm_count, st);
+}
+
+// The decode route's geometry, for ops/int4.matmul_plan: output columns of
+// one item, and blocks an SM holds at M tokens (a negative cudaError_t on
+// failure).
+extern "C" int comorag_int4_matmul_splitk_tile_n() { return splitk::PRODUCT_TILE; }
+
+extern "C" int comorag_int4_matmul_splitk_blocks_per_sm(int M) {
+  if (M <= 0 || M > splitk::MAX_TOKENS) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err = splitk::blocks_at<true>(M, &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// The prefill route: N a multiple of 128, every pointer 16-byte aligned
+// (any M; ops/int4 sends it M > 64). sm_count: SMs for the persistent grid.
+extern "C" int comorag_int4_matmul_wgmma(const void* x, const void* packed, const void* scales, void* out, int M,
+                                         int N, int K, int gs, int sm_count, void* stream) {
+  if (M <= 0 || N <= 0 || N % prefill::BN != 0 || gs <= 0 || gs % prefill::KS != 0 || K <= 0 || K % gs != 0 ||
+      sm_count <= 0)
+    return cudaErrorInvalidValue;
+  return prefill::launch(x, packed, scales, out, M, N, K, gs, sm_count, static_cast<cudaStream_t>(stream));
 }
 
 // ctx: [M, H] bf16; xres, out: [M, H] fp32; norm_w: [H] fp32; o: [H/2, H]
@@ -740,21 +1135,18 @@ extern "C" int comorag_int4_matmul(const void* x, const void* packed, const void
 // on `stream`.
 extern "C" long long comorag_int4_tail_workspace_bytes(int M, int H, int I, int so, int sgu, int sd) {
   const int splits[3] = {so, sgu, sd};
-  return static_cast<long long>(tail::Layout(M, H, I, splits).total);
+  return static_cast<long long>(splitk::Layout(M, H, I, splits).total);
 }
 
 // The work items' geometry, for ops/int4.tail_plan: output columns of one
 // item, and blocks an SM holds at M tokens on the current device (a
 // negative cudaError_t on failure).
-extern "C" int comorag_int4_tail_tile_n() { return tail::BN; }
+extern "C" int comorag_int4_tail_tile_n() { return splitk::BN; }
 
 extern "C" int comorag_int4_tail_blocks_per_sm(int M) {
-  if (M <= 0 || M > tail::MAX_TOKENS) return -static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0 || M > splitk::MAX_TOKENS) return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
-  const cudaError_t err = M <= 8    ? tail::blocks_per_sm<tail::Cfg8>(&blocks)
-                          : M <= 16 ? tail::blocks_per_sm<tail::Cfg16>(&blocks)
-                          : M <= 32 ? tail::blocks_per_sm<tail::Cfg32>(&blocks)
-                                    : tail::blocks_per_sm<tail::Cfg64>(&blocks);
+  const cudaError_t err = splitk::blocks_at<false>(M, &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -765,13 +1157,13 @@ extern "C" int comorag_int4_fused_layer_tail(const void* ctx, const void* xres, 
                                              int I, int gs, int so, int sgu, int sd, float eps,
                                              int unit_offset, int act, int sm_count, void* stream) {
   const int splits[3] = {so, sgu, sd};
-  if (!tail::valid_shape(M, H, I, gs, splits) || act < 0 || act > 2 || sm_count <= 0)
+  if (!splitk::valid_shape(M, H, I, gs, splits) || act < 0 || act > 2 || sm_count <= 0)
     return cudaErrorInvalidValue;
-  using tail::BN;
-  const tail::Layout L(M, H, I, splits);
+  using splitk::BN;
+  const splitk::Layout L(M, H, I, splits);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   unsigned* tk = static_cast<unsigned*>(tickets);
-  tail::Args A;
+  splitk::Args A;
   A.xres = static_cast<const float*>(xres);
   A.norm_w = static_cast<const float*>(norm_w);
   A.out = static_cast<float*>(out);
@@ -780,22 +1172,22 @@ extern "C" int comorag_int4_fused_layer_tail(const void* ctx, const void* xres, 
   A.xn = reinterpret_cast<bf16*>(ws + L.xn);
   A.h = reinterpret_cast<bf16*>(ws + L.h);
   A.M = M; A.H = H; A.I = I; A.gs = gs; A.unit_offset = unit_offset; A.act = act; A.eps = eps;
-  A.g[tail::O_PROJ] = {static_cast<const float*>(oS), H, H, -1, H / BN, so,
-                       reinterpret_cast<float*>(ws + L.ws[tail::O_PROJ]), tk};
-  A.g[tail::GATE_UP] = {static_cast<const float*>(guS), H, 2 * I, I, I / BN, sgu,
-                        reinterpret_cast<float*>(ws + L.ws[tail::GATE_UP]), tk + H / BN};
-  A.g[tail::DOWN] = {static_cast<const float*>(dS), I, H, -1, H / BN, sd,
-                     reinterpret_cast<float*>(ws + L.ws[tail::DOWN]), tk + H / BN + I / BN};
-  cudaError_t err = tail::x_map(&A.xmap[tail::O_PROJ], ctx, M, H);
-  if (err == cudaSuccess) err = tail::x_map(&A.xmap[tail::GATE_UP], A.xn, M, H);
-  if (err == cudaSuccess) err = tail::x_map(&A.xmap[tail::DOWN], A.h, M, I);
-  if (err == cudaSuccess) err = tail::p_map(&A.pmap[tail::O_PROJ], oP, H, H);
-  if (err == cudaSuccess) err = tail::p_map(&A.pmap[tail::GATE_UP], guP, H, 2 * I);
-  if (err == cudaSuccess) err = tail::p_map(&A.pmap[tail::DOWN], dP, I, H);
+  A.g[splitk::O_PROJ] = {static_cast<const float*>(oS), H, H, -1, BN, H / BN, so,
+                       reinterpret_cast<float*>(ws + L.ws[splitk::O_PROJ]), tk};
+  A.g[splitk::GATE_UP] = {static_cast<const float*>(guS), H, 2 * I, I, BN, I / BN, sgu,
+                        reinterpret_cast<float*>(ws + L.ws[splitk::GATE_UP]), tk + H / BN};
+  A.g[splitk::DOWN] = {static_cast<const float*>(dS), I, H, -1, BN, H / BN, sd,
+                     reinterpret_cast<float*>(ws + L.ws[splitk::DOWN]), tk + H / BN + I / BN};
+  cudaError_t err = splitk::x_map(&A.xmap[splitk::O_PROJ], ctx, M, H);
+  if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::GATE_UP], A.xn, M, H);
+  if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::DOWN], A.h, M, I);
+  if (err == cudaSuccess) err = splitk::p_map(&A.pmap[splitk::O_PROJ], oP, H, H);
+  if (err == cudaSuccess) err = splitk::p_map(&A.pmap[splitk::GATE_UP], guP, H, 2 * I);
+  if (err == cudaSuccess) err = splitk::p_map(&A.pmap[splitk::DOWN], dP, I, H);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 8) return tail::launch<tail::Cfg8>(A, sm_count, st);
-  if (M <= 16) return tail::launch<tail::Cfg16>(A, sm_count, st);
-  if (M <= 32) return tail::launch<tail::Cfg32>(A, sm_count, st);
-  return tail::launch<tail::Cfg64>(A, sm_count, st);
+  if (M <= 8) return splitk::launch<splitk::Cfg8>(A, sm_count, st);
+  if (M <= 16) return splitk::launch<splitk::Cfg16>(A, sm_count, st);
+  if (M <= 32) return splitk::launch<splitk::Cfg32>(A, sm_count, st);
+  return splitk::launch<splitk::Cfg64>(A, sm_count, st);
 }

@@ -94,4 +94,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[64 x 128] (+)= A[64 x 16] (registers) B[16 x 128] (shared, K-major);
+// accumulate 0 overwrites d. A's registers are read asynchronously: they
+// stay untouched until a wgmma_wait covers this product.
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " COMORAG_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : COMORAG_D64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 }  // namespace comorag

@@ -8,10 +8,12 @@ and fp32 scales [in/group_size, out].
 
 ``int4_matmul`` and ``int4_fused_layer_tail`` launch the hand-written
 Hopper kernels (``csrc/int4.cu``) for CUDA tensors and run their plain
-versions for CPU tensors; there is no fallback from one to the other. The
-plain versions repeat the kernels' arithmetic: x rounded to bf16, each
-group's product summed in fp32 (bf16 x bf16 products are exact in fp32),
-times the group's scale row, added to the running fp32 sum.
+versions for CPU tensors; there is no fallback from one to the other.
+``int4_matmul`` has three kernel routes, chosen by shape
+(``int4_matmul_route``). The plain versions repeat the kernels'
+arithmetic: x rounded to bf16, each group's product summed in fp32 (bf16
+x bf16 products are exact in fp32), times the group's scale row, added to
+the running fp32 sum.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import torch
 
 from comorag_torch.ops import build
 
-LAUNCHES = build.LaunchCounter("int4_matmul")
+LAUNCHES = build.LaunchCounter("int4_matmul")  # every route's launches
+# launches per int4_matmul route (int4_matmul_route)
+ROUTE_LAUNCHES = {route: build.LaunchCounter(f"int4_matmul.{route}") for route in ("splitk", "wgmma", "mma_sync")}
 TAIL_LAUNCHES = build.LaunchCounter("int4_fused_layer_tail")
 SOURCE = "comorag_torch/csrc/int4.cu"
 REPLACES = "comorag_tpu/ops/pallas_int4.py:132"
@@ -32,6 +36,9 @@ TAIL_REPLACES = "comorag_tpu/ops/pallas_int4.py:365"
 
 _ACTS = {"silu": 0, "gelu_tanh": 1, "gelu": 2}
 _KERNEL_K_STEP = 64  # the kernels stage K in slabs of 64: group_size must divide by it
+_WGMMA_TILE_N = 128  # output columns of a tile of the wgmma route
+_SPLITK_TILE_N = 256  # output columns of a work item of the split-K route (two 128-column boxes)
+SPLITK_MAX_M = 64  # the split-K route's most tokens (its token tiles: 8, 16, 32, 64)
 
 
 def quantize_int4_grouped(w: torch.Tensor, group_size: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,23 +99,27 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# csrc/int4.cu's C entries: (name, restype, argtypes)
+_C_ENTRIES = (
+    ("comorag_int4_matmul", _I32, [_PTR] * 4 + [_I32] * 4 + [_PTR]),
+    ("comorag_int4_matmul_splitk", _I32, [_PTR] * 6 + [_I32] * 6 + [_PTR]),
+    ("comorag_int4_matmul_splitk_blocks_per_sm", _I32, [_I32]),
+    ("comorag_int4_matmul_splitk_tile_n", _I32, []),
+    ("comorag_int4_matmul_wgmma", _I32, [_PTR] * 4 + [_I32] * 5 + [_PTR]),
+    ("comorag_int4_fused_layer_tail", _I32, [_PTR] * 12 + [_I32] * 7 + [ctypes.c_float, _I32, _I32, _I32, _PTR]),
+    ("comorag_int4_tail_workspace_bytes", ctypes.c_longlong, [_I32] * 6),
+    ("comorag_int4_tail_tile_n", _I32, []),
+    ("comorag_int4_tail_blocks_per_sm", _I32, [_I32]),
+)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("int4")
     if lib.comorag_int4_matmul.argtypes is None:
-        mm = lib.comorag_int4_matmul
-        mm.restype = ctypes.c_int
-        mm.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        tail = lib.comorag_int4_fused_layer_tail
-        tail.restype = ctypes.c_int
-        tail.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
-                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        ws = lib.comorag_int4_tail_workspace_bytes
-        ws.restype = ctypes.c_longlong
-        ws.argtypes = [ctypes.c_int] * 6
-        lib.comorag_int4_tail_tile_n.restype = ctypes.c_int
-        lib.comorag_int4_tail_tile_n.argtypes = []
-        lib.comorag_int4_tail_blocks_per_sm.restype = ctypes.c_int
-        lib.comorag_int4_tail_blocks_per_sm.argtypes = [ctypes.c_int]
+        for name, restype, argtypes in _C_ENTRIES:
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
     return lib
 
 
@@ -135,11 +146,28 @@ def _bf16_rows(name: str, x: torch.Tensor) -> torch.Tensor:
     return xb
 
 
+def int4_matmul_route(m: int, n: int) -> str:
+    """The kernel route ``int4_matmul`` takes for a CUDA x of m rows and n
+    output columns (the first two copy packed and scales by TMA, which
+    needs both on 16 bytes):
+    - ``"splitk"``, decode (m <= 64, n a multiple of 256): one stage of the
+      fused tail's split-K streaming code, over ``matmul_plan``'s items;
+    - ``"wgmma"``, prefill (m > 64, n a multiple of 128): a warp-specialized
+      wgmma kernel with the weights as its register operand;
+    - ``"mma_sync"``, every other shape: the first design (mma.sync tiles)."""
+    if m <= SPLITK_MAX_M and n % _SPLITK_TILE_N == 0:
+        return "splitk"
+    if m > SPLITK_MAX_M and n % _WGMMA_TILE_N == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                 group_size: int = 128) -> torch.Tensor:
     """x [M, in] @ dequant(packed, scales) -> [M, out] f32. CUDA tensors
-    launch the kernel (any M; ``in`` a multiple of group_size, group_size a
-    multiple of 64); CPU tensors run ``int4_matmul_plain``."""
+    launch the kernel of ``int4_matmul_route``'s choosing (any M; ``in`` a
+    multiple of group_size, group_size a multiple of 64); CPU tensors run
+    ``int4_matmul_plain``."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scales, group_size)
     if x.device.type != "cuda":
@@ -148,16 +176,48 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"int4_matmul: x must be [M, in], got {tuple(x.shape)}")
     m, d_in = x.shape
     d_out = packed.shape[-1]
-    _check_weight("int4_matmul", packed, scales, d_in, d_out, group_size, x.device)
+    dev = x.device
+    _check_weight("int4_matmul", packed, scales, d_in, d_out, group_size, dev)
     xb = _bf16_rows("int4_matmul", x)
-    out = torch.empty(m, d_out, dtype=torch.float32, device=x.device)
+    out = torch.empty(m, d_out, dtype=torch.float32, device=dev)
     lib = _lib()
-    rc = lib.comorag_int4_matmul(xb.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                                 m, d_out, d_in, group_size,
-                                 torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, rc, "int4_matmul")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    route = int4_matmul_route(m, d_out)
+    if route != "mma_sync" and (packed.data_ptr() % 16 or scales.data_ptr() % 16):
+        raise ValueError(f"int4_matmul: the {route} route's TMA copies need packed and scales 16-byte aligned")
+    if route == "splitk":
+        tile_n, blocks = _splitk_geometry(dev, m)
+        splits = _plan_splits(m, d_in, d_out, group_size, _sm_count(dev), tile_n, blocks)
+        ws_ptr = tickets_ptr = None  # at one split the kernel writes out directly
+        if splits > 1:
+            workspace = torch.empty(splits * m * d_out, dtype=torch.float32, device=dev)
+            ws_ptr, tickets_ptr = workspace.data_ptr(), _tickets_for(dev, stream, d_out // tile_n).data_ptr()
+        rc = lib.comorag_int4_matmul_splitk(xb.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                                            ws_ptr, tickets_ptr, m, d_out, d_in, group_size, splits,
+                                            _sm_count(dev), stream)
+    elif route == "wgmma":
+        rc = lib.comorag_int4_matmul_wgmma(xb.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                                           m, d_out, d_in, group_size, _sm_count(dev), stream)
+    else:
+        rc = lib.comorag_int4_matmul(xb.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                                     m, d_out, d_in, group_size, stream)
+    build.check(lib, rc, f"int4_matmul ({route})")
     LAUNCHES.add()
+    ROUTE_LAUNCHES[route].add()
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _splitk_geometry(device: torch.device, m: int) -> Tuple[int, int]:
+    """(output columns of a work item, blocks an SM holds at m tokens) of
+    the split-K route's kernel as the built kernel reports them on
+    ``device``."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        blocks = lib.comorag_int4_matmul_splitk_blocks_per_sm(m)
+    if blocks <= 0:
+        build.check(lib, -blocks, "int4_matmul (splitk)")
+    return lib.comorag_int4_matmul_splitk_tile_n(), blocks
 
 
 # ---------------------------------------------------------------- fused tail
@@ -234,27 +294,46 @@ def _splits_for(tiles: int, groups: int, sm_count: int, slots: int, m: int, grou
 
 
 @functools.lru_cache(maxsize=None)
+def _plan_splits(m: int, k: int, n: int, group_size: int, sm_count: int, tile_n: int, blocks_per_sm: int) -> int:
+    """The K splits of one product of split-K items (``_splits_for`` over
+    its ``n // tile_n`` column tiles and ``k // group_size`` groups)."""
+    return _splits_for(n // tile_n, k // group_size, sm_count, sm_count * blocks_per_sm, m, group_size)
+
+
+def matmul_plan(m: int, k: int, n: int, group_size: int, sm_count: int, tile_n: int, blocks_per_sm: int) -> dict:
+    """Work items of one split-K product (``int4_matmul``'s decode route,
+    and each stage of the fused tail): its K, its column tiles of
+    ``tile_n`` outputs and its K splits on group boundaries, chosen for a
+    card of ``sm_count`` SMs of ``blocks_per_sm`` block slots each."""
+    splits = _plan_splits(m, k, n, group_size, sm_count, tile_n, blocks_per_sm)
+    tiles = n // tile_n
+    return {"m": m, "k": k, "n": n, "k_step": _KERNEL_K_STEP, "tile_n": tile_n, "tiles": tiles, "splits": splits,
+            "items": tiles * splits, "bounds": split_bounds(k, group_size, splits)}
+
+
+_TAIL_STAGES = ("o", "gate_up", "down")
+
+
+def _tail_shapes(hidden: int, inter: int) -> tuple:
+    """(K, N) of the fused tail's stages; gate/up's N counts one of its
+    two column blocks (an item holds ``tile_n`` columns of each)."""
+    return (hidden, hidden), (hidden, inter), (inter, hidden)
+
+
 def _tail_splits(m: int, hidden: int, inter: int, group_size: int, sm_count: int, tile_n: int,
                  blocks_per_sm: int) -> Tuple[int, int, int]:
-    slots = sm_count * blocks_per_sm
-    return tuple(_splits_for(n // tile_n, k // group_size, sm_count, slots, m, group_size)
-                 for k, n in ((hidden, hidden), (hidden, inter), (inter, hidden)))
+    return tuple(_plan_splits(m, k, n, group_size, sm_count, tile_n, blocks_per_sm)
+                 for k, n in _tail_shapes(hidden, inter))
 
 
 def tail_plan(m: int, hidden: int, inter: int, group_size: int, sm_count: int, tile_n: int,
               blocks_per_sm: int) -> dict:
-    """Work items of the fused-tail kernel: per stage, its K, its column
-    tiles of ``tile_n`` outputs (gate/up: that many columns of each) and
-    its K splits on group boundaries, chosen for a card of ``sm_count``
-    SMs of ``blocks_per_sm`` block slots each. The kernel reports its
-    ``tile_n`` and ``blocks_per_sm`` (``_tail_geometry``)."""
-    stages = {}
-    shapes = (("o", hidden, hidden), ("gate_up", hidden, inter), ("down", inter, hidden))
-    splits = _tail_splits(m, hidden, inter, group_size, sm_count, tile_n, blocks_per_sm)
-    for (name, k, n), s in zip(shapes, splits):
-        tiles = n // tile_n
-        stages[name] = {"k": k, "tiles": tiles, "splits": s, "items": tiles * s,
-                        "bounds": split_bounds(k, group_size, s)}
+    """Work items of the fused-tail kernel: per stage, ``matmul_plan`` of
+    its product (gate/up: ``tile_n`` columns of each block an item). The
+    kernel reports its ``tile_n`` and ``blocks_per_sm``
+    (``_tail_geometry``)."""
+    stages = {name: matmul_plan(m, k, n, group_size, sm_count, tile_n, blocks_per_sm)
+              for name, (k, n) in zip(_TAIL_STAGES, _tail_shapes(hidden, inter))}
     return {"m": m, "k_step": _KERNEL_K_STEP, "tile_n": tile_n, "stages": stages}
 
 
@@ -286,9 +365,10 @@ def split_partials_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Te
 _tickets: dict = {}
 
 
-def _tail_tickets(device: torch.device, stream: int, count: int) -> torch.Tensor:
-    """The kernel's per-tile tickets for one (device, stream): zeroed once;
-    each launch leaves them zero again."""
+def _tickets_for(device: torch.device, stream: int, count: int) -> torch.Tensor:
+    """The split-K kernels' per-tile tickets for one (device, stream), shared
+    by the fused tail and the decode-route product (launches on one stream
+    run in order): zeroed once; each launch leaves them zero again."""
     key = (device.index, stream)
     t = _tickets.get(key)
     if t is None or t.numel() < count:
@@ -341,7 +421,7 @@ def int4_fused_layer_tail(
     workspace = torch.empty(lib.comorag_int4_tail_workspace_bytes(m, hidden, inter, *splits),
                             dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tickets = _tail_tickets(dev, stream, (2 * hidden + inter) // tile_n)
+    tickets = _tickets_for(dev, stream, (2 * hidden + inter) // tile_n)
     rc = lib.comorag_int4_fused_layer_tail(
         ctx_b.data_ptr(), xres.data_ptr(), nw.data_ptr(), o_packed.data_ptr(), o_scale.data_ptr(),
         gu_packed.data_ptr(), gu_scale.data_ptr(), down_packed.data_ptr(), down_scale.data_ptr(),

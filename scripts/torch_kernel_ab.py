@@ -1,9 +1,10 @@
-"""A/B timing of comorag_torch's encoder FFN, encoder attention and int4
-fused layer tail against an earlier version of the same CUDA sources, in
-one process on one card.
+"""A/B timing of comorag_torch's encoder FFN, encoder attention, int4
+matmul and int4 fused layer tail against an earlier version of the same
+CUDA sources, in one process on one card.
 
     git archive <commit> comorag_torch/csrc | tar -x -C build/ab_old
-    python scripts/torch_kernel_ab.py --old-csrc build/ab_old/comorag_torch/csrc [--kernels ffn attention tail]
+    python scripts/torch_kernel_ab.py --old-csrc build/ab_old/comorag_torch/csrc \
+        [--kernels ffn attention matmul tail]
 
 The earlier sources are built with the same nvcc flags into the build
 directory. Each kernel runs through the same wrapper for both (the library
@@ -12,7 +13,11 @@ where the earlier source has another C interface, which is then called
 directly, with its workspaces made once outside the timed loop: a fused
 tail with the first design's (commit a8e4f4b: no
 ``comorag_int4_tail_tile_n``) and an FFN with the fused mma.sync design's
-(up to commit 864f5f5: no ``comorag_encoder_ffn_tile``). Times are
+(up to commit 864f5f5: no ``comorag_encoder_ffn_tile``). int4_matmul
+is timed at chip_smoke.py phase 9's six shapes through both libraries' C
+entries, called directly (``matmul_ab``): the earlier library at the
+current route where it has that entry, else at the one mma.sync kernel
+of fdbff70 and before. Times are
 medians of CUDA-event samples (chip_smoke's ``median_ms``), taken in
 turns: earlier, current, current, earlier. Prints one JSON line per shape
 and the card's nvidia-smi name and power limit.
@@ -33,8 +38,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from chip_smoke import (ffn_bound, ffn_inputs, llama_8b, median_ms, nvidia_smi_line, ragged_mask,  # noqa: E402
-                        rule_ratio, tail_bound)
+from chip_smoke import (INT4_MATMUL_SHAPES, ffn_bound, ffn_inputs, int4_bound, int4_matmul_dims,  # noqa: E402
+                        llama_8b, median_ms, nvidia_smi_line, ragged_mask, rule_ratio, tail_bound)
 from comorag_torch.ops import attention, build, ffn, int4  # noqa: E402
 
 
@@ -125,8 +130,86 @@ def ffn_ab(old_lib: ctypes.CDLL, device) -> list:
     return rows
 
 
+def type_int4_entries(lib: ctypes.CDLL) -> None:
+    """Types the entries of ops.int4's C interface that an earlier build
+    of csrc/int4.cu has (it may lack the newer ones)."""
+    for name, restype, argtypes in int4._C_ENTRIES:
+        if hasattr(lib, name):
+            getattr(lib, name).restype, getattr(lib, name).argtypes = restype, argtypes
+
+
+def matmul_call(lib: ctypes.CDLL, route: str, x, packed, scales, out, workspace, tickets, splits: int,
+                sms: int, stream: int) -> None:
+    """One launch of csrc/int4.cu's C entry for ``route``, on buffers made
+    by the caller."""
+    (m, k), n = x.shape, packed.shape[1]
+    ptrs = (x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr())
+    if route == "splitk":
+        rc = lib.comorag_int4_matmul_splitk(*ptrs, workspace.data_ptr(), tickets.data_ptr(), m, n, k, 128, splits,
+                                            sms, stream)
+    elif route == "wgmma":
+        rc = lib.comorag_int4_matmul_wgmma(*ptrs, m, n, k, 128, sms, stream)
+    else:
+        rc = lib.comorag_int4_matmul(*ptrs, m, n, k, 128, stream)
+    build.check(lib, rc, f"int4_matmul ({route})")
+
+
+def matmul_ab(old_lib: ctypes.CDLL, device) -> list:
+    """int4_matmul at phase 9's shapes, cycling through 8 layers' weights
+    (past the 50 MB L2; one for lm_head). Both libraries' C entries are
+    called directly, their buffers made outside the timed loop, so the
+    times are the kernels' without the wrapper's host work (chip_smoke's
+    host_us): the current library at the wrapper's route and plan, the
+    earlier one at the same route where it has that entry, else at its
+    ``comorag_int4_matmul`` (fdbff70 and before: one mma.sync kernel for
+    every shape)."""
+    new_lib = int4._lib()
+    type_int4_entries(old_lib)
+    arch = llama_8b()
+    sms = int4._sm_count(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    gen = torch.Generator(device=device).manual_seed(9)
+    rows = []
+    for m, name in INT4_MATMUL_SHAPES:
+        k, n = int4_matmul_dims(arch, name)
+        layers = 1 if name == "lm_head" else 8
+        packed = torch.randint(-128, 128, (layers, k // 2, n), generator=gen, device=device, dtype=torch.int8)
+        scales = torch.empty(layers, k // 128, n, device=device).uniform_(0.003, 0.006, generator=gen)
+        x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
+        route = int4.int4_matmul_route(m, n)
+        old_route = route if hasattr(old_lib, f"comorag_int4_matmul_{route}") else "mma_sync"
+        splits = (int4.matmul_plan(m, k, n, 128, sms, *int4._splitk_geometry(device, m))["splits"]
+                  if route == "splitk" else 1)
+        # the earlier split-K build reads a workspace even at one split
+        workspace = torch.empty(splits * m * n, device=device)
+        tickets = {lib: torch.zeros(n // 128, dtype=torch.int32, device=device) for lib in (old_lib, new_lib)}
+        outs = {lib: torch.empty(m, n, device=device) for lib in (old_lib, new_lib)}
+        state = {"i": 0}
+
+        def run(lib, r):
+            def call():
+                i = state["i"] = (state["i"] + 1) % layers
+                matmul_call(lib, r, x, packed[i], scales[i], outs[lib], workspace, tickets[lib], splits, sms, stream)
+            return call
+
+        old, new = run(old_lib, old_route), run(new_lib, route)
+        plain = int4.int4_matmul_plain(x, packed[0], scales[0])
+        ratios = {}
+        for tag, lib, call in (("earlier", old_lib, old), ("current", new_lib, new)):
+            state["i"] = -1  # layer 0, as plain
+            call()
+            ratios[f"{tag}_rule_ratio"] = rule_ratio(outs[lib], plain)
+        rows.append({"kernel": "int4_matmul", "M": m, "weight": name, "K": k, "N": n, "route": route,
+                     "earlier_route": old_route, "splits": splits, **int4_bound(m, k, n), **in_turns(old, new),
+                     **ratios})
+        del packed, scales, x, plain, workspace, tickets, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def tail_ab(old_lib: ctypes.CDLL, device) -> list:
     new_lib = int4._lib()
+    type_int4_entries(old_lib)
     same_interface = hasattr(old_lib, "comorag_int4_tail_tile_n")
     fn = old_lib.comorag_int4_fused_layer_tail
     if not same_interface:
@@ -189,7 +272,7 @@ def tail_ab(old_lib: ctypes.CDLL, device) -> list:
 
 # kernel -> (its csrc source, its A/B)
 RUNS = {"attention": ("encoder_attention", attention_ab), "ffn": ("encoder_ffn", ffn_ab),
-        "tail": ("int4", tail_ab)}
+        "matmul": ("int4", matmul_ab), "tail": ("int4", tail_ab)}
 
 
 def main() -> None:
@@ -201,12 +284,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: needs a CUDA card")
     device = torch.device("cuda", 0)
-    sources = [RUNS[k][0] for k in args.kernels]
+    sources = sorted({RUNS[k][0] for k in args.kernels})
     build.load_all(sources)
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        old_libs = list(pool.map(lambda name: build_old(args.old_csrc, name), sources))
-    for k, old_lib in zip(args.kernels, old_libs):
-        for row in RUNS[k][1](old_lib, device):
+        old_libs = dict(zip(sources, pool.map(lambda name: build_old(args.old_csrc, name), sources)))
+    for k in args.kernels:
+        for row in RUNS[k][1](old_libs[RUNS[k][0]], device):
             print(json.dumps(row), flush=True)
     print(nvidia_smi_line())
 

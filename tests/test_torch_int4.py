@@ -12,8 +12,13 @@ The same numpy weights and activations go through both packages:
   portable route keeps them in fp32, so the bf16 rule scaled to the
   output's magnitude, |d| <= 2e-2 * max|jax| + 2e-2 * |jax| (each bf16
   rounding errs relative to the sums it feeds, not to the element);
+- ``int4_matmul``'s decode route as the kernel forms it (fp32 partials over
+  ``matmul_plan``'s K splits, summed in split order) against JAX's
+  ``interpret=True`` route: fp32 rounding only, 1e-5 + 1e-5*|jax|.
 The CUDA-marked cases hold the kernels against the plain versions on a
-card and skip elsewhere.
+card and skip elsewhere: every route under the bf16 rule, and the decode
+route against its split order to 1e-4 * max|plain| + 1e-4 * |plain| (the
+tensor cores sum a group in another fp32 order than torch.matmul).
 """
 
 import jax.numpy as jnp
@@ -166,6 +171,76 @@ def test_split_partials_in_plan_order_match_jax(m, act, unit_offset):
     np.testing.assert_allclose(got.numpy(), want, rtol=BF16_TOL, atol=BF16_TOL * np.abs(want).max())
 
 
+# int4_matmul's split-K decode route: qkv and lm_head of Llama-3.1-8B,
+# DecoderArch's default qkv, the tiny model's K of 2 groups
+_PRODUCTS = [(4096, 6144), (4096, 128256), (2048, 2560), (256, 512)]
+# the split-K route's item width and blocks an SM as csrc/int4.cu builds
+# them (the library reports them: test_splitk_geometry_is_the_kernels holds
+# them on a card)
+_SPLITK_TILE_N = 256
+
+
+def _splitk_blocks_per_sm(m):
+    return 5 if m <= 8 else 2 if m <= 32 else 1
+
+
+@pytest.mark.parametrize("k,n", _PRODUCTS)
+@pytest.mark.parametrize("m", [1, 8, 40, 64])
+@pytest.mark.parametrize("gs", [64, 128])
+def test_matmul_plan_splits_cover_k_once_on_group_boundaries(k, n, m, gs):
+    plan = tint4.matmul_plan(m, k, n, gs, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m))
+    assert gs % plan["k_step"] == 0 and plan["tiles"] * plan["tile_n"] == n
+    bounds = plan["bounds"]
+    assert len(bounds) == plan["splits"] and plan["items"] == plan["tiles"] * plan["splits"]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    for (k0, k1), (n0, _) in zip(bounds, bounds[1:] + [(k, None)]):
+        assert k1 == n0 and k0 < k1 and k0 % gs == 0 and k1 % gs == 0
+
+
+@pytest.mark.parametrize("k,n", _PRODUCTS)
+@pytest.mark.parametrize("m", [8, 64])
+def test_matmul_plan_fills_every_sm(k, n, m):
+    plan = tint4.matmul_plan(m, k, n, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m))
+    groups = k // 128
+    # every SM gets an item where tiles x groups allows it, else every group is a split
+    assert plan["items"] >= 132 or plan["splits"] == groups, (plan["tiles"], plan["splits"])
+    if (k, n) == (4096, 6144):
+        assert plan["splits"] >= 6  # 24 column tiles: 132 SMs need at least 6 splits
+
+
+def test_tail_plan_stages_are_matmul_plans():
+    args = (132, _TILE_N, 2)
+    plan = tint4.tail_plan(8, 4096, 14336, 128, *args)["stages"]
+    for name, (k, n) in (("o", (4096, 4096)), ("gate_up", (4096, 14336)), ("down", (14336, 4096))):
+        assert plan[name] == tint4.matmul_plan(8, k, n, 128, *args)
+
+
+@pytest.mark.parametrize("m,n,route", [
+    (1, 6144, "splitk"), (8, 128256, "splitk"), (64, 256, "splitk"),
+    (65, 128, "wgmma"), (4096, 28672, "wgmma"), (65, 384, "wgmma"),
+    (8, 259, "mma_sync"), (4096, 600, "mma_sync"), (64, 384, "mma_sync"),
+    (2, 259, "mma_sync"), (512, 259, "mma_sync")])
+def test_int4_matmul_route_gates(m, n, route):
+    assert tint4.int4_matmul_route(m, n) == route
+
+
+@pytest.mark.parametrize("m", [1, 8, 40])
+def test_splitk_partials_in_plan_order_match_jax(m):
+    """The decode route's arithmetic on the CPU: fp32 partials over
+    matmul_plan's K splits (here every group its own split: 2 tiles x 8
+    groups cannot give 132 SMs an item each), summed in split order."""
+    rng = np.random.default_rng(200 + m)
+    k, n, gs = 512, 512, 64
+    _, (jp, js), (tp, ts) = _weights(rng, k, n, gs)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    want = np.asarray(jint4.int4_matmul(jnp.asarray(x), jnp.asarray(jp), jnp.asarray(js), group_size=gs,
+                                        interpret=True))
+    plan = tint4.matmul_plan(m, k, n, gs, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m))
+    assert plan["splits"] == k // gs
+    got = tint4.split_partials_plain(torch.tensor(x), tp, ts, gs, plan["bounds"])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_fused_tail_gate_matches_jax():
     for args in [(4096, 14336, 128, 8), (4096, 14336, 128, 65), (256, 1024, 128, 8),
                  (512, 1024, 128, 64), (512, 1024, 64, 1)]:
@@ -201,6 +276,41 @@ def test_int4_matmul_kernel_matches_plain(cuda_device, m, d_in, d_out, gs):
     _close(got, tint4.int4_matmul_plain(x, tp, ts, gs))
 
 
+# every route's gates crossed: M = 64 / 65, N a multiple of 256, of 128
+# only (384, 640) or of neither (259, 600), group sizes 64 and 128, K of 2
+# groups; N = 128256 at M = 8 and 33792 at M = 40 give every block slot a
+# column tile, so the plan takes one K split (out written directly)
+_ROUTE_CASES = [(1, 256, 256, 128, "splitk"), (8, 256, 512, 128, "splitk"), (8, 4096, 6144, 128, "splitk"),
+                (8, 256, 128256, 128, "splitk"), (40, 256, 33792, 128, "splitk"),
+                (16, 512, 256, 64, "splitk"), (40, 512, 768, 128, "splitk"), (64, 1024, 512, 64, "splitk"),
+                (65, 512, 640, 128, "wgmma"), (130, 256, 384, 128, "wgmma"), (300, 1024, 256, 64, "wgmma"),
+                (512, 4096, 1024, 128, "wgmma"), (8, 256, 259, 128, "mma_sync"), (64, 512, 600, 64, "mma_sync"),
+                (64, 256, 384, 128, "mma_sync"), (65, 512, 600, 128, "mma_sync"), (130, 256, 259, 128, "mma_sync")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d_in,d_out,gs,route", _ROUTE_CASES)
+def test_int4_matmul_routes_match_plain(cuda_device, m, d_in, d_out, gs, route):
+    rng = np.random.default_rng(m + d_in + d_out)
+    _, _, (tp, ts) = _weights(rng, d_in, d_out, gs)
+    tp, ts = tp.to(cuda_device), ts.to(cuda_device)
+    x = torch.tensor(rng.standard_normal((m, d_in)), dtype=torch.float32, device=cuda_device)
+    before = {r: c.value for r, c in tint4.ROUTE_LAUNCHES.items()}
+    total = tint4.LAUNCHES.value
+    got = tint4.int4_matmul(x, tp, ts, gs)
+    torch.cuda.synchronize()
+    assert tint4.LAUNCHES.value == total + 1
+    assert {r: c.value - before[r] for r, c in tint4.ROUTE_LAUNCHES.items()} == {
+        r: int(r == route) for r in tint4.ROUTE_LAUNCHES}
+    _close(got, tint4.int4_matmul_plain(x, tp, ts, gs))
+    if route == "splitk":  # the split order the kernel sums in, to fp32 rounding
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        plan = tint4.matmul_plan(m, d_in, d_out, gs, sms, *tint4._splitk_geometry(cuda_device, m))
+        assert plan["splits"] == 1 or d_out < 33792  # the wide cases run the one-split path
+        ref = tint4.split_partials_plain(x, tp, ts, gs, plan["bounds"]).cpu().numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 64])
 @pytest.mark.parametrize("act,unit_offset", [("silu", False), ("gelu_tanh", True), ("gelu", False)])
@@ -228,11 +338,32 @@ def test_tail_geometry_is_the_kernels(cuda_device, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 33, 64])
+def test_splitk_geometry_is_the_kernels(cuda_device, m):
+    assert tint4._splitk_geometry(cuda_device, m) == (_SPLITK_TILE_N, _splitk_blocks_per_sm(m))
+    assert tint4._SPLITK_TILE_N == _SPLITK_TILE_N
+
+
+@pytest.mark.cuda
 def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
     x = torch.zeros(4, 96, device=cuda_device)
     packed = torch.zeros(48, 64, dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError):  # group size 32 is no multiple of the kernel's 64-deep slab
         tint4.int4_matmul(x, packed, torch.zeros(3, 64, device=cuda_device), 32)
+    for m in (8, 96):  # the split-K and wgmma routes' shapes refuse it too
+        with pytest.raises(ValueError):
+            tint4.int4_matmul(torch.zeros(m, 96, device=cuda_device), torch.zeros(48, 128, dtype=torch.int8,
+                                                                                 device=cuda_device),
+                              torch.zeros(3, 128, device=cuda_device), 32)
+    for m in (8, 96):  # the split-K and wgmma routes' TMA copies refuse weights off 16 bytes
+        p = torch.zeros(128 * 256 + 8, dtype=torch.int8, device=cuda_device)[8:].view(128, 256)
+        sc = torch.zeros(2 * 256 + 2, device=cuda_device)[2:].view(2, 256)
+        with pytest.raises(ValueError):
+            tint4.int4_matmul(torch.zeros(m, 256, device=cuda_device), p, sc)
+    lib, stream = tint4._lib(), torch.cuda.current_stream().cuda_stream
+    # the C entries check their own gates: M above 64 on split-K, N off 128 on wgmma
+    assert lib.comorag_int4_matmul_splitk(None, None, None, None, None, None, 65, 128, 128, 64, 1, 132, stream) != 0
+    assert lib.comorag_int4_matmul_wgmma(None, None, None, None, 128, 200, 128, 64, 132, stream) != 0
     ctx = torch.zeros(65, 512, device=cuda_device)
     w = torch.zeros(256, 512, dtype=torch.int8, device=cuda_device)
     s = torch.zeros(4, 512, device=cuda_device)
