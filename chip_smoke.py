@@ -30,7 +30,11 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      versions on bench.py's corpus (100,000 x 1024, normalized, seed 0),
      k = 50, P = 16 and 256: scores to 1e-5 + 1e-5*|plain|, ids equal at
      every rank separated from its neighbours by more than 1e-5
-     (ops/mips.check_topk); median ms of kernel and plain;
+     (ops/mips.check_topk); each call's scan route (ops/mips.scan_route;
+     the int8 calls must launch the tensor-core "mma" scan); median ms of
+     kernel and plain, and for int8 a yardstick that is not one library
+     call: torch.topk over torch.matmul of the bf16 queries by the
+     bf16-converted rows, times the scales;
   7. retrieval serving at bench shape: MipsIndex.topk_many over 100
      distinct host batches of 16 queries, k = 50, best of 4 interleaved
      rounds, for fp32 single-pass, the default (int8 two-pass; also with
@@ -42,7 +46,8 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      indexes a seeded 12,000-chunk corpus (episodic layer >= 512 rows) and
      answers 16 questions, then a second ComoRAG with embedding_dtype="int8"
      reuses the stores and answers them again; the fp32 kernel's launch
-     count grew in the first run and the int8 kernel's in the second. Every
+     count grew in the first run and the int8 kernel's in the second, there
+     on the "mma" scan route (launches per route are counted). Every
      top-k kernel call of each run is recorded and then held against its
      plain version at those inputs (as phase 6; both timed), and the graph
      build's synonymy sweep is replayed on the default route (int8 two-pass)
@@ -462,26 +467,46 @@ def bench_data(n_queries: int):
     return corpus, queries
 
 
+def route_of(q: torch.Tensor, rows: torch.Tensor, k: int) -> str:
+    """The scan route the wrapper takes for this call (ops/mips.scan_route)."""
+    return mips.scan_route(q.shape[0], q.shape[1], k, rows.dtype,
+                           q.data_ptr() % 16 == 0 and rows.data_ptr() % 16 == 0)
+
+
+def routed(fn, route: str):
+    """fn()'s result; raises unless it launched once, on ``route``."""
+    before = {r: c.value for r, c in mips.ROUTE_LAUNCHES.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    delta = {r: c.value - before[r] for r, c in mips.ROUTE_LAUNCHES.items()}
+    if delta != {r: int(r == route) for r in mips.SCAN_ROUTES}:
+        raise AssertionError(f"expected one launch on the {route} scan route, got {delta}")
+    return out
+
+
 def phase_topk_kernels(device, corpus: np.ndarray, queries: np.ndarray) -> dict:
     """Both top-k kernels vs their plain versions at P = 16 and 256."""
     c32 = torch.tensor(corpus, device=device)
     cq, sc = (torch.tensor(a, device=device) for a in quantize_int8(corpus))
+    c16 = cq.to(torch.bfloat16)  # the yardstick's rows, converted once (exact)
     out = {"mips_topk": {}, "mips_topk_int8": {}}
     for p in (16, 256):
         q = torch.tensor(queries[:p], device=device)
         runs = {
             "mips_topk": (lambda: mips.mips_topk(q, c32, BENCH_K), lambda: mips.mips_topk_plain(q, c32, BENCH_K),
-                          lambda: dense_scores(q, c32)),
+                          lambda: dense_scores(q, c32), route_of(q, c32, BENCH_K)),
             "mips_topk_int8": (lambda: mips.mips_topk_int8(q, cq, sc, BENCH_K),
                                lambda: mips.mips_topk_int8_plain(q, cq, sc, BENCH_K),
-                               lambda: int8_scores(q, cq, sc)),
+                               lambda: int8_scores(q, cq, sc), route_of(q, cq, BENCH_K)),
         }
-        for name, (kernel, plain, scores) in runs.items():
-            s, i = kernel()
-            torch.cuda.synchronize()
+        if runs["mips_topk_int8"][3] != "mma":
+            raise AssertionError(f"int8 rows at P={p} took the {runs['mips_topk_int8'][3]} route, not mma")
+        for name, (kernel, plain, scores, route) in runs.items():
+            s, i = routed(kernel, route)
             err = mips.check_topk(s, i, scores(), f"{name} P={p}")
             row_bytes = BENCH_DIM * (4 if name == "mips_topk" else 1) + (0 if name == "mips_topk" else 4)
             out[name][p] = {"max_abs_err": err, "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+                            "scan_route": route,
                             # no single PyTorch call ranks a fused top-k over the corpus
                             "library_ms": None,
                             # rows (and scales) read once, queries read, (score, id) lists written;
@@ -489,11 +514,16 @@ def phase_topk_kernels(device, corpus: np.ndarray, queries: np.ndarray) -> dict:
                             # int8 rows (exact in bf16, fp32 sums; pallas_topk.py:187-190) for int8
                             **bound(BENCH_N * row_bytes + p * BENCH_DIM * 4 + p * BENCH_K * 12,
                                     2 * p * BENCH_N * BENCH_DIM, "fp32" if name == "mips_topk" else "bf16")}
-    del c32, cq, sc
+        qb = q.to(torch.bfloat16)
+        # two calls, not one library call: bf16 products (bf16 output), then the top-k
+        out["mips_topk_int8"][p]["yardstick_ms"] = median_ms(
+            lambda: torch.topk(torch.matmul(qb, c16.T).float() * sc, BENCH_K, dim=1))
+    del c32, cq, sc, c16
     print("phase 6 top-k kernels vs plain (N=100000, d=1024, k=50; scores 1e-5 + 1e-5*|plain|, ids "
           "equal where separated by > 1e-5): " + "; ".join(
-              f"{name} P={p} max_abs_err={r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              f"{name} P={p} route {r['scan_route']} max_abs_err={r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
+              f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f" yardstick (bf16 matmul + torch.topk) {r['yardstick_ms']:.4f} ms" if "yardstick_ms" in r else "")
               for name, by_p in out.items() for p, r in by_p.items()), flush=True)
     return out
 
@@ -617,10 +647,10 @@ def check_recorded_calls(calls, tag: str) -> list:
             kernel, plain, scores = mips.mips_topk, mips.mips_topk_plain, dense_scores
         else:
             kernel, plain, scores = mips.mips_topk_int8, mips.mips_topk_int8_plain, int8_scores
-        s, i = kernel(q, *rows, k)
-        torch.cuda.synchronize()
+        route = route_of(q, rows[0], k)
+        s, i = routed(lambda: kernel(q, *rows, k), route)
         (p, d), n = q.shape, rows[0].shape[0]
-        out.append({"name": name, "P": p, "N": n, "d": d, "k": k,
+        out.append({"name": name, "P": p, "N": n, "d": d, "k": k, "scan_route": route,
                     "max_abs_err": mips.check_topk(s, i, scores(q, *rows), f"{name} {tag} P={p} N={n} k={k}"),
                     "ms": median_ms(lambda: kernel(q, *rows, k)), "plain_ms": median_ms(lambda: plain(q, *rows, k))})
     return out
@@ -670,7 +700,7 @@ def phase_meta_loop(device, workdir: str) -> dict:
     at the run's own inputs."""
     docs, queries = make_corpus(N_META_CHUNKS, N_QUESTIONS, seed=11)
     encoder = bert_base_encoder(device)
-    counters = (attention.LAUNCHES, ffn.LAUNCHES, mips.LAUNCHES, mips.INT8_LAUNCHES)
+    counters = (attention.LAUNCHES, ffn.LAUNCHES, mips.LAUNCHES, mips.INT8_LAUNCHES, *mips.ROUTE_LAUNCHES.values())
     runs = {}
     for tag, retrieval in (("fp32", dict(topk_method="pallas")),
                            ("int8", dict(topk_method="pallas", embedding_dtype="int8"))):
@@ -692,6 +722,8 @@ def phase_meta_loop(device, workdir: str) -> dict:
         raise AssertionError(f"the fp32 run did not launch mips_topk: {runs['fp32']['launches']}")
     if runs["int8"]["launches"][mips.INT8_LAUNCHES.name] <= 0:
         raise AssertionError(f"the int8 run did not launch mips_topk_int8: {runs['int8']['launches']}")
+    if runs["int8"]["launches"][mips.ROUTE_LAUNCHES["mma"].name] <= 0:
+        raise AssertionError(f"the int8 run did not launch the mma scan: {runs['int8']['launches']}")
     for tag, r in runs.items():
         for counter in (mips.LAUNCHES, mips.INT8_LAUNCHES):
             checked = sum(c["name"] == counter.name for c in r["kernel_checks"])
@@ -1321,7 +1353,11 @@ def main() -> None:
                         "max_abs_err": max([r["max_abs_err"] for r in topk[name].values()]
                                            + [c["max_abs_err"] for c in main_path]),
                         "p256_ms": topk[name][256]["ms"], "p256_plain_ms": topk[name][256]["plain_ms"],
-                        "p256_bound_ms": topk[name][256]["bound_ms"], "main_path_calls": main_path})
+                        "p256_bound_ms": topk[name][256]["bound_ms"], "p256_scan_route": topk[name][256]["scan_route"],
+                        **({"p256_yardstick_ms": topk[name][256]["yardstick_ms"]} if run == "int8" else {}),
+                        "launches_by_route": {r: meta[run]["launches"][c.name]
+                                              for r, c in mips.ROUTE_LAUNCHES.items()},
+                        "main_path_calls": main_path})
     for counter, replaces, rows in ((int4.LAUNCHES, int4.REPLACES, int4_kernels["int4_matmul"]),
                                     (int4.TAIL_LAUNCHES, int4.TAIL_REPLACES, int4_kernels["int4_fused_layer_tail"])):
         head = rows[0]  # decode, M = 8: the serving loop's shape

@@ -53,9 +53,11 @@ def two_level_soft_cluster(
     max_clusters: int = 50,
     seed: int = 224,
     em_iters: int = 60,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> List[SoftCluster]:
-    """Two-level (global + local) soft clustering of [n, d] embeddings."""
+    """Two-level (global + local) soft clustering of [n, d] embeddings, on
+    the card unless ``device="cpu"``; without a card the default raises."""
+    device = resolve_device(device)
     n = embeddings.shape[0]
     if n == 0:
         return []

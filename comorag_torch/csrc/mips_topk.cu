@@ -18,10 +18,10 @@
 // 100,000 rows, d = 1024, k = 50) the fp32 kernel reads 410 MB of corpus for
 // 3.3 GFLOP (8 FLOP/byte, far below the card's ridge), so it is bound by
 // memory bandwidth (~0.12 ms at 3.35 TB/s); the int8 kernel reads 102 MB
-// (~0.03 ms) for the same FFMA count (~0.05 ms at 67 TFLOP/s), plus one
-// exact int8 -> float conversion per element per query block. At the
-// 1,000-row query batches of a synonymy sweep the fp32 kernel does 16 FFMA
-// per loaded byte and the FFMA rate (67 TFLOP/s) becomes the limit.
+// (~0.03 ms). At 256 queries the int8 rows need 52 GFLOP: 0.78 ms of FFMA
+// at 67 TFLOP/s, 0.053 ms on the bf16 tensor cores. At the 1,000-row query
+// batches of a synonymy sweep the fp32 kernel does 16 FFMA per loaded byte
+// and the FFMA rate (67 TFLOP/s) becomes the limit.
 //
 // What the design does about it. The TPU kernel walks the corpus axis in
 // order for each query block and carries the running top-k in scratch; at
@@ -32,22 +32,31 @@
 // in shared memory plus a threshold (its current k-th best): a score that
 // does not beat the threshold is dropped with one compare, and the few that
 // do are appended and merged by one warp per query (sort the appended
-// candidates, place both sorted runs by binary-search ranks). Two scans fill
-// the per-split lists. scan_kernel (small query batches, int8 rows, k > 64)
-// streams rows straight from L2 into registers, four rows and 8 queries per
-// thread. wide_scan_kernel (fp32 rows, 32 queries or more, k <= 64) stages
-// [32 queries x 128 rows] tiles in shared memory so that a row read from L2
-// serves 32 queries. A second kernel merges the splits, one block per
-// query, reading the splits' lists rank by rank and stopping at the first
-// rank where no list still beats the threshold. Measured on the H100
-// (PERF.md) neither scan reaches its bound yet: 0.34 ms at the serving shape
-// against ~0.12 ms of bandwidth; at P = 256 the wide scan runs its products
-// at ~23 of the 67 TFLOP/s of FFMA (three 16-byte shared loads per 32 FFMA).
+// candidates, place both sorted runs by binary-search ranks). Three scans
+// fill the per-split lists, chosen by the caller (ops/mips.scan_route) and
+// refused outside their limits. mma_scan_kernel (int8 rows, k <= 64, d % 16
+// == 0) streams [128 rows x 64 bytes] int8 boxes and the matching bf16
+// query boxes by TMA and scores a [128 rows x 32 queries] tile on mma.sync
+// bf16 tensor cores, converting each int8 exactly at fragment load, and
+// merges (in registers) only the candidate buffers that overflow.
+// wide_scan_kernel (fp32 rows, 32 queries or more, k <= 64) stages the same
+// tile of fp32 in shared memory for FFMA, so that a row read from L2 serves
+// 32 queries. scan_kernel (every other call) streams rows straight from L2
+// into registers, four rows and 8 queries per thread. A second kernel
+// merges the splits, one block per query, reading the splits' lists rank by
+// rank and stopping at the first rank where no list still beats the
+// threshold. Measured on the H100 (PERF.md) the fp32 scans do not reach
+// their bounds yet: 0.35 ms at the serving shape against ~0.12 ms of
+// bandwidth; at P = 256 the wide scan runs its products at ~23 of the 67
+// TFLOP/s of FFMA (three 16-byte shared loads per 32 FFMA).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
+#include "tma_sm90.cuh"
 
 namespace {
 
@@ -70,6 +79,18 @@ constexpr int WKMAX = 64;           // k bound of the wide scan
 constexpr int WBLOCKS_PER_SM = 2;
 constexpr int WIDE_MIN_P = 32;      // smallest query batch sent to the wide scan
 static_assert(WTHREADS == 128 && WQB == 32 && WBN == 128 && WBK == 32, "wide scan thread layout");
+// the tensor-core scan of int8 rows (mma_scan_kernel): the wide scan's
+// [WBN rows x WQB queries] tile and k bound
+constexpr int MBK = 64;                    // features per stage
+constexpr int MSTAGES = 3;                 // stages in the ring
+constexpr int MMI = 1;                     // m16 row tiles a warp (2, 4 warps of 32 rows: slower)
+constexpr int MTHREADS = WBN / (16 * MMI) * 32;  // warps of 16 MMI rows x 32 queries
+constexpr int MQ_BYTES = WQB * MBK * 2;    // a stage's bf16 query box (128-byte rows, swizzled)
+constexpr int MX_BYTES = WBN * MBK;        // a stage's int8 row box (64-byte rows)
+constexpr int MSTAGE = MQ_BYTES + MX_BYTES;
+constexpr int MSZ = WKMAX + WBN;           // slots a query: the top-k, one tile's appends
+static_assert(MQ_BYTES % 1024 == 0 && MSTAGE % 1024 == 0, "swizzled query boxes 1024-byte aligned");
+enum Route { ROUTE_SCAN = 0, ROUTE_WIDE = 1, ROUTE_MMA = 2 };  // ops/mips.SCAN_ROUTES
 
 // (score desc, id asc): true when entry a ranks before entry b
 __device__ __forceinline__ bool better(float sa, int ia, float sb, int ib) {
@@ -580,6 +601,357 @@ size_t wide_smem_bytes() {
          (size_t)WQB * scan_slots<WKMAX, WBN>() * 8 + 3 * WQB * 4;
 }
 
+// Four int8 values (bytes of w, the lowest first) as two bf16 pairs, exactly:
+// each byte b becomes the fp32 2^23 + (b + 128) by its bits, minus
+// 2^23 + 128; an integer of at most 8 significant bits is exact in bf16, so
+// its bf16 is the fp32's upper half. lo = (byte 0, byte 1), hi = (2, 3),
+// the lower byte in the low half.
+__device__ __forceinline__ void int8x4_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;  // b + 128, unsigned
+  constexpr float MAGIC = 8388736.f;   // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - MAGIC;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - MAGIC;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - MAGIC;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - MAGIC;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// Compare-exchange of an entry held by this lane with the entry of the
+// same register in lane ^ stride (a bitonic network over shuffles): the lane
+// keeps the better of the two when want_better, else the worse.
+__device__ __forceinline__ void lane_exchange(float& s, int& i, int stride, bool want_better) {
+  const float os = __shfl_xor_sync(0xffffffffu, s, stride);
+  const int oi = __shfl_xor_sync(0xffffffffu, i, stride);
+  if (better(s, i, os, oi) != want_better) {
+    s = os;
+    i = oi;
+  }
+}
+
+// One query's merge by one warp, in registers: the m <= 128 appended
+// candidates at slots [KMAX, KMAX + m) are sorted best first by a bitonic
+// network over 4 registers a lane (element r * 32 + lane), their best 64
+// are merged with the sorted top-k at [0, KMAX) (empty slots -inf) by one
+// bitonic half-cleaner and a 64-element bitonic merge, and the first k
+// written back. The same result as warp_merge, whose shared-memory
+// sort and binary-search ranks cost the tensor-core scan half its time;
+// the candidate slots are not emptied (the caller's count says which are
+// live).
+template <int KMAX>
+__device__ void warp_merge_regs(float* S, int* I, int k, int m, int lane) {
+  static_assert(KMAX == 64, "two list entries a lane");
+  float v[4];
+  int id[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int e = 32 * r + lane;
+    v[r] = e < m ? S[KMAX + e] : -INFINITY;
+    id[r] = e < m ? I[KMAX + e] : NONE_ID;
+  }
+#pragma unroll
+  for (int size = 2; size <= 128; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 32) {
+        const int R = stride >> 5;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (r & R) continue;
+          const bool best_first = ((32 * r) & size) == 0;
+          if (better(v[r | R], id[r | R], v[r], id[r]) == best_first) {
+            const float ts = v[r];
+            const int ti = id[r];
+            v[r] = v[r | R];
+            id[r] = id[r | R];
+            v[r | R] = ts;
+            id[r | R] = ti;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const bool best_first = ((32 * r + lane) & size) == 0;
+          lane_exchange(v[r], id[r], stride, ((lane & stride) == 0) == best_first);
+        }
+      }
+    }
+  }
+  // the list (best first) followed by the candidates' best 64 reversed is
+  // bitonic: the better of entries i and i + 64 are the best 64 of both
+  float ms[2];
+  int mi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float cs = __shfl_sync(0xffffffffu, v[1 - r], 31 - lane);
+    const int ci = __shfl_sync(0xffffffffu, id[1 - r], 31 - lane);
+    const float s = S[32 * r + lane];
+    const int i = I[32 * r + lane];
+    const bool keep = better(s, i, cs, ci);
+    ms[r] = keep ? s : cs;
+    mi[r] = keep ? i : ci;
+  }
+  if (better(ms[1], mi[1], ms[0], mi[0])) {
+    const float ts = ms[0];
+    const int ti = mi[0];
+    ms[0] = ms[1];
+    mi[0] = mi[1];
+    ms[1] = ts;
+    mi[1] = ti;
+  }
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lane_exchange(ms[r], mi[r], stride, (lane & stride) == 0);
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (32 * r + lane < k) {
+      S[32 * r + lane] = ms[r];
+      I[32 * r + lane] = mi[r];
+    }
+  __syncwarp();
+}
+
+// Queries rounded to bf16 once, for the tensor-core scan's TMA boxes (n a
+// multiple of 4, both pointers 16-byte aligned).
+__global__ void bf16_queries_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ out, int n) {
+  for (int i = 4 * (blockIdx.x * blockDim.x + threadIdx.x); i < n; i += 4 * gridDim.x * blockDim.x) {
+    const float4 v = *reinterpret_cast<const float4*>(q + i);
+    uint2 packed;
+    packed.x = comorag::pack_bf16(v.x, v.y);
+    packed.y = comorag::pack_bf16(v.z, v.w);
+    *reinterpret_cast<uint2*>(out + i) = packed;
+  }
+}
+
+// Pass 1 over int8 rows (k <= WKMAX, d % 16 == 0, 16-byte aligned rows) on
+// the tensor cores: the wide scan's [WBN rows x WQB queries] tile, with the
+// products as mma.sync m16n8k16 bf16 tiles with fp32 sums. The rows are the
+// m16 A operand and the queries the n8 B operand; each of the 8 warps owns 16
+// rows x 32 queries (4 n8 tiles, 16 fp32 sums a thread), and n8 tiles that
+// hold no query are skipped (P = 16 fills two). The selection is what the
+// first design (4 warps, the wide scan's merge of every query after every
+// tile) spent two thirds of its time on (PERF.md): here 8 warps share it, a
+// query's buffer is merged only when it overflows, and the merge runs in
+// registers (warp_merge_regs). Streaming: thread 0 keeps a ring of MSTAGES stages in flight by TMA, each
+// [WBN rows x MBK] int8 bytes plus the [WQB x MBK] bf16 query box (queries
+// rounded once by bf16_queries_kernel), completing on a full barrier; each
+// warp arrives on the stage's empty barrier once its fragments are in
+// registers, and the stage is refilled MSTAGES chunks ahead, across tile
+// ends, so that the next tile's first stages load while this tile's scores
+// are merged. TMA, not cp.async: one thread issues a stage's two boxes with
+// no per-thread address work or registers, and the out-of-bounds zero fill
+// pads the last tile's rows, the last chunk's features and absent queries.
+// The K order is permuted, the same for A and B: lane (g, t) loads 16 bytes
+// of each of its rows (features 16t .. 16t + 15, conflict-free: a quarter
+// warp reads two whole 64-byte rows) and 32 bytes of its query from the
+// 128-byte swizzled box (conflict-free), and k step s of the chunk takes
+// features 16t + 4s .. 16t + 4s + 3 as the k pairs (2t, 2t + 1) and (2t + 8,
+// 2t + 9); only the order of the sum changes. int8 -> bf16 is exact
+// (int8x4_bf16), once per element per block, at fragment load: the bytes
+// cross L2 at 1 byte a feature. After each tile the scores, times the row's
+// fp32 scale, are appended when they beat the threshold of the query's last
+// merge; a candidate that finds its buffer full waits in the thread's
+// registers while the full buffers are merged, and every buffer is merged
+// once at the end.
+__global__ void __launch_bounds__(MTHREADS, WBLOCKS_PER_SM)
+mma_scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap,
+                const float* __restrict__ scales, int P, int N, int d, int k, int rows_per_split,
+                float* __restrict__ cand_s, int* __restrict__ cand_i) {
+  constexpr int SZ = MSZ;
+  constexpr int WARPS_M = MTHREADS / 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* ls = reinterpret_cast<float*>(ring + MSTAGES * MSTAGE);  // [WQB][SZ] list scores
+  int* li = reinterpret_cast<int*>(ls + WQB * SZ);                // [WQB][SZ] list ids
+  float* th_s = reinterpret_cast<float*>(li + WQB * SZ);
+  int* th_i = reinterpret_cast<int*>(th_s + WQB);
+  int* cnt = th_i + WQB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(cnt + WQB);
+  uint64_t* empty = full + MSTAGES;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb0 = blockIdx.x * WQB;
+  const int nq = min(WQB, P - qb0);
+  const int q_tiles = (nq + 7) / 8;  // n8 tiles that hold a query
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int row0 = split * rows_per_split;
+  const int row_end = min(N, row0 + rows_per_split);
+  const int chunks = (d + MBK - 1) / MBK;  // stages a tile
+  const int tiles = (row_end - row0 + WBN - 1) / WBN;
+  const int total = tiles * chunks;
+
+  for (int e = tid; e < WQB * SZ; e += MTHREADS) {
+    ls[e] = -INFINITY;
+    li[e] = NONE_ID;
+  }
+  if (tid < WQB) {
+    th_s[tid] = -INFINITY;
+    th_i[tid] = NONE_ID;
+    cnt[tid] = 0;
+  }
+  // chunk c of the block (tile c / chunks, features from (c % chunks) * MBK)
+  // into stage c % MSTAGES
+  auto issue = [&](int c) {
+    unsigned char* st = ring + (c % MSTAGES) * MSTAGE;
+    uint64_t* bar = &full[c % MSTAGES];
+    const int f0 = (c % chunks) * MBK;
+    comorag::mbar_expect_tx(bar, MSTAGE);
+    comorag::tma_load_2d(st, &qmap, bar, f0, qb0);
+    comorag::tma_load_2d(st + MQ_BYTES, &xmap, bar, f0, row0 + (c / chunks) * WBN);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < MSTAGES; ++s) {
+      comorag::mbar_init(&full[s], 1);
+      comorag::mbar_init(&empty[s], WARPS_M);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < MSTAGES && c < total; ++c) issue(c);
+  }
+  __syncthreads();
+
+  int c = 0;
+  for (int t0 = row0; t0 < row_end; t0 += WBN) {
+    // lane (g, t) holds rows t0 + r0 + 16 mi + 8h + g and queries 8 nj + 2t + e
+    // as acc[mi][nj][2h + e]
+    const int r0 = 16 * MMI * warp + g;
+    float scale[MMI][2];
+#pragma unroll
+    for (int mi = 0; mi < MMI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = t0 + r0 + 16 * mi + 8 * h;
+        scale[mi][h] = row < row_end ? __ldg(scales + row) : 0.f;
+      }
+    float acc[MMI][4][4];
+#pragma unroll
+    for (int mi = 0; mi < MMI; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+    for (int ch = 0; ch < chunks; ++ch, ++c) {
+      const int slot = c % MSTAGES;
+      const uint32_t parity = (c / MSTAGES) & 1;
+      comorag::mbar_wait(&full[slot], parity);
+      const unsigned char* st = ring + slot * MSTAGE;
+      uint4 xa[MMI][2];  // rows r0 + 16 mi + 8h, bytes 16t .. 16t + 15
+#pragma unroll
+      for (int mi = 0; mi < MMI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          xa[mi][h] = *reinterpret_cast<const uint4*>(st + MQ_BYTES + (r0 + 16 * mi + 8 * h) * MBK + 16 * t);
+      uint4 qf[4][2];  // query 8 nj + g, features 16t .. 16t + 7 and 16t + 8 .. 16t + 15
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+        if (nj < q_tiles) {
+          qf[nj][0] = *reinterpret_cast<const uint4*>(st + comorag::swizzle128(8 * nj + g, 32 * t));
+          qf[nj][1] = *reinterpret_cast<const uint4*>(st + comorag::swizzle128(8 * nj + g, 32 * t + 16));
+        }
+      __syncwarp();
+      if (lane == 0) comorag::mbar_arrive(&empty[slot]);
+      if (tid == 0 && c + MSTAGES < total) {  // refill the stage once every warp has read it
+        comorag::mbar_wait(&empty[slot], parity);
+        issue(c + MSTAGES);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        uint32_t a[MMI][4];
+#pragma unroll
+        for (int mi = 0; mi < MMI; ++mi) {
+          // row g: k (2t, 2t + 1), (2t + 8, 2t + 9); row g + 8: the same
+          int8x4_bf16(reinterpret_cast<const uint32_t*>(&xa[mi][0])[s], a[mi][0], a[mi][2]);
+          int8x4_bf16(reinterpret_cast<const uint32_t*>(&xa[mi][1])[s], a[mi][1], a[mi][3]);
+        }
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+          if (nj < q_tiles) {
+            const uint32_t* qw = reinterpret_cast<const uint32_t*>(&qf[nj][s >> 1]);
+#pragma unroll
+            for (int mi = 0; mi < MMI; ++mi) comorag::mma_bf16(acc[mi][nj], a[mi], qw[2 * (s & 1)], qw[2 * (s & 1) + 1]);
+          }
+      }
+    }
+    // appends against the threshold of the query's last merge; a candidate
+    // that finds its query's buffer full stays pending, the full buffers
+    // are merged, and the pending candidates are tried again
+    static_assert(MMI * 16 <= 32, "a pending bit a candidate");
+    uint32_t pending = 0;  // bit 16 mi + 4 nj + 2 e + h
+#pragma unroll
+    for (int mi = 0; mi < MMI; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (8 * nj + 2 * t + e < nq && t0 + r0 + 16 * mi + 8 * h < row_end)
+              pending |= 1u << (16 * mi + 4 * nj + 2 * e + h);
+    for (;;) {
+#pragma unroll
+      for (int mi = 0; mi < MMI; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint32_t bit = 1u << (16 * mi + 4 * nj + 2 * e + h);
+              if (!(pending & bit)) continue;
+              const int qq = 8 * nj + 2 * t + e;
+              const int row = t0 + r0 + 16 * mi + 8 * h;
+              const float sc = acc[mi][nj][2 * h + e] * scale[mi][h];
+              if (!better(sc, row, th_s[qq], th_i[qq])) {
+                pending &= ~bit;
+                continue;
+              }
+              const int pos = atomicAdd(&cnt[qq], 1);
+              if (pos < WBN) {
+                ls[qq * SZ + WKMAX + pos] = sc;
+                li[qq * SZ + WKMAX + pos] = row;
+                pending &= ~bit;
+              }
+            }
+      if (!__syncthreads_or(pending != 0)) break;
+      for (int qq = warp; qq < nq; qq += WARPS_M) {
+        if (cnt[qq] > WBN) {
+          float* S = ls + qq * SZ;
+          int* I = li + qq * SZ;
+          warp_merge_regs<WKMAX>(S, I, k, WBN, lane);
+          if (lane == 0) {
+            th_s[qq] = S[k - 1];
+            th_i[qq] = I[k - 1];
+            cnt[qq] = 0;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int qq = warp; qq < nq; qq += WARPS_M) {
+    const int m = cnt[qq];
+    if (m > 0) warp_merge_regs<WKMAX>(ls + qq * SZ, li + qq * SZ, k, m, lane);
+  }
+  __syncthreads();
+
+  for (int qq = 0; qq < nq; ++qq) {
+    const size_t base = ((size_t)(qb0 + qq) * splits + split) * k;
+    for (int e = tid; e < k; e += MTHREADS) {
+      cand_s[base + e] = ls[qq * SZ + e];
+      cand_i[base + e] = li[qq * SZ + e];
+    }
+  }
+}
+
+constexpr size_t MMA_SMEM_BYTES =
+    (size_t)MSTAGES * MSTAGE + (size_t)WQB * MSZ * 8 + 3 * WQB * 4 + 2 * MSTAGES * 8 + 1024;  // + alignment slack
+static_assert((3 * WQB * 4) % 8 == 0 && (WQB * MSZ * 8) % 8 == 0, "barriers 8-byte aligned");
+static_assert(2 * (MMA_SMEM_BYTES + 1024) <= 233472, "two tensor-core scan blocks an SM");
+
 // Pass 2: one block per query merges the splits' sorted lists into the
 // final top-k. Rank r of every list is examined before rank r + 1; once no
 // list's rank-r entry beats the threshold, no later entry can.
@@ -684,29 +1056,84 @@ int plan_splits(int P, int N, int sm_count, int qb, int tile, int per_sm, int* r
   return (N + *rows_per_split - 1) / *rows_per_split;
 }
 
+// Bytes of the splits' candidate lists (fp32 scores then int32 ids, [P,
+// splits, k] each, for the largest split count of the three scans), rounded
+// up to 128.
+size_t list_bytes(int P, int N, int k, int sm_count) {
+  int rows_per_split;
+  const int narrow = plan_splits(P, N, sm_count, QB, TILE, BLOCKS_PER_SM, &rows_per_split);
+  const int wide = plan_splits(P, N, sm_count, WQB, WBN, WBLOCKS_PER_SM, &rows_per_split);
+  return ((size_t)P * (narrow > wide ? narrow : wide) * k * 8 + 127) / 128 * 128;
+}
+
+// The tensor-core scan's two launches and the merge. The bf16 queries sit
+// in the workspace after the candidate lists.
+int launch_mma(const float* q, const int8_t* corpus, const float* scales, int P, int N, int d, int k,
+               int sm_count, void* workspace, float* os, int64_t* oi, cudaStream_t st) {
+  int rows_per_split;
+  const int splits = plan_splits(P, N, sm_count, WQB, WBN, WBLOCKS_PER_SM, &rows_per_split);
+  float* cs = static_cast<float*>(workspace);
+  int* ci = reinterpret_cast<int*>(cs + (size_t)P * splits * k);
+  __nv_bfloat16* qb =
+      reinterpret_cast<__nv_bfloat16*>(static_cast<unsigned char*>(workspace) + list_bytes(P, N, k, sm_count));
+  const int n = P * d;
+  const int blocks = (n / 4 + 255) / 256;
+  bf16_queries_kernel<<<blocks < 4 * sm_count ? blocks : 4 * sm_count, 256, 0, st>>>(q, qb, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CUtensorMap qmap, xmap;
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)P};
+    const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+    const cuuint32_t box[2] = {MBK, WQB};
+    if ((err = comorag::make_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, qb, dims, strides, box)) != cudaSuccess)
+      return err;
+  }
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)N};
+    const cuuint64_t strides[1] = {(cuuint64_t)d};
+    const cuuint32_t box[2] = {MBK, WBN};
+    if ((err = comorag::make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, corpus, dims, strides, box,
+                                 CU_TENSOR_MAP_SWIZZLE_NONE)) != cudaSuccess)
+      return err;
+  }
+  err = cudaFuncSetAttribute(mma_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MMA_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  mma_scan_kernel<<<dim3((P + WQB - 1) / WQB, splits), MTHREADS, MMA_SMEM_BYTES, st>>>(
+      qmap, xmap, scales, P, N, d, k, rows_per_split, cs, ci);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  merge_kernel<WKMAX><<<P, MERGE_THREADS, 0, st>>>(cs, ci, splits, k, os, oi);
+  return cudaGetLastError();
+}
+
 template <typename RowT>
-int dispatch(const void* q, const void* corpus, const float* scales, int P, int N, int d, int k,
+int dispatch(const void* q, const void* corpus, const float* scales, int P, int N, int d, int k, int route,
              int sm_count, void* workspace, void* out_s, void* out_i, void* stream) {
   if (P <= 0 || N <= 0 || d <= 0 || k <= 0 || k > N || k > 256 || sm_count <= 0)
     return cudaErrorInvalidValue;
   // 16-byte row loads where the rows are whole 16-byte words and aligned
   const bool vec = reinterpret_cast<uintptr_t>(corpus) % 16 == 0 && (d * sizeof(RowT)) % 16 == 0;
-  // bf16 and int8 rows stay on scan_kernel: it reads them at 2 or 1 bytes
-  // per feature and measured about as fast at every P (PERF.md)
-  const bool wide = sizeof(RowT) == 4 && P >= WIDE_MIN_P && k <= WKMAX && vec &&
-                    reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  int rows_per_split;
-  const int splits = wide ? plan_splits(P, N, sm_count, WQB, WBN, WBLOCKS_PER_SM, &rows_per_split)
-                          : plan_splits(P, N, sm_count, QB, TILE, BLOCKS_PER_SM, &rows_per_split);
+  const bool aligned = vec && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  // the route's limits (ops/mips.scan_route); a call outside them is refused
+  if (route == ROUTE_WIDE && !(sizeof(RowT) == 4 && P >= WIDE_MIN_P && k <= WKMAX && aligned))
+    return cudaErrorInvalidValue;
+  if (route == ROUTE_MMA && !(sizeof(RowT) == 1 && k <= WKMAX && d % 16 == 0 && aligned))
+    return cudaErrorInvalidValue;
+  if (route != ROUTE_SCAN && route != ROUTE_WIDE && route != ROUTE_MMA) return cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const RowT* c = static_cast<const RowT*>(corpus);
   float* cs = static_cast<float*>(workspace);
-  int* ci = reinterpret_cast<int*>(cs + (size_t)P * splits * k);
   float* os = static_cast<float*>(out_s);
   int64_t* oi = static_cast<int64_t*>(out_i);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rows_per_split;
+  if constexpr (sizeof(RowT) == 1) {
+    if (route == ROUTE_MMA) return launch_mma(qf, c, scales, P, N, d, k, sm_count, workspace, os, oi, st);
+  }
   if constexpr (sizeof(RowT) == 4) {
-    if (wide) {
+    if (route == ROUTE_WIDE) {
+      const int splits = plan_splits(P, N, sm_count, WQB, WBN, WBLOCKS_PER_SM, &rows_per_split);
+      int* ci = reinterpret_cast<int*>(cs + (size_t)P * splits * k);
       const size_t smem = wide_smem_bytes();
       cudaError_t err = cudaFuncSetAttribute(wide_scan_kernel,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -718,6 +1145,8 @@ int dispatch(const void* q, const void* corpus, const float* scales, int P, int 
       return cudaGetLastError();
     }
   }
+  const int splits = plan_splits(P, N, sm_count, QB, TILE, BLOCKS_PER_SM, &rows_per_split);
+  int* ci = reinterpret_cast<int*>(cs + (size_t)P * splits * k);
   if (k <= 64)
     return run<RowT, 64>(qf, c, scales, P, N, d, k, rows_per_split, splits, vec, cs, ci, os, oi, st);
   return run<RowT, 256>(qf, c, scales, P, N, d, k, rows_per_split, splits, vec, cs, ci, os, oi, st);
@@ -729,38 +1158,36 @@ extern "C" const char* comorag_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Scratch bytes a call needs: the splits' candidate lists, fp32 scores
-// then int32 ids, [P, splits, k] each (for the larger of the two scans'
-// split counts).
-extern "C" long long comorag_mips_topk_workspace_bytes(int P, int N, int k, int sm_count) {
-  if (P <= 0 || N <= 0 || k <= 0 || sm_count <= 0) return 0;
-  int rows_per_split;
-  const int narrow = plan_splits(P, N, sm_count, QB, TILE, BLOCKS_PER_SM, &rows_per_split);
-  const int wide = plan_splits(P, N, sm_count, WQB, WBN, WBLOCKS_PER_SM, &rows_per_split);
-  return (long long)P * (narrow > wide ? narrow : wide) * k * 8;
+// Scratch bytes a call needs: the splits' candidate lists (list_bytes),
+// then the tensor-core scan's bf16 queries, [P, d].
+extern "C" long long comorag_mips_topk_workspace_bytes(int P, int N, int d, int k, int sm_count) {
+  if (P <= 0 || N <= 0 || d <= 0 || k <= 0 || sm_count <= 0) return 0;
+  return (long long)(list_bytes(P, N, k, sm_count) + (size_t)P * d * 2);
 }
 
 // Shared arguments. q: [P, d] fp32 contiguous. k: 1 <= k <= min(N, 256).
-// sm_count: the card's SMs; workspace: comorag_mips_topk_workspace_bytes()
-// bytes of device scratch. out_s [P, k] fp32 and out_i [P, k] int64 receive
-// the top-k, best first. Returns a cudaError_t (0 on success); launches on
-// `stream`, never syncs.
+// route: the scan (ROUTE_SCAN, ROUTE_WIDE, ROUTE_MMA; ops/mips.scan_route),
+// refused with cudaErrorInvalidValue outside its limits. sm_count: the
+// card's SMs; workspace: comorag_mips_topk_workspace_bytes() bytes of
+// device scratch, 16-byte aligned. out_s [P, k] fp32 and out_i [P, k]
+// int64 receive the top-k, best first. Returns a cudaError_t (0 on
+// success); launches on `stream`, never syncs.
 
 // corpus: [N, d] fp32 (bf16 == 0) or bf16 (bf16 != 0) contiguous.
-extern "C" int comorag_mips_topk(const void* q, const void* corpus, int bf16, int P, int N, int d,
-                                 int k, int sm_count, void* workspace, void* out_s, void* out_i,
+extern "C" int comorag_mips_topk(const void* q, const void* corpus, int bf16, int P, int N, int d, int k,
+                                 int route, int sm_count, void* workspace, void* out_s, void* out_i,
                                  void* stream) {
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, corpus, nullptr, P, N, d, k, sm_count, workspace, out_s,
+    return dispatch<__nv_bfloat16>(q, corpus, nullptr, P, N, d, k, route, sm_count, workspace, out_s,
                                    out_i, stream);
-  return dispatch<float>(q, corpus, nullptr, P, N, d, k, sm_count, workspace, out_s, out_i, stream);
+  return dispatch<float>(q, corpus, nullptr, P, N, d, k, route, sm_count, workspace, out_s, out_i, stream);
 }
 
 // corpus: [N, d] int8 contiguous; scales: [N] fp32 per-row scales.
-extern "C" int comorag_mips_topk_int8(const void* q, const void* corpus, const void* scales, int P,
-                                      int N, int d, int k, int sm_count, void* workspace,
-                                      void* out_s, void* out_i, void* stream) {
+extern "C" int comorag_mips_topk_int8(const void* q, const void* corpus, const void* scales, int P, int N,
+                                      int d, int k, int route, int sm_count, void* workspace, void* out_s,
+                                      void* out_i, void* stream) {
   if (scales == nullptr) return cudaErrorInvalidValue;
-  return dispatch<int8_t>(q, corpus, static_cast<const float*>(scales), P, N, d, k, sm_count,
+  return dispatch<int8_t>(q, corpus, static_cast<const float*>(scales), P, N, d, k, route, sm_count,
                           workspace, out_s, out_i, stream);
 }

@@ -96,18 +96,20 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tiled map with 128-byte swizzle and zero fill out of bounds. dims and
-// box innermost first; strides (bytes) of dims 1..rank-1 (rank <= 4).
+// A tiled map with 128-byte swizzle (or `swizzle`) and zero fill out of
+// bounds. dims and box innermost first; strides (bytes) of dims 1..rank-1
+// (rank <= 4).
 // Encoding costs microseconds of host time a call, so maps are kept in a
 // small table by (address, type, geometry): the caching allocator hands
 // the same addresses back call after call.
 inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-                            const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                            const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   struct Key {
     const void* base;
     cuuint64_t dims[4], strides[3];
     cuuint32_t box[4];
-    int type, rank;
+    int type, rank, swizzle;
   };
   constexpr int SLOTS = 256;
   static std::mutex mu;
@@ -120,6 +122,7 @@ inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int rank
   key.base = base;
   key.type = static_cast<int>(type);
   key.rank = rank;
+  key.swizzle = static_cast<int>(swizzle);
   for (int i = 0; i < rank; ++i) {
     key.dims[i] = dims[i];
     key.box[i] = box[i];
@@ -139,7 +142,7 @@ inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int rank
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides, box, estr,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   std::lock_guard<std::mutex> lock(mu);

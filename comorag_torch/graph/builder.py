@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from comorag_torch.device import resolve_device
 from comorag_torch.retrieval.index import MipsIndex
 from comorag_torch.utils.hashing import content_hash
 from comorag_torch.utils.logging import get_logger
@@ -139,7 +140,7 @@ def _key_blocked_topk(
     query_batches: Sequence[np.ndarray],
     k: int,
     key_batch_size: int,
-    device: Union[str, torch.device] = "cpu",
+    device: torch.device,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Two-level top-k with the key matrix streamed through the device in
     blocks of ``key_batch_size`` rows (reference retrieve_knn semantics,
@@ -220,7 +221,7 @@ class GraphBuilder:
         entity_keys: Sequence[str],
         entity_texts: Sequence[str],
         entity_embeddings: np.ndarray,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
         topk: int = 2047,
         sim_threshold: float = 0.8,
         max_neighbors: int = 100,
@@ -237,7 +238,10 @@ class GraphBuilder:
         engages only when the key matrix exceeds ``key_bytes_budget``: the
         reference streams keys unconditionally because torch materializes
         the block on one GPU, whereas here the index is device-resident,
-        so streaming below the memory budget would only cost throughput."""
+        so streaming below the memory budget would only cost throughput.
+        Runs on the card unless ``device="cpu"``; without a card the
+        default raises."""
+        device = resolve_device(device)
         n = len(entity_keys)
         if n < 2:
             return 0

@@ -18,6 +18,7 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from comorag_torch.device import resolve_device
 from comorag_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -94,17 +95,19 @@ def fit_gmm_bic(
     max_clusters: int = 50,
     iters: int = 60,
     seed: int = 224,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> Tuple[int, np.ndarray]:
     """Sweep k = 1..min(max_clusters, n-1), select by BIC, return
-    (best_k, soft memberships [n, best_k]) as in gmm.py:161."""
+    (best_k, soft memberships [n, best_k]) as in gmm.py:161. Runs on the
+    card unless ``device="cpu"``; without a card the default raises."""
+    device = resolve_device(device)
     x = np.asarray(x, np.float32)
     n, _ = x.shape
     if n <= 1:
         return 1, np.ones((n, 1), np.float32)
     k_max = max(1, max_clusters)  # the full sweep, so the numpy init draws match JAX's
     k_valid = max(1, min(max_clusters, n - 1))
-    xt = torch.as_tensor(x, device=torch.device(device))
+    xt = torch.as_tensor(x, device=device)
     init = torch.as_tensor(_init_means_for_sweep(x, k_max, seed), device=xt.device)
     means, covs, logw, bic = _sweep(xt, init, iters)
     bics = bic.cpu().numpy().astype(np.float64)

@@ -6,6 +6,10 @@ launch the hand-written Hopper kernels (``csrc/mips_topk.cu``) for CUDA
 tensors and run ``mips_topk_plain`` / ``mips_topk_int8_plain`` for CPU
 tensors; there is no fallback from one to the other. Results are sorted by
 (score descending, row id ascending), the TPU kernels' tie rule.
+
+The first pass of a CUDA call (the per-split lists) runs on one of three
+scan kernels, chosen here by ``scan_route`` and passed to the C entry,
+which refuses a route whose limits the call does not meet.
 """
 
 from __future__ import annotations
@@ -26,6 +30,11 @@ INT8_LAUNCHES = build.LaunchCounter("mips_topk_int8")
 INT8_REPLACES = "comorag_tpu/ops/pallas_topk.py:210"
 
 MAX_K = 256  # the kernels' per-query list bound
+WIDE_MAX_K = 64  # the k bound of the wide and mma scans
+WIDE_MIN_P = 32  # the smallest query batch sent to the wide scan
+SCAN_ROUTES = ("scan", "wide", "mma")  # the C entries' route codes 0, 1, 2
+# launches per scan route, of both wrappers (scan_route)
+ROUTE_LAUNCHES = {route: build.LaunchCounter(f"mips_topk.{route}") for route in SCAN_ROUTES}
 
 
 def mips_topk_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -42,6 +51,23 @@ def mips_topk_int8_plain(
     return int8_topk(queries, corpus_q, scales, k)
 
 
+def scan_route(p: int, d: int, k: int, row_dtype: torch.dtype, aligned: bool) -> str:
+    """The scan kernel a CUDA call of p queries over [N, d] rows of
+    ``row_dtype`` takes (``aligned``: rows and queries 16-byte aligned):
+    - ``"mma"``, int8 rows, k <= 64, d % 16 == 0, aligned: [128 rows x 32
+      queries] tiles on mma.sync bf16 tensor-core products, int8 rows
+      streamed by TMA and converted exactly at fragment load;
+    - ``"wide"``, fp32 rows, p >= 32, k <= 64, d % 4 == 0, aligned: the
+      same tile as FFMA products from a shared-memory register tiling;
+    - ``"scan"``, every other call: 8 queries a block, rows streamed from
+      L2 into registers (any d, k <= 256)."""
+    if row_dtype == torch.int8 and k <= WIDE_MAX_K and d % 16 == 0 and aligned:
+        return "mma"
+    if row_dtype == torch.float32 and p >= WIDE_MIN_P and k <= WIDE_MAX_K and d % 4 == 0 and aligned:
+        return "wide"
+    return "scan"
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -52,11 +78,11 @@ def _lib() -> ctypes.CDLL:
     if lib.comorag_mips_topk.argtypes is None:
         for fn in (lib.comorag_mips_topk, lib.comorag_mips_topk_int8):
             fn.restype = ctypes.c_int
-        lib.comorag_mips_topk.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
-        lib.comorag_mips_topk_int8.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+        lib.comorag_mips_topk.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
+        lib.comorag_mips_topk_int8.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
         ws = lib.comorag_mips_topk_workspace_bytes
         ws.restype = ctypes.c_longlong
-        ws.argtypes = [ctypes.c_int] * 4
+        ws.argtypes = [ctypes.c_int] * 5
     return lib
 
 
@@ -84,15 +110,17 @@ def _launch(what: str, fn: str, args_head: tuple, queries: torch.Tensor, corpus:
     p, n, d = _check(what, queries, corpus, k)
     dev = queries.device
     lib = _lib()
+    route = scan_route(p, d, k, corpus.dtype, queries.data_ptr() % 16 == 0 and corpus.data_ptr() % 16 == 0)
     # the split of the corpus over blocks, and so the scratch, follow the SM count
     sm_count = _sm_count(dev)
-    workspace = torch.empty(lib.comorag_mips_topk_workspace_bytes(p, n, k, sm_count),
+    workspace = torch.empty(lib.comorag_mips_topk_workspace_bytes(p, n, d, k, sm_count),
                             dtype=torch.uint8, device=dev)
     out_s = torch.empty((p, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((p, k), dtype=torch.int64, device=dev)
-    rc = getattr(lib, fn)(*args_head, p, n, d, k, sm_count, workspace.data_ptr(), out_s.data_ptr(),
-                          out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, what)
+    rc = getattr(lib, fn)(*args_head, p, n, d, k, SCAN_ROUTES.index(route), sm_count, workspace.data_ptr(),
+                          out_s.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, f"{what} ({route})")
+    ROUTE_LAUNCHES[route].add()
     return out_s, out_i
 
 

@@ -1,10 +1,10 @@
 """A/B timing of comorag_torch's encoder FFN, encoder attention, int4
-matmul and int4 fused layer tail against an earlier version of the same
-CUDA sources, in one process on one card.
+matmul, int4 fused layer tail and int8 top-k against an earlier version of
+the same CUDA sources, in one process on one card.
 
     git archive <commit> comorag_torch/csrc | tar -x -C build/ab_old
     python scripts/torch_kernel_ab.py --old-csrc build/ab_old/comorag_torch/csrc \
-        [--kernels ffn attention matmul tail]
+        [--kernels ffn attention matmul tail topk]
 
 The earlier sources are built with the same nvcc flags into the build
 directory. Each kernel runs through the same wrapper for both (the library
@@ -17,7 +17,10 @@ tail with the first design's (commit a8e4f4b: no
 is timed at chip_smoke.py phase 9's six shapes through both libraries' C
 entries, called directly (``matmul_ab``): the earlier library at the
 current route where it has that entry, else at the one mma.sync kernel
-of fdbff70 and before. Times are
+of fdbff70 and before. The int8 top-k (``topk_ab``) is timed at chip_smoke.py
+phase 6's shape through both libraries' C entries, called directly: the
+current one at ``ops.mips.scan_route``'s route, the earlier one (2eac9c9
+and before: no route argument) at its own choice. Times are
 medians of CUDA-event samples (chip_smoke's ``median_ms``), taken in
 turns: earlier, current, current, earlier. Prints one JSON line per shape
 and the card's nvidia-smi name and power limit.
@@ -38,9 +41,11 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from chip_smoke import (INT4_MATMUL_SHAPES, ffn_bound, ffn_inputs, int4_bound, int4_matmul_dims,  # noqa: E402
-                        llama_8b, median_ms, nvidia_smi_line, ragged_mask, rule_ratio, tail_bound)
-from comorag_torch.ops import attention, build, ffn, int4  # noqa: E402
+from chip_smoke import (BENCH_K, INT4_MATMUL_SHAPES, bench_data, ffn_bound, ffn_inputs, int4_bound,  # noqa: E402
+                        int4_matmul_dims, llama_8b, median_ms, nvidia_smi_line, ragged_mask, route_of, rule_ratio,
+                        tail_bound)
+from comorag_torch.ops import attention, build, ffn, int4, mips  # noqa: E402
+from comorag_torch.ops.topk import int8_scores, quantize_int8  # noqa: E402
 
 
 def build_old(csrc: str, name: str) -> ctypes.CDLL:
@@ -270,9 +275,61 @@ def tail_ab(old_lib: ctypes.CDLL, device) -> list:
     return rows
 
 
+def topk_ab(old_lib: ctypes.CDLL, device) -> list:
+    """mips_topk_int8 on phase 6's corpus (100,000 x 1024, k = 50) at P = 16
+    and 256, both libraries' C entries called directly on buffers made
+    outside the timed loop: the current one at ``ops.mips.scan_route``'s
+    route, the earlier one (2eac9c9's interface, no route argument) at its
+    own choice. Each result is held against the plain score matrix
+    (ops/mips.check_topk)."""
+    new_lib = mips._lib()
+    fn = old_lib.comorag_mips_topk_int8
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    ws = old_lib.comorag_mips_topk_workspace_bytes
+    ws.restype = ctypes.c_longlong
+    ws.argtypes = [ctypes.c_int] * 4
+    sms = mips._sm_count(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    corpus, queries = bench_data(256)
+    cq, sc = (torch.tensor(a, device=device) for a in quantize_int8(corpus))
+    del corpus
+    n, d = cq.shape
+    rows = []
+    for p in (16, 256):
+        q = torch.tensor(queries[:p], device=device)
+        route = route_of(q, cq, BENCH_K)
+        outs = {lib: (torch.empty(p, BENCH_K, device=device), torch.empty(p, BENCH_K, dtype=torch.int64, device=device))
+                for lib in (old_lib, new_lib)}
+        old_ws = torch.empty(ws(p, n, BENCH_K, sms), dtype=torch.uint8, device=device)
+        new_ws = torch.empty(new_lib.comorag_mips_topk_workspace_bytes(p, n, d, BENCH_K, sms), dtype=torch.uint8,
+                             device=device)
+        head = (q.data_ptr(), cq.data_ptr(), sc.data_ptr(), p, n, d, BENCH_K)
+
+        def old():
+            rc = fn(*head, sms, old_ws.data_ptr(), outs[old_lib][0].data_ptr(), outs[old_lib][1].data_ptr(), stream)
+            build.check(old_lib, rc, "earlier mips_topk_int8")
+
+        def new():
+            rc = new_lib.comorag_mips_topk_int8(*head, mips.SCAN_ROUTES.index(route), sms, new_ws.data_ptr(),
+                                                outs[new_lib][0].data_ptr(), outs[new_lib][1].data_ptr(), stream)
+            build.check(new_lib, rc, "mips_topk_int8")
+
+        scores = int8_scores(q, cq, sc)
+        errs = {}
+        for tag, lib, call in (("earlier", old_lib, old), ("current", new_lib, new)):
+            call()
+            torch.cuda.synchronize()
+            errs[f"{tag}_max_abs_err"] = mips.check_topk(*outs[lib], scores, f"{tag} mips_topk_int8 P={p}")
+        rows.append({"kernel": "mips_topk_int8", "P": p, "N": n, "d": d, "k": BENCH_K, "route": route,
+                     **in_turns(old, new), **errs})
+        del scores
+    return rows
+
+
 # kernel -> (its csrc source, its A/B)
 RUNS = {"attention": ("encoder_attention", attention_ab), "ffn": ("encoder_ffn", ffn_ab),
-        "matmul": ("int4", matmul_ab), "tail": ("int4", tail_ab)}
+        "matmul": ("int4", matmul_ab), "tail": ("int4", tail_ab), "topk": ("mips_topk", topk_ab)}
 
 
 def main() -> None:

@@ -113,11 +113,25 @@ def _normalized(rng, shape):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
+def _launched(mips, route, fn):
+    """fn()'s result; asserts that it launched once, on ``route``."""
+    before = {r: c.value for r, c in mips.ROUTE_LAUNCHES.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    assert {r: c.value - before[r] for r, c in mips.ROUTE_LAUNCHES.items()} == {
+        r: int(r == route) for r in mips.SCAN_ROUTES}
+    return out
+
+
 # the tie-tolerant rule of ops/mips.check_topk: scores to 1e-5 + 1e-5*|plain|,
-# ids equal wherever the plain ranking is separated by more than 1e-5
+# ids equal wherever the plain ranking is separated by more than 1e-5; int8
+# rows with k <= 64 and d % 16 == 0 take the tensor-core scan ("mma": at
+# bench shape d = 1024, k = 50, P = 16 and 256, and at P = 33, d = 768,
+# k = 64), k = 65 the narrow scan
 @pytest.mark.parametrize("n", [511, 4096, 70_001])
 @pytest.mark.parametrize("p,d,k", [(1, 64, 1), (5, 768, 50), (16, 64, 256), (130, 768, 50),
-                                   (16, 768, 256), (130, 64, 1)])
+                                   (16, 768, 256), (130, 64, 1), (16, 1024, 50), (256, 1024, 50),
+                                   (33, 768, 64), (16, 1024, 65)])
 def test_mips_topk_kernels_match_plain(cuda_device, n, p, d, k):
     from comorag_torch.ops import mips
     from comorag_torch.ops.topk import dense_scores, int8_scores, quantize_int8
@@ -128,23 +142,24 @@ def test_mips_topk_kernels_match_plain(cuda_device, n, p, d, k):
     q = torch.tensor(_normalized(rng, (p, d)), device=cuda_device)
     c32 = torch.tensor(corpus, device=cuda_device)
     before = mips.LAUNCHES.value
-    s, i = mips.mips_topk(q, c32, k)
-    torch.cuda.synchronize()
+    s, i = _launched(mips, mips.scan_route(p, d, k, torch.float32, True), lambda: mips.mips_topk(q, c32, k))
     assert mips.LAUNCHES.value == before + 1
     mips.check_topk(s, i, dense_scores(q, c32), "fp32")
     c16 = c32.to(torch.bfloat16)
-    s, i = mips.mips_topk(q, c16, k)
+    s, i = _launched(mips, "scan", lambda: mips.mips_topk(q, c16, k))
     mips.check_topk(s, i, dense_scores(q, c16), "bf16")
     cq, sc = (torch.tensor(a, device=cuda_device) for a in quantize_int8(corpus))
+    route = "mma" if k <= 64 and d % 16 == 0 else "scan"
+    assert mips.scan_route(p, d, k, torch.int8, True) == route
     before = mips.INT8_LAUNCHES.value
-    s, i = mips.mips_topk_int8(q, cq, sc, k)
-    torch.cuda.synchronize()
+    s, i = _launched(mips, route, lambda: mips.mips_topk_int8(q, cq, sc, k))
     assert mips.INT8_LAUNCHES.value == before + 1
     mips.check_topk(s, i, int8_scores(q, cq, sc), "int8")
 
 
-# d % 4 != 0: the scalar load path; 40 queries at d = 64: the wide scan (k <= 64)
-@pytest.mark.parametrize("d,p", [(3, 1), (64, 1), (100, 1), (64, 40)])
+# d % 4 != 0: the scalar load path; 40 queries at d = 64: the wide scan (k <= 64);
+# int8 rows at d = 64 and 1024 with k <= 64: the tensor-core scan
+@pytest.mark.parametrize("d,p", [(3, 1), (64, 1), (100, 1), (64, 40), (1024, 16)])
 def test_mips_topk_duplicates_tie_to_lowest_id(cuda_device, d, p):
     from comorag_torch.ops import mips
     from comorag_torch.ops.topk import quantize_int8
@@ -158,7 +173,8 @@ def test_mips_topk_duplicates_tie_to_lowest_id(cuda_device, d, p):
         _, i = mips.mips_topk(q, torch.tensor(corpus, device=cuda_device), k)
         np.testing.assert_array_equal(i.cpu().numpy(), np.tile(dup_ids[:k], (p, 1)))
         cq, sc = (torch.tensor(a, device=cuda_device) for a in quantize_int8(corpus))
-        _, i = mips.mips_topk_int8(q, cq, sc, k)
+        route = "mma" if k <= 64 and d % 16 == 0 else "scan"
+        _, i = _launched(mips, route, lambda: mips.mips_topk_int8(q, cq, sc, k))
         np.testing.assert_array_equal(i.cpu().numpy(), np.tile(dup_ids[:k], (p, 1)))
 
 
@@ -202,3 +218,15 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
         mips.mips_topk(torch.zeros(2, 64, device=cuda_device), corpus, 257)
     with pytest.raises(TypeError):  # fp64 rows
         mips.mips_topk(torch.zeros(2, 64, device=cuda_device), corpus.double(), 5)
+    # the C entry refuses a route outside its limits (fp32 rows on the int8
+    # tensor-core scan, 2 queries on the wide scan) instead of taking another
+    lib, sms = mips._lib(), mips._sm_count(cuda_device)
+    q = torch.zeros(2, 64, device=cuda_device)
+    ws = torch.empty(lib.comorag_mips_topk_workspace_bytes(2, 1000, 64, 5, sms), dtype=torch.uint8,
+                     device=cuda_device)
+    out_s, out_i = torch.empty(2, 5, device=cuda_device), torch.empty(2, 5, dtype=torch.int64, device=cuda_device)
+    for route in ("mma", "wide"):
+        rc = lib.comorag_mips_topk(q.data_ptr(), corpus.data_ptr(), 0, 2, 1000, 64, 5, mips.SCAN_ROUTES.index(route),
+                                   sms, ws.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, route

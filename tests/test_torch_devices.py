@@ -1,14 +1,17 @@
-"""The port's public constructors and loaders run on the card unless the
-caller asks for the CPU: without a card, a call that names no device
-raises and says how to ask for the CPU, and ``device="cpu"`` builds."""
+"""The port's public constructors, loaders and device-running functions
+run on the card unless the caller asks for the CPU: without a card, a call
+that names no device raises and says how to ask for the CPU, and
+``device="cpu"`` builds (or computes on the CPU)."""
 
 import numpy as np
 import pytest
 import torch
 
-from comorag_torch.cluster.raptor import SemanticTree
+from comorag_torch.cluster.raptor import SemanticTree, two_level_soft_cluster
 from comorag_torch.config import ComoConfig
+from comorag_torch.graph.builder import GraphBuilder
 from comorag_torch.models import bge, decoder
+from comorag_torch.ops.gmm import fit_gmm_bic
 from comorag_torch.ops.ppr import PPRGraph
 from comorag_torch.retrieval.engine import RetrievalEngine
 from comorag_torch.retrieval.index import MipsIndex
@@ -49,6 +52,26 @@ def _hf_checkpoint(tmp_path, **kw):
     return decoder.load_hf_decoder_checkpoint(str(path), **kw)
 
 
+def _points(n=24, d=6):
+    return np.random.default_rng(0).standard_normal((n, d)).astype(np.float32)
+
+
+def _fit_gmm_bic(tmp_path, **kw):
+    k, resp = fit_gmm_bic(_points(), max_clusters=3, iters=5, **kw)
+    assert resp.shape == (24, k) and np.allclose(resp.sum(axis=1), 1.0, atol=1e-4)
+
+
+def _two_level_soft_cluster(tmp_path, **kw):
+    clusters = two_level_soft_cluster(_points(), reduction_dim=4, max_clusters=3, em_iters=5, **kw)
+    assert clusters and all(c.members for c in clusters)
+
+
+def _add_synonymy_edges(tmp_path, **kw):
+    embs = np.repeat(np.eye(3, 8, dtype=np.float32), 2, axis=0)  # three pairs of synonyms
+    keys = [f"entity-{i}" for i in range(6)]
+    assert GraphBuilder().add_synonymy_edges(keys, keys, embs, topk=4, **kw) == 6  # each pair, both ways
+
+
 ENTRY_POINTS = {
     "BGETorchEncoder": _bge_encoder,
     "MipsIndex": _mips_index,
@@ -56,7 +79,11 @@ ENTRY_POINTS = {
     "PPRGraph": _ppr_graph,
     "SemanticTree": _semantic_tree,
     "load_hf_decoder_checkpoint": _hf_checkpoint,
+    "fit_gmm_bic": _fit_gmm_bic,
+    "two_level_soft_cluster": _two_level_soft_cluster,
+    "GraphBuilder.add_synonymy_edges": _add_synonymy_edges,
 }
+FUNCTIONS = {"fit_gmm_bic", "two_level_soft_cluster", "GraphBuilder.add_synonymy_edges"}  # check their own results
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -66,7 +93,9 @@ def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make(tmp_path)
     built = make(tmp_path, device="cpu")
-    if name == "load_hf_decoder_checkpoint":
+    if name in FUNCTIONS:
+        assert built is None
+    elif name == "load_hf_decoder_checkpoint":
         params, _ = built
         assert params["embed"].device.type == "cpu"
     else:

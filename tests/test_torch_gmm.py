@@ -22,7 +22,7 @@ def _blobs(seed=0, n_per=40, centers=((0, 0), (8, 8), (-8, 6))):
 
 def test_fit_gmm_bic_matches_jax():
     x, labels = _blobs()
-    kt, rt = tgmm.fit_gmm_bic(x, max_clusters=8, iters=50, seed=224)
+    kt, rt = tgmm.fit_gmm_bic(x, max_clusters=8, iters=50, seed=224, device="cpu")
     kj, rj = jgmm.fit_gmm_bic(x, max_clusters=8, iters=50, seed=224)
     assert kt == kj == 3
     np.testing.assert_array_equal(rt.argmax(axis=1), rj.argmax(axis=1))
@@ -40,10 +40,10 @@ def test_fit_gmm_bic_matches_jax():
 
 
 def test_tiny_inputs_and_projection_match_jax():
-    assert tgmm.fit_gmm_bic(np.zeros((1, 4), np.float32))[0] == 1
+    assert tgmm.fit_gmm_bic(np.zeros((1, 4), np.float32), device="cpu")[0] == 1
     x = np.random.default_rng(2).standard_normal((30, 64)).astype(np.float32)
     np.testing.assert_array_equal(t_proj(x, 10, seed=224), j_proj(x, 10, seed=224))
-    kt, rt = tgmm.fit_gmm_bic(t_proj(x, 10), max_clusters=5, iters=20)
+    kt, rt = tgmm.fit_gmm_bic(t_proj(x, 10), max_clusters=5, iters=20, device="cpu")
     kj, rj = jgmm.fit_gmm_bic(j_proj(x, 10), max_clusters=5, iters=20)
     assert kt == kj
     np.testing.assert_array_equal(rt >= 0.01, rj >= 0.01)  # the semantic tree's membership rule

@@ -81,10 +81,11 @@ def test_identical_rows_tie_to_the_lowest_ids():
 
 def test_cpu_tensors_run_the_plain_version_without_counting(data):
     corpus, q, _ = data
-    before = (mips.LAUNCHES.value, mips.INT8_LAUNCHES.value)
+    counters = (mips.LAUNCHES, mips.INT8_LAUNCHES, *mips.ROUTE_LAUNCHES.values())
+    before = [c.value for c in counters]
     mips.mips_topk(torch.as_tensor(q), torch.as_tensor(corpus), 5)
     mips.mips_topk_int8(torch.as_tensor(q), *(torch.as_tensor(a) for a in quantize_int8(corpus)), 5)
-    assert (mips.LAUNCHES.value, mips.INT8_LAUNCHES.value) == before
+    assert [c.value for c in counters] == before
     with pytest.raises(ValueError, match="unsupported device"):
         mips.mips_topk(torch.zeros(2, 4, device="meta"), torch.zeros(9, 4, device="meta"), 3)
 
@@ -98,3 +99,29 @@ def test_check_topk_accepts_swapped_near_ties_and_rejects_wrong_ids():
                         torch.tensor([[5.0, 3.0, 3.000015, 1.0]]), "wrong")
     with pytest.raises(AssertionError, match="twice"):
         mips.check_topk(torch.tensor([[5.0, 3.0]]), torch.tensor([[0, 0]]), scores, "dup")
+
+
+@pytest.mark.parametrize("row_dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_scan_route_table(row_dtype):
+    """Every call shape takes one of the three scan routes: int8 rows with
+    k <= 64, d % 16 == 0 and aligned rows the tensor-core scan; fp32 rows
+    of 32 queries or more with k <= 64, d % 4 == 0 and aligned rows the
+    wide scan; every other call the narrow scan."""
+    taken = {route: 0 for route in mips.SCAN_ROUTES}
+    for p in (1, 16, 31, 32, 256):
+        for d in (64, 768, 1000, 1024):
+            for k in (1, 50, 64, 65, 256):
+                for aligned in (False, True):
+                    route = mips.scan_route(p, d, k, row_dtype, aligned)
+                    assert route in mips.SCAN_ROUTES, (p, d, k, aligned, route)
+                    taken[route] += 1
+                    if row_dtype == torch.int8 and k <= 64 and d % 16 == 0 and aligned:
+                        assert route == "mma", (p, d, k, aligned, route)
+                    elif row_dtype == torch.float32 and p >= 32 and k <= 64 and d % 4 == 0 and aligned:
+                        assert route == "wide", (p, d, k, aligned, route)
+                    else:
+                        assert route == "scan", (p, d, k, aligned, route)
+    assert sum(taken.values()) == 5 * 4 * 5 * 2
+    # bench shape (d = 1024, k = 50) and bert-base's d = 768 reach the tensor cores at every P
+    assert taken["mma"] == (5 * 3 * 3 if row_dtype == torch.int8 else 0)
+    assert taken["wide"] == (2 * 4 * 3 if row_dtype == torch.float32 else 0)
