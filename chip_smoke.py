@@ -28,13 +28,16 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      two_pass.* counters of the index and QA and the graph.* spans;
   6. the streaming top-k kernels (fp32 and int8 rows) against their plain
      versions on bench.py's corpus (100,000 x 1024, normalized, seed 0),
-     k = 50, P = 16 and 256: scores to 1e-5 + 1e-5*|plain|, ids equal at
-     every rank separated from its neighbours by more than 1e-5
+     k = 50, P = 16, 32 and 256: scores to 1e-5 + 1e-5*|plain|, ids equal
+     at every rank separated from its neighbours by more than 1e-5
      (ops/mips.check_topk); each call's scan route (ops/mips.scan_route;
-     the int8 calls must launch the tensor-core "mma" scan); median ms of
-     kernel and plain, and for int8 a yardstick that is not one library
-     call: torch.topk over torch.matmul of the bf16 queries by the
-     bf16-converted rows, times the scales;
+     the fp32 calls must launch the 3xTF32 "tf32" scan, the int8 calls the
+     bf16 "mma" scan); median ms of kernel and plain, the bound (fp32: three
+     tf32 products of each multiply-add at the TF32 peak) and roofline
+     share, and a yardstick that is not one library call: fp32
+     torch.matmul (TF32 off) then torch.topk for fp32 rows; torch.topk over
+     torch.matmul of the bf16 queries by the bf16-converted rows, times the
+     scales, for int8;
   7. retrieval serving at bench shape: MipsIndex.topk_many over 100
      distinct host batches of 16 queries, k = 50, best of 4 interleaved
      rounds, for fp32 single-pass, the default (int8 two-pass; also with
@@ -46,8 +49,9 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      indexes a seeded 12,000-chunk corpus (episodic layer >= 512 rows) and
      answers 16 questions, then a second ComoRAG with embedding_dtype="int8"
      reuses the stores and answers them again; the fp32 kernel's launch
-     count grew in the first run and the int8 kernel's in the second, there
-     on the "mma" scan route (launches per route are counted). Every
+     count grew in the first run, there on the "tf32" scan route, and the
+     int8 kernel's in the second, there on the "mma" route (launches per
+     route are counted and printed). Every
      top-k kernel call of each run is recorded and then held against its
      plain version at those inputs (as phase 6; both timed), and the graph
      build's synonymy sweep is replayed on the default route (int8 two-pass)
@@ -129,7 +133,7 @@ N_META_CHUNKS = 12_000  # timeline window 20: 600 episodic rows, over the kernel
 BENCH_N, BENCH_DIM, BENCH_K = 100_000, 1024, 50  # bench.py:34-37
 SERVE_BATCHES, SERVE_P, SERVE_ROUNDS = 100, 16, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: NVIDIA's published peaks (dense, 700 W)
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "tf32": 494.7e12}
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -485,45 +489,55 @@ def routed(fn, route: str):
 
 
 def phase_topk_kernels(device, corpus: np.ndarray, queries: np.ndarray) -> dict:
-    """Both top-k kernels vs their plain versions at P = 16 and 256."""
+    """Both top-k kernels vs their plain versions at P = 16, 32 and 256."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 torch.matmul must run without TF32 (comorag_torch/device.py)")
     c32 = torch.tensor(corpus, device=device)
     cq, sc = (torch.tensor(a, device=device) for a in quantize_int8(corpus))
     c16 = cq.to(torch.bfloat16)  # the yardstick's rows, converted once (exact)
     out = {"mips_topk": {}, "mips_topk_int8": {}}
-    for p in (16, 256):
+    for p in (16, 32, 256):
         q = torch.tensor(queries[:p], device=device)
+        qb = q.to(torch.bfloat16)
         runs = {
             "mips_topk": (lambda: mips.mips_topk(q, c32, BENCH_K), lambda: mips.mips_topk_plain(q, c32, BENCH_K),
-                          lambda: dense_scores(q, c32), route_of(q, c32, BENCH_K)),
+                          lambda: dense_scores(q, c32), route_of(q, c32, BENCH_K),
+                          # two calls, not one library call: fp32 products (TF32 off), then the top-k
+                          lambda: torch.topk(torch.matmul(q, c32.T), BENCH_K, dim=1)),
             "mips_topk_int8": (lambda: mips.mips_topk_int8(q, cq, sc, BENCH_K),
                                lambda: mips.mips_topk_int8_plain(q, cq, sc, BENCH_K),
-                               lambda: int8_scores(q, cq, sc), route_of(q, cq, BENCH_K)),
+                               lambda: int8_scores(q, cq, sc), route_of(q, cq, BENCH_K),
+                               # two calls: bf16 products (bf16 output), then the top-k
+                               lambda: torch.topk(torch.matmul(qb, c16.T).float() * sc, BENCH_K, dim=1)),
         }
-        if runs["mips_topk_int8"][3] != "mma":
-            raise AssertionError(f"int8 rows at P={p} took the {runs['mips_topk_int8'][3]} route, not mma")
-        for name, (kernel, plain, scores, route) in runs.items():
+        for name, want in (("mips_topk", "tf32"), ("mips_topk_int8", "mma")):
+            if runs[name][3] != want:
+                raise AssertionError(f"{name} at P={p} took the {runs[name][3]} route, not {want}")
+        for name, (kernel, plain, scores, route, yardstick) in runs.items():
             s, i = routed(kernel, route)
             err = mips.check_topk(s, i, scores(), f"{name} P={p}")
             row_bytes = BENCH_DIM * (4 if name == "mips_topk" else 1) + (0 if name == "mips_topk" else 4)
-            out[name][p] = {"max_abs_err": err, "ms": median_ms(kernel), "plain_ms": median_ms(plain),
-                            "scan_route": route,
-                            # no single PyTorch call ranks a fused top-k over the corpus
-                            "library_ms": None,
-                            # rows (and scales) read once, queries read, (score, id) lists written;
-                            # P*N*d multiply-adds: fp32 x fp32 for the fp32 rows, bf16 queries x
-                            # int8 rows (exact in bf16, fp32 sums; pallas_topk.py:187-190) for int8
-                            **bound(BENCH_N * row_bytes + p * BENCH_DIM * 4 + p * BENCH_K * 12,
-                                    2 * p * BENCH_N * BENCH_DIM, "fp32" if name == "mips_topk" else "bf16")}
-        qb = q.to(torch.bfloat16)
-        # two calls, not one library call: bf16 products (bf16 output), then the top-k
-        out["mips_topk_int8"][p]["yardstick_ms"] = median_ms(
-            lambda: torch.topk(torch.matmul(qb, c16.T).float() * sc, BENCH_K, dim=1))
+            r = out[name][p] = {
+                "max_abs_err": err, "ms": median_ms(kernel), "plain_ms": median_ms(plain), "scan_route": route,
+                # no single PyTorch call ranks a fused top-k over the corpus
+                "library_ms": None, "yardstick_ms": median_ms(yardstick),
+                # rows (and scales) read once, queries read, (score, id) lists written;
+                # P*N*d multiply-adds: fp32-exact for fp32 rows, which this card does as three
+                # tf32 tensor-core products (3xTF32); bf16 queries x int8 rows (exact in bf16,
+                # fp32 sums; pallas_topk.py:187-190) for int8
+                **(bound(BENCH_N * row_bytes + p * BENCH_DIM * 4 + p * BENCH_K * 12,
+                         3 * 2 * p * BENCH_N * BENCH_DIM, "tf32") if name == "mips_topk" else
+                   bound(BENCH_N * row_bytes + p * BENCH_DIM * 4 + p * BENCH_K * 12,
+                         2 * p * BENCH_N * BENCH_DIM, "bf16"))}
+            r["roofline_share"] = r["bound_ms"] / r["ms"]
     del c32, cq, sc, c16
     print("phase 6 top-k kernels vs plain (N=100000, d=1024, k=50; scores 1e-5 + 1e-5*|plain|, ids "
           "equal where separated by > 1e-5): " + "; ".join(
               f"{name} P={p} route {r['scan_route']} max_abs_err={r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
-              f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-              + (f" yardstick (bf16 matmul + torch.topk) {r['yardstick_ms']:.4f} ms" if "yardstick_ms" in r else "")
+              f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+              f"share {r['roofline_share']:.3f} yardstick ("
+              + ("fp32 matmul" if name == "mips_topk" else "bf16 matmul")
+              + f" + torch.topk) {r['yardstick_ms']:.4f} ms"
               for name, by_p in out.items() for p, r in by_p.items()), flush=True)
     return out
 
@@ -724,6 +738,8 @@ def phase_meta_loop(device, workdir: str) -> dict:
         raise AssertionError(f"the int8 run did not launch mips_topk_int8: {runs['int8']['launches']}")
     if runs["int8"]["launches"][mips.ROUTE_LAUNCHES["mma"].name] <= 0:
         raise AssertionError(f"the int8 run did not launch the mma scan: {runs['int8']['launches']}")
+    if runs["fp32"]["launches"][mips.ROUTE_LAUNCHES["tf32"].name] <= 0:
+        raise AssertionError(f"the fp32 run did not launch the tf32 scan: {runs['fp32']['launches']}")
     for tag, r in runs.items():
         for counter in (mips.LAUNCHES, mips.INT8_LAUNCHES):
             checked = sum(c["name"] == counter.name for c in r["kernel_checks"])
@@ -733,7 +749,8 @@ def phase_meta_loop(device, workdir: str) -> dict:
         print(f"phase 8 meta loop on the top-k kernels, {tag} rows ({N_META_CHUNKS} chunks, {N_QUESTIONS} "
               f"questions): index wall {r['index_s']:.3f} s, QA {r['qa_s']:.3f} s = "
               f"{r['questions_per_s']:.3f} questions/s; stores {r['stores']}; kernel-route layers "
-              f"{r['kernel_route_layers']}; kernel launches {r['launches']}; "
+              f"{r['kernel_route_layers']}; kernel launches {r['launches']}; launches per scan route "
+              f"{ {route: r['launches'][c.name] for route, c in mips.ROUTE_LAUNCHES.items()} }; "
               f"kernel vs plain at the run's own inputs {json.dumps(r['kernel_checks'])}; "
               f"two_pass counters {json.dumps(r['two_pass'])}; spans_s {json.dumps(r['spans_s'])}", flush=True)
     print(f"phase 8 synonymy sweep replay (fp32 run's entity store): {json.dumps(runs['fp32']['synonymy_replay'])}",
@@ -1352,9 +1369,9 @@ def main() -> None:
                         "launches": meta[run]["launches"][name], **topk[name][16],
                         "max_abs_err": max([r["max_abs_err"] for r in topk[name].values()]
                                            + [c["max_abs_err"] for c in main_path]),
-                        "p256_ms": topk[name][256]["ms"], "p256_plain_ms": topk[name][256]["plain_ms"],
-                        "p256_bound_ms": topk[name][256]["bound_ms"], "p256_scan_route": topk[name][256]["scan_route"],
-                        **({"p256_yardstick_ms": topk[name][256]["yardstick_ms"]} if run == "int8" else {}),
+                        **{f"p{p}_{k}": topk[name][p][k] for p in (32, 256)
+                           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share", "scan_route",
+                                     "yardstick_ms", "max_abs_err")},
                         "launches_by_route": {r: meta[run]["launches"][c.name]
                                               for r, c in mips.ROUTE_LAUNCHES.items()},
                         "main_path_calls": main_path})

@@ -6,10 +6,19 @@
 // pallas_mips_topk_int8 (kernel _mips_kernel_int8 :173). Same contract: for
 // each query the k largest inner products over the corpus rows, sorted by
 // (score descending, row id ascending), so ties go to the lowest id; the
-// [P, N] score matrix never reaches device memory. fp32 rows are scored with
-// true fp32 products and fp32 sums (FFMA; the TPU kernel's bf16x3 split is a
-// workaround for its matrix unit and is not carried over). bf16 and int8
-// rows are scored as the TPU kernels score them: the query rounded to bf16
+// [P, N] score matrix never reaches device memory. fp32 rows are scored
+// exactly to fp32 on the TF32 tensor cores (3xTF32): each operand is split
+// into tf32 hi + lo and a score is lo.hi + hi.lo + hi.hi with fp32 sums
+// (the dropped lo.lo and the split's remainder are ~2^-22 of each product;
+// the TPU kernel's bf16x3 split keeps ~16 bits of each operand). The sums
+// are the tensor cores' own, which on the H100 measure as truncated, not
+// rounded to nearest: at phase 6's shape a score lies up to 4.3e-7 from
+// float64 (P = 16), about what an emulation rounding each mma sum toward
+// zero gives (5.2e-7) and 6x one rounding to nearest (6.8e-8;
+// scripts/tf32_emulation_error.py). That is within ops/mips.check_topk's
+// 1e-5 rule; tests/test_torch_cuda.py holds the card to it. Calls outside
+// that route's limits use FFMA with true fp32 products. bf16 and int8 rows
+// are scored as the TPU kernels score them: the query rounded to bf16
 // once, the row converted exactly (int8 -> float is exact), exact products,
 // fp32 sums, and for int8 the per-row fp32 scale applied after the sum
 // (ops/topk.py _int8_scan_dot).
@@ -18,10 +27,11 @@
 // 100,000 rows, d = 1024, k = 50) the fp32 kernel reads 410 MB of corpus for
 // 3.3 GFLOP (8 FLOP/byte, far below the card's ridge), so it is bound by
 // memory bandwidth (~0.12 ms at 3.35 TB/s); the int8 kernel reads 102 MB
-// (~0.03 ms). At 256 queries the int8 rows need 52 GFLOP: 0.78 ms of FFMA
-// at 67 TFLOP/s, 0.053 ms on the bf16 tensor cores. At the 1,000-row query
-// batches of a synonymy sweep the fp32 kernel does 16 FFMA per loaded byte
-// and the FFMA rate (67 TFLOP/s) becomes the limit.
+// (~0.03 ms). At 256 queries the int8 rows need 52 GFLOP: 0.053 ms on the
+// bf16 tensor cores; the fp32 rows need three tf32 products of it, 0.32 ms
+// at the dense TF32 peak (495 TFLOP/s), where FFMA would take 0.78 ms.
+// mma.sync reaches well under that peak on this card (PERF.md: ~40 % in
+// m16n8k8 tf32), so at 256 queries the tf32 scan is bound by its products.
 //
 // What the design does about it. The TPU kernel walks the corpus axis in
 // order for each query block and carries the running top-k in scratch; at
@@ -31,29 +41,28 @@
 // read its rows from L2 together. Each query keeps an exact running top-k
 // in shared memory plus a threshold (its current k-th best): a score that
 // does not beat the threshold is dropped with one compare, and the few that
-// do are appended and merged by one warp per query (sort the appended
-// candidates, place both sorted runs by binary-search ranks). Three scans
-// fill the per-split lists, chosen by the caller (ops/mips.scan_route) and
-// refused outside their limits. mma_scan_kernel (int8 rows, k <= 64, d % 16
-// == 0) streams [128 rows x 64 bytes] int8 boxes and the matching bf16
-// query boxes by TMA and scores a [128 rows x 32 queries] tile on mma.sync
-// bf16 tensor cores, converting each int8 exactly at fragment load, and
-// merges (in registers) only the candidate buffers that overflow.
-// wide_scan_kernel (fp32 rows, 32 queries or more, k <= 64) stages the same
-// tile of fp32 in shared memory for FFMA, so that a row read from L2 serves
-// 32 queries. scan_kernel (every other call) streams rows straight from L2
-// into registers, four rows and 8 queries per thread. A second kernel
-// merges the splits, one block per query, reading the splits' lists rank by
-// rank and stopping at the first rank where no list still beats the
-// threshold. Measured on the H100 (PERF.md) the fp32 scans do not reach
-// their bounds yet: 0.35 ms at the serving shape against ~0.12 ms of
-// bandwidth; at P = 256 the wide scan runs its products at ~23 of the 67
-// TFLOP/s of FFMA (three 16-byte shared loads per 32 FFMA).
+// do are appended and merged by one warp per query. Three scans fill the
+// per-split lists, chosen by the caller (ops/mips.scan_route) and refused
+// outside their limits. Two of them share one body (ring_scan): a [128
+// rows x 32 queries] tile on mma.sync tensor cores, rows and queries
+// streamed by TMA through a ring of stages, and merges (in registers) only
+// of the candidate buffers that overflow. mma_scan_kernel (int8 rows, k <=
+// 64, d % 16 == 0) multiplies in bf16, converting each int8 exactly at
+// fragment load; tf32_scan_kernel (fp32 rows, k <= 64, d % 4 == 0, aligned
+// rows and queries) multiplies in 3xTF32, splitting each row element at
+// fragment load and each query once per call. scan_kernel (every other
+// call: bf16 rows, k > 64, unaligned rows or d % 4 != 0) streams rows
+// straight from L2 into registers, four rows and 8 queries per thread, and
+// merges with the shared-memory warp_merge. A second kernel merges the
+// splits, one block per query, reading the splits' lists rank by rank and
+// stopping at the first rank where no list still beats the threshold.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_sm90.cuh"
 #include "tma_sm90.cuh"
@@ -69,28 +78,24 @@ constexpr int DCH = 256;            // query features staged in shared memory at
 constexpr int BLOCKS_PER_SM = 4;    // resident scan blocks per SM at k <= 64
 constexpr int MERGE_THREADS = 128;  // second pass: candidates examined per step
 constexpr int NONE_ID = 0x7fffffff; // id of an empty slot (score -inf)
-// the register-tiled scan of wide query batches (wide_scan_kernel)
+// the tensor-core scans (ring_scan): [WBN rows x WQB queries] tiles, 8
+// warps of 16 MMI rows x 32 queries, k bound WKMAX
 constexpr int WQB = 32;             // queries per block
 constexpr int WBN = 128;            // corpus rows per tile
-constexpr int WBK = 32;             // features per shared-memory stage
-constexpr int WSTRIDE = WBK + 4;   // floats per staged row (conflict-free 16-byte loads)
-constexpr int WTHREADS = 128;       // one staged row per thread
-constexpr int WKMAX = 64;           // k bound of the wide scan
+constexpr int WKMAX = 64;           // k bound of the tensor-core scans
 constexpr int WBLOCKS_PER_SM = 2;
-constexpr int WIDE_MIN_P = 32;      // smallest query batch sent to the wide scan
-static_assert(WTHREADS == 128 && WQB == 32 && WBN == 128 && WBK == 32, "wide scan thread layout");
-// the tensor-core scan of int8 rows (mma_scan_kernel): the wide scan's
-// [WBN rows x WQB queries] tile and k bound
-constexpr int MBK = 64;                    // features per stage
-constexpr int MSTAGES = 3;                 // stages in the ring
 constexpr int MMI = 1;                     // m16 row tiles a warp (2, 4 warps of 32 rows: slower)
 constexpr int MTHREADS = WBN / (16 * MMI) * 32;  // warps of 16 MMI rows x 32 queries
-constexpr int MQ_BYTES = WQB * MBK * 2;    // a stage's bf16 query box (128-byte rows, swizzled)
-constexpr int MX_BYTES = WBN * MBK;        // a stage's int8 row box (64-byte rows)
-constexpr int MSTAGE = MQ_BYTES + MX_BYTES;
 constexpr int MSZ = WKMAX + WBN;           // slots a query: the top-k, one tile's appends
-static_assert(MQ_BYTES % 1024 == 0 && MSTAGE % 1024 == 0, "swizzled query boxes 1024-byte aligned");
-enum Route { ROUTE_SCAN = 0, ROUTE_WIDE = 1, ROUTE_MMA = 2 };  // ops/mips.SCAN_ROUTES
+// int8 rows (mma_scan_kernel): bf16 query boxes (128-byte rows, swizzled)
+// and int8 row boxes (64-byte rows)
+constexpr int MBK = 64;                    // features per stage
+constexpr int MSTAGES = 3;                 // stages in the ring
+// fp32 rows (tf32_scan_kernel): the queries' tf32 hi and lo planes and the
+// fp32 rows, TBK * 4-byte rows (swizzled at 128 bytes)
+constexpr int TBK = 32;                    // features per stage (16 in rings of 3-5: slower)
+constexpr int TSTAGES = 2;                 // stages in the ring (the most that fits two blocks an SM)
+enum Route { ROUTE_SCAN = 0, ROUTE_TF32 = 1, ROUTE_MMA = 2 };  // ops/mips.SCAN_ROUTES
 
 // (score desc, id asc): true when entry a ranks before entry b
 __device__ __forceinline__ bool better(float sa, int ia, float sb, int ib) {
@@ -435,172 +440,6 @@ scan_kernel(const float* __restrict__ q, const RowT* __restrict__ corpus,
   }
 }
 
-// Pass 1 over fp32 rows for query batches of WIDE_MIN_P or more (k <=
-// WKMAX, d % 4 == 0, 16-byte aligned rows and queries): the split is
-// scored as a register-tiled product. Per stage, WBK features of WQB
-// queries and WBN rows are staged in shared memory as rows of WBK + 4
-// floats, loaded as float4, neighbouring threads on neighbouring words of a
-// row; the next stage's words are loaded into registers while the current
-// stage is multiplied. Each thread owns 4 queries x 8 rows of the
-// [WQB, WBN] tile: per 4 features, 12 conflict-free 16-byte shared loads
-// feed 128 FFMA, and every row read from L2 serves WQB queries. After each
-// tile the scores go through the same threshold, append and warp merge as
-// in scan_kernel; two blocks per SM let one block's merges overlap the
-// other's products.
-__global__ void __launch_bounds__(WTHREADS, 2)
-wide_scan_kernel(const float* __restrict__ q, const float* __restrict__ corpus, int P, int N, int d,
-                 int k, int rows_per_split, float* __restrict__ cand_s, int* __restrict__ cand_i) {
-  constexpr int SZ = scan_slots<WKMAX, WBN>();
-  constexpr int ROW_WORDS = WBK / 4;                   // float4 of one row per stage
-  constexpr int X_WORDS = WBN * ROW_WORDS / WTHREADS;  // row float4 per thread per stage
-  constexpr int Q_WORDS = WQB * ROW_WORDS / WTHREADS;  // query float4 per thread per stage
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);    // [2][WQB][WSTRIDE]
-  float* xs = qs + 2 * WQB * WSTRIDE;                 // [2][WBN][WSTRIDE]
-  float* ls = xs + 2 * WBN * WSTRIDE;                 // [WQB][SZ] list scores
-  int* li = reinterpret_cast<int*>(ls + WQB * SZ);    // [WQB][SZ] list ids
-  float* th_s = reinterpret_cast<float*>(li + WQB * SZ);
-  int* th_i = reinterpret_cast<int*>(th_s + WQB);
-  int* cnt = th_i + WQB;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int qg = tid >> 4, rg = tid & 15;  // queries qg*4 + i, rows rg + 16*j of a tile
-  const int qb0 = blockIdx.x * WQB;
-  const int nq = min(WQB, P - qb0);
-  const int split = blockIdx.y, splits = gridDim.y;
-  const int row0 = split * rows_per_split;
-  const int row_end = min(N, row0 + rows_per_split);
-
-  for (int e = tid; e < WQB * SZ; e += WTHREADS) {
-    ls[e] = -INFINITY;
-    li[e] = NONE_ID;
-  }
-  if (tid < WQB) {
-    th_s[tid] = -INFINITY;
-    th_i[tid] = NONE_ID;
-    cnt[tid] = 0;
-  }
-
-  float4 xw[X_WORDS], qv[Q_WORDS];
-  // float4 u of the thread is float4 (u * WTHREADS + tid) of the stage, row
-  // by row. Rows past the split's end read its last row; features past d
-  // (d % 4 == 0: a float4 is whole or absent) and absent queries are zero.
-  auto load = [&](int t0, int d0) {
-    const int len = min(WBK, d - d0);
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int u = 0; u < X_WORDS; ++u) {
-      const int w = u * WTHREADS + tid, r = w / ROW_WORDS, f = 4 * (w % ROW_WORDS);
-      const float* row = corpus + (size_t)min(t0 + r, row_end - 1) * d + d0;
-      xw[u] = f < len ? __ldg(reinterpret_cast<const float4*>(row + f)) : zero;
-    }
-#pragma unroll
-    for (int u = 0; u < Q_WORDS; ++u) {
-      const int w = u * WTHREADS + tid, qq = w / ROW_WORDS, f = 4 * (w % ROW_WORDS);
-      qv[u] = qq < nq && f < len ? __ldg(reinterpret_cast<const float4*>(q + (size_t)(qb0 + qq) * d + d0 + f))
-                                 : zero;
-    }
-  };
-  auto store = [&](int buf) {
-    float* xb = xs + buf * WBN * WSTRIDE;
-#pragma unroll
-    for (int u = 0; u < X_WORDS; ++u) {
-      const int w = u * WTHREADS + tid;
-      *reinterpret_cast<float4*>(xb + w / ROW_WORDS * WSTRIDE + 4 * (w % ROW_WORDS)) = xw[u];
-    }
-    float* qb = qs + buf * WQB * WSTRIDE;
-#pragma unroll
-    for (int u = 0; u < Q_WORDS; ++u) {
-      const int w = u * WTHREADS + tid;
-      *reinterpret_cast<float4*>(qb + w / ROW_WORDS * WSTRIDE + 4 * (w % ROW_WORDS)) = qv[u];
-    }
-  };
-
-  const int stages = (d + WBK - 1) / WBK;
-  for (int t0 = row0; t0 < row_end; t0 += WBN) {
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    load(t0, 0);
-    store(0);
-    __syncthreads();
-    for (int c = 0; c < stages; ++c) {
-      const bool more = c + 1 < stages;
-      if (more) load(t0, (c + 1) * WBK);
-      const float* qb = qs + (c & 1) * WQB * WSTRIDE + qg * 4 * WSTRIDE;
-      const float* xb = xs + (c & 1) * WBN * WSTRIDE + rg * WSTRIDE;
-#pragma unroll
-      for (int f = 0; f < WBK; f += 4) {
-        float4 a[4], b[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qb + i * WSTRIDE + f);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(xb + 16 * j * WSTRIDE + f);
-        // features in order, one fp32 sum per (query, row)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-            acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-            acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-            acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-          }
-      }
-      if (more) store((c + 1) & 1);
-      __syncthreads();
-    }
-    // appends: at most WBN per query per tile
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qq = qg * 4 + i;
-      if (qq >= nq) continue;
-      const float ts = th_s[qq];
-      const int ti = th_i[qq];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int row = t0 + rg + 16 * j;
-        if (row >= row_end) continue;
-        if (better(acc[i][j], row, ts, ti)) {
-          const int pos = atomicAdd(&cnt[qq], 1);
-          ls[qq * SZ + WKMAX + pos] = acc[i][j];
-          li[qq * SZ + WKMAX + pos] = row;
-        }
-      }
-    }
-    __syncthreads();
-    for (int qq = warp; qq < nq; qq += WTHREADS / 32) {
-      const int m = cnt[qq];
-      if (m > 0) {
-        float* S = ls + qq * SZ;
-        int* I = li + qq * SZ;
-        warp_merge<WKMAX, WBN>(S, I, k, m, lane);
-        if (lane == 0) {
-          th_s[qq] = S[k - 1];
-          th_i[qq] = I[k - 1];
-          cnt[qq] = 0;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int qq = 0; qq < nq; ++qq) {
-    const size_t base = ((size_t)(qb0 + qq) * splits + split) * k;
-    for (int e = tid; e < k; e += WTHREADS) {
-      cand_s[base + e] = ls[qq * SZ + e];
-      cand_i[base + e] = li[qq * SZ + e];
-    }
-  }
-}
-
-size_t wide_smem_bytes() {
-  return (size_t)2 * (WQB + WBN) * WSTRIDE * sizeof(float) +
-         (size_t)WQB * scan_slots<WKMAX, WBN>() * 8 + 3 * WQB * 4;
-}
-
 // Four int8 values (bytes of w, the lowest first) as two bf16 pairs, exactly:
 // each byte b becomes the fp32 2^23 + (b + 128) by its bits, minus
 // 2^23 + 128; an integer of at most 8 significant bits is exact in bf16, so
@@ -637,9 +476,11 @@ __device__ __forceinline__ void lane_exchange(float& s, int& i, int stride, bool
 // written back. The same result as warp_merge, whose shared-memory
 // sort and binary-search ranks cost the tensor-core scan half its time;
 // the candidate slots are not emptied (the caller's count says which are
-// live).
+// live). Not inlined: one copy of the network serves both call sites
+// (measured on the H100, PERF.md: the fp32 tensor-core scan 7 % faster at
+// P = 256, the int8 one level).
 template <int KMAX>
-__device__ void warp_merge_regs(float* S, int* I, int k, int m, int lane) {
+__device__ __noinline__ void warp_merge_regs(float* S, int* I, int k, int m, int lane) {
   static_assert(KMAX == 64, "two list entries a lane");
   float v[4];
   int id[4];
@@ -713,8 +554,8 @@ __device__ void warp_merge_regs(float* S, int* I, int k, int m, int lane) {
   __syncwarp();
 }
 
-// Queries rounded to bf16 once, for the tensor-core scan's TMA boxes (n a
-// multiple of 4, both pointers 16-byte aligned).
+// Queries rounded to bf16 once, for the int8 scan's TMA boxes (n a multiple
+// of 4, both pointers 16-byte aligned).
 __global__ void bf16_queries_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ out, int n) {
   for (int i = 4 * (blockIdx.x * blockDim.x + threadIdx.x); i < n; i += 4 * gridDim.x * blockDim.x) {
     const float4 v = *reinterpret_cast<const float4*>(q + i);
@@ -725,52 +566,214 @@ __global__ void bf16_queries_kernel(const float* __restrict__ q, __nv_bfloat16* 
   }
 }
 
-// Pass 1 over int8 rows (k <= WKMAX, d % 16 == 0, 16-byte aligned rows) on
-// the tensor cores: the wide scan's [WBN rows x WQB queries] tile, with the
-// products as mma.sync m16n8k16 bf16 tiles with fp32 sums. The rows are the
-// m16 A operand and the queries the n8 B operand; each of the 8 warps owns 16
-// rows x 32 queries (4 n8 tiles, 16 fp32 sums a thread), and n8 tiles that
-// hold no query are skipped (P = 16 fills two). The selection is what the
-// first design (4 warps, the wide scan's merge of every query after every
-// tile) spent two thirds of its time on (PERF.md): here 8 warps share it, a
+// Queries split once into their tf32 hi and lo planes, for the tf32 scan's
+// TMA boxes (n a multiple of 4, the pointers 16-byte aligned).
+__global__ void tf32_queries_kernel(const float* __restrict__ q, float* __restrict__ hi, float* __restrict__ lo,
+                                    int n) {
+  for (int i = 4 * (blockIdx.x * blockDim.x + threadIdx.x); i < n; i += 4 * gridDim.x * blockDim.x) {
+    const float4 v = *reinterpret_cast<const float4*>(q + i);
+    uint4 h, l;
+    comorag::split_tf32(v.x, h.x, l.x);
+    comorag::split_tf32(v.y, h.y, l.y);
+    comorag::split_tf32(v.z, h.z, l.z);
+    comorag::split_tf32(v.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + i) = h;
+    *reinterpret_cast<uint4*>(lo + i) = l;
+  }
+}
+
+// A stage of the tensor-core scans' ring, by row type: BK features of the
+// block's WQB queries (Q_BYTES: bf16 for int8 rows; the tf32 hi plane, then
+// the lo plane, for fp32 rows), then of its WBN rows (X_BYTES).
+template <typename RowT>
+struct Stage;
+template <>
+struct Stage<int8_t> {
+  static constexpr int BK = MBK, COUNT = MSTAGES;
+  static constexpr int Q_ROW = BK * 2, X_ROW = BK;  // bytes of a query row and a corpus row
+  static constexpr int Q_BYTES = WQB * Q_ROW, X_BYTES = WBN * X_ROW;
+};
+template <>
+struct Stage<float> {
+  static constexpr int BK = TBK, COUNT = TSTAGES;
+  static constexpr int Q_ROW = BK * 4, X_ROW = BK * 4;
+  static constexpr int Q_BYTES = 2 * WQB * Q_ROW, X_BYTES = WBN * X_ROW;
+};
+
+// Byte offset of 16-byte piece `piece` of row r in a box of ROW-byte rows
+// as TMA writes it: 128-byte rows with CU_TENSOR_MAP_SWIZZLE_128B (the box
+// 1024-byte aligned), narrower rows unswizzled. Either way the quarter warp
+// of lanes (g, t), g in {0, 1}, reading piece (128 / ROW) t + p of rows g and
+// g + 1 (mod 8) hits every bank once.
+template <int ROW>
+__device__ __forceinline__ int box_at(int r, int piece) {
+  static_assert(ROW == 128 || ROW == 64, "rows of 64 or 128 bytes");
+  return ROW == 128 ? comorag::swizzle128(r, 16 * piece) : r * ROW + 16 * piece;
+}
+constexpr CUtensorMapSwizzle box_swizzle(int row_bytes) {
+  return row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE;
+}
+
+template <typename RowT>
+constexpr size_t ring_smem_bytes() {
+  return (size_t)Stage<RowT>::COUNT * (Stage<RowT>::Q_BYTES + Stage<RowT>::X_BYTES) + (size_t)WQB * MSZ * 8 +
+         3 * WQB * 4 + 2 * Stage<RowT>::COUNT * 8 + 1024;  // + alignment slack
+}
+static_assert(Stage<int8_t>::Q_BYTES % 1024 == 0 && (Stage<int8_t>::Q_BYTES + Stage<int8_t>::X_BYTES) % 1024 == 0 &&
+                  Stage<float>::Q_BYTES % 1024 == 0 && (Stage<float>::Q_BYTES + Stage<float>::X_BYTES) % 1024 == 0,
+              "swizzled boxes 1024-byte aligned");
+static_assert((3 * WQB * 4) % 8 == 0 && (WQB * MSZ * 8) % 8 == 0, "barriers 8-byte aligned");
+static_assert(WBLOCKS_PER_SM * (ring_smem_bytes<int8_t>() + 1024) <= 233472 &&
+                  WBLOCKS_PER_SM * (ring_smem_bytes<float>() + 1024) <= 233472,
+              "WBLOCKS_PER_SM tensor-core scan blocks an SM");
+
+// int8 rows: the products of one stage on mma.sync m16n8k16 bf16 tiles. The
+// K order is permuted, the same for A and B: lane (g, t) loads 16 bytes of
+// each of its rows (features 16t .. 16t + 15, conflict-free: a quarter warp
+// reads two whole 64-byte rows) and 32 bytes of its query from the 128-byte
+// swizzled box (conflict-free), and k step s of the chunk takes features
+// 16t + 4s .. 16t + 4s + 3 as the k pairs (2t, 2t + 1) and (2t + 8, 2t + 9);
+// only the order of the sum changes. int8 -> bf16 is exact (int8x4_bf16),
+// once per element per block, at fragment load: the bytes cross L2 at 1
+// byte a feature. release() once the warp's fragments are in registers.
+template <class Release>
+__device__ __forceinline__ void chunk_products(float (&acc)[MMI][4][4], float (&)[MMI][4][4], const unsigned char* st,
+                                               int r0, int q_tiles, int g, int t, Release release, int8_t) {
+  uint4 xa[MMI][2];  // rows r0 + 16 mi + 8h, bytes 16t .. 16t + 15
+#pragma unroll
+  for (int mi = 0; mi < MMI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      xa[mi][h] = *reinterpret_cast<const uint4*>(st + Stage<int8_t>::Q_BYTES + (r0 + 16 * mi + 8 * h) * MBK + 16 * t);
+  uint4 qf[4][2];  // query 8 nj + g, features 16t .. 16t + 7 and 16t + 8 .. 16t + 15
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+    if (nj < q_tiles) {
+      qf[nj][0] = *reinterpret_cast<const uint4*>(st + comorag::swizzle128(8 * nj + g, 32 * t));
+      qf[nj][1] = *reinterpret_cast<const uint4*>(st + comorag::swizzle128(8 * nj + g, 32 * t + 16));
+    }
+  release();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    uint32_t a[MMI][4];
+#pragma unroll
+    for (int mi = 0; mi < MMI; ++mi) {
+      // row g: k (2t, 2t + 1), (2t + 8, 2t + 9); row g + 8: the same
+      int8x4_bf16(reinterpret_cast<const uint32_t*>(&xa[mi][0])[s], a[mi][0], a[mi][2]);
+      int8x4_bf16(reinterpret_cast<const uint32_t*>(&xa[mi][1])[s], a[mi][1], a[mi][3]);
+    }
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+      if (nj < q_tiles) {
+        const uint32_t* qw = reinterpret_cast<const uint32_t*>(&qf[nj][s >> 1]);
+#pragma unroll
+        for (int mi = 0; mi < MMI; ++mi) comorag::mma_bf16(acc[mi][nj], a[mi], qw[2 * (s & 1)], qw[2 * (s & 1) + 1]);
+      }
+  }
+}
+
+// fp32 rows: the products of one stage in 3xTF32 on mma.sync m16n8k8 tf32
+// tiles: hi.hi into acc, the cross terms lo.hi and hi.lo into a second fp32
+// sum (cross), which the caller adds to acc after the tile. Measured on the
+// H100 (PERF.md) this holds the scores closer to float64 than CUTLASS's
+// order (cross terms before hi.hi into one sum): 5.4e-7 against 1.5e-6 at
+// bench shape and P = 256, and no slower: with truncated mma sums, the
+// small cross terms lose less in a sum of their own. The K order is permuted, the same for A and
+// B: lane (g, t) reads 16-byte piece (TBK / 16) t + p of each of its rows
+// and of its query's hi and lo rows (conflict-free, box_at), and k step s
+// of the piece takes its features 2s and 2s + 1 as k t and t + 4. Rows are
+// split into hi and lo at fragment load, three instructions an element,
+// once per element per block: they cross L2 at 4 bytes a feature.
+template <class Release>
+__device__ __forceinline__ void chunk_products(float (&acc)[MMI][4][4], float (&cross)[MMI][4][4],
+                                               const unsigned char* st, int r0, int q_tiles, int g, int t,
+                                               Release release, float) {
+  constexpr int ROW = Stage<float>::Q_ROW, PIECES = TBK / 16;
+  const unsigned char* lo_plane = st + WQB * ROW;
+  const unsigned char* rows = st + Stage<float>::Q_BYTES;
+#pragma unroll
+  for (int p = 0; p < PIECES; ++p) {
+    const int piece = PIECES * t + p;
+    float4 x[MMI][2], qh[4], ql[4];  // rows r0 + 16 mi + 8h; query 8 nj + g
+#pragma unroll
+    for (int mi = 0; mi < MMI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        x[mi][h] = *reinterpret_cast<const float4*>(rows + box_at<ROW>(r0 + 16 * mi + 8 * h, piece));
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+      if (nj < q_tiles) {
+        qh[nj] = *reinterpret_cast<const float4*>(st + box_at<ROW>(8 * nj + g, piece));
+        ql[nj] = *reinterpret_cast<const float4*>(lo_plane + box_at<ROW>(8 * nj + g, piece));
+      }
+    if (p == PIECES - 1) release();
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint32_t ahi[MMI][4], alo[MMI][4];
+#pragma unroll
+      for (int mi = 0; mi < MMI; ++mi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // a_e: row g + 8 (e & 1), k t + 4 (e >> 1)
+          comorag::split_tf32(reinterpret_cast<const float*>(&x[mi][e & 1])[2 * s + (e >> 1)], ahi[mi][e], alo[mi][e]);
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+        if (nj < q_tiles) {
+          const uint32_t* h = reinterpret_cast<const uint32_t*>(&qh[nj]) + 2 * s;
+          const uint32_t* l = reinterpret_cast<const uint32_t*>(&ql[nj]) + 2 * s;
+#pragma unroll
+          for (int mi = 0; mi < MMI; ++mi) {
+            comorag::mma_tf32(cross[mi][nj], alo[mi], h[0], h[1]);
+            comorag::mma_tf32(cross[mi][nj], ahi[mi], l[0], l[1]);
+            comorag::mma_tf32(acc[mi][nj], ahi[mi], h[0], h[1]);
+          }
+        }
+    }
+  }
+}
+
+// Pass 1 on the tensor cores, the body of mma_scan_kernel (int8 rows) and
+// tf32_scan_kernel (fp32 rows): a [WBN rows x WQB queries] tile, the rows
+// the m16 A operand and the queries the n8 B operand; each of the 8 warps
+// owns 16 rows x 32 queries (4 n8 tiles, 16 fp32 sums a thread), and n8
+// tiles that hold no query are skipped (P = 16 fills two). The selection is
+// what the first design (4 warps, a merge of every query after every tile)
+// spent two thirds of its time on (PERF.md): here 8 warps share it, a
 // query's buffer is merged only when it overflows, and the merge runs in
-// registers (warp_merge_regs). Streaming: thread 0 keeps a ring of MSTAGES stages in flight by TMA, each
-// [WBN rows x MBK] int8 bytes plus the [WQB x MBK] bf16 query box (queries
-// rounded once by bf16_queries_kernel), completing on a full barrier; each
-// warp arrives on the stage's empty barrier once its fragments are in
-// registers, and the stage is refilled MSTAGES chunks ahead, across tile
-// ends, so that the next tile's first stages load while this tile's scores
-// are merged. TMA, not cp.async: one thread issues a stage's two boxes with
-// no per-thread address work or registers, and the out-of-bounds zero fill
-// pads the last tile's rows, the last chunk's features and absent queries.
-// The K order is permuted, the same for A and B: lane (g, t) loads 16 bytes
-// of each of its rows (features 16t .. 16t + 15, conflict-free: a quarter
-// warp reads two whole 64-byte rows) and 32 bytes of its query from the
-// 128-byte swizzled box (conflict-free), and k step s of the chunk takes
-// features 16t + 4s .. 16t + 4s + 3 as the k pairs (2t, 2t + 1) and (2t + 8,
-// 2t + 9); only the order of the sum changes. int8 -> bf16 is exact
-// (int8x4_bf16), once per element per block, at fragment load: the bytes
-// cross L2 at 1 byte a feature. After each tile the scores, times the row's
-// fp32 scale, are appended when they beat the threshold of the query's last
-// merge; a candidate that finds its buffer full waits in the thread's
-// registers while the full buffers are merged, and every buffer is merged
-// once at the end.
-__global__ void __launch_bounds__(MTHREADS, WBLOCKS_PER_SM)
-mma_scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap,
-                const float* __restrict__ scales, int P, int N, int d, int k, int rows_per_split,
-                float* __restrict__ cand_s, int* __restrict__ cand_i) {
+// registers (warp_merge_regs). Streaming: thread 0 keeps a ring of stages
+// in flight by TMA, each BK features of the rows and of the block's
+// queries (prepared once a call by bf16_queries_kernel or
+// tf32_queries_kernel) as Stage<RowT> lays them out, completing on a full
+// barrier; each warp arrives on the stage's empty barrier once its
+// fragments are in registers, and the stage is refilled COUNT chunks
+// ahead, across tile ends, so that the next tile's first stages load while
+// this tile's scores are merged. TMA, not cp.async: one thread issues a
+// stage's boxes with no per-thread address work or registers, and the
+// out-of-bounds zero fill pads the last tile's rows, the last chunk's
+// features and absent queries. After each tile the scores (int8: times the
+// row's fp32 scale) are appended when they beat the threshold of the
+// query's last merge; a candidate that finds its buffer full waits in the
+// thread's registers while the full buffers are merged, and every buffer
+// is merged once at the end. A row's score is the same sequence of
+// operations wherever it sits in a tile or a split, so identical rows tie
+// exactly and go to the lowest id.
+template <typename RowT>
+__device__ __forceinline__ void ring_scan(const CUtensorMap& qmap, const CUtensorMap& xmap,
+                                          const float* __restrict__ scales, int P, int N, int d, int k,
+                                          int rows_per_split, float* __restrict__ cand_s, int* __restrict__ cand_i) {
+  using ST = Stage<RowT>;
+  constexpr int STAGES = ST::COUNT, STAGE = ST::Q_BYTES + ST::X_BYTES;
   constexpr int SZ = MSZ;
   constexpr int WARPS_M = MTHREADS / 32;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  float* ls = reinterpret_cast<float*>(ring + MSTAGES * MSTAGE);  // [WQB][SZ] list scores
-  int* li = reinterpret_cast<int*>(ls + WQB * SZ);                // [WQB][SZ] list ids
+  float* ls = reinterpret_cast<float*>(ring + STAGES * STAGE);  // [WQB][SZ] list scores
+  int* li = reinterpret_cast<int*>(ls + WQB * SZ);              // [WQB][SZ] list ids
   float* th_s = reinterpret_cast<float*>(li + WQB * SZ);
   int* th_i = reinterpret_cast<int*>(th_s + WQB);
   int* cnt = th_i + WQB;
   uint64_t* full = reinterpret_cast<uint64_t*>(cnt + WQB);
-  uint64_t* empty = full + MSTAGES;
+  uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -780,7 +783,7 @@ mma_scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
   const int split = blockIdx.y, splits = gridDim.y;
   const int row0 = split * rows_per_split;
   const int row_end = min(N, row0 + rows_per_split);
-  const int chunks = (d + MBK - 1) / MBK;  // stages a tile
+  const int chunks = (d + ST::BK - 1) / ST::BK;  // stages a tile
   const int tiles = (row_end - row0 + WBN - 1) / WBN;
   const int total = tiles * chunks;
 
@@ -793,23 +796,23 @@ mma_scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
     th_i[tid] = NONE_ID;
     cnt[tid] = 0;
   }
-  // chunk c of the block (tile c / chunks, features from (c % chunks) * MBK)
-  // into stage c % MSTAGES
+  // chunk c of the block (tile c / chunks, features from (c % chunks) * BK)
+  // into stage c % STAGES
   auto issue = [&](int c) {
-    unsigned char* st = ring + (c % MSTAGES) * MSTAGE;
-    uint64_t* bar = &full[c % MSTAGES];
-    const int f0 = (c % chunks) * MBK;
-    comorag::mbar_expect_tx(bar, MSTAGE);
-    comorag::tma_load_2d(st, &qmap, bar, f0, qb0);
-    comorag::tma_load_2d(st + MQ_BYTES, &xmap, bar, f0, row0 + (c / chunks) * WBN);
+    unsigned char* st = ring + (c % STAGES) * STAGE;
+    uint64_t* bar = &full[c % STAGES];
+    const int f0 = (c % chunks) * ST::BK;
+    comorag::mbar_expect_tx(bar, STAGE);
+    comorag::tma_load_3d(st, &qmap, bar, f0, qb0, 0);
+    comorag::tma_load_2d(st + ST::Q_BYTES, &xmap, bar, f0, row0 + (c / chunks) * WBN);
   };
   if (tid == 0) {
-    for (int s = 0; s < MSTAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       comorag::mbar_init(&full[s], 1);
       comorag::mbar_init(&empty[s], WARPS_M);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int c = 0; c < MSTAGES && c < total; ++c) issue(c);
+    for (int c = 0; c < STAGES && c < total; ++c) issue(c);
   }
   __syncthreads();
 
@@ -824,57 +827,36 @@ mma_scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = t0 + r0 + 16 * mi + 8 * h;
-        scale[mi][h] = row < row_end ? __ldg(scales + row) : 0.f;
+        scale[mi][h] = scales != nullptr && row < row_end ? __ldg(scales + row) : 1.f;
       }
-    float acc[MMI][4][4];
+    float acc[MMI][4][4], cross[MMI][4][4];  // cross: the tf32 products' cross terms (unused for int8)
 #pragma unroll
     for (int mi = 0; mi < MMI; ++mi)
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = cross[mi][nj][e] = 0.f;
     for (int ch = 0; ch < chunks; ++ch, ++c) {
-      const int slot = c % MSTAGES;
-      const uint32_t parity = (c / MSTAGES) & 1;
+      const int slot = c % STAGES;
+      const uint32_t parity = (c / STAGES) & 1;
       comorag::mbar_wait(&full[slot], parity);
-      const unsigned char* st = ring + slot * MSTAGE;
-      uint4 xa[MMI][2];  // rows r0 + 16 mi + 8h, bytes 16t .. 16t + 15
+      chunk_products(acc, cross, ring + slot * STAGE, r0, q_tiles, g, t, [&] {
+        __syncwarp();
+        if (lane == 0) comorag::mbar_arrive(&empty[slot]);
+        if (tid == 0 && c + STAGES < total) {  // refill the stage once every warp has read it
+          comorag::mbar_wait(&empty[slot], parity);
+          issue(c + STAGES);
+        }
+        __syncwarp();
+      }, RowT());
+    }
+    if constexpr (sizeof(RowT) == 4) {
 #pragma unroll
       for (int mi = 0; mi < MMI; ++mi)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          xa[mi][h] = *reinterpret_cast<const uint4*>(st + MQ_BYTES + (r0 + 16 * mi + 8 * h) * MBK + 16 * t);
-      uint4 qf[4][2];  // query 8 nj + g, features 16t .. 16t + 7 and 16t + 8 .. 16t + 15
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-        if (nj < q_tiles) {
-          qf[nj][0] = *reinterpret_cast<const uint4*>(st + comorag::swizzle128(8 * nj + g, 32 * t));
-          qf[nj][1] = *reinterpret_cast<const uint4*>(st + comorag::swizzle128(8 * nj + g, 32 * t + 16));
-        }
-      __syncwarp();
-      if (lane == 0) comorag::mbar_arrive(&empty[slot]);
-      if (tid == 0 && c + MSTAGES < total) {  // refill the stage once every warp has read it
-        comorag::mbar_wait(&empty[slot], parity);
-        issue(c + MSTAGES);
-      }
-      __syncwarp();
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        uint32_t a[MMI][4];
-#pragma unroll
-        for (int mi = 0; mi < MMI; ++mi) {
-          // row g: k (2t, 2t + 1), (2t + 8, 2t + 9); row g + 8: the same
-          int8x4_bf16(reinterpret_cast<const uint32_t*>(&xa[mi][0])[s], a[mi][0], a[mi][2]);
-          int8x4_bf16(reinterpret_cast<const uint32_t*>(&xa[mi][1])[s], a[mi][1], a[mi][3]);
-        }
-#pragma unroll
         for (int nj = 0; nj < 4; ++nj)
-          if (nj < q_tiles) {
-            const uint32_t* qw = reinterpret_cast<const uint32_t*>(&qf[nj][s >> 1]);
 #pragma unroll
-            for (int mi = 0; mi < MMI; ++mi) comorag::mma_bf16(acc[mi][nj], a[mi], qw[2 * (s & 1)], qw[2 * (s & 1) + 1]);
-          }
-      }
+          for (int e = 0; e < 4; ++e) acc[mi][nj][e] += cross[mi][nj][e];
     }
     // appends against the threshold of the query's last merge; a candidate
     // that finds its query's buffer full stays pending, the full buffers
@@ -947,10 +929,22 @@ mma_scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
   }
 }
 
-constexpr size_t MMA_SMEM_BYTES =
-    (size_t)MSTAGES * MSTAGE + (size_t)WQB * MSZ * 8 + 3 * WQB * 4 + 2 * MSTAGES * 8 + 1024;  // + alignment slack
-static_assert((3 * WQB * 4) % 8 == 0 && (WQB * MSZ * 8) % 8 == 0, "barriers 8-byte aligned");
-static_assert(2 * (MMA_SMEM_BYTES + 1024) <= 233472, "two tensor-core scan blocks an SM");
+// Pass 1 over int8 rows (k <= WKMAX, d % 16 == 0, 16-byte aligned rows):
+// ring_scan with bf16 products.
+__global__ void __launch_bounds__(MTHREADS, WBLOCKS_PER_SM)
+mma_scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap,
+                const float* __restrict__ scales, int P, int N, int d, int k, int rows_per_split,
+                float* __restrict__ cand_s, int* __restrict__ cand_i) {
+  ring_scan<int8_t>(qmap, xmap, scales, P, N, d, k, rows_per_split, cand_s, cand_i);
+}
+
+// Pass 1 over fp32 rows (k <= WKMAX, d % 4 == 0, 16-byte aligned rows and
+// queries): ring_scan with 3xTF32 products.
+__global__ void __launch_bounds__(MTHREADS, WBLOCKS_PER_SM)
+tf32_scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap, int P, int N,
+                 int d, int k, int rows_per_split, float* __restrict__ cand_s, int* __restrict__ cand_i) {
+  ring_scan<float>(qmap, xmap, nullptr, P, N, d, k, rows_per_split, cand_s, cand_i);
+}
 
 // Pass 2: one block per query merges the splits' sorted lists into the
 // final top-k. Rank r of every list is examined before rank r + 1; once no
@@ -1057,50 +1051,68 @@ int plan_splits(int P, int N, int sm_count, int qb, int tile, int per_sm, int* r
 }
 
 // Bytes of the splits' candidate lists (fp32 scores then int32 ids, [P,
-// splits, k] each, for the largest split count of the three scans), rounded
+// splits, k] each, for the larger split count of the two tilings), rounded
 // up to 128.
 size_t list_bytes(int P, int N, int k, int sm_count) {
   int rows_per_split;
   const int narrow = plan_splits(P, N, sm_count, QB, TILE, BLOCKS_PER_SM, &rows_per_split);
-  const int wide = plan_splits(P, N, sm_count, WQB, WBN, WBLOCKS_PER_SM, &rows_per_split);
-  return ((size_t)P * (narrow > wide ? narrow : wide) * k * 8 + 127) / 128 * 128;
+  const int ring = plan_splits(P, N, sm_count, WQB, WBN, WBLOCKS_PER_SM, &rows_per_split);
+  return ((size_t)P * (narrow > ring ? narrow : ring) * k * 8 + 127) / 128 * 128;
 }
 
-// The tensor-core scan's two launches and the merge. The bf16 queries sit
-// in the workspace after the candidate lists.
-int launch_mma(const float* q, const int8_t* corpus, const float* scales, int P, int N, int d, int k,
-               int sm_count, void* workspace, float* os, int64_t* oi, cudaStream_t st) {
+// A tensor-core scan's three launches: the queries prepared once (bf16 for
+// int8 rows; tf32 hi and lo planes for fp32 rows) into the workspace after
+// the candidate lists, the scan, and the merge.
+template <typename RowT>
+int launch_ring(const float* q, const RowT* corpus, const float* scales, int P, int N, int d, int k, int sm_count,
+                void* workspace, float* os, int64_t* oi, cudaStream_t st) {
+  using ST = Stage<RowT>;
+  constexpr bool TF32 = sizeof(RowT) == 4;
+  constexpr int Q_ELEM = TF32 ? 4 : 2;  // bytes of a prepared query feature
   int rows_per_split;
   const int splits = plan_splits(P, N, sm_count, WQB, WBN, WBLOCKS_PER_SM, &rows_per_split);
   float* cs = static_cast<float*>(workspace);
   int* ci = reinterpret_cast<int*>(cs + (size_t)P * splits * k);
-  __nv_bfloat16* qb =
-      reinterpret_cast<__nv_bfloat16*>(static_cast<unsigned char*>(workspace) + list_bytes(P, N, k, sm_count));
+  void* qp = static_cast<unsigned char*>(workspace) + list_bytes(P, N, k, sm_count);
   const int n = P * d;
   const int blocks = (n / 4 + 255) / 256;
-  bf16_queries_kernel<<<blocks < 4 * sm_count ? blocks : 4 * sm_count, 256, 0, st>>>(q, qb, n);
+  const int grid = blocks < 4 * sm_count ? blocks : 4 * sm_count;
+  if constexpr (TF32)
+    tf32_queries_kernel<<<grid, 256, 0, st>>>(q, static_cast<float*>(qp), static_cast<float*>(qp) + n, n);
+  else
+    bf16_queries_kernel<<<grid, 256, 0, st>>>(q, static_cast<__nv_bfloat16*>(qp), n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   CUtensorMap qmap, xmap;
-  {
-    const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)P};
-    const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-    const cuuint32_t box[2] = {MBK, WQB};
-    if ((err = comorag::make_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, qb, dims, strides, box)) != cudaSuccess)
+  {  // [planes, P, d]: one plane of bf16, or the tf32 hi and lo planes
+    const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)P, TF32 ? 2u : 1u};
+    const cuuint64_t strides[2] = {(cuuint64_t)d * Q_ELEM, (cuuint64_t)n * Q_ELEM};
+    const cuuint32_t box[3] = {ST::BK, WQB, TF32 ? 2u : 1u};
+    if ((err = comorag::make_map(&qmap, TF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                                 qp, dims, strides, box, box_swizzle(ST::Q_ROW))) != cudaSuccess)
       return err;
   }
   {
     const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)N};
-    const cuuint64_t strides[1] = {(cuuint64_t)d};
-    const cuuint32_t box[2] = {MBK, WBN};
-    if ((err = comorag::make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, corpus, dims, strides, box,
-                                 CU_TENSOR_MAP_SWIZZLE_NONE)) != cudaSuccess)
+    const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(RowT)};
+    const cuuint32_t box[2] = {ST::BK, WBN};
+    if ((err = comorag::make_map(&xmap, TF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                                 corpus, dims, strides, box, box_swizzle(ST::X_ROW))) != cudaSuccess)
       return err;
   }
-  err = cudaFuncSetAttribute(mma_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MMA_SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  mma_scan_kernel<<<dim3((P + WQB - 1) / WQB, splits), MTHREADS, MMA_SMEM_BYTES, st>>>(
-      qmap, xmap, scales, P, N, d, k, rows_per_split, cs, ci);
+  constexpr size_t smem = ring_smem_bytes<RowT>();
+  const dim3 scan_grid((P + WQB - 1) / WQB, splits);
+  if constexpr (TF32) {
+    if ((err = cudaFuncSetAttribute(tf32_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
+      return err;
+    tf32_scan_kernel<<<scan_grid, MTHREADS, smem, st>>>(qmap, xmap, P, N, d, k, rows_per_split, cs, ci);
+  } else {
+    if ((err = cudaFuncSetAttribute(mma_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
+      return err;
+    mma_scan_kernel<<<scan_grid, MTHREADS, smem, st>>>(qmap, xmap, scales, P, N, d, k, rows_per_split, cs, ci);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   merge_kernel<WKMAX><<<P, MERGE_THREADS, 0, st>>>(cs, ci, splits, k, os, oi);
   return cudaGetLastError();
@@ -1115,36 +1127,20 @@ int dispatch(const void* q, const void* corpus, const float* scales, int P, int 
   const bool vec = reinterpret_cast<uintptr_t>(corpus) % 16 == 0 && (d * sizeof(RowT)) % 16 == 0;
   const bool aligned = vec && reinterpret_cast<uintptr_t>(q) % 16 == 0;
   // the route's limits (ops/mips.scan_route); a call outside them is refused
-  if (route == ROUTE_WIDE && !(sizeof(RowT) == 4 && P >= WIDE_MIN_P && k <= WKMAX && aligned))
-    return cudaErrorInvalidValue;
-  if (route == ROUTE_MMA && !(sizeof(RowT) == 1 && k <= WKMAX && d % 16 == 0 && aligned))
-    return cudaErrorInvalidValue;
-  if (route != ROUTE_SCAN && route != ROUTE_WIDE && route != ROUTE_MMA) return cudaErrorInvalidValue;
+  constexpr bool FP32_ROWS = std::is_same<RowT, float>::value, INT8_ROWS = std::is_same<RowT, int8_t>::value;
+  if (route == ROUTE_TF32 && !(FP32_ROWS && k <= WKMAX && d % 4 == 0 && aligned)) return cudaErrorInvalidValue;
+  if (route == ROUTE_MMA && !(INT8_ROWS && k <= WKMAX && d % 16 == 0 && aligned)) return cudaErrorInvalidValue;
+  if (route != ROUTE_SCAN && route != ROUTE_TF32 && route != ROUTE_MMA) return cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const RowT* c = static_cast<const RowT*>(corpus);
   float* cs = static_cast<float*>(workspace);
   float* os = static_cast<float*>(out_s);
   int64_t* oi = static_cast<int64_t*>(out_i);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (FP32_ROWS || INT8_ROWS) {
+    if (route != ROUTE_SCAN) return launch_ring<RowT>(qf, c, scales, P, N, d, k, sm_count, workspace, os, oi, st);
+  }
   int rows_per_split;
-  if constexpr (sizeof(RowT) == 1) {
-    if (route == ROUTE_MMA) return launch_mma(qf, c, scales, P, N, d, k, sm_count, workspace, os, oi, st);
-  }
-  if constexpr (sizeof(RowT) == 4) {
-    if (route == ROUTE_WIDE) {
-      const int splits = plan_splits(P, N, sm_count, WQB, WBN, WBLOCKS_PER_SM, &rows_per_split);
-      int* ci = reinterpret_cast<int*>(cs + (size_t)P * splits * k);
-      const size_t smem = wide_smem_bytes();
-      cudaError_t err = cudaFuncSetAttribute(wide_scan_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-      wide_scan_kernel<<<dim3((P + WQB - 1) / WQB, splits), WTHREADS, smem, st>>>(
-          qf, c, P, N, d, k, rows_per_split, cs, ci);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      merge_kernel<WKMAX><<<P, MERGE_THREADS, 0, st>>>(cs, ci, splits, k, os, oi);
-      return cudaGetLastError();
-    }
-  }
   const int splits = plan_splits(P, N, sm_count, QB, TILE, BLOCKS_PER_SM, &rows_per_split);
   int* ci = reinterpret_cast<int*>(cs + (size_t)P * splits * k);
   if (k <= 64)
@@ -1159,14 +1155,15 @@ extern "C" const char* comorag_error_string(int code) {
 }
 
 // Scratch bytes a call needs: the splits' candidate lists (list_bytes),
-// then the tensor-core scan's bf16 queries, [P, d].
+// then the tensor-core scans' queries: bf16 [P, d] (int8 rows) or the tf32
+// hi and lo planes [2, P, d] (fp32 rows).
 extern "C" long long comorag_mips_topk_workspace_bytes(int P, int N, int d, int k, int sm_count) {
   if (P <= 0 || N <= 0 || d <= 0 || k <= 0 || sm_count <= 0) return 0;
-  return (long long)(list_bytes(P, N, k, sm_count) + (size_t)P * d * 2);
+  return (long long)(list_bytes(P, N, k, sm_count) + (size_t)P * d * 8);
 }
 
 // Shared arguments. q: [P, d] fp32 contiguous. k: 1 <= k <= min(N, 256).
-// route: the scan (ROUTE_SCAN, ROUTE_WIDE, ROUTE_MMA; ops/mips.scan_route),
+// route: the scan (ROUTE_SCAN, ROUTE_TF32, ROUTE_MMA; ops/mips.scan_route),
 // refused with cudaErrorInvalidValue outside its limits. sm_count: the
 // card's SMs; workspace: comorag_mips_topk_workspace_bytes() bytes of
 // device scratch, 16-byte aligned. out_s [P, k] fp32 and out_i [P, k]

@@ -153,7 +153,7 @@ class TorchOfflineLLM(BaseLLM):
         elif params is None or arch is None:
             # hermetic engine: tiny random weights, byte vocab
             arch = arch or decoder.DecoderArch.tiny()
-            params = decoder.init_params(arch, torch.Generator().manual_seed(seed))
+            params = decoder.init_params(arch, torch.Generator().manual_seed(seed), device="cpu")
 
         self.arch = arch
         self.tokenizer = tokenizer or ByteTokenizer()

@@ -81,13 +81,15 @@ class Int4Weight(NamedTuple):
 
 
 # ------------------------------------------------------------------- params
-def init_params(arch: DecoderArch, generator: torch.Generator, device: Union[str, torch.device] = "cpu",
+def init_params(arch: DecoderArch, generator: torch.Generator, device: Union[str, torch.device] = "cuda",
                 dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Random weights (std 0.02, norms ones) drawn from ``generator`` on
     ``device`` in ``dtype``, one tensor at a time (a CUDA generator and bf16
-    build an 8B-parameter tree on the card without a host copy). The draws
-    differ from ``jax.random``'s: parity tests convert JAX's tree instead
-    (``params_from_jax``)."""
+    build an 8B-parameter tree on the card without a host copy). The
+    generator must live on ``device``: a CPU generator needs
+    ``device="cpu"``. The draws differ from ``jax.random``'s: parity tests
+    convert JAX's tree instead (``params_from_jax``)."""
+    device = resolve_device(device)
     h, i, l = arch.hidden_size, arch.intermediate_size, arch.num_layers
     q_dim = arch.num_heads * arch.head_dim
     kv_dim = arch.num_kv_heads * arch.head_dim
@@ -120,12 +122,13 @@ def init_params(arch: DecoderArch, generator: torch.Generator, device: Union[str
     return params
 
 
-def params_from_jax(tree: Any, device: Union[str, torch.device] = "cpu") -> Any:
+def params_from_jax(tree: Any, device: Union[str, torch.device] = "cuda") -> Any:
     """The JAX package's parameter tree (its leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``, or a checkpoint's numpy tree)
     as the port's: dicts stay dicts, arrays become tensors on ``device``,
     and JAX ``QuantWeight`` / ``Int4Weight`` leaves (recognized by their
     fields) become the port's, packed bytes and scales unchanged."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     fields = getattr(tree, "_fields", None)
@@ -268,8 +271,9 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
     @classmethod
-    def zeros(cls, arch: DecoderArch, batch: int, max_len: int, dtype=torch.float32, device="cpu"):
+    def zeros(cls, arch: DecoderArch, batch: int, max_len: int, dtype=torch.float32, device="cuda"):
         shape = (arch.num_layers, batch, max_len, arch.num_kv_heads, arch.head_dim)
+        device = resolve_device(device)
         return cls(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
 
 
@@ -283,8 +287,9 @@ class QuantKVCache(NamedTuple):
     v_scale: torch.Tensor
 
     @classmethod
-    def zeros(cls, arch: DecoderArch, batch: int, max_len: int, dtype=None, device="cpu"):
+    def zeros(cls, arch: DecoderArch, batch: int, max_len: int, dtype=None, device="cuda"):
         shape = (arch.num_layers, batch, max_len, arch.num_kv_heads, arch.head_dim)
+        device = resolve_device(device)
         return cls(torch.zeros(shape, dtype=torch.int8, device=device),
                    torch.zeros(shape, dtype=torch.int8, device=device),
                    torch.zeros(shape[:-1], dtype=torch.float32, device=device),
@@ -303,7 +308,7 @@ def _is_int8_kv(kv_dtype) -> bool:
     return kv_dtype in ("int8", torch.int8)
 
 
-def make_kv_cache(arch: DecoderArch, batch: int, max_len: int, compute_dtype, kv_dtype=None, device="cpu"):
+def make_kv_cache(arch: DecoderArch, batch: int, max_len: int, compute_dtype, kv_dtype=None, device="cuda"):
     if _is_int8_kv(kv_dtype):
         return QuantKVCache.zeros(arch, batch, max_len, device=device)
     return KVCache.zeros(arch, batch, max_len, compute_dtype, device)

@@ -9,7 +9,9 @@ tensors; there is no fallback from one to the other. Results are sorted by
 
 The first pass of a CUDA call (the per-split lists) runs on one of three
 scan kernels, chosen here by ``scan_route`` and passed to the C entry,
-which refuses a route whose limits the call does not meet.
+which refuses a route whose limits the call does not meet. fp32 rows are
+scored exactly to fp32 on every route: the ``tf32`` route splits each
+operand into tf32 hi + lo (3xTF32), the ``scan`` route multiplies on FFMA.
 """
 
 from __future__ import annotations
@@ -30,9 +32,8 @@ INT8_LAUNCHES = build.LaunchCounter("mips_topk_int8")
 INT8_REPLACES = "comorag_tpu/ops/pallas_topk.py:210"
 
 MAX_K = 256  # the kernels' per-query list bound
-WIDE_MAX_K = 64  # the k bound of the wide and mma scans
-WIDE_MIN_P = 32  # the smallest query batch sent to the wide scan
-SCAN_ROUTES = ("scan", "wide", "mma")  # the C entries' route codes 0, 1, 2
+TC_MAX_K = 64  # the k bound of the tensor-core scans (tf32, mma)
+SCAN_ROUTES = ("scan", "tf32", "mma")  # the C entries' route codes 0, 1, 2
 # launches per scan route, of both wrappers (scan_route)
 ROUTE_LAUNCHES = {route: build.LaunchCounter(f"mips_topk.{route}") for route in SCAN_ROUTES}
 
@@ -57,14 +58,16 @@ def scan_route(p: int, d: int, k: int, row_dtype: torch.dtype, aligned: bool) ->
     - ``"mma"``, int8 rows, k <= 64, d % 16 == 0, aligned: [128 rows x 32
       queries] tiles on mma.sync bf16 tensor-core products, int8 rows
       streamed by TMA and converted exactly at fragment load;
-    - ``"wide"``, fp32 rows, p >= 32, k <= 64, d % 4 == 0, aligned: the
-      same tile as FFMA products from a shared-memory register tiling;
-    - ``"scan"``, every other call: 8 queries a block, rows streamed from
-      L2 into registers (any d, k <= 256)."""
-    if row_dtype == torch.int8 and k <= WIDE_MAX_K and d % 16 == 0 and aligned:
+    - ``"tf32"``, fp32 rows, k <= 64, d % 4 == 0, aligned, any p: the same
+      tile and streaming in 3xTF32 tensor-core products (each operand split
+      into tf32 hi + lo; lo.hi + hi.lo + hi.hi with fp32 sums);
+    - ``"scan"``, every other call (bf16 rows, k > 64, unaligned rows or
+      queries, d % 4 != 0 for fp32, d % 16 != 0 for int8): 8 queries a
+      block, rows streamed from L2 into registers (any d, k <= 256)."""
+    if row_dtype == torch.int8 and k <= TC_MAX_K and d % 16 == 0 and aligned:
         return "mma"
-    if row_dtype == torch.float32 and p >= WIDE_MIN_P and k <= WIDE_MAX_K and d % 4 == 0 and aligned:
-        return "wide"
+    if row_dtype == torch.float32 and k <= TC_MAX_K and d % 4 == 0 and aligned:
+        return "tf32"
     return "scan"
 
 

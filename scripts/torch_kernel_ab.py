@@ -1,5 +1,5 @@
 """A/B timing of comorag_torch's encoder FFN, encoder attention, int4
-matmul, int4 fused layer tail and int8 top-k against an earlier version of
+matmul, int4 fused layer tail and fp32 and int8 top-k against an earlier version of
 the same CUDA sources, in one process on one card.
 
     git archive <commit> comorag_torch/csrc | tar -x -C build/ab_old
@@ -17,10 +17,11 @@ tail with the first design's (commit a8e4f4b: no
 is timed at chip_smoke.py phase 9's six shapes through both libraries' C
 entries, called directly (``matmul_ab``): the earlier library at the
 current route where it has that entry, else at the one mma.sync kernel
-of fdbff70 and before. The int8 top-k (``topk_ab``) is timed at chip_smoke.py
-phase 6's shape through both libraries' C entries, called directly: the
-current one at ``ops.mips.scan_route``'s route, the earlier one (2eac9c9
-and before: no route argument) at its own choice. Times are
+of fdbff70 and before. The fp32 and int8 top-k (``topk_ab``) are timed at
+chip_smoke.py phase 6's shape through both libraries' C entries, called
+directly: the current one at ``ops.mips.scan_route``'s route, the earlier
+one (dbd2d73's interface and routes: ``scan`` / ``wide`` for fp32 rows,
+``mma`` for int8 rows) at the route dbd2d73's scan_route chose. Times are
 medians of CUDA-event samples (chip_smoke's ``median_ms``), taken in
 turns: earlier, current, current, earlier. Prints one JSON line per shape
 and the card's nvidia-smi name and power limit.
@@ -45,7 +46,7 @@ from chip_smoke import (BENCH_K, INT4_MATMUL_SHAPES, bench_data, ffn_bound, ffn_
                         int4_matmul_dims, llama_8b, median_ms, nvidia_smi_line, ragged_mask, route_of, rule_ratio,
                         tail_bound)
 from comorag_torch.ops import attention, build, ffn, int4, mips  # noqa: E402
-from comorag_torch.ops.topk import int8_scores, quantize_int8  # noqa: E402
+from comorag_torch.ops.topk import dense_scores, int8_scores, quantize_int8  # noqa: E402
 
 
 def build_old(csrc: str, name: str) -> ctypes.CDLL:
@@ -275,55 +276,70 @@ def tail_ab(old_lib: ctypes.CDLL, device) -> list:
     return rows
 
 
+# dbd2d73's scan routes and their C codes: fp32 rows of 32 queries or more
+# with k <= 64 (d % 4 == 0, aligned) on the FFMA "wide" scan, other fp32
+# calls on "scan", int8 rows with k <= 64 and d % 16 == 0 on "mma"
+EARLIER_ROUTES = {"scan": 0, "wide": 1, "mma": 2}
+
+
+def earlier_route(p: int, rows: torch.Tensor) -> str:
+    if rows.dtype == torch.int8:
+        return "mma"
+    return "wide" if p >= 32 and BENCH_K <= 64 and rows.shape[1] % 4 == 0 else "scan"
+
+
 def topk_ab(old_lib: ctypes.CDLL, device) -> list:
-    """mips_topk_int8 on phase 6's corpus (100,000 x 1024, k = 50) at P = 16
-    and 256, both libraries' C entries called directly on buffers made
-    outside the timed loop: the current one at ``ops.mips.scan_route``'s
-    route, the earlier one (2eac9c9's interface, no route argument) at its
-    own choice. Each result is held against the plain score matrix
-    (ops/mips.check_topk)."""
+    """mips_topk (fp32 rows) and mips_topk_int8 on phase 6's corpus
+    (100,000 x 1024, k = 50) at P = 16, 32 and 256, both libraries' C
+    entries called directly on buffers made outside the timed loop: the
+    current one at ``ops.mips.scan_route``'s route, the earlier one
+    (dbd2d73's interface) at its own route table. Each result is held
+    against the plain score matrix (ops/mips.check_topk)."""
     new_lib = mips._lib()
-    fn = old_lib.comorag_mips_topk_int8
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    for fn in (old_lib.comorag_mips_topk, old_lib.comorag_mips_topk_int8):
+        fn.restype = ctypes.c_int
+    old_lib.comorag_mips_topk.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
+    old_lib.comorag_mips_topk_int8.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
     ws = old_lib.comorag_mips_topk_workspace_bytes
     ws.restype = ctypes.c_longlong
-    ws.argtypes = [ctypes.c_int] * 4
+    ws.argtypes = [ctypes.c_int] * 5
     sms = mips._sm_count(device)
     stream = torch.cuda.current_stream(device).cuda_stream
     corpus, queries = bench_data(256)
+    c32 = torch.tensor(corpus, device=device)
     cq, sc = (torch.tensor(a, device=device) for a in quantize_int8(corpus))
     del corpus
-    n, d = cq.shape
+    n, d = c32.shape
     rows = []
-    for p in (16, 256):
+    for p in (16, 32, 256):
         q = torch.tensor(queries[:p], device=device)
-        route = route_of(q, cq, BENCH_K)
-        outs = {lib: (torch.empty(p, BENCH_K, device=device), torch.empty(p, BENCH_K, dtype=torch.int64, device=device))
-                for lib in (old_lib, new_lib)}
-        old_ws = torch.empty(ws(p, n, BENCH_K, sms), dtype=torch.uint8, device=device)
-        new_ws = torch.empty(new_lib.comorag_mips_topk_workspace_bytes(p, n, d, BENCH_K, sms), dtype=torch.uint8,
-                             device=device)
-        head = (q.data_ptr(), cq.data_ptr(), sc.data_ptr(), p, n, d, BENCH_K)
+        for kernel, entry, head, scores in (
+                ("mips_topk", "comorag_mips_topk", (q.data_ptr(), c32.data_ptr(), 0), lambda: dense_scores(q, c32)),
+                ("mips_topk_int8", "comorag_mips_topk_int8", (q.data_ptr(), cq.data_ptr(), sc.data_ptr()),
+                 lambda: int8_scores(q, cq, sc))):
+            row_t = c32 if kernel == "mips_topk" else cq
+            routes = {old_lib: earlier_route(p, row_t), new_lib: route_of(q, row_t, BENCH_K)}
+            codes = {old_lib: EARLIER_ROUTES[routes[old_lib]], new_lib: mips.SCAN_ROUTES.index(routes[new_lib])}
+            outs = {lib: (torch.empty(p, BENCH_K, device=device),
+                          torch.empty(p, BENCH_K, dtype=torch.int64, device=device)) for lib in routes}
+            wss = {lib: torch.empty(lib.comorag_mips_topk_workspace_bytes(p, n, d, BENCH_K, sms), dtype=torch.uint8,
+                                    device=device) for lib in routes}
 
-        def old():
-            rc = fn(*head, sms, old_ws.data_ptr(), outs[old_lib][0].data_ptr(), outs[old_lib][1].data_ptr(), stream)
-            build.check(old_lib, rc, "earlier mips_topk_int8")
+            def call(lib, entry=entry, head=head, codes=codes, outs=outs, wss=wss, p=p):
+                rc = getattr(lib, entry)(*head, p, n, d, BENCH_K, codes[lib], sms, wss[lib].data_ptr(),
+                                         outs[lib][0].data_ptr(), outs[lib][1].data_ptr(), stream)
+                build.check(lib, rc, entry)
 
-        def new():
-            rc = new_lib.comorag_mips_topk_int8(*head, mips.SCAN_ROUTES.index(route), sms, new_ws.data_ptr(),
-                                                outs[new_lib][0].data_ptr(), outs[new_lib][1].data_ptr(), stream)
-            build.check(new_lib, rc, "mips_topk_int8")
-
-        scores = int8_scores(q, cq, sc)
-        errs = {}
-        for tag, lib, call in (("earlier", old_lib, old), ("current", new_lib, new)):
-            call()
-            torch.cuda.synchronize()
-            errs[f"{tag}_max_abs_err"] = mips.check_topk(*outs[lib], scores, f"{tag} mips_topk_int8 P={p}")
-        rows.append({"kernel": "mips_topk_int8", "P": p, "N": n, "d": d, "k": BENCH_K, "route": route,
-                     **in_turns(old, new), **errs})
-        del scores
+            plain = scores()
+            errs = {}
+            for tag, lib in (("earlier", old_lib), ("current", new_lib)):
+                call(lib)
+                torch.cuda.synchronize()
+                errs[f"{tag}_max_abs_err"] = mips.check_topk(*outs[lib], plain, f"{tag} {kernel} P={p}")
+            del plain
+            rows.append({"kernel": kernel, "P": p, "N": n, "d": d, "k": BENCH_K, "earlier_route": routes[old_lib],
+                         "route": routes[new_lib],
+                         **in_turns(lambda: call(old_lib), lambda: call(new_lib)), **errs})
     return rows
 
 

@@ -125,9 +125,10 @@ def _launched(mips, route, fn):
 
 # the tie-tolerant rule of ops/mips.check_topk: scores to 1e-5 + 1e-5*|plain|,
 # ids equal wherever the plain ranking is separated by more than 1e-5; int8
-# rows with k <= 64 and d % 16 == 0 take the tensor-core scan ("mma": at
+# rows with k <= 64 and d % 16 == 0 take the bf16 tensor-core scan ("mma": at
 # bench shape d = 1024, k = 50, P = 16 and 256, and at P = 33, d = 768,
-# k = 64), k = 65 the narrow scan
+# k = 64), fp32 rows with k <= 64 the 3xTF32 one ("tf32"), k = 65 the narrow
+# scan
 @pytest.mark.parametrize("n", [511, 4096, 70_001])
 @pytest.mark.parametrize("p,d,k", [(1, 64, 1), (5, 768, 50), (16, 64, 256), (130, 768, 50),
                                    (16, 768, 256), (130, 64, 1), (16, 1024, 50), (256, 1024, 50),
@@ -157,8 +158,9 @@ def test_mips_topk_kernels_match_plain(cuda_device, n, p, d, k):
     mips.check_topk(s, i, int8_scores(q, cq, sc), "int8")
 
 
-# d % 4 != 0: the scalar load path; 40 queries at d = 64: the wide scan (k <= 64);
-# int8 rows at d = 64 and 1024 with k <= 64: the tensor-core scan
+# d % 4 != 0: the scalar load path; fp32 rows at d = 64, 100 and 1024 with
+# k <= 64 (1 and 40 queries at d = 64): the tf32 tensor-core scan; int8 rows
+# at d = 64 and 1024 with k <= 64: the bf16 tensor-core scan
 @pytest.mark.parametrize("d,p", [(3, 1), (64, 1), (100, 1), (64, 40), (1024, 16)])
 def test_mips_topk_duplicates_tie_to_lowest_id(cuda_device, d, p):
     from comorag_torch.ops import mips
@@ -170,12 +172,48 @@ def test_mips_topk_duplicates_tie_to_lowest_id(cuda_device, d, p):
     corpus[dup_ids] = corpus[dup_ids[0]] * 4.0
     q = torch.tensor(np.repeat(corpus[dup_ids[:1]] * 2.0, p, axis=0), device=cuda_device)
     for k in (1, 40, 64, 256):
-        _, i = mips.mips_topk(q, torch.tensor(corpus, device=cuda_device), k)
+        c32 = torch.tensor(corpus, device=cuda_device)
+        route = "tf32" if k <= 64 and d % 4 == 0 else "scan"
+        _, i = _launched(mips, route, lambda: mips.mips_topk(q, c32, k))
         np.testing.assert_array_equal(i.cpu().numpy(), np.tile(dup_ids[:k], (p, 1)))
         cq, sc = (torch.tensor(a, device=cuda_device) for a in quantize_int8(corpus))
         route = "mma" if k <= 64 and d % 16 == 0 else "scan"
         _, i = _launched(mips, route, lambda: mips.mips_topk_int8(q, cq, sc, k))
         np.testing.assert_array_equal(i.cpu().numpy(), np.tile(dup_ids[:k], (p, 1)))
+
+
+@pytest.fixture(scope="module")
+def tf32_corpora():
+    """Normalized fp32 corpora on the card by (N, d), made once (seeded)."""
+    made = {}
+
+    def get(n, d):
+        if (n, d) not in made:
+            gen = torch.Generator(device="cuda").manual_seed(n + d)
+            x = torch.randn(n, d, generator=gen, device="cuda")
+            made[(n, d)] = x / x.norm(dim=1, keepdim=True)
+        return made[(n, d)]
+    return get
+
+
+# every P of the tf32 route's tile fill (1 query, one n8 tile, two, a second
+# 32-query block, eight), d no multiple of its 32-feature stage (100, 1000),
+# N of one split, of several, and with a ragged last tile (100,003)
+@pytest.mark.parametrize("n", [600, 5000, 100_003])
+@pytest.mark.parametrize("k", [1, 50, 64])
+@pytest.mark.parametrize("d", [64, 100, 1000, 1024])
+@pytest.mark.parametrize("p", [1, 8, 16, 33, 256])
+def test_mips_topk_tf32_route_matches_plain(cuda_device, tf32_corpora, p, d, k, n):
+    from comorag_torch.ops import mips
+    from comorag_torch.ops.topk import dense_scores
+
+    c32 = tf32_corpora(n, d)
+    gen = torch.Generator(device="cuda").manual_seed(p + d + k)
+    q = torch.randn(p, d, generator=gen, device="cuda")
+    q = q / q.norm(dim=1, keepdim=True)
+    assert mips.scan_route(p, d, k, torch.float32, True) == "tf32"
+    s, i = _launched(mips, "tf32", lambda: mips.mips_topk(q, c32, k))
+    mips.check_topk(s, i, dense_scores(q, c32), f"tf32 P={p} d={d} k={k} N={n}")
 
 
 def test_pallas_index_routes_through_the_kernels(cuda_device):
@@ -219,14 +257,16 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError):  # fp64 rows
         mips.mips_topk(torch.zeros(2, 64, device=cuda_device), corpus.double(), 5)
     # the C entry refuses a route outside its limits (fp32 rows on the int8
-    # tensor-core scan, 2 queries on the wide scan) instead of taking another
+    # tensor-core scan; bf16 rows, and k = 65, on the tf32 scan) instead of
+    # taking another
     lib, sms = mips._lib(), mips._sm_count(cuda_device)
     q = torch.zeros(2, 64, device=cuda_device)
-    ws = torch.empty(lib.comorag_mips_topk_workspace_bytes(2, 1000, 64, 5, sms), dtype=torch.uint8,
+    ws = torch.empty(lib.comorag_mips_topk_workspace_bytes(2, 1000, 64, 65, sms), dtype=torch.uint8,
                      device=cuda_device)
-    out_s, out_i = torch.empty(2, 5, device=cuda_device), torch.empty(2, 5, dtype=torch.int64, device=cuda_device)
-    for route in ("mma", "wide"):
-        rc = lib.comorag_mips_topk(q.data_ptr(), corpus.data_ptr(), 0, 2, 1000, 64, 5, mips.SCAN_ROUTES.index(route),
+    out_s, out_i = torch.empty(2, 65, device=cuda_device), torch.empty(2, 65, dtype=torch.int64, device=cuda_device)
+    c16 = corpus.to(torch.bfloat16)
+    for route, rows, bf16, k in (("mma", corpus, 0, 5), ("tf32", c16, 1, 5), ("tf32", corpus, 0, 65)):
+        rc = lib.comorag_mips_topk(q.data_ptr(), rows.data_ptr(), bf16, 2, 1000, 64, k, mips.SCAN_ROUTES.index(route),
                                    sms, ws.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
                                    torch.cuda.current_stream().cuda_stream)
-        assert rc != 0, route
+        assert rc != 0, (route, rows.dtype, k)

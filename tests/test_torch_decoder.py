@@ -90,7 +90,7 @@ def _forward_both(jarch, tarch, jparams, tparams, ids, mask, kv_dtype=None):
     jcache = jdec.make_kv_cache(jarch, b, p, jnp.float32, kv_dtype)
     jl, jc = jdec.decoder_forward(jparams, jnp.asarray(ids), jnp.asarray(positions), jnp.asarray(attn), jcache,
                                   jnp.int32(0), jarch)
-    tcache = tdec.make_kv_cache(tarch, b, p, torch.float32, kv_dtype)
+    tcache = tdec.make_kv_cache(tarch, b, p, torch.float32, kv_dtype, device="cpu")
     tl, tc = tdec.decoder_forward(tparams, torch.as_tensor(ids).long(), torch.as_tensor(positions).long(),
                                   torch.as_tensor(attn), tcache, 0, tarch)
     return np.asarray(jl), tl.numpy(), jc, tc
@@ -101,16 +101,17 @@ def test_params_from_jax_carries_every_leaf():
     params = _jax_params(jarch)
     for tree in (params, jdec.quantize_params(params), jdec.quantize_params_int4(params)):
         flat = jax.tree_util.tree_flatten_with_path(_np_tree(tree))[0]
-        port = tdec.params_from_jax(_np_tree(tree))
+        port = tdec.params_from_jax(_np_tree(tree), device="cpu")
         for path, leaf in flat:
             node = port
             for key in path:
                 node = node[key.key] if hasattr(key, "key") else getattr(node, key.name)
             assert node.dtype == torch.from_numpy(np.array(leaf)).dtype
             np.testing.assert_array_equal(node.numpy(), leaf)
-    port = tdec.params_from_jax(_np_tree(jdec.quantize_params_int4(params)))
+    port = tdec.params_from_jax(_np_tree(jdec.quantize_params_int4(params)), device="cpu")
     assert isinstance(port["layers"]["down_w"], tdec.Int4Weight)
-    assert isinstance(tdec.params_from_jax(_np_tree(jdec.quantize_params(params)))["lm_head"], tdec.QuantWeight)
+    port = tdec.params_from_jax(_np_tree(jdec.quantize_params(params)), device="cpu")
+    assert isinstance(port["lm_head"], tdec.QuantWeight)
 
 
 @pytest.mark.parametrize("name", sorted(ARCHS))
@@ -118,7 +119,8 @@ def test_forward_fp32_matches_jax(name):
     jarch, tarch = _archs(name)
     params = _jax_params(jarch, seed=1)
     ids, mask = _prompt_batch(np.random.default_rng(2))
-    jl, tl, jc, tc = _forward_both(jarch, tarch, params, tdec.params_from_jax(_np_tree(params)), ids, mask)
+    tparams = tdec.params_from_jax(_np_tree(params), device="cpu")
+    jl, tl, jc, tc = _forward_both(jarch, tarch, params, tparams, ids, mask)
     np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), rtol=1e-4, atol=1e-4)
 
@@ -134,12 +136,12 @@ def test_int8_weights_and_int8_kv_cache_match_jax():
     params = _jax_params(jarch, seed=3)
     ids, mask = _prompt_batch(np.random.default_rng(4))
     jq = jdec.quantize_params(params)
-    tq = tdec.quantize_params(tdec.params_from_jax(_np_tree(params)))
+    tq = tdec.quantize_params(tdec.params_from_jax(_np_tree(params), device="cpu"))
     np.testing.assert_array_equal(tq["layers"]["qkv_w"].q.numpy(), np.asarray(jq["layers"]["qkv_w"].q))
     np.testing.assert_allclose(tq["lm_head"].scale.numpy(), np.asarray(jq["lm_head"].scale), rtol=1e-7)
     jl, tl, _, _ = _forward_both(jarch, tarch, jq, tq, ids, mask)
     np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
-    tparams = tdec.params_from_jax(_np_tree(params))
+    tparams = tdec.params_from_jax(_np_tree(params), device="cpu")
     jl, tl, jc, tc = _forward_both(jarch, tarch, params, tparams, ids, mask, kv_dtype="int8")
     assert isinstance(tc, tdec.QuantKVCache)
     np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
@@ -154,7 +156,7 @@ def test_int4_forward_close_to_jax_with_same_top1(hidden, inter):
     params = _jax_params(jarch, seed=5)
     ids, mask = _prompt_batch(np.random.default_rng(6), b=2, p=8)
     j4 = jdec.quantize_params_int4(params)
-    t4 = tdec.params_from_jax(_np_tree(j4))
+    t4 = tdec.params_from_jax(_np_tree(j4), device="cpu")
     if hidden == 512:  # the fused tail's gate holds at decode-sized M
         assert tdec.int4_ops.fused_tail_supported(hidden, inter, 128, ids.size)
     jl, tl, _, _ = _forward_both(jarch, tarch, j4, t4, ids, mask)
@@ -173,7 +175,7 @@ def tiny():
     jparams = jax.tree_util.tree_map(jnp.asarray, jparams)
     tparams, tarch = tcur.load_tiny_checkpoint(tcur.default_checkpoint_path())
     assert dataclasses.asdict(jarch) == dataclasses.asdict(tarch)
-    return jparams, jarch, tdec.params_from_jax(tparams), tarch
+    return jparams, jarch, tdec.params_from_jax(tparams, device="cpu"), tarch
 
 
 def _prompts(tok, n_rows, task, seed):
@@ -296,14 +298,14 @@ def test_hf_llama_loader_matches_transformers(tmp_path):
         n = len(prompt)
         logits, _ = tdec.decoder_forward(params, torch.tensor([prompt]), torch.arange(n)[None],
                                          torch.tril(torch.ones(1, n, n, dtype=torch.bool)),
-                                         tdec.KVCache.zeros(arch, 1, n), 0, arch)
+                                         tdec.KVCache.zeros(arch, 1, n, device="cpu"), 0, arch)
     np.testing.assert_allclose(logits[0].numpy(), ref, atol=2e-4, rtol=2e-3)
 
 
 def test_init_params_is_seeded_and_shaped():
     arch = tdec.DecoderArch.tiny()
-    a = tdec.init_params(arch, torch.Generator().manual_seed(0))
-    b = tdec.init_params(arch, torch.Generator().manual_seed(0))
+    a = tdec.init_params(arch, torch.Generator().manual_seed(0), device="cpu")
+    b = tdec.init_params(arch, torch.Generator().manual_seed(0), device="cpu")
     ref = jdec.init_params(jax.random.PRNGKey(0), jdec.DecoderArch.tiny())
     for (path, leaf) in jax.tree_util.tree_flatten_with_path(ref)[0]:
         keys = [k.key for k in path]
@@ -323,7 +325,7 @@ def test_sampling_distributions_match_the_model():
     within 0.08 total variation of the exact joint, and drafts accepted."""
     arch = tdec.DecoderArch(vocab_size=6, hidden_size=32, num_layers=2, num_heads=4, num_kv_heads=2,
                             intermediate_size=64, max_seq_len=64)
-    params = tdec.init_params(arch, torch.Generator().manual_seed(7))
+    params = tdec.init_params(arch, torch.Generator().manual_seed(7), device="cpu")
     temp, eos, pad = 0.7, 5, 0
     prompt = [1, 2, 3, 1, 2, 3, 1, 2]  # repetitive: the 2-gram lookup finds drafts
     b, p = 4096, len(prompt)
@@ -335,7 +337,7 @@ def test_sampling_distributions_match_the_model():
         with torch.no_grad():
             lg, _ = tdec.decoder_forward(params, torch.tensor([seq]), torch.arange(n)[None],
                                          torch.tril(torch.ones(1, n, n, dtype=torch.bool)),
-                                         tdec.KVCache.zeros(arch, 1, n), 0, arch)
+                                         tdec.KVCache.zeros(arch, 1, n, device="cpu"), 0, arch)
         return torch.softmax(lg[0, -1] / temp, -1).numpy()
 
     p1 = last_probs(prompt)

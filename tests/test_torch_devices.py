@@ -72,6 +72,30 @@ def _add_synonymy_edges(tmp_path, **kw):
     assert GraphBuilder().add_synonymy_edges(keys, keys, embs, topk=4, **kw) == 6  # each pair, both ways
 
 
+def _decoder_init_params(tmp_path, **kw):
+    return decoder.init_params(decoder.DecoderArch.tiny(), torch.Generator().manual_seed(0), **kw)
+
+
+def _decoder_params_from_jax(tmp_path, **kw):
+    tree = {"embed": np.ones((4, 2), np.float32),
+            "layers": {"qkv_w": decoder.QuantWeight(np.ones((2, 3), np.int8), np.ones((1, 3), np.float32))}}
+    return decoder.params_from_jax(tree, **kw)
+
+
+def _kv_cache(tmp_path, **kw):
+    return decoder.KVCache.zeros(decoder.DecoderArch.tiny(), 2, 8, **kw)
+
+
+def _make_kv_cache_bf16(tmp_path, **kw):
+    return decoder.make_kv_cache(decoder.DecoderArch.tiny(), 2, 8, torch.bfloat16, **kw)
+
+
+def _make_kv_cache_int8(tmp_path, **kw):
+    cache = decoder.make_kv_cache(decoder.DecoderArch.tiny(), 2, 8, torch.bfloat16, kv_dtype="int8", **kw)
+    assert isinstance(cache, decoder.QuantKVCache) and cache.k.dtype == torch.int8
+    return cache
+
+
 ENTRY_POINTS = {
     "BGETorchEncoder": _bge_encoder,
     "MipsIndex": _mips_index,
@@ -82,8 +106,23 @@ ENTRY_POINTS = {
     "fit_gmm_bic": _fit_gmm_bic,
     "two_level_soft_cluster": _two_level_soft_cluster,
     "GraphBuilder.add_synonymy_edges": _add_synonymy_edges,
+    "decoder.init_params": _decoder_init_params,
+    "decoder.params_from_jax": _decoder_params_from_jax,
+    "KVCache.zeros": _kv_cache,
+    "make_kv_cache": _make_kv_cache_bf16,
+    "make_kv_cache(kv_dtype=int8)": _make_kv_cache_int8,
 }
 FUNCTIONS = {"fit_gmm_bic", "two_level_soft_cluster", "GraphBuilder.add_synonymy_edges"}  # check their own results
+CACHES = {"KVCache.zeros", "make_kv_cache", "make_kv_cache(kv_dtype=int8)"}  # tuples of tensors
+TREES = {"decoder.init_params", "decoder.params_from_jax"}  # dicts of tensors and weight tuples
+
+
+def _leaves(tree):
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, torch.Tensor):
+            yield v
+        else:
+            yield from _leaves(v)
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -98,5 +137,10 @@ def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
     elif name == "load_hf_decoder_checkpoint":
         params, _ = built
         assert params["embed"].device.type == "cpu"
+    elif name in CACHES:
+        assert all(t.device.type == "cpu" for t in built)
+    elif name in TREES:
+        leaves = list(_leaves(built))
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
     else:
         assert built.device == torch.device("cpu")

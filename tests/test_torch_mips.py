@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from comorag_torch.ops import mips
-from comorag_torch.ops.topk import quantize_int8
+from comorag_torch.ops.topk import dense_scores, exact_topk, quantize_int8
 from comorag_tpu.ops.pallas_topk import pallas_mips_topk, pallas_mips_topk_int8
 from comorag_tpu.ops.topk import dense_topk, int8_topk
 from comorag_tpu.ops.topk import quantize_int8 as jax_quantize_int8
+from _tf32_emulation import ROUNDINGS, tf32_scores
 
 P, N_PAD, N_VALID, D, K = 8, 1024, 900, 128, 20
 
@@ -104,9 +105,9 @@ def test_check_topk_accepts_swapped_near_ties_and_rejects_wrong_ids():
 @pytest.mark.parametrize("row_dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_scan_route_table(row_dtype):
     """Every call shape takes one of the three scan routes: int8 rows with
-    k <= 64, d % 16 == 0 and aligned rows the tensor-core scan; fp32 rows
-    of 32 queries or more with k <= 64, d % 4 == 0 and aligned rows the
-    wide scan; every other call the narrow scan."""
+    k <= 64, d % 16 == 0 and aligned rows the bf16 tensor-core scan; fp32
+    rows with k <= 64, d % 4 == 0 and aligned rows the 3xTF32 tensor-core
+    scan, at every P; every other call the narrow scan."""
     taken = {route: 0 for route in mips.SCAN_ROUTES}
     for p in (1, 16, 31, 32, 256):
         for d in (64, 768, 1000, 1024):
@@ -117,11 +118,65 @@ def test_scan_route_table(row_dtype):
                     taken[route] += 1
                     if row_dtype == torch.int8 and k <= 64 and d % 16 == 0 and aligned:
                         assert route == "mma", (p, d, k, aligned, route)
-                    elif row_dtype == torch.float32 and p >= 32 and k <= 64 and d % 4 == 0 and aligned:
-                        assert route == "wide", (p, d, k, aligned, route)
+                    elif row_dtype == torch.float32 and k <= 64 and d % 4 == 0 and aligned:
+                        assert route == "tf32", (p, d, k, aligned, route)
                     else:
                         assert route == "scan", (p, d, k, aligned, route)
     assert sum(taken.values()) == 5 * 4 * 5 * 2
     # bench shape (d = 1024, k = 50) and bert-base's d = 768 reach the tensor cores at every P
     assert taken["mma"] == (5 * 3 * 3 if row_dtype == torch.int8 else 0)
-    assert taken["wide"] == (2 * 4 * 3 if row_dtype == torch.float32 else 0)
+    assert taken["tf32"] == (5 * 4 * 3 if row_dtype == torch.float32 else 0)
+    # d % 4 != 0 keeps fp32 rows on the narrow scan
+    assert mips.scan_route(16, 1026, 50, torch.float32, True) == "scan"
+
+
+def _tf32_case(name: str):
+    """(queries [8, d], corpus [N, d], k) of a seeded case: bench.py:53-59's
+    normalized rows, un-normalized randn (d = 100, not a multiple of a stage),
+    and 300 identical rows among normalized ones."""
+    rng = np.random.default_rng(5)
+    if name == "normalized":
+        return _normalized(rng, (8, 256)), _normalized(rng, (1500, 256)), 50
+    if name == "randn":
+        return (rng.standard_normal((8, 100)).astype(np.float32),
+                rng.standard_normal((1500, 100)).astype(np.float32), 64)
+    corpus = _normalized(rng, (1500, 64)) * 0.25
+    dup_ids = np.sort(rng.choice(1500, 300, replace=False))
+    corpus[dup_ids] = corpus[dup_ids[0]] * 4.0
+    return np.repeat(corpus[dup_ids[:1]] * 2.0, 8, axis=0), corpus, 40
+
+
+@pytest.mark.parametrize("rounding", sorted(ROUNDINGS))
+@pytest.mark.parametrize("cross_sum", [False, True])
+@pytest.mark.parametrize("case", ["normalized", "randn", "duplicates"])
+def test_tf32_route_arithmetic_holds_the_fp32_rule(case, cross_sum, rounding):
+    """The 3xTF32 scores of the tf32 scan route, emulated on the CPU in both
+    sum orders and with each mma sum rounded to nearest or toward zero,
+    rank as the fp32 plain version does: their top-k passes check_topk at
+    1e-5, and its ids equal those of JAX's pallas_mips_topk (interpret
+    mode) wherever the plain ranking is separated by more than 1e-5;
+    identical rows tie to the lowest ids. Observed max |emulated - float64|
+    over all scores, one accumulator / the cross terms in a second, to
+    nearest; toward zero; the plain fp32 matmul: 9.3e-8 / 4.7e-8; 6.5e-7 /
+    2.1e-7; 2.6e-8 on the normalized rows (|score| <= 0.27), 9.7e-6 /
+    6.8e-6; 5.3e-5 / 1.8e-5; 1.2e-5 on randn (|score| <= 43), 4.2e-7 /
+    1.8e-7; 7.8e-7 / 4.2e-7; 6.2e-8 on the duplicates (<= 2). The card's own
+    numerics are witnessed by the CUDA tests (tests/test_torch_cuda.py);
+    rounding toward zero is the mode that reproduces their errors
+    (scripts/tf32_emulation_error.py)."""
+    qn, cn, k = _tf32_case(case)
+    q, c = torch.as_tensor(qn), torch.as_tensor(cn)
+    s, i = exact_topk(tf32_scores(q, c, cross_sum, rounding), k)
+    mips.check_topk(s, i, dense_scores(q, c), f"tf32 emulation, {case}")
+    n_pad = -(-len(cn) // 512) * 512
+    padded = np.zeros((n_pad, cn.shape[1]), np.float32)
+    padded[: len(cn)] = cn
+    _, jax_i = pallas_mips_topk(qn, padded, np.int32(len(cn)), k, interpret=True)
+    ref_s, _ = exact_topk(dense_scores(q, c), k + 1)
+    inf = torch.full_like(ref_s[:, :1], float("inf"))
+    gaps = torch.cat([inf, ref_s[:, :-1] - ref_s[:, 1:], inf], dim=1)[:, : k + 1]
+    determined = (gaps[:, :k] > 1e-5) & (gaps[:, 1:] > 1e-5)
+    assert bool(((i == torch.as_tensor(np.array(jax_i)).long()) | ~determined).all())
+    if case == "duplicates":
+        dup = np.flatnonzero((cn == cn[i[0, 0]]).all(axis=1))
+        np.testing.assert_array_equal(i.numpy(), np.tile(dup[:k], (8, 1)))

@@ -182,7 +182,7 @@ def test_save_and_load_tiny_checkpoint_roundtrip(tmp_path):
     from comorag_torch.models import decoder
 
     arch = decoder.DecoderArch.tiny()
-    params = decoder.init_params(arch, torch.Generator().manual_seed(0))
+    params = decoder.init_params(arch, torch.Generator().manual_seed(0), device="cpu")
     path = str(tmp_path / "ckpt.npz")
     tcur.save_tiny_checkpoint(path, params, arch)
     loaded, arch2 = tcur.load_tiny_checkpoint(path)
