@@ -91,7 +91,22 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      weights (int4_matmul launches on its mma_sync route among others, the
      fused tail's gate is false at H = 256; the first call of each route
      and shape is held against int4_matmul_plain at its own inputs),
-     speculative decoding equal to plain greedy.
+     speculative decoding equal to plain greedy;
+ 12. training: (a) the encoder's contrastive step (models/train.py) at
+     bert-base width and depth, B = 32 pairs of phase 5's corpus, S = 128,
+     10 steps in fp32 and 10 in bf16 compute: finite losses, the step
+     counter at 10, pairs/s over steps 2-10; (b) the causal-LM step
+     (models/train_lm.py) at Llama-3.1-8B width cut to 2 layers (fp32
+     masters and AdamW moments, bf16 compute, remat), B = 4, S = 512 with
+     padded tails, 5 steps on one batch: the loss falls; tokens/s over
+     steps 2-5 and peak memory. Neither step launches any of the six
+     kernels (their counts stay 0: the kernels have no backward). (c)
+     ``python -m comorag_torch.cli.train --init random --device cuda`` for
+     20 steps on phase 5's pairs, its checkpoint loaded into a bf16
+     BGETorchEncoder on the kernels: 256 chunks encoded, both encoder
+     kernels launched, per-row cosine >= 0.999 against the plain route;
+     then ``python -m comorag_torch.eval.qa_eval`` over phase 11's results
+     (ExactMatch and F1 printed).
 Then it checks that no module of jax or of the JAX package was loaded, and
 prints the kernels JSON line (every kernel with its launches on the main
 path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms), the
@@ -119,7 +134,7 @@ from comorag_torch.comorag import ComoRAG
 from comorag_torch.llm import serving
 from comorag_torch.llm.fake import FakeLLM
 from comorag_torch.llm.offline import TorchOfflineLLM
-from comorag_torch.models import bge, curriculum, decoder
+from comorag_torch.models import bge, curriculum, decoder, train, train_lm
 from comorag_torch.ops import attention, build, ffn, int4, mips
 from comorag_torch.ops.topk import dense_scores, int8_scores, quantize_int8
 from comorag_torch.retrieval import index as index_mod
@@ -323,7 +338,7 @@ def phase_kernels(device, b: int, s: int) -> dict:
 # ------------------------------------------------------------------ phase 4
 def bert_base(device) -> bge.Encoder:
     arch = bge.EncoderArch()  # bert-base: 30522 vocab, 768 hidden, 12 layers, 12 heads
-    return bge.init_params(arch, torch.Generator().manual_seed(SEED)).to(device)
+    return bge.init_params(arch, torch.Generator().manual_seed(SEED), device)
 
 
 def phase_encoder(device) -> dict:
@@ -1323,6 +1338,178 @@ def phase_tiny(device, workdir: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 12
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 32, 128, 10  # cli/train.py's defaults: --batch 32 --max_seq_len 128
+LM_B, LM_S, LM_STEPS, LM_LAYERS = 4, 512, 5, 2
+CLI_STEPS, ROUNDTRIP_CHUNKS = 20, 256
+KERNEL_COUNTERS = (attention.LAUNCHES, ffn.LAUNCHES, mips.LAUNCHES, mips.INT8_LAUNCHES, int4.LAUNCHES,
+                   int4.TAIL_LAUNCHES)
+
+
+def training_pairs(docs) -> list:
+    """(query, passage) pairs over phase 5's corpus: a passage is a chunk,
+    its query ten of the chunk's words after "Record <i>:"."""
+    return [{"query": " ".join(doc.split()[2:12]), "passage": doc} for doc in docs]
+
+
+def hash_tokens(tokenizer, texts, s: int, device) -> tuple:
+    """ids and mask padded to ``s`` as cli/train.py tokenizes them."""
+    rows, _ = tokenizer(texts, s)
+    ids = np.zeros((len(texts), s), np.int64)
+    for i, r in enumerate(rows):
+        ids[i, : len(r)] = r
+    mask = (ids != 0).astype(np.int64)
+    mask[:, 0] = 1
+    return torch.as_tensor(ids, device=device), torch.as_tensor(mask, device=device)
+
+
+def timed_steps(step, state, batches) -> tuple:
+    """Runs one step per batch; the first is a warm-up, the rest are timed
+    (host clock, synchronized). Returns the state, every loss, the seconds
+    of the first step and of the timed ones."""
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        state, loss = step(state, batch)
+        losses.append(loss)
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    return state, losses, t1 - t0, t2 - t1
+
+
+def encoder_steps(device, pairs, compute_dtype) -> dict:
+    """12a: TRAIN_STEPS contrastive steps of bert-base (seeded random
+    weights, fp32 masters) over distinct batches of phase 5's pairs."""
+    arch = bge.EncoderArch()
+    tokenizer = bge.SimpleHashTokenizer(arch.vocab_size)
+    state = train.create_train_state(arch, torch.Generator().manual_seed(SEED), device=device)
+    batches = []
+    for i in range(TRAIN_STEPS):
+        take = pairs[i * TRAIN_B:(i + 1) * TRAIN_B]
+        q_ids, q_mask = hash_tokens(tokenizer, [p["query"] for p in take], TRAIN_S, device)
+        p_ids, p_mask = hash_tokens(tokenizer, [p["passage"] for p in take], TRAIN_S, device)
+        batches.append({"q_ids": q_ids, "q_mask": q_mask, "p_ids": p_ids, "p_mask": p_mask})
+    step = train.make_train_step(arch, compute_dtype=compute_dtype)
+    state, losses, first_s, rest_s = timed_steps(step, state, batches)
+    if state.step != TRAIN_STEPS:
+        raise AssertionError(f"encoder step counter {state.step} != {TRAIN_STEPS}")
+    return {"losses": losses, "first_step_s": first_s,
+            "pairs_per_s": TRAIN_B * (TRAIN_STEPS - 1) / rest_s}
+
+
+def lm_steps(device) -> dict:
+    """12b: LM_STEPS causal-LM steps at Llama-3.1-8B width and LM_LAYERS
+    layers (fp32 masters and AdamW moments, bf16 compute, remat) on one
+    seeded batch with padded tails; the loss must fall."""
+    arch = llama_8b(LM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = decoder.init_params(arch, torch.Generator(device=device).manual_seed(SEED + 12), device)
+    state = train.TrainState(params, train.make_optimizer(1e-4)(params), 0)
+    n_params = sum(p.numel() for _, p, _ in train.named_leaves(params))
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    ids = torch.randint(1, arch.vocab_size, (LM_B, LM_S), generator=gen, device=device)
+    lengths = torch.tensor([LM_S, LM_S - 37, LM_S - 200, LM_S // 2], device=device)
+    mask = (torch.arange(LM_S, device=device)[None] < lengths[:, None]).long()
+    step = train_lm.make_lm_train_step(arch, compute_dtype=torch.bfloat16)  # lm_loss recomputes each layer
+    state, losses, first_s, rest_s = timed_steps(step, state, [{"ids": ids, "mask": mask}] * LM_STEPS)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the LM loss did not fall on a repeated batch: {losses}")
+    out = {"params": n_params, "losses": losses, "first_step_s": first_s,
+           "tokens_per_s": LM_B * LM_S * (LM_STEPS - 1) / rest_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def trained_encoder(checkpoint: str, device, route: str) -> bge.BGETorchEncoder:
+    """The CLI's checkpoint loaded into a serving encoder (bf16 compute)."""
+    arch = bge.EncoderArch()
+    fresh = train.create_train_state(arch, torch.Generator().manual_seed(SEED), device=device)
+    restored = train.load_checkpoint(checkpoint, fresh)
+    if restored.step != CLI_STEPS:
+        raise AssertionError(f"checkpoint step {restored.step} != {CLI_STEPS}")
+    return bge.BGETorchEncoder(params=restored.params, tokenizer=bge.SimpleHashTokenizer(arch.vocab_size),
+                               max_seq_len=TRAIN_S, device=device, compute_dtype=torch.bfloat16,
+                               attention=route)
+
+
+def run_module(module: str, *args: str) -> str:
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {module} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def cli_roundtrip(device, pairs, workdir: str) -> dict:
+    """12c: the train CLI on the card, its checkpoint encoded through both
+    encoder kernels and held against the plain route (phase 4's rule)."""
+    pairs_path, ckpt_dir = os.path.join(workdir, "pairs.jsonl"), os.path.join(workdir, "train_ckpt")
+    with open(pairs_path, "w", encoding="utf-8") as f:
+        f.writelines(json.dumps(p) + "\n" for p in pairs)
+    t0 = time.perf_counter()
+    run_module("comorag_torch.cli.train", "--pairs", pairs_path, "--output_dir", ckpt_dir, "--init", "random",
+               "--steps", str(CLI_STEPS), "--batch", str(TRAIN_B), "--max_seq_len", str(TRAIN_S),
+               "--device", "cuda")
+    cli_s = time.perf_counter() - t0
+    with open(os.path.join(ckpt_dir, "train_summary.json"), encoding="utf-8") as f:
+        summary = json.load(f)
+    chunks = [p["passage"] for p in pairs[:ROUNDTRIP_CHUNKS]]
+    for counter in (attention.LAUNCHES, ffn.LAUNCHES):
+        counter.reset()
+    got = trained_encoder(summary["checkpoint"], device, "kernel").encode(chunks)
+    launches = {c.name: c.value for c in (attention.LAUNCHES, ffn.LAUNCHES)}
+    ref = trained_encoder(summary["checkpoint"], device, "plain").encode(chunks)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the trained encoder did not launch both encoder kernels: {launches}")
+    if got.shape != (ROUNDTRIP_CHUNKS, bge.EncoderArch().hidden_size) or not np.isfinite(got).all():
+        raise AssertionError(f"trained encoder: shape {got.shape}, finite {np.isfinite(got).all()}")
+    cos = (got * ref).sum(axis=1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
+    if float(cos.min()) < 0.999:
+        raise AssertionError(f"trained encoder: kernel vs plain cosine {float(cos.min()):.6f} < 0.999")
+    return {"cli_s": cli_s, "summary": summary, "launches": launches, "min_cosine": float(cos.min())}
+
+
+def phase_training(device, workdir: str, smi: str) -> dict:
+    """Phase 12: the two training steps at full width and the train CLI's
+    round trip into the serving encoder, then the eval CLI over phase 11's
+    results (``workdir`` is phase 11's)."""
+    pairs = training_pairs(make_corpus(N_CHUNKS, N_QUESTIONS)[0])
+    for counter in KERNEL_COUNTERS:
+        counter.reset()
+    enc = {name: encoder_steps(device, pairs, dtype) for name, dtype in (("fp32", torch.float32),
+                                                                         ("bf16", torch.bfloat16))}
+    lm = lm_steps(device)
+    train_launches = {c.name: c.value for c in KERNEL_COUNTERS}
+    if any(train_launches.values()):
+        raise AssertionError(f"the training steps launched a kernel that has no backward: {train_launches}")
+    for name, r in enc.items():
+        print(f"phase 12a bert-base contrastive step B={TRAIN_B} S={TRAIN_S}, {name} compute: "
+              f"{r['pairs_per_s']:.1f} pairs/s over steps 2-{TRAIN_STEPS} (first step {r['first_step_s']:.3f} s); "
+              f"losses {json.dumps(r['losses'])}; card {smi}", flush=True)
+    print(f"phase 12b LM step at Llama-3.1-8B width, {LM_LAYERS} layers ({lm['params']} parameters), B={LM_B} "
+          f"S={LM_S}, bf16 compute, remat: {lm['tokens_per_s']:.1f} tokens/s over steps 2-{LM_STEPS} "
+          f"(first step {lm['first_step_s']:.3f} s), peak memory {lm['peak_gib']:.3f} GiB; "
+          f"losses {json.dumps(lm['losses'])}; card {smi}", flush=True)
+    cli = cli_roundtrip(device, pairs, workdir)
+    evaluated = json.loads(run_module("comorag_torch.eval.qa_eval", os.path.join(workdir, "out")))
+    print(f"phase 12c train CLI ({CLI_STEPS} steps, --init random, B={TRAIN_B} S={TRAIN_S}, fp32) in "
+          f"{cli['cli_s']:.3f} s: {json.dumps(cli['summary'])}; trained encoder on the kernels vs plain over "
+          f"{ROUNDTRIP_CHUNKS} chunks (bf16): min cosine {cli['min_cosine']:.6f}, kernel launches "
+          f"{cli['launches']}; eval CLI over phase 11's results: ExactMatch {evaluated['ExactMatch']}, "
+          f"F1 {evaluated['F1']}; card {smi}", flush=True)
+    return {"encoder": enc, "lm": lm, "cli": cli, "eval": evaluated, "train_launches": train_launches}
+
+
 def main() -> None:
     device = require_cuda()
     smi = nvidia_smi_line()
@@ -1350,12 +1537,14 @@ def main() -> None:
     server = phase_server(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         tiny = phase_tiny(device, workdir)
+        training = phase_training(device, workdir, smi)
 
     entries = []
     for mod in (attention, ffn):
         name = mod.LAUNCHES.name
         entries.append({"name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
-                        "launches": slice_out["launches"][name], **kernels[name],
+                        "launches": slice_out["launches"][name],
+                        "trained_encoder_launches": training["cli"]["launches"][name], **kernels[name],
                         "max_abs_err": max(kernels[name]["max_abs_err"], small[name]["max_abs_err"]),
                         **{f"small_batch_{k}": small[name][k]
                            for k in ("ms", "plain_ms", "bound_ms", "products_library_ms", "host_us", "splits")
@@ -1386,6 +1575,9 @@ def main() -> None:
                         "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks),
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         "shapes": rows})
+
+    for entry in entries:
+        entry["training_step_launches"] = training["train_launches"][entry["name"]]
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "comorag_tpu"))
     if foreign:

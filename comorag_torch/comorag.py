@@ -37,7 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from comorag_torch.cluster.raptor import SemanticTree
-from comorag_torch.device import resolve_device
+from comorag_torch.device import MESH_NOT_PORTED, resolve_device
 from comorag_torch.graph.builder import GraphBuilder, GraphData
 from comorag_torch.llm import get_llm
 from comorag_torch.memory.pool import NO_MEMORY_SENTINEL, MemoryNode, MemoryPool, NodeType
@@ -86,10 +86,7 @@ class ComoRAG:
     ):
         self.config = config or ComoConfig()
         if self.config.mesh_shape:
-            raise NotImplementedError(
-                "mesh_shape: the sharded paths are not ported to comorag_torch yet "
-                "(ROADMAP queue 1, item 14); the port runs on one device"
-            )
+            raise NotImplementedError(MESH_NOT_PORTED.format(what="mesh_shape"))
         self.device = resolve_device(device)
         os.makedirs(self.config.working_dir, exist_ok=True)
 

@@ -18,6 +18,10 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# what a request for the sharded paths raises (format with ``what=``)
+MESH_NOT_PORTED = ("{what}: the sharded paths are not ported to comorag_torch yet "
+                   "(ROADMAP queue 1, item 6); the port runs on one device")
+
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.device:
     """``torch.device`` for ``device``; raises when a CUDA device is

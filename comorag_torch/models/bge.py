@@ -11,6 +11,11 @@ Hopper kernels, as the JAX encoder runs its two Pallas kernels on a TPU:
 ``ops.attention.encoder_attention`` and ``ops.ffn.encoder_ffn``. fp32
 compute (the HF-parity contract) takes the plain path, as in JAX
 (bge.py:455-462).
+
+Parameters are built frozen (``requires_grad=False``): serving never
+differentiates. The training step (``models.train``) turns them on; its
+forward takes the plain path, because the kernels' wrappers return tensors
+without a ``grad_fn``, as the JAX package's kernels have no VJP.
 """
 
 from __future__ import annotations
@@ -102,9 +107,12 @@ class Encoder(nn.Module):
 
 
 # ------------------------------------------------------------------- params
-def init_params(arch: EncoderArch, generator: torch.Generator) -> Encoder:
+def init_params(arch: EncoderArch, generator: torch.Generator,
+                device: Union[str, torch.device] = "cuda") -> Encoder:
     """Random weights (bge.py:69): N(0, 0.02) matrices and tables, unit LN
-    scales, zero biases, drawn from ``generator`` on the CPU."""
+    scales, zero biases, drawn from ``generator`` on the CPU (so one seed
+    gives the same weights on every device), then placed on ``device``."""
+    device = resolve_device(device)
     model = Encoder(arch)
 
     def fill(p: nn.Parameter, name: str) -> None:
@@ -118,14 +126,16 @@ def init_params(arch: EncoderArch, generator: torch.Generator) -> Encoder:
     for layer in model.layers:
         for name, p in layer.named_parameters():
             fill(p, name)
-    return model
+    return model.to(device)
 
 
-def params_from_jax(tree: Dict[str, Dict[str, np.ndarray]], arch: EncoderArch) -> Encoder:
-    """An ``Encoder`` holding the weights of a ``comorag_tpu.models.bge``
-    parameter tree (``init_params`` or ``load_hf_checkpoint`` output) given
-    as numpy arrays: ``tree["embed"][name]`` and the [L, ...] stacked
-    ``tree["layers"][name]``."""
+def params_from_jax(tree: Dict[str, Dict[str, np.ndarray]], arch: EncoderArch,
+                    device: Union[str, torch.device] = "cuda") -> Encoder:
+    """An ``Encoder`` on ``device`` holding the weights of a
+    ``comorag_tpu.models.bge`` parameter tree (``init_params`` or
+    ``load_hf_checkpoint`` output) given as numpy arrays:
+    ``tree["embed"][name]`` and the [L, ...] stacked ``tree["layers"][name]``."""
+    device = resolve_device(device)
     model = Encoder(arch)
     with torch.no_grad():
         for name in _EMBED_SHAPES:
@@ -134,12 +144,14 @@ def params_from_jax(tree: Dict[str, Dict[str, np.ndarray]], arch: EncoderArch) -
             stacked = np.array(tree["layers"][name], np.float32)
             for i, layer in enumerate(model.layers):
                 getattr(layer, name).copy_(torch.from_numpy(stacked[i]))
-    return model
+    return model.to(device)
 
 
-def load_hf_checkpoint(model_name_or_path: str) -> Tuple[Encoder, EncoderArch]:
-    """Convert a local HuggingFace BERT/XLM-R-family checkpoint (bge.py:306).
-    ``transformers`` is imported only here."""
+def load_hf_checkpoint(model_name_or_path: str,
+                       device: Union[str, torch.device] = "cuda") -> Tuple[Encoder, EncoderArch]:
+    """Convert a local HuggingFace BERT/XLM-R-family checkpoint (bge.py:306)
+    into an ``Encoder`` on ``device``. ``transformers`` is imported only here."""
+    device = resolve_device(device)
     from transformers import AutoConfig, AutoModel
 
     cfg = AutoConfig.from_pretrained(model_name_or_path)
@@ -179,7 +191,7 @@ def load_hf_checkpoint(model_name_or_path: str) -> Tuple[Encoder, EncoderArch]:
             for name, key in hf_layer.items():
                 w = state[prefix.format(i) + key]
                 getattr(layer, name).copy_(w.T if name.endswith("_w") else w)  # HF is [out, in]
-    return model, arch
+    return model.to(device), arch
 
 
 # ------------------------------------------------------------------ forward
@@ -195,8 +207,14 @@ def encoder_forward(
     ``attention="kernel"`` routes each layer through the two Hopper kernels
     (``encoder_attention``, and ``encoder_ffn`` where it takes the shape);
     on CPU tensors those wrappers run their plain versions, which is how
-    the CPU tests check this route against JAX's ``pallas_interpret``."""
+    the CPU tests check this route against JAX's ``pallas_interpret``.
+    The kernels have no backward, so that route refuses to run where
+    autograd would record it (grad mode on and a parameter requiring grad)
+    rather than drop those layers' gradients."""
     arch = model.arch
+    if attention == "kernel" and torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters()):
+        raise RuntimeError("encoder_forward(attention='kernel') has no backward: train on attention='plain', "
+                           "or run inference under torch.no_grad()")
     b, s = input_ids.shape
     eps = arch.layer_norm_eps
     cd = compute_dtype
@@ -295,15 +313,15 @@ class BGETorchEncoder(BaseEncoder):
         compute_dtype: torch.dtype = torch.float32,
         attention: str = "auto",  # "auto" | "plain" | "kernel"
     ):
+        self.device = resolve_device(device)
         if params is None:
             if model_name_or_path is None:
                 raise ValueError("need model_name_or_path or params")
-            params, arch = load_hf_checkpoint(model_name_or_path)
+            params, arch = load_hf_checkpoint(model_name_or_path, self.device)
         arch = arch or params.arch
         self.arch = arch
-        self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
-        self.model = params.to(self.device).cast_matrices_(compute_dtype).eval()
+        self.model = params.to(self.device).cast_matrices_(compute_dtype).eval().requires_grad_(False)
         self.fingerprint_extra = (
             os.path.basename(str(model_name_or_path).rstrip("/\\"))
             if model_name_or_path

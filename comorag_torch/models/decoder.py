@@ -28,6 +28,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from comorag_torch.device import resolve_device
 from comorag_torch.ops import int4 as int4_ops
@@ -326,28 +327,110 @@ def _write(dst: torch.Tensor, li: int, src: torch.Tensor, write_index) -> None:
         dst[li, rows, cols] = src.to(dst.dtype)
 
 
+def _layer_qkv(x: torch.Tensor, layer: Dict[str, Any], positions: torch.Tensor, arch: DecoderArch,
+               cd: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer's attention norm, fused [q|k|v] product, qk-norm and RoPE:
+    q [B, S, heads, hd], k and v [B, S, kv_heads, hd]."""
+    b, s = x.shape[:2]
+    heads, kv_heads, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    q_dim, kv_dim = heads * hd, kv_heads * hd
+    xn = _rms_norm(x, layer["attn_norm"], arch.rms_norm_eps, arch.rms_unit_offset)
+    qkv = _dot(xn, layer["qkv_w"], cd)
+    if arch.qkv_bias:
+        qkv = qkv + layer["qkv_b"].to(qkv.dtype)
+    q = qkv[..., :q_dim].reshape(b, s, heads, hd)
+    k = qkv[..., q_dim:q_dim + kv_dim].reshape(b, s, kv_heads, hd)
+    v = qkv[..., q_dim + kv_dim:].reshape(b, s, kv_heads, hd)
+    if arch.qk_norm:
+        q = _rms_norm(q, layer["q_norm"], arch.rms_norm_eps)
+        k = _rms_norm(k, layer["k_norm"], arch.rms_norm_eps)
+    q = _rope(q, positions, arch.rope_theta, arch.rope_scaling)
+    k = _rope(k, positions, arch.rope_theta, arch.rope_scaling)
+    return q, k, v
+
+
+def _layer_rest(x: torch.Tensor, layer: Dict[str, Any], q: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, mask_bias: torch.Tensor, arch: DecoderArch, cd: torch.dtype,
+                k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The rest of one layer: attention of q over T keys and values
+    ([B, T, kv_heads, hd], in the compute dtype or int8 with per-(token,
+    head) scales [B, T, kv_heads]), the output product and residual, and
+    the FFN half with its residual. Returns the new x."""
+    b, s = x.shape[:2]
+    heads, kv_heads, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    groups = heads // kv_heads
+    q_dim, i_dim = heads * hd, arch.intermediate_size
+
+    # GQA in kv-head layout; scores as an fp32 product of compute-dtype
+    # operands (exact products, fp32 sums: JAX's preferred_element_type)
+    qg = q.reshape(b, s, kv_heads, groups, hd)
+    scores = torch.einsum("bskgd,btkd->bskgt", qg.to(torch.float32), k_cache.to(torch.float32))
+    if k_scale is not None:
+        scores = scores * k_scale.permute(0, 2, 1)[:, None, :, None, :]
+    scores = scores / math.sqrt(float(hd)) + mask_bias
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.permute(0, 2, 1)[:, None, :, None, :]
+    ctx = torch.einsum("bskgt,btkd->bskgd", probs.to(cd), v_cache)
+
+    fused = all(isinstance(layer[n], Int4Weight) for n in ("o_w", "gateup_w", "down_w"))
+    if fused:
+        o_w: Int4Weight = layer["o_w"]
+        gs4 = int4_ops.group_size_of(o_w.packed, o_w.scale)
+        fused = int4_ops.fused_tail_supported(arch.hidden_size, i_dim, gs4, b * s)
+    if fused:
+        guw: Int4Weight = layer["gateup_w"]
+        dw: Int4Weight = layer["down_w"]
+        return int4_ops.int4_fused_layer_tail(
+            ctx.reshape(b * s, q_dim), x.reshape(b * s, arch.hidden_size), layer["ffn_norm"],
+            o_w.packed, o_w.scale, guw.packed, guw.scale, dw.packed, dw.scale,
+            group_size=gs4, eps=float(arch.rms_norm_eps), unit_offset=bool(arch.rms_unit_offset),
+            act=arch.mlp_act,
+        ).reshape(b, s, arch.hidden_size).to(cd)
+    x = x + _dot(ctx.reshape(b, s, q_dim), layer["o_w"], cd)
+    xn = _rms_norm(x, layer["ffn_norm"], arch.rms_norm_eps, arch.rms_unit_offset)
+    gu = _dot(xn, layer["gateup_w"], cd)
+    return x + _dot(int4_ops.activation(gu[..., :i_dim], arch.mlp_act) * gu[..., i_dim:], layer["down_w"], cd)
+
+
+def _own_kv_layer(x: torch.Tensor, layer: Dict[str, Any], positions: torch.Tensor, mask_bias: torch.Tensor,
+                  arch: DecoderArch, cd: torch.dtype) -> torch.Tensor:
+    """One layer attending to the chunk's own keys and values (no cache):
+    the training route, where every tensor autograd saves is the layer's
+    own."""
+    q, k, v = _layer_qkv(x, layer, positions, arch, cd)
+    return _layer_rest(x, layer, q, k, v, mask_bias, arch, cd)
+
+
 def decoder_forward(
     params: Dict[str, Any],
     input_ids: torch.Tensor,   # [B, S] int
     positions: torch.Tensor,   # [B, S] int (RoPE position per token)
     attn_mask: torch.Tensor,   # [B, S, T] bool: query token -> cache slot visibility
-    cache,                     # KVCache | QuantKVCache, updated IN PLACE
+    cache,                     # KVCache | QuantKVCache, updated IN PLACE; None: no cache (T = S)
     write_index,               # int slot OR [B] tensor of per-row slots
     arch: DecoderArch,
     compute_dtype: torch.dtype = torch.float32,
     last_only: bool = False,   # logits for the final position only ([B, 1, V])
+    remat: bool = False,       # recompute each layer in the backward (cache=None only)
 ):
     """One forward chunk (prefill S=P or decode S=1) against a KV cache of
     T slots: writes the chunk's keys and values at ``write_index`` (in
     place) and returns (logits [B, S, V] f32, cache).
 
+    ``cache=None`` is the training route: each layer attends to the
+    chunk's own keys and values (what JAX's ``lm_loss`` gets from a fresh
+    cache of S slots written at 0), so autograd saves no view of a tensor
+    that a later layer writes. ``remat=True`` wraps each layer in
+    ``torch.utils.checkpoint`` (``jax.checkpoint`` at decoder.py:658-662):
+    the backward recomputes one layer at a time instead of keeping every
+    layer's [B, S, heads, S] scores.
+
     Products and roundings are the JAX package's: matmuls in the compute
     dtype, attention scores and softmax in fp32, logits in fp32 (with a
     bf16 float head the logits are the bf16 product's, widened)."""
-    b, s = input_ids.shape
-    heads, kv_heads, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
-    groups = heads // kv_heads
-    quant_kv = isinstance(cache, QuantKVCache)
+    if remat and cache is not None:
+        raise ValueError("remat=True needs cache=None (the cache path writes the cache in place)")
     cd = compute_dtype
     layers = params["layers"]
 
@@ -355,24 +438,19 @@ def decoder_forward(
     if arch.embed_scale:
         x = x * torch.tensor(arch.hidden_size ** 0.5, dtype=cd)
     mask_bias = torch.where(attn_mask, 0.0, -1e30).to(torch.float32)[:, :, None, None, :]  # [B,S,1,1,T]
-    q_dim, kv_dim, i_dim = heads * hd, kv_heads * hd, arch.intermediate_size
+    quant_kv = isinstance(cache, QuantKVCache)
 
     for li in range(arch.num_layers):
         layer = {name: (type(w)(*(t[li] for t in w)) if isinstance(w, tuple) else w[li])
                  for name, w in layers.items()}
-        xn = _rms_norm(x, layer["attn_norm"], arch.rms_norm_eps, arch.rms_unit_offset)
-        qkv = _dot(xn, layer["qkv_w"], cd)
-        if arch.qkv_bias:
-            qkv = qkv + layer["qkv_b"].to(qkv.dtype)
-        q = qkv[..., :q_dim].reshape(b, s, heads, hd)
-        k = qkv[..., q_dim:q_dim + kv_dim].reshape(b, s, kv_heads, hd)
-        v = qkv[..., q_dim + kv_dim:].reshape(b, s, kv_heads, hd)
-        if arch.qk_norm:
-            q = _rms_norm(q, layer["q_norm"], arch.rms_norm_eps)
-            k = _rms_norm(k, layer["k_norm"], arch.rms_norm_eps)
-        q = _rope(q, positions, arch.rope_theta, arch.rope_scaling)
-        k = _rope(k, positions, arch.rope_theta, arch.rope_scaling)
-
+        if cache is None:
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(_own_kv_layer, x, layer, positions, mask_bias, arch, cd,
+                                                      use_reentrant=False)
+            else:
+                x = _own_kv_layer(x, layer, positions, mask_bias, arch, cd)
+            continue
+        q, k, v = _layer_qkv(x, layer, positions, arch, cd)
         if quant_kv:
             k_w, k_s = _quant_kv(k)
             v_w, v_s = _quant_kv(v)
@@ -380,43 +458,12 @@ def decoder_forward(
             _write(cache.v, li, v_w, write_index)
             _write(cache.k_scale, li, k_s, write_index)
             _write(cache.v_scale, li, v_s, write_index)
+            x = _layer_rest(x, layer, q, cache.k[li].to(cd), cache.v[li].to(cd), mask_bias, arch, cd,
+                            cache.k_scale[li], cache.v_scale[li])
         else:
             _write(cache.k, li, k, write_index)
             _write(cache.v, li, v, write_index)
-        k_cache = cache.k[li].to(cd)
-        v_cache = cache.v[li].to(cd)
-
-        # GQA in kv-head layout; scores as an fp32 product of compute-dtype
-        # operands (exact products, fp32 sums: JAX's preferred_element_type)
-        qg = q.reshape(b, s, kv_heads, groups, hd)
-        scores = torch.einsum("bskgd,btkd->bskgt", qg.to(torch.float32), k_cache.to(torch.float32))
-        if quant_kv:
-            scores = scores * cache.k_scale[li].permute(0, 2, 1)[:, None, :, None, :]
-        scores = scores / math.sqrt(float(hd)) + mask_bias
-        probs = torch.softmax(scores, dim=-1)
-        if quant_kv:
-            probs = probs * cache.v_scale[li].permute(0, 2, 1)[:, None, :, None, :]
-        ctx = torch.einsum("bskgt,btkd->bskgd", probs.to(cd), v_cache)
-
-        fused = all(isinstance(layer[n], Int4Weight) for n in ("o_w", "gateup_w", "down_w"))
-        if fused:
-            o_w: Int4Weight = layer["o_w"]
-            gs4 = int4_ops.group_size_of(o_w.packed, o_w.scale)
-            fused = int4_ops.fused_tail_supported(arch.hidden_size, i_dim, gs4, b * s)
-        if fused:
-            guw: Int4Weight = layer["gateup_w"]
-            dw: Int4Weight = layer["down_w"]
-            x = int4_ops.int4_fused_layer_tail(
-                ctx.reshape(b * s, q_dim), x.reshape(b * s, arch.hidden_size), layer["ffn_norm"],
-                o_w.packed, o_w.scale, guw.packed, guw.scale, dw.packed, dw.scale,
-                group_size=gs4, eps=float(arch.rms_norm_eps), unit_offset=bool(arch.rms_unit_offset),
-                act=arch.mlp_act,
-            ).reshape(b, s, arch.hidden_size).to(cd)
-        else:
-            x = x + _dot(ctx.reshape(b, s, q_dim), layer["o_w"], cd)
-            xn = _rms_norm(x, layer["ffn_norm"], arch.rms_norm_eps, arch.rms_unit_offset)
-            gu = _dot(xn, layer["gateup_w"], cd)
-            x = x + _dot(int4_ops.activation(gu[..., :i_dim], arch.mlp_act) * gu[..., i_dim:], layer["down_w"], cd)
+            x = _layer_rest(x, layer, q, cache.k[li].to(cd), cache.v[li].to(cd), mask_bias, arch, cd)
 
     x = _rms_norm(x, params["final_norm"], arch.rms_norm_eps, arch.rms_unit_offset)
     if last_only:

@@ -29,6 +29,7 @@ COPIES = [
     "timeline/__init__.py", "timeline/summarizer.py",
     "agents/__init__.py", "agents/probe_agent.py", "agents/pool_agent.py",
     "models/base.py", "models/hash_encoder.py", "models/remote.py",
+    "cli/chunk.py", "eval/__init__.py", "eval/qa_eval.py",
 ]
 
 # the port builds its native library from its own source into the checkout's

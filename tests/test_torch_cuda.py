@@ -270,3 +270,57 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
                                    sms, ws.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
                                    torch.cuda.current_stream().cuda_stream)
         assert rc != 0, (route, rows.dtype, k)
+
+
+# ------------------------------------------------------------------ training
+def _step_on(device, kind):
+    """One training step at a tiny width from the same CPU-drawn weights and
+    batch: (loss, gradients by name, loss after the step)."""
+    from comorag_torch.models import bge, decoder, train, train_lm
+
+    rng = np.random.default_rng(4)
+    if kind == "encoder":
+        arch = bge.EncoderArch.tiny()
+        params = bge.init_params(arch, torch.Generator().manual_seed(0), device=device)
+        batch = {k: torch.as_tensor(rng.integers(2, arch.vocab_size, (8, 16)), device=device) for k in ("q_ids", "p_ids")}
+        for side in ("q", "p"):
+            lengths = torch.as_tensor(rng.integers(3, 17, size=8), device=device)
+            batch[f"{side}_mask"] = (torch.arange(16, device=device)[None] < lengths[:, None]).long()
+
+        def loss_fn(p):
+            return train.contrastive_loss(p, batch, arch)
+
+        step = train.make_train_step(arch)
+    else:
+        arch = decoder.DecoderArch.tiny(vocab_size=64)
+        params = decoder.params_from_jax(decoder.init_params(arch, torch.Generator().manual_seed(0), device="cpu"),
+                                         device)
+        mask = torch.ones(4, 24, dtype=torch.int64)
+        mask[:, 20:] = 0
+        batch = {"ids": torch.as_tensor(rng.integers(1, 64, (4, 24)), device=device), "mask": mask.to(device)}
+
+        def loss_fn(p):
+            return train_lm.lm_loss(p, batch, arch)
+
+        step = train_lm.make_lm_train_step(arch)
+    state = train.TrainState(params, train.make_optimizer(1e-3, 0.1)(params), 0)
+    state, loss = step(state, batch)
+    grads = {name: p.grad.cpu() for name, p, _ in train.named_leaves(params)}
+    with torch.no_grad():
+        after = loss_fn(state.params)
+    return float(loss), grads, float(after)
+
+
+@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+def test_training_step_on_the_card_matches_the_cpu(cuda_device, kind):
+    """fp32 with TF32 off (device.py) on both: the loss to rtol 1e-4, the
+    gradients to rtol 1e-3 with atol 1e-5 * max|g| (sums in another order),
+    and the loss after one AdamW step to rtol 1e-3."""
+    loss, grads, after = _step_on(cuda_device, kind)
+    ref_loss, ref_grads, ref_after = _step_on(torch.device("cpu"), kind)
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-4)
+    scale = max(float(g.abs().max()) for g in ref_grads.values())
+    for name, g in ref_grads.items():
+        np.testing.assert_allclose(grads[name].numpy(), g.numpy(), rtol=1e-3, atol=1e-5 * scale, err_msg=name)
+    np.testing.assert_allclose(after, ref_after, rtol=1e-3)
+    assert after < loss

@@ -10,7 +10,7 @@ import torch
 from comorag_torch.cluster.raptor import SemanticTree, two_level_soft_cluster
 from comorag_torch.config import ComoConfig
 from comorag_torch.graph.builder import GraphBuilder
-from comorag_torch.models import bge, decoder
+from comorag_torch.models import bge, decoder, train, train_lm
 from comorag_torch.ops.gmm import fit_gmm_bic
 from comorag_torch.ops.ppr import PPRGraph
 from comorag_torch.retrieval.engine import RetrievalEngine
@@ -37,8 +37,40 @@ def _semantic_tree(tmp_path, **kw):
 
 
 def _bge_encoder(tmp_path, **kw):
-    params = bge.init_params(bge.EncoderArch.tiny(), torch.Generator().manual_seed(0))
+    params = bge.init_params(bge.EncoderArch.tiny(), torch.Generator().manual_seed(0), device="cpu")
     return bge.BGETorchEncoder(params=params, **kw)
+
+
+def _bge_init_params(tmp_path, **kw):
+    return bge.init_params(bge.EncoderArch.tiny(), torch.Generator().manual_seed(0), **kw)
+
+
+def _bge_params_from_jax(tmp_path, **kw):
+    arch = bge.EncoderArch.tiny()
+    ref = bge.init_params(arch, torch.Generator().manual_seed(0), device="cpu")
+    tree = {"embed": {n: getattr(ref, n).numpy() for n in ("word", "position", "token_type", "ln_scale", "ln_bias")},
+            "layers": {n: np.stack([getattr(layer, n).numpy() for layer in ref.layers])
+                       for n, _ in ref.layers[0].named_parameters()}}
+    return bge.params_from_jax(tree, arch, **kw)
+
+
+def _bge_hf_checkpoint(tmp_path, **kw):
+    from transformers import BertConfig, BertModel
+
+    path = tmp_path / "tiny_bert"
+    if not path.exists():
+        torch.manual_seed(0)
+        BertModel(BertConfig(vocab_size=32, hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
+                             intermediate_size=32, max_position_embeddings=16)).save_pretrained(path)
+    return bge.load_hf_checkpoint(str(path), **kw)
+
+
+def _create_train_state(tmp_path, **kw):
+    return train.create_train_state(bge.EncoderArch.tiny(), torch.Generator().manual_seed(0), **kw)
+
+
+def _create_lm_train_state(tmp_path, **kw):
+    return train_lm.create_lm_train_state(decoder.DecoderArch.tiny(), torch.Generator().manual_seed(0), **kw)
 
 
 def _hf_checkpoint(tmp_path, **kw):
@@ -111,10 +143,17 @@ ENTRY_POINTS = {
     "KVCache.zeros": _kv_cache,
     "make_kv_cache": _make_kv_cache_bf16,
     "make_kv_cache(kv_dtype=int8)": _make_kv_cache_int8,
+    "bge.init_params": _bge_init_params,
+    "bge.params_from_jax": _bge_params_from_jax,
+    "bge.load_hf_checkpoint": _bge_hf_checkpoint,
+    "train.create_train_state": _create_train_state,
+    "train_lm.create_lm_train_state": _create_lm_train_state,
 }
 FUNCTIONS = {"fit_gmm_bic", "two_level_soft_cluster", "GraphBuilder.add_synonymy_edges"}  # check their own results
 CACHES = {"KVCache.zeros", "make_kv_cache", "make_kv_cache(kv_dtype=int8)"}  # tuples of tensors
 TREES = {"decoder.init_params", "decoder.params_from_jax"}  # dicts of tensors and weight tuples
+PARAM_SETS = {"bge.init_params", "bge.params_from_jax", "bge.load_hf_checkpoint",  # an Encoder, or a state
+              "train.create_train_state", "train_lm.create_lm_train_state"}
 
 
 def _leaves(tree):
@@ -141,6 +180,10 @@ def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
         assert all(t.device.type == "cpu" for t in built)
     elif name in TREES:
         leaves = list(_leaves(built))
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+    elif name in PARAM_SETS:
+        params = built.params if isinstance(built, train.TrainState) else built[0] if isinstance(built, tuple) else built
+        leaves = [p for _, p, _ in train.named_leaves(params)]
         assert leaves and all(t.device.type == "cpu" for t in leaves)
     else:
         assert built.device == torch.device("cpu")

@@ -29,7 +29,7 @@ def weights():
         for name, arr in group.items():
             if arr.ndim == vector_ndim:
                 group[name] = (arr + rng.normal(scale=0.05, size=arr.shape)).astype(np.float32)
-    return jarch, params, tbge.params_from_jax(params, tbge.EncoderArch(**ARCH_KW))
+    return jarch, params, tbge.params_from_jax(params, tbge.EncoderArch(**ARCH_KW), device="cpu")
 
 
 def _inputs():
@@ -80,7 +80,7 @@ def test_hf_checkpoint_matches_transformers(tmp_path):
     torch.manual_seed(0)
     hf = transformers.BertModel(cfg).eval()
     hf.save_pretrained(tmp_path / "tiny-bert")
-    model, _ = tbge.load_hf_checkpoint(str(tmp_path / "tiny-bert"))
+    model, _ = tbge.load_hf_checkpoint(str(tmp_path / "tiny-bert"), device="cpu")
     ids, mask = _inputs()
     ids, mask = ids[:3, :16].astype(np.int64) % 97, mask[:3, :16].astype(np.int64)
     with torch.no_grad():

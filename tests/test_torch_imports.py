@@ -6,8 +6,8 @@ A subprocess installs a meta-path finder that raises ImportError for all
 of them, imports every comorag_torch module (the generation engine, its
 server and the decoder among them), runs the CLI's ``--help``, indexes and
 answers the moonlantern set on the CPU with the hash encoder, runs one
-short ``jax-tiny`` generation on the CPU, and checks that none of them was
-loaded. httpx and pyarrow are not blocked: the host modules need them (the
+short ``jax-tiny`` generation and two steps of the training CLI on the CPU,
+and checks that none of them was loaded. httpx and pyarrow are not blocked: the host modules need them (the
 OpenAI client, the parquet store), and the H100 machine has them installed.
 """
 
@@ -36,6 +36,9 @@ SCRIPT = textwrap.dedent(
     modules = [m.name for m in pkgutil.walk_packages(comorag_torch.__path__, "comorag_torch.")]
     for name in modules:
         importlib.import_module(name)
+    new = {"comorag_torch.models.train", "comorag_torch.models.train_lm", "comorag_torch.cli.train",
+           "comorag_torch.cli.chunk", "comorag_torch.eval", "comorag_torch.eval.qa_eval"}
+    assert new <= set(modules), sorted(new - set(modules))
 
     from comorag_torch.cli import run
     sys.argv = ["run", "--help"]
@@ -58,6 +61,15 @@ SCRIPT = textwrap.dedent(
     reply = llm.infer([{"role": "user", "content": "Name the record."}], max_tokens=12)
     assert reply.metadata["finish_reason"] in ("stop", "length") and reply.metadata["completion_tokens"] > 0
     llm.close()
+
+    import json
+    from comorag_torch.cli import train
+    pairs = os.path.join(tmp, "pairs.jsonl")
+    with open(pairs, "w") as f:
+        f.writelines(json.dumps({"query": f"q {i}", "passage": f"p {i}"}) + "\\n" for i in range(8))
+    summary = train.main(["--pairs", pairs, "--output_dir", os.path.join(tmp, "ckpt"), "--init", "tiny",
+                          "--steps", "2", "--batch", "4", "--max_seq_len", "8", "--device", "cpu"])
+    assert os.path.exists(summary["checkpoint"]), summary
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("OK", len(modules), "modules")

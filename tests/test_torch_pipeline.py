@@ -83,7 +83,7 @@ def test_tiny_bge_slice_matches_jax(tmp_path):
     jarch = jbge.EncoderArch.tiny()
     params = jbge.init_params(jax.random.PRNGKey(0), jarch)
     tparams = tbge.params_from_jax(jax.tree_util.tree_map(np.asarray, params),
-                                   tbge.EncoderArch.tiny())
+                                   tbge.EncoderArch.tiny(), device="cpu")
     jenc = jbge.BGEJaxEncoder(params=params, arch=jarch, max_seq_len=128)
     tenc = tbge.BGETorchEncoder(params=tparams, max_seq_len=128, device="cpu")
     kw = dict(embedding_model_name="bge:tiny")
