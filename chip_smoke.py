@@ -106,7 +106,26 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      BGETorchEncoder on the kernels: 256 chunks encoded, both encoder
      kernels launched, per-row cosine >= 0.999 against the plain route;
      then ``python -m comorag_torch.eval.qa_eval`` over phase 11's results
-     (ExactMatch and F1 printed).
+     (ExactMatch and F1 printed);
+ 13. the corpus-sharded serving path on meshes whose positions all sit on
+     the one card (``parallel/mesh.py``; no multi-card speed is read from
+     them): (a) phase 7's corpus, batches and k through MipsIndex(mesh=)
+     over [card] x 4 for fp32, the default int8 two-pass, bf16 two-pass
+     and the kernel route over fp32 and int8 rows: scores to 1e-5 and
+     ids equal to phase 7's unsharded ones at every rank separated by more
+     than 1e-5 (a two-pass breaks a rescore tie by pool order, a merge by
+     shard order), the exact variants at overlap 1.0 with its float64
+     oracle, the kernel routes launching 4 times phase 7's count a round
+     on "tf32" / "mma"; qps beside phase 7's; (b) top-k-min and full
+     scores on phase 8's veridical matrix and PPR, seed -> PPR -> top-k on
+     phase 8's graph, sharded against single-device (scores to 1e-5, ranks
+     to 1e-6, positions equal where separated by more than that); (c) the meta loop over a
+     {"data": 2, "corpus": 4} mesh on phase 8's stores (no indexing): 16
+     answers (printed beside phase 8's), the veridical index in 4 shards,
+     the top-k and both encoder kernels launched, veridical top-k ids equal
+     an unsharded index's over the same query embeddings (as in (a)), and the
+     data-axis query embeddings at cosine >= 0.999 against the unsharded
+     encoder's.
 Then it checks that no module of jax or of the JAX package was loaded, and
 prints the kernels JSON line (every kernel with its launches on the main
 path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms), the
@@ -117,6 +136,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -135,7 +155,8 @@ from comorag_torch.llm import serving
 from comorag_torch.llm.fake import FakeLLM
 from comorag_torch.llm.offline import TorchOfflineLLM
 from comorag_torch.models import bge, curriculum, decoder, train, train_lm
-from comorag_torch.ops import attention, build, ffn, int4, mips
+from comorag_torch.ops import attention, build, ffn, int4, mips, ppr
+from comorag_torch.parallel.mesh import build_mesh
 from comorag_torch.ops.topk import dense_scores, int8_scores, quantize_int8
 from comorag_torch.retrieval import index as index_mod
 from comorag_torch.retrieval.index import MipsIndex
@@ -408,11 +429,12 @@ def slice_config(workdir: str, **retrieval) -> ComoConfig:
                       save_dir=f"{workdir}/outputs", output_dir=f"{workdir}/results", **retrieval)
 
 
-def bert_base_encoder(device) -> bge.BGETorchEncoder:
-    model = bert_base("cpu")
+def bert_base_encoder(device, model=None, mesh=None) -> bge.BGETorchEncoder:
+    model = model if model is not None else bert_base("cpu")
     encoder = bge.BGETorchEncoder(params=model, tokenizer=bge.SimpleHashTokenizer(model.arch.vocab_size),
                                   max_seq_len=512, batch_size=ComoConfig().embedding_batch_size,
-                                  device=device, compute_dtype=torch.bfloat16)
+                                  device=None if mesh is not None else device, compute_dtype=torch.bfloat16,
+                                  mesh=mesh)
     if encoder.attention != "kernel":
         raise AssertionError("the bf16 encoder on CUDA must route through the kernels")
     return encoder
@@ -451,7 +473,7 @@ def run_slice(rag: ComoRAG, docs, queries, counters) -> dict:
     spans = {k: v["total_s"] for k, v in trace.summary()["spans"].items()
              if k.startswith(("index.", "graph.", "qa.", "retrieve."))}
     total_two_pass = two_pass_counters()
-    return {"index_s": index_s, "qa_s": qa_s, "questions_per_s": len(queries) / qa_s,
+    return {"index_s": index_s, "qa_s": qa_s, "questions_per_s": len(queries) / qa_s, "answers": answers,
             "stores": sizes, "graph_arcs": int(rag.graph.n_arcs), "launches": launches, "spans_s": spans,
             "two_pass": {"index": index_two_pass,
                          "qa": {k: v - index_two_pass.get(k, 0) for k, v in total_two_pass.items()}}}
@@ -599,9 +621,11 @@ def phase_serving(device, corpus: np.ndarray, serve_queries: np.ndarray) -> dict
     def rescued() -> int:
         return int(trace.summary()["counters"].get("two_pass.rescued_batches", 0))
 
-    ids, best, n_rescued = {}, {name: 0.0 for name in variants}, {name: 0 for name in variants}
+    ids, top_scores = {}, {}
+    best, n_rescued = {name: 0.0 for name in variants}, {name: 0 for name in variants}
     for name, (ix, batches) in variants.items():  # warm-up and the results that are checked
-        ids[name] = np.concatenate([i for _, i in ix.topk_many(batches, k=BENCH_K)])
+        outs = ix.topk_many(batches, k=BENCH_K)
+        ids[name], top_scores[name] = np.concatenate([i for _, i in outs]), np.concatenate([s for s, _ in outs])
     launches = {}
     for _ in range(SERVE_ROUNDS):
         for name, (ix, batches) in variants.items():
@@ -640,6 +664,7 @@ def phase_serving(device, corpus: np.ndarray, serve_queries: np.ndarray) -> dict
     torch.cuda.empty_cache()
     print("phase 7 serving 100000x1024, 100 batches x 16 queries, k=50, best of 4 rounds: "
           + json.dumps(out), flush=True)
+    out["ids"], out["scores"], out["oracle"] = ids, top_scores, ref  # for phase 13's sharded variants
     return out
 
 
@@ -770,6 +795,7 @@ def phase_meta_loop(device, workdir: str) -> dict:
               f"two_pass counters {json.dumps(r['two_pass'])}; spans_s {json.dumps(r['spans_s'])}", flush=True)
     print(f"phase 8 synonymy sweep replay (fp32 run's entity store): {json.dumps(runs['fp32']['synonymy_replay'])}",
           flush=True)
+    runs["questions"] = queries
     return runs
 
 
@@ -1509,6 +1535,205 @@ def phase_training(device, workdir: str, smi: str) -> dict:
           f"F1 {evaluated['F1']}; card {smi}", flush=True)
     return {"encoder": enc, "lm": lm, "cli": cli, "eval": evaluated, "train_launches": train_launches}
 
+# ----------------------------------------------------------------- phase 13
+SHARDS = 4
+MESH_TOL = 1e-5  # tests/test_torch_parallel.py: scores; PPR ranks 1e-6
+PPR_TOL = 1e-6
+
+
+def card_mesh(device, shape: dict):
+    """A mesh whose positions all sit on the one card (parallel/mesh.py):
+    every shard-local program, per-shard launch and merge runs on the
+    card; it gives no multi-card speed."""
+    return build_mesh(shape, [device] * math.prod(shape.values()))
+
+
+def sharded_serving(device, corpus: np.ndarray, serve_queries: np.ndarray, serving: dict) -> dict:
+    """13a: phase 7's corpus, host batches and k through MipsIndex(mesh=)
+    over [card] x 4: the same ranking as phase 7's unsharded index of the
+    same variant (``same_ranking``), the exact ones at overlap 1.0 with phase 7's float64 oracle; each
+    kernel-route call launches once per shard, on the tf32 / mma route."""
+    mesh = card_mesh(device, {"corpus": SHARDS})
+    configs = {"fp32": dict(scan_dtype=None), "two_pass_int8": dict(), "two_pass_bf16": dict(scan_dtype="bfloat16"),
+               "pallas_fp32": dict(method="pallas"), "pallas_int8": dict(method="pallas", dtype="int8")}
+    indexes = {name: MipsIndex(corpus, mesh=mesh, **kw) for name, kw in configs.items()}
+    shards = {name: ix.n_shards for name, ix in indexes.items()}
+    if set(shards.values()) != {SHARDS}:
+        raise AssertionError(f"an index did not shard: {shards}")
+    host = [serve_queries[i * SERVE_P : (i + 1) * SERVE_P].copy() for i in range(SERVE_BATCHES)]
+    counters = (mips.LAUNCHES, mips.INT8_LAUNCHES, *mips.ROUTE_LAUNCHES.values())
+    ids, swaps = {}, {}
+    for name, ix in indexes.items():
+        outs = ix.topk_many(host, k=BENCH_K)
+        ids[name] = np.concatenate([i for _, i in outs])
+        swaps[name] = same_ranking(np.concatenate([s for s, _ in outs]), ids[name], serving["scores"][name],
+                                   serving["ids"][name], name)
+    best, launches, n_rescued = {name: 0.0 for name in indexes}, {}, {name: 0 for name in indexes}
+    for _ in range(SERVE_ROUNDS):
+        for name, ix in indexes.items():
+            for counter in counters:
+                counter.reset()
+            r0 = trace.summary()["counters"].get("two_pass.rescued_batches", 0)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            ix.topk_many(host, k=BENCH_K)
+            torch.cuda.synchronize()
+            best[name] = max(best[name], SERVE_BATCHES * SERVE_P / (time.perf_counter() - start))
+            launches[name] = {c.name: c.value for c in counters}
+            n_rescued[name] += int(trace.summary()["counters"].get("two_pass.rescued_batches", 0) - r0)
+    overlaps = {name: overlap(i, serving["oracle"]) for name, i in ids.items()}
+    if min(overlaps[name] for name in ("fp32", "two_pass_int8", "two_pass_bf16", "pallas_fp32")) < 1.0:
+        raise AssertionError(f"a sharded exact variant missed the float64 oracle: {overlaps}")
+    for name, counter, route in (("pallas_fp32", mips.LAUNCHES, "tf32"), ("pallas_int8", mips.INT8_LAUNCHES, "mma")):
+        unsharded = serving["kernel_launches_per_round"][name][counter.name]
+        got = launches[name]
+        if got[counter.name] != SHARDS * unsharded or got[mips.ROUTE_LAUNCHES[route].name] != got[counter.name]:
+            raise AssertionError(f"{name}: {got} launches a round, expected {SHARDS} x {unsharded} on {route}")
+    return {"qps": {k: round(v, 1) for k, v in best.items()},
+            "unsharded_qps_phase_7": {k: serving["qps"][k] for k in indexes}, "rescued_batches": n_rescued,
+            "unsharded_rescued_batches_phase_7": {k: serving["rescued_batches"][k] for k in indexes},
+            "overlap_vs_float64": overlaps,
+            "tie_swaps_vs_unsharded": swaps,
+            "shard_rows": {name: [len(c) for c in ix.corpus] for name, ix in indexes.items()},
+            "kernel_launches_per_round": {k: v for k, v in launches.items() if k.startswith("pallas")}}
+
+
+def same_ranking(s: np.ndarray, i: np.ndarray, ref_s: np.ndarray, ref_i: np.ndarray, what: str,
+                 tol: float = MESH_TOL) -> int:
+    """Hold a sharded top-k against the unsharded one (ops/mips.check_topk's
+    rule): scores rank by rank to ``tol``, ids equal at every rank whose
+    unsharded score is more than ``tol`` from both neighbours. Returns the
+    number of ranks whose ids differ inside a near-tie (the two-pass breaks
+    an exact rescore tie by pool order, a merge by shard order)."""
+    if np.abs(s - ref_s).max() > tol:
+        raise AssertionError(f"{what}: sharded scores differ from unsharded beyond {tol}")
+    inf = np.full((len(ref_s), 1), np.inf, np.float32)
+    gaps = np.concatenate([inf, ref_s[:, :-1] - ref_s[:, 1:], inf], axis=1)
+    determined = (gaps[:, :-1] > tol) & (gaps[:, 1:] > tol)
+    if ((i != ref_i) & determined).any():
+        raise AssertionError(f"{what}: sharded ids differ from unsharded at a rank separated by more than {tol}")
+    return int((i != ref_i).sum())
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sharded_programs(device, rag: ComoRAG, mesh, q: torch.Tensor) -> dict:
+    """13b: top-k-min and full scores on phase 8's veridical matrix, PPR and
+    seed -> PPR -> top-k on phase 8's graph, each sharded over the mesh's
+    corpus axis against its single-device counterpart on the card."""
+    out = {}
+    ver = rag.ver_store.matrix
+    sharded, single = MipsIndex(ver, mesh=mesh), MipsIndex(ver, device=device)
+    if sharded.n_shards != SHARDS:
+        raise AssertionError(f"the veridical matrix did not shard: {sharded.n_shards}")
+    (s1, i1, m1), (s2, i2, m2) = sharded.topk_min_async(q, 50).result(), single.topk_min_async(q, 50).result()
+    out["topk_min_tie_swaps"] = same_ranking(s1, i1, s2, i2, "sharded top-k-min")
+    out["topk_min_max_abs_err"] = float(max(np.abs(s1 - s2).max(), np.abs(m1 - m2).max()))
+    out["scores_max_abs_err"] = float(np.abs(sharded.scores(q) - single.scores(q)).max())
+    if max(out["topk_min_max_abs_err"], out["scores_max_abs_err"]) > MESH_TOL:
+        raise AssertionError(f"sharded scores beyond {MESH_TOL}: {out}")
+    g, cfg = rag.graph, rag.config
+    kw = dict(max_iters=cfg.ppr_max_iterations, tol=cfg.ppr_tolerance, backend="device")
+    graphs = {"sharded": ppr.PPRGraph(g.src, g.dst, g.weights, g.n_nodes, mesh=mesh, **kw),
+              "single": ppr.PPRGraph(g.src, g.dst, g.weights, g.n_nodes, device=device, **kw)}
+    rng = np.random.default_rng(SEED)
+    resets = (rng.random((16, g.n_nodes)) * (rng.random((16, g.n_nodes)) > 0.999)).astype(np.float32)
+    resets[:, 0] += 1e-3  # no all-zero row
+    passages = np.asarray([g.name_to_idx[k] for k in rag.ver_store.get_all_ids()], np.int64)
+    seed_idx = rng.integers(0, g.n_nodes, (16, 8)).astype(np.int32)
+    seed_w = rng.random((16, 8)).astype(np.float32)
+    prior = torch.tensor(rng.random((16, len(passages))).astype(np.float32) * 0.005, device=device)
+    ranks, topk, secs = {}, {}, {}
+    for name, graph in graphs.items():
+        ranks[name], secs[f"{name}_query_s"] = timed(lambda: graph.query(resets))
+        topk[name], secs[f"{name}_query_topk_s"] = timed(lambda: graph.query_topk(seed_idx, seed_w, passages,
+                                                                                  prior, k=50))
+    out["ppr_max_abs_err"] = float(np.abs(ranks["sharded"] - ranks["single"]).max())
+    out["ppr_topk_max_abs_err"] = float(np.abs(topk["sharded"][0] - topk["single"][0]).max())
+    out["ppr_topk_tie_swaps"] = same_ranking(*topk["sharded"], *topk["single"], "sharded seed -> PPR -> top-k",
+                                             tol=PPR_TOL)
+    if max(out["ppr_max_abs_err"], out["ppr_topk_max_abs_err"]) > PPR_TOL:
+        raise AssertionError(f"sharded PPR beyond {PPR_TOL}: {out}")
+    out.update(graph_nodes=int(g.n_nodes), graph_arcs=int(g.n_arcs),
+               arcs_per_shard=[len(a[0]) for a in graphs["sharded"]._arcs],
+               **{k: round(v, 4) for k, v in secs.items()})
+    return out
+
+
+def sharded_meta_loop(device, workdir: str, meta: dict) -> dict:
+    """13c: the meta loop over a {"data": 2, "corpus": 4} mesh on the card,
+    on phase 8's stores (no indexing): 16 answers, the veridical index in 4
+    shards, the top-k kernel and both encoder kernels launched; veridical
+    top-k equal to an unsharded index's over the same query embeddings;
+    the data-axis query embeddings at cosine >= 0.999 against the
+    unsharded encoder's (phase 4's rule: the FFN's split-K plan follows
+    the row count, so a sub-batch may round differently)."""
+    mesh = card_mesh(device, {"data": 2, "corpus": SHARDS})
+    model = bert_base("cpu")
+    encoder = bert_base_encoder(device, model, mesh)
+    rag = ComoRAG(slice_config(workdir, topk_method="pallas"), encoder=encoder, mesh=mesh)
+    questions = meta["questions"]
+    counters = (attention.LAUNCHES, ffn.LAUNCHES, mips.LAUNCHES, mips.INT8_LAUNCHES, *mips.ROUTE_LAUNCHES.values())
+    trace.reset()
+    for counter in counters:
+        counter.reset()
+    solutions, qa_s = timed(lambda: rag.try_answer(questions))
+    launches = {c.name: c.value for c in counters}
+    answers = [s.answer for s in solutions]
+    if len(answers) != len(questions) or not all(answers):
+        raise AssertionError(f"{sum(bool(a) for a in answers)}/{len(questions)} answers came back over the mesh")
+    engine = rag.engine
+    if engine.ver_index.n_shards != SHARDS:
+        raise AssertionError(f"the veridical index has {engine.ver_index.n_shards} shards")
+    if min(launches[c.name] for c in (attention.LAUNCHES, ffn.LAUNCHES, mips.LAUNCHES)) <= 0:
+        raise AssertionError(f"a kernel was not launched over the mesh: {launches}")
+    q = engine.encode_queries(questions)["passage"]
+    k = rag.config.qa_ver_top_k
+    single = MipsIndex(rag.ver_store.matrix, device=device, method="pallas")
+    (s_sharded, i_sharded), (s_single, i_single) = engine.ver_index.topk(q, k), single.topk(q, k)
+    veridical_swaps = same_ranking(s_sharded, i_sharded, s_single, i_single, "veridical top-k over the mesh")
+    plain = bert_base_encoder(device, model)
+    a, b = encoder.encode_device(questions), plain.encode_device(questions)
+    cosine = float(torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=1).min())
+    if cosine < 0.999:
+        raise AssertionError(f"data-axis query embeddings at cosine {cosine} against the unsharded encoder")
+    programs = sharded_programs(device, rag, mesh, q)
+    return {"qa_s": qa_s, "questions_per_s": len(questions) / qa_s, "launches": launches,
+            "index_shards": {name: getattr(engine, name).n_shards
+                             for name in ("ver_index", "fact_index", "sem_index", "epi_index")
+                             if getattr(engine, name) is not None},
+            "ppr_arc_shards": len(engine.ppr._arcs) if engine.ppr is not None else 0,
+            "min_query_cosine": cosine, "veridical_k": k, "veridical_tie_swaps": veridical_swaps,
+            "programs": programs,
+            "answers_equal_phase_8": sum(x == y for x, y in zip(answers, meta["fp32"]["answers"])),
+            "answers": answers, "phase_8_answers": meta["fp32"]["answers"]}
+
+
+def phase_sharded(device, corpus, serve_queries, serving: dict, workdir: str, meta: dict, smi: str) -> dict:
+    serve = sharded_serving(device, corpus, serve_queries, serving)
+    print(f"phase 13a sharded serving, 4 shards on one card ({smi}), 100000x1024, 100 batches x 16 queries, "
+          f"k=50, best of 4 rounds, beside phase 7's unsharded qps of this run: {json.dumps(serve)}", flush=True)
+    loop = sharded_meta_loop(device, workdir, meta)
+    print(f"phase 13b sharded programs vs single-device on the card (4 shards on one card): "
+          f"{json.dumps(loop['programs'])}", flush=True)
+    print(f"phase 13c meta loop over a {{'data': 2, 'corpus': 4}} mesh on one card ({smi}), phase 8's stores, "
+          f"{len(meta['questions'])} questions: QA {loop['qa_s']:.3f} s = {loop['questions_per_s']:.3f} questions/s "
+          f"(phase 8 fp32: {meta['fp32']['questions_per_s']:.3f}); kernel launches {loop['launches']}; shards "
+          f"{loop['index_shards']}, PPR arc shards {loop['ppr_arc_shards']}; veridical top-{loop['veridical_k']} ids "
+          f"equal an unsharded index's ({loop['veridical_tie_swaps']} swaps inside near-ties); "
+          f"min query cosine vs the unsharded encoder {loop['min_query_cosine']:.6f}; "
+          f"answers equal to phase 8's: {loop['answers_equal_phase_8']}/{len(loop['answers'])}", flush=True)
+    final = lambda a: a.split("### Final Answer")[-1].strip()[:120]  # noqa: E731
+    print("phase 13c final answers beside phase 8's: " + json.dumps(
+        [[final(a), final(b)] for a, b in zip(loop["answers"], loop["phase_8_answers"])]), flush=True)
+    return {"serving": serve, "meta_loop": loop}
+
 
 def main() -> None:
     device = require_cuda()
@@ -1529,22 +1754,24 @@ def main() -> None:
         slice_out = phase_slice(device, N_CHUNKS, N_QUESTIONS, workdir)
     corpus, queries = bench_data(256 + SERVE_BATCHES * SERVE_P)
     topk = phase_topk_kernels(device, corpus, queries[:256])
-    phase_serving(device, corpus, queries[256:])
+    serving = phase_serving(device, corpus, queries[256:])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as meta_dir:
+        meta = phase_meta_loop(device, meta_dir)
+        int4_kernels = phase_int4_kernels(device)
+        server = phase_server(device)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            tiny = phase_tiny(device, workdir)
+            training = phase_training(device, workdir, smi)
+        sharded = phase_sharded(device, corpus, queries[256:], serving, meta_dir, meta, smi)
     del corpus, queries
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        meta = phase_meta_loop(device, workdir)
-    int4_kernels = phase_int4_kernels(device)
-    server = phase_server(device)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        tiny = phase_tiny(device, workdir)
-        training = phase_training(device, workdir, smi)
 
     entries = []
     for mod in (attention, ffn):
         name = mod.LAUNCHES.name
         entries.append({"name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
                         "launches": slice_out["launches"][name],
-                        "trained_encoder_launches": training["cli"]["launches"][name], **kernels[name],
+                        "trained_encoder_launches": training["cli"]["launches"][name],
+                        "mesh_meta_loop_launches": sharded["meta_loop"]["launches"][name], **kernels[name],
                         "max_abs_err": max(kernels[name]["max_abs_err"], small[name]["max_abs_err"]),
                         **{f"small_batch_{k}": small[name][k]
                            for k in ("ms", "plain_ms", "bound_ms", "products_library_ms", "host_us", "splits")
@@ -1563,6 +1790,9 @@ def main() -> None:
                                      "yardstick_ms", "max_abs_err")},
                         "launches_by_route": {r: meta[run]["launches"][c.name]
                                               for r, c in mips.ROUTE_LAUNCHES.items()},
+                        "mesh_meta_loop_launches": sharded["meta_loop"]["launches"][name],
+                        "mesh_serving_launches_per_round": sharded["serving"]["kernel_launches_per_round"][
+                            "pallas_fp32" if run == "fp32" else "pallas_int8"][name],
                         "main_path_calls": main_path})
     for counter, replaces, rows in ((int4.LAUNCHES, int4.REPLACES, int4_kernels["int4_matmul"]),
                                     (int4.TAIL_LAUNCHES, int4.TAIL_REPLACES, int4_kernels["int4_fused_layer_tail"])):

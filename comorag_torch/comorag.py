@@ -19,7 +19,10 @@ Capability parity with the reference's monolithic ``ComoRAG`` class
     fused cues, fuse similar history into findings, iterate.
 
 Port of ``comorag_tpu/comorag.py`` on one torch device (``device=``,
-default ``"cuda"``, which raises when no card is visible). The flow is the
+default ``"cuda"``, which raises when no card is visible), or over a mesh
+(``mesh=`` or ``config.mesh_shape``, ``parallel/mesh.py``): the retrieval
+indexes shard over its ``corpus`` axis, the PPR graph its arcs, and the
+encoder splits batches over its ``data`` axis. The flow is the
 JAX package's: the probe fan-out encodes and scores as batches on the
 device; dedup in the memory pool works; LLM fan-out is a bounded pool.
 Host stages (OpenIE, timeline, summaries, prompts, agents, the embedding
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 from concurrent.futures import ThreadPoolExecutor, as_completed
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -37,11 +41,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from comorag_torch.cluster.raptor import SemanticTree
-from comorag_torch.device import MESH_NOT_PORTED, resolve_device
+from comorag_torch.device import resolve_device
 from comorag_torch.graph.builder import GraphBuilder, GraphData
 from comorag_torch.llm import get_llm
 from comorag_torch.memory.pool import NO_MEMORY_SENTINEL, MemoryNode, MemoryPool, NodeType
 from comorag_torch.models.registry import get_encoder
+from comorag_torch.parallel.mesh import Mesh, build_mesh, mesh_device
 from comorag_torch.retrieval.engine import RetrievalEngine, RetrievalWindow
 from comorag_torch.agents.pool_agent import PoolAgent
 from comorag_torch.agents.probe_agent import ProbeAgent
@@ -82,16 +87,26 @@ class ComoRAG:
         llm=None,
         encoder=None,
         tokenizer=None,
-        device: Union[str, torch.device] = "cuda",
+        device: Union[str, torch.device, None] = None,
+        mesh: Optional[Mesh] = None,
     ):
+        """``device``: "cuda" when None (the mesh's first device under a
+        mesh; a device passed beside a mesh must be that one).
+        ``config.mesh_shape`` builds the mesh when none is passed
+        (comorag.py:84-87), over devices that follow ``device``: every
+        card for CUDA, the CPU repeated to the mesh's size for "cpu"."""
         self.config = config or ComoConfig()
-        if self.config.mesh_shape:
-            raise NotImplementedError(MESH_NOT_PORTED.format(what="mesh_shape"))
-        self.device = resolve_device(device)
+        if mesh is None and self.config.mesh_shape:
+            shape = dict(self.config.mesh_shape)
+            dev = resolve_device(device)
+            devices = [dev] * math.prod(shape.values()) if dev.type == "cpu" else None
+            mesh = build_mesh(shape, devices)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         os.makedirs(self.config.working_dir, exist_ok=True)
 
-        self.llm = llm if llm is not None else get_llm(self.config, self.device)
-        self.encoder = encoder if encoder is not None else get_encoder(self.config, self.device)
+        self.llm = llm if llm is not None else get_llm(self.config, self.device, mesh=mesh)
+        self.encoder = encoder if encoder is not None else get_encoder(self.config, self.device, mesh=mesh)
         self.prompts = PromptManager()
         self.openie = OpenIE(self.llm, self.prompts, response_format=self.config.response_format)
         self.summarizer = Summarizer(self.llm)
@@ -389,6 +404,7 @@ class ComoRAG:
                     entity_texts,
                     self.entity_store.matrix,
                     device=self.device,
+                    mesh=self.mesh,
                     topk=self.config.synonymy_edge_topk,
                     sim_threshold=self.config.synonymy_edge_sim_threshold,
                     query_batch_size=self.config.synonymy_edge_query_batch_size,
@@ -433,6 +449,7 @@ class ComoRAG:
                 graph=self.graph,
                 fact_filter=self.fact_filter,
                 device=self.device,
+                mesh=self.mesh,
             )
         return self._engine
 

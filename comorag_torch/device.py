@@ -18,9 +18,11 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# what a request for the sharded paths raises (format with ``what=``)
-MESH_NOT_PORTED = ("{what}: the sharded paths are not ported to comorag_torch yet "
-                   "(ROADMAP queue 1, item 6); the port runs on one device")
+# what a request for a sharded path that is not ported yet raises (format
+# with ``what=``): the serving paths take a mesh; these do not
+MESH_NOT_PORTED = ("{what}: the dp x tp training steps and tensor-parallel generation are not "
+                   "ported to comorag_torch yet (ROADMAP queue 1, item 6: the next slice); "
+                   "they run on one device")
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.device:
@@ -42,17 +44,21 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.dev
 
 class HostCopy:
     """A device->host copy in flight: on CUDA the tensor lands in pinned
-    memory with ``non_blocking=True`` and a recorded event (the port's
-    counterpart of JAX's ``copy_to_host_async``); ``numpy()`` waits on
-    this copy alone."""
+    memory with ``non_blocking=True`` and an event recorded on the current
+    stream of the tensor's own device (the copy's stream, which need not
+    be the current device's: a mesh merges on its first device) — the
+    port's counterpart of JAX's ``copy_to_host_async``; ``numpy()`` waits
+    on this copy alone."""
 
     def __init__(self, t: torch.Tensor):
         self._event: Optional[torch.cuda.Event] = None
         if t.device.type == "cuda":
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
+            stream = torch.cuda.current_stream(t.device)
+            with torch.cuda.stream(stream):
+                host.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(stream)
             self._host = host
         else:
             self._host = t

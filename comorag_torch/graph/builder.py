@@ -33,7 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from comorag_torch.device import resolve_device
+from comorag_torch.parallel.mesh import Mesh, mesh_device
 from comorag_torch.retrieval.index import MipsIndex
 from comorag_torch.utils.hashing import content_hash
 from comorag_torch.utils.logging import get_logger
@@ -221,13 +221,14 @@ class GraphBuilder:
         entity_keys: Sequence[str],
         entity_texts: Sequence[str],
         entity_embeddings: np.ndarray,
-        device: Union[str, torch.device] = "cuda",
+        device: Union[str, torch.device, None] = None,
         topk: int = 2047,
         sim_threshold: float = 0.8,
         max_neighbors: int = 100,
         query_batch_size: int = 1000,
         key_batch_size: int = 10000,
         key_bytes_budget: int = 2 << 30,
+        mesh: Optional[Mesh] = None,
     ) -> int:
         """Device KNN over all entities with pipelined query batches
         (one giant call would materialize an [n, n] score matrix beyond
@@ -239,9 +240,12 @@ class GraphBuilder:
         reference streams keys unconditionally because torch materializes
         the block on one GPU, whereas here the index is device-resident,
         so streaming below the memory budget would only cost throughput.
-        Runs on the card unless ``device="cpu"``; without a card the
-        default raises."""
-        device = resolve_device(device)
+        With a mesh the key matrix goes into one ``MipsIndex(mesh=...)``,
+        which shards it over the ``corpus`` axis when it is large enough,
+        instead of the key-blocked single-device sweep (builder.py:263).
+        Runs on the card unless ``device="cpu"`` (under a mesh, on the
+        mesh's first device); without a card the default raises."""
+        device = mesh_device(mesh, device)
         n = len(entity_keys)
         if n < 2:
             return 0
@@ -265,10 +269,10 @@ class GraphBuilder:
         # check runs AFTER the post-add increment, accepting 101 edges)
         k = min(topk, n, max_neighbors + 2 + n_empty)
         batches = [embs[i : i + query_batch_size] for i in range(0, n, query_batch_size)]
-        if embs.nbytes > key_bytes_budget and key_batch_size < n:
+        if mesh is None and embs.nbytes > key_bytes_budget and key_batch_size < n:
             scores, idx = _key_blocked_topk(embs, batches, k, key_batch_size, device=device)
         else:
-            index = MipsIndex(embs, device=device)
+            index = MipsIndex(embs, device=device, mesh=mesh)
             outs = index.topk_many(batches, k=k)
             scores = np.concatenate([s for s, _ in outs], axis=0)
             idx = np.concatenate([i for _, i in outs], axis=0)

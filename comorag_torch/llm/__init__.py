@@ -11,11 +11,12 @@ from typing import Union
 
 import torch
 
+from comorag_torch.device import MESH_NOT_PORTED
 from comorag_torch.llm.base import BaseLLM, LLMResponse
 from comorag_torch.llm.fake import FakeLLM
 
 
-def get_llm(config, device: Union[str, torch.device] = "cuda") -> BaseLLM:
+def get_llm(config, device: Union[str, torch.device] = "cuda", mesh=None) -> BaseLLM:
     """LLM factory. Routes:
 
       - ``fake`` / ``fake:*``       -> hermetic scripted test LLM
@@ -32,10 +33,18 @@ def get_llm(config, device: Union[str, torch.device] = "cuda") -> BaseLLM:
     passes ``cpu``; a CUDA device without a card raises) behind the
     request-window ``GenerationServer``. The names keep the JAX package's
     spelling so that one config serves both packages.
+
+    ``mesh`` is passed through as in JAX (llm/__init__.py:40, :59): a mesh
+    without a ``model`` axis is accepted and ignored (JAX's engine ignores
+    it too); a ``model`` axis asks for tensor-parallel generation, which an
+    in-process route refuses (``NotImplementedError``) until it is ported.
     """
     name = str(config.llm_name)
     if name == "fake" or name.startswith("fake:"):
         return FakeLLM()
+    in_process = name in ("jax-tiny", "jax-offline") or name.startswith("jax:")
+    if in_process and mesh is not None and "model" in mesh.shape:
+        raise NotImplementedError(MESH_NOT_PORTED.format(what=f"get_llm({name!r}) over a 'model' mesh axis"))
     if name == "jax-tiny":
         from comorag_torch.llm.offline import TorchOfflineLLM
         from comorag_torch.llm.serving import GenerationServer

@@ -20,8 +20,10 @@ without a ``grad_fn``, as the JAX package's kernels have no VJP.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
+import math
 import os
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -30,6 +32,7 @@ import torch
 from torch import nn
 
 from comorag_torch.device import HostCopy, resolve_device
+from comorag_torch.parallel.mesh import mesh_device, on_device
 from comorag_torch.ops.attention import encoder_attention, encoder_attention_plain
 from comorag_torch.ops.ffn import encoder_ffn, fused_ffn_supported, layer_norm
 from comorag_torch.models.base import BaseEncoder
@@ -297,7 +300,15 @@ class SimpleHashTokenizer:
 
 
 class BGETorchEncoder(BaseEncoder):
-    """Host-facing encoder with bucketing and batching on one device."""
+    """Host-facing encoder with bucketing and batching, on one device or
+    data-parallel over a mesh's ``data`` axis (bge.py:443-448, :486-490):
+    each batch is padded to a multiple of lcm(8, dp) rows and split into
+    dp equal sub-batches, one per device of the axis (the parameters are
+    placed once per distinct device), and the pooled rows are gathered in
+    order on the mesh's first device. Under a mesh JAX's "auto" drops to
+    XLA attention because GSPMD cannot partition a ``pallas_call``; a
+    launch per device has no such limit, so "auto" keeps the kernels for
+    bf16 on a card and every sub-batch launches both encoder kernels."""
 
     default_instruction = ""
 
@@ -309,11 +320,12 @@ class BGETorchEncoder(BaseEncoder):
         tokenizer=None,
         max_seq_len: int = 512,
         batch_size: int = 32,
-        device: Union[str, torch.device] = "cuda",
+        device: Union[str, torch.device, None] = None,  # "cuda" when None; the mesh's first device under a mesh
         compute_dtype: torch.dtype = torch.float32,
         attention: str = "auto",  # "auto" | "plain" | "kernel"
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device)
         if params is None:
             if model_name_or_path is None:
                 raise ValueError("need model_name_or_path or params")
@@ -322,6 +334,11 @@ class BGETorchEncoder(BaseEncoder):
         self.arch = arch
         self.compute_dtype = compute_dtype
         self.model = params.to(self.device).cast_matrices_(compute_dtype).eval().requires_grad_(False)
+        self._data_devices = mesh.axis_devices("data") if mesh is not None else [self.device]
+        self._replicas = {self.device: self.model}
+        for dev in self._data_devices:
+            if dev not in self._replicas:
+                self._replicas[dev] = copy.deepcopy(self.model).to(dev)
         self.fingerprint_extra = (
             os.path.basename(str(model_name_or_path).rstrip("/\\"))
             if model_name_or_path
@@ -354,7 +371,8 @@ class BGETorchEncoder(BaseEncoder):
         max_len = max((len(r) for r in ids), default=1)
         s = _seq_bucket(max_len, self.max_seq_len)
         b = len(ids)
-        b_pad = ((b + 7) // 8) * 8  # batch buckets of 8 rows, as bge.py:488
+        pad_unit = math.lcm(8, len(self._data_devices))  # divides by the data axis, as bge.py:488
+        b_pad = ((b + pad_unit - 1) // pad_unit) * pad_unit
         id_arr = np.zeros((b_pad, s), np.int64)
         mask_arr = np.zeros((b_pad, s), np.int32)
         for i, (row, mask) in enumerate(zip(ids, masks)):
@@ -367,13 +385,20 @@ class BGETorchEncoder(BaseEncoder):
 
     def _pooled(self, texts: List[str], norm: bool) -> torch.Tensor:
         ids, mask = self._tokenize(texts)
+        rows = len(ids) // len(self._data_devices)
+        parts = []
         with torch.no_grad():
-            pooled = encode_pooled(
-                self.model,
-                torch.as_tensor(ids, device=self.device),
-                torch.as_tensor(mask, device=self.device),
-                self.compute_dtype, normalize=norm, attention=self.attention,
-            )
+            for i, dev in enumerate(self._data_devices):
+                sl = slice(i * rows, (i + 1) * rows)
+                with on_device(dev):
+                    pooled = encode_pooled(
+                        self._replicas[dev],
+                        torch.as_tensor(ids[sl], device=dev),
+                        torch.as_tensor(mask[sl], device=dev),
+                        self.compute_dtype, normalize=norm, attention=self.attention,
+                    )
+                parts.append(pooled.to(self.device))
+        pooled = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
         return pooled[: len(texts)]
 
     def _prepared(self, texts, instruction: str) -> List[str]:

@@ -16,15 +16,17 @@ from comorag_torch.models.base import BaseEncoder
 from comorag_torch.models.hash_encoder import HashEncoder
 
 
-def get_encoder(config: ComoConfig, device: torch.device) -> BaseEncoder:
-    enc = _build_encoder(config, device)
+def get_encoder(config: ComoConfig, device: torch.device, mesh=None) -> BaseEncoder:
+    """The encoder ``config`` names, on ``device``; a BGE encoder under
+    ``mesh`` splits its batches over the mesh's ``data`` axis."""
+    enc = _build_encoder(config, device, mesh)
     # encode() calls without norm= follow the config, so queries and corpus
     # stay in one vector space
     enc.default_norm = bool(config.embedding_return_as_normalized)
     return enc
 
 
-def _build_encoder(config: ComoConfig, device: torch.device) -> BaseEncoder:
+def _build_encoder(config: ComoConfig, device: torch.device, mesh=None) -> BaseEncoder:
     name = config.embedding_model_name
     if name == "hash" or name.startswith("hash:"):
         return HashEncoder(dim=config.embedding_dim)
@@ -38,6 +40,7 @@ def _build_encoder(config: ComoConfig, device: torch.device) -> BaseEncoder:
             batch_size=config.embedding_batch_size,
             device=device,
             compute_dtype=torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32,
+            mesh=mesh,
         )
     if name.startswith("openai:") or name.startswith("text-embedding"):
         from comorag_torch.models.remote import RemoteEncoder

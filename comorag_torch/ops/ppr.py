@@ -14,32 +14,68 @@ the JAX while_loop. The host route is the port's copy of the native
 solver (``comorag_torch.native``). The TPU-only layout devices of the JAX solver (planar uint16
 state, VMEM-budget batch chunking, lane-width batch padding) are not
 carried: none changes a result.
+
+Edge sharding (ppr.py:235-285): under a mesh the dst-sorted arc list is
+split into contiguous pieces, one per device of the mesh's ``corpus``
+axis, so each piece stays sorted. Each step runs one ``index_add_`` per
+piece on its device and sums the partial flows on the merge device (the
+mesh's first device; JAX's ``psum``), which also holds the state. The
+one-device graph is the one-piece case of the same code, so ``PPRGraph``
+runs one path; ``make_sharded_ppr`` and ``make_sharded_ppr_seed_topk``
+are the JAX-shaped programs over arc pieces placed by the caller.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from comorag_torch.device import resolve_device
 from comorag_torch.ops.topk import exact_topk
+from comorag_torch.parallel.mesh import Mesh, mesh_device
 
 # batch x arcs at which the device solve beats the native host solver, as
 # measured for the JAX package (ops/device_profile.py); the rule is kept
 # unchanged until the crossover is re-derived on the H100 (ROADMAP)
 CROSSOVER_BATCH_ARCS = 16_000_000
 
+Arcs = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]  # (src, dst, rate) per piece
 
-def ppr_iterate(src: torch.Tensor, dst: torch.Tensor, rate: torch.Tensor,
-                is_dangling: torch.Tensor, resets_nb: torch.Tensor, alpha: float,
+
+def split_arcs(src: np.ndarray, dst: np.ndarray, rate: np.ndarray,
+               devices: Sequence[torch.device]) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Dst-sorted arcs cut into ``len(devices)`` contiguous pieces of
+    ceil(E / n) arcs (the last ones may be short or empty), each on its
+    device as (src int64, dst int64, rate fp32)."""
+    per = -(-len(src) // len(devices))
+    out = []
+    for i, dev in enumerate(devices):
+        sl = slice(i * per, (i + 1) * per)
+        out.append((torch.as_tensor(src[sl], dtype=torch.int64, device=dev),
+                    torch.as_tensor(dst[sl], dtype=torch.int64, device=dev),
+                    torch.as_tensor(rate[sl], dtype=torch.float32, device=dev)))
+    return out
+
+
+def _flow(arcs: Arcs, x: torch.Tensor) -> torch.Tensor:
+    """P^T x: each piece's index_add_ on its device, partial flows summed
+    on x's device in piece order."""
+    flowed = None
+    for src, dst, rate in arcs:
+        xs = x.to(src.device)
+        part = torch.zeros_like(xs).index_add_(0, dst, xs[src] * rate[:, None]).to(x.device)
+        flowed = part if flowed is None else flowed + part
+    return flowed if flowed is not None else torch.zeros_like(x)
+
+
+def ppr_iterate(arcs: Arcs, is_dangling: torch.Tensor, resets_nb: torch.Tensor, alpha: float,
                 tol: float, max_iters: int) -> torch.Tensor:
     """Power iteration over an [N, B] state (ppr.py:106 ``_ppr_iterate_nb``).
     Columns that converge early keep iterating until the worst one does."""
     x = resets_nb
     for _ in range(max_iters):
-        flowed = torch.zeros_like(x).index_add_(0, dst, x[src] * rate[:, None])
+        flowed = _flow(arcs, x)
         dangling_mass = (x * is_dangling[:, None]).sum(dim=0)
         new_x = (1.0 - alpha) * resets_nb + alpha * (flowed + dangling_mass[None, :] * resets_nb)
         err = (new_x - x).abs().sum(dim=0).max()
@@ -55,8 +91,53 @@ def _normalize_columns(rt: torch.Tensor) -> torch.Tensor:
     return rt / torch.where(sums == 0, torch.ones_like(sums), sums)
 
 
+def seed_ppr_topk(arcs: Arcs, is_dangling: torch.Tensor, seed_idx: torch.Tensor, seed_w: torch.Tensor,
+                  prior_idx: torch.Tensor, prior_w: torch.Tensor, alpha: float, tol: float,
+                  max_iters: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Seeds -> PPR -> top-k of the prior nodes (ppr.py:394
+    ``_seed_ppr_doc_ranks``): the [N, B] resets are built on the state's
+    device from sparse seeds plus the dense prior; (scores [B, k],
+    positions into ``prior_idx``), ties to the lowest position."""
+    dev = is_dangling.device
+    b = seed_w.shape[0]
+    cols = torch.arange(b, device=dev)[None, :].expand(seed_idx.shape[1], b)
+    rt = torch.zeros((is_dangling.shape[0], b), dtype=torch.float32, device=dev)
+    rt.index_put_((seed_idx.T, cols), seed_w.T, accumulate=True)
+    rt.index_add_(0, prior_idx, prior_w.T)
+    ranks = ppr_iterate(arcs, is_dangling, _normalize_columns(rt), alpha, tol, max_iters)
+    doc = ranks.index_select(0, prior_idx).T  # [B, n_sel]
+    return exact_topk(doc, min(k, doc.shape[1]))
+
+
+def make_sharded_ppr(mesh: Mesh, max_iters: int) -> Callable:
+    """Edge-sharded batched PPR (ppr.py:262): fn(arc pieces, is_dangling
+    [N], resets [B, N], alpha, tol) -> ranks [B, N] on the merge device."""
+
+    def fn(arcs, is_dangling, resets, alpha, tol):
+        dev = mesh.device
+        r = resets.to(dev, torch.float32).T.contiguous()
+        return ppr_iterate(arcs, is_dangling.to(dev), r, float(alpha), float(tol), max_iters).T
+
+    return fn
+
+
+def make_sharded_ppr_seed_topk(mesh: Mesh, max_iters: int, k: int) -> Callable:
+    """Edge-sharded seeds -> PPR -> top-k (ppr.py:235): fn(arc pieces,
+    is_dangling, seed_idx [B, S], seed_w [B, S], prior_idx [n_sel], prior_w
+    [B, n_sel], alpha, tol) -> (scores [B, k], positions [B, k]) on the
+    merge device."""
+
+    def fn(arcs, is_dangling, seed_idx, seed_w, prior_idx, prior_w, alpha, tol):
+        dev = mesh.device
+        return seed_ppr_topk(arcs, is_dangling.to(dev), seed_idx.to(dev), seed_w.to(dev), prior_idx.to(dev),
+                             prior_w.to(dev), float(alpha), float(tol), max_iters, k)
+
+    return fn
+
+
 class PPRGraph:
-    """Graph for batched PPR queries, arcs resident on one device."""
+    """Graph for batched PPR queries, arcs resident on one device or, with
+    a mesh that has ``axis``, split over that axis's devices."""
 
     def __init__(
         self,
@@ -67,13 +148,18 @@ class PPRGraph:
         max_iters: int = 128,
         tol: float = 1e-10,
         backend: str = "auto",
-        device: Union[str, torch.device] = "cuda",
+        device: Union[str, torch.device, None] = None,
+        mesh: Optional[Mesh] = None,
+        axis: str = "corpus",
     ):
         """backend: 'device' (torch), 'native' (C++ float64 host solver), or
-        'auto' — native for batches under the crossover, device above it."""
+        'auto' — native for batches under the crossover, device above it.
+        ``device``: "cuda" when None, or the mesh's first device under a
+        mesh (the merge device, which holds the state)."""
         self.n_nodes = n_nodes
         self.backend = backend
-        self.device = resolve_device(device)
+        self.mesh = mesh if (mesh is not None and axis in mesh.shape) else None
+        self.device = mesh_device(self.mesh, device)
         self.max_iters = max_iters
         self.tol = tol
         self._native = None
@@ -91,26 +177,26 @@ class PPRGraph:
         nz = strength[self._src_host] > 0
         rate[nz] = (self._w_host[nz] / strength[self._src_host[nz]]).astype(np.float32)
         order = np.argsort(self._dst_host, kind="stable")  # contiguous index_add_ targets
-        to_dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=self.device)  # noqa: E731
-        self._src = to_dev(self._src_host[order], torch.int64)
-        self._dst = to_dev(self._dst_host[order], torch.int64)
-        self._rate = to_dev(rate[order], torch.float32)
-        self._dangling = to_dev((strength == 0).astype(np.float32), torch.float32)
+        devices = self.mesh.axis_devices(axis) if self.mesh is not None else [self.device]
+        self._arcs = split_arcs(self._src_host[order], self._dst_host[order], rate[order], devices)
+        self._dangling = torch.as_tensor((strength == 0).astype(np.float32), device=self.device)
 
     def routes_device(self, b: int) -> bool:
         """Whether a b-reset batch solves on the device (vs the native host
-        solver) — the JAX package's rule (ppr.py:376), unchanged."""
+        solver) — the JAX package's rule (ppr.py:376), unchanged: under a
+        mesh it compares the arcs of one shard with the crossover, and a
+        small batch still takes the float64 host solver."""
         if self._native is None or self.backend == "device":
             return True
         if self.backend == "native":
             return False
-        return b * max(len(self._src_host), 1) >= CROSSOVER_BATCH_ARCS
+        arcs_per_shard = max(len(self._src_host) // len(self._arcs), 1)
+        return b * arcs_per_shard >= CROSSOVER_BATCH_ARCS
 
-    def _iterate(self, resets_nb: torch.Tensor, damping: float) -> torch.Tensor:
+    def _tol(self) -> float:
         # fp32 L1 error floors near ~1e-7: a tighter tol would spin to
         # max_iters without improving the ranking (as ppr.py:521)
-        return ppr_iterate(self._src, self._dst, self._rate, self._dangling, resets_nb,
-                           float(damping), max(self.tol, 1e-7), self.max_iters)
+        return max(self.tol, 1e-7)
 
     def query_topk(
         self,
@@ -122,23 +208,18 @@ class PPRGraph:
         damping: float = 0.5,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Seeds -> PPR -> top-k over ``prior_idx`` nodes in one device pass
-        (ppr.py:394): resets are built on the device from sparse seeds plus
-        the device-resident prior, and only [B, k] comes back. Returns
-        (scores [B, k], positions [B, k]) as host numpy, positions indexing
-        into ``prior_idx``; ties go to the lowest position."""
+        (ppr.py:394; under a mesh over the arc pieces, ppr.py:462-467):
+        resets are built on the device from sparse seeds plus the
+        device-resident prior, and only [B, k] comes back. Returns (scores
+        [B, k], positions [B, k]) as host numpy, positions indexing into
+        ``prior_idx``; ties go to the lowest position."""
         dev = self.device
-        seed_idx = torch.as_tensor(np.asarray(seed_idx, np.int64), device=dev)
-        seed_w = torch.as_tensor(np.asarray(seed_w, np.float32), device=dev)
-        prior_idx_t = torch.as_tensor(np.asarray(prior_idx, np.int64), device=dev)
-        prior_w = torch.as_tensor(prior_w, dtype=torch.float32, device=dev)
-        b = seed_w.shape[0]
-        cols = torch.arange(b, device=dev)[None, :].expand(seed_idx.shape[1], b)
-        rt = torch.zeros((self.n_nodes, b), dtype=torch.float32, device=dev)
-        rt.index_put_((seed_idx.T, cols), seed_w.T, accumulate=True)
-        rt.index_add_(0, prior_idx_t, prior_w.T)
-        ranks = self._iterate(_normalize_columns(rt), damping)
-        doc = ranks.index_select(0, prior_idx_t).T  # [B, n_sel]
-        vals, pos = exact_topk(doc, min(k, doc.shape[1]))
+        vals, pos = seed_ppr_topk(
+            self._arcs, self._dangling, torch.as_tensor(np.asarray(seed_idx, np.int64), device=dev),
+            torch.as_tensor(np.asarray(seed_w, np.float32), device=dev),
+            torch.as_tensor(np.asarray(prior_idx, np.int64), device=dev),
+            torch.as_tensor(prior_w, dtype=torch.float32, device=dev), float(damping), self._tol(),
+            self.max_iters, k)
         return vals.cpu().numpy(), pos.cpu().numpy()
 
     def query(self, resets: np.ndarray, damping: float = 0.5) -> np.ndarray:
@@ -165,7 +246,7 @@ class PPRGraph:
             if out is not None:
                 return out
         r = torch.as_tensor(resets.T.copy(), device=self.device)
-        return self._iterate(r, damping).T.cpu().numpy()
+        return ppr_iterate(self._arcs, self._dangling, r, float(damping), self._tol(), self.max_iters).T.cpu().numpy()
 
 
 def ppr_dense_reference(

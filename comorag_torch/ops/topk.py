@@ -11,14 +11,28 @@ torch: the build-time scan copies and their error bounds are numpy host
 functions, the scan, rescore and exactness flag are torch programs. The
 packed int32 result buffer (``_pack``) is TPU-only; results come back as
 separate tensors.
+
+The corpus-sharded programs (topk.py:514-775, ``make_sharded_*``) run the
+single-device code once per shard on that shard's device
+(``parallel/mesh.py``) and merge on the mesh's first device. A shard holds
+only real rows (the JAX layout's padding rows are not stored), so a shard
+may be short or empty; an empty shard adds no candidates, no flag and no
+launch. Local ids get the shard's offset after local selection, and the
+merge concatenates in shard order and selects with ``exact_topk``, so
+ties go to the lowest global id as with ``lax.top_k`` over JAX's gather.
+The shards are already on the devices of the mesh axis they were placed
+along (``retrieval/index.py``), so the programs take no axis name; the
+mesh gives the merge device.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from comorag_torch.parallel.mesh import Mesh, on_device
 
 
 def dense_scores(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
@@ -176,11 +190,13 @@ def certified_scan(queries: torch.Tensor, scan_mat: torch.Tensor, scales: Option
 
 
 def two_pass_core(queries: torch.Tensor, scan_mat: torch.Tensor, scales: Optional[torch.Tensor],
-                  corpus_f32: torch.Tensor, k: int, candidates: int):
+                  corpus_f32: torch.Tensor, k: int, candidates: int, offset: int = 0):
     """Scan -> pool of ``candidates`` rows -> exact fp32 rescore (topk.py:389).
-    Returns (rescored [P, k'], ids [P, k'], pool boundary scan value [P],
-    qnorm [P], immune [P] bool: rows that can never flag, because the pool
-    covered every row or the query is all zero)."""
+    Returns (rescored [P, k'], ids + ``offset`` [P, k'], pool boundary scan
+    value [P], qnorm [P], immune [P] bool: rows that can never flag,
+    because the pool covered every row or the query is all zero). On a
+    shard, ``corpus_f32`` holds the shard's rows alone, so "every row" is
+    the shard's (JAX's ``local_valid``) and ``offset`` is its first id."""
     n = corpus_f32.shape[0]
     c = min(candidates, n)
     q32 = queries.float()
@@ -190,7 +206,7 @@ def two_pass_core(queries: torch.Tensor, scan_mat: torch.Tensor, scales: Optiona
     pool = corpus_f32[cand]  # [P, C, d] fp32
     exact = torch.bmm(pool, q32[:, :, None])[:, :, 0]
     rv, pos = exact_topk(exact, min(k, c))
-    idx = cand.gather(1, pos)
+    idx = cand.gather(1, pos) + offset
     qnorm = q32.square().sum(dim=1).sqrt()
     immune = (qnorm == 0) | (c >= n)
     return rv, idx, boundary, qnorm, immune
@@ -212,3 +228,130 @@ def two_pass_topk(queries: torch.Tensor, scan_mat: torch.Tensor, scales: Optiona
     ``make_packed_two_pass_topk``): (scores [P, k'], ids [P, k'], flag [P])."""
     rv, idx, boundary, qnorm, immune = two_pass_core(queries, scan_mat, scales, corpus_f32, k, candidates)
     return rv, idx, exactness_flag(boundary, rv[:, -1], qnorm, bound, immune)
+
+
+# ---------------------------------------------------------- corpus-sharded
+def _shard_calls(mesh: Mesh, queries: torch.Tensor, shards: Sequence[Sequence[Optional[torch.Tensor]]],
+                 local: Callable) -> List[tuple]:
+    """``local(q, offset, *tensors)`` on each non-empty shard, on its
+    device, with the queries copied there (shard_map's body). ``shards``
+    holds per-shard lists (rows first) in shard order; returns the local
+    results in shard order, still on the shard devices."""
+    out = []
+    offset = 0
+    for tensors in zip(*shards):
+        rows = tensors[0]
+        n = int(rows.shape[0])
+        if n:
+            with on_device(rows.device):
+                out.append(local(queries.to(rows.device), offset, *tensors))
+        offset += n
+    return out
+
+
+def _merge_topk(mesh: Mesh, parts: List[tuple], k: int, p: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The all_gather merge: shard candidates (scores, global ids)
+    concatenated in shard order on the merge device, then the exact top-k."""
+    dev = mesh.device
+    if not parts:
+        return torch.zeros((p, 0), device=dev), torch.zeros((p, 0), dtype=torch.int64, device=dev)
+    scores = torch.cat([s.to(dev) for s, i, *_ in parts], dim=1)
+    ids = torch.cat([i.to(dev) for s, i, *_ in parts], dim=1)
+    vals, pos = exact_topk(scores, k)
+    return vals, ids.gather(1, pos)
+
+
+def _none_shards(shards, like) -> list:
+    return list(shards) if shards is not None else [None] * len(like)
+
+
+def make_sharded_topk(mesh: Mesh, k: int, method: str = "xla", int8: bool = False) -> Callable:
+    """Sharded exact top-k (topk.py:514): fn(queries [P, d] on the merge
+    device, corpus shards, scales shards or None) -> (scores [P, k'], ids
+    [P, k']) on the merge device. Each shard selects its local top
+    min(k, shard rows): with ``method="pallas"`` through the streaming
+    kernels (``ops/mips``: the kernel on a CUDA shard, its plain version on
+    a CPU one; k above the kernels' bound raises there as on one device),
+    else from the full score block."""
+    from comorag_torch.ops import mips
+
+    def local(q, offset, rows, scales):
+        local_k = min(k, int(rows.shape[0]))
+        if method == "pallas":
+            s, i = mips.mips_topk_int8(q, rows, scales, local_k) if int8 else mips.mips_topk(q, rows, local_k)
+        else:
+            s, i = exact_topk(int8_scores(q, rows, scales) if int8 else dense_scores(q, rows), local_k)
+        return s, i + offset
+
+    def fn(queries, corpus_shards, scales_shards=None):
+        parts = _shard_calls(mesh, queries, (corpus_shards, _none_shards(scales_shards, corpus_shards)), local)
+        return _merge_topk(mesh, parts, k, queries.shape[0])
+
+    return fn
+
+
+def make_sharded_two_pass_topk(mesh: Mesh, k: int, candidates: int) -> Callable:
+    """Sharded certified two-pass (topk.py:611): fn(queries, scan shards,
+    scan-scales shards or None (bf16 scan), fp32 shards, bound) ->
+    (scores, ids, flag [P] int32) on the merge device. Each shard scans
+    its rows, rescores its own pool and selects locally; the flag of a row
+    is the OR over shards of each shard's certificate against the MERGED
+    k-th value (topk.py:656-664), so a shard whose pool boundary sits below
+    the merged k-th by more than the bound flags nothing."""
+
+    def local(q, offset, scan_rows, scan_scales, f32_rows):
+        return two_pass_core(q, scan_rows, scan_scales, f32_rows, k, candidates, offset)
+
+    def fn(queries, scan_shards, scales_shards, f32_shards, bound):
+        shards = (scan_shards, _none_shards(scales_shards, scan_shards), f32_shards)
+        parts = _shard_calls(mesh, queries, shards, local)
+        vals, ids = _merge_topk(mesh, parts, k, queries.shape[0])
+        dev = mesh.device
+        flag = torch.zeros(queries.shape[0], dtype=torch.int32, device=dev)
+        if vals.shape[1]:
+            kth = vals[:, -1]
+            for _, _, boundary, qnorm, immune in parts:
+                flag = torch.maximum(flag, exactness_flag(boundary.to(dev), kth, qnorm.to(dev), bound,
+                                                          immune.to(dev)))
+        return vals, ids, flag
+
+    return fn
+
+
+def make_sharded_topk_min(mesh: Mesh, k: int, int8: bool = False) -> Callable:
+    """Sharded top-k plus row minimum (topk.py:690): fn(queries, corpus
+    shards, scales shards or None) -> (scores, ids, row_min [P]) on the
+    merge device. The row minimum is the min over shards; an empty shard
+    contributes +inf (topk.py:708-718), i.e. nothing."""
+
+    def local(q, offset, rows, scales):
+        s = int8_scores(q, rows, scales) if int8 else dense_scores(q, rows)
+        vals, idx = exact_topk(s, min(k, int(rows.shape[0])))
+        return vals, idx + offset, s.amin(dim=1)
+
+    def fn(queries, corpus_shards, scales_shards=None):
+        parts = _shard_calls(mesh, queries, (corpus_shards, _none_shards(scales_shards, corpus_shards)), local)
+        vals, ids = _merge_topk(mesh, parts, k, queries.shape[0])
+        row_min = torch.full((queries.shape[0],), float("inf"), device=mesh.device)
+        for _, _, m in parts:
+            row_min = torch.minimum(row_min, m.to(mesh.device))
+        return vals, ids, row_min
+
+    return fn
+
+
+def make_sharded_scores(mesh: Mesh, int8: bool = False) -> Callable:
+    """Full [P, N] scores with the corpus sharded (topk.py:748): fn(queries,
+    corpus shards, scales shards or None) -> the shard blocks gathered in
+    shard order on the merge device."""
+
+    def local(q, offset, rows, scales):
+        return (int8_scores(q, rows, scales) if int8 else dense_scores(q, rows),)
+
+    def fn(queries, corpus_shards, scales_shards=None):
+        parts = _shard_calls(mesh, queries, (corpus_shards, _none_shards(scales_shards, corpus_shards)), local)
+        if not parts:
+            return torch.zeros((queries.shape[0], 0), device=mesh.device)
+        return torch.cat([s.to(mesh.device) for s, in parts], dim=1)
+
+    return fn

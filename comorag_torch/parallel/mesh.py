@@ -1,0 +1,125 @@
+"""Device mesh construction (port of ``comorag_tpu/parallel/mesh.py``).
+
+The JAX package is single-controller: one process drives every device of
+a ``jax.sharding.Mesh``. The port keeps that shape without
+``torch.distributed``: a mesh is a named grid of ``torch.device``s, a
+sharded tensor is a list of per-device tensors in mesh order, a
+``shard_map`` body is a function run once per shard on that shard's
+device, and ``all_gather`` / ``psum`` / ``pmax`` / ``pmin`` are a
+concatenation, sum, max or min of the shard results copied to the mesh's
+first device (the merge device). On a multi-card mesh each shard's work is
+queued on its own device's current stream, so the shards overlap without
+threads, and the cross-device copies order the merge after them. A
+process group would turn every retrieval call into a collective that all
+ranks must enter in step, which the single meta loop cannot do.
+
+Axes (as in the JAX package):
+
+  - ``corpus``: retrieval indexes shard their rows and the PPR graph its
+    arcs over this axis; the shards live on the devices along it, at index
+    0 of every other axis (JAX's replicas along the other axes compute the
+    same values from replicated queries, so the port keeps none);
+  - ``data``: the encoder splits each batch over this axis's devices;
+  - ``model``: tensor-parallel generation (not ported yet).
+
+A device list may repeat a device: ``[torch.device("cpu")] * 8`` or
+``[torch.device("cuda", 0)] * 4`` build a mesh of 8 or 4 positions on one
+device, the counterpart of ``--xla_force_host_platform_device_count``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from comorag_torch.device import resolve_device
+
+DeviceLike = Union[str, torch.device]
+
+
+class Mesh:
+    """A named grid of ``torch.device``s: ``devices`` is a numpy object
+    array shaped by the axis sizes, ``shape`` maps axis name -> size."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+        if devices.ndim != len(axis_names):
+            raise ValueError(f"{devices.ndim}-d device grid for axes {tuple(axis_names)}")
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def device(self) -> torch.device:
+        """The merge device: the mesh's first device."""
+        return self.devices.flat[0]
+
+    def axis_devices(self, axis: str) -> List[torch.device]:
+        """The devices along ``axis`` at index 0 of every other axis (the
+        first device alone when the mesh has no such axis)."""
+        if axis not in self.axis_names:
+            return [self.device]
+        at = tuple(slice(None) if name == axis else 0 for name in self.axis_names)
+        return list(self.devices[at])
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, first device {self.device})"
+
+
+def build_mesh(shape: Optional[Dict[str, int]] = None,
+               devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
+    """Build a mesh. Default: every visible CUDA device on the ``corpus``
+    axis (without a card this raises: pass ``devices``, e.g.
+    ``[torch.device("cpu")] * 8``, to build one on the CPU).
+
+    ``shape`` maps axis name -> size, e.g. ``{"data": 2, "corpus": 4}``.
+    """
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_mesh: devices=None means every CUDA device, and "
+                               "torch.cuda.is_available() is False; pass devices=[torch.device('cpu')] * n "
+                               "(device='cpu' for ComoRAG) to build a mesh on the CPU")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [resolve_device(d) for d in devices]
+    if shape is None:
+        shape = {"corpus": len(devices)}
+    sizes = list(shape.values())
+    total = int(np.prod(sizes))
+    if total != len(devices):
+        raise ValueError(f"mesh shape {shape} needs {total} devices, have {len(devices)}")
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = devices
+    return Mesh(grid.reshape(sizes), tuple(shape.keys()))
+
+
+def corpus_axis_size(mesh: Mesh) -> int:
+    return mesh.shape.get("corpus", 1)
+
+
+def mesh_device(mesh: Optional[Mesh], device: Optional[DeviceLike] = None) -> torch.device:
+    """The device a component runs its unsharded work on and merges on:
+    the mesh's first device under a mesh (a device passed beside the mesh
+    must be that one), else ``resolve_device(device)`` ("cuda" when None)."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {str(device)!r} is not the mesh's first device {mesh.device}")
+    return mesh.device
+
+
+def on_device(device: torch.device):
+    """Make ``device`` the current CUDA device for a shard's work (the
+    kernels' C entries launch on the current device); no-op on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def shard_bounds(n: int, n_shards: int, rows_per_shard: int) -> List[range]:
+    """Row ranges of ``n`` rows over ``n_shards`` shards of
+    ``rows_per_shard`` rows each: the last shards hold what is left, which
+    may be nothing (the JAX layout without its padding rows)."""
+    return [range(min(s * rows_per_shard, n), min((s + 1) * rows_per_shard, n)) for s in range(n_shards)]

@@ -1,9 +1,12 @@
 """Tri-layer retrieval engine.
 
-Port of ``comorag_tpu/retrieval/engine.py`` on one torch device: every
-embedding matrix is a port ``MipsIndex``, query embeddings from a device
-encoder stay on the device, and the fused PPR ranking reads the DPR prior
-where it was scored. The logic is unchanged from the JAX engine.
+Port of ``comorag_tpu/retrieval/engine.py``: every embedding matrix is a
+port ``MipsIndex``, query embeddings from a device encoder stay on the
+device, and the fused PPR ranking reads the DPR prior where it was scored.
+With a mesh every index and the PPR graph get it (each decides whether to
+shard, as in JAX), and the engine's device is the mesh's first device,
+where the sharded results merge. The logic is unchanged from the JAX
+engine.
 
 Implements the query-time call stack of the reference (SURVEY.md §3.3 —
 tri_retrieve, dense_passage_retrieval, get_fact_scores,
@@ -34,9 +37,9 @@ import torch
 from comorag_torch.graph.builder import GraphData
 from comorag_torch.ops.ppr import PPRGraph
 from comorag_torch.ops.similarity import min_max_normalize, min_max_normalize_rows_np
+from comorag_torch.parallel.mesh import Mesh, mesh_device
 from comorag_torch.retrieval.index import MipsIndex
 from comorag_torch.config import ComoConfig
-from comorag_torch.device import resolve_device
 from comorag_torch.prompts.linking import get_query_instruction
 from comorag_torch.store.embedding_store import EmbeddingStore
 from comorag_torch.utils.hashing import content_hash
@@ -90,7 +93,8 @@ class RetrievalEngine:
         epi_store: Optional[EmbeddingStore] = None,
         graph: Optional[GraphData] = None,
         fact_filter=None,
-        device: Union[str, torch.device] = "cuda",
+        device: Union[str, torch.device, None] = None,  # "cuda" when None; the mesh's first device under a mesh
+        mesh: Optional[Mesh] = None,
     ):
         self.config = config
         self.encoder = encoder
@@ -100,7 +104,8 @@ class RetrievalEngine:
         self.epi_store = epi_store
         self.graph = graph
         self.fact_filter = fact_filter
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self._ready = False
         # LRU query-embedding cache behind a lock: the QA loop reads and
         # writes it from up to 16 threads, and a long multi-dataset run
@@ -128,7 +133,7 @@ class RetrievalEngine:
     def _prepare_locked(self) -> None:
         if self._ready:  # double-check under the lock
             return
-        kw = dict(device=self.device, dtype=self.config.embedding_dtype, method=self.config.topk_method,
+        kw = dict(device=self.device, mesh=self.mesh, dtype=self.config.embedding_dtype, method=self.config.topk_method,
                   scan_dtype=self.config.scan_dtype, tile_n=self.config.topk_block_rows)
         self.ver_index = MipsIndex(self.ver_store.matrix, **kw)
         self.passage_node_keys = self.ver_store.get_all_ids()
@@ -161,6 +166,7 @@ class RetrievalEngine:
                 max_iters=self.config.ppr_max_iterations,
                 tol=self.config.ppr_tolerance,
                 device=self.device,
+                mesh=self.mesh,
             )
             self.passage_node_idxs = np.asarray(
                 [self.graph.name_to_idx[k] for k in self.passage_node_keys], np.int64

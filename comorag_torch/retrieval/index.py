@@ -19,7 +19,20 @@ candidate pool, and a per-row exactness flag whose rows are rescued by an
 fp32 single pass (``TwoPassHandle``); everything else is the plain exact
 single pass. ``exact=False`` is served exact (JAX's approximate selection
 exists only on the TPU), and ``tile_n`` is accepted for the TPU kernel's
-tile size; the CUDA kernels size their own tiles.
+tile size; the CUDA kernels size their own tiles (it still sets the
+shard boundaries of the kernel route under a mesh, as in JAX).
+
+Corpus sharding (index.py:266-289): with a mesh whose ``axis`` has
+n_shards > 1 devices and at least ``n_shards * min_rows_per_shard`` rows,
+the rows are split over that axis's devices in JAX's boundaries (shards
+of ``n_pad // n_shards`` rows; the last shards hold what is left, which
+may be nothing) and every query runs the sharded programs of
+``ops/topk.py``: one local call per shard (on the kernel route, one
+kernel launch per non-empty shard), merged on the mesh's first device,
+where the handles start their host copies. Under a mesh the index's
+device arrays (``corpus``, ``scales``, ``scan_corpus``, ``scan_scales``)
+are lists of per-shard tensors in shard order. An index that does not
+shard lives on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -29,19 +42,24 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from comorag_torch.device import HostCopy, resolve_device
+from comorag_torch.device import HostCopy
 from comorag_torch.ops import mips
 from comorag_torch.ops.topk import (
     bf16_scan_corpus,
     dense_scores,
     exact_topk,
     int8_scores,
+    make_sharded_scores,
+    make_sharded_topk,
+    make_sharded_topk_min,
+    make_sharded_two_pass_topk,
     quantize_int8,
     quantize_int8_residual,
     stats_from_scores,
     topk_min_from_scores,
     two_pass_topk,
 )
+from comorag_torch.parallel.mesh import Mesh, mesh_device, shard_bounds
 from comorag_torch.utils import trace
 from comorag_torch.utils.logging import get_logger
 
@@ -249,14 +267,17 @@ class MipsIndex:
     def __init__(
         self,
         matrix: np.ndarray,  # [N, d] float32 (host)
-        device: Union[str, torch.device] = "cuda",
+        device: Union[str, torch.device, None] = None,  # "cuda" when None; the mesh's first device under a mesh
         dtype: str = "float32",  # "float32" | "bfloat16" | "int8" storage/scoring
         method: str = "xla",  # "xla" | "pallas" (the streaming top-k kernels)
         scan_dtype: Optional[str] = "auto",  # "auto" | "int8" | "bfloat16" | None: certified two-pass
         scan_candidates: Optional[int] = None,  # floor of the two-pass candidate pool per query
         tile_n: int = 512,  # the TPU kernel's corpus tile (ComoConfig.topk_block_rows)
+        mesh: Optional[Mesh] = None,
+        axis: str = "corpus",
+        min_rows_per_shard: int = 256,
     ):
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device)
         matrix = np.asarray(matrix, np.float32)
         self.n = int(matrix.shape[0])
         self.dim = int(matrix.shape[1]) if matrix.ndim == 2 and matrix.shape[1] else 1
@@ -266,6 +287,17 @@ class MipsIndex:
         self._scan_auto = scan_dtype == "auto"
         self.scan_candidates = scan_candidates
         self.tile_n = max(32, _round_up(int(tile_n), 32))
+        # a mesh without this index's axis, or a layer too small to be worth
+        # sharding, keeps the index on one device (index.py:266-275)
+        n_shards = mesh.shape.get(axis, 1) if mesh is not None else 1
+        self.mesh = mesh if (n_shards > 1 and self.n >= n_shards * min_rows_per_shard) else None
+        self.n_shards = n_shards if self.mesh is not None else 1
+        self.axis = axis
+        # JAX's shard rows (index.py:282-289): each shard's two-pass pool,
+        # and so its flag, depends on these boundaries
+        pad_to = self.tile_n * self.n_shards if self.method == "pallas" else max(8, 8 * self.n_shards)
+        n_pad = max(_round_up(max(self.n, 1), pad_to), self.n_shards * 8)
+        self.shard_rows = n_pad // self.n_shards
         # adaptive pool margin (index.py:297-309): a rescue-heavy batch
         # widens the pool of later dispatches; exhausted, the index serves
         # fp32 single-pass (benign races between query threads: int writes)
@@ -276,10 +308,9 @@ class MipsIndex:
         host = matrix.reshape(self.n, self.dim)
         if self.int8:
             q, scales = quantize_int8(host)
-            self.corpus = torch.as_tensor(q, device=self.device)
-            self.scales = torch.as_tensor(scales, device=self.device)
+            self.corpus, self.scales = self._place(q), self._place(scales)
         else:
-            self.corpus = torch.tensor(host, device=self.device).to(self.dtype)
+            self.corpus = self._place(torch.tensor(host).to(self.dtype))
             self.scales = None
         # the two-pass scan copy (2 bytes/element) sits next to the fp32
         # matrix, with the sound bound of its certificate (index.py:328-368)
@@ -287,12 +318,21 @@ class MipsIndex:
         if self.scan_dtype and self.n:
             if self.scan_dtype == "int8":
                 cat, s1, bound = quantize_int8_residual(host)
-                self.scan_corpus = torch.as_tensor(cat, device=self.device)
-                self.scan_scales = torch.as_tensor(s1, device=self.device)
+                self.scan_corpus, self.scan_scales = self._place(cat), self._place(s1)
             else:
                 hat16, bound = bf16_scan_corpus(host)
-                self.scan_corpus = hat16.to(self.device)
+                self.scan_corpus = self._place(hat16)
             self.scan_bound = torch.tensor(bound, dtype=torch.float32, device=self.device)
+
+    def _place(self, rows) -> Union[torch.Tensor, List[torch.Tensor]]:
+        """A host array on this index's device, or under a mesh its row
+        shards, each on its device of the mesh axis (contiguous copies)."""
+        rows = torch.as_tensor(rows)
+        if self.mesh is None:
+            return rows.to(self.device)
+        bounds = shard_bounds(self.n, self.n_shards, self.shard_rows)
+        return [rows[r.start : r.stop].to(dev).contiguous()
+                for r, dev in zip(bounds, self.mesh.axis_devices(self.axis))]
 
     # ------------------------------------------------------------ scoring
     def _prep_queries(self, queries: QueryLike) -> Tuple[torch.Tensor, int]:
@@ -305,6 +345,8 @@ class MipsIndex:
         return q, int(q.shape[0])
 
     def _scores(self, q: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            return make_sharded_scores(self.mesh, int8=self.int8)(q, self.corpus, self.scales)
         if self.int8:
             return int8_scores(q, self.corpus, self.scales)
         return dense_scores(q, self.corpus)
@@ -323,7 +365,9 @@ class MipsIndex:
         # the pool rule of index.py:422-432: the large-k route checks the
         # BASE pool; a margin grown against rescue storms may pass it
         base_c = max(self.scan_candidates or 0, _round_up(k_pad + 8, 8), 64)
-        c = min(base_c + (self._tie_margin if self._scan_auto else 0), self.n)
+        # under a mesh the pool is per shard (index.py:422)
+        c_cap = self.shard_rows if self.mesh is not None else self.n
+        c = min(base_c + (self._tie_margin if self._scan_auto else 0), c_cap)
         use_scan = (bool(self.scan_dtype) and not _force_fp32
                     and not (self._scan_auto and (base_c > 256 or self._scan_off)))
         if use_scan:
@@ -336,9 +380,16 @@ class MipsIndex:
             def on_rate(frac, _margin=self._tie_margin):
                 self._note_rescue_rate(frac, _margin)
 
-            vals, idx, flag = two_pass_topk(q, self.scan_corpus, self.scan_scales, self.corpus,
-                                            self.scan_bound, k_pad, c)
+            if self.mesh is not None:
+                vals, idx, flag = make_sharded_two_pass_topk(self.mesh, k_pad, c)(
+                    q, self.scan_corpus, self.scan_scales, self.corpus, self.scan_bound)
+            else:
+                vals, idx, flag = two_pass_topk(q, self.scan_corpus, self.scan_scales, self.corpus,
+                                                self.scan_bound, k_pad, c)
             return TwoPassHandle(vals, idx, flag, k_eff, rescue, on_rate)
+        if self.mesh is not None:
+            fn = make_sharded_topk(self.mesh, k_eff, method=self.method, int8=self.int8)
+            return TopkHandle(*fn(q, self.corpus, self.scales))
         if self.method == "pallas":
             if self.int8:
                 return TopkHandle(*mips.mips_topk_int8(q, self.corpus, self.scales, k_eff))
@@ -430,6 +481,9 @@ class MipsIndex:
         q, p = self._prep_queries(queries)
         if self.n == 0:
             return TopkMinHandle(*_no_hits(p), torch.zeros(p))
+        if self.mesh is not None:
+            fn = make_sharded_topk_min(self.mesh, min(k, self.n), int8=self.int8)
+            return TopkMinHandle(*fn(q, self.corpus, self.scales))
         return TopkMinHandle(*topk_min_from_scores(self._scores(q), min(k, self.n)))
 
     # ----------------------------------------------------------- full scores

@@ -236,6 +236,107 @@ def test_pallas_index_routes_through_the_kernels(cuda_device):
             np.testing.assert_allclose(s, s_ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_pallas_index_over_a_mesh_launches_once_per_shard(cuda_device, dtype):
+    """MipsIndex(mesh=[cuda] x 4, method="pallas") at 2,100 rows: shards of
+    1,024, 1,024, 52 and 0 rows (the 512 x 4 rounding), so each call
+    launches the kernel three times (the empty shard launches nothing),
+    on the same scan route as one device, with the unsharded kernel
+    route's ids and scores (to 1e-5)."""
+    from comorag_torch.ops import mips
+    from comorag_torch.parallel.mesh import build_mesh
+    from comorag_torch.retrieval.index import MipsIndex
+
+    rng = np.random.default_rng(5)
+    corpus = _normalized(rng, (2100, 64))
+    q = _normalized(rng, (16, 64))
+    mesh = build_mesh({"corpus": 4}, [cuda_device] * 4)
+    sharded = MipsIndex(corpus, mesh=mesh, dtype=dtype, method="pallas")
+    single = MipsIndex(corpus, device=cuda_device, dtype=dtype, method="pallas")
+    assert sharded.n_shards == 4 and [len(c) for c in sharded.corpus] == [1024, 1024, 52, 0]
+    counter = mips.LAUNCHES if dtype == "float32" else mips.INT8_LAUNCHES
+    route = "tf32" if dtype == "float32" else "mma"
+    before, route_before = counter.value, mips.ROUTE_LAUNCHES[route].value
+    s, i = sharded.topk(q, 50)
+    assert counter.value == before + 3 and mips.ROUTE_LAUNCHES[route].value == route_before + 3
+    s_ref, i_ref = single.topk(q, 50)
+    np.testing.assert_array_equal(i, i_ref)
+    np.testing.assert_allclose(s, s_ref, atol=1e-5, rtol=0)
+
+
+def test_mesh_over_distinct_cards_matches_one_card(cuda_device, tmp_path):
+    """A corpus mesh over every visible card (needs two or more): the
+    sharded kernel routes, the two-pass and the edge-sharded PPR equal one
+    card's results; a {"data": n} encoder launches both kernels on each
+    card and equals one card's rows to cosine 0.999; ComoRAG over the cards
+    ranks as one card does. Each shard's work runs on its own card (the
+    kernels' C entries launch on the current device, which the programs
+    set per shard)."""
+    from comorag_torch.comorag import ComoRAG
+    from comorag_torch.config import ComoConfig
+    from comorag_torch.models import bge
+    from comorag_torch.ops import attention, ffn, mips
+    from comorag_torch.ops.ppr import PPRGraph
+    from comorag_torch.parallel.mesh import build_mesh
+    from comorag_torch.retrieval.index import MipsIndex
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards (a mesh over distinct devices)")
+    mesh = build_mesh({"corpus": n})
+    assert [d.index for d in mesh.axis_devices("corpus")] == list(range(n))
+    rng = np.random.default_rng(7)
+    corpus = _normalized(rng, (n * 1500, 256))
+    q = _normalized(rng, (16, 256))
+    for kw, counter in ((dict(method="pallas"), mips.LAUNCHES), (dict(method="pallas", dtype="int8"),
+                                                                mips.INT8_LAUNCHES), (dict(), None)):
+        sharded, single = MipsIndex(corpus, mesh=mesh, **kw), MipsIndex(corpus, device=cuda_device, **kw)
+        assert sharded.n_shards == n and [c.device.index for c in sharded.corpus] == list(range(n))
+        before = counter.value if counter is not None else 0
+        s, i = sharded.topk(q, 50)
+        if counter is not None:
+            assert counter.value == before + n
+        s_ref, i_ref = single.topk(q, 50)
+        np.testing.assert_array_equal(i, i_ref)
+        np.testing.assert_allclose(s, s_ref, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(sharded.scores(q), single.scores(q), atol=1e-5, rtol=0)
+
+    src, dst = rng.integers(0, 5000, 60_000), rng.integers(0, 5000, 60_000)
+    w = rng.random(60_000).astype(np.float32)
+    resets = (rng.random((8, 5000)) * (rng.random((8, 5000)) > 0.99)).astype(np.float32) + 1e-6
+    graphs = [PPRGraph(src, dst, w, 5000, backend="device", **kw) for kw in ({"mesh": mesh}, {"device": cuda_device})]
+    assert [a[0].device.index for a in graphs[0]._arcs] == list(range(n))
+    assert np.abs(graphs[0].query(resets) - graphs[1].query(resets)).max() < 1e-6
+
+    arch = bge.EncoderArch(vocab_size=512, num_layers=2, max_position=128)
+    params = bge.init_params(arch, torch.Generator().manual_seed(0), device="cpu")
+    texts = [f"the keeper lit lamp number {i} at dusk" + " again" * (i % 7) for i in range(40)]
+    data = bge.BGETorchEncoder(params=params, max_seq_len=64, compute_dtype=torch.bfloat16,
+                               mesh=build_mesh({"data": n}))
+    one = bge.BGETorchEncoder(params=params, max_seq_len=64, compute_dtype=torch.bfloat16, device=cuda_device)
+    assert data.attention == "kernel" and sorted(d.index for d in data._replicas) == list(range(n))
+    before = (attention.LAUNCHES.value, ffn.LAUNCHES.value)
+    got = torch.as_tensor(data.encode(texts))
+    # 2 batches x 2 layers, on each of the n cards
+    assert attention.LAUNCHES.value - before[0] == ffn.LAUNCHES.value - before[1] == 2 * 2 * n
+    ref = torch.as_tensor(one.encode(texts))
+    assert float(torch.nn.functional.cosine_similarity(got, ref, dim=1).min()) >= 0.999
+
+    chunks = [f"Record {i}: entry number {i} of the ledger, kept at the mill." for i in range(n * 600)]
+    chunks[777] = "Record 777: Quintessa hid the moonstone crown inside the old cistern."
+    config = ComoConfig(llm_name="fake", embedding_model_name="hash", embedding_dim=64, need_cluster=False,
+                        save_dir=str(tmp_path / "o"), output_dir=str(tmp_path / "r"), max_meta_loop_iterations=1)
+    rag = ComoRAG(config, mesh=mesh)
+    rag.index(chunks)
+    engine = rag.engine
+    engine.prepare()
+    assert engine.ver_index.n_shards == n
+    qe = engine.encode_queries(["Who hid the moonstone crown?"])["passage"]
+    np.testing.assert_array_equal(engine.ver_index.topk(qe, 20)[1],
+                                  MipsIndex(rag.ver_store.matrix, device=cuda_device).topk(qe, 20)[1])
+    assert "cistern" in rag.try_answer(["Who hid the moonstone crown in the cistern?"])[0].answer
+
+
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     from comorag_torch.ops import attention, ffn
 

@@ -187,3 +187,29 @@ def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
         assert leaves and all(t.device.type == "cpu" for t in leaves)
     else:
         assert built.device == torch.device("cpu")
+
+
+def test_build_mesh_without_a_card_raises(monkeypatch):
+    """``build_mesh(devices=None)`` means every CUDA device: without a card
+    it raises and names the CPU mesh, never falling back to it."""
+    from comorag_torch.parallel.mesh import build_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for shape in (None, {"corpus": 4}):
+        with pytest.raises(RuntimeError, match=r"devices=\[torch.device\('cpu'\)\]"):
+            build_mesh(shape)
+    assert build_mesh({"corpus": 4}, [torch.device("cpu")] * 4).shape == {"corpus": 4}
+
+
+def test_mesh_shape_over_too_few_cards_raises(monkeypatch, tmp_path):
+    """``ComoRAG(mesh_shape={"corpus": 4})`` on ``device="cuda"`` with one
+    card raises JAX's device-count error (nothing falls back to the CPU);
+    the card is simulated, and the error comes before any CUDA call."""
+    from comorag_torch.comorag import ComoRAG
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    config = ComoConfig(mesh_shape={"corpus": 4}, embedding_model_name="hash", save_dir=str(tmp_path))
+    with pytest.raises(ValueError, match=r"mesh shape \{'corpus': 4\} needs 4 devices, have 1"):
+        ComoRAG(config, device="cuda")

@@ -325,18 +325,35 @@ def test_train_cli_end_to_end(tmp_path):
 
 
 # ------------------------------------------------------------------ errors
-@pytest.mark.parametrize("what", ["make_train_step", "make_lm_train_step", "--mesh_shape", "ComoRAG"])
+@pytest.mark.parametrize("what", ["make_train_step", "make_lm_train_step", "--mesh_shape", "ComoRAG", "get_llm"])
 def test_mesh_is_refused(what, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        if what == "ComoRAG":
-            from comorag_torch.comorag import ComoRAG
-            from comorag_torch.config import ComoConfig
+    """The training steps, the train CLI's ``--mesh_shape`` and
+    tensor-parallel generation (a ``model`` axis under an in-process LLM)
+    still refuse a mesh, naming the next slice; ``ComoRAG`` takes one now:
+    it builds ``config.mesh_shape`` and its indexes shard."""
+    from comorag_torch.config import ComoConfig
+    from comorag_torch.parallel.mesh import build_mesh
 
-            ComoRAG(ComoConfig(mesh_shape={"corpus": 8}, save_dir=str(tmp_path)), device="cpu")
-        elif what == "make_train_step":
+    if what == "ComoRAG":
+        from comorag_torch.comorag import ComoRAG
+
+        rag = ComoRAG(ComoConfig(mesh_shape={"corpus": 4}, embedding_model_name="hash", embedding_dim=16,
+                                 save_dir=str(tmp_path)), device="cpu")
+        assert rag.mesh.shape == {"corpus": 4} and rag.device == torch.device("cpu")
+        rag.ver_store.insert_strings([f"chunk number {i}" for i in range(1024)])
+        rag.engine.prepare()
+        assert rag.engine.ver_index.n_shards == 4
+        return
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 6: the next slice"):
+        if what == "make_train_step":
             ttrain.make_train_step(tbge.EncoderArch.tiny(), mesh=object())
         elif what == "make_lm_train_step":
             ttrain_lm.make_lm_train_step(tdec.DecoderArch.tiny(), mesh=object())
+        elif what == "get_llm":
+            from comorag_torch.llm import get_llm
+
+            mesh = build_mesh({"model": 2}, [torch.device("cpu")] * 2)
+            get_llm(ComoConfig(llm_name="jax-tiny", save_dir=str(tmp_path)), device="cpu", mesh=mesh)
         else:
             from comorag_torch.cli.train import main as train_main
 
