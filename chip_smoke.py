@@ -125,7 +125,22 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      the top-k and both encoder kernels launched, veridical top-k ids equal
      an unsharded index's over the same query embeddings (as in (a)), and the
      data-axis query embeddings at cosine >= 0.999 against the unsharded
-     encoder's.
+     encoder's;
+ 14. tensor-parallel generation over {"model": 4} of the one card
+     (``decoder.shard_params``; no multi-card speed is read from it), on
+     phase 10's weights, arch and 8 requests: (a) int4 weights, every
+     product column-parallel: no error response, int4_matmul launched
+     4 x (4 x layers + 1) times a forward (per route, beside phase 10's),
+     the fused tail 0 times (its norm and activation need whole rows);
+     the last-prompt and first-decode-step logits in fp32 compute against
+     the unsharded engine on the same weights and against the per-shard
+     plain route, under phase 10's rule; the served bf16 logits and greedy
+     tokens beside phase 10's and prefill and decode tok/s (reported);
+     (b) the same with bf16 weights (o/down row-parallel, partial sums on
+     the merge device); (c) int4_matmul at the shard shapes of a decode
+     step (M = 8: qkv 4096->1536, o 4096->1024, gate/up 4096->7168, down
+     14336->1024, lm_head 4096->32064, and 4096->64128 at {"model": 2}) as
+     phase 9 times its shapes.
 Then it checks that no module of jax or of the JAX package was loaded, and
 prints the kernels JSON line (every kernel with its launches on the main
 path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms), the
@@ -884,6 +899,46 @@ def int4_yardsticks(x, packed, scales, ref, gs: int = 128) -> dict:
     return out
 
 
+def int4_weights(gen, device, k: int, n: int, count: int) -> tuple:
+    """``count`` layers of random packed [k/2, n] weights and group-128
+    scales giving weights of std ~0.02."""
+    packed = torch.randint(-128, 128, (count, k // 2, n), generator=gen, device=device, dtype=torch.int8)
+    scales = torch.empty(count, k // 128, n, device=device).uniform_(0.003, 0.006, generator=gen)
+    return packed, scales
+
+
+def time_int4_matmul(device, gen, m: int, name: str, packed: torch.Tensor, scales: torch.Tensor) -> dict:
+    """int4_matmul at M = m against its plain version on the first layer's
+    weight (the bf16 rule), timed cycling through every layer's weight,
+    with its route, K splits, host time, yardsticks and bound."""
+    k, n = packed.shape[1] * 2, packed.shape[2]
+    x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
+    got = int4.int4_matmul(x, packed[0], scales[0])
+    ref = int4.int4_matmul_plain(x, packed[0], scales[0])
+    torch.cuda.synchronize()
+    route = int4.int4_matmul_route(m, n)
+    r = {"M": m, "weight": name, "K": k, "N": n, "route": route, "splits": matmul_splits(device, m, k, n, route),
+         "max_abs_err": compare(got, ref, f"int4_matmul M={m} {name}"),
+         "ms": median_ms(cycling(lambda i: int4.int4_matmul(x, packed[i], scales[i]), packed.shape[0])),
+         "plain_ms": median_ms(lambda: int4.int4_matmul_plain(x, packed[0], scales[0]), runs=3, reps=1, warmup=1),
+         "host_us": host_us(lambda: int4.int4_matmul(x, packed[0], scales[0])),
+         **int4_yardsticks(x, packed[0], scales[0], ref), **int4_bound(m, k, n)}
+    # the library call: tinygemm, the same formula ((q - 8) * scale a group) with bf16 scales and output
+    r["library_ms"] = r["int4pack_mm_ms"]
+    r["roofline_share"] = r["bound_ms"] / r["ms"]
+    del got, ref, x
+    torch.cuda.empty_cache()
+    return r
+
+
+def int4_matmul_line(r: dict) -> str:
+    return (f"int4_matmul M={r['M']} {r['weight']} {r['K']}->{r['N']} route {r['route']} ({r['splits']} K split(s)): "
+            f"max_abs_err={r['max_abs_err']:.4g} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) roofline share {r['roofline_share']:.3f}; wrapper host "
+            f"{r['host_us']:.1f} us a call; yardsticks (not this function): bf16 torch.matmul on the dequantized "
+            f"weight {r['bf16_matmul_ms']:.4f} ms, torch._weight_int4pack_mm {r['int4pack_mm']}")
+
+
 def phase_int4_kernels(device) -> dict:
     """Both int4 kernels against their plain versions at Llama-3.1-8B's
     shapes (random packed weights, scales giving weights of std ~0.02):
@@ -894,35 +949,9 @@ def phase_int4_kernels(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     arch = llama_8b()
     h, inter, layers = arch.hidden_size, arch.intermediate_size, arch.num_layers
-
-    def weights(k, n, count):
-        packed = torch.randint(-128, 128, (count, k // 2, n), generator=gen, device=device, dtype=torch.int8)
-        scales = torch.empty(count, k // 128, n, device=device).uniform_(0.003, 0.006, generator=gen)
-        return packed, scales
-
-    w = {name: weights(*int4_matmul_dims(arch, name), 1 if name.endswith("lm_head") else layers)
+    w = {name: int4_weights(gen, device, *int4_matmul_dims(arch, name), 1 if name.endswith("lm_head") else layers)
          for name in ("qkv", "o", "gate_up", "down", "lm_head", "tiny_lm_head")}
-    mm = []
-    for m, name in INT4_MATMUL_SHAPES + TINY_HEAD_SHAPES:
-        packed, scales = w[name]
-        k, n = packed.shape[1] * 2, packed.shape[2]
-        x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
-        got = int4.int4_matmul(x, packed[0], scales[0])
-        ref = int4.int4_matmul_plain(x, packed[0], scales[0])
-        torch.cuda.synchronize()
-        route = int4.int4_matmul_route(m, n)
-        r = {"M": m, "weight": name, "K": k, "N": n, "route": route, "splits": matmul_splits(device, m, k, n, route),
-             "max_abs_err": compare(got, ref, f"int4_matmul M={m} {name}"),
-             "ms": median_ms(cycling(lambda i: int4.int4_matmul(x, packed[i], scales[i]), packed.shape[0])),
-             "plain_ms": median_ms(lambda: int4.int4_matmul_plain(x, packed[0], scales[0]), runs=3, reps=1, warmup=1),
-             "host_us": host_us(lambda: int4.int4_matmul(x, packed[0], scales[0])),
-             **int4_yardsticks(x, packed[0], scales[0], ref), **int4_bound(m, k, n)}
-        # the library call: tinygemm, the same formula ((q - 8) * scale a group) with bf16 scales and output
-        r["library_ms"] = r["int4pack_mm_ms"]
-        r["roofline_share"] = r["bound_ms"] / r["ms"]
-        mm.append(r)
-        del got, ref, x
-        torch.cuda.empty_cache()
+    mm = [time_int4_matmul(device, gen, m, name, *w[name]) for m, name in INT4_MATMUL_SHAPES + TINY_HEAD_SHAPES]
     tail = []
     for m in (8, 64):
         ctx = torch.randn(m, h, generator=gen, device=device).to(torch.bfloat16)
@@ -946,19 +975,12 @@ def phase_int4_kernels(device) -> dict:
         tail.append(r)
     del w
     torch.cuda.empty_cache()
-    for r in mm + tail:
-        what = (f"int4_matmul M={r['M']} {r['weight']} {r['K']}->{r['N']} route {r['route']} "
-                f"({r['splits']} K split(s))" if "weight" in r
-                else f"int4_fused_layer_tail M={r['M']} H={r['H']} I={r['I']}")
-        ratio = f" (worst ratio to the rule {r['rule_ratio']:.3f})" if "rule_ratio" in r else ""
-        extra = ""
-        if "weight" in r:
-            extra = (f"; wrapper host {r['host_us']:.1f} us a call; yardsticks (not this function): bf16 torch.matmul "
-                     f"on the dequantized weight {r['bf16_matmul_ms']:.4f} ms, torch._weight_int4pack_mm "
-                     f"{r['int4pack_mm']}")
-        print(f"phase 9 {what}: max_abs_err={r['max_abs_err']:.4g}{ratio} kernel {r['ms']:.4f} ms plain "
-              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}) roofline share "
-              f"{r['roofline_share']:.3f}{extra}", flush=True)
+    for r in mm:
+        print(f"phase 9 {int4_matmul_line(r)}", flush=True)
+    for r in tail:
+        print(f"phase 9 int4_fused_layer_tail M={r['M']} H={r['H']} I={r['I']}: max_abs_err={r['max_abs_err']:.4g} "
+              f"(worst ratio to the rule {r['rule_ratio']:.3f}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) roofline share {r['roofline_share']:.3f}", flush=True)
     return {"int4_matmul": mm, "int4_fused_layer_tail": tail}
 
 
@@ -1110,24 +1132,20 @@ def logits_ratio(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def checked_logits(got: torch.Tensor, ref: torch.Tensor, what: str) -> dict:
-    """Kernel-route logits against plain-route logits under the bf16 rule
-    scaled to max |logit|; fails above it or on a non-finite value."""
+    """Logits against reference logits under the bf16 rule scaled to max
+    |logit|; fails above it or on a non-finite value."""
     out = {"max_abs_err": float((got - ref).abs().max()), "worst_ratio": logits_ratio(got, ref),
            "top1_equal": float((got.argmax(-1) == ref.argmax(-1)).float().mean())}
     if not torch.isfinite(got).all() or out["worst_ratio"] > 1.0:
-        raise AssertionError(f"{what}, kernels vs plain: {out} (rule 2e-2 * max|logit| + 2e-2 * |logit|)")
+        raise AssertionError(f"{what}: {out} (rule 2e-2 * max|logit| + 2e-2 * |logit|)")
     return out
 
 
-def route_logits(engine, prompts, compute_dtype) -> dict:
-    """The requests' last-prompt logits (prefill of 8 x ~470 rows: int4_matmul
-    only) and the next decode step's logits (M = 8: the fused tail in every
-    layer) through the kernels and through the plain versions, each route
-    on its own KV cache and both fed the plain route's greedy token; both
-    held under the bf16 rule scaled to max |logit|. In fp32 compute the two
-    routes differ only by the kernels' summation order and the roundings
-    inside the fused tail, so the rule holds at full depth; in bf16 compute
-    every product's output is rounded too."""
+def forward_logits(engine, prompts, compute_dtype, tok=None) -> tuple:
+    """The requests' last-prompt logits (one prefill chunk of 8 x ~470
+    rows) and the next decode step's logits (M = 8) in ``compute_dtype``
+    on a KV cache of their own, the step fed ``tok`` (else the greedy
+    token): (last, step, tok)."""
     pad, _ = engine._special_ids()
     rows = [engine._ids(*engine._render(m)) for m in prompts]
     p = max(len(r) for r in rows)
@@ -1136,28 +1154,41 @@ def route_logits(engine, prompts, compute_dtype) -> dict:
     for i, r in enumerate(rows):
         ids[i, p - len(r):], mask[i, p - len(r):] = torch.tensor(r), 1
     ids, mask = ids.to(engine.device), mask.to(engine.device)
-
-    def run(tok=None):
-        with torch.no_grad():
-            last, cache, slot_valid, row_len = decoder._prefill_batch(
-                engine.params, ids, mask, engine.arch, p + 1, None, compute_dtype, engine.kv_dtype)
-            tok = last.argmax(-1) if tok is None else tok
-            slot_valid[:, p] = True  # generate's first decode step: slot p, position row_len
-            step, _ = decoder.decoder_forward(engine.params, tok[:, None], row_len[:, None], slot_valid[:, None, :],
-                                              cache, p, engine.arch, compute_dtype)
-        return last, step[:, 0], tok
-
-    with plain_int4():
-        ref_last, ref_step, tok = run()
-    tails = int4.TAIL_LAUNCHES.value
-    got_last, got_step, _ = run(tok)
+    with torch.no_grad():
+        last, cache, slot_valid, row_len = decoder._prefill_batch(
+            engine.params, ids, mask, engine.arch, p + 1, None, compute_dtype, engine.kv_dtype)
+        tok = last.argmax(-1) if tok is None else tok
+        slot_valid[:, p] = True  # generate's first decode step: slot p, position row_len
+        step, _ = decoder.decoder_forward(engine.params, tok[:, None], row_len[:, None], slot_valid[:, None, :],
+                                          cache, p, engine.arch, compute_dtype)
     torch.cuda.synchronize()
+    return last, step[:, 0], tok
+
+
+def checked_pair(got: tuple, ref: tuple, what: str, compute_dtype) -> dict:
+    """``checked_logits`` on the last-prompt and the decode-step logits."""
+    name = str(compute_dtype).replace("torch.", "")
+    return {"prefill": checked_logits(got[0], ref[0], f"last-prompt logits in {name} compute, {what}"),
+            "decode_step": checked_logits(got[1], ref[1], f"decode-step logits in {name} compute, {what}")}
+
+
+def route_logits(engine, prompts, compute_dtype) -> dict:
+    """The requests' last-prompt logits (prefill: int4_matmul only) and the
+    next decode step's logits (the fused tail in every layer) through the
+    kernels and through the plain versions, each route on its own KV cache
+    and both fed the plain route's greedy token; both held under the bf16
+    rule scaled to max |logit|. In fp32 compute the two routes differ only
+    by the kernels' summation order and the roundings inside the fused
+    tail, so the rule holds at full depth; in bf16 compute every product's
+    output is rounded too."""
+    with plain_int4():
+        ref = forward_logits(engine, prompts, compute_dtype)
+    tails = int4.TAIL_LAUNCHES.value
+    got = forward_logits(engine, prompts, compute_dtype, ref[2])
     tails = int4.TAIL_LAUNCHES.value - tails
     if tails != engine.arch.num_layers:
         raise AssertionError(f"the decode step took {tails} fused tails for {engine.arch.num_layers} layers")
-    name = str(compute_dtype).replace("torch.", "")
-    return {"prefill": checked_logits(got_last, ref_last, f"last-prompt logits in {name} compute"),
-            "decode_step": checked_logits(got_step, ref_step, f"decode-step logits in {name} compute")}
+    return checked_pair(got, ref, "kernels vs plain", compute_dtype)
 
 
 def served_comparison(kernel_run: dict, plain_run: dict) -> dict:
@@ -1249,7 +1280,8 @@ def phase_server(device, layers: int = 32, max_tokens: int = 64) -> dict:
     out = {"layers": layers, "build_s": build_s, "served_logits_bf16": served, "logits_fp32": checked,
            "witnesses": logit_witnesses(device, prompts, max_tokens), "launches": launches,
            "route_launches": runs["int4_kernels"]["route_launches"],
-           "runs": {k: {f: v for f, v in r.items() if f not in ("logits", "tokens")} for k, r in runs.items()}}
+           "runs": {k: {f: v for f, v in r.items() if f not in ("logits", "tokens")} for k, r in runs.items()},
+           "served": {k: {f: r[f] for f in ("logits", "tokens")} for k, r in runs.items()}}  # for phase 14
     for name, r in out["runs"].items():
         print(f"phase 10 server {name} (Llama-3.1-8B width, {layers} layers, 8 requests x {max_tokens} tokens, "
               f"512-token bucket): prefill {r['prefill_tok_s']:.1f} tok/s, decode {r['decode_tok_s']:.1f} tok/s, "
@@ -1735,6 +1767,110 @@ def phase_sharded(device, corpus, serve_queries, serving: dict, workdir: str, me
     return {"serving": serve, "meta_loop": loop}
 
 
+# ----------------------------------------------------------------- phase 14
+TP = 4
+# int4_matmul's column shards of a decode step (M = 8) at Llama-3.1-8B
+# widths over {"model": 4}; the last is the lm_head shard over {"model": 2}
+TP_SHARD_SHAPES = (("qkv", 4096, 1536), ("o", 4096, 1024), ("gate_up", 4096, 7168), ("down", 14336, 1024),
+                   ("lm_head", 4096, 32064), ("lm_head_model_2", 4096, 64128))
+TAIL_UNDER_TP = ("0 under a model axis: the fused tail's RMSNorm and activation need whole rows, so a layer "
+                 "with sharded o/gate-up/down weights runs its products per shard with gathers between")
+
+
+def tp_shard_timings(device) -> list:
+    """(c) int4_matmul at each shard shape of a TP decode step, timed as
+    phase 9 times its shapes (32 layers' weights cycled, plain, bound,
+    tinygemm as the library call)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    rows = []
+    for name, k, n in TP_SHARD_SHAPES:
+        packed, scales = int4_weights(gen, device, k, n, 1 if name.startswith("lm_head") else llama_8b().num_layers)
+        rows.append(time_int4_matmul(device, gen, 8, f"{name} shard", packed, scales))
+        del packed, scales
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tp_generation(device, params, arch, mesh, name: str, param_dtype, server: dict, max_tokens: int) -> dict:
+    """(a) int4 or (b) bf16 weights split over the mesh's model axis:
+    phase 10's 8 requests through the GenerationServer (no error, each
+    int4 product launched once per shard, the fused tail never), then the
+    last-prompt and first-decode-step logits in fp32 compute against the
+    unsharded engine on the same weights (and, int4, against the per-shard
+    plain route) under phase 10's rule; the served bf16 logits and greedy
+    tokens beside phase 10's are reported."""
+    t0 = time.perf_counter()
+    engine = TorchOfflineLLM(params=params, arch=arch, param_dtype=param_dtype, compute_dtype=torch.bfloat16,
+                             device=device, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    prompts = server_prompts()
+    run = serve_route(engine, prompts, max_tokens, f"tp_{name}")
+    int4_kernels = param_dtype == "int4"
+    per_forward = TP * (4 * arch.num_layers + 1) if int4_kernels else 0  # 4 products a layer and the head, per shard
+    expected = per_forward * run["llm_counters"]["llm.decode_steps"]  # a call's forwards: its prefill + steps - 1
+    launches = run["launches"]
+    if launches["int4_matmul"] != expected or launches["int4_fused_layer_tail"] != 0:
+        raise AssertionError(f"tp {name}: launches {launches}, expected int4_matmul {expected} and no fused tail")
+    unsharded = "int4_kernels" if int4_kernels else "bf16_matmul"
+    out.update(served_vs_phase_10=served_comparison(run, server["served"][unsharded]),
+               **{k: run[k] for k in ("prefill_tok_s", "decode_tok_s", "wall_s", "launches", "route_launches",
+                                      "llm_counters")},
+               phase_10={k: server["runs"][unsharded][k] for k in ("prefill_tok_s", "decode_tok_s", "route_launches")})
+
+    whole = TorchOfflineLLM(params=params, arch=arch, param_dtype=param_dtype, compute_dtype=torch.bfloat16,
+                            device=device)
+    ref = forward_logits(whole, prompts, torch.float32)
+    del whole
+    torch.cuda.empty_cache()
+    before = int4.LAUNCHES.value, int4.TAIL_LAUNCHES.value
+    got = forward_logits(engine, prompts, torch.float32, ref[2])
+    counted = int4.LAUNCHES.value - before[0], int4.TAIL_LAUNCHES.value - before[1]
+    if counted != (2 * per_forward, 0):  # the prefill chunk and one decode step
+        raise AssertionError(f"tp {name} fp32 forwards: (int4_matmul, fused tail) launches {counted}")
+    out["logits_fp32_vs_unsharded"] = checked_pair(got, ref, f"{TP} {name} shards vs unsharded", torch.float32)
+    if int4_kernels:
+        with plain_int4():
+            plain = forward_logits(engine, prompts, torch.float32, ref[2])
+        out["logits_fp32_vs_shard_plain"] = checked_pair(got, plain, f"{TP} int4 shards, kernels vs plain",
+                                                         torch.float32)
+    qkv = engine.params["layers"]["qkv_w"]
+    out["qkv_shard"] = {"count": len(qkv.shards), "dim": qkv.dim, "devices": [str(d) for d in qkv.devices]}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
+    """Tensor-parallel generation over {"model": 4} on the one card (the
+    four shards of every product on one device: what per-shard launches
+    and merges cost, no multi-card speed), on phase 10's weights and
+    requests: (a) int4, (b) bf16 weights, (c) the shard shapes timed."""
+    arch = llama_8b()
+    mesh = card_mesh(device, {"model": TP})
+    params = decoder.init_params(arch, torch.Generator(device=device).manual_seed(SEED + 10), device,
+                                 torch.bfloat16)  # phase 10's weights
+    out = {name: tp_generation(device, params, arch, mesh, name, dtype, server, max_tokens)
+           for name, dtype in (("int4", "int4"), ("bf16", torch.bfloat16))}
+    del params
+    torch.cuda.empty_cache()
+    out["shards"] = tp_shard_timings(device)
+    for tag, name in (("a", "int4"), ("b", "bf16")):
+        r = out[name]
+        logits = {k: v for k, v in r.items() if k.startswith("logits")}
+        print(f"phase 14{tag} TP generation, {name} weights over {{'model': {TP}}} on one card ({smi}), Llama-3.1-8B "
+              f"width, {arch.num_layers} layers, 8 requests x {max_tokens} tokens, 512-token bucket: prefill {r['prefill_tok_s']:.1f} "
+              f"tok/s, decode {r['decode_tok_s']:.1f} tok/s (phase 10 unsharded: {r['phase_10']['prefill_tok_s']:.1f}, "
+              f"{r['phase_10']['decode_tok_s']:.1f}), wall {r['wall_s']:.3f} s, build {r['build_s']:.3f} s; launches "
+              f"{r['launches']}, int4_matmul by route {r['route_launches']} (phase 10: {r['phase_10']['route_launches']})"
+              f"; fused tail {TAIL_UNDER_TP}; qkv_w {r['qkv_shard']}; fp32-compute logits (checked) "
+              f"{json.dumps(logits)}; served bf16 logits and greedy tokens beside phase 10's (reported) "
+              f"{json.dumps(r['served_vs_phase_10'])}; {json.dumps(r['llm_counters'])}", flush=True)
+    for r in out["shards"]:
+        print(f"phase 14c {int4_matmul_line(r)}", flush=True)
+    return out
+
+
 def main() -> None:
     device = require_cuda()
     smi = nvidia_smi_line()
@@ -1764,6 +1900,7 @@ def main() -> None:
             training = phase_training(device, workdir, smi)
         sharded = phase_sharded(device, corpus, queries[256:], serving, meta_dir, meta, smi)
     del corpus, queries
+    tp = phase_tp(device, server, smi)
 
     entries = []
     for mod in (attention, ffn):
@@ -1800,9 +1937,13 @@ def main() -> None:
         tiny_checks = tiny["int4_matmul_vs_plain"] if counter is int4.LAUNCHES else []
         entries.append({"name": counter.name, "route": "cuda", "source": int4.SOURCE, "replaces": replaces,
                         "launches": server["launches"][counter.name],
-                        **({"launches_by_route": server["route_launches"], "tiny_engine_checks": tiny_checks}
-                           if counter is int4.LAUNCHES else {}),
-                        "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks),
+                        **({"launches_by_route": server["route_launches"], "tiny_engine_checks": tiny_checks,
+                            "tp_launches": tp["int4"]["launches"][counter.name],
+                            "tp_launches_by_route": tp["int4"]["route_launches"], "tp_shard_shapes": tp["shards"]}
+                           if counter is int4.LAUNCHES else
+                           {"tp_launches": tp["int4"]["launches"][counter.name], "tp_launches_why": TAIL_UNDER_TP}),
+                        "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks
+                                           + (tp["shards"] if counter is int4.LAUNCHES else [])),
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         "shapes": rows})
 

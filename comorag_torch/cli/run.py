@@ -144,8 +144,9 @@ def main() -> None:
     parser.add_argument("--retrieval_only", action="store_true",
                         help="skip the LLM answer loop; dump tri-layer retrieval per question")
     parser.add_argument("--mesh_shape", default=None,
-                        help="device mesh for sharded retrieval, e.g. 'corpus=8' or 'data=2,corpus=4'; over "
-                             "every card with --device cuda, over the CPU repeated with --device cpu")
+                        help="device mesh for sharded retrieval, e.g. 'corpus=8' or 'data=2,corpus=4', and "
+                             "tensor-parallel generation of an in-process LLM, e.g. 'model=2'; over every card "
+                             "with --device cuda, over the CPU repeated with --device cpu")
     parser.add_argument("--speculative_decoding", action="store_true",
                         help="in-process engine (jax-offline, jax-tiny, jax:<ckpt>): prompt-lookup speculative decoding")
     parser.add_argument("--device", default="cuda",

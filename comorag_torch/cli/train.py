@@ -7,7 +7,7 @@ tokenization and summary. The checkpoint is a ``torch.save`` file
 (``models.train.save_checkpoint``); its parameters load straight into the
 serving encoder (``BGETorchEncoder(params=...)``). ``--device`` picks the
 card (the default) or ``cpu``; ``--mesh_shape`` is not ported (ROADMAP
-queue 1, item 6). ``--init random`` draws from ``torch.Generator``, so its
+queue 1, item 6c). ``--init random`` draws from ``torch.Generator``, so its
 weights differ from the JAX CLI's for the same seed.
 
 Input: pairs.jsonl with {"query": ..., "passage": ...} per line.

@@ -19,9 +19,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 # what a request for a sharded path that is not ported yet raises (format
-# with ``what=``): the serving paths take a mesh; these do not
-MESH_NOT_PORTED = ("{what}: the dp x tp training steps and tensor-parallel generation are not "
-                   "ported to comorag_torch yet (ROADMAP queue 1, item 6: the next slice); "
+# with ``what=``): serving and generation take a mesh; training does not
+MESH_NOT_PORTED = ("{what}: the dp x tp training steps and the train CLI's --mesh_shape are not "
+                   "ported to comorag_torch yet (ROADMAP queue 1, item 6c: the next slice); "
                    "they run on one device")
 
 

@@ -11,12 +11,11 @@ from typing import Union
 
 import torch
 
-from comorag_torch.device import MESH_NOT_PORTED
 from comorag_torch.llm.base import BaseLLM, LLMResponse
 from comorag_torch.llm.fake import FakeLLM
 
 
-def get_llm(config, device: Union[str, torch.device] = "cuda", mesh=None) -> BaseLLM:
+def get_llm(config, device: Union[str, torch.device, None] = None, mesh=None) -> BaseLLM:
     """LLM factory. Routes:
 
       - ``fake`` / ``fake:*``       -> hermetic scripted test LLM
@@ -29,22 +28,18 @@ def get_llm(config, device: Union[str, torch.device] = "cuda", mesh=None) -> Bas
                                        qwen2/3- or gemma-family checkpoint
       - anything else              -> OpenAI-compatible HTTP client
 
-    The in-process routes run on ``device`` (``cuda`` unless the caller
-    passes ``cpu``; a CUDA device without a card raises) behind the
-    request-window ``GenerationServer``. The names keep the JAX package's
-    spelling so that one config serves both packages.
+    The in-process routes run on ``device`` (``cuda`` when None, and the
+    mesh's first device under a mesh; a CUDA device without a card raises)
+    behind the request-window ``GenerationServer``. The names keep the JAX
+    package's spelling so that one config serves both packages.
 
-    ``mesh`` is passed through as in JAX (llm/__init__.py:40, :59): a mesh
-    without a ``model`` axis is accepted and ignored (JAX's engine ignores
-    it too); a ``model`` axis asks for tensor-parallel generation, which an
-    in-process route refuses (``NotImplementedError``) until it is ported.
+    ``mesh`` goes to the in-process engine as in JAX (llm/__init__.py:40,
+    :59): a ``model`` axis splits its weights for tensor-parallel
+    generation; a mesh without one changes nothing.
     """
     name = str(config.llm_name)
     if name == "fake" or name.startswith("fake:"):
         return FakeLLM()
-    in_process = name in ("jax-tiny", "jax-offline") or name.startswith("jax:")
-    if in_process and mesh is not None and "model" in mesh.shape:
-        raise NotImplementedError(MESH_NOT_PORTED.format(what=f"get_llm({name!r}) over a 'model' mesh axis"))
     if name == "jax-tiny":
         from comorag_torch.llm.offline import TorchOfflineLLM
         from comorag_torch.llm.serving import GenerationServer
@@ -54,6 +49,7 @@ def get_llm(config, device: Union[str, torch.device] = "cuda", mesh=None) -> Bas
         engine = TorchOfflineLLM(
             params=params,
             arch=arch,
+            mesh=mesh,
             temperature=0.0,  # the trained behaviors are greedy-decoded
             max_new_tokens=384,  # matches the training curriculum's budget
             seed=getattr(config, "seed", 0) or 0,
@@ -70,6 +66,7 @@ def get_llm(config, device: Union[str, torch.device] = "cuda", mesh=None) -> Bas
         bf16 = getattr(config, "compute_dtype", "float32") == "bfloat16"
         engine = TorchOfflineLLM(
             model_name_or_path=path,
+            mesh=mesh,
             temperature=getattr(config, "temperature", 0.0) or 0.0,
             max_new_tokens=getattr(config, "max_new_tokens", 2048) or 2048,
             seed=getattr(config, "seed", 0) or 0,

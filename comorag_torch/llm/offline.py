@@ -1,4 +1,5 @@
-"""Offline (in-process) LLM generation on one torch device.
+"""Offline (in-process) LLM generation on one torch device, or tensor
+parallel over a mesh's ``model`` axis.
 
 Port of ``comorag_tpu/llm/jax_offline.py`` (``JaxOfflineLLM`` :113) as
 ``TorchOfflineLLM``: the same constructor arguments plus ``device``, the
@@ -10,7 +11,11 @@ isolation in ``batch_infer`` and ``llm.*`` counters. The model is
 through the int4 Hopper kernels on a CUDA device.
 
 The device defaults to ``cuda`` and raises without a card unless the
-caller passes ``device="cpu"`` (the plain PyTorch path).
+caller passes ``device="cpu"`` (the plain PyTorch path). ``mesh=`` (a
+``parallel.mesh.Mesh``) runs the engine on the mesh's first device and,
+where the mesh has a ``model`` axis, splits the weights over it after
+quantization (``decoder.shard_params``, jax_offline.py:248-256): each
+product runs once per shard, on the int4 kernels for an int4 engine.
 """
 
 from __future__ import annotations
@@ -22,9 +27,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from comorag_torch.device import resolve_device
 from comorag_torch.llm.base import BaseLLM, LLMResponse, Messages
 from comorag_torch.llm.guided import JSON_TEMPLATES, compile_json_schema, make_token_table
+from comorag_torch.parallel.mesh import mesh_device
 from comorag_torch.utils import trace
 from comorag_torch.utils.logging import get_logger
 
@@ -123,6 +128,7 @@ class TorchOfflineLLM(BaseLLM):
         params: Optional[Dict[str, Any]] = None,
         arch=None,
         tokenizer=None,
+        mesh=None,
         max_model_len: int = 4096,
         max_new_tokens: int = 2048,
         temperature: float = 0.0,
@@ -134,11 +140,12 @@ class TorchOfflineLLM(BaseLLM):
         kv_dtype=None,  # None (compute dtype) | "int8": quantized KV cache
         kv_budget_bytes: int = 6 << 30,  # per-call KV-cache ceiling (see below)
         spec_fallback_ratio: float = 2.2,  # spec step cost / plain step cost
-        device: Union[str, torch.device] = "cuda",
+        device: Union[str, torch.device, None] = None,  # "cuda" when None; the mesh's first device under a mesh
     ):
         from comorag_torch.models import decoder
 
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device)
+        self.mesh = mesh
         if model_name_or_path is not None:
             params, arch = decoder.load_hf_decoder_checkpoint(model_name_or_path, device="cpu")
             if tokenizer is None:
@@ -191,6 +198,8 @@ class TorchOfflineLLM(BaseLLM):
         elif param_dtype is not None:
             params = decoder.map_weights(
                 params, lambda p: p.to(param_dtype) if torch.is_floating_point(p) else p)
+        if mesh is not None and "model" in mesh.shape:
+            params = decoder.shard_params(params, mesh)
         self.params = params
 
         self.speculative = bool(speculative)

@@ -17,7 +17,14 @@ self-speculative decoding. What changes with the framework:
     to ``ops.int4.int4_matmul`` at every M, and a decode-sized layer takes
     ``ops.int4.int4_fused_layer_tail`` where ``fused_tail_supported``
     holds. The wrappers launch the Hopper kernels for CUDA tensors and run
-    their plain versions for CPU tensors.
+    their plain versions for CPU tensors;
+  - tensor parallelism (``shard_params``, JAX's ``param_shardings``) keeps
+    one process: a weight split over the mesh's ``model`` axis is a
+    ``parallel.mesh.Sharded`` leaf, each product runs once per shard on
+    the shard's device (an int4 shard through ``int4_matmul``) and merges
+    on the first device, where activations, the KV cache and attention
+    stay whole. A layer with a sharded tail takes the per-product route,
+    since the fused tail's norm and activation need whole rows.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch.utils.checkpoint
 
 from comorag_torch.device import resolve_device
 from comorag_torch.ops import int4 as int4_ops
+from comorag_torch.parallel.mesh import Mesh, Sharded, gather_columns, on_device, split_blocks, sum_partials
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,6 +211,55 @@ def quantize_params_int4(params: Dict[str, Any], group_size: int = 128) -> Dict[
     return out
 
 
+def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """The tree split over ``mesh``'s ``model`` axis as JAX's
+    ``param_shardings`` (decoder.py:133-223) splits it, the leaf kinds
+    standing for its ``quantized`` flag:
+      - float and int8 weights: ``qkv_w``, ``gateup_w`` (and ``qkv_b``, added
+        on each shard's columns as JAX adds it) on their output columns, ``o_w`` and ``down_w`` on their input rows;
+        an int8 weight's scale goes with ``q`` on a column split and stays
+        whole on a row split (applied to the summed product);
+      - int4 weights: every product on its output columns, packed bytes and
+        grouped scales together, unless the width does not divide the axis
+        (``_int4_col``: the tiny model's 259-token head), which stays whole;
+      - embeddings, norms and a float or int8 ``lm_head``: whole.
+    A split leaf is a ``Sharded`` of JAX's contiguous blocks, one per
+    device along the axis; a whole leaf lives once, on the mesh's first
+    device (JAX's replicas compute the same values, so the port keeps
+    none). A mesh without the axis splits nothing."""
+    merge = mesh.device
+    devices = tuple(mesh.axis_devices("model")) if "model" in mesh.shape else ()
+
+    def whole(w):
+        return type(w)(*(t.to(merge) for t in w)) if isinstance(w, tuple) else w.to(merge)
+
+    def split(w, dim: str):
+        if len(devices) < 2:
+            return whole(w)
+        axis = -1 if dim == "col" else -2
+        if isinstance(w, tuple):
+            shards = tuple(type(w)(*parts) for parts in zip(*(split_blocks(t, axis, devices) for t in w)))
+        else:
+            shards = split_blocks(w, axis, devices)
+        return Sharded(shards, dim, devices)
+
+    def weight(w, dim: str):
+        if isinstance(w, Int4Weight):  # column-parallel where the width divides the axis
+            return split(w, "col") if w.packed.shape[-1] % max(len(devices), 1) == 0 else whole(w)
+        if isinstance(w, QuantWeight) and dim == "row":
+            return QuantWeight(split(w.q, "row"), whole(w.scale))
+        return split(w, dim)
+
+    splits = {"qkv_w": "col", "gateup_w": "col", "o_w": "row", "down_w": "row"}
+    layers = {name: (weight(w, splits[name]) if name in splits else split(w, "col") if name == "qkv_b" else whole(w))
+              for name, w in params["layers"].items()}
+    out = {"embed": whole(params["embed"]), "layers": layers, "final_norm": whole(params["final_norm"])}
+    if "lm_head" in params:
+        head = params["lm_head"]
+        out["lm_head"] = weight(head, "col") if isinstance(head, Int4Weight) else whole(head)
+    return out
+
+
 # ------------------------------------------------------------------ forward
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, unit_offset: bool = False) -> torch.Tensor:
     x32 = x.to(torch.float32)
@@ -258,11 +315,34 @@ def _int4_dot(inp: torch.Tensor, w: Int4Weight, compute_dtype: torch.dtype) -> t
     return out.reshape(*lead, w.packed.shape[-1]).to(compute_dtype)
 
 
-def _dot(inp: torch.Tensor, w, compute_dtype: torch.dtype) -> torch.Tensor:
+def _sharded_dot(inp: torch.Tensor, w: Sharded, compute_dtype: torch.dtype, bias=None) -> torch.Tensor:
+    """[..., in] @ a ``Sharded`` weight, merged on inp's device: one product
+    per shard on the shard's device (current there: the kernels' C entries
+    launch on the current device); a column split adds each block of
+    ``bias`` to its shard's output and gathers the outputs, a row split
+    gives each shard its block of inp's last dim and sums the partial
+    products."""
+    parts, lo = [], 0
+    for i, (shard, dev) in enumerate(zip(w.shards, w.devices)):
+        x = inp
+        if w.dim == "row":
+            k = shard.shape[-2]
+            x, lo = inp[..., lo:lo + k], lo + k
+        with on_device(dev):
+            parts.append(_dot(x.to(dev), shard, compute_dtype, None if bias is None else bias.shards[i]))
+    return gather_columns(parts, inp.device) if w.dim == "col" else sum_partials(parts, inp.device)
+
+
+def _dot(inp: torch.Tensor, w, compute_dtype: torch.dtype, bias=None) -> torch.Tensor:
+    """[..., in] @ w (+ ``bias``, split as w's columns under a model axis)."""
+    if isinstance(w, Sharded):
+        return _sharded_dot(inp, w, compute_dtype, bias)
+    if bias is not None:
+        return _dot(inp, w, compute_dtype) + bias.to(compute_dtype)
     if isinstance(w, Int4Weight):
         return _int4_dot(inp, w, compute_dtype)
     if isinstance(w, QuantWeight):
-        out = torch.matmul(inp.to(compute_dtype), w.q.to(compute_dtype))
+        out = _dot(inp, w.q, compute_dtype)  # a row split's q: the scale goes on the summed product
         return out * w.scale.to(compute_dtype)
     return torch.matmul(inp.to(compute_dtype), w.to(compute_dtype))
 
@@ -335,9 +415,7 @@ def _layer_qkv(x: torch.Tensor, layer: Dict[str, Any], positions: torch.Tensor, 
     heads, kv_heads, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     q_dim, kv_dim = heads * hd, kv_heads * hd
     xn = _rms_norm(x, layer["attn_norm"], arch.rms_norm_eps, arch.rms_unit_offset)
-    qkv = _dot(xn, layer["qkv_w"], cd)
-    if arch.qkv_bias:
-        qkv = qkv + layer["qkv_b"].to(qkv.dtype)
+    qkv = _dot(xn, layer["qkv_w"], cd, layer["qkv_b"] if arch.qkv_bias else None)
     q = qkv[..., :q_dim].reshape(b, s, heads, hd)
     k = qkv[..., q_dim:q_dim + kv_dim].reshape(b, s, kv_heads, hd)
     v = qkv[..., q_dim + kv_dim:].reshape(b, s, kv_heads, hd)
@@ -373,6 +451,8 @@ def _layer_rest(x: torch.Tensor, layer: Dict[str, Any], q: torch.Tensor, k_cache
         probs = probs * v_scale.permute(0, 2, 1)[:, None, :, None, :]
     ctx = torch.einsum("bskgt,btkd->bskgd", probs.to(cd), v_cache)
 
+    # whole int4 weights only: under a model axis (Sharded leaves) the norm
+    # and activation between the products need whole rows
     fused = all(isinstance(layer[n], Int4Weight) for n in ("o_w", "gateup_w", "down_w"))
     if fused:
         o_w: Int4Weight = layer["o_w"]
@@ -469,8 +549,8 @@ def decoder_forward(
     if last_only:
         x = x[:, -1:, :]
     head = params["embed"].T if arch.tie_embeddings else params["lm_head"]
-    if isinstance(head, Int4Weight):
-        logits = _int4_dot(x, head, torch.float32)
+    if isinstance(head, (Int4Weight, Sharded)):  # shard_params splits an int4 head only
+        logits = _dot(x, head, torch.float32)
     elif isinstance(head, QuantWeight):
         logits = torch.matmul(x.to(cd), head.q.to(cd)).to(torch.float32) * head.scale
     else:

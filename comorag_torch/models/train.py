@@ -16,7 +16,7 @@ Port of ``comorag_tpu/models/train.py``: the same loss, the same AdamW
   - the forward takes the encoder's plain path: the Hopper kernels have no
     backward, as JAX's Pallas kernels have no VJP.
 
-The sharded step (``mesh=``) is not ported (ROADMAP queue 1, item 6).
+The sharded step (``mesh=``) is not ported (ROADMAP queue 1, item 6c).
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ completion-only ``loss_mask``) and the same per-layer recomputation
 (``remat``), on the decoder's cache-free training route
 (``decoder_forward(cache=None)``). The state and the step follow
 ``models.train``: AdamW with JAX's decay mask, updated in place. The
-sharded step (``mesh=``) is not ported (ROADMAP queue 1, item 6).
+sharded step (``mesh=``) is not ported (ROADMAP queue 1, item 6c).
 """
 
 from __future__ import annotations

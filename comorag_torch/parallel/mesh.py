@@ -20,7 +20,13 @@ Axes (as in the JAX package):
     0 of every other axis (JAX's replicas along the other axes compute the
     same values from replicated queries, so the port keeps none);
   - ``data``: the encoder splits each batch over this axis's devices;
-  - ``model``: tensor-parallel generation (not ported yet).
+  - ``model``: tensor-parallel generation (``models/decoder.shard_params``):
+    a weight is a ``Sharded`` leaf, one block per device along the axis
+    (JAX's Megatron split: output columns or input rows); a product runs
+    once per shard on the shard's device and merges on the first device by
+    a column gather (``gather_columns``) or a sum of partial products
+    (``sum_partials``). Activations, the KV cache and attention stay whole
+    on the merge device.
 
 A device list may repeat a device: ``[torch.device("cpu")] * 8`` or
 ``[torch.device("cuda", 0)] * 4`` build a mesh of 8 or 4 positions on one
@@ -30,7 +36,8 @@ device, the counterpart of ``--xla_force_host_platform_device_count``.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Sequence, Union
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -86,6 +93,8 @@ def build_mesh(shape: Optional[Dict[str, int]] = None,
                                "(device='cpu' for ComoRAG) to build a mesh on the CPU")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [resolve_device(d) for d in devices]
+    if len({d.type for d in devices}) > 1:
+        raise ValueError(f"a mesh's devices must be of one type, got {sorted({str(d) for d in devices})}")
     if shape is None:
         shape = {"corpus": len(devices)}
     sizes = list(shape.values())
@@ -123,3 +132,53 @@ def shard_bounds(n: int, n_shards: int, rows_per_shard: int) -> List[range]:
     ``rows_per_shard`` rows each: the last shards hold what is left, which
     may be nothing (the JAX layout without its padding rows)."""
     return [range(min(s * rows_per_shard, n), min((s + 1) * rows_per_shard, n)) for s in range(n_shards)]
+
+
+# ------------------------------------------------------ the ``model`` axis
+@dataclasses.dataclass(frozen=True)
+class Sharded:
+    """A weight split over a mesh's ``model`` axis: ``shards`` holds one
+    block per device of ``devices`` (the axis, in mesh order), each a
+    contiguous tensor of its own on its device, or a ``QuantWeight`` /
+    ``Int4Weight`` of such tensors; ``dim`` is ``"col"`` for a split of the
+    output columns (the last dim) or ``"row"`` for a split of the input
+    rows (the dim before it)."""
+
+    shards: Tuple[Any, ...]
+    dim: str
+    devices: Tuple[torch.device, ...]
+
+    def __getitem__(self, index) -> "Sharded":
+        """The same index of every shard (a layer of stacked [L, ...] blocks)."""
+        shards = tuple(type(s)(*(t[index] for t in s)) if isinstance(s, tuple) else s[index] for s in self.shards)
+        return Sharded(shards, self.dim, self.devices)
+
+
+def split_blocks(t: torch.Tensor, dim: int, devices: Sequence[torch.device]) -> Tuple[torch.Tensor, ...]:
+    """``t`` cut along ``dim`` into one equal block per device (JAX's
+    blocks: block i holds [i * n / s, (i + 1) * n / s)), each copied into a
+    new contiguous tensor on its device: no block is a view of ``t`` (a
+    column view would carry the whole width as its row stride)."""
+    n, s = t.shape[dim], len(devices)
+    if n % s:
+        raise ValueError(f"dimension {dim} of a {tuple(t.shape)} weight is not divisible by the model axis size {s}")
+    blocks = []
+    for i, dev in enumerate(devices):
+        block = t.narrow(dim, i * (n // s), n // s)
+        blocks.append(torch.empty(block.shape, dtype=t.dtype, device=dev).copy_(block))
+    return tuple(blocks)
+
+
+def gather_columns(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The merge of a column-parallel product: the shards' outputs
+    concatenated on their last dim on ``device``, in shard order."""
+    return torch.cat([p.to(device) for p in parts], dim=-1)
+
+
+def sum_partials(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The merge of a row-parallel product: the shards' partial products
+    summed on ``device``, in shard order."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = out + p.to(device)
+    return out

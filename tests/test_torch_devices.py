@@ -128,8 +128,22 @@ def _make_kv_cache_int8(tmp_path, **kw):
     return cache
 
 
+def _offline_llm_over_a_mesh(tmp_path, device=None):
+    """TorchOfflineLLM(mesh=) names no device: it runs on the mesh's first
+    device, so a mesh over the CPU puts it there (and ``build_mesh`` over
+    every card raises without one)."""
+    from comorag_torch.llm.offline import TorchOfflineLLM
+    from comorag_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh({"model": 2}, None if device is None else [torch.device(device)] * 2)
+    engine = TorchOfflineLLM(mesh=mesh)
+    assert all(s.device == mesh.device for s in engine.params["layers"]["qkv_w"].shards)
+    return engine
+
+
 ENTRY_POINTS = {
     "BGETorchEncoder": _bge_encoder,
+    "TorchOfflineLLM(mesh=)": _offline_llm_over_a_mesh,
     "MipsIndex": _mips_index,
     "RetrievalEngine": _retrieval_engine,
     "PPRGraph": _ppr_graph,

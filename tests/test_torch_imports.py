@@ -6,7 +6,8 @@ A subprocess installs a meta-path finder that raises ImportError for all
 of them, imports every comorag_torch module (the generation engine, its
 server and the decoder among them), runs the CLI's ``--help``, indexes and
 answers the moonlantern set on the CPU with the hash encoder, runs one
-short ``jax-tiny`` generation and two steps of the training CLI on the CPU,
+short ``jax-tiny`` generation on one device and one over a ``model`` mesh
+axis, and two steps of the training CLI on the CPU,
 and checks that none of them was loaded. httpx and pyarrow are not blocked: the host modules need them (the
 OpenAI client, the parquet store), and the H100 machine has them installed.
 """
@@ -58,10 +59,13 @@ SCRIPT = textwrap.dedent(
 
     import comorag_torch.llm.offline, comorag_torch.llm.serving, comorag_torch.models.decoder
     from comorag_torch.llm import get_llm
-    llm = get_llm(ComoConfig(llm_name="jax-tiny", save_dir=tmp), device="cpu")
-    reply = llm.infer([{"role": "user", "content": "Name the record."}], max_tokens=12)
-    assert reply.metadata["finish_reason"] in ("stop", "length") and reply.metadata["completion_tokens"] > 0
-    llm.close()
+    import torch
+    from comorag_torch.parallel.mesh import build_mesh
+    for mesh in (None, build_mesh({"model": 2}, [torch.device("cpu")] * 2)):
+        llm = get_llm(ComoConfig(llm_name="jax-tiny", save_dir=tmp), device="cpu", mesh=mesh)
+        reply = llm.infer([{"role": "user", "content": "Name the record."}], max_tokens=12)
+        assert reply.metadata["finish_reason"] in ("stop", "length") and reply.metadata["completion_tokens"] > 0
+        llm.close()
 
     import json
     from comorag_torch.cli import train

@@ -1,0 +1,452 @@
+"""comorag_torch's tensor-parallel generation against the JAX package's.
+
+The JAX side places its parameters with ``param_shardings`` on meshes over
+the conftest's virtual CPU devices (``jax.devices()[:n]``); the port splits
+them with ``shard_params`` over one CPU device repeated n times. Every input
+comes from numpy with a fixed seed (JAX's ``init_params`` converted with
+``params_from_jax``, or the trained tiny checkpoint). Tolerances:
+- ``shard_params``: the same blocks on the same mesh positions, exactly;
+- fp32 logits and KV caches, float and int8 weights, the int8 KV cache:
+  1e-4 (tests/test_torch_decoder.py's, sums in another order), port TP
+  against JAX TP and against the port unsharded;
+- int4 weights: the bf16 rule scaled to max |logit| (2e-2 * max|logit| +
+  2e-2 * |logit|) and top-1 equal on >= 95 % of the positions, as
+  test_int4_forward_close_to_jax_with_same_top1 (the port rounds the
+  activations to bf16 before each int4 product as the TPU kernel does);
+- greedy tokens, lengths and step counts: equal.
+The CUDA-marked tests hold the int4 kernels per shard on the card and skip
+here.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from comorag_torch.models import curriculum as tcur
+from comorag_torch.models import decoder as tdec
+from comorag_torch.ops import int4 as tint4
+from comorag_torch.parallel.mesh import Sharded, build_mesh
+from comorag_tpu.llm.jax_offline import ByteTokenizer
+from comorag_tpu.models import curriculum as jcur
+from comorag_tpu.models import decoder as jdec
+from comorag_tpu.parallel.mesh import build_mesh as jax_build_mesh
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = torch.device("cpu")
+TINY = dict(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
+            intermediate_size=128, max_seq_len=256)
+ARCHS = {
+    "gqa": {},
+    "qkv_bias": dict(qkv_bias=True),
+    "qk_norm": dict(qk_norm=True, head_dim_override=32),
+    "gemma": dict(embed_scale=True, rms_unit_offset=True, mlp_act="gelu_tanh", tie_embeddings=True),
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _meshes(shape):
+    n = int(np.prod(list(shape.values())))
+    return build_mesh(shape, [CPU] * n), jax_build_mesh(shape, devices=jax.devices()[:n])
+
+
+def _archs(name="gqa", **over):
+    kw = dict(TINY, **ARCHS[name], **over)
+    return jdec.DecoderArch(**kw), tdec.DecoderArch(**kw)
+
+
+def _np_tree(params):
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _jax_params(jarch, seed=0, kind="float"):
+    params = jdec.init_params(jax.random.PRNGKey(seed), jarch)
+    rng = np.random.default_rng(seed)
+    for name in ("attn_norm", "ffn_norm", "q_norm", "k_norm"):  # ones would hide a misplaced norm
+        if name in params["layers"]:
+            w = params["layers"][name]
+            params["layers"][name] = w + 0.1 * rng.standard_normal(w.shape).astype(np.float32)
+    if kind == "int8":
+        return jdec.quantize_params(params)
+    if kind == "int4":
+        return jdec.quantize_params_int4(params)
+    return params
+
+
+def _jax_tp(params, jmesh, jarch, kind="float"):
+    quantized = {"float": False, "int8": True, "int4": "int4"}[kind]
+    shardings = jdec.param_shardings(jmesh, arch=jarch, quantized=quantized)
+    return jax.tree_util.tree_map(lambda p, s: jax.device_put(p, s), params, shardings)
+
+
+def _prompt_batch(rng, b=2, p=12, vocab=97):
+    ids = rng.integers(1, vocab, size=(b, p)).astype(np.int32)
+    mask = np.ones((b, p), np.int32)
+    mask[1, : p // 3] = 0
+    ids[mask == 0] = 0
+    return ids, mask
+
+
+def _jax_forward(jarch, jparams, ids, mask, kv_dtype=None):
+    b, p = ids.shape
+    positions = np.maximum(np.cumsum(mask, axis=1) - 1, 0).astype(np.int32)
+    attn = np.tril(np.ones((p, p), bool))[None] & mask.astype(bool)[:, None, :]
+    cache = jdec.make_kv_cache(jarch, b, p, jnp.float32, kv_dtype)
+    logits, cache = jdec.decoder_forward(jparams, jnp.asarray(ids), jnp.asarray(positions), jnp.asarray(attn),
+                                         cache, jnp.int32(0), jarch)
+    return np.asarray(logits), cache
+
+
+def _torch_forward(tarch, tparams, ids, mask, kv_dtype=None):
+    b, p = ids.shape
+    positions = np.maximum(np.cumsum(mask, axis=1) - 1, 0)
+    attn = np.tril(np.ones((p, p), bool))[None] & mask.astype(bool)[:, None, :]
+    cache = tdec.make_kv_cache(tarch, b, p, torch.float32, kv_dtype, device="cpu")
+    with torch.no_grad():
+        logits, cache = tdec.decoder_forward(tparams, torch.as_tensor(ids).long(), torch.as_tensor(positions),
+                                             torch.as_tensor(attn), cache, 0, tarch)
+    return logits.numpy(), cache
+
+
+# ------------------------------------------------------------- the shard rule
+def _port_blocks(node, path, n):
+    """The port's block of a JAX leaf at each of the n positions of the
+    model axis, and whether the port split it."""
+    if isinstance(node, Sharded):
+        assert len(node.shards) == n
+        return [_port_blocks(s, path, 1)[0][0] for s in node.shards], True
+    if not path:
+        return [node] * n, False
+    key = path[0]
+    child = node[key.key] if hasattr(key, "key") else getattr(node, key.name)
+    return _port_blocks(child, path[1:], n)
+
+
+SHAPES = [{"model": 2}, {"model": 4}, {"data": 2, "model": 2}, {"corpus": 4}]
+
+
+@pytest.mark.parametrize("vocab", [259, 256])  # an int4 head that stays whole (_int4_col), one that splits
+@pytest.mark.parametrize("kind", ["float", "int8", "int4"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: ",".join(f"{k}={v}" for k, v in s.items()))
+def test_shard_params_matches_param_shardings(shape, kind, vocab):
+    """Every leaf of the port's tree holds, at each position of the model
+    axis, the block that JAX's sharding puts on that device (a whole leaf:
+    every JAX index is the whole array); a split leaf's blocks are
+    contiguous tensors of their own, 16-byte aligned; a mesh without the
+    axis splits nothing."""
+    jarch, _ = _archs("qk_norm", qkv_bias=True, vocab_size=vocab)
+    params = _np_tree(_jax_params(jarch, kind=kind))
+    tmesh, jmesh = _meshes(shape)
+    shardings = jdec.param_shardings(jmesh, arch=jarch, quantized={"float": False, "int8": True, "int4": "int4"}[kind])
+    port = tdec.shard_params(tdec.params_from_jax(params, device="cpu"), tmesh)
+    at = tuple(slice(None) if a == "model" else 0 for a in jmesh.axis_names)
+    jdevices = list(np.asarray(jmesh.devices)[at].reshape(-1)) if "model" in shape else [jmesh.devices.flat[0]]
+    n = len(jdevices)
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    specs = jax.tree_util.tree_leaves(shardings, is_leaf=lambda x: isinstance(x, jax.sharding.Sharding))
+    assert len(flat) == len(specs)
+    n_split = 0
+    for (path, leaf), sharding in zip(flat, specs):
+        index = sharding.devices_indices_map(leaf.shape)
+        blocks, split = _port_blocks(port, path, n)
+        full = all(i == slice(None) or i == slice(0, d) for idx in index.values() for i, d in zip(idx, leaf.shape))
+        assert split == (not full), jax.tree_util.keystr(path)
+        n_split += split
+        for dev, block in zip(jdevices, blocks):
+            np.testing.assert_array_equal(block.numpy(), leaf[index[dev]], err_msg=jax.tree_util.keystr(path))
+            if split:
+                assert block.is_contiguous() and block.storage_offset() == 0 and block.data_ptr() % 16 == 0
+    if "model" not in shape:
+        assert n_split == 0
+    elif kind == "int4":  # every matmul weight column-parallel; the head where the vocab divides
+        assert n_split == 2 * 4 + (vocab % n == 0) * 2 + 1  # packed + scale of 4 weights (+ head), qkv_b
+    else:
+        assert n_split == {"float": 5, "int8": 7}[kind]  # qkv, gateup (q, scale), o, down (q), qkv_b
+
+
+def test_split_blocks_refuses_a_width_the_axis_does_not_divide():
+    from comorag_torch.parallel.mesh import split_blocks
+
+    with pytest.raises(ValueError, match="not divisible by the model axis size 4"):
+        split_blocks(torch.zeros(2, 6), -1, [CPU] * 4)
+
+
+def test_a_mesh_of_mixed_device_types_is_refused(monkeypatch):
+    """No shard falls back to the CPU: a mesh over a card and the CPU raises
+    (the card is simulated; the error comes before any CUDA call)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="must be of one type"):
+        build_mesh({"model": 2}, [torch.device("cuda", 0), CPU])
+
+
+# --------------------------------------------------------------- the forward
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_forward_fp32_under_tp_matches_jax(name, n):
+    jarch, tarch = _archs(name)
+    params = _jax_params(jarch, seed=1)
+    ids, mask = _prompt_batch(np.random.default_rng(2))
+    tmesh, jmesh = _meshes({"model": n})
+    tparams = tdec.params_from_jax(_np_tree(params), device="cpu")
+    jl, jc = _jax_forward(jarch, _jax_tp(params, jmesh, jarch), ids, mask)
+    tl, tc = _torch_forward(tarch, tdec.shard_params(tparams, tmesh), ids, mask)
+    np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), rtol=1e-4, atol=1e-4)
+    ul, uc = _torch_forward(tarch, tparams, ids, mask)
+    np.testing.assert_allclose(tl, ul, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tc.k.numpy(), uc.k.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_int8_weights_and_int8_kv_cache_under_tp_match_jax(n):
+    """int8 weights: the row-parallel o/down scale multiplies the summed
+    product on the merge device, where JAX keeps it replicated."""
+    jarch, tarch = _archs("gqa")
+    params = _jax_params(jarch, seed=3, kind="int8")
+    ids, mask = _prompt_batch(np.random.default_rng(4))
+    tmesh, jmesh = _meshes({"model": n})
+    tparams = tdec.params_from_jax(_np_tree(params), device="cpu")
+    sharded = tdec.shard_params(tparams, tmesh)
+    assert isinstance(sharded["layers"]["o_w"].q, Sharded) and not isinstance(sharded["layers"]["o_w"].scale, Sharded)
+    jtp = _jax_tp(params, jmesh, jarch, "int8")
+    for kv_dtype in (None, "int8"):
+        jl, jc = _jax_forward(jarch, jtp, ids, mask, kv_dtype)
+        tl, tc = _torch_forward(tarch, sharded, ids, mask, kv_dtype)
+        np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+        ul, _ = _torch_forward(tarch, tparams, ids, mask, kv_dtype)
+        np.testing.assert_allclose(tl, ul, rtol=1e-4, atol=1e-4)
+    assert isinstance(tc, tdec.QuantKVCache)
+    np.testing.assert_allclose(tc.k_scale.numpy(), np.asarray(jc.k_scale), rtol=1e-5)
+    assert np.abs(tc.k.numpy().astype(int) - np.asarray(jc.k).astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("hidden,inter", [(64, 128), (512, 1024)])  # unfused, the fused tail's gate
+def test_int4_under_tp_close_to_jax_with_same_top1(hidden, inter, monkeypatch):
+    """Each int4 product runs once per column shard through int4_matmul;
+    at the fused-gate shape the unsharded engine takes the fused tail and
+    the sharded one never does (its norm and activation need whole rows)."""
+    jarch, tarch = _archs("gqa", hidden_size=hidden, intermediate_size=inter, num_heads=8, vocab_size=96)
+    params = _jax_params(jarch, seed=5, kind="int4")
+    ids, mask = _prompt_batch(np.random.default_rng(6), b=2, p=8, vocab=96)
+    tmesh, jmesh = _meshes({"model": 2})
+    tparams = tdec.params_from_jax(_np_tree(params), device="cpu")
+    sharded = tdec.shard_params(tparams, tmesh)
+    calls = {"matmul": 0, "tail": 0}
+    matmul, tail = tint4.int4_matmul, tint4.int4_fused_layer_tail
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    monkeypatch.setattr(tint4, "int4_matmul", counted("matmul", matmul))
+    monkeypatch.setattr(tint4, "int4_fused_layer_tail", counted("tail", tail))
+    jl, _ = _jax_forward(jarch, _jax_tp(params, jmesh, jarch, "int4"), ids, mask)
+    tl, _ = _torch_forward(tarch, sharded, ids, mask)
+    assert calls == {"matmul": 2 * (4 * tarch.num_layers + 1), "tail": 0}  # 2 shards of 4 products a layer + head
+    np.testing.assert_allclose(tl, jl, rtol=2e-2, atol=2e-2 * np.abs(jl).max())
+    assert (tl.argmax(-1) == jl.argmax(-1)).mean() >= 0.95
+    _torch_forward(tarch, tparams, ids, mask)
+    assert calls["tail"] == (tarch.num_layers if hidden == 512 else 0)
+
+
+# ------------------------------------------------------------ generation
+_JAX_GENERATE = jax.jit(jdec.generate, static_argnames=(
+    "arch", "max_new_tokens", "eos_id", "pad_id", "temperature", "compute_dtype", "kv_dtype"))
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    jparams, jarch = jcur.load_tiny_checkpoint(jcur.default_checkpoint_path())
+    tparams, tarch = tcur.load_tiny_checkpoint(tcur.default_checkpoint_path())
+    assert dataclasses.asdict(jarch) == dataclasses.asdict(tarch)
+    return jparams, jarch, tdec.params_from_jax(tparams, device="cpu"), tarch
+
+
+def _prompts(n_rows, task, seed):
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(seed)
+    rows = [[tok.bos_token_id] + tok.encode(jcur.make_sample(rng, task)["prompt"]) for _ in range(n_rows)]
+    p = max(len(r) for r in rows)
+    ids = np.full((len(rows), p), tok.pad_token_id, np.int32)
+    mask = np.zeros((len(rows), p), np.int32)
+    for i, r in enumerate(rows):
+        ids[i, p - len(r):], mask[i, p - len(r):] = r, 1
+    return ids, mask
+
+
+def test_generate_under_tp_matches_jax_on_the_trained_checkpoint(tiny):
+    """Greedy tokens, lengths and step counts over a {"model": 2} mesh equal
+    JAX's over the same mesh; the port's speculative decode over the mesh
+    equals its plain one."""
+    jparams, jarch, tparams, tarch = tiny
+    tmesh, jmesh = _meshes({"model": 2})
+    tok = ByteTokenizer()
+    kw = dict(max_new_tokens=64, eos_id=tok.eos_token_id, pad_id=tok.pad_token_id)
+    ids, mask = _prompts(2, "ner", 0)
+    j = _JAX_GENERATE(_jax_tp(jax.tree_util.tree_map(jnp.asarray, jparams), jmesh, jarch), jnp.asarray(ids),
+                      jnp.asarray(mask), arch=jarch, **kw)
+    sharded = tdec.shard_params(tparams, tmesh)
+    args = (sharded, torch.as_tensor(ids).long(), torch.as_tensor(mask), tarch)
+    with torch.no_grad():
+        t = tdec.generate(*args, **kw)
+        spec = tdec.generate_speculative(*args, **kw)
+    np.testing.assert_array_equal(t.tokens.numpy(), np.asarray(j.tokens))
+    np.testing.assert_array_equal(t.lengths.numpy(), np.asarray(j.lengths))
+    assert t.steps == int(j.steps)
+    np.testing.assert_array_equal(spec.tokens.numpy(), t.tokens.numpy())
+    np.testing.assert_array_equal(spec.lengths.numpy(), t.lengths.numpy())
+
+
+def test_get_llm_over_a_model_axis_shards_the_engine(tmp_path):
+    """get_llm's jax-tiny route over {"model": 2} builds the engine on the
+    mesh's first device with qkv_w split in two, and it answers as the
+    unsharded engine does."""
+    from comorag_torch.config import ComoConfig
+    from comorag_torch.llm import get_llm
+
+    config = ComoConfig(llm_name="jax-tiny", save_dir=str(tmp_path))
+    mesh = build_mesh({"model": 2}, [CPU] * 2)
+    sharded, whole = get_llm(config, mesh=mesh), get_llm(config, device="cpu")
+    qkv = sharded.engine.params["layers"]["qkv_w"]
+    assert sharded.engine.mesh is mesh and sharded.engine.device == CPU
+    assert isinstance(qkv, Sharded) and qkv.dim == "col" and len(qkv.shards) == 2
+    messages = [{"role": "user", "content": "Who kept the lantern on the hill?"}]
+    a, b = (llm.infer(messages, max_tokens=24) for llm in (sharded, whole))
+    assert a.text == b.text and a.metadata == b.metadata
+    sharded.close()
+    whole.close()
+
+
+def test_cli_over_a_model_mesh_answers_as_without_one(tmp_path):
+    """``python -m comorag_torch.cli.run --llm_name jax-tiny --mesh_shape
+    model=2 --device cpu`` reaches the sharded engine: on moonlantern's
+    corpus and its first question (one meta-loop iteration), the OpenIE
+    index and the answer equal the same run's without a mesh (both runs
+    at once; most of each run is the tiny engine's OpenIE over the five
+    chunks)."""
+    src = os.path.join(REPO, "dataset", "moonlantern", "moonlantern_1")
+    data = tmp_path / "moonlantern_q0"
+    data.mkdir()
+    with open(os.path.join(src, "corpus.jsonl")) as f:
+        (data / "corpus.jsonl").write_text(f.read())
+    with open(os.path.join(src, "qas.jsonl")) as f:
+        (data / "qas.jsonl").write_text(f.readline())
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="2")
+    procs = {}
+    for tag, extra in (("mesh", ["--mesh_shape", "model=2"]), ("whole", [])):
+        cmd = [sys.executable, "-m", "comorag_torch.cli.run", "--base_path", str(data),
+               "--llm_name", "jax-tiny", "--embedding_model_name", "hash", "--device", "cpu",
+               "--max_meta_loop_iterations", "1",
+               "--output_dir", str(tmp_path / tag / "out"), "--save_dir", str(tmp_path / tag / "save"), *extra]
+        procs[tag] = subprocess.Popen(cmd, cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+    answers, openie = {}, {}
+    for tag, proc in procs.items():
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err[-3000:]
+        (results,) = (tmp_path / tag / "out").rglob("results.json")
+        answers[tag] = [r["output"] for r in json.loads(results.read_text())]
+        (cache,) = (tmp_path / tag / "save").rglob("openie_results_ner_jax-tiny.json")
+        openie[tag] = json.loads(cache.read_text())
+    assert len(answers["mesh"]) == 1 and all(answers["mesh"])
+    assert answers["mesh"] == answers["whole"]
+    assert openie["mesh"] == openie["whole"]
+
+
+# ----------------------------------------------------------------- the card
+def _llama_width(layers):
+    """Llama-3.1-8B-Instruct's published widths at ``layers`` layers."""
+    return tdec.DecoderArch(vocab_size=128256, hidden_size=4096, num_layers=layers, num_heads=32, num_kv_heads=8,
+                            intermediate_size=14336, max_seq_len=131072, rope_theta=500000.0, rms_norm_eps=1e-5,
+                            rope_scaling=("llama3", 8.0, 1.0, 4.0, 8192.0))
+
+
+def _logits_ratio(got, ref):
+    """Worst |got - ref| over 2e-2 * max|ref| + 2e-2 * |ref| (above 1 fails)."""
+    return float(((got - ref).abs() / (2e-2 * ref.abs().max() + 2e-2 * ref.abs())).max())
+
+
+def _prefill_and_step(engine, ids, mask):
+    """Last-prompt and first-decode-step logits in fp32 compute."""
+    b, p = ids.shape
+    with torch.no_grad():
+        last, cache, slot_valid, row_len = tdec._prefill_batch(engine.params, ids, mask, engine.arch, p + 1, None,
+                                                               torch.float32)
+        slot_valid[:, p] = True
+        step, _ = tdec.decoder_forward(engine.params, last.argmax(-1)[:, None], row_len[:, None],
+                                       slot_valid[:, None, :], cache, p, engine.arch, torch.float32)
+    return torch.cat([last, step[:, 0]]).float().cpu()
+
+
+@pytest.mark.cuda
+def test_int4_shards_launch_the_kernel_per_shard_on_the_card():
+    """A {"model": 2} mesh of one card at the fused tail's gate shape:
+    int4_matmul launches once per shard of every product, the fused tail
+    never; the logits stay within the bf16 rule scaled to max |logit| of
+    the unsharded engine's on the same weights."""
+    from comorag_torch.llm.offline import TorchOfflineLLM
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    arch = tdec.DecoderArch(vocab_size=512, hidden_size=512, num_layers=2, num_heads=8, num_kv_heads=4,
+                            intermediate_size=1024, max_seq_len=512)
+    params = tdec.init_params(arch, torch.Generator(device=dev).manual_seed(0), dev)
+    engines = [TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", mesh=mesh, device=dev)
+               for mesh in (build_mesh({"model": 2}, [dev] * 2), None)]
+    ids = torch.randint(0, 256, (8, 40), generator=torch.Generator().manual_seed(1)).to(dev)
+    mask = torch.ones_like(ids)
+    before = (tint4.LAUNCHES.value, tint4.TAIL_LAUNCHES.value)
+    got = _prefill_and_step(engines[0], ids, mask)
+    assert tint4.LAUNCHES.value - before[0] == 2 * 2 * (4 * arch.num_layers + 1)  # prefill + step, 2 shards
+    assert tint4.TAIL_LAUNCHES.value == before[1]
+    ref = _prefill_and_step(engines[1], ids, mask)
+    assert _logits_ratio(got, ref) <= 1.0
+
+
+@pytest.mark.cuda
+def test_tp_over_distinct_cards_matches_one_card():
+    """A {"model": 4} mesh over four distinct cards at Llama-3.1-8B width
+    (2 layers, int4 group 128, then bf16 weights): every shard on its own
+    card, and the fp32-compute last-prompt and decode-step logits within
+    the bf16 rule scaled to max |logit| of the same mesh on one card and
+    of the unsharded engine."""
+    from comorag_torch.llm.offline import TorchOfflineLLM
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (a model axis over distinct devices)")
+    dev = torch.device("cuda", 0)
+    arch = _llama_width(2)
+    params = tdec.init_params(arch, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
+    ids = torch.randint(0, 256, (8, 128), generator=torch.Generator().manual_seed(1)).to(dev)
+    mask = torch.ones_like(ids)
+    cards = build_mesh({"model": 4}, [torch.device("cuda", i) for i in range(4)])
+    for param_dtype in ("int4", torch.bfloat16):
+        logits = {}
+        for tag, mesh in (("cards", cards), ("one_card", build_mesh({"model": 4}, [dev] * 4)), ("whole", None)):
+            engine = TorchOfflineLLM(params=params, arch=arch, param_dtype=param_dtype, mesh=mesh, device=dev)
+            if tag == "cards":
+                qkv = engine.params["layers"]["qkv_w"]
+                first = qkv.shards[0].packed if param_dtype == "int4" else qkv.shards[0]
+                assert [d.index for d in qkv.devices] == [0, 1, 2, 3] and first.device == dev
+            logits[tag] = _prefill_and_step(engine, ids, mask)
+            del engine
+        assert _logits_ratio(logits["cards"], logits["one_card"]) <= 1.0
+        assert _logits_ratio(logits["cards"], logits["whole"]) <= 1.0

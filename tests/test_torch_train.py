@@ -327,10 +327,11 @@ def test_train_cli_end_to_end(tmp_path):
 # ------------------------------------------------------------------ errors
 @pytest.mark.parametrize("what", ["make_train_step", "make_lm_train_step", "--mesh_shape", "ComoRAG", "get_llm"])
 def test_mesh_is_refused(what, tmp_path):
-    """The training steps, the train CLI's ``--mesh_shape`` and
-    tensor-parallel generation (a ``model`` axis under an in-process LLM)
-    still refuse a mesh, naming the next slice; ``ComoRAG`` takes one now:
-    it builds ``config.mesh_shape`` and its indexes shard."""
+    """The training steps and the train CLI's ``--mesh_shape`` still
+    refuse a mesh, naming the next slice; ``ComoRAG`` takes one now (it
+    builds ``config.mesh_shape`` and its indexes shard), and so does
+    ``get_llm``: an in-process LLM under a ``model`` axis splits its
+    weights over it (tensor-parallel generation)."""
     from comorag_torch.config import ComoConfig
     from comorag_torch.parallel.mesh import build_mesh
 
@@ -344,16 +345,19 @@ def test_mesh_is_refused(what, tmp_path):
         rag.engine.prepare()
         assert rag.engine.ver_index.n_shards == 4
         return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 6: the next slice"):
+    if what == "get_llm":
+        from comorag_torch.llm import get_llm
+
+        mesh = build_mesh({"model": 2}, [torch.device("cpu")] * 2)
+        llm = get_llm(ComoConfig(llm_name="jax-tiny", save_dir=str(tmp_path)), device="cpu", mesh=mesh)
+        assert llm.engine.mesh is mesh  # its split weights: test_torch_tp.py
+        llm.close()
+        return
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 6c: the next slice"):
         if what == "make_train_step":
             ttrain.make_train_step(tbge.EncoderArch.tiny(), mesh=object())
         elif what == "make_lm_train_step":
             ttrain_lm.make_lm_train_step(tdec.DecoderArch.tiny(), mesh=object())
-        elif what == "get_llm":
-            from comorag_torch.llm import get_llm
-
-            mesh = build_mesh({"model": 2}, [torch.device("cpu")] * 2)
-            get_llm(ComoConfig(llm_name="jax-tiny", save_dir=str(tmp_path)), device="cpu", mesh=mesh)
         else:
             from comorag_torch.cli.train import main as train_main
 
