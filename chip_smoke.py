@@ -140,16 +140,39 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      the merge device); (c) int4_matmul at the shard shapes of a decode
      step (M = 8: qkv 4096->1536, o 4096->1024, gate/up 4096->7168, down
      14336->1024, lm_head 4096->32064, and 4096->64128 at {"model": 2}) as
-     phase 9 times its shapes.
+     phase 9 times its shapes;
+ 15. dp x tp training over {"data": 2, "model": 2} of the one card
+     (``models/train.py`` and ``train_lm.py`` with ``mesh=``; no
+     multi-card speed is read from it): (a) bert-base with phase 12a's
+     seed and batches, the first fp32 step against the unsharded step on
+     the same state and batch (loss to rtol 1e-5, every gradient to rtol
+     1e-4 with atol 1e-6 * max |g|, every parameter finite and within
+     2 * lr, the most a first AdamW step can move it), then 10 steps in
+     fp32 (each loss within 1e-4, relative, of 12a's at the same step) and
+     in bf16 compute beside phase 12a's pairs/s; (b) phase
+     12b's LM steps over the mesh, each loss within 2e-2 (relative) of
+     12b's at the same step and falling, tokens/s and peak memory beside
+     12b's; (c) (a)'s fp32 state saved and loaded into an unsharded state
+     (bit-equal tensors), served by a bf16 BGETorchEncoder on the kernels
+     (256 chunks, both encoder kernels launched, cosine >= 0.999 against
+     plain); (d) ``__graft_entry__.dryrun_multichip``'s sequence at its
+     arches: an encoder and an LM step, the trained decoder served with
+     int8 weights split over the model axis (guided JSON sampled, then
+     speculative at temperature 0) and with int4 weights (int4_matmul
+     once per column shard of each product a forward), the qwen3- and
+     gemma-class families, the corpus-sharded index and PPR. None of the
+     six kernels launches in the training steps of (a), (b) and (d).
 Then it checks that no module of jax or of the JAX package was loaded, and
 prints the kernels JSON line (every kernel with its launches on the main
-path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms), the
+path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms, and
+``mesh_training_step_launches``, 0), the
 nvidia-smi line, and the result line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -171,7 +194,7 @@ from comorag_torch.llm.fake import FakeLLM
 from comorag_torch.llm.offline import TorchOfflineLLM
 from comorag_torch.models import bge, curriculum, decoder, train, train_lm
 from comorag_torch.ops import attention, build, ffn, int4, mips, ppr
-from comorag_torch.parallel.mesh import build_mesh
+from comorag_torch.parallel.mesh import Sharded, build_mesh, merge_blocks
 from comorag_torch.ops.topk import dense_scores, int8_scores, quantize_int8
 from comorag_torch.retrieval import index as index_mod
 from comorag_torch.retrieval.index import MipsIndex
@@ -1398,7 +1421,7 @@ def phase_tiny(device, workdir: str) -> dict:
 
 # ----------------------------------------------------------------- phase 12
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 32, 128, 10  # cli/train.py's defaults: --batch 32 --max_seq_len 128
-LM_B, LM_S, LM_STEPS, LM_LAYERS = 4, 512, 5, 2
+LM_B, LM_S, LM_STEPS, LM_LAYERS, LM_LR = 4, 512, 5, 2, 1e-4
 CLI_STEPS, ROUNDTRIP_CHUNKS = 20, 256
 KERNEL_COUNTERS = (attention.LAUNCHES, ffn.LAUNCHES, mips.LAUNCHES, mips.INT8_LAUNCHES, int4.LAUNCHES,
                    int4.TAIL_LAUNCHES)
@@ -1442,24 +1465,38 @@ def timed_steps(step, state, batches) -> tuple:
     return state, losses, t1 - t0, t2 - t1
 
 
-def encoder_steps(device, pairs, compute_dtype) -> dict:
-    """12a: TRAIN_STEPS contrastive steps of bert-base (seeded random
-    weights, fp32 masters) over distinct batches of phase 5's pairs."""
-    arch = bge.EncoderArch()
-    tokenizer = bge.SimpleHashTokenizer(arch.vocab_size)
-    state = train.create_train_state(arch, torch.Generator().manual_seed(SEED), device=device)
+def encoder_batches(pairs, device) -> list:
+    """TRAIN_STEPS distinct batches of TRAIN_B of phase 5's pairs, hash-tokenized."""
+    tokenizer = bge.SimpleHashTokenizer(bge.EncoderArch().vocab_size)
     batches = []
     for i in range(TRAIN_STEPS):
         take = pairs[i * TRAIN_B:(i + 1) * TRAIN_B]
         q_ids, q_mask = hash_tokens(tokenizer, [p["query"] for p in take], TRAIN_S, device)
         p_ids, p_mask = hash_tokens(tokenizer, [p["passage"] for p in take], TRAIN_S, device)
         batches.append({"q_ids": q_ids, "q_mask": q_mask, "p_ids": p_ids, "p_mask": p_mask})
+    return batches
+
+
+def encoder_steps(device, pairs, compute_dtype) -> dict:
+    """12a: TRAIN_STEPS contrastive steps of bert-base (seeded random
+    weights, fp32 masters) over distinct batches of phase 5's pairs."""
+    arch = bge.EncoderArch()
+    state = train.create_train_state(arch, torch.Generator().manual_seed(SEED), device=device)
+    batches = encoder_batches(pairs, device)
     step = train.make_train_step(arch, compute_dtype=compute_dtype)
     state, losses, first_s, rest_s = timed_steps(step, state, batches)
     if state.step != TRAIN_STEPS:
         raise AssertionError(f"encoder step counter {state.step} != {TRAIN_STEPS}")
     return {"losses": losses, "first_step_s": first_s,
             "pairs_per_s": TRAIN_B * (TRAIN_STEPS - 1) / rest_s}
+
+
+def lm_batch(arch, device) -> dict:
+    """12b's batch: LM_B seeded random rows of LM_S tokens with padded tails."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    ids = torch.randint(1, arch.vocab_size, (LM_B, LM_S), generator=gen, device=device)
+    lengths = torch.tensor([LM_S, LM_S - 37, LM_S - 200, LM_S // 2], device=device)
+    return {"ids": ids, "mask": (torch.arange(LM_S, device=device)[None] < lengths[:, None]).long()}
 
 
 def lm_steps(device) -> dict:
@@ -1469,14 +1506,10 @@ def lm_steps(device) -> dict:
     arch = llama_8b(LM_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     params = decoder.init_params(arch, torch.Generator(device=device).manual_seed(SEED + 12), device)
-    state = train.TrainState(params, train.make_optimizer(1e-4)(params), 0)
+    state = train.TrainState(params, train.make_optimizer(LM_LR)(params), 0)
     n_params = sum(p.numel() for _, p, _ in train.named_leaves(params))
-    gen = torch.Generator(device=device).manual_seed(SEED + 13)
-    ids = torch.randint(1, arch.vocab_size, (LM_B, LM_S), generator=gen, device=device)
-    lengths = torch.tensor([LM_S, LM_S - 37, LM_S - 200, LM_S // 2], device=device)
-    mask = (torch.arange(LM_S, device=device)[None] < lengths[:, None]).long()
     step = train_lm.make_lm_train_step(arch, compute_dtype=torch.bfloat16)  # lm_loss recomputes each layer
-    state, losses, first_s, rest_s = timed_steps(step, state, [{"ids": ids, "mask": mask}] * LM_STEPS)
+    state, losses, first_s, rest_s = timed_steps(step, state, [lm_batch(arch, device)] * LM_STEPS)
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the LM loss did not fall on a repeated batch: {losses}")
     out = {"params": n_params, "losses": losses, "first_step_s": first_s,
@@ -1871,6 +1904,277 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 15
+MESH_SHAPE = {"data": 2, "model": 2}  # __graft_entry__._factor_mesh(4)
+TRAIN_LR = 2e-5  # train.make_optimizer's default, the CLI's --lr
+MESH_LM_RTOL = 2e-2  # the bf16 rule, relative: a mesh LM loss against phase 12b's at the same step
+# fp32, relative: a mesh encoder loss against phase 12a's at the same step
+# over TRAIN_STEPS steps (rounding only; a wrong gradient moves the loss by
+# percents within a step or two)
+MESH_ENC_RTOL = 1e-4
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # tests/test_torch_train.py's gradient rule: atol times max |g|
+
+
+def whole_tensor(leaf) -> torch.Tensor:
+    """A parameter as one tensor (a split one's blocks joined on its first device)."""
+    return merge_blocks(leaf, leaf.devices[0]) if isinstance(leaf, Sharded) else leaf.detach()
+
+
+def whole_grad(leaf) -> torch.Tensor:
+    """The gradient the last step applied to a parameter, as one tensor."""
+    if isinstance(leaf, Sharded):
+        return whole_tensor(dataclasses.replace(leaf, shards=tuple(s.grad for s in leaf.shards)))
+    return leaf.grad
+
+
+def step_against(a, b) -> dict:
+    """State ``a`` against state ``b`` of one model (either split) after
+    one step from the same parameters: the gradients each step applied
+    (mismatches under GRAD_RTOL and GRAD_ATOL * max |g_b|), max |Δ| of
+    the parameters, and the non-finite elements of ``a``."""
+    others = dict(train.whole_leaves(b))
+    scale = max(float(whole_grad(leaf).abs().max()) for leaf in others.values())
+    out = {"grad_mismatches": 0, "max_grad_diff": 0.0, "grad_scale": scale, "max_param_diff": 0.0, "non_finite": 0}
+    with torch.no_grad():
+        for name, leaf in train.whole_leaves(a):
+            p, g, g_ref = whole_tensor(leaf), whole_grad(leaf), whole_grad(others[name])
+            d = (g - g_ref).abs()
+            out["non_finite"] += int((~torch.isfinite(p)).sum()) + int((~torch.isfinite(g)).sum())
+            out["grad_mismatches"] += int((d > GRAD_RTOL * g_ref.abs() + GRAD_ATOL * scale).sum())
+            out["max_grad_diff"] = max(out["max_grad_diff"], float(d.max()))
+            out["max_param_diff"] = max(out["max_param_diff"], float((p - whole_tensor(others[name])).abs().max()))
+    return out
+
+
+def training_launches() -> dict:
+    return {c.name: c.value for c in KERNEL_COUNTERS}
+
+
+def mesh_encoder_steps(device, mesh, batches, phase_12a: dict) -> tuple:
+    """15a: bert-base with phase 12a's seed and batches over the mesh: the
+    first step against the unsharded step on the same state and batch
+    (loss to rtol 1e-5; every gradient under GRAD_RTOL / GRAD_ATOL; every
+    parameter finite and within 2 * lr, which the first Adam step cannot
+    exceed), then TRAIN_STEPS steps in fp32 (each loss within
+    MESH_ENC_RTOL of phase 12a's at the same step) and in bf16 compute,
+    beside phase 12a's pairs/s. Returns the report and the fp32 state
+    after its steps."""
+    arch = bge.EncoderArch()
+    gen = lambda: torch.Generator().manual_seed(SEED)  # noqa: E731
+    whole, whole_loss = train.make_train_step(arch)(train.create_train_state(arch, gen(), device=device), batches[0])
+    split, loss = train.make_train_step(arch, mesh=mesh)(train.create_train_state(arch, gen(), mesh=mesh), batches[0])
+    out = {"first_loss": float(loss), "unsharded_first_loss": float(whole_loss),
+           "loss_rel_diff": abs(float(loss) - float(whole_loss)) / abs(float(whole_loss)),
+           **step_against(split.params, whole.params), "param_rule": 2 * TRAIN_LR}
+    if (not out["loss_rel_diff"] <= 1e-5 or out["grad_mismatches"] or out["non_finite"]
+            or not out["max_param_diff"] <= 2 * TRAIN_LR):
+        raise AssertionError(f"15a: the mesh step departs from the unsharded step: {out}")
+    del whole, split
+    torch.cuda.empty_cache()
+    state = None
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        run = train.create_train_state(arch, gen(), mesh=mesh)
+        run, losses, first_s, rest_s = timed_steps(train.make_train_step(arch, compute_dtype=dtype, mesh=mesh), run,
+                                                   batches)
+        if run.step != TRAIN_STEPS:
+            raise AssertionError(f"15a {name}: step counter {run.step} != {TRAIN_STEPS}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, phase_12a[name]["losses"])]
+        out[name] = {"losses": losses, "rel_diff_12a": rel, "first_step_s": first_s,
+                     "pairs_per_s": TRAIN_B * (TRAIN_STEPS - 1) / rest_s,
+                     "phase_12a_pairs_per_s": phase_12a[name]["pairs_per_s"]}
+        if name == "fp32":
+            if not max(rel) <= MESH_ENC_RTOL:
+                raise AssertionError(f"15a fp32: mesh losses {losses} against phase 12a's {phase_12a[name]['losses']}")
+            state = run
+    torch.cuda.empty_cache()
+    return out, state
+
+
+def mesh_lm_steps(device, mesh, phase_12b: dict) -> dict:
+    """15b: phase 12b's LM steps (its seed, weights, batch, optimizer,
+    remat, bf16 compute) over the mesh: each loss within MESH_LM_RTOL of
+    12b's loss at the same step, and the loss falls; tokens/s and peak
+    memory beside 12b's."""
+    arch = llama_8b(LM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    state = train_lm.create_lm_train_state(arch, torch.Generator(device=device).manual_seed(SEED + 12),
+                                           train.make_optimizer(LM_LR), mesh=mesh)
+    step = train_lm.make_lm_train_step(arch, compute_dtype=torch.bfloat16, mesh=mesh)
+    state, losses, first_s, rest_s = timed_steps(step, state, [lm_batch(arch, device)] * LM_STEPS)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, phase_12b["losses"])]
+    out = {"losses": losses, "phase_12b_losses": phase_12b["losses"], "rel_diff": rel, "first_step_s": first_s,
+           "tokens_per_s": LM_B * LM_S * (LM_STEPS - 1) / rest_s, "phase_12b_tokens_per_s": phase_12b["tokens_per_s"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "phase_12b_peak_gib": phase_12b["peak_gib"]}
+    if max(rel) > MESH_LM_RTOL or not losses[-1] < losses[0]:
+        raise AssertionError(f"15b: mesh LM losses {losses} against phase 12b's {phase_12b['losses']}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_checkpoint(device, state, pairs, workdir: str) -> dict:
+    """15c: 15a's mesh-trained state saved, loaded into an unsharded state
+    (every tensor equal to the state's, bit for bit) and served by a bf16
+    BGETorchEncoder on the kernels: ROUNDTRIP_CHUNKS chunks encoded, both
+    encoder kernels launched, per-row cosine >= 0.999 against the plain
+    route."""
+    arch = bge.EncoderArch()
+    path = os.path.join(workdir, "mesh_train_state")
+    train.save_checkpoint(path, state)
+
+    def load():
+        restored = train.load_checkpoint(path, train.create_train_state(
+            arch, torch.Generator().manual_seed(SEED + 1), device=device))
+        if restored.step != TRAIN_STEPS:
+            raise AssertionError(f"15c: checkpoint step {restored.step} != {TRAIN_STEPS}")
+        return restored.params
+
+    params = load()
+    trained = dict(train.whole_leaves(state.params))
+    unequal = [n for n, leaf in train.whole_leaves(params) if not torch.equal(leaf.detach(), whole_tensor(trained[n]))]
+    if unequal:
+        raise AssertionError(f"15c: loaded tensors differ from the mesh-trained state's: {unequal[:5]}")
+
+    def serve(model, route):
+        return bge.BGETorchEncoder(params=model, tokenizer=bge.SimpleHashTokenizer(arch.vocab_size),
+                                   max_seq_len=TRAIN_S, device=device, compute_dtype=torch.bfloat16,
+                                   attention=route).encode([p["passage"] for p in pairs[:ROUNDTRIP_CHUNKS]])
+
+    for counter in (attention.LAUNCHES, ffn.LAUNCHES):
+        counter.reset()
+    got = serve(params, "kernel")
+    launches = {c.name: c.value for c in (attention.LAUNCHES, ffn.LAUNCHES)}
+    ref = serve(load(), "plain")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"15c: the mesh-trained encoder did not launch both encoder kernels: {launches}")
+    if got.shape != (ROUNDTRIP_CHUNKS, arch.hidden_size) or not np.isfinite(got).all():
+        raise AssertionError(f"15c: shape {got.shape}, finite {np.isfinite(got).all()}")
+    cos = (got * ref).sum(axis=1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
+    if float(cos.min()) < 0.999:
+        raise AssertionError(f"15c: kernel vs plain cosine {float(cos.min()):.6f} < 0.999")
+    return {"tensors_equal": len(trained), "launches": launches, "min_cosine": float(cos.min())}
+
+
+def mesh_dryrun(device, mesh) -> dict:
+    """15d: ``__graft_entry__.dryrun_multichip`` step for step at its
+    arches (:151-157, :178-181) over the mesh: an encoder and an LM step
+    (returns their kernel launches separately), the trained decoder served
+    with int8 weights split over the model axis (guided JSON sampled, then
+    speculative at temperature 0), with int4 weights (int4_matmul once per
+    column shard of each product a forward), the qwen3- and gemma-class
+    families, the corpus-sharded index (auto two-pass, top-k, top-k-min)
+    and the edge-sharded PPR."""
+    b = max(8, mesh.shape["data"] * 4)
+    for counter in KERNEL_COUNTERS:
+        counter.reset()
+    arch = bge.EncoderArch(vocab_size=512, hidden_size=64, num_layers=2, num_heads=8, intermediate_size=128,
+                           max_position=64)
+    ones = torch.ones((b, 16), dtype=torch.int64, device=device)
+    state = train.create_train_state(arch, torch.Generator().manual_seed(0), mesh=mesh)
+    _, loss = train.make_train_step(arch, mesh=mesh)(state, {"q_ids": ones, "q_mask": ones, "p_ids": ones,
+                                                            "p_mask": ones})
+    dec_arch = decoder.DecoderArch(vocab_size=259, hidden_size=64, num_layers=2, num_heads=8, num_kv_heads=4,
+                                   intermediate_size=128, max_seq_len=128, qkv_bias=True)
+    lm_state = train_lm.create_lm_train_state(dec_arch, torch.Generator(device=device).manual_seed(1), mesh=mesh)
+    lm_state, lm_loss = train_lm.make_lm_train_step(dec_arch, mesh=mesh)(lm_state, {"ids": ones, "mask": ones})
+    out = {"loss": float(loss), "lm_loss": float(lm_loss), "train_launches": training_launches()}
+    if not (np.isfinite(out["loss"]) and np.isfinite(out["lm_loss"])):
+        raise AssertionError(f"15d: non-finite losses {out}")
+
+    messages = [{"role": "user", "content": "dryrun"}]
+    llm = TorchOfflineLLM(params=lm_state.params, arch=dec_arch, mesh=mesh, temperature=0.8, speculative=True,
+                          param_dtype="int8")
+    qkv = llm.params["layers"]["qkv_w"]
+    if not (isinstance(qkv, Sharded) and qkv.shards[0].q.dtype == torch.int8):
+        raise AssertionError(f"15d: the int8 qkv_w is not split over the model axis: {type(qkv).__name__}")
+    gen = llm.infer(messages, max_tokens=8, json_template="ner")
+    spec = llm.infer(messages, max_tokens=8, json_template="ner", temperature=0)
+    if not isinstance(gen.text, str) or spec.metadata.get("decode_steps", 0) < 1:
+        raise AssertionError(f"15d: int8 generation {gen.text!r}, speculative {spec.metadata}")
+    int4.LAUNCHES.reset()
+    llm4 = TorchOfflineLLM(params=lm_state.params, arch=dec_arch, mesh=mesh, param_dtype="int4")
+    qkv4 = llm4.params["layers"]["qkv_w"]
+    gen4 = llm4.infer(messages, max_tokens=8)
+    tp = mesh.shape["model"]
+    per_forward = dec_arch.num_layers * 4 * tp + 1  # four column-split products a layer; the 259-column head whole
+    expected = per_forward * gen4.metadata["decode_steps"]
+    if not (isinstance(qkv4, Sharded) and len(qkv4.shards) == tp and isinstance(gen4.text, str)
+            and int4.LAUNCHES.value == expected):
+        raise AssertionError(f"15d: int4 over the model axis launched int4_matmul {int4.LAUNCHES.value} times, "
+                             f"expected {expected}; text {gen4.text!r}")
+    out.update(int8_text_bytes=len(gen.text), speculative_decode_steps=spec.metadata["decode_steps"],
+               int4_matmul_launches=int4.LAUNCHES.value, int4_decode_steps=gen4.metadata["decode_steps"])
+    for fam_arch in (dataclasses.replace(dec_arch, qkv_bias=False, qk_norm=True, head_dim_override=16),
+                     dataclasses.replace(dec_arch, qkv_bias=False, num_kv_heads=1, embed_scale=True,
+                                         rms_unit_offset=True, mlp_act="gelu_tanh", tie_embeddings=True)):
+        fam = TorchOfflineLLM(params=decoder.init_params(fam_arch, torch.Generator(device=device).manual_seed(2),
+                                                         device), arch=fam_arch, mesh=mesh)
+        if not isinstance(fam.infer(messages, max_tokens=4).text, str):
+            raise AssertionError(f"15d: no text from {fam_arch}")
+
+    n = math.prod(mesh.shape.values())
+    corpus_mesh = card_mesh(device, {"corpus": n})
+    rng = np.random.default_rng(0)
+    index = MipsIndex(rng.standard_normal((n * 256, 32)).astype(np.float32), mesh=corpus_mesh)
+    if index.mesh is None or index.scan_dtype != "int8":
+        raise AssertionError(f"15d: the corpus index is not sharded on the two-pass: {index.scan_dtype}")
+    _, idx = index.topk(rng.standard_normal((4, 32)).astype(np.float32), k=8)
+    _, _, row_min = index.topk_min_async(rng.standard_normal((4, 32)).astype(np.float32), k=8).result()
+    src = np.arange(0, 64, dtype=np.int32)
+    dst = (src + 1) % 64
+    graph = ppr.PPRGraph(np.concatenate([src, dst]), np.concatenate([dst, src]), np.ones(128, np.float32), 64,
+                         backend="device", mesh=corpus_mesh)
+    scores = graph.query(np.ones(64, np.float32))
+    if np.asarray(idx).shape != (4, 8) or not np.isfinite(row_min).all() or not np.isfinite(scores).all():
+        raise AssertionError("15d: sharded top-k or PPR gave no finite result")
+    out.update(topk_shape=list(np.asarray(idx).shape), ppr_sum=float(scores.sum()))
+    return out
+
+
+def phase_mesh_training(device, pairs, training: dict, smi: str) -> dict:
+    """Phase 15: dp x tp training over {"data": 2, "model": 2} of the one
+    card (every position on the card: no multi-card speed), (a)-(d)."""
+    mesh = card_mesh(device, MESH_SHAPE)
+    for counter in KERNEL_COUNTERS:
+        counter.reset()
+    enc, state = mesh_encoder_steps(device, mesh, encoder_batches(pairs, device), training["encoder"])
+    lm = mesh_lm_steps(device, mesh, training["lm"])
+    train_launches = training_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        roundtrip = mesh_checkpoint(device, state, pairs, workdir)
+    del state
+    torch.cuda.empty_cache()
+    dry = mesh_dryrun(device, mesh)
+    train_launches = {k: v + dry["train_launches"][k] for k, v in train_launches.items()}
+    if any(train_launches.values()):
+        raise AssertionError(f"the mesh training steps launched a kernel that has no backward: {train_launches}")
+    for name in ("fp32", "bf16"):
+        r = enc[name]
+        print(f"phase 15a bert-base contrastive step over {MESH_SHAPE} on one card ({smi}), B={TRAIN_B} S={TRAIN_S}, "
+              f"{name} compute: {r['pairs_per_s']:.1f} pairs/s over steps 2-{TRAIN_STEPS} (phase 12a unsharded: "
+              f"{r['phase_12a_pairs_per_s']:.1f}; first step {r['first_step_s']:.3f} s); losses "
+              f"{json.dumps(r['losses'])}, max rel diff from 12a's {max(r['rel_diff_12a']):.3g} "
+              f"({f'rule {MESH_ENC_RTOL}' if name == 'fp32' else 'reported'})", flush=True)
+    print(f"phase 15a first step against the unsharded step, fp32: loss {enc['first_loss']} vs "
+          f"{enc['unsharded_first_loss']} (rel {enc['loss_rel_diff']:.3g}, rule 1e-5); gradients: "
+          f"{enc['grad_mismatches']} mismatches, max |diff| {enc['max_grad_diff']:.3g} (rule rtol {GRAD_RTOL}, atol "
+          f"{GRAD_ATOL} * max |g| = {GRAD_ATOL * enc['grad_scale']:.3g}); max |param diff| "
+          f"{enc['max_param_diff']:.3g} (rule 2 * lr = {enc['param_rule']:.3g}); non-finite {enc['non_finite']}",
+          flush=True)
+    print(f"phase 15b LM step at Llama-3.1-8B width, {LM_LAYERS} layers, over {MESH_SHAPE} on one card ({smi}), B={LM_B} "
+          f"S={LM_S}, bf16 compute, remat: {lm['tokens_per_s']:.1f} tokens/s over steps 2-{LM_STEPS} (phase 12b: "
+          f"{lm['phase_12b_tokens_per_s']:.1f}; first step {lm['first_step_s']:.3f} s), peak memory "
+          f"{lm['peak_gib']:.3f} GiB (phase 12b: {lm['phase_12b_peak_gib']:.3f}); losses {json.dumps(lm['losses'])} "
+          f"against 12b's {json.dumps(lm['phase_12b_losses'])}, max rel diff {max(lm['rel_diff']):.3g} "
+          f"(rule {MESH_LM_RTOL})", flush=True)
+    print(f"phase 15c mesh-trained checkpoint into an unsharded bf16 encoder: {roundtrip['tensors_equal']} tensors "
+          f"equal bit for bit, {ROUNDTRIP_CHUNKS} chunks, kernel launches {roundtrip['launches']}, min cosine vs plain "
+          f"{roundtrip['min_cosine']:.6f}", flush=True)
+    print(f"phase 15d dryrun_multichip's sequence over {MESH_SHAPE} on one card: {json.dumps(dry)}; training-step "
+          f"kernel launches (a, b, d) {train_launches}", flush=True)
+    return {"encoder": enc, "lm": lm, "roundtrip": roundtrip, "dryrun": dry, "train_launches": train_launches}
+
+
 def main() -> None:
     device = require_cuda()
     smi = nvidia_smi_line()
@@ -1901,6 +2205,7 @@ def main() -> None:
         sharded = phase_sharded(device, corpus, queries[256:], serving, meta_dir, meta, smi)
     del corpus, queries
     tp = phase_tp(device, server, smi)
+    mesh_training = phase_mesh_training(device, training_pairs(make_corpus(N_CHUNKS, N_QUESTIONS)[0]), training, smi)
 
     entries = []
     for mod in (attention, ffn):
@@ -1908,6 +2213,7 @@ def main() -> None:
         entries.append({"name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
                         "launches": slice_out["launches"][name],
                         "trained_encoder_launches": training["cli"]["launches"][name],
+                        "mesh_trained_encoder_launches": mesh_training["roundtrip"]["launches"][name],
                         "mesh_meta_loop_launches": sharded["meta_loop"]["launches"][name], **kernels[name],
                         "max_abs_err": max(kernels[name]["max_abs_err"], small[name]["max_abs_err"]),
                         **{f"small_batch_{k}": small[name][k]
@@ -1939,7 +2245,8 @@ def main() -> None:
                         "launches": server["launches"][counter.name],
                         **({"launches_by_route": server["route_launches"], "tiny_engine_checks": tiny_checks,
                             "tp_launches": tp["int4"]["launches"][counter.name],
-                            "tp_launches_by_route": tp["int4"]["route_launches"], "tp_shard_shapes": tp["shards"]}
+                            "tp_launches_by_route": tp["int4"]["route_launches"], "tp_shard_shapes": tp["shards"],
+                            "mesh_dryrun_launches": mesh_training["dryrun"]["int4_matmul_launches"]}
                            if counter is int4.LAUNCHES else
                            {"tp_launches": tp["int4"]["launches"][counter.name], "tp_launches_why": TAIL_UNDER_TP}),
                         "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks
@@ -1949,6 +2256,7 @@ def main() -> None:
 
     for entry in entries:
         entry["training_step_launches"] = training["train_launches"][entry["name"]]
+        entry["mesh_training_step_launches"] = mesh_training["train_launches"][entry["name"]]
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "comorag_tpu"))
     if foreign:

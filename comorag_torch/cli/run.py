@@ -21,6 +21,7 @@ from typing import List, Set
 
 from comorag_torch.comorag import ComoRAG
 from comorag_torch.config import ComoConfig
+from comorag_torch.parallel.mesh import parse_mesh_shape
 from comorag_torch.utils.jsonio import load_jsonl
 from comorag_torch.utils.logging import get_logger
 
@@ -156,10 +157,7 @@ def main() -> None:
     mesh_shape = None
     if args.mesh_shape:
         try:
-            mesh_shape = {
-                axis.strip(): int(size)
-                for axis, size in (part.split("=") for part in args.mesh_shape.split(","))
-            }
+            mesh_shape = parse_mesh_shape(args.mesh_shape)
         except ValueError as e:
             parser.error(f"--mesh_shape must look like 'corpus=8' or 'data=2,corpus=4': {e}")
 

@@ -5,17 +5,20 @@ Port of ``comorag_tpu/cli/train.py``: the same flags, batch sampling
 (passage-unique pairs drawn with ``np.random.default_rng(seed)``),
 tokenization and summary. The checkpoint is a ``torch.save`` file
 (``models.train.save_checkpoint``); its parameters load straight into the
-serving encoder (``BGETorchEncoder(params=...)``). ``--device`` picks the
-card (the default) or ``cpu``; ``--mesh_shape`` is not ported (ROADMAP
-queue 1, item 6c). ``--init random`` draws from ``torch.Generator``, so its
-weights differ from the JAX CLI's for the same seed.
+serving encoder (``BGETorchEncoder(params=...)``), whatever mesh trained
+it. ``--device`` picks the card (the default) or ``cpu``; ``--mesh_shape
+data=2,model=2`` trains over a mesh (``models.train.make_train_step(mesh=)``)
+of every card with ``--device cuda`` (too few raise) or of the CPU repeated
+with ``--device cpu``. ``--init random`` draws from ``torch.Generator``, so
+its weights differ from the JAX CLI's for the same seed.
 
 Input: pairs.jsonl with {"query": ..., "passage": ...} per line.
 
 Usage:
   python -m comorag_torch.cli.train --pairs pairs.jsonl --output_dir ckpt \\
       [--init hf:<local checkpoint> | random | tiny] [--steps 200] [--batch 32] \\
-      [--lr 2e-5] [--max_seq_len 128] [--compute_dtype bfloat16] [--device cuda]
+      [--lr 2e-5] [--max_seq_len 128] [--mesh_shape data=8] [--compute_dtype bfloat16] \\
+      [--device cuda]
 """
 
 from __future__ import annotations
@@ -29,14 +32,14 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from comorag_torch.device import MESH_NOT_PORTED, resolve_device
-from comorag_torch.models.bge import EncoderArch, SimpleHashTokenizer, init_params, load_hf_checkpoint
+from comorag_torch.models.bge import EncoderArch, SimpleHashTokenizer, init_params, load_hf_checkpoint, shard_params
 from comorag_torch.models.train import (
     TrainState,
     make_optimizer,
     make_train_step,
     save_checkpoint,
 )
+from comorag_torch.parallel.mesh import device_mesh, mesh_device, parse_mesh_shape
 from comorag_torch.utils.jsonio import load_jsonl
 from comorag_torch.utils.logging import get_logger
 
@@ -55,18 +58,18 @@ def main(argv: List[str] | None = None) -> dict:
     ap.add_argument("--weight_decay", type=float, default=0.01)
     ap.add_argument("--temperature", type=float, default=0.05)
     ap.add_argument("--max_seq_len", type=int, default=128)
-    ap.add_argument("--mesh_shape", default="", help="not ported: the port trains on one device")
+    ap.add_argument("--mesh_shape", default="",
+                    help="e.g. data=8 or data=4,model=2: every card with --device cuda, the CPU repeated with cpu")
     ap.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log_every", type=int, default=20)
     ap.add_argument("--device", default="cuda", help="'cuda' (default), 'cuda:N' or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.mesh_shape:
-        raise NotImplementedError(MESH_NOT_PORTED.format(what="--mesh_shape"))
     if args.steps <= 0:
         raise SystemExit("--steps must be >= 1")
-    device = resolve_device(args.device)
+    mesh = device_mesh(parse_mesh_shape(args.mesh_shape), args.device) if args.mesh_shape else None
+    device = mesh_device(mesh, args.device)
     pairs = load_jsonl(args.pairs)
     if not pairs:
         raise SystemExit(f"no pairs in {args.pairs}")
@@ -83,9 +86,11 @@ def main(argv: List[str] | None = None) -> dict:
         arch = EncoderArch.tiny() if args.init == "tiny" else EncoderArch()
         params = init_params(arch, torch.Generator().manual_seed(args.seed), device)
     tokenizer = tokenizer or SimpleHashTokenizer(arch.vocab_size)
+    if mesh is not None:
+        params = shard_params(params, mesh)
 
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    step_fn = make_train_step(arch, temperature=args.temperature, compute_dtype=compute_dtype)
+    step_fn = make_train_step(arch, temperature=args.temperature, compute_dtype=compute_dtype, mesh=mesh)
     state = TrainState(params, make_optimizer(args.lr, args.weight_decay)(params), 0)
 
     def tokenize(texts: List[str]) -> tuple:

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import hashlib
 import json
-import math
 import os
 from concurrent.futures import ThreadPoolExecutor, as_completed
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -41,12 +40,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from comorag_torch.cluster.raptor import SemanticTree
-from comorag_torch.device import resolve_device
 from comorag_torch.graph.builder import GraphBuilder, GraphData
 from comorag_torch.llm import get_llm
 from comorag_torch.memory.pool import NO_MEMORY_SENTINEL, MemoryNode, MemoryPool, NodeType
 from comorag_torch.models.registry import get_encoder
-from comorag_torch.parallel.mesh import Mesh, build_mesh, mesh_device
+from comorag_torch.parallel.mesh import Mesh, device_mesh, mesh_device
 from comorag_torch.retrieval.engine import RetrievalEngine, RetrievalWindow
 from comorag_torch.agents.pool_agent import PoolAgent
 from comorag_torch.agents.probe_agent import ProbeAgent
@@ -97,10 +95,7 @@ class ComoRAG:
         card for CUDA, the CPU repeated to the mesh's size for "cpu"."""
         self.config = config or ComoConfig()
         if mesh is None and self.config.mesh_shape:
-            shape = dict(self.config.mesh_shape)
-            dev = resolve_device(device)
-            devices = [dev] * math.prod(shape.values()) if dev.type == "cpu" else None
-            mesh = build_mesh(shape, devices)
+            mesh = device_mesh(dict(self.config.mesh_shape), device)
         self.mesh = mesh
         self.device = mesh_device(mesh, device)
         os.makedirs(self.config.working_dir, exist_ok=True)

@@ -18,12 +18,6 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# what a request for a sharded path that is not ported yet raises (format
-# with ``what=``): serving and generation take a mesh; training does not
-MESH_NOT_PORTED = ("{what}: the dp x tp training steps and the train CLI's --mesh_shape are not "
-                   "ported to comorag_torch yet (ROADMAP queue 1, item 6c: the next slice); "
-                   "they run on one device")
-
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.device:
     """``torch.device`` for ``device``; raises when a CUDA device is

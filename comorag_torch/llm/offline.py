@@ -16,6 +16,9 @@ caller passes ``device="cpu"`` (the plain PyTorch path). ``mesh=`` (a
 where the mesh has a ``model`` axis, splits the weights over it after
 quantization (``decoder.shard_params``, jax_offline.py:248-256): each
 product runs once per shard, on the int4 kernels for an int4 engine.
+``params`` may be a tree trained over a mesh (``Sharded`` leaves, from
+``models.train_lm``): it is unsharded first (``decoder.unshard_params``)
+and split anew over the engine's own mesh, as JAX takes global arrays.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from comorag_torch.llm.base import BaseLLM, LLMResponse, Messages
 from comorag_torch.llm.guided import JSON_TEMPLATES, compile_json_schema, make_token_table
-from comorag_torch.parallel.mesh import mesh_device
+from comorag_torch.parallel.mesh import Sharded, mesh_device
 from comorag_torch.utils import trace
 from comorag_torch.utils.logging import get_logger
 
@@ -111,6 +114,13 @@ def _common_prefix_len(id_rows: Sequence[List[int]]) -> int:
     return common
 
 
+def _holds_sharded(tree) -> bool:
+    if isinstance(tree, Sharded):
+        return True
+    values = tree.values() if isinstance(tree, dict) else tree if isinstance(tree, tuple) else ()
+    return any(_holds_sharded(v) for v in values)
+
+
 def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
@@ -190,6 +200,8 @@ class TorchOfflineLLM(BaseLLM):
         slot_bytes += arch.num_heads * decoder._PREFILL_CHUNK * 4 * 2
         self._slot_row_budget = max(1, int(kv_budget_bytes) // slot_bytes)
 
+        if _holds_sharded(params):
+            params = decoder.unshard_params(params, self.device)
         params = decoder.params_from_jax(params, self.device)
         if param_dtype == "int4":
             params = decoder.quantize_params_int4(params)

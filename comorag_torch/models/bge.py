@@ -16,6 +16,11 @@ Parameters are built frozen (``requires_grad=False``): serving never
 differentiates. The training step (``models.train``) turns them on; its
 forward takes the plain path, because the kernels' wrappers return tensors
 without a ``grad_fn``, as the JAX package's kernels have no VJP.
+
+``shard_params`` splits the weights over a mesh's ``model`` axis as JAX's
+``param_shardings`` does (the sharded training step): each block is a
+registered ``nn.Parameter`` of its own, and the forward runs each split
+product once per block (``parallel.mesh.sharded_matmul``).
 """
 
 from __future__ import annotations
@@ -25,14 +30,14 @@ import dataclasses
 import hashlib
 import math
 import os
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from comorag_torch.device import HostCopy, resolve_device
-from comorag_torch.parallel.mesh import mesh_device, on_device
+from comorag_torch.parallel.mesh import Mesh, Sharded, mesh_device, on_device, sharded_matmul, split_blocks
 from comorag_torch.ops.attention import encoder_attention, encoder_attention_plain
 from comorag_torch.ops.ffn import encoder_ffn, fused_ffn_supported, layer_norm
 from comorag_torch.models.base import BaseEncoder
@@ -66,11 +71,44 @@ _LAYER_SHAPES = {
 }
 _EMBED_SHAPES = {"word": ("v", "h"), "position": ("p", "h"), "token_type": ("t", "h"),
                  "ln_scale": ("h",), "ln_bias": ("h",)}
+# the layer weights split over a ``model`` axis (JAX's param_shardings,
+# bge.py:106-146): q/k/v and the FFN's first product on their output
+# columns, their biases with them; o and the FFN's second product on their
+# input rows (their biases stay whole, added once after the sum)
+_SPLITS = {"q_w": "col", "q_b": "col", "k_w": "col", "k_b": "col", "v_w": "col", "v_b": "col",
+           "o_w": "row", "ffn_in_w": "col", "ffn_in_b": "col", "ffn_out_w": "row"}
 
 
 def _dims(arch: EncoderArch) -> Dict[str, int]:
     return {"h": arch.hidden_size, "i": arch.intermediate_size, "v": arch.vocab_size,
             "p": arch.max_position, "t": arch.type_vocab_size}
+
+
+class ShardedParameter(nn.ParameterList):
+    """One layer weight split over a ``model`` axis: each block a
+    registered ``nn.Parameter`` (so ``named_parameters()``, the optimizer,
+    the decay mask and the checkpoints see the blocks, named
+    ``<weight>.<block>``); ``sharded`` is the ``Sharded`` leaf over those
+    same objects, on the devices the blocks hold now (``Module.to`` moves
+    them)."""
+
+    def __init__(self, blocks, dim: str, requires_grad: bool = False):
+        super().__init__([nn.Parameter(b, requires_grad=requires_grad) for b in blocks])
+        self.dim = dim
+
+    @property
+    def sharded(self) -> Sharded:
+        return Sharded(tuple(self), self.dim, tuple(p.device for p in self))
+
+
+class EncoderTree(NamedTuple):
+    """The parameters as JAX's tree, one dict per layer: each leaf a tensor
+    or a ``Sharded`` (what ``encoder_forward`` reads; a data replica of a
+    sharded model is one of these, ``parallel.mesh.data_replica``)."""
+
+    arch: "EncoderArch"
+    embed: Dict[str, torch.Tensor]
+    layers: List[Dict[str, Any]]
 
 
 class EncoderLayer(nn.Module):
@@ -97,15 +135,25 @@ class Encoder(nn.Module):
                 torch.zeros(tuple(d[s] for s in shape)), requires_grad=False))
         self.layers = nn.ModuleList(EncoderLayer(arch) for _ in range(arch.num_layers))
 
+    def leaves(self) -> EncoderTree:
+        """The parameters as JAX's tree: a split weight as its ``Sharded``."""
+        def leaf(owner: nn.Module, name: str):
+            v = getattr(owner, name)
+            return v.sharded if isinstance(v, ShardedParameter) else v
+
+        return EncoderTree(self.arch, {n: leaf(self, n) for n in _EMBED_SHAPES},
+                           [{n: leaf(layer, n) for n in _LAYER_SHAPES} for layer in self.layers])
+
     def cast_matrices_(self, dtype: torch.dtype) -> "Encoder":
         """Cast the layers' weight matrices to the compute dtype, in place
         and once (JAX casts the fp32 masters on every call; the values are
         the same). Vectors and embedding tables stay fp32."""
-        for layer in self.layers:
+        for layer in self.leaves().layers:
             for name, shape in _LAYER_SHAPES.items():
                 if len(shape) == 2:
-                    p = getattr(layer, name)
-                    p.data = p.data.to(dtype)
+                    w = layer[name]
+                    for p in (w.shards if isinstance(w, Sharded) else (w,)):
+                        p.data = p.data.to(dtype)
         return self
 
 
@@ -130,6 +178,29 @@ def init_params(arch: EncoderArch, generator: torch.Generator,
         for name, p in layer.named_parameters():
             fill(p, name)
     return model.to(device)
+
+
+def shard_params(model: Encoder, mesh: Mesh) -> Encoder:
+    """``model`` split over ``mesh``'s ``model`` axis as JAX's
+    ``param_shardings`` (bge.py:106-146) splits it, in place (as
+    ``Module.to`` moves a module) and returned: q/k/v and ``ffn_in`` on
+    their output columns with their biases, ``o`` and ``ffn_out`` on their
+    input rows, JAX's contiguous blocks (``split_blocks``), each a
+    ``ShardedParameter`` block on its device along the axis; every other
+    tensor whole on the mesh's first device (JAX's replicas compute the
+    same values, so the port keeps none). A mesh without the axis splits
+    nothing."""
+    model.to(mesh.device)
+    devices = tuple(mesh.axis_devices("model")) if "model" in mesh.shape else ()
+    if len(devices) < 2:
+        return model
+    for layer in model.layers:
+        for name, dim in _SPLITS.items():
+            p = getattr(layer, name)
+            blocks = split_blocks(p.detach(), -1 if dim == "col" else -2, devices)
+            delattr(layer, name)
+            layer.add_module(name, ShardedParameter(blocks, dim, p.requires_grad))
+    return model
 
 
 def params_from_jax(tree: Dict[str, Dict[str, np.ndarray]], arch: EncoderArch,
@@ -198,8 +269,19 @@ def load_hf_checkpoint(model_name_or_path: str,
 
 
 # ------------------------------------------------------------------ forward
+def _matmul(x: torch.Tensor, w, bias, cd: torch.dtype) -> torch.Tensor:
+    """x @ w + bias in the compute dtype. A ``Sharded`` w runs once per
+    block (``sharded_matmul``): a column split adds each block of its bias,
+    a row split adds the whole bias once to the summed products."""
+    if not isinstance(w, Sharded):
+        return torch.matmul(x, w.to(cd)) + bias.to(cd)
+    if w.dim == "col":
+        return sharded_matmul(x, w, lambda xs, ws, bs: torch.matmul(xs, ws.to(cd)) + bs.to(cd), bias)
+    return sharded_matmul(x, w, lambda xs, ws, _: torch.matmul(xs, ws.to(cd))) + bias.to(cd)
+
+
 def encoder_forward(
-    model: Encoder,
+    model: Union[Encoder, EncoderTree],
     input_ids: torch.Tensor,       # [B, S] int
     attention_mask: torch.Tensor,  # [B, S] int/bool
     compute_dtype: torch.dtype = torch.float32,
@@ -213,44 +295,53 @@ def encoder_forward(
     the CPU tests check this route against JAX's ``pallas_interpret``.
     The kernels have no backward, so that route refuses to run where
     autograd would record it (grad mode on and a parameter requiring grad)
-    rather than drop those layers' gradients."""
-    arch = model.arch
-    if attention == "kernel" and torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters()):
-        raise RuntimeError("encoder_forward(attention='kernel') has no backward: train on attention='plain', "
-                           "or run inference under torch.no_grad()")
+    rather than drop those layers' gradients, and they take whole weights.
+
+    Split weights (``shard_params``) run per block and merge on the
+    activations' device: the q/k/v columns are gathered and attention runs
+    whole there, as the decoder's tensor-parallel layers do."""
+    tree = model.leaves() if isinstance(model, Encoder) else model
+    arch = tree.arch
+    if attention == "kernel":
+        leaves = [w for group in (tree.embed, *tree.layers) for w in group.values()]
+        if any(isinstance(w, Sharded) for w in leaves):
+            raise ValueError("encoder_forward(attention='kernel') takes whole weights: serve an unsharded model")
+        if torch.is_grad_enabled() and any(w.requires_grad for w in leaves):
+            raise RuntimeError("encoder_forward(attention='kernel') has no backward: train on attention='plain', "
+                               "or run inference under torch.no_grad()")
     b, s = input_ids.shape
     eps = arch.layer_norm_eps
     cd = compute_dtype
     dev = input_ids.device
+    emb = tree.embed
     positions = torch.arange(s, device=dev) + arch.position_offset
-    x = model.word[input_ids] + model.position[positions][None] + model.token_type[0][None, None]
-    x = layer_norm(x, model.ln_scale, model.ln_bias, eps).to(cd)
+    x = emb["word"][input_ids] + emb["position"][positions][None] + emb["token_type"][0][None, None]
+    x = layer_norm(x, emb["ln_scale"], emb["ln_bias"], eps).to(cd)
     use_kernel = attention == "kernel"
     kernel_ffn = use_kernel and fused_ffn_supported(arch.hidden_size, arch.intermediate_size)
     attend = encoder_attention if use_kernel else encoder_attention_plain
 
-    for layer in model.layers:
-        def proj(w, bias):
-            return torch.matmul(x, w.to(cd)) + bias.to(cd)
+    for layer in tree.layers:
+        def proj(name):
+            return _matmul(x, layer[f"{name}_w"], layer[f"{name}_b"], cd)
 
-        ctx = attend(proj(layer.q_w, layer.q_b), proj(layer.k_w, layer.k_b),
-                     proj(layer.v_w, layer.v_b), attention_mask, arch.num_heads)
-        attn_out = torch.matmul(ctx, layer.o_w.to(cd)) + layer.o_b.to(cd)
+        ctx = attend(proj("q"), proj("k"), proj("v"), attention_mask, arch.num_heads)
+        attn_out = _matmul(ctx, layer["o_w"], layer["o_b"], cd)
         if kernel_ffn:
-            x = encoder_ffn(x + attn_out, layer.attn_ln_scale, layer.attn_ln_bias,
-                            layer.ffn_in_w.to(cd), layer.ffn_in_b, layer.ffn_out_w.to(cd),
-                            layer.ffn_out_b, layer.ffn_ln_scale, layer.ffn_ln_bias, eps=eps).to(cd)
+            x = encoder_ffn(x + attn_out, layer["attn_ln_scale"], layer["attn_ln_bias"],
+                            layer["ffn_in_w"].to(cd), layer["ffn_in_b"], layer["ffn_out_w"].to(cd),
+                            layer["ffn_out_b"], layer["ffn_ln_scale"], layer["ffn_ln_bias"], eps=eps).to(cd)
             continue
-        x1 = layer_norm((x + attn_out).float(), layer.attn_ln_scale, layer.attn_ln_bias, eps).to(cd)
-        mid = torch.matmul(x1, layer.ffn_in_w.to(cd)) + layer.ffn_in_b.to(cd)
+        x1 = layer_norm((x + attn_out).float(), layer["attn_ln_scale"], layer["attn_ln_bias"], eps).to(cd)
+        mid = _matmul(x1, layer["ffn_in_w"], layer["ffn_in_b"], cd)
         mid = torch.nn.functional.gelu(mid, approximate="none")
-        f = torch.matmul(mid, layer.ffn_out_w.to(cd)) + layer.ffn_out_b.to(cd)
-        x = layer_norm((x1 + f).float(), layer.ffn_ln_scale, layer.ffn_ln_bias, eps).to(cd)
+        f = _matmul(mid, layer["ffn_out_w"], layer["ffn_out_b"], cd)
+        x = layer_norm((x1 + f).float(), layer["ffn_ln_scale"], layer["ffn_ln_bias"], eps).to(cd)
     return x.float()
 
 
 def encode_pooled(
-    model: Encoder,
+    model: Union[Encoder, EncoderTree],
     input_ids: torch.Tensor,
     attention_mask: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
@@ -335,10 +426,12 @@ class BGETorchEncoder(BaseEncoder):
         self.compute_dtype = compute_dtype
         self.model = params.to(self.device).cast_matrices_(compute_dtype).eval().requires_grad_(False)
         self._data_devices = mesh.axis_devices("data") if mesh is not None else [self.device]
-        self._replicas = {self.device: self.model}
+        # one parameter tree per distinct device, built once (what
+        # encoder_forward reads: Encoder.leaves() walks every module)
+        self._replicas = {self.device: self.model.leaves()}
         for dev in self._data_devices:
             if dev not in self._replicas:
-                self._replicas[dev] = copy.deepcopy(self.model).to(dev)
+                self._replicas[dev] = copy.deepcopy(self.model).to(dev).leaves()
         self.fingerprint_extra = (
             os.path.basename(str(model_name_or_path).rstrip("/\\"))
             if model_name_or_path

@@ -39,7 +39,7 @@ import torch.utils.checkpoint
 
 from comorag_torch.device import resolve_device
 from comorag_torch.ops import int4 as int4_ops
-from comorag_torch.parallel.mesh import Mesh, Sharded, gather_columns, on_device, split_blocks, sum_partials
+from comorag_torch.parallel.mesh import Mesh, Sharded, merge_blocks, sharded_matmul, split_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,6 +260,26 @@ def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     return out
 
 
+def unshard_params(params: Dict[str, Any], device: Union[str, torch.device]) -> Dict[str, Any]:
+    """The inverse of ``shard_params``: every ``Sharded`` leaf's blocks
+    concatenated on ``device`` (``parallel.mesh.merge_blocks``), every
+    whole leaf moved there; detached, as a serving engine or a checkpoint
+    takes them."""
+    device = resolve_device(device)
+
+    def whole(w):
+        if isinstance(w, dict):
+            return {k: whole(v) for k, v in w.items()}
+        if isinstance(w, Sharded):
+            return merge_blocks(w, device)
+        if isinstance(w, tuple):
+            return type(w)(*(whole(t) for t in w))
+        return w.detach().to(device)
+
+    with torch.no_grad():
+        return whole(params)
+
+
 # ------------------------------------------------------------------ forward
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, unit_offset: bool = False) -> torch.Tensor:
     x32 = x.to(torch.float32)
@@ -315,28 +335,10 @@ def _int4_dot(inp: torch.Tensor, w: Int4Weight, compute_dtype: torch.dtype) -> t
     return out.reshape(*lead, w.packed.shape[-1]).to(compute_dtype)
 
 
-def _sharded_dot(inp: torch.Tensor, w: Sharded, compute_dtype: torch.dtype, bias=None) -> torch.Tensor:
-    """[..., in] @ a ``Sharded`` weight, merged on inp's device: one product
-    per shard on the shard's device (current there: the kernels' C entries
-    launch on the current device); a column split adds each block of
-    ``bias`` to its shard's output and gathers the outputs, a row split
-    gives each shard its block of inp's last dim and sums the partial
-    products."""
-    parts, lo = [], 0
-    for i, (shard, dev) in enumerate(zip(w.shards, w.devices)):
-        x = inp
-        if w.dim == "row":
-            k = shard.shape[-2]
-            x, lo = inp[..., lo:lo + k], lo + k
-        with on_device(dev):
-            parts.append(_dot(x.to(dev), shard, compute_dtype, None if bias is None else bias.shards[i]))
-    return gather_columns(parts, inp.device) if w.dim == "col" else sum_partials(parts, inp.device)
-
-
 def _dot(inp: torch.Tensor, w, compute_dtype: torch.dtype, bias=None) -> torch.Tensor:
     """[..., in] @ w (+ ``bias``, split as w's columns under a model axis)."""
     if isinstance(w, Sharded):
-        return _sharded_dot(inp, w, compute_dtype, bias)
+        return sharded_matmul(inp, w, lambda x, shard, b: _dot(x, shard, compute_dtype, b), bias)
     if bias is not None:
         return _dot(inp, w, compute_dtype) + bias.to(compute_dtype)
     if isinstance(w, Int4Weight):
@@ -525,8 +527,12 @@ def decoder_forward(
                  for name, w in layers.items()}
         if cache is None:
             if remat:
+                # reentrant: the layer recomputes inside its own backward node,
+                # once, whichever of autograd's per-device threads reaches it
+                # (the non-reentrant checkpoint raced between them on a layer
+                # split over distinct cards)
                 x = torch.utils.checkpoint.checkpoint(_own_kv_layer, x, layer, positions, mask_bias, arch, cd,
-                                                      use_reentrant=False)
+                                                      use_reentrant=True)
             else:
                 x = _own_kv_layer(x, layer, positions, mask_bias, arch, cd)
             continue

@@ -19,7 +19,11 @@ Axes (as in the JAX package):
     arcs over this axis; the shards live on the devices along it, at index
     0 of every other axis (JAX's replicas along the other axes compute the
     same values from replicated queries, so the port keeps none);
-  - ``data``: the encoder splits each batch over this axis's devices;
+  - ``data``: the encoder splits each batch over this axis's devices, and
+    the training steps split theirs (``split_batch``) and run each part on
+    a differentiable replica of the parameters (``data_replica``), so the
+    backward sums every replica's gradients into the masters: JAX's
+    gradient all-reduce;
   - ``model``: tensor-parallel generation (``models/decoder.shard_params``):
     a weight is a ``Sharded`` leaf, one block per device along the axis
     (JAX's Megatron split: output columns or input rows); a product runs
@@ -66,6 +70,11 @@ class Mesh:
         """The merge device: the mesh's first device."""
         return self.devices.flat[0]
 
+    def at(self, **index: int) -> torch.device:
+        """The device at ``index`` (axis name -> position), at position 0
+        of every axis not named (or not in the mesh)."""
+        return self.devices[tuple(index.get(name, 0) for name in self.axis_names)]
+
     def axis_devices(self, axis: str) -> List[torch.device]:
         """The devices along ``axis`` at index 0 of every other axis (the
         first device alone when the mesh has no such axis)."""
@@ -104,6 +113,26 @@ def build_mesh(shape: Optional[Dict[str, int]] = None,
     grid = np.empty(len(devices), dtype=object)
     grid[:] = devices
     return Mesh(grid.reshape(sizes), tuple(shape.keys()))
+
+
+def parse_mesh_shape(spec: str) -> Dict[str, int]:
+    """A CLI's ``--mesh_shape``, e.g. ``"data=2,model=2"``, as the shape
+    ``build_mesh`` takes (empty parts skipped, as the JAX train CLI's
+    ``parse_mesh`` skips them); anything else raises ValueError."""
+    shape = {}
+    for part in spec.split(","):
+        if part.strip():
+            axis, size = part.split("=")
+            shape[axis.strip()] = int(size)
+    return shape
+
+
+def device_mesh(shape: Dict[str, int], device: Optional[DeviceLike]) -> Mesh:
+    """A mesh of ``shape`` over devices that follow ``device``: every card
+    for CUDA (too few raise), the CPU repeated to the mesh's size for
+    "cpu"."""
+    dev = resolve_device(device)
+    return build_mesh(shape, [dev] * int(np.prod(list(shape.values()))) if dev.type == "cpu" else None)
 
 
 def corpus_axis_size(mesh: Mesh) -> int:
@@ -182,3 +211,85 @@ def sum_partials(parts: Sequence[torch.Tensor], device: torch.device) -> torch.T
     for p in parts[1:]:
         out = out + p.to(device)
     return out
+
+
+def sharded_matmul(inp: torch.Tensor, w: Sharded, dot, bias: Optional[Sharded] = None) -> torch.Tensor:
+    """[..., in] @ a ``Sharded`` weight, merged on inp's device:
+    ``dot(x, shard, bias_block)`` runs once per shard on the shard's device
+    (current there: the kernels' C entries launch on the current device).
+    A column split gives each shard its block of ``bias`` (a ``Sharded`` of
+    the same columns, or None) and gathers the outputs; a row split gives
+    each shard its block of inp's last dim and sums the partial products
+    (a row split's bias is whole: the caller adds it once to the sum).
+    Every step is differentiable, so the backward runs per shard too."""
+    parts, lo = [], 0
+    for i, (shard, dev) in enumerate(zip(w.shards, w.devices)):
+        x = inp
+        if w.dim == "row":
+            k = shard.shape[-2]
+            x, lo = inp[..., lo:lo + k], lo + k
+        with on_device(dev):
+            parts.append(dot(x.to(dev), shard, None if bias is None else bias.shards[i]))
+    return gather_columns(parts, inp.device) if w.dim == "col" else sum_partials(parts, inp.device)
+
+
+def merge_blocks(w: Sharded, device: torch.device) -> Any:
+    """The whole weight of a ``Sharded`` leaf on ``device``: its blocks
+    concatenated along the split dim (field by field for quantized
+    shards), the inverse of ``split_blocks``."""
+    axis = -1 if w.dim == "col" else -2
+    if isinstance(w.shards[0], tuple):
+        return type(w.shards[0])(*(torch.cat([t.to(device) for t in fields], dim=axis)
+                                   for fields in zip(*w.shards)))
+    return torch.cat([s.to(device) for s in w.shards], dim=axis)
+
+
+# ------------------------------------------------------- the ``data`` axis
+def split_batch(batch: Dict[str, torch.Tensor], mesh: Mesh) -> List[Dict[str, torch.Tensor]]:
+    """``batch``'s leading dim over the mesh's ``data`` axis, as JAX's
+    ``P("data", None)`` places it: part d holds rows [d * B / dp,
+    (d + 1) * B / dp) on the device of data index d (position 0 of every
+    other axis). A mesh without the axis gives one part, the whole batch on
+    the first device (JAX's replicated batch); a batch the axis does not
+    divide raises."""
+    dp = mesh.shape.get("data", 1)
+    rows = {int(t.shape[0]) for t in batch.values()}
+    if len(rows) != 1:
+        raise ValueError(f"the batch's tensors disagree on their leading dim: {sorted(rows)}")
+    b = rows.pop()
+    if b % dp:
+        raise ValueError(f"a batch of {b} rows is not divisible by the data axis size {dp}")
+    n = b // dp
+    return [{k: t[d * n:(d + 1) * n].to(mesh.at(data=d)) for k, t in batch.items()} for d in range(dp)]
+
+
+def data_replica(tree: Any, mesh: Mesh, d: int) -> Any:
+    """``tree`` (dicts, lists and tuples of tensors and ``Sharded`` leaves)
+    on the devices of data index ``d``: a whole tensor on
+    ``mesh.at(data=d)``, block m of a ``Sharded`` leaf on ``mesh.at(data=d,
+    model=m)``. The copies are differentiable, so gradients of the replica
+    flow back into the masters and add up there. The masters live at data
+    index 0 (``shard_params`` puts them there), so index 0 is ``tree``
+    itself."""
+    if d == 0:
+        return tree
+    tp = mesh.shape.get("model", 1)
+    devices = tuple(mesh.at(data=d, model=m) for m in range(tp))
+    first = mesh.at(data=d)
+
+    def rep(x):
+        if isinstance(x, dict):
+            return {k: rep(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [rep(v) for v in x]
+        if isinstance(x, Sharded):
+            return Sharded(tuple(rep_on(s, dev) for s, dev in zip(x.shards, devices)), x.dim, devices)
+        if isinstance(x, tuple):
+            values = [rep(v) for v in x]
+            return type(x)(*values) if hasattr(x, "_fields") else tuple(values)
+        return x.to(first) if isinstance(x, torch.Tensor) else x
+
+    def rep_on(s, dev):
+        return type(s)(*(t.to(dev) for t in s)) if isinstance(s, tuple) else s.to(dev)
+
+    return rep(tree)

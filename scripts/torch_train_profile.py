@@ -11,14 +11,18 @@ clock, synchronized), then ``--steps`` profiled steps: the device's busy
 time per step (the union of the CUDA kernels' intervals on the timeline;
 user annotations such as ``Optimizer.step`` are not kernels and are left
 out), the idle share (1 - busy / unprofiled wall), the kernel launches per
-step, and the ten kernels with the most device time. Needs a CUDA card;
-prints one JSON line per case and writes them all to ``--out``.
+step, and the ten kernels with the most device time. Each case runs a
+second time over ``chip_smoke.py`` phase 15's ``{"data": 2, "model": 2}``
+mesh, every position on the card (``<case>_mesh``). Needs a CUDA card; prints one JSON line per case and writes
+them all to ``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -29,31 +33,37 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from comorag_torch.models import bge, decoder, train, train_lm  # noqa: E402
+from comorag_torch.parallel.mesh import build_mesh  # noqa: E402
+
+MESH_SHAPE = {"data": 2, "model": 2}  # chip_smoke.py phase 15's mesh
 
 
-def encoder_case(device, compute_dtype):
+def encoder_case(device, compute_dtype, mesh=None):
     arch = bge.EncoderArch()
-    state = train.create_train_state(arch, torch.Generator().manual_seed(0), device=device)
+    state = train.create_train_state(arch, torch.Generator().manual_seed(0), device=None if mesh else device,
+                                     mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(1)
     batch = {}
     for side in ("q", "p"):
         batch[f"{side}_ids"] = torch.randint(2, arch.vocab_size, (32, 128), generator=gen, device=device)
         lengths = torch.randint(8, 40, (32,), generator=gen, device=device)  # chunk-length texts, padded to 128
         batch[f"{side}_mask"] = (torch.arange(128, device=device)[None] < lengths[:, None]).long()
-    return state, train.make_train_step(arch, compute_dtype=compute_dtype), batch
+    return state, train.make_train_step(arch, compute_dtype=compute_dtype, mesh=mesh), batch
 
 
-def lm_case(device):
+def lm_case(device, mesh=None):
     arch = decoder.DecoderArch(vocab_size=128256, hidden_size=4096, num_layers=2, num_heads=32, num_kv_heads=8,
                                intermediate_size=14336, max_seq_len=131072, rope_theta=500000.0,
                                rope_scaling=("llama3", 8.0, 1.0, 4.0, 8192.0))
     params = decoder.init_params(arch, torch.Generator(device=device).manual_seed(0), device)
+    if mesh is not None:
+        params = decoder.shard_params(params, mesh)
     state = train.TrainState(params, train.make_optimizer(1e-4)(params), 0)
     ids = torch.randint(1, arch.vocab_size, (4, 512), generator=torch.Generator(device=device).manual_seed(1),
                         device=device)
     mask = torch.ones_like(ids)
     mask[2:, 400:] = 0
-    return state, train_lm.make_lm_train_step(arch, compute_dtype=torch.bfloat16), \
+    return state, train_lm.make_lm_train_step(arch, compute_dtype=torch.bfloat16, mesh=mesh), \
         {"ids": ids, "mask": mask}
 
 
@@ -105,11 +115,15 @@ def main() -> None:
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    meshes = {"": None, "_mesh": build_mesh(MESH_SHAPE, [device] * math.prod(MESH_SHAPE.values()))}
     rows = []
-    for name, make in (("encoder_fp32", lambda: encoder_case(device, torch.float32)),
-                       ("encoder_bf16", lambda: encoder_case(device, torch.bfloat16)),
-                       ("lm_8b_width_2_layers_bf16", lambda: lm_case(device))):
-        row = profile(name, *make(), args.steps)
+    for (name, make), (tag, mesh) in itertools.product(
+            (("encoder_fp32", lambda m: encoder_case(device, torch.float32, m)),
+             ("encoder_bf16", lambda m: encoder_case(device, torch.bfloat16, m)),
+             ("lm_8b_width_2_layers_bf16", lambda m: lm_case(device, m))), meshes.items()):
+        row = profile(name + tag, *make(mesh), args.steps)
+        if mesh is not None:
+            row["mesh"] = mesh.shape
         row["card"] = smi
         print(json.dumps(row), flush=True)
         rows.append(row)

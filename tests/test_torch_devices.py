@@ -73,6 +73,26 @@ def _create_lm_train_state(tmp_path, **kw):
     return train_lm.create_lm_train_state(decoder.DecoderArch.tiny(), torch.Generator().manual_seed(0), **kw)
 
 
+def _cpu_mesh_or_every_card(shape, device):
+    """The mesh a caller builds: every card without a device (``build_mesh``
+    raises without one), the named device repeated otherwise."""
+    from comorag_torch.parallel.mesh import build_mesh
+
+    n = int(np.prod(list(shape.values())))
+    return build_mesh(shape, None if device is None else [torch.device(device)] * n)
+
+
+def _create_train_state_over_a_mesh(tmp_path, device=None):
+    """A sharded state names no device: it lives on the mesh's devices."""
+    mesh = _cpu_mesh_or_every_card({"data": 2, "model": 2}, device)
+    return train.create_train_state(bge.EncoderArch.tiny(), torch.Generator().manual_seed(0), mesh=mesh)
+
+
+def _create_lm_train_state_over_a_mesh(tmp_path, device=None):
+    mesh = _cpu_mesh_or_every_card({"data": 2, "model": 2}, device)
+    return train_lm.create_lm_train_state(decoder.DecoderArch.tiny(), torch.Generator().manual_seed(0), mesh=mesh)
+
+
 def _hf_checkpoint(tmp_path, **kw):
     from transformers import LlamaConfig, LlamaForCausalLM
 
@@ -162,12 +182,15 @@ ENTRY_POINTS = {
     "bge.load_hf_checkpoint": _bge_hf_checkpoint,
     "train.create_train_state": _create_train_state,
     "train_lm.create_lm_train_state": _create_lm_train_state,
+    "train.create_train_state(mesh=)": _create_train_state_over_a_mesh,
+    "train_lm.create_lm_train_state(mesh=)": _create_lm_train_state_over_a_mesh,
 }
 FUNCTIONS = {"fit_gmm_bic", "two_level_soft_cluster", "GraphBuilder.add_synonymy_edges"}  # check their own results
 CACHES = {"KVCache.zeros", "make_kv_cache", "make_kv_cache(kv_dtype=int8)"}  # tuples of tensors
 TREES = {"decoder.init_params", "decoder.params_from_jax"}  # dicts of tensors and weight tuples
 PARAM_SETS = {"bge.init_params", "bge.params_from_jax", "bge.load_hf_checkpoint",  # an Encoder, or a state
-              "train.create_train_state", "train_lm.create_lm_train_state"}
+              "train.create_train_state", "train_lm.create_lm_train_state", "train.create_train_state(mesh=)",
+              "train_lm.create_lm_train_state(mesh=)"}
 
 
 def _leaves(tree):

@@ -7,7 +7,8 @@ of them, imports every comorag_torch module (the generation engine, its
 server and the decoder among them), runs the CLI's ``--help``, indexes and
 answers the moonlantern set on the CPU with the hash encoder, runs one
 short ``jax-tiny`` generation on one device and one over a ``model`` mesh
-axis, and two steps of the training CLI on the CPU,
+axis, and two steps of the training CLI on the CPU without a mesh and
+over a data x model mesh,
 and checks that none of them was loaded. httpx and pyarrow are not blocked: the host modules need them (the
 OpenAI client, the parquet store), and the H100 machine has them installed.
 """
@@ -72,9 +73,10 @@ SCRIPT = textwrap.dedent(
     pairs = os.path.join(tmp, "pairs.jsonl")
     with open(pairs, "w") as f:
         f.writelines(json.dumps({"query": f"q {i}", "passage": f"p {i}"}) + "\\n" for i in range(8))
-    summary = train.main(["--pairs", pairs, "--output_dir", os.path.join(tmp, "ckpt"), "--init", "tiny",
-                          "--steps", "2", "--batch", "4", "--max_seq_len", "8", "--device", "cpu"])
-    assert os.path.exists(summary["checkpoint"]), summary
+    for mesh_args in ([], ["--mesh_shape", "data=2,model=2"]):
+        summary = train.main(["--pairs", pairs, "--output_dir", os.path.join(tmp, "ckpt"), "--init", "tiny",
+                              "--steps", "2", "--batch", "4", "--max_seq_len", "8", "--device", "cpu", *mesh_args])
+        assert os.path.exists(summary["checkpoint"]), summary
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("OK", len(modules), "modules")

@@ -326,12 +326,14 @@ def test_train_cli_end_to_end(tmp_path):
 
 # ------------------------------------------------------------------ errors
 @pytest.mark.parametrize("what", ["make_train_step", "make_lm_train_step", "--mesh_shape", "ComoRAG", "get_llm"])
-def test_mesh_is_refused(what, tmp_path):
-    """The training steps and the train CLI's ``--mesh_shape`` still
-    refuse a mesh, naming the next slice; ``ComoRAG`` takes one now (it
-    builds ``config.mesh_shape`` and its indexes shard), and so does
-    ``get_llm``: an in-process LLM under a ``model`` axis splits its
-    weights over it (tensor-parallel generation)."""
+def test_mesh_is_taken(what, tmp_path):
+    """Every entry point that takes a mesh runs over one: the two training
+    steps take a [cpu] * 2 mesh and step (their JAX parity over data x
+    model meshes: tests/test_torch_train_mesh.py), the train CLI's
+    ``--mesh_shape data=2 --device cpu`` trains and writes a checkpoint
+    that loads into an unsharded state, ``ComoRAG`` builds
+    ``config.mesh_shape`` and its indexes shard, and ``get_llm`` splits an
+    in-process LLM's weights over a ``model`` axis."""
     from comorag_torch.config import ComoConfig
     from comorag_torch.parallel.mesh import build_mesh
 
@@ -353,16 +355,31 @@ def test_mesh_is_refused(what, tmp_path):
         assert llm.engine.mesh is mesh  # its split weights: test_torch_tp.py
         llm.close()
         return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 6c: the next slice"):
-        if what == "make_train_step":
-            ttrain.make_train_step(tbge.EncoderArch.tiny(), mesh=object())
-        elif what == "make_lm_train_step":
-            ttrain_lm.make_lm_train_step(tdec.DecoderArch.tiny(), mesh=object())
-        else:
-            from comorag_torch.cli.train import main as train_main
+    if what == "--mesh_shape":
+        from comorag_torch.cli.train import main as train_main
 
-            train_main(["--pairs", str(tmp_path / "none.jsonl"), "--output_dir", str(tmp_path),
-                        "--mesh_shape", "data=8", "--device", "cpu"])
+        ppath = tmp_path / "pairs.jsonl"
+        ppath.write_text("".join(json.dumps({"query": f"q {i}", "passage": f"p {i}"}) + "\n" for i in range(8)))
+        summary = train_main(["--pairs", str(ppath), "--output_dir", str(tmp_path / "ckpt"), "--init", "tiny",
+                              "--steps", "2", "--batch", "4", "--max_seq_len", "8", "--mesh_shape", "data=2",
+                              "--device", "cpu"])
+        fresh = ttrain.create_train_state(tbge.EncoderArch.tiny(), torch.Generator().manual_seed(1), device="cpu")
+        restored = ttrain.load_checkpoint(summary["checkpoint"], fresh)
+        assert restored.step == 2 and np.isfinite(summary["final_loss"])
+        return
+    mesh = build_mesh({"data": 2}, [torch.device("cpu")] * 2)
+    if what == "make_train_step":
+        arch = tbge.EncoderArch.tiny()
+        state = ttrain.create_train_state(arch, torch.Generator().manual_seed(0), device="cpu", mesh=mesh)
+        step = ttrain.make_train_step(arch, mesh=mesh)
+        batch = {k: torch.ones(4, 8, dtype=torch.int64) for k in ("q_ids", "q_mask", "p_ids", "p_mask")}
+    else:
+        arch = tdec.DecoderArch.tiny(vocab_size=64)
+        state = ttrain_lm.create_lm_train_state(arch, torch.Generator().manual_seed(0), device="cpu", mesh=mesh)
+        step = ttrain_lm.make_lm_train_step(arch, mesh=mesh)
+        batch = {"ids": torch.ones(4, 8, dtype=torch.int64), "mask": torch.ones(4, 8, dtype=torch.int64)}
+    state, loss = step(state, batch)
+    assert state.step == 1 and np.isfinite(float(loss))
 
 
 def test_kernel_route_refuses_autograd():
