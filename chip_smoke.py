@@ -129,18 +129,23 @@ Phases, one line each (any failed check raises and the exit code is not 0):
  14. tensor-parallel generation over {"model": 4} of the one card
      (``decoder.shard_params``; no multi-card speed is read from it), on
      phase 10's weights, arch and 8 requests: (a) int4 weights, every
-     product column-parallel: no error response, int4_matmul launched
-     4 x (4 x layers + 1) times a forward (per route, beside phase 10's),
-     the fused tail 0 times (its norm and activation need whole rows);
-     the last-prompt and first-decode-step logits in fp32 compute against
-     the unsharded engine on the same weights and against the per-shard
-     plain route, under phase 10's rule; the served bf16 logits and greedy
-     tokens beside phase 10's and prefill and decode tok/s (reported);
-     (b) the same with bf16 weights (o/down row-parallel, partial sums on
-     the merge device); (c) int4_matmul at the shard shapes of a decode
-     step (M = 8: qkv 4096->1536, o 4096->1024, gate/up 4096->7168, down
-     14336->1024, lm_head 4096->32064, and 4096->64128 at {"model": 2}) as
-     phase 9 times its shapes;
+     product column-parallel: no error response; each forward's launches
+     checked (``decoder.tail_route``: a forward of <= 64 tokens, a decode
+     step, launches the fused tail once a layer over the o, gate/up and
+     down column shards, read in place, and int4_matmul 4 x (layers + 1)
+     times for qkv and the head; a prefill chunk int4_matmul 4 x (4 x
+     layers + 1) times, no tail; per route, beside phase 10's); the
+     last-prompt and first-decode-step logits in fp32 compute against the
+     unsharded engine on the same weights and against the plain versions
+     on the same shards, under phase 10's rule; the served bf16 logits and
+     greedy tokens beside phase 10's and prefill and decode tok/s
+     (reported); (b) the same with bf16 weights (o/down row-parallel,
+     partial sums on the merge device, no int4 launch); (c) int4_matmul at
+     qkv's and the head's shard shapes of a decode step (M = 8: qkv
+     4096->1536, lm_head 4096->32064, and 4096->64128 at {"model": 2}) and
+     the fused tail over the 4 column shards at M = 8 and 64 (held against
+     its plain version under the bf16 rule and against the whole-weight
+     launch) as phase 9 times its shapes;
  15. dp x tp training over {"data": 2, "model": 2} of the one card
      (``models/train.py`` and ``train_lm.py`` with ``mesh=``; no
      multi-card speed is read from it): (a) bert-base with phase 12a's
@@ -194,7 +199,7 @@ from comorag_torch.llm.fake import FakeLLM
 from comorag_torch.llm.offline import TorchOfflineLLM
 from comorag_torch.models import bge, curriculum, decoder, train, train_lm
 from comorag_torch.ops import attention, build, ffn, int4, mips, ppr
-from comorag_torch.parallel.mesh import Sharded, build_mesh, merge_blocks
+from comorag_torch.parallel.mesh import Sharded, build_mesh, merge_blocks, split_blocks
 from comorag_torch.ops.topk import dense_scores, int8_scores, quantize_int8
 from comorag_torch.retrieval import index as index_mod
 from comorag_torch.retrieval.index import MipsIndex
@@ -242,6 +247,26 @@ def median_ms(fn, runs: int = 20, reps: int = 10, warmup: int = 3) -> float:
     times = []
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def device_ms(fn, runs: int = 20, reps: int = 10, warmup: int = 3) -> float:
+    """``median_ms`` with the host kept ahead of the card: a sleep kernel
+    (~2.5 ms) holds the stream while the ``reps`` calls are enqueued, so
+    the events time the kernels alone where the host's launch work per
+    call exceeds a kernel's time."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)
         start.record()
         for _ in range(reps):
             fn()
@@ -991,8 +1016,10 @@ def phase_int4_kernels(device) -> dict:
         r = {"M": m, "H": h, "I": inter,
              "max_abs_err": compare(got, ref, f"int4_fused_layer_tail M={m}"), "rule_ratio": rule_ratio(got, ref),
              "ms": median_ms(cycling(lambda i: int4.int4_fused_layer_tail(*args(i), eps=1e-5), layers)),
+             "device_ms": device_ms(cycling(lambda i: int4.int4_fused_layer_tail(*args(i), eps=1e-5), layers)),
              "plain_ms": median_ms(lambda: int4.int4_fused_layer_tail_plain(*args(0), eps=1e-5), runs=3, reps=1,
                                    warmup=1),
+             "host_us": host_us(lambda: int4.int4_fused_layer_tail(*args(0), eps=1e-5)),
              "library_ms": None, **tail_bound(m, h, inter)}
         r["roofline_share"] = r["bound_ms"] / r["ms"]
         tail.append(r)
@@ -1002,8 +1029,9 @@ def phase_int4_kernels(device) -> dict:
         print(f"phase 9 {int4_matmul_line(r)}", flush=True)
     for r in tail:
         print(f"phase 9 int4_fused_layer_tail M={r['M']} H={r['H']} I={r['I']}: max_abs_err={r['max_abs_err']:.4g} "
-              f"(worst ratio to the rule {r['rule_ratio']:.3f}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) roofline share {r['roofline_share']:.3f}", flush=True)
+              f"(worst ratio to the rule {r['rule_ratio']:.3f}) kernel {r['ms']:.4f} ms (device alone "
+              f"{r['device_ms']:.4f}) plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+              f"roofline share {r['roofline_share']:.3f}; wrapper host {r['host_us']:.1f} us a call", flush=True)
     return {"int4_matmul": mm, "int4_fused_layer_tail": tail}
 
 
@@ -1802,18 +1830,21 @@ def phase_sharded(device, corpus, serve_queries, serving: dict, workdir: str, me
 
 # ----------------------------------------------------------------- phase 14
 TP = 4
-# int4_matmul's column shards of a decode step (M = 8) at Llama-3.1-8B
-# widths over {"model": 4}; the last is the lm_head shard over {"model": 2}
-TP_SHARD_SHAPES = (("qkv", 4096, 1536), ("o", 4096, 1024), ("gate_up", 4096, 7168), ("down", 14336, 1024),
-                   ("lm_head", 4096, 32064), ("lm_head_model_2", 4096, 64128))
-TAIL_UNDER_TP = ("0 under a model axis: the fused tail's RMSNorm and activation need whole rows, so a layer "
-                 "with sharded o/gate-up/down weights runs its products per shard with gathers between")
+# int4_matmul's column shards of a TP decode step (M = 8) at Llama-3.1-8B
+# widths over {"model": 4}: qkv and the head (o, gate/up and down run in
+# the fused tail over their shards); the last is the head's shard over
+# {"model": 2}
+TP_SHARD_SHAPES = (("qkv", 4096, 1536), ("lm_head", 4096, 32064), ("lm_head_model_2", 4096, 64128))
+TP_ROUTES = (f"{decoder.FUSED_TAIL} where every shard lies on the merge device (this mesh of one card): one "
+             f"launch a layer of <= 64 tokens reads the o, gate/up and down column shards in place; "
+             f"{decoder.PER_PRODUCT} over distinct cards (the kernel reads one card's memory) and above 64 "
+             f"tokens: int4_matmul per shard, the norm, activation and residuals in PyTorch")
 
 
 def tp_shard_timings(device) -> list:
-    """(c) int4_matmul at each shard shape of a TP decode step, timed as
-    phase 9 times its shapes (32 layers' weights cycled, plain, bound,
-    tinygemm as the library call)."""
+    """(c) int4_matmul at qkv's and the head's shard shapes of a TP decode
+    step, timed as phase 9 times its shapes (32 layers' weights cycled,
+    plain, bound, tinygemm as the library call)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 14)
     rows = []
     for name, k, n in TP_SHARD_SHAPES:
@@ -1824,13 +1855,100 @@ def tp_shard_timings(device) -> list:
     return rows
 
 
+def tp_tail_timings(device) -> list:
+    """(c) the fused tail over the column shards of {"model": 4} at
+    Llama-3.1-8B width, M = 8 and 64, timed as phase 9 times the whole
+    tail (32 layers' shards cycled, plain, bound): held against its plain
+    version under the bf16 rule, and against the launch over the whole
+    weights (the same plan: bit-equal expected, the max |d| reported)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    arch = llama_8b()
+    h, inter, layers = arch.hidden_size, arch.intermediate_size, arch.num_layers
+    devices = [device] * TP
+    whole = [int4_weights(gen, device, k, n, layers) for k, n in ((h, h), (h, 2 * inter), (inter, h))]
+    # each layer's shards, cut as decoder.shard_params cuts them (contiguous
+    # tensors of their own): [layer][weight] -> (packed blocks, scale blocks)
+    shards = [[(split_blocks(p[i], -1, devices), split_blocks(sc[i], -1, devices)) for p, sc in whole]
+              for i in range(layers)]
+    rows = []
+    for m in (8, 64):
+        ctx = torch.randn(m, h, generator=gen, device=device).to(torch.bfloat16)
+        xres = torch.randn(m, h, generator=gen, device=device)
+        nw = 1.0 + 0.1 * torch.randn(h, generator=gen, device=device)
+
+        def args(i):
+            return (ctx, xres, nw, *(t for pair in shards[i] for t in pair))
+
+        got = int4.int4_fused_layer_tail(*args(0), eps=1e-5)
+        ref = int4.int4_fused_layer_tail_plain(*args(0), eps=1e-5)
+        whole_out = int4.int4_fused_layer_tail(ctx, xres, nw, *(t[0] for pair in whole for t in pair), eps=1e-5)
+        torch.cuda.synchronize()
+        r = {"M": m, "H": h, "I": inter, "blocks": TP,
+             "max_abs_err": compare(got, ref, f"int4_fused_layer_tail over {TP} shards M={m}"),
+             "rule_ratio": rule_ratio(got, ref), "max_abs_diff_vs_whole_kernel": float((got - whole_out).abs().max()),
+             "ms": median_ms(cycling(lambda i: int4.int4_fused_layer_tail(*args(i), eps=1e-5), layers)),
+             "device_ms": device_ms(cycling(lambda i: int4.int4_fused_layer_tail(*args(i), eps=1e-5), layers)),
+             "whole_device_ms": device_ms(cycling(lambda i: int4.int4_fused_layer_tail(
+                 ctx, xres, nw, *(t[i] for pair in whole for t in pair), eps=1e-5), layers)),
+             "plain_ms": median_ms(lambda: int4.int4_fused_layer_tail_plain(*args(0), eps=1e-5), runs=3, reps=1,
+                                   warmup=1),
+             "host_us": host_us(lambda: int4.int4_fused_layer_tail(*args(0), eps=1e-5)),
+             "library_ms": None, **tail_bound(m, h, inter)}
+        r["roofline_share"] = r["bound_ms"] / r["ms"]
+        rows.append(r)
+        del got, ref, whole_out
+    del whole, shards
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def forward_launches():
+    """Records each decoder_forward call's tokens (batch x chunk) and the
+    int4_matmul and fused-tail launches it made."""
+    rec = []
+    forward = decoder.decoder_forward
+
+    def counted(params, input_ids, *a, **kw):
+        before = int4.LAUNCHES.value, int4.TAIL_LAUNCHES.value
+        out = forward(params, input_ids, *a, **kw)
+        rec.append((input_ids.numel(), int4.LAUNCHES.value - before[0], int4.TAIL_LAUNCHES.value - before[1]))
+        return out
+
+    decoder.decoder_forward = counted
+    try:
+        yield rec
+    finally:
+        decoder.decoder_forward = forward
+
+
+def checked_forwards(rec, arch, int4_kernels: bool, what: str) -> dict:
+    """Each recorded forward's (int4_matmul, fused tail) launches over
+    {"model": TP} of one card: at <= 64 tokens TP x (layers + 1), qkv and
+    the head per shard, and one fused tail a layer over the shards; above,
+    TP x (4 x layers + 1), every product per shard, no tail; none with
+    bf16 weights. Returns the forwards by kind and their launch counts."""
+    layers, out = arch.num_layers, {}
+    for m, matmuls, tails in rec:
+        kind = "le_64_tokens" if m <= int4.TAIL_MAX_M else "gt_64_tokens"
+        want = (0, 0) if not int4_kernels else (TP * (layers + 1), layers) if kind == "le_64_tokens" else (
+            TP * (4 * layers + 1), 0)
+        if (matmuls, tails) != want:
+            raise AssertionError(f"tp {what}: a forward of {m} tokens made (int4_matmul, fused tail) launches "
+                                 f"{(matmuls, tails)}, expected {want}")
+        entry = out.setdefault(kind, {"forwards": 0, "int4_matmul_each": matmuls, "fused_tail_each": tails})
+        entry["forwards"] += 1
+    return out
+
+
 def tp_generation(device, params, arch, mesh, name: str, param_dtype, server: dict, max_tokens: int) -> dict:
     """(a) int4 or (b) bf16 weights split over the mesh's model axis:
-    phase 10's 8 requests through the GenerationServer (no error, each
-    int4 product launched once per shard, the fused tail never), then the
-    last-prompt and first-decode-step logits in fp32 compute against the
-    unsharded engine on the same weights (and, int4, against the per-shard
-    plain route) under phase 10's rule; the served bf16 logits and greedy
+    phase 10's 8 requests through the GenerationServer (no error; int4:
+    every forward's launches as ``checked_forwards`` expects them, the
+    fused tail over the shards at decode), then the last-prompt and
+    first-decode-step logits in fp32 compute against the unsharded engine
+    on the same weights (and, int4, against the plain versions on the same
+    shards) under phase 10's rule; the served bf16 logits and greedy
     tokens beside phase 10's are reported."""
     t0 = time.perf_counter()
     engine = TorchOfflineLLM(params=params, arch=arch, param_dtype=param_dtype, compute_dtype=torch.bfloat16,
@@ -1838,13 +1956,16 @@ def tp_generation(device, params, arch, mesh, name: str, param_dtype, server: di
     torch.cuda.synchronize()
     out = {"build_s": time.perf_counter() - t0}
     prompts = server_prompts()
-    run = serve_route(engine, prompts, max_tokens, f"tp_{name}")
     int4_kernels = param_dtype == "int4"
-    per_forward = TP * (4 * arch.num_layers + 1) if int4_kernels else 0  # 4 products a layer and the head, per shard
-    expected = per_forward * run["llm_counters"]["llm.decode_steps"]  # a call's forwards: its prefill + steps - 1
+    out["decode_route"] = decoder.tail_route(engine.params, arch, len(prompts))
+    if out["decode_route"] != (decoder.FUSED_TAIL if int4_kernels else decoder.PER_PRODUCT):
+        raise AssertionError(f"tp {name}: a decode step of the one-card mesh takes {out['decode_route']}")
+    with forward_launches() as rec:
+        run = serve_route(engine, prompts, max_tokens, f"tp_{name}")
+    out["forwards"] = checked_forwards(rec, arch, int4_kernels, name)
     launches = run["launches"]
-    if launches["int4_matmul"] != expected or launches["int4_fused_layer_tail"] != 0:
-        raise AssertionError(f"tp {name}: launches {launches}, expected int4_matmul {expected} and no fused tail")
+    if (launches["int4_matmul"], launches["int4_fused_layer_tail"]) != (sum(r[1] for r in rec), sum(r[2] for r in rec)):
+        raise AssertionError(f"tp {name}: launches {launches} outside the recorded forwards {rec}")
     unsharded = "int4_kernels" if int4_kernels else "bf16_matmul"
     out.update(served_vs_phase_10=served_comparison(run, server["served"][unsharded]),
                **{k: run[k] for k in ("prefill_tok_s", "decode_tok_s", "wall_s", "launches", "route_launches",
@@ -1856,11 +1977,11 @@ def tp_generation(device, params, arch, mesh, name: str, param_dtype, server: di
     ref = forward_logits(whole, prompts, torch.float32)
     del whole
     torch.cuda.empty_cache()
-    before = int4.LAUNCHES.value, int4.TAIL_LAUNCHES.value
-    got = forward_logits(engine, prompts, torch.float32, ref[2])
-    counted = int4.LAUNCHES.value - before[0], int4.TAIL_LAUNCHES.value - before[1]
-    if counted != (2 * per_forward, 0):  # the prefill chunk and one decode step
-        raise AssertionError(f"tp {name} fp32 forwards: (int4_matmul, fused tail) launches {counted}")
+    with forward_launches() as rec:  # the prefill chunk and one decode step
+        got = forward_logits(engine, prompts, torch.float32, ref[2])
+    checked_forwards(rec, arch, int4_kernels, f"{name} fp32 forwards")
+    if [m <= int4.TAIL_MAX_M for m, _, _ in rec] != [False, True]:
+        raise AssertionError(f"tp {name} fp32 forwards: {rec}, expected one prefill chunk and one decode step")
     out["logits_fp32_vs_unsharded"] = checked_pair(got, ref, f"{TP} {name} shards vs unsharded", torch.float32)
     if int4_kernels:
         with plain_int4():
@@ -1888,6 +2009,7 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
     del params
     torch.cuda.empty_cache()
     out["shards"] = tp_shard_timings(device)
+    out["tail_shards"] = tp_tail_timings(device)
     for tag, name in (("a", "int4"), ("b", "bf16")):
         r = out[name]
         logits = {k: v for k, v in r.items() if k.startswith("logits")}
@@ -1896,11 +2018,20 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
               f"tok/s, decode {r['decode_tok_s']:.1f} tok/s (phase 10 unsharded: {r['phase_10']['prefill_tok_s']:.1f}, "
               f"{r['phase_10']['decode_tok_s']:.1f}), wall {r['wall_s']:.3f} s, build {r['build_s']:.3f} s; launches "
               f"{r['launches']}, int4_matmul by route {r['route_launches']} (phase 10: {r['phase_10']['route_launches']})"
-              f"; fused tail {TAIL_UNDER_TP}; qkv_w {r['qkv_shard']}; fp32-compute logits (checked) "
+              f"; per forward (checked) {json.dumps(r['forwards'])}; decode route {r['decode_route']} (routes: "
+              f"{TP_ROUTES}); qkv_w {r['qkv_shard']}; fp32-compute logits (checked) "
               f"{json.dumps(logits)}; served bf16 logits and greedy tokens beside phase 10's (reported) "
               f"{json.dumps(r['served_vs_phase_10'])}; {json.dumps(r['llm_counters'])}", flush=True)
     for r in out["shards"]:
         print(f"phase 14c {int4_matmul_line(r)}", flush=True)
+    for r in out["tail_shards"]:
+        print(f"phase 14c int4_fused_layer_tail over {r['blocks']} column shards M={r['M']} H={r['H']} I={r['I']} "
+              f"({smi}): max_abs_err={r['max_abs_err']:.4g} (worst ratio to the rule {r['rule_ratio']:.3f}), max |d| "
+              f"against the whole-weight launch {r['max_abs_diff_vs_whole_kernel']:.4g}; kernel {r['ms']:.4f} ms, "
+              f"device alone {r['device_ms']:.4f} ms (whole weights: {r['whole_device_ms']:.4f}) plain "
+              f"{r['plain_ms']:.4f} ms bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) roofline share {r['roofline_share']:.3f}; wrapper host "
+              f"{r['host_us']:.1f} us a call", flush=True)
     return out
 
 
@@ -2248,9 +2379,11 @@ def main() -> None:
                             "tp_launches_by_route": tp["int4"]["route_launches"], "tp_shard_shapes": tp["shards"],
                             "mesh_dryrun_launches": mesh_training["dryrun"]["int4_matmul_launches"]}
                            if counter is int4.LAUNCHES else
-                           {"tp_launches": tp["int4"]["launches"][counter.name], "tp_launches_why": TAIL_UNDER_TP}),
+                           {"tp_launches": tp["int4"]["launches"][counter.name], "tp_routes": TP_ROUTES,
+                            "tp_shard_shapes": tp["tail_shards"]}),
+                        "tp_launches_per_forward": tp["int4"]["forwards"],
                         "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks
-                                           + (tp["shards"] if counter is int4.LAUNCHES else [])),
+                                           + (tp["shards"] if counter is int4.LAUNCHES else tp["tail_shards"])),
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         "shapes": rows})
 

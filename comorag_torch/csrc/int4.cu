@@ -80,6 +80,11 @@
 //   tensor-core rows; a lane reads whole 32-bit words of the JAX packing
 //   (4 adjacent columns of one packed row) and turns each byte into a
 //   bf16 pair with one PRMT, one LOP3 and one HSUB2 (nibble_pair), exact.
+// - each weight may arrive as up to MAX_BLOCKS column blocks (a `model`
+//   axis's shards on one device, the TP decode path): a block has its own
+//   tensor map and scale pointer, and a box's global column picks its
+//   block, so the shards are read in place, in one launch, with the same
+//   items, splits and sums as the whole weight (bit-equal output).
 // The rounding points are the TPU kernel's: ctx -> bf16, xmid and the
 // norm in fp32, xn -> bf16, gate/up in fp32, h -> bf16, down in fp32 plus
 // xmid. Grid-wide barriers separate the o product, the RMSNorm, gate/up
@@ -360,13 +365,21 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w_hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// A weight arrives as `blocks` column blocks of `bw` columns each (one
+// block: the whole weight; more: a model axis's column shards, each its
+// own [K/2, bw] packed tensor and [K/gs, bw] scales, read in place).
+// Global output column c lies in block c / bw at local column c % bw; bw
+// is a multiple of BN, so no box straddles two blocks.
+constexpr int MAX_BLOCKS = 4;
+
 struct Gemm {
-  const float* S;      // [K/gs, N] scales
+  const float* S[MAX_BLOCKS];  // per block: [K/gs, bw] scales
   int K, N;
-  int second;          // column offset of the second block (gate/up: I), else -1
+  int bw;              // columns of a block (N for a whole weight)
+  int second;          // column offset of the second half (gate/up: I), else -1
   int span;            // output columns a tile advances (a product item's boxes lie side by side)
   int tiles, splits;
-  float* ws;           // [splits, M, N] fp32 partials
+  float* ws;           // [splits, M, N] fp32 partials, by global column
   unsigned* tickets;   // [tiles], 0 between launches
 };
 
@@ -386,8 +399,8 @@ using P32 = Cfg32;
 using P64 = Cfg64;
 
 struct Args {
-  CUtensorMap xmap[4];  // per stage: x [M, K] bf16 (ctx, xn, h; the product's x), boxes [MP][64]
-  CUtensorMap pmap[4];  // per stage: packed [K/2, N] int8, boxes [32][128]
+  CUtensorMap xmap[4];              // per stage: x [M, K] bf16 (ctx, xn, h; the product's x), boxes [MP][64]
+  CUtensorMap pmap[4][MAX_BLOCKS];  // per stage and block: packed [K/2, bw] int8, boxes [32][128]
   const float* xres;
   const float* norm_w;
   float* out;     // [M, H] fp32 (the product: [M, N])
@@ -399,6 +412,9 @@ struct Args {
   int M, H, I, gs, unit_offset, act;
   float eps;
 };
+// 20 tensor maps and the rest: inside the 4 KB of kernel parameters that
+// every toolkit takes
+static_assert(sizeof(Args) <= 4096, "kernel parameters exceed 4 KB");
 
 // Walks the steps of this block's work items (item = blockIdx.x + r * gridDim.x;
 // tile = item % tiles, split = item / tiles; split s holds the groups
@@ -436,19 +452,45 @@ __device__ __forceinline__ int out_col(const Gemm& g, int n0, int col) {
   return (col < BN || g.second < 0 ? n0 : g.second + n0 - BN) + col;
 }
 
+// Where a work item's NB packed boxes lie: each box's block map, its
+// column within the block and its block's scales. The loader finds them
+// once per item, not per step: the block of a global column costs a
+// division and indexed parameter loads, and whatever the loader spends on
+// a step delays the whole block, whose steps end in a barrier.
+template <int NB>
+struct Boxes {
+  const CUtensorMap* map[NB];
+  const float* S[NB];
+  int col[NB];
+  int item = -1;
+  __device__ __forceinline__ void find(const Args& A, const Gemm& g, int stage_id, const Cursor& c) {
+    if (c.item == item) return;
+    item = c.item;
+    const int n0 = c.tile() * g.span;
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      const int global = out_col(g, n0, cb * BN), b = global / g.bw;
+      map[cb] = &A.pmap[stage_id][b];
+      S[cb] = g.S[b];
+      col[cb] = global - b * g.bw;
+    }
+  }
+};
+
 // One step into a ring stage, issued by one thread: the x box, NB packed
 // boxes and NB scale rows, all completing on the stage's barrier.
 template <class C, int NB, int STAGE_ID>
-__device__ __forceinline__ void issue_step(unsigned char* stage, uint64_t* bar, const Args& A, const Cursor& c) {
+__device__ __forceinline__ void issue_step(unsigned char* stage, uint64_t* bar, const Args& A, const Cursor& c,
+                                           Boxes<NB>& bx) {
   const Gemm& g = A.g[STAGE_ID];
-  const int n0 = c.tile() * g.span;
+  bx.find(A, g, STAGE_ID, c);
   mbar_expect_tx(bar, C::X_BYTES + NB * BOX + NB * BN * 4);
   tma_load_2d(stage, &A.xmap[STAGE_ID], bar, c.k, 0);
+  const size_t row = (size_t)(c.k / A.gs) * g.bw;  // the step's scale row in its block
 #pragma unroll
   for (int cb = 0; cb < NB; ++cb) {
-    tma_load_2d(stage + C::X_BYTES + cb * BOX, &A.pmap[STAGE_ID], bar, out_col(g, n0, cb * BN), c.k / 2);
-    bulk_copy(stage + C::X_BYTES + C::W_BYTES + cb * BN * 4, g.S + (size_t)(c.k / A.gs) * g.N + out_col(g, n0, cb * BN),
-              BN * 4, bar);
+    tma_load_2d(stage + C::X_BYTES + cb * BOX, bx.map[cb], bar, bx.col[cb], c.k / 2);
+    bulk_copy(stage + C::X_BYTES + C::W_BYTES + cb * BN * 4, bx.S[cb] + row + bx.col[cb], BN * 4, bar);
   }
 }
 
@@ -610,17 +652,19 @@ __device__ void run_stage(const Args& A, unsigned char* ring, uint64_t* full, in
   acc.zero();
   gacc.zero();
   Cursor ld(g, A.gs), cs(g, A.gs);
+  Boxes<NB> bx;  // the loader's
   const bool loader = threadIdx.x == 0;
   int issued = steps;
   for (int s = 0; s < C::STAGES - 1 && ld.valid(); ++s, ++issued, ld.next())
-    if (loader) issue_step<C, NB, STAGE_ID>(ring + (issued % C::STAGES) * C::STAGE, &full[issued % C::STAGES], A, ld);
+    if (loader)
+      issue_step<C, NB, STAGE_ID>(ring + (issued % C::STAGES) * C::STAGE, &full[issued % C::STAGES], A, ld, bx);
   for (; cs.valid(); ++steps) {
     const int slot = steps % C::STAGES;
     mbar_wait(&full[slot], (steps / C::STAGES) & 1);
     __syncthreads();  // everyone is past the previous step: its slot may be refilled
     if (ld.valid()) {
       if (loader)
-        issue_step<C, NB, STAGE_ID>(ring + (issued % C::STAGES) * C::STAGE, &full[issued % C::STAGES], A, ld);
+        issue_step<C, NB, STAGE_ID>(ring + (issued % C::STAGES) * C::STAGE, &full[issued % C::STAGES], A, ld, bx);
       ++issued;
       ld.next();
     }
@@ -775,6 +819,34 @@ cudaError_t p_map(CUtensorMap* map, const void* packed, int K, int N) {
   const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K / 2}, strides[1] = {(cuuint64_t)N};
   const cuuint32_t box[2] = {BN, KS / 2};
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, packed, dims, strides, box);
+}
+
+// Stage `id` of A over a [K, N] weight that arrives as `blocks` column
+// blocks (P[b], S[b]: block b's packed [K/2, N/blocks] bytes and [K/gs,
+// N/blocks] scales): its Gemm and one packed-weight map a block. Refuses a
+// block width that is no multiple of BN.
+cudaError_t set_stage(Args& A, int id, const void* const* P, const void* const* S, int blocks, int K, int N,
+                      int second, int span, int tiles, int splits, float* ws, unsigned* tickets) {
+  if (P == nullptr || S == nullptr || blocks < 1 || blocks > MAX_BLOCKS || N % blocks != 0 || (N / blocks) % BN != 0)
+    return cudaErrorInvalidValue;
+  Gemm& g = A.g[id];
+  g = Gemm{};
+  g.K = K;
+  g.N = N;
+  g.bw = N / blocks;
+  g.second = second;
+  g.span = span;
+  g.tiles = tiles;
+  g.splits = splits;
+  g.ws = ws;
+  g.tickets = tickets;
+  for (int b = 0; b < blocks; ++b) {
+    if (P[b] == nullptr || S[b] == nullptr) return cudaErrorInvalidValue;
+    g.S[b] = static_cast<const float*>(S[b]);
+    const cudaError_t err = p_map(&A.pmap[id][b], P[b], K, g.bw);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // Workspace layout (bytes, each part 16-byte aligned): xmid, sq, the three
@@ -1090,10 +1162,10 @@ extern "C" int comorag_int4_matmul_splitk(const void* x, const void* packed, con
   A.out = static_cast<float*>(out);
   A.M = M;
   A.gs = gs;
-  A.g[splitk::PRODUCT] = {static_cast<const float*>(scales), K, N, -1, splitk::PRODUCT_TILE, N / splitk::PRODUCT_TILE, splits,
-                          static_cast<float*>(workspace), static_cast<unsigned*>(tickets)};
-  cudaError_t err = splitk::x_map(&A.xmap[splitk::PRODUCT], x, M, K);
-  if (err == cudaSuccess) err = splitk::p_map(&A.pmap[splitk::PRODUCT], packed, K, N);
+  cudaError_t err = splitk::set_stage(A, splitk::PRODUCT, &packed, &scales, 1, K, N, -1, splitk::PRODUCT_TILE,
+                                      N / splitk::PRODUCT_TILE, splits, static_cast<float*>(workspace),
+                                      static_cast<unsigned*>(tickets));
+  if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::PRODUCT], x, M, K);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 8) return splitk::launch_product<splitk::P8>(A, sm_count, st);
@@ -1126,13 +1198,17 @@ extern "C" int comorag_int4_matmul_wgmma(const void* x, const void* packed, cons
 
 // ctx: [M, H] bf16; xres, out: [M, H] fp32; norm_w: [H] fp32; o: [H/2, H]
 // int8 + [H/gs, H]; gu: [H/2, 2I] + [H/gs, 2I]; down: [I/2, H] + [I/gs, H];
-// every pointer 16-byte aligned. M <= 64; H and I multiples of 512; gs a
-// multiple of 64 dividing H and I. splits: the K splits of the o,
-// gate/up and down stages (ops/int4.tail_plan). workspace:
-// comorag_int4_tail_workspace_bytes bytes; tickets: (2H + I) / 128
-// unsigned ints, zero before the first launch (each launch leaves them
-// zero). act: 0 silu, 1 gelu (tanh), 2 gelu (erf). One cooperative launch
-// on `stream`.
+// each weight as o_blocks / gu_blocks / d_blocks column blocks (1 to
+// comorag_int4_tail_max_blocks: the whole weight, or a model axis's column
+// shards in order, block b holding columns [b N / blocks, (b + 1) N /
+// blocks), a width that is a multiple of comorag_int4_tail_tile_n), given
+// as arrays of packed and scale pointers read in place; every pointer
+// 16-byte aligned. M <= 64; H and I multiples of 512; gs a multiple of 64
+// dividing H and I. splits: the K splits of the o, gate/up and down stages
+// (ops/int4.tail_plan). workspace: comorag_int4_tail_workspace_bytes
+// bytes; tickets: (2H + I) / 128 unsigned ints, zero before the first
+// launch (each launch leaves them zero). act: 0 silu, 1 gelu (tanh), 2
+// gelu (erf). One cooperative launch on `stream`, whatever the blocks.
 extern "C" long long comorag_int4_tail_workspace_bytes(int M, int H, int I, int so, int sgu, int sd) {
   const int splits[3] = {so, sgu, sd};
   return static_cast<long long>(splitk::Layout(M, H, I, splits).total);
@@ -1143,6 +1219,8 @@ extern "C" long long comorag_int4_tail_workspace_bytes(int M, int H, int I, int 
 // negative cudaError_t on failure).
 extern "C" int comorag_int4_tail_tile_n() { return splitk::BN; }
 
+extern "C" int comorag_int4_tail_max_blocks() { return splitk::MAX_BLOCKS; }
+
 extern "C" int comorag_int4_tail_blocks_per_sm(int M) {
   if (M <= 0 || M > splitk::MAX_TOKENS) return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
@@ -1151,8 +1229,9 @@ extern "C" int comorag_int4_tail_blocks_per_sm(int M) {
 }
 
 extern "C" int comorag_int4_fused_layer_tail(const void* ctx, const void* xres, const void* norm_w,
-                                             const void* oP, const void* oS, const void* guP,
-                                             const void* guS, const void* dP, const void* dS,
+                                             const void* const* oP, const void* const* oS, int o_blocks,
+                                             const void* const* guP, const void* const* guS, int gu_blocks,
+                                             const void* const* dP, const void* const* dS, int d_blocks,
                                              void* out, void* workspace, void* tickets, int M, int H,
                                              int I, int gs, int so, int sgu, int sd, float eps,
                                              int unit_offset, int act, int sm_count, void* stream) {
@@ -1163,7 +1242,7 @@ extern "C" int comorag_int4_fused_layer_tail(const void* ctx, const void* xres, 
   const splitk::Layout L(M, H, I, splits);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   unsigned* tk = static_cast<unsigned*>(tickets);
-  splitk::Args A;
+  splitk::Args A{};
   A.xres = static_cast<const float*>(xres);
   A.norm_w = static_cast<const float*>(norm_w);
   A.out = static_cast<float*>(out);
@@ -1172,18 +1251,17 @@ extern "C" int comorag_int4_fused_layer_tail(const void* ctx, const void* xres, 
   A.xn = reinterpret_cast<bf16*>(ws + L.xn);
   A.h = reinterpret_cast<bf16*>(ws + L.h);
   A.M = M; A.H = H; A.I = I; A.gs = gs; A.unit_offset = unit_offset; A.act = act; A.eps = eps;
-  A.g[splitk::O_PROJ] = {static_cast<const float*>(oS), H, H, -1, BN, H / BN, so,
-                       reinterpret_cast<float*>(ws + L.ws[splitk::O_PROJ]), tk};
-  A.g[splitk::GATE_UP] = {static_cast<const float*>(guS), H, 2 * I, I, BN, I / BN, sgu,
-                        reinterpret_cast<float*>(ws + L.ws[splitk::GATE_UP]), tk + H / BN};
-  A.g[splitk::DOWN] = {static_cast<const float*>(dS), I, H, -1, BN, H / BN, sd,
-                     reinterpret_cast<float*>(ws + L.ws[splitk::DOWN]), tk + H / BN + I / BN};
-  cudaError_t err = splitk::x_map(&A.xmap[splitk::O_PROJ], ctx, M, H);
+  cudaError_t err = splitk::set_stage(A, splitk::O_PROJ, oP, oS, o_blocks, H, H, -1, BN, H / BN, so,
+                                      reinterpret_cast<float*>(ws + L.ws[splitk::O_PROJ]), tk);
+  if (err == cudaSuccess)
+    err = splitk::set_stage(A, splitk::GATE_UP, guP, guS, gu_blocks, H, 2 * I, I, BN, I / BN, sgu,
+                            reinterpret_cast<float*>(ws + L.ws[splitk::GATE_UP]), tk + H / BN);
+  if (err == cudaSuccess)
+    err = splitk::set_stage(A, splitk::DOWN, dP, dS, d_blocks, I, H, -1, BN, H / BN, sd,
+                            reinterpret_cast<float*>(ws + L.ws[splitk::DOWN]), tk + H / BN + I / BN);
+  if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::O_PROJ], ctx, M, H);
   if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::GATE_UP], A.xn, M, H);
   if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::DOWN], A.h, M, I);
-  if (err == cudaSuccess) err = splitk::p_map(&A.pmap[splitk::O_PROJ], oP, H, H);
-  if (err == cudaSuccess) err = splitk::p_map(&A.pmap[splitk::GATE_UP], guP, H, 2 * I);
-  if (err == cudaSuccess) err = splitk::p_map(&A.pmap[splitk::DOWN], dP, I, H);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 8) return splitk::launch<splitk::Cfg8>(A, sm_count, st);

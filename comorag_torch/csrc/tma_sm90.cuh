@@ -108,8 +108,10 @@ inline EncodeTiled encode_tiled() {
 // bounds. dims and box innermost first; strides (bytes) of dims 1..rank-1
 // (rank <= 4).
 // Encoding costs microseconds of host time a call, so maps are kept in a
-// small table by (address, type, geometry): the caching allocator hands
-// the same addresses back call after call.
+// table by (address, type, geometry): the caching allocator hands the same
+// addresses back call after call. A decode step over a model axis of 4 on
+// one card uses ~520 weight maps (the fused tail's 12 a layer), so the
+// table has room for several times that.
 inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
                             const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
@@ -119,7 +121,7 @@ inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int rank
     cuuint32_t box[4];
     int type, rank, swizzle;
   };
-  constexpr int SLOTS = 256;
+  constexpr int SLOTS = 4096;
   static std::mutex mu;
   static Key keys[SLOTS];
   static CUtensorMap maps[SLOTS];

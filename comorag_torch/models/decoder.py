@@ -23,8 +23,11 @@ self-speculative decoding. What changes with the framework:
     ``parallel.mesh.Sharded`` leaf, each product runs once per shard on
     the shard's device (an int4 shard through ``int4_matmul``) and merges
     on the first device, where activations, the KV cache and attention
-    stay whole. A layer with a sharded tail takes the per-product route,
-    since the fused tail's norm and activation need whole rows.
+    stay whole. A decode-sized layer whose int4 o / gate-up / down shards
+    all lie on that device (a mesh of one card) takes the fused tail over
+    the shards, read in place, as JAX's TP route launches it over gathered
+    shards; shards on distinct cards take the per-product route
+    (``tail_route``).
 """
 
 from __future__ import annotations
@@ -429,6 +432,63 @@ def _layer_qkv(x: torch.Tensor, layer: Dict[str, Any], positions: torch.Tensor, 
     return q, k, v
 
 
+# The two routes of a layer's o / gate-up / down half (``tail_route``)
+FUSED_TAIL = "fused_tail"
+PER_PRODUCT = "per_product"
+_TAIL_WEIGHTS = ("o_w", "gateup_w", "down_w")
+
+
+def _tail_blocks(w, device: torch.device):
+    """An o / gate-up / down leaf as the fused tail reads it: the (packed,
+    scale) of a whole int4 weight, or the lists of its column shards'
+    packed and scale tensors when every shard lies on ``device``; None
+    for any other leaf."""
+    if isinstance(w, Int4Weight):
+        return w.packed, w.scale
+    if (isinstance(w, Sharded) and w.dim == "col" and all(isinstance(sh, Int4Weight) for sh in w.shards)
+            and all(d == device for d in w.devices)):
+        return [sh.packed for sh in w.shards], [sh.scale for sh in w.shards]
+    return None
+
+
+def _tail_weights(layer: Dict[str, Any], arch: DecoderArch, m: int, device: torch.device):
+    """(the o, gate-up and down weights as ``_tail_blocks`` gives them, the
+    group size) where a layer of m tokens merged on ``device`` takes the
+    fused tail; None where it takes the per-product route."""
+    weights = [_tail_blocks(layer[name], device) for name in _TAIL_WEIGHTS]
+    if any(w is None for w in weights):
+        return None
+    packed, scale = (t if isinstance(t, torch.Tensor) else t[0] for t in weights[0])
+    gs = int4_ops.group_size_of(packed, scale)
+    blocks = max(1 if isinstance(p, torch.Tensor) else len(p) for p, _ in weights)
+    if not int4_ops.fused_tail_supported(arch.hidden_size, arch.intermediate_size, gs, m, blocks=blocks):
+        return None
+    return weights, gs
+
+
+def _layer_at(layers: Dict[str, Any], li: int) -> Dict[str, Any]:
+    """Layer ``li`` of the stacked [L, ...] tree (views; a ``Sharded`` leaf
+    indexes every shard)."""
+    return {name: (type(w)(*(t[li] for t in w)) if isinstance(w, tuple) else w[li]) for name, w in layers.items()}
+
+
+def tail_route(params: Dict[str, Any], arch: DecoderArch, m: int) -> str:
+    """The route of the layers' o / gate-up / down half in a forward of m
+    (= batch x chunk) tokens:
+      - ``FUSED_TAIL``: one ``int4_fused_layer_tail`` launch a layer, where
+        o_w, gateup_w and down_w are int4, ``fused_tail_supported`` holds at
+        m, and each is whole or a column split whose shards all lie on the
+        merge device (a ``model`` axis on one card): the kernel reads every
+        shard in place;
+      - ``PER_PRODUCT``: each product on its own (per shard under a model
+        axis, merged on the merge device), with the residuals, RMSNorm and
+        activation in PyTorch between them: float and int8 weights, prefill
+        sizes, and shards on distinct cards (the kernel cannot read
+        another card's memory)."""
+    layer = _layer_at(params["layers"], 0)
+    return PER_PRODUCT if _tail_weights(layer, arch, m, params["embed"].device) is None else FUSED_TAIL
+
+
 def _layer_rest(x: torch.Tensor, layer: Dict[str, Any], q: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, mask_bias: torch.Tensor, arch: DecoderArch, cd: torch.dtype,
                 k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -453,19 +513,11 @@ def _layer_rest(x: torch.Tensor, layer: Dict[str, Any], q: torch.Tensor, k_cache
         probs = probs * v_scale.permute(0, 2, 1)[:, None, :, None, :]
     ctx = torch.einsum("bskgt,btkd->bskgd", probs.to(cd), v_cache)
 
-    # whole int4 weights only: under a model axis (Sharded leaves) the norm
-    # and activation between the products need whole rows
-    fused = all(isinstance(layer[n], Int4Weight) for n in ("o_w", "gateup_w", "down_w"))
-    if fused:
-        o_w: Int4Weight = layer["o_w"]
-        gs4 = int4_ops.group_size_of(o_w.packed, o_w.scale)
-        fused = int4_ops.fused_tail_supported(arch.hidden_size, i_dim, gs4, b * s)
-    if fused:
-        guw: Int4Weight = layer["gateup_w"]
-        dw: Int4Weight = layer["down_w"]
+    tail = _tail_weights(layer, arch, b * s, x.device)  # tail_route's FUSED_TAIL
+    if tail is not None:
+        (o, gu, down), gs4 = tail
         return int4_ops.int4_fused_layer_tail(
-            ctx.reshape(b * s, q_dim), x.reshape(b * s, arch.hidden_size), layer["ffn_norm"],
-            o_w.packed, o_w.scale, guw.packed, guw.scale, dw.packed, dw.scale,
+            ctx.reshape(b * s, q_dim), x.reshape(b * s, arch.hidden_size), layer["ffn_norm"], *o, *gu, *down,
             group_size=gs4, eps=float(arch.rms_norm_eps), unit_offset=bool(arch.rms_unit_offset),
             act=arch.mlp_act,
         ).reshape(b, s, arch.hidden_size).to(cd)
@@ -523,8 +575,7 @@ def decoder_forward(
     quant_kv = isinstance(cache, QuantKVCache)
 
     for li in range(arch.num_layers):
-        layer = {name: (type(w)(*(t[li] for t in w)) if isinstance(w, tuple) else w[li])
-                 for name, w in layers.items()}
+        layer = _layer_at(layers, li)
         if cache is None:
             if remat:
                 # reentrant: the layer recomputes inside its own backward node,

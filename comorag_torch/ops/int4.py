@@ -10,7 +10,9 @@ and fp32 scales [in/group_size, out].
 Hopper kernels (``csrc/int4.cu``) for CUDA tensors and run their plain
 versions for CPU tensors; there is no fallback from one to the other.
 ``int4_matmul`` has three kernel routes, chosen by shape
-(``int4_matmul_route``). The plain versions repeat the kernels'
+(``int4_matmul_route``). ``int4_fused_layer_tail`` takes each weight whole
+or as column blocks (a ``model`` axis's shards on one device), read in
+place by the one launch. The plain versions repeat the kernels'
 arithmetic: x rounded to bf16, each group's product summed in fp32 (bf16
 x bf16 products are exact in fp32), times the group's scale row, added to
 the running fp32 sum.
@@ -99,7 +101,7 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_PTR, _I32, _PTRS = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
 # csrc/int4.cu's C entries: (name, restype, argtypes)
 _C_ENTRIES = (
     ("comorag_int4_matmul", _I32, [_PTR] * 4 + [_I32] * 4 + [_PTR]),
@@ -107,9 +109,11 @@ _C_ENTRIES = (
     ("comorag_int4_matmul_splitk_blocks_per_sm", _I32, [_I32]),
     ("comorag_int4_matmul_splitk_tile_n", _I32, []),
     ("comorag_int4_matmul_wgmma", _I32, [_PTR] * 4 + [_I32] * 5 + [_PTR]),
-    ("comorag_int4_fused_layer_tail", _I32, [_PTR] * 12 + [_I32] * 7 + [ctypes.c_float, _I32, _I32, _I32, _PTR]),
+    ("comorag_int4_fused_layer_tail", _I32,
+     [_PTR] * 3 + [_PTRS, _PTRS, _I32] * 3 + [_PTR] * 3 + [_I32] * 7 + [ctypes.c_float, _I32, _I32, _I32, _PTR]),
     ("comorag_int4_tail_workspace_bytes", ctypes.c_longlong, [_I32] * 6),
     ("comorag_int4_tail_tile_n", _I32, []),
+    ("comorag_int4_tail_max_blocks", _I32, []),
     ("comorag_int4_tail_blocks_per_sm", _I32, [_I32]),
 )
 
@@ -221,11 +225,18 @@ def _splitk_geometry(device: torch.device, m: int) -> Tuple[int, int]:
 
 
 # ---------------------------------------------------------------- fused tail
+TAIL_TILE_N = 128  # output columns of a fused-tail work item (csrc/int4.cu splitk::BN)
+TAIL_MAX_BLOCKS = 4  # column blocks a fused-tail weight may arrive in (splitk::MAX_BLOCKS)
+
+
 def fused_tail_supported(hidden: int, intermediate: int, group_size: int, m: int,
-                         tile_n: int = 512) -> bool:
+                         tile_n: int = 512, blocks: int = 1) -> bool:
     """The JAX package's static shape gate (pallas_int4.py:234): decode-sized
-    M and tile-aligned widths. The decoder takes the fused tail where this
-    holds, as the TPU route does."""
+    M and tile-aligned widths; and, for weights that arrive as ``blocks``
+    column blocks each (a ``model`` axis's shards), at most
+    ``TAIL_MAX_BLOCKS`` of them, each a multiple of the kernel's
+    ``TAIL_TILE_N`` columns wide. The decoder takes the fused tail where
+    this holds, as the TPU route does."""
     return (
         m <= 64
         and tile_n % group_size == 0
@@ -233,6 +244,8 @@ def fused_tail_supported(hidden: int, intermediate: int, group_size: int, m: int
         and intermediate % tile_n == 0
         and hidden % group_size == 0
         and intermediate % group_size == 0
+        and 1 <= blocks <= TAIL_MAX_BLOCKS
+        and all(n % blocks == 0 and (n // blocks) % TAIL_TILE_N == 0 for n in (hidden, 2 * intermediate))
     )
 
 
@@ -246,12 +259,37 @@ def activation(g: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown act {act!r}")
 
 
+def _as_blocks(packed, scale) -> Tuple[list, list]:
+    """A weight's column blocks: one (packed, scale) pair, or two sequences
+    of the blocks' packed and scale tensors in column order."""
+    if isinstance(packed, torch.Tensor):
+        return [packed], [scale]
+    packed, scale = list(packed), list(scale)
+    if not packed or len(packed) != len(scale):
+        raise ValueError(f"a blocked weight needs as many scale blocks as packed ones, got {len(packed)} "
+                         f"and {len(scale)}")
+    return packed, scale
+
+
+def _whole(packed, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole weight of ``_as_blocks``'s blocks, concatenated by column
+    (the plain version's view; the kernel reads the blocks in place)."""
+    p, s = _as_blocks(packed, scale)
+    return (p[0], s[0]) if len(p) == 1 else (torch.cat(p, dim=-1), torch.cat(s, dim=-1))
+
+
 def int4_fused_layer_tail_plain(ctx, x_res, norm_w, o_packed, o_scale, gu_packed, gu_scale,
                                 down_packed, down_scale, group_size: int = 128, eps: float = 1e-6,
                                 unit_offset: bool = False, act: str = "silu") -> torch.Tensor:
     """x_res + FFN(RMSNorm(x_res + ctx @ O)) -> [M, H] f32 with the TPU
     kernel's rounding points: ctx -> bf16, xmid and the norm in f32,
-    xn -> bf16, gate/up f32, h -> bf16, down f32 plus xmid."""
+    xn -> bf16, gate/up f32, h -> bf16, down f32 plus xmid. Each weight is
+    one (packed, scale) pair or sequences of its column blocks, as
+    ``int4_fused_layer_tail`` takes them: the blocks are concatenated by
+    column first, so the result equals the whole weight's bit for bit."""
+    o_packed, o_scale = _whole(o_packed, o_scale)
+    gu_packed, gu_scale = _whole(gu_packed, gu_scale)
+    down_packed, down_scale = _whole(down_packed, down_scale)
     inter = down_packed.shape[0] * 2
     xmid = x_res.to(torch.float32) + int4_matmul_plain(ctx, o_packed, o_scale, group_size)
     var = (xmid * xmid).mean(dim=-1, keepdim=True)
@@ -377,20 +415,54 @@ def _tickets_for(device: torch.device, stream: int, count: int) -> torch.Tensor:
     return t
 
 
+def _block_pointers(name: str, packed: list, scales: list, d_in: int, d_out: int, group_size: int,
+                    device: torch.device) -> tuple:
+    """The C entry's arrays of block pointers for one weight of ``d_out``
+    columns in ``len(packed)`` column blocks, after checking every block's
+    dtype, shape, device (``device``, ctx's), contiguity and 16-byte
+    alignment, and that the blocks are at most ``TAIL_MAX_BLOCKS`` of equal
+    width, a multiple of ``TAIL_TILE_N``."""
+    n = len(packed)
+    if n > TAIL_MAX_BLOCKS or d_out % n or (d_out // n) % TAIL_TILE_N:
+        raise ValueError(f"{name}: the kernel takes 1 to {TAIL_MAX_BLOCKS} column blocks of equal width, a multiple "
+                         f"of {TAIL_TILE_N}; got {n} blocks of {d_out} columns")
+    width = d_out // n
+    p_shape, s_shape = (d_in // 2, width), (d_in // group_size, width)
+    p_ptrs, s_ptrs = [], []
+    for p, sc in zip(packed, scales):  # one pass of cheap checks a block; _check_weight words a failure
+        pp, sp = p.data_ptr(), sc.data_ptr()
+        if (p.dtype != torch.int8 or sc.dtype != torch.float32 or p.shape != p_shape or sc.shape != s_shape
+                or p.device != device or sc.device != device or not (p.is_contiguous() and sc.is_contiguous())):
+            _check_weight(name, p, sc, d_in, width, group_size, device)
+        if (pp | sp) % 16:
+            raise ValueError(f"{name}: every weight block must be 16-byte aligned (TMA copies)")
+        p_ptrs.append(pp)
+        s_ptrs.append(sp)
+    if group_size % _KERNEL_K_STEP or d_in % group_size:
+        raise ValueError(f"{name}: the kernel takes group_size a multiple of {_KERNEL_K_STEP} "
+                         f"dividing in={d_in}, got group_size={group_size}")
+    array = ctypes.c_void_p * n
+    return array(*p_ptrs), array(*s_ptrs), n
+
+
 def int4_fused_layer_tail(
     ctx: torch.Tensor,          # [M, H] float (attention output, pre-o-proj)
     x_res: torch.Tensor,        # [M, H] float (residual into the attention add)
     norm_w: torch.Tensor,       # [H] ffn_norm weight
-    o_packed: torch.Tensor, o_scale: torch.Tensor,
-    gu_packed: torch.Tensor, gu_scale: torch.Tensor,
-    down_packed: torch.Tensor, down_scale: torch.Tensor,
+    o_packed, o_scale,          # [H/2, H] int8 + [H/gs, H] f32, or sequences of column blocks
+    gu_packed, gu_scale,        # [H/2, 2I] + [H/gs, 2I], or sequences of column blocks
+    down_packed, down_scale,    # [I/2, H] + [I/gs, H], or sequences of column blocks
     group_size: int = 128,
     eps: float = 1e-6,
     unit_offset: bool = False,
     act: str = "silu",
 ) -> torch.Tensor:
-    """x_res + FFN(norm(x_res + ctx @ o)) -> [M, H] f32. CUDA tensors run
-    one cooperative kernel launch (M <= 64); CPU tensors the plain version."""
+    """x_res + FFN(norm(x_res + ctx @ o)) -> [M, H] f32. Each weight is
+    one (packed, scale) pair or two sequences of its column blocks in
+    order (a ``model`` axis's column shards: block b holds columns [b N /
+    S, (b + 1) N / S)). CUDA tensors run one cooperative kernel launch (M
+    <= 64) that reads every block in place, on ctx's device, which every
+    block must lie on; CPU tensors the plain version."""
     if ctx.device.type == "cpu":
         return int4_fused_layer_tail_plain(ctx, x_res, norm_w, o_packed, o_scale, gu_packed, gu_scale,
                                            down_packed, down_scale, group_size, eps, unit_offset, act)
@@ -398,22 +470,23 @@ def int4_fused_layer_tail(
         raise ValueError(f"int4_fused_layer_tail: unsupported device {ctx.device}")
     if act not in _ACTS:
         raise ValueError(f"unknown act {act!r}")
+    o, gu, down = _as_blocks(o_packed, o_scale), _as_blocks(gu_packed, gu_scale), _as_blocks(down_packed, down_scale)
     m, hidden = ctx.shape
-    inter = down_packed.shape[0] * 2
+    inter = down[0][0].shape[0] * 2
     if m > TAIL_MAX_M or hidden % 512 or inter % 512:
         raise ValueError(f"int4_fused_layer_tail: the kernel takes M <= {TAIL_MAX_M} and H, I multiples of "
                          f"512, got M={m}, H={hidden}, I={inter}")
     dev = ctx.device
-    _check_weight("int4_fused_layer_tail o", o_packed, o_scale, hidden, hidden, group_size, dev)
-    _check_weight("int4_fused_layer_tail gate/up", gu_packed, gu_scale, hidden, 2 * inter, group_size, dev)
-    _check_weight("int4_fused_layer_tail down", down_packed, down_scale, inter, hidden, group_size, dev)
+    o_ptrs = _block_pointers("int4_fused_layer_tail o", *o, hidden, hidden, group_size, dev)
+    gu_ptrs = _block_pointers("int4_fused_layer_tail gate/up", *gu, hidden, 2 * inter, group_size, dev)
+    down_ptrs = _block_pointers("int4_fused_layer_tail down", *down, inter, hidden, group_size, dev)
     ctx_b = _bf16_rows("int4_fused_layer_tail", ctx)
     xres = x_res.to(torch.float32).contiguous()
     nw = norm_w.to(torch.float32).contiguous()
     if tuple(xres.shape) != (m, hidden) or nw.numel() != hidden or xres.device != dev or nw.device != dev:
         raise ValueError("int4_fused_layer_tail: x_res must be [M, H] and norm_w [H] on ctx's device")
-    if any(t.data_ptr() % 16 for t in (xres, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale)):
-        raise ValueError("int4_fused_layer_tail: x_res and the weights must be 16-byte aligned (TMA copies)")
+    if xres.data_ptr() % 16:
+        raise ValueError("int4_fused_layer_tail: x_res must be 16-byte aligned")
     tile_n, blocks = _tail_geometry(dev, m)
     splits = _tail_splits(m, hidden, inter, group_size, _sm_count(dev), tile_n, blocks)
     lib = _lib()
@@ -423,8 +496,7 @@ def int4_fused_layer_tail(
     stream = torch.cuda.current_stream(dev).cuda_stream
     tickets = _tickets_for(dev, stream, (2 * hidden + inter) // tile_n)
     rc = lib.comorag_int4_fused_layer_tail(
-        ctx_b.data_ptr(), xres.data_ptr(), nw.data_ptr(), o_packed.data_ptr(), o_scale.data_ptr(),
-        gu_packed.data_ptr(), gu_scale.data_ptr(), down_packed.data_ptr(), down_scale.data_ptr(),
+        ctx_b.data_ptr(), xres.data_ptr(), nw.data_ptr(), *o_ptrs, *gu_ptrs, *down_ptrs,
         out.data_ptr(), workspace.data_ptr(), tickets.data_ptr(), m, hidden, inter, group_size, *splits,
         float(eps), int(bool(unit_offset)), _ACTS[act], _sm_count(dev), stream,
     )

@@ -12,7 +12,8 @@ is swapped under ``ops.ffn``, ``ops.attention`` and ``ops.int4``), except
 where the earlier source has another C interface, which is then called
 directly, with its workspaces made once outside the timed loop: a fused
 tail with the first design's (commit a8e4f4b: no
-``comorag_int4_tail_tile_n``) and an FFN with the fused mma.sync design's
+``comorag_int4_tail_tile_n``) or with one pointer a weight (7e8341d and
+before: no ``comorag_int4_tail_max_blocks``) and an FFN with the fused mma.sync design's
 (up to commit 864f5f5: no ``comorag_encoder_ffn_tile``). int4_matmul
 is timed at chip_smoke.py phase 9's six shapes through both libraries' C
 entries, called directly (``matmul_ab``): the earlier library at the
@@ -42,9 +43,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from chip_smoke import (BENCH_K, INT4_MATMUL_SHAPES, bench_data, ffn_bound, ffn_inputs, int4_bound,  # noqa: E402
-                        int4_matmul_dims, llama_8b, median_ms, nvidia_smi_line, ragged_mask, route_of, rule_ratio,
-                        tail_bound)
+from chip_smoke import (BENCH_K, INT4_MATMUL_SHAPES, bench_data, device_ms, ffn_bound, ffn_inputs,  # noqa: E402
+                        host_us, int4_bound, int4_matmul_dims, llama_8b, median_ms, nvidia_smi_line, ragged_mask,
+                        route_of, rule_ratio, tail_bound)
 from comorag_torch.ops import attention, build, ffn, int4, mips  # noqa: E402
 from comorag_torch.ops.topk import dense_scores, int8_scores, quantize_int8  # noqa: E402
 
@@ -63,6 +64,11 @@ def build_old(csrc: str, name: str) -> ctypes.CDLL:
 def in_turns(old, new) -> dict:
     t = [median_ms(old), median_ms(new), median_ms(new), median_ms(old)]
     return {"earlier_ms": [t[0], t[3]], "current_ms": [t[1], t[2]]}
+
+
+def device_in_turns(old, new) -> dict:
+    t = [device_ms(old), device_ms(new), device_ms(new), device_ms(old)]
+    return {"earlier_device_ms": [t[0], t[3]], "current_device_ms": [t[1], t[2]]}
 
 
 def through_wrapper(name: str, lib: ctypes.CDLL, fn):
@@ -136,11 +142,22 @@ def ffn_ab(old_lib: ctypes.CDLL, device) -> list:
     return rows
 
 
+# comorag_int4_fused_layer_tail's arguments with one packed and one scale
+# pointer a weight (the interface up to 7e8341d, since comorag_int4_tail_tile_n;
+# later builds take arrays of column blocks: comorag_int4_tail_max_blocks)
+PER_WEIGHT_TAIL_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
 def type_int4_entries(lib: ctypes.CDLL) -> None:
     """Types the entries of ops.int4's C interface that an earlier build
-    of csrc/int4.cu has (it may lack the newer ones)."""
+    of csrc/int4.cu has (it may lack the newer ones; a fused tail of the
+    per-weight interface gets its own argument types)."""
+    blocks = hasattr(lib, "comorag_int4_tail_max_blocks")
     for name, restype, argtypes in int4._C_ENTRIES:
         if hasattr(lib, name):
+            if name == "comorag_int4_fused_layer_tail" and not blocks:
+                argtypes = PER_WEIGHT_TAIL_ARGTYPES
             getattr(lib, name).restype, getattr(lib, name).argtypes = restype, argtypes
 
 
@@ -207,6 +224,7 @@ def matmul_ab(old_lib: ctypes.CDLL, device) -> list:
             ratios[f"{tag}_rule_ratio"] = rule_ratio(outs[lib], plain)
         rows.append({"kernel": "int4_matmul", "M": m, "weight": name, "K": k, "N": n, "route": route,
                      "earlier_route": old_route, "splits": splits, **int4_bound(m, k, n), **in_turns(old, new),
+                     **device_in_turns(old, new),
                      **ratios})
         del packed, scales, x, plain, workspace, tickets, outs
         torch.cuda.empty_cache()
@@ -214,11 +232,17 @@ def matmul_ab(old_lib: ctypes.CDLL, device) -> list:
 
 
 def tail_ab(old_lib: ctypes.CDLL, device) -> list:
+    """The fused tail at phase 9's M = 8 and 64 over whole weights, cycling
+    through 32 layers: through the wrapper with the earlier library swapped
+    in where it has the current interface, else its C entry called directly
+    (the per-weight interface of 7e8341d and before, at the current plan;
+    a8e4f4b's first design)."""
     new_lib = int4._lib()
     type_int4_entries(old_lib)
-    same_interface = hasattr(old_lib, "comorag_int4_tail_tile_n")
+    same_interface = hasattr(old_lib, "comorag_int4_tail_max_blocks")
+    per_weight = not same_interface and hasattr(old_lib, "comorag_int4_tail_tile_n")
     fn = old_lib.comorag_int4_fused_layer_tail
-    if not same_interface:
+    if not same_interface and not per_weight:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -245,20 +269,48 @@ def tail_ab(old_lib: ctypes.CDLL, device) -> list:
             i = state["i"] = (state["i"] + 1) % layers
             return [t for pair in w for t in (pair[0][i], pair[1][i])]
 
+        if per_weight:
+            splits = int4._tail_splits(m, h, inter, 128, sms, *int4._tail_geometry(device, m))
+            workspace = torch.empty(old_lib.comorag_int4_tail_workspace_bytes(m, h, inter, *splits),
+                                    dtype=torch.uint8, device=device)
+            tickets = torch.zeros((2 * h + inter) // 128, dtype=torch.int32, device=device)
+
         def old():
             a = layer_args()
-            rc = fn(ctx.data_ptr(), xres.data_ptr(), nw.data_ptr(), *(t.data_ptr() for t in a), out.data_ptr(),
-                    xmid.data_ptr(), xn.data_ptr(), hb.data_ptr(), m, h, inter, 128, 1e-5, 0, 0, sms,
-                    torch.cuda.current_stream(device).cuda_stream)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            if per_weight:
+                rc = fn(ctx.data_ptr(), xres.data_ptr(), nw.data_ptr(), *(t.data_ptr() for t in a), out.data_ptr(),
+                        workspace.data_ptr(), tickets.data_ptr(), m, h, inter, 128, *splits, 1e-5, 0, 0, sms, stream)
+            else:
+                rc = fn(ctx.data_ptr(), xres.data_ptr(), nw.data_ptr(), *(t.data_ptr() for t in a), out.data_ptr(),
+                        xmid.data_ptr(), xn.data_ptr(), hb.data_ptr(), m, h, inter, 128, 1e-5, 0, 0, sms, stream)
             build.check(old_lib, rc, "earlier int4_fused_layer_tail")
 
         def new():
             return int4.int4_fused_layer_tail(ctx, xres, nw, *layer_args(), eps=1e-5)
 
+        def new_direct():  # the current C entry with each weight as one block, no wrapper
+            a = [(ctypes.c_void_p * 1)(t.data_ptr()) for t in layer_args()]
+            rc = new_lib.comorag_int4_fused_layer_tail(
+                ctx.data_ptr(), xres.data_ptr(), nw.data_ptr(), a[0], a[1], 1, a[2], a[3], 1, a[4], a[5], 1,
+                out_new.data_ptr(), workspace.data_ptr(), tickets_new.data_ptr(), m, h, inter, 128, *splits, 1e-5,
+                0, 0, sms, torch.cuda.current_stream(device).cuda_stream)
+            build.check(new_lib, rc, "int4_fused_layer_tail")
+
         if same_interface:
             old = through_wrapper("int4", old_lib, new)
+            timed = {**in_turns(old, through_wrapper("int4", new_lib, new)),
+                     **device_in_turns(old, through_wrapper("int4", new_lib, new))}
+        elif per_weight:  # both C entries called directly: the kernels' times without the wrapper's host work
+            out_new, tickets_new = torch.empty_like(out), torch.zeros_like(tickets)
+            timed = {**in_turns(old, new_direct), **device_in_turns(old, new_direct),
+                     "earlier_direct_host_us": host_us(old), "current_direct_host_us": host_us(new_direct),
+                     "current_wrapper_ms": median_ms(through_wrapper("int4", new_lib, new)),
+                     "current_wrapper_host_us": host_us(through_wrapper("int4", new_lib, new))}
+        else:
+            timed = in_turns(old, through_wrapper("int4", new_lib, new))
         rows.append({"kernel": "int4_fused_layer_tail", "M": m, "H": h, "I": inter, **tail_bound(m, h, inter),
-                     **in_turns(old, through_wrapper("int4", new_lib, new))})
+                     **timed})
         # the outputs of both, beside the plain version, under the bf16 rule
         a = layer_args()
         plain = int4.int4_fused_layer_tail_plain(ctx, xres, nw, *a, eps=1e-5)

@@ -335,6 +335,9 @@ def test_fused_tail_kernel_matches_plain(cuda_device, m, act, unit_offset, hidde
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 33, 64])
 def test_tail_geometry_is_the_kernels(cuda_device, m):
     assert tint4._tail_geometry(cuda_device, m) == (_TILE_N, _blocks_per_sm(m))
+    lib = tint4._lib()
+    assert (lib.comorag_int4_tail_tile_n(), lib.comorag_int4_tail_max_blocks()) == (tint4.TAIL_TILE_N,
+                                                                                    tint4.TAIL_MAX_BLOCKS)
 
 
 @pytest.mark.cuda
@@ -369,3 +372,14 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
     s = torch.zeros(4, 512, device=cuda_device)
     with pytest.raises(ValueError):  # M above 64
         tint4.int4_fused_layer_tail(ctx, ctx, torch.ones(512, device=cuda_device), w, s, w, s, w, s)
+    # column blocks: 8 of 64 columns (more than 4, off the 128-column tile),
+    # and a scale list that does not match the packed one
+    ctx, nw = torch.zeros(8, 512, device=cuda_device), torch.ones(512, device=cuda_device)
+    gu = torch.zeros(256, 2048, dtype=torch.int8, device=cuda_device), torch.zeros(4, 2048, device=cuda_device)
+    dn = torch.zeros(512, 512, dtype=torch.int8, device=cuda_device), torch.zeros(8, 512, device=cuda_device)
+    narrow = [w[:, i * 64:(i + 1) * 64].contiguous() for i in range(8)], [s[:, i * 64:(i + 1) * 64].contiguous()
+                                                                          for i in range(8)]
+    with pytest.raises(ValueError, match="column blocks"):
+        tint4.int4_fused_layer_tail(ctx, ctx, nw, *narrow, *gu, *dn)
+    with pytest.raises(ValueError, match="as many scale blocks"):
+        tint4.int4_fused_layer_tail(ctx, ctx, nw, [w[:, :256].contiguous(), w[:, 256:].contiguous()], [s], *gu, *dn)

@@ -13,9 +13,13 @@ comes from numpy with a fixed seed (JAX's ``init_params`` converted with
   2e-2 * |logit|) and top-1 equal on >= 95 % of the positions, as
   test_int4_forward_close_to_jax_with_same_top1 (the port rounds the
   activations to bf16 before each int4 product as the TPU kernel does);
-- greedy tokens, lengths and step counts: equal.
-The CUDA-marked tests hold the int4 kernels per shard on the card and skip
-here.
+- greedy tokens, lengths and step counts: equal;
+- the fused tail over column blocks (a model axis's shards) against the
+  whole weight: bit-equal on the CPU (the plain version concatenates the
+  blocks); on the card the bf16 rule against the plain version and
+  bit-equal to the whole-weight launch (the same items, splits and sums).
+The CUDA-marked tests hold the int4 kernels on the shards on the card and
+skip here.
 """
 
 import dataclasses
@@ -33,7 +37,7 @@ import torch
 from comorag_torch.models import curriculum as tcur
 from comorag_torch.models import decoder as tdec
 from comorag_torch.ops import int4 as tint4
-from comorag_torch.parallel.mesh import Sharded, build_mesh
+from comorag_torch.parallel.mesh import Sharded, build_mesh, split_blocks
 from comorag_tpu.llm.jax_offline import ByteTokenizer
 from comorag_tpu.models import curriculum as jcur
 from comorag_tpu.models import decoder as jdec
@@ -235,17 +239,8 @@ def test_int8_weights_and_int8_kv_cache_under_tp_match_jax(n):
     assert np.abs(tc.k.numpy().astype(int) - np.asarray(jc.k).astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("hidden,inter", [(64, 128), (512, 1024)])  # unfused, the fused tail's gate
-def test_int4_under_tp_close_to_jax_with_same_top1(hidden, inter, monkeypatch):
-    """Each int4 product runs once per column shard through int4_matmul;
-    at the fused-gate shape the unsharded engine takes the fused tail and
-    the sharded one never does (its norm and activation need whole rows)."""
-    jarch, tarch = _archs("gqa", hidden_size=hidden, intermediate_size=inter, num_heads=8, vocab_size=96)
-    params = _jax_params(jarch, seed=5, kind="int4")
-    ids, mask = _prompt_batch(np.random.default_rng(6), b=2, p=8, vocab=96)
-    tmesh, jmesh = _meshes({"model": 2})
-    tparams = tdec.params_from_jax(_np_tree(params), device="cpu")
-    sharded = tdec.shard_params(tparams, tmesh)
+def _counted_int4(monkeypatch) -> dict:
+    """Counts the decoder's int4_matmul and int4_fused_layer_tail calls."""
     calls = {"matmul": 0, "tail": 0}
     matmul, tail = tint4.int4_matmul, tint4.int4_fused_layer_tail
 
@@ -257,13 +252,107 @@ def test_int4_under_tp_close_to_jax_with_same_top1(hidden, inter, monkeypatch):
 
     monkeypatch.setattr(tint4, "int4_matmul", counted("matmul", matmul))
     monkeypatch.setattr(tint4, "int4_fused_layer_tail", counted("tail", tail))
+    return calls
+
+
+def _int4_tp_against_jax(hidden, inter, n, monkeypatch):
+    """The int4 forward over {"model": n} against JAX's over the same mesh
+    (the file's int4 rule, top-1 on >= 95 % of the positions); returns the
+    port's int4 calls so far (a live count), its arch, its unsharded
+    params and the batch."""
+    jarch, tarch = _archs("gqa", hidden_size=hidden, intermediate_size=inter, num_heads=8, vocab_size=96)
+    params = _jax_params(jarch, seed=5, kind="int4")
+    ids, mask = _prompt_batch(np.random.default_rng(6), b=2, p=8, vocab=96)
+    tmesh, jmesh = _meshes({"model": n})
+    tparams = tdec.params_from_jax(_np_tree(params), device="cpu")
+    sharded = tdec.shard_params(tparams, tmesh)
+    calls = _counted_int4(monkeypatch)
     jl, _ = _jax_forward(jarch, _jax_tp(params, jmesh, jarch, "int4"), ids, mask)
     tl, _ = _torch_forward(tarch, sharded, ids, mask)
-    assert calls == {"matmul": 2 * (4 * tarch.num_layers + 1), "tail": 0}  # 2 shards of 4 products a layer + head
     np.testing.assert_allclose(tl, jl, rtol=2e-2, atol=2e-2 * np.abs(jl).max())
     assert (tl.argmax(-1) == jl.argmax(-1)).mean() >= 0.95
+    return calls, tarch, tparams, ids, mask
+
+
+@pytest.mark.parametrize("hidden,inter", [(64, 128), (512, 1024)])  # unfused, the fused tail's gate
+def test_int4_under_tp_close_to_jax_with_same_top1(hidden, inter, monkeypatch):
+    """Over {"model": 2}: at the fused-gate shape each layer's o / gate-up /
+    down half is one fused-tail call over the column shards, and qkv and
+    the head run once per shard through int4_matmul; below the gate every
+    product runs once per shard. The unsharded engine takes the tail at the
+    gate shape too."""
+    calls, tarch, tparams, ids, mask = _int4_tp_against_jax(hidden, inter, 2, monkeypatch)
+    layers = tarch.num_layers
+    if hidden == 512:  # 2 shards of qkv a layer + the head; one tail a layer
+        assert calls == {"matmul": 2 * (layers + 1), "tail": layers}
+    else:  # 2 shards of 4 products a layer + the head
+        assert calls == {"matmul": 2 * (4 * layers + 1), "tail": 0}
     _torch_forward(tarch, tparams, ids, mask)
-    assert calls["tail"] == (tarch.num_layers if hidden == 512 else 0)
+    assert calls["tail"] == (2 * layers if hidden == 512 else 0)
+
+
+def test_int4_over_model_4_takes_the_fused_tail_close_to_jax(monkeypatch):
+    """{"model": 4} at the fused gate's shape: 128-column o and down blocks
+    and 512-column gate/up blocks, one fused-tail call a layer over them
+    (4 x (layers + 1) int4_matmul calls for qkv and the head), within the
+    file's int4 rule of JAX's forward over the same mesh."""
+    calls, tarch, *_ = _int4_tp_against_jax(512, 1024, 4, monkeypatch)
+    assert calls == {"matmul": 4 * (tarch.num_layers + 1), "tail": tarch.num_layers}
+
+
+def _blocked_tail_inputs(rng, m=8, hidden=512, inter=1024, gs=128):
+    """ctx, x_res, norm_w and the o, gate/up and down int4 weights
+    (quantized from seeded numpy weights) of one fused tail."""
+    ctx, xres = (torch.tensor(rng.standard_normal((m, hidden)), dtype=torch.float32) for _ in range(2))
+    nw = torch.tensor(1.0 + 0.1 * rng.standard_normal(hidden), dtype=torch.float32)
+    weights = [tint4.quantize_int4_grouped(torch.tensor(rng.standard_normal((k, n)) * 0.05, dtype=torch.float32), gs)
+               for k, n in ((hidden, hidden), (hidden, 2 * inter), (inter, hidden))]
+    return ctx, xres, nw, weights
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("act", ["silu", "gelu_tanh"])
+@pytest.mark.parametrize("unit_offset", [False, True])
+def test_plain_tail_over_column_blocks_equals_the_whole_weight(n, act, unit_offset):
+    """The fused tail with each weight as n column blocks (split_blocks, as
+    shard_params cuts them) equals the whole weight's bit for bit, through
+    the wrapper's CPU dispatch and the plain version alike; no launch."""
+    ctx, xres, nw, weights = _blocked_tail_inputs(np.random.default_rng(30 + n))
+    blocked = [part for p, sc in weights for part in (split_blocks(p, -1, [CPU] * n), split_blocks(sc, -1, [CPU] * n))]
+    whole = [t for w in weights for t in w]
+    kw = dict(group_size=128, eps=1e-5, unit_offset=unit_offset, act=act)
+    before = tint4.TAIL_LAUNCHES.value
+    want = tint4.int4_fused_layer_tail_plain(ctx, xres, nw, *whole, **kw)
+    for fn in (tint4.int4_fused_layer_tail, tint4.int4_fused_layer_tail_plain):
+        got = fn(ctx, xres, nw, *blocked, **kw)
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert tint4.TAIL_LAUNCHES.value == before
+
+
+def test_fused_tail_gate_refuses_blocks_off_the_tile():
+    """fused_tail_supported's block condition, and the decoder's route that
+    follows it: column blocks of a multiple of the kernel's 128-column tile,
+    at most TAIL_MAX_BLOCKS of them, all on the merge device."""
+    assert tint4.TAIL_TILE_N == 128 and tint4.TAIL_MAX_BLOCKS == 4
+    assert tint4.fused_tail_supported(512, 1024, 128, 8, blocks=4)  # 128-column o / down blocks
+    assert not tint4.fused_tail_supported(512, 1024, 128, 8, blocks=8)  # 64 columns: no multiple of the tile
+    assert not tint4.fused_tail_supported(1536, 1536, 128, 8, blocks=5)  # 1536 / 5 is no whole width
+    assert not tint4.fused_tail_supported(4096, 14336, 128, 8, blocks=8)  # 512-column blocks, but 8 of them
+    assert tint4.fused_tail_supported(4096, 14336, 128, 8, blocks=4)  # phase 14's {"model": 4}
+    jarch, tarch = _archs("gqa", hidden_size=512, intermediate_size=1024, num_heads=8, vocab_size=96)
+    tparams = tdec.params_from_jax(_np_tree(_jax_params(jarch, seed=5, kind="int4")), device="cpu")
+    routes = {}
+    for n in (2, 4, 8):
+        sharded = tdec.shard_params(tparams, build_mesh({"model": n}, [CPU] * n))
+        routes[n] = [tdec.tail_route(sharded, tarch, m) for m in (16, 65)]
+    assert routes == {2: [tdec.FUSED_TAIL, tdec.PER_PRODUCT], 4: [tdec.FUSED_TAIL, tdec.PER_PRODUCT],
+                      8: [tdec.PER_PRODUCT, tdec.PER_PRODUCT]}
+    # a shard off the merge device (another card) takes the per-product route
+    sharded = tdec.shard_params(tparams, build_mesh({"model": 2}, [CPU] * 2))
+    elsewhere = (CPU, torch.device("cuda", 1))
+    sharded["layers"] = {k: Sharded(w.shards, w.dim, elsewhere) if isinstance(w, Sharded) else w
+                         for k, w in sharded["layers"].items()}
+    assert tdec.tail_route(sharded, tarch, 16) == tdec.PER_PRODUCT
 
 
 # ------------------------------------------------------------ generation
@@ -397,10 +486,12 @@ def _prefill_and_step(engine, ids, mask):
 
 @pytest.mark.cuda
 def test_int4_shards_launch_the_kernel_per_shard_on_the_card():
-    """A {"model": 2} mesh of one card at the fused tail's gate shape:
-    int4_matmul launches once per shard of every product, the fused tail
-    never; the logits stay within the bf16 rule scaled to max |logit| of
-    the unsharded engine's on the same weights."""
+    """A {"model": 2} mesh of one card at the fused tail's gate shape: the
+    prefill (M = 320) launches int4_matmul once per shard of every product;
+    the decode step (M = 8) launches the fused tail once a layer over the
+    column shards and int4_matmul once per shard of qkv and the head. The
+    logits stay within the bf16 rule scaled to max |logit| of the
+    unsharded engine's on the same weights."""
     from comorag_torch.llm.offline import TorchOfflineLLM
 
     if not torch.cuda.is_available():
@@ -411,14 +502,56 @@ def test_int4_shards_launch_the_kernel_per_shard_on_the_card():
     params = tdec.init_params(arch, torch.Generator(device=dev).manual_seed(0), dev)
     engines = [TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", mesh=mesh, device=dev)
                for mesh in (build_mesh({"model": 2}, [dev] * 2), None)]
+    assert tdec.tail_route(engines[0].params, arch, 8) == tdec.FUSED_TAIL
     ids = torch.randint(0, 256, (8, 40), generator=torch.Generator().manual_seed(1)).to(dev)
     mask = torch.ones_like(ids)
     before = (tint4.LAUNCHES.value, tint4.TAIL_LAUNCHES.value)
     got = _prefill_and_step(engines[0], ids, mask)
-    assert tint4.LAUNCHES.value - before[0] == 2 * 2 * (4 * arch.num_layers + 1)  # prefill + step, 2 shards
-    assert tint4.TAIL_LAUNCHES.value == before[1]
+    layers = arch.num_layers
+    assert tint4.LAUNCHES.value - before[0] == 2 * (4 * layers + 1) + 2 * (layers + 1)  # prefill + step, 2 shards
+    assert tint4.TAIL_LAUNCHES.value - before[1] == layers  # the step
     ref = _prefill_and_step(engines[1], ids, mask)
     assert _logits_ratio(got, ref) <= 1.0
+
+
+def _tail_weights_8b(gen, device):
+    """One layer's o, gate/up and down int4 weights at Llama-3.1-8B width:
+    random packed bytes and group-128 scales for weights of std ~0.02
+    (chip_smoke.py's)."""
+    out = []
+    for k, n in ((4096, 4096), (4096, 2 * 14336), (14336, 4096)):
+        packed = torch.randint(-128, 128, (k // 2, n), generator=gen, device=device, dtype=torch.int8)
+        out.append((packed, torch.empty(k // 128, n, device=device).uniform_(0.003, 0.006, generator=gen)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("n", [2, 4])
+def test_fused_tail_over_column_blocks_on_the_card(n, m):
+    """The fused-tail kernel over n column blocks of each weight (one card's
+    model axis) at Llama-3.1-8B width: within the bf16 rule of its plain
+    version (chip_smoke.py's rule for row 6), and bit-equal to the launch
+    over the whole weights (the same plan, items and sums; max |d| printed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(40 + m)
+    weights = _tail_weights_8b(gen, dev)
+    ctx = torch.randn(m, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    xres = torch.randn(m, 4096, generator=gen, device=dev)
+    nw = 1.0 + 0.1 * torch.randn(4096, generator=gen, device=dev)
+    whole = [t for w in weights for t in w]
+    blocked = [part for p, sc in weights for part in (split_blocks(p, -1, [dev] * n), split_blocks(sc, -1, [dev] * n))]
+    before = tint4.TAIL_LAUNCHES.value
+    got = tint4.int4_fused_layer_tail(ctx, xres, nw, *blocked, eps=1e-5)
+    torch.cuda.synchronize()
+    assert tint4.TAIL_LAUNCHES.value == before + 1
+    ref = tint4.int4_fused_layer_tail_plain(ctx, xres, nw, *blocked, eps=1e-5)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
+    delta = float((got - tint4.int4_fused_layer_tail(ctx, xres, nw, *whole, eps=1e-5)).abs().max())
+    print(f"fused tail over {n} column blocks, M={m}: max |blocks - whole| = {delta}")
+    assert delta == 0.0
 
 
 @pytest.mark.cuda
@@ -438,6 +571,9 @@ def test_tp_over_distinct_cards_matches_one_card():
     ids = torch.randint(0, 256, (8, 128), generator=torch.Generator().manual_seed(1)).to(dev)
     mask = torch.ones_like(ids)
     cards = build_mesh({"model": 4}, [torch.device("cuda", i) for i in range(4)])
+    # the decode step's route: the fused tail over one card's shards, the
+    # per-product route over distinct cards' (the kernel reads one card)
+    routes = {"cards": tdec.PER_PRODUCT, "one_card": tdec.FUSED_TAIL, "whole": tdec.FUSED_TAIL}
     for param_dtype in ("int4", torch.bfloat16):
         logits = {}
         for tag, mesh in (("cards", cards), ("one_card", build_mesh({"model": 4}, [dev] * 4)), ("whole", None)):
@@ -446,7 +582,12 @@ def test_tp_over_distinct_cards_matches_one_card():
                 qkv = engine.params["layers"]["qkv_w"]
                 first = qkv.shards[0].packed if param_dtype == "int4" else qkv.shards[0]
                 assert [d.index for d in qkv.devices] == [0, 1, 2, 3] and first.device == dev
+            int4 = param_dtype == "int4"
+            assert tdec.tail_route(engine.params, arch, 8) == (routes[tag] if int4 else tdec.PER_PRODUCT)
+            tails = tint4.TAIL_LAUNCHES.value
             logits[tag] = _prefill_and_step(engine, ids, mask)
+            assert tint4.TAIL_LAUNCHES.value - tails == (arch.num_layers if routes[tag] == tdec.FUSED_TAIL and int4
+                                                         else 0)
             del engine
         assert _logits_ratio(logits["cards"], logits["one_card"]) <= 1.0
         assert _logits_ratio(logits["cards"], logits["whole"]) <= 1.0
