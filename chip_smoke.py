@@ -167,10 +167,27 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      once per column shard of each product a forward), the qwen3- and
      gemma-class families, the corpus-sharded index and PPR. None of the
      six kernels launches in the training steps of (a), (b) and (d).
+ 16. the tiny decoder's training recipe (scripts/torch_train_tiny_lm.py,
+     its own functions) on the card: (a) its arch (vocab 259, H 256, 6
+     layers), B = 16, S = 2048, fp32, remat, AdamW under its warmup-cosine
+     schedule, for as many of its 3,000 steps as 240 s hold at the step
+     time of a profiled throwaway run (the count and the reason printed):
+     steps/s, tokens/s, peak memory, the host's batch-making ms a step, the
+     device's busy time and idle share over 20 profiled steps, no kernel
+     launched, the loss falling (the last 20 steps' mean under 0.8 x the
+     first's); (b) the checkpoint saved (fp16), reloaded and served on int4
+     weights on phase 11's prompts (int4_matmul on its mma_sync route, no
+     fused tail, each first call of a route and shape held against
+     int4_matmul_plain); (c) the meta loop over dataset/moonlantern with the
+     trained engine behind the generation server (every question answered,
+     both stores non-empty); (d) the recipe's evaluate() table of the
+     trained and of the committed assets/tiny_lm.npz, held to
+     tests/test_torch_tiny_trained.py's golden floors after a full run.
 Then it checks that no module of jax or of the JAX package was loaded, and
 prints the kernels JSON line (every kernel with its launches on the main
-path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms, and
-``mesh_training_step_launches``, 0), the
+path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms,
+``mesh_training_step_launches`` and ``tiny_recipe_step_launches``, 0, and
+``trained_tiny_launches``, phase 16b's), the
 nvidia-smi line, and the result line.
 """
 
@@ -178,6 +195,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -1372,6 +1390,46 @@ def recorded_int4_calls():
         int4.int4_matmul = kernel
 
 
+def tiny_batches() -> list:
+    """The tiny engine's prompts (phases 11 and 16b): two QA prompts, one
+    guided NER and one guided triples prompt of the curriculum, as
+    (prompts, guided template) batches."""
+    rng = np.random.default_rng(SEED + 11)
+    samples = [curriculum.make_sample(rng, task) for task in ("qa", "qa", "ner", "triples")]
+    return [([s["prompt"] for s in samples[:2]], None), ([samples[2]["prompt"]], "ner"),
+            ([samples[3]["prompt"]], "triples")]
+
+
+def tiny_texts(engine, batches) -> list:
+    return [r.text for prompts, tmpl in batches for r in engine._generate_batch(prompts, 256, tmpl, 0.0)]
+
+
+def tiny_int4(params, arch, device, batches, what: str) -> dict:
+    """A tiny checkpoint served on int4 weights over ``batches``, the int4
+    counts set to 0 just before and read just after: int4_matmul must
+    launch (its mma_sync route among them) and the fused tail must not (its
+    gate is false at H = 256, as in JAX); the first call of each route and
+    shape is then held against int4_matmul_plain at its own inputs."""
+    counters = (int4.LAUNCHES, int4.TAIL_LAUNCHES, *int4.ROUTE_LAUNCHES.values())
+    for counter in counters:
+        counter.reset()
+    with recorded_int4_calls() as calls:
+        texts = tiny_texts(TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", max_new_tokens=384,
+                                           device=device), batches)
+    launches = {c.name: c.value for c in counters}
+    if (launches[int4.LAUNCHES.name] <= 0 or launches[int4.TAIL_LAUNCHES.name] != 0
+            or launches[int4.ROUTE_LAUNCHES["mma_sync"].name] <= 0):
+        raise AssertionError(f"{what}: expected int4_matmul launches (its mma_sync route among them) "
+                             f"and no fused tail (H = {arch.hidden_size}): {launches}")
+    checks = []
+    for (route, m, k, n), (x, packed, scales, gs) in sorted(calls.items()):
+        got = int4.int4_matmul(x, packed, scales, gs)
+        torch.cuda.synchronize()
+        checks.append({"route": route, "M": m, "K": k, "N": n, "max_abs_err": compare(
+            got, int4.int4_matmul_plain(x, packed, scales, gs), f"{what}: int4_matmul {route} M={m} {k}->{n}")})
+    return {"texts": texts, "launches": launches, "checks": checks}
+
+
 def phase_tiny(device, workdir: str) -> dict:
     """The jax-tiny route on the card: the CLI's meta loop over
     dataset/moonlantern (answers back, guided OpenIE fills the entity and
@@ -1406,36 +1464,15 @@ def phase_tiny(device, workdir: str) -> dict:
         raise AssertionError(f"jax-tiny CLI: guided OpenIE left a store empty: {stores}")
 
     params, arch = curriculum.load_tiny_checkpoint(curriculum.default_checkpoint_path())
-    rng = np.random.default_rng(SEED + 11)
-    samples = [curriculum.make_sample(rng, task) for task in ("qa", "qa", "ner", "triples")]
-    batches = [([s["prompt"] for s in samples[:2]], None), ([samples[2]["prompt"]], "ner"),
-               ([samples[3]["prompt"]], "triples")]
-
-    def texts(engine):
-        return [r.text for prompts, tmpl in batches for r in engine._generate_batch(prompts, 256, tmpl, 0.0)]
-
-    counters = (int4.LAUNCHES, int4.TAIL_LAUNCHES, *int4.ROUTE_LAUNCHES.values())
-    for counter in counters:
-        counter.reset()
-    with recorded_int4_calls() as calls:
-        int4_texts = texts(TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", max_new_tokens=384,
-                                           device=device))
-    int4_launches = {c.name: c.value for c in counters}
-    if (int4_launches[int4.LAUNCHES.name] <= 0 or int4_launches[int4.TAIL_LAUNCHES.name] != 0
-            or int4.ROUTE_LAUNCHES["mma_sync"].value <= 0):
-        raise AssertionError(f"tiny int4 engine: expected int4_matmul launches (its mma_sync route among them) "
-                             f"and no fused tail (H = {arch.hidden_size}): {int4_launches}")
-    int4_checks = []
-    for (route, m, k, n), (x, packed, scales, gs) in sorted(calls.items()):
-        got = int4.int4_matmul(x, packed, scales, gs)
-        torch.cuda.synchronize()
-        int4_checks.append({"route": route, "M": m, "K": k, "N": n, "max_abs_err": compare(
-            got, int4.int4_matmul_plain(x, packed, scales, gs), f"tiny int4_matmul {route} M={m} {k}->{n}")})
+    batches = tiny_batches()
+    served = tiny_int4(params, arch, device, batches, "tiny int4 engine")
+    int4_texts, int4_launches, int4_checks = served["texts"], served["launches"], served["checks"]
     trace.reset()
-    plain = texts(TorchOfflineLLM(params=params, arch=arch, max_new_tokens=384, device=device))
+    plain = tiny_texts(TorchOfflineLLM(params=params, arch=arch, max_new_tokens=384, device=device), batches)
     plain_steps = trace.summary()["counters"]["llm.decode_steps"]
     trace.reset()
-    spec = texts(TorchOfflineLLM(params=params, arch=arch, max_new_tokens=384, speculative=True, device=device))
+    spec = tiny_texts(TorchOfflineLLM(params=params, arch=arch, max_new_tokens=384, speculative=True, device=device),
+                      batches)
     spec_steps = trace.summary()["counters"]["llm.decode_steps"]
     if spec != plain:
         raise AssertionError("speculative decoding gave other texts than plain greedy on the tiny checkpoint")
@@ -2306,6 +2343,159 @@ def phase_mesh_training(device, pairs, training: dict, smi: str) -> dict:
     return {"encoder": enc, "lm": lm, "roundtrip": roundtrip, "dryrun": dry, "train_launches": train_launches}
 
 
+# ----------------------------------------------------------------- phase 16
+TINY_B, TINY_S, TINY_LR, TINY_FULL_STEPS = 16, 2048, 6e-4, 3000  # the recipe's defaults
+TINY_BUDGET_S = 240.0  # the training run's share of the smoke run's 1,200 s
+TINY_PROFILE_STEPS = 20
+# tests/test_torch_tiny_trained.py's golden floors (at N = 4 samples a task) as rates
+TINY_FLOORS = {"ner_parse_rate": 0.75, "ner_entity_recall": 0.6, "triples_parse_rate": 0.75,
+               "triples_nonempty_rate": 0.6, "qa_marker_rate": 0.75, "qa_answer_rate": 0.5}
+
+
+def load_script(name: str):
+    """scripts/<name>.py as a module: phase 16 runs the recipe's own
+    functions and measures with torch_train_profile's."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def recipe_profile(recipe, arch, device) -> dict:
+    """The recipe's loop on a throwaway state at its batch and window: 3
+    warm-up steps, TINY_PROFILE_STEPS steps timed (the step time that sizes
+    the run, the host's batch-making ms a step), then as many under
+    torch.profiler: the device's busy time a step and its idle share
+    against the unprofiled wall."""
+    state = recipe.create_state(arch, TINY_LR, TINY_FULL_STEPS, SEED, device)
+    step = train_lm.make_lm_train_step(arch)
+    quiet = lambda line: None  # noqa: E731
+    state, _ = recipe.train(state, step, 3, TINY_B, TINY_S, SEED, device, log=quiet)
+    state, timed = recipe.train(state, step, TINY_PROFILE_STEPS, TINY_B, TINY_S, SEED, device, log=quiet)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, _ = recipe.train(state, step, TINY_PROFILE_STEPS, TINY_B, TINY_S, SEED, device, log=quiet)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy_s = load_script("torch_train_profile").busy_us(events) / 1e6
+    step_s = timed["wall_s"] / TINY_PROFILE_STEPS
+    del state
+    torch.cuda.empty_cache()
+    return {"step_s": step_s, "host_batch_ms": timed["host_batch_ms"],
+            "device_busy_ms_per_step": busy_s / TINY_PROFILE_STEPS * 1e3,
+            "idle_share": 1 - busy_s / TINY_PROFILE_STEPS / step_s,
+            "device_events_per_step": len(events) / TINY_PROFILE_STEPS}
+
+
+def recipe_training(recipe, device) -> tuple:
+    """16a: the recipe at its full arch, batch and window for as many of its
+    3,000 steps as TINY_BUDGET_S holds at the profiled step time (the
+    schedule over that many steps), none of the six kernels launched; the
+    loss must fall (the last 20 steps' mean under 0.8 x the first's)."""
+    arch = recipe.build_arch(TINY_S)
+    profile = recipe_profile(recipe, arch, device)
+    steps = min(TINY_FULL_STEPS, int(TINY_BUDGET_S / profile["step_s"]))
+    reason = ("the recipe's full run" if steps == TINY_FULL_STEPS else
+              f"{TINY_FULL_STEPS} steps at {profile['step_s']:.4f} s a step would take "
+              f"{TINY_FULL_STEPS * profile['step_s']:.1f} s, over the phase's {TINY_BUDGET_S:.0f} s")
+    for counter in KERNEL_COUNTERS:
+        counter.reset()
+    torch.cuda.reset_peak_memory_stats()
+    state = recipe.create_state(arch, TINY_LR, steps, SEED, device)
+    lines = []
+    state, run = recipe.train(state, train_lm.make_lm_train_step(arch), steps, TINY_B, TINY_S, SEED, device,
+                              log=lines.append)
+    launches = {c.name: c.value for c in KERNEL_COUNTERS}
+    if any(launches.values()):
+        raise AssertionError(f"the tiny recipe's steps launched a kernel that has no backward: {launches}")
+    losses = run.pop("losses")
+    first, last20 = losses[0], statistics.fmean(losses[-20:])
+    if not (np.isfinite(losses).all() and last20 < 0.8 * first):
+        raise AssertionError(f"the tiny recipe's loss did not fall: first {first}, mean of the last 20 {last20}")
+    out = {**run, "reason": reason, "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "profile": profile,
+           "first_loss": first, "last20_mean_loss": last20, "log": lines, "launches": launches}
+    return state, arch, out
+
+
+def recipe_meta_loop(params, arch, device, workdir: str) -> dict:
+    """16c: the meta loop over dataset/moonlantern with the trained engine
+    behind the generation server (the jax-tiny route's engine settings):
+    every question answered, guided OpenIE leaving both stores non-empty,
+    no error response."""
+    base = os.path.join(REPO, "dataset", "moonlantern", "moonlantern_1")
+    docs = [d["contents"] for d in cli_run.load_jsonl(os.path.join(base, "corpus.jsonl"))]
+    queries = [s["question"] for s in cli_run.load_jsonl(os.path.join(base, "qas.jsonl"))]
+    config = ComoConfig(llm_name="jax-tiny", embedding_model_name="hash", save_dir=os.path.join(workdir, "save"),
+                        output_dir=os.path.join(workdir, "out"))
+    config.corpus_len = len(docs)
+    server = serving.GenerationServer(TorchOfflineLLM(params=params, arch=arch, temperature=0.0, max_new_tokens=384,
+                                                      device=device))
+    trace.reset()
+    t0 = time.perf_counter()
+    try:
+        with error_responses() as errors:
+            rag = ComoRAG(config, llm=server, device=device)
+            rag.index(docs)
+            answers = [s.answer for s in rag.try_answer(queries)]
+    finally:
+        server.close()
+    wall_s = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"trained tiny meta loop: {len(errors)} error responses: {errors[:2]}")
+    stores = {name: len(getattr(rag, name)) for name in ("entity_store", "fact_store")}
+    if not answers or not all(answers) or min(stores.values()) <= 0:
+        raise AssertionError(f"trained tiny meta loop: {sum(map(bool, answers))}/{len(queries)} answers, "
+                             f"stores {stores}")
+    return {"wall_s": wall_s, "answers": len(answers), "questions": len(queries), "stores": stores,
+            "llm_counters": {k: v for k, v in trace.summary()["counters"].items() if k.startswith("llm.")}}
+
+
+def phase_recipe(device, smi: str) -> dict:
+    """Phase 16: the tiny decoder's training recipe on the card, then its
+    checkpoint saved, reloaded and served: (a) training, (b) int4 serving
+    on phase 11's prompts, (c) the meta loop, (d) the evaluation tables of
+    the trained and the committed checkpoints."""
+    recipe = load_script("torch_train_tiny_lm")
+    state, arch, training = recipe_training(recipe, device)
+    print(f"phase 16a tiny recipe on the card ({smi}): {training['steps']} steps ({training['reason']}), "
+          f"B={TINY_B} S={TINY_S} fp32, remat: {training['steps_per_s']:.4f} steps/s, "
+          f"{training['tokens_per_s']:.1f} tokens/s, wall {training['wall_s']:.1f} s, peak memory "
+          f"{training['peak_gib']:.3f} GiB, host batch making {training['host_batch_ms']:.3f} ms a step; "
+          f"over {TINY_PROFILE_STEPS} profiled steps: {json.dumps(training['profile'])}; loss {training['first_loss']:.4f} "
+          f"-> mean of the last 20 {training['last20_mean_loss']:.4f} (rule < 0.8x); kernel launches "
+          f"{training['launches']}; log {json.dumps(training['log'])}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        path = os.path.join(workdir, "tiny_lm_torch.npz")
+        curriculum.save_tiny_checkpoint(path, state.params, arch)
+        del state
+        torch.cuda.empty_cache()
+        params, loaded_arch = curriculum.load_tiny_checkpoint(path)
+        if loaded_arch != arch:
+            raise AssertionError(f"the reloaded checkpoint's arch {loaded_arch} is not the trained {arch}")
+        served = tiny_int4(params, arch, device, tiny_batches(), "trained tiny int4 engine")
+        served.pop("texts")
+        print(f"phase 16b trained checkpoint reloaded ({os.path.getsize(path)} bytes) and served on int4 weights, "
+              f"phase 11's prompts: {json.dumps(served)}", flush=True)
+        meta = recipe_meta_loop(params, arch, device, workdir)
+        print(f"phase 16c meta loop over dataset/moonlantern on the trained engine: {json.dumps(meta)}", flush=True)
+    committed = curriculum.load_tiny_checkpoint(curriculum.default_checkpoint_path())
+    tables = {"trained": recipe.evaluate(params, arch, device=device),
+              "committed": recipe.evaluate(*committed, device=device)}
+    full = training["steps"] == TINY_FULL_STEPS
+    below = {k: tables["trained"][k] for k, floor in TINY_FLOORS.items() if tables["trained"][k] < floor}
+    # the floors bind a run of all 3,000 steps only: on the H100 (~0.29 s a
+    # step) the phase's budget holds ~800, so there this check never fires
+    # and the full recipe's table is recorded from the script's own run
+    verdict = ("held" if not below else f"below: {json.dumps(below)}") if full else \
+        (f"not applied: {training['steps']} of {TINY_FULL_STEPS} steps, the floors bind the full run only "
+         f"(below at this step count: {json.dumps(below)})")
+    print(f"phase 16d evaluate() (12 a task, seed 987654) of the trained checkpoint beside the committed "
+          f"assets/tiny_lm.npz: {json.dumps(tables)}; golden floors {json.dumps(TINY_FLOORS)} {verdict}", flush=True)
+    if full and below:
+        raise AssertionError(f"the full recipe's checkpoint is below the golden floors: {below}")
+    return {"training": training, "served": served, "meta_loop": meta, "eval": tables}
+
+
 def main() -> None:
     device = require_cuda()
     smi = nvidia_smi_line()
@@ -2337,6 +2527,7 @@ def main() -> None:
     del corpus, queries
     tp = phase_tp(device, server, smi)
     mesh_training = phase_mesh_training(device, training_pairs(make_corpus(N_CHUNKS, N_QUESTIONS)[0]), training, smi)
+    tiny_recipe = phase_recipe(device, smi)
 
     entries = []
     for mod in (attention, ffn):
@@ -2371,10 +2562,13 @@ def main() -> None:
     for counter, replaces, rows in ((int4.LAUNCHES, int4.REPLACES, int4_kernels["int4_matmul"]),
                                     (int4.TAIL_LAUNCHES, int4.TAIL_REPLACES, int4_kernels["int4_fused_layer_tail"])):
         head = rows[0]  # decode, M = 8: the serving loop's shape
-        tiny_checks = tiny["int4_matmul_vs_plain"] if counter is int4.LAUNCHES else []
+        tiny_checks = (tiny["int4_matmul_vs_plain"] + tiny_recipe["served"]["checks"]) if counter is int4.LAUNCHES else []
         entries.append({"name": counter.name, "route": "cuda", "source": int4.SOURCE, "replaces": replaces,
                         "launches": server["launches"][counter.name],
+                        "trained_tiny_launches": tiny_recipe["served"]["launches"][counter.name],
                         **({"launches_by_route": server["route_launches"], "tiny_engine_checks": tiny_checks,
+                            "trained_tiny_launches_by_route": {r: tiny_recipe["served"]["launches"][c.name]
+                                                               for r, c in int4.ROUTE_LAUNCHES.items()},
                             "tp_launches": tp["int4"]["launches"][counter.name],
                             "tp_launches_by_route": tp["int4"]["route_launches"], "tp_shard_shapes": tp["shards"],
                             "mesh_dryrun_launches": mesh_training["dryrun"]["int4_matmul_launches"]}
@@ -2390,6 +2584,7 @@ def main() -> None:
     for entry in entries:
         entry["training_step_launches"] = training["train_launches"][entry["name"]]
         entry["mesh_training_step_launches"] = mesh_training["train_launches"][entry["name"]]
+        entry["tiny_recipe_step_launches"] = tiny_recipe["training"]["launches"][entry["name"]]
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "comorag_tpu"))
     if foreign:

@@ -11,6 +11,11 @@ Port of ``comorag_tpu/models/train.py``: the same loss, the same AdamW
     parameters, as optax's ``optimizer.init(params)`` builds its state;
   - optax computes ``p - lr * (adam + wd * p)``, torch
     ``p * (1 - lr * wd) - lr * adam``: the same arithmetic in another order;
+  - a learning-rate schedule (optax's ``warmup_cosine_decay_schedule``, as
+    the tiny decoder's recipe uses it) is a host function of the update
+    count: ``make_step`` sets each param group's ``lr`` from the state's
+    step counter before ``opt.step()``, as optax's ``scale_by_schedule``
+    reads its count, so a resumed state resumes the schedule;
   - checkpoints are ``torch.save`` files of whole parameters and Adam
     moments by tree name and the step (orbax is a JAX library);
   - the forward takes the encoder's plain path: the Hopper kernels have no
@@ -33,6 +38,7 @@ unsharded step's up to fp32 summation order.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -112,15 +118,45 @@ def named_leaves(params) -> Iterator[Tuple[str, torch.Tensor, int]]:
             yield name, leaf, leaf.dim() + extra
 
 
-def make_optimizer(learning_rate: float = 2e-5, weight_decay: float = 0.01
+Schedule = Callable[[int], float]
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0) -> Schedule:
+    """optax's ``warmup_cosine_decay_schedule`` as a host function ``count
+    -> lr`` (a Python float): a linear warmup from ``init_value`` to
+    ``peak_value`` over ``warmup_steps``, then a cosine decay to
+    ``end_value`` that ends at ``decay_steps`` (warmup included), constant
+    after that."""
+    cosine_steps = decay_steps - warmup_steps
+    if cosine_steps <= 0:
+        raise ValueError(f"decay_steps ({decay_steps}) must exceed warmup_steps ({warmup_steps})")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - max(count, 0) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        t = min(count - warmup_steps, cosine_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / cosine_steps))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def make_optimizer(learning_rate: Union[float, Schedule] = 2e-5, weight_decay: float = 0.01
                    ) -> Callable[[Any], torch.optim.Optimizer]:
     """AdamW (optax's defaults: b1 0.9, b2 0.999, eps 1e-8) with JAX's
     decay mask, ``ndim >= 2`` over the JAX tree: every encoder layer tensor
     (LayerNorm scales and biases too, as they are [L, H] there) and the
     three embedding tables decay; the embedding LayerNorm and the decoder's
-    ``final_norm`` do not. Returns the function that builds the optimizer
-    over a parameter set (the blocks of a split weight, each on its device)
-    and turns its gradients on."""
+    ``final_norm`` do not. ``learning_rate`` is a float or, as in optax, a
+    schedule ``count -> lr`` (e.g. ``warmup_cosine_decay_schedule``), kept
+    as the optimizer's ``lr_schedule`` for ``make_step``; the decoupled
+    decay is scaled by the same rate. Returns the function that builds the
+    optimizer over a parameter set (the blocks of a split weight, each on
+    its device) and turns its gradients on."""
+    schedule = learning_rate if callable(learning_rate) else None
 
     def build(params) -> torch.optim.Optimizer:
         decay, no_decay = [], []
@@ -129,7 +165,10 @@ def make_optimizer(learning_rate: float = 2e-5, weight_decay: float = 0.01
             (decay if jax_ndim >= 2 else no_decay).append(p)
         groups = [{"params": decay, "weight_decay": weight_decay},
                   {"params": no_decay, "weight_decay": 0.0}]
-        return torch.optim.AdamW(groups, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        lr = schedule(0) if schedule is not None else learning_rate
+        opt = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        opt.lr_schedule = schedule
+        return opt
 
     return build
 
@@ -148,10 +187,17 @@ def create_train_state(arch: EncoderArch, generator: torch.Generator, optimizer=
 
 def make_step(loss_fn: Callable[[Any, Dict[str, torch.Tensor]], torch.Tensor]):
     """``step(state, batch) -> (state, loss)``: one backward of ``loss_fn``
-    and one in-place update by the state's optimizer."""
+    and one in-place update by the state's optimizer, at the rate its
+    ``lr_schedule`` gives the updates already made (``state.step``) where
+    ``make_optimizer`` was given a schedule."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, torch.Tensor]:
         opt = state.opt_state
+        schedule = getattr(opt, "lr_schedule", None)
+        if schedule is not None:
+            lr = float(schedule(state.step))
+            for group in opt.param_groups:
+                group["lr"] = lr
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(state.params, batch)
         loss.backward()

@@ -1,4 +1,4 @@
-"""comorag_torch must run without jax, without the JAX package
+"""comorag_torch must run without jax (nor optax), without the JAX package
 comorag_tpu (the port keeps its own copies of the host modules) and without
 transformers (needed only for local HuggingFace checkpoints).
 
@@ -8,8 +8,9 @@ server and the decoder among them), runs the CLI's ``--help``, indexes and
 answers the moonlantern set on the CPU with the hash encoder, runs one
 short ``jax-tiny`` generation on one device and one over a ``model`` mesh
 axis, and two steps of the training CLI on the CPU without a mesh and
-over a data x model mesh,
-and checks that none of them was loaded. httpx and pyarrow are not blocked: the host modules need them (the
+over a data x model mesh, imports the tiny decoder's training recipe
+(scripts/torch_train_tiny_lm.py), and checks that none of them was loaded.
+httpx and pyarrow are not blocked: the host modules need them (the
 OpenAI client, the parquet store), and the H100 machine has them installed.
 """
 
@@ -24,7 +25,7 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, os, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "transformers", "comorag_tpu")
+    BLOCKED = ("jax", "jaxlib", "optax", "transformers", "comorag_tpu")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -77,6 +78,13 @@ SCRIPT = textwrap.dedent(
         summary = train.main(["--pairs", pairs, "--output_dir", os.path.join(tmp, "ckpt"), "--init", "tiny",
                               "--steps", "2", "--batch", "4", "--max_seq_len", "8", "--device", "cpu", *mesh_args])
         assert os.path.exists(summary["checkpoint"]), summary
+
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_tiny_lm", os.path.join(os.environ["PORT_REPO"], "scripts", "torch_train_tiny_lm.py"))
+    recipe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(recipe)
+    assert recipe.build_arch(2048).hidden_size == 256 and recipe.make_schedule(6e-4, 3000)(100) == 6e-4
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("OK", len(modules), "modules")
@@ -85,7 +93,7 @@ SCRIPT = textwrap.dedent(
 
 
 def test_port_runs_without_jax_or_transformers(tmp_path):
-    env = dict(os.environ, PORT_TMP=str(tmp_path),
+    env = dict(os.environ, PORT_TMP=str(tmp_path), PORT_REPO=REPO,
                PORT_DATA=os.path.join(REPO, "dataset", "moonlantern", "moonlantern_1"),
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=str(tmp_path), env=env,
