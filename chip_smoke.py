@@ -130,22 +130,27 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      (``decoder.shard_params``; no multi-card speed is read from it), on
      phase 10's weights, arch and 8 requests: (a) int4 weights, every
      product column-parallel: no error response; each forward's launches
-     checked (``decoder.tail_route``: a forward of <= 64 tokens, a decode
-     step, launches the fused tail once a layer over the o, gate/up and
-     down column shards, read in place, and int4_matmul 4 x (layers + 1)
-     times for qkv and the head; a prefill chunk int4_matmul 4 x (4 x
-     layers + 1) times, no tail; per route, beside phase 10's); the
-     last-prompt and first-decode-step logits in fp32 compute against the
-     unsharded engine on the same weights and against the plain versions
-     on the same shards, under phase 10's rule; the served bf16 logits and
-     greedy tokens beside phase 10's and prefill and decode tok/s
-     (reported); (b) the same with bf16 weights (o/down row-parallel,
-     partial sums on the merge device, no int4 launch); (c) int4_matmul at
-     qkv's and the head's shard shapes of a decode step (M = 8: qkv
-     4096->1536, lm_head 4096->32064, and 4096->64128 at {"model": 2}) and
-     the fused tail over the 4 column shards at M = 8 and 64 (held against
-     its plain version under the bf16 rule and against the whole-weight
-     launch) as phase 9 times its shapes;
+     checked (``decoder.tail_route`` and ``decoder.product_route``: a
+     forward of <= 64 tokens, a decode step, launches the fused tail once
+     a layer over the o, gate/up and down column shards, read in place,
+     and int4_matmul once a layer for qkv over its 4 column shards, read
+     in place, plus once per shard of the head, whose 32,064-column
+     shards are no multiple of 128: 36 + 32 at 32 layers; a prefill chunk
+     int4_matmul once a product over the shards, 4 x layers + 4, no tail;
+     per route, beside phase 10's); the last-prompt and first-decode-step
+     logits in fp32 compute against the unsharded engine on the same
+     weights and against the plain versions on the same shards, under
+     phase 10's rule; the served bf16 logits and greedy tokens beside
+     phase 10's and prefill and decode tok/s (reported); (b) the same with
+     bf16 weights (o/down row-parallel, partial sums on the merge device,
+     no int4 launch); (c) int4_matmul over column blocks (qkv at M = 8
+     over its 4 shards, gate/up at M = 4,096 over its 4, the head at M = 8
+     over {"model": 2}'s 2, whose items straddle the blocks), each held
+     against its plain version under the bf16 rule and against the
+     whole-weight launch (bit-equal required), timed beside it; the head's
+     per-shard shape at {"model": 4} (M = 8, 4096->32064); and the fused
+     tail over the 4 column shards at M = 8 and 64 (against its plain
+     version and the whole-weight launch) as phase 9 times its shapes;
  15. dp x tp training over {"data": 2, "model": 2} of the one card
      (``models/train.py`` and ``train_lm.py`` with ``mesh=``; no
      multi-card speed is read from it): (a) bert-base with phase 12a's
@@ -164,7 +169,9 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      arches: an encoder and an LM step, the trained decoder served with
      int8 weights split over the model axis (guided JSON sampled, then
      speculative at temperature 0) and with int4 weights (int4_matmul
-     once per column shard of each product a forward), the qwen3- and
+     launches a forward as ``decoder.product_route`` routes each column
+     split: its 128-column gate/up shards in one launch, its 64- and
+     32-column qkv, o and down shards once a shard), the qwen3- and
      gemma-class families, the corpus-sharded index and PPR. None of the
      six kernels launches in the training steps of (a), (b) and (d).
  16. the tiny decoder's training recipe (scripts/torch_train_tiny_lm.py,
@@ -973,34 +980,66 @@ def int4_weights(gen, device, k: int, n: int, count: int) -> tuple:
     return packed, scales
 
 
-def time_int4_matmul(device, gen, m: int, name: str, packed: torch.Tensor, scales: torch.Tensor) -> dict:
+def time_int4_matmul(device, gen, m: int, name: str, packed: torch.Tensor, scales: torch.Tensor,
+                     blocks: int = 1) -> dict:
     """int4_matmul at M = m against its plain version on the first layer's
     weight (the bf16 rule), timed cycling through every layer's weight,
-    with its route, K splits, host time, yardsticks and bound."""
+    with its route, K splits, host time, yardsticks and bound. With
+    ``blocks`` > 1 each layer's weight goes in as that many column blocks
+    (``split_blocks``, as ``decoder.shard_params`` cuts a one-card model
+    axis's shards), one launch over them: held against the whole weight's
+    launch too (bit-equal required), and timed beside it, also with the
+    kernels alone (``device_ms``)."""
     k, n = packed.shape[1] * 2, packed.shape[2]
+    layers = packed.shape[0]
     x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
-    got = int4.int4_matmul(x, packed[0], scales[0])
+    devices = [device] * blocks
+    cut = [(packed[i], scales[i]) if blocks == 1 else
+           (list(split_blocks(packed[i], -1, devices)), list(split_blocks(scales[i], -1, devices)))
+           for i in range(layers)]
+
+    def call(i):
+        return int4.int4_matmul(x, *cut[i])
+
+    def whole(i):
+        return int4.int4_matmul(x, packed[i], scales[i])
+
+    got = call(0)
     ref = int4.int4_matmul_plain(x, packed[0], scales[0])
     torch.cuda.synchronize()
     route = int4.int4_matmul_route(m, n)
-    r = {"M": m, "weight": name, "K": k, "N": n, "route": route, "splits": matmul_splits(device, m, k, n, route),
-         "max_abs_err": compare(got, ref, f"int4_matmul M={m} {name}"),
-         "ms": median_ms(cycling(lambda i: int4.int4_matmul(x, packed[i], scales[i]), packed.shape[0])),
+    what = f"int4_matmul M={m} {name}" + (f" over {blocks} column blocks" if blocks > 1 else "")
+    r = {"M": m, "weight": name, "K": k, "N": n, "blocks": blocks, "route": route,
+         "splits": matmul_splits(device, m, k, n, route), "max_abs_err": compare(got, ref, what),
+         "ms": median_ms(cycling(call, layers)),
          "plain_ms": median_ms(lambda: int4.int4_matmul_plain(x, packed[0], scales[0]), runs=3, reps=1, warmup=1),
-         "host_us": host_us(lambda: int4.int4_matmul(x, packed[0], scales[0])),
+         "host_us": host_us(lambda: call(0)),
          **int4_yardsticks(x, packed[0], scales[0], ref), **int4_bound(m, k, n)}
+    if blocks > 1:
+        r["max_abs_diff_vs_whole_kernel"] = float((got - whole(0)).abs().max())
+        if r["max_abs_diff_vs_whole_kernel"] != 0.0:
+            raise AssertionError(f"{what}: differs from the whole weight's launch by "
+                                 f"{r['max_abs_diff_vs_whole_kernel']} (the same items and sums: bit-equal)")
+        r.update(device_ms=device_ms(cycling(call, layers)), whole_ms=median_ms(cycling(whole, layers)),
+                 whole_device_ms=device_ms(cycling(whole, layers)), whole_host_us=host_us(lambda: whole(0)))
     # the library call: tinygemm, the same formula ((q - 8) * scale a group) with bf16 scales and output
     r["library_ms"] = r["int4pack_mm_ms"]
     r["roofline_share"] = r["bound_ms"] / r["ms"]
-    del got, ref, x
+    del got, ref, x, cut
     torch.cuda.empty_cache()
     return r
 
 
 def int4_matmul_line(r: dict) -> str:
-    return (f"int4_matmul M={r['M']} {r['weight']} {r['K']}->{r['N']} route {r['route']} ({r['splits']} K split(s)): "
-            f"max_abs_err={r['max_abs_err']:.4g} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) roofline share {r['roofline_share']:.3f}; wrapper host "
+    blocked = ""
+    if r["blocks"] > 1:
+        blocked = (f" over {r['blocks']} column blocks in one launch (max |d| against the whole weight's launch "
+                   f"{r['max_abs_diff_vs_whole_kernel']:.4g}; device alone {r['device_ms']:.4f} ms; the whole "
+                   f"weight {r['whole_ms']:.4f} ms, device alone {r['whole_device_ms']:.4f} ms, host "
+                   f"{r['whole_host_us']:.1f} us a call)")
+    return (f"int4_matmul M={r['M']} {r['weight']} {r['K']}->{r['N']}{blocked} route {r['route']} ({r['splits']} K "
+            f"split(s)): max_abs_err={r['max_abs_err']:.4g} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) roofline share {r['roofline_share']:.3f}; wrapper host "
             f"{r['host_us']:.1f} us a call; yardsticks (not this function): bf16 torch.matmul on the dequantized "
             f"weight {r['bf16_matmul_ms']:.4f} ms, torch._weight_int4pack_mm {r['int4pack_mm']}")
 
@@ -1867,26 +1906,38 @@ def phase_sharded(device, corpus, serve_queries, serving: dict, workdir: str, me
 
 # ----------------------------------------------------------------- phase 14
 TP = 4
-# int4_matmul's column shards of a TP decode step (M = 8) at Llama-3.1-8B
-# widths over {"model": 4}: qkv and the head (o, gate/up and down run in
-# the fused tail over their shards); the last is the head's shard over
-# {"model": 2}
-TP_SHARD_SHAPES = (("qkv", 4096, 1536), ("lm_head", 4096, 32064), ("lm_head_model_2", 4096, 64128))
-TP_ROUTES = (f"{decoder.FUSED_TAIL} where every shard lies on the merge device (this mesh of one card): one "
-             f"launch a layer of <= 64 tokens reads the o, gate/up and down column shards in place; "
-             f"{decoder.PER_PRODUCT} over distinct cards (the kernel reads one card's memory) and above 64 "
-             f"tokens: int4_matmul per shard, the norm, activation and residuals in PyTorch")
+# int4_matmul over a one-card model axis's column shards at Llama-3.1-8B
+# widths: (weight, M, blocks). qkv at decode and gate/up at prefill over
+# {"model": 4}'s shards, in one launch; the head over {"model": 2}'s
+# 64,128-column blocks in one launch (an item's two 128-column boxes
+# straddle the blocks); the head's 32,064-column shard of {"model": 4},
+# no multiple of 128, launched per shard (o, gate/up and down run in the
+# fused tail over their shards at decode)
+TP_MATMUL_SHAPES = (("qkv", 8, TP), ("gate_up", 4096, TP), ("lm_head", 8, 2), ("lm_head shard", 8, 1))
+TP_ROUTES = (f"int4_matmul: {decoder.BLOCKS} where a column split's shards all lie on the merge device (this "
+             f"mesh of one card) and the kernel takes them (splitk or wgmma route, equal widths a multiple of "
+             f"128, at most {int4.TAIL_MAX_BLOCKS}): one launch a product reads the shards in place; "
+             f"{decoder.PER_SHARD} otherwise (the head's 32,064-column shards here; distinct cards): one launch a "
+             f"shard, gathered on the merge device. The layer tail: {decoder.FUSED_TAIL} where every shard lies "
+             f"on the merge device: one launch a layer of <= 64 tokens reads the o, gate/up and down column "
+             f"shards in place; {decoder.PER_PRODUCT} over distinct cards (the kernel reads one card's memory) "
+             f"and above 64 tokens: each product on its own route, the norm, activation and residuals in "
+             f"PyTorch")
 
 
 def tp_shard_timings(device) -> list:
-    """(c) int4_matmul at qkv's and the head's shard shapes of a TP decode
-    step, timed as phase 9 times its shapes (32 layers' weights cycled,
-    plain, bound, tinygemm as the library call)."""
+    """(c) int4_matmul over column blocks (``TP_MATMUL_SHAPES``), timed as
+    phase 9 times its shapes (32 layers' weights cycled, plain, bound,
+    tinygemm as the library call), each blocked launch held against and
+    timed beside the whole weight's; the head's per-shard shape alone."""
     gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    arch = llama_8b()
     rows = []
-    for name, k, n in TP_SHARD_SHAPES:
-        packed, scales = int4_weights(gen, device, k, n, 1 if name.startswith("lm_head") else llama_8b().num_layers)
-        rows.append(time_int4_matmul(device, gen, 8, f"{name} shard", packed, scales))
+    for name, m, blocks in TP_MATMUL_SHAPES:
+        k, n = int4_matmul_dims(arch, name.split()[0])
+        n = n // TP if name.endswith("shard") else n
+        packed, scales = int4_weights(gen, device, k, n, 1 if name.startswith("lm_head") else arch.num_layers)
+        rows.append(time_int4_matmul(device, gen, m, name, packed, scales, blocks))
         del packed, scales
     torch.cuda.empty_cache()
     return rows
@@ -1941,15 +1992,17 @@ def tp_tail_timings(device) -> list:
 
 @contextlib.contextmanager
 def forward_launches():
-    """Records each decoder_forward call's tokens (batch x chunk) and the
-    int4_matmul and fused-tail launches it made."""
+    """Records each decoder_forward call's tokens (batch x chunk), the
+    rows its head takes (the batch where it asks for the last position
+    only) and the int4_matmul and fused-tail launches it made."""
     rec = []
     forward = decoder.decoder_forward
 
     def counted(params, input_ids, *a, **kw):
         before = int4.LAUNCHES.value, int4.TAIL_LAUNCHES.value
         out = forward(params, input_ids, *a, **kw)
-        rec.append((input_ids.numel(), int4.LAUNCHES.value - before[0], int4.TAIL_LAUNCHES.value - before[1]))
+        head_m = input_ids.shape[0] if kw.get("last_only") else input_ids.numel()
+        rec.append((input_ids.numel(), head_m, int4.LAUNCHES.value - before[0], int4.TAIL_LAUNCHES.value - before[1]))
         return out
 
     decoder.decoder_forward = counted
@@ -1959,17 +2012,35 @@ def forward_launches():
         decoder.decoder_forward = forward
 
 
-def checked_forwards(rec, arch, int4_kernels: bool, what: str) -> dict:
-    """Each recorded forward's (int4_matmul, fused tail) launches over
-    {"model": TP} of one card: at <= 64 tokens TP x (layers + 1), qkv and
-    the head per shard, and one fused tail a layer over the shards; above,
-    TP x (4 x layers + 1), every product per shard, no tail; none with
-    bf16 weights. Returns the forwards by kind and their launch counts."""
-    layers, out = arch.num_layers, {}
-    for m, matmuls, tails in rec:
+def product_launches(w, m: int, device) -> int:
+    """int4_matmul launches of one product of m rows: one for a whole
+    weight or a ``decoder.BLOCKS`` column split, one a shard for a
+    ``decoder.PER_SHARD`` one."""
+    if not isinstance(w, Sharded) or decoder.product_route(w, m, device) == decoder.BLOCKS:
+        return 1
+    return len(w.shards)
+
+
+def int4_forward_launches(params, arch, m: int, head_m: int) -> tuple:
+    """(int4_matmul, fused tail) launches of one int4 forward of m tokens
+    whose head takes head_m rows, as ``decoder.tail_route`` and
+    ``decoder.product_route`` route them."""
+    device, layer = params["embed"].device, params["layers"]
+    tail = decoder.tail_route(params, arch, m) == decoder.FUSED_TAIL
+    names = ("qkv_w",) if tail else ("qkv_w", "o_w", "gateup_w", "down_w")
+    per_layer = sum(product_launches(layer[name], m, device) for name in names)
+    return arch.num_layers * per_layer + product_launches(params["lm_head"], head_m, device), arch.num_layers * tail
+
+
+def checked_forwards(rec, params, arch, int4_kernels: bool, what: str) -> dict:
+    """Each recorded forward's (int4_matmul, fused tail) launches against
+    ``int4_forward_launches`` (none with bf16 weights). Returns the
+    forwards by kind (<= 64 tokens: a decode step; above: a prefill chunk)
+    and their launch counts."""
+    out = {}
+    for m, head_m, matmuls, tails in rec:
         kind = "le_64_tokens" if m <= int4.TAIL_MAX_M else "gt_64_tokens"
-        want = (0, 0) if not int4_kernels else (TP * (layers + 1), layers) if kind == "le_64_tokens" else (
-            TP * (4 * layers + 1), 0)
+        want = int4_forward_launches(params, arch, m, head_m) if int4_kernels else (0, 0)
         if (matmuls, tails) != want:
             raise AssertionError(f"tp {what}: a forward of {m} tokens made (int4_matmul, fused tail) launches "
                                  f"{(matmuls, tails)}, expected {want}")
@@ -1999,9 +2070,9 @@ def tp_generation(device, params, arch, mesh, name: str, param_dtype, server: di
         raise AssertionError(f"tp {name}: a decode step of the one-card mesh takes {out['decode_route']}")
     with forward_launches() as rec:
         run = serve_route(engine, prompts, max_tokens, f"tp_{name}")
-    out["forwards"] = checked_forwards(rec, arch, int4_kernels, name)
+    out["forwards"] = checked_forwards(rec, engine.params, arch, int4_kernels, name)
     launches = run["launches"]
-    if (launches["int4_matmul"], launches["int4_fused_layer_tail"]) != (sum(r[1] for r in rec), sum(r[2] for r in rec)):
+    if (launches["int4_matmul"], launches["int4_fused_layer_tail"]) != (sum(r[2] for r in rec), sum(r[3] for r in rec)):
         raise AssertionError(f"tp {name}: launches {launches} outside the recorded forwards {rec}")
     unsharded = "int4_kernels" if int4_kernels else "bf16_matmul"
     out.update(served_vs_phase_10=served_comparison(run, server["served"][unsharded]),
@@ -2016,8 +2087,8 @@ def tp_generation(device, params, arch, mesh, name: str, param_dtype, server: di
     torch.cuda.empty_cache()
     with forward_launches() as rec:  # the prefill chunk and one decode step
         got = forward_logits(engine, prompts, torch.float32, ref[2])
-    checked_forwards(rec, arch, int4_kernels, f"{name} fp32 forwards")
-    if [m <= int4.TAIL_MAX_M for m, _, _ in rec] != [False, True]:
+    checked_forwards(rec, engine.params, arch, int4_kernels, f"{name} fp32 forwards")
+    if [r[0] <= int4.TAIL_MAX_M for r in rec] != [False, True]:
         raise AssertionError(f"tp {name} fp32 forwards: {rec}, expected one prefill chunk and one decode step")
     out["logits_fp32_vs_unsharded"] = checked_pair(got, ref, f"{TP} {name} shards vs unsharded", torch.float32)
     if int4_kernels:
@@ -2034,9 +2105,10 @@ def tp_generation(device, params, arch, mesh, name: str, param_dtype, server: di
 
 def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
     """Tensor-parallel generation over {"model": 4} on the one card (the
-    four shards of every product on one device: what per-shard launches
+    four shards of every product on one device: what the split products
     and merges cost, no multi-card speed), on phase 10's weights and
-    requests: (a) int4, (b) bf16 weights, (c) the shard shapes timed."""
+    requests: (a) int4, (b) bf16 weights, (c) int4_matmul over column
+    blocks, the head's shard and the fused tail over shards timed."""
     arch = llama_8b()
     mesh = card_mesh(device, {"model": TP})
     params = decoder.init_params(arch, torch.Generator(device=device).manual_seed(SEED + 10), device,
@@ -2228,8 +2300,9 @@ def mesh_dryrun(device, mesh) -> dict:
     arches (:151-157, :178-181) over the mesh: an encoder and an LM step
     (returns their kernel launches separately), the trained decoder served
     with int8 weights split over the model axis (guided JSON sampled, then
-    speculative at temperature 0), with int4 weights (int4_matmul once per
-    column shard of each product a forward), the qwen3- and gemma-class
+    speculative at temperature 0), with int4 weights (int4_matmul launches
+    a forward as ``decoder.product_route`` routes each column split), the
+    qwen3- and gemma-class
     families, the corpus-sharded index (auto two-pass, top-k, top-k-min)
     and the edge-sharded PPR."""
     b = max(8, mesh.shape["data"] * 4)
@@ -2264,14 +2337,20 @@ def mesh_dryrun(device, mesh) -> dict:
     qkv4 = llm4.params["layers"]["qkv_w"]
     gen4 = llm4.infer(messages, max_tokens=8)
     tp = mesh.shape["model"]
-    per_forward = dec_arch.num_layers * 4 * tp + 1  # four column-split products a layer; the 259-column head whole
+    # four column-split products a layer, each as product_route routes it
+    # (its 128-column gate/up shards take the splitk route at decode and
+    # wgmma at prefill alike), and the 259-column head whole
+    layers4 = llm4.params["layers"]
+    per_forward = dec_arch.num_layers * sum(product_launches(layers4[name], 1, llm4.params["embed"].device)
+                                            for name in ("qkv_w", "o_w", "gateup_w", "down_w")) + 1
     expected = per_forward * gen4.metadata["decode_steps"]
     if not (isinstance(qkv4, Sharded) and len(qkv4.shards) == tp and isinstance(gen4.text, str)
             and int4.LAUNCHES.value == expected):
         raise AssertionError(f"15d: int4 over the model axis launched int4_matmul {int4.LAUNCHES.value} times, "
                              f"expected {expected}; text {gen4.text!r}")
     out.update(int8_text_bytes=len(gen.text), speculative_decode_steps=spec.metadata["decode_steps"],
-               int4_matmul_launches=int4.LAUNCHES.value, int4_decode_steps=gen4.metadata["decode_steps"])
+               int4_matmul_launches=int4.LAUNCHES.value, int4_matmul_per_forward=per_forward,
+               int4_decode_steps=gen4.metadata["decode_steps"])
     for fam_arch in (dataclasses.replace(dec_arch, qkv_bias=False, qk_norm=True, head_dim_override=16),
                      dataclasses.replace(dec_arch, qkv_bias=False, num_kv_heads=1, embed_scale=True,
                                          rms_unit_offset=True, mlp_act="gelu_tanh", tie_embeddings=True)):

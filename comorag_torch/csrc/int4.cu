@@ -52,6 +52,12 @@
 //   n g), is exactly the two nibbles of packed bytes (t, g) and (t+4, g).
 //   Tiles: 16 x 64 for M <= 16, 64 x 64 up to 64 rows, 128 x 128 above;
 //   mma.sync, no split of K.
+// The split-K and wgmma routes take the weight whole or as up to
+// splitk::MAX_BLOCKS column blocks (a `model` axis's shards on one
+// device): each block has its own tensor map and scale pointer, and a
+// box's (split-K) or tile's (wgmma) global column picks its block, so one
+// launch reads the shards in place with the whole weight's items and sums
+// (bit-equal output).
 
 // The fused layer tail, x_res + FFN(RMSNorm(x_res + ctx @ O)), is one
 // cooperative launch (the TPU kernel exists to be one invocation instead
@@ -963,9 +969,19 @@ __device__ __forceinline__ void fold(float (&acc)[64], const float (&g)[64], flo
   for (int i = 0; i < 64; ++i) acc[i] += g[i] * ((i / 2) % 2 ? sc.y : sc.x);
 }
 
+// The weight as 1 to splitk::MAX_BLOCKS column blocks of bw columns each
+// (one block: the whole weight; more: a model axis's column shards, each
+// its own [K/2, bw] packed tensor and [K/gs, bw] scales, read in place).
+// bw is a multiple of BN, so a tile's columns lie in one block.
+struct Blocks {
+  CUtensorMap pmap[splitk::MAX_BLOCKS];  // per block: packed [K/2, bw] int8, boxes [32][128]
+  const float* S[splitk::MAX_BLOCKS];    // per block: [K/gs, bw] scales
+  int bw;
+};
+
 __global__ void __launch_bounds__(THREADS, 1)
-matmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap pmap,
-              const float* __restrict__ S, float* __restrict__ out, int M, int N, int K, int gs) {
+matmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ Blocks W, float* __restrict__ out,
+              int M, int N, int K, int gs) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -990,14 +1006,18 @@ matmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
     int it = 0;  // stages filled so far
     for (int w = blockIdx.x; w < items; w += gridDim.x) {
       const Tile u(w, tn);
+      // the tile's block, once a tile: its map at the local column, its scales
+      const int b = u.n0 / W.bw, col = u.n0 - b * W.bw;
+      const CUtensorMap* pmap = &W.pmap[b];
+      const float* S = W.S[b] + col;
       for (int kb = 0; kb < kbs; ++kb, ++it) {
         const int s = it % STAGES;
         mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
         mbar_expect_tx(&full[s], X_BYTES + P_BYTES + S_BYTES);
         unsigned char* st = smem + s * STAGE;
         tma_load_2d(st, &xmap, &full[s], kb * KS, u.m0);
-        tma_load_2d(st + X_BYTES, &pmap, &full[s], u.n0, kb * (KS / 2));
-        bulk_copy(st + X_BYTES + P_BYTES, S + (size_t)(kb * KS / gs) * N + u.n0, S_BYTES, &full[s]);
+        tma_load_2d(st + X_BYTES, pmap, &full[s], col, kb * (KS / 2));
+        bulk_copy(st + X_BYTES + P_BYTES, S + (size_t)(kb * KS / gs) * W.bw, S_BYTES, &full[s]);
       }
     }
     return;
@@ -1105,20 +1125,32 @@ cudaError_t prepare() {
   return cudaSuccess;
 }
 
-int launch(const void* x, const void* packed, const void* scales, void* out, int M, int N, int K, int gs,
-           int sm_count, cudaStream_t stream) {
+// One launch over the weight's `blocks` column blocks (P[b], S[b]: block
+// b's packed [K/2, N/blocks] bytes and [K/gs, N/blocks] scales). Refuses a
+// block width that is no multiple of BN.
+int launch(const void* x, const void* const* P, const void* const* S, int blocks, void* out, int M, int N, int K,
+           int gs, int sm_count, cudaStream_t stream) {
+  if (P == nullptr || S == nullptr || blocks < 1 || blocks > splitk::MAX_BLOCKS || N % blocks != 0 ||
+      (N / blocks) % BN != 0)
+    return cudaErrorInvalidValue;
   cudaError_t err = prepare();
   if (err != cudaSuccess) return err;
-  CUtensorMap xmap, pmap;
+  CUtensorMap xmap;
+  Blocks W{};
+  W.bw = N / blocks;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M}, strides[1] = {(cuuint64_t)K * 2};
   const cuuint32_t box[2] = {KS, BT};
   err = make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, dims, strides, box);
-  if (err == cudaSuccess) err = splitk::p_map(&pmap, packed, K, N);
+  for (int b = 0; b < blocks && err == cudaSuccess; ++b) {
+    if (P[b] == nullptr || S[b] == nullptr) return cudaErrorInvalidValue;
+    W.S[b] = static_cast<const float*>(S[b]);
+    err = splitk::p_map(&W.pmap[b], P[b], K, W.bw);
+  }
   if (err != cudaSuccess) return err;
   const long long items = (long long)((M + BT - 1) / BT) * (N / BN);
   if (items > (1ll << 31) - 1) return cudaErrorInvalidValue;
   matmul_kernel<<<(int)(items < sm_count ? items : sm_count), THREADS, SMEM, stream>>>(
-      xmap, pmap, static_cast<const float*>(scales), static_cast<float*>(out), M, N, K, gs);
+      xmap, W, static_cast<float*>(out), M, N, K, gs);
   return cudaGetLastError();
 }
 
@@ -1130,12 +1162,12 @@ extern "C" const char* comorag_error_string(int code) {
 }
 
 // int4_matmul, one entry per route (ops/int4.int4_matmul picks by shape).
-// x: [M, K] bf16 (16-byte aligned rows); packed: [K/2, N] int8; scales:
-// [K/gs, N] fp32; out: [M, N] fp32. K a multiple of gs, gs a multiple of
-// 64. Each returns a cudaError_t (0 on success), launches on `stream` and
-// never syncs.
+// x: [M, K] bf16 (16-byte aligned rows); out: [M, N] fp32. K a multiple
+// of gs, gs a multiple of 64. Each returns a cudaError_t (0 on success),
+// launches on `stream` and never syncs.
 //
-// The mma.sync route: any M and N.
+// The mma.sync route: any M and N; packed: [K/2, N] int8; scales: [K/gs,
+// N] fp32.
 extern "C" int comorag_int4_matmul(const void* x, const void* packed, const void* scales,
                                    void* out, int M, int N, int K, int gs, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || gs <= 0 || gs % KT != 0 || K % gs != 0)
@@ -1146,15 +1178,26 @@ extern "C" int comorag_int4_matmul(const void* x, const void* packed, const void
   return launch_matmul<CfgPrefill>(x, packed, scales, out, M, N, K, gs, st);
 }
 
+// The split-K and wgmma routes take the weight as `blocks` column blocks
+// (1 to comorag_int4_matmul_max_blocks: the whole weight, or a model
+// axis's column shards in order, block b holding columns [b N / blocks,
+// (b + 1) N / blocks), a width that is a multiple of 128), given as arrays
+// of packed [K/2, N/blocks] int8 and scale [K/gs, N/blocks] fp32 pointers
+// read in place; every pointer 16-byte aligned. One launch, whatever the
+// blocks, with the whole N's items: the output equals the whole weight's
+// bit for bit.
+extern "C" int comorag_int4_matmul_max_blocks() { return splitk::MAX_BLOCKS; }
+
 // The decode route: M <= 64, N a multiple of the item's columns
-// (comorag_int4_matmul_splitk_tile_n), every pointer 16-byte aligned.
-// splits: K splits on group boundaries, 1 <= splits <= K / gs
-// (ops/int4.matmul_plan). workspace: splits * M * N fp32; tickets: one
-// unsigned int per item column tile, zero before the first launch (each launch leaves them
-// zero); at one split neither is read (may be null). sm_count: SMs for the persistent grid.
-extern "C" int comorag_int4_matmul_splitk(const void* x, const void* packed, const void* scales, void* out,
-                                          void* workspace, void* tickets, int M, int N, int K, int gs, int splits,
-                                          int sm_count, void* stream) {
+// (comorag_int4_matmul_splitk_tile_n). splits: K splits on group
+// boundaries, 1 <= splits <= K / gs (ops/int4.matmul_plan of the whole
+// N). workspace: splits * M * N fp32; tickets: one unsigned int per item
+// column tile, zero before the first launch (each launch leaves them
+// zero); at one split neither is read (may be null). sm_count: SMs for
+// the persistent grid.
+extern "C" int comorag_int4_matmul_splitk(const void* x, const void* const* P, const void* const* S, int blocks,
+                                          void* out, void* workspace, void* tickets, int M, int N, int K, int gs,
+                                          int splits, int sm_count, void* stream) {
   if (M <= 0 || M > splitk::MAX_TOKENS || N <= 0 || N % splitk::PRODUCT_TILE != 0 || gs <= 0 || gs % splitk::KS != 0 ||
       K <= 0 || K % gs != 0 || splits < 1 || splits > K / gs || sm_count <= 0)
     return cudaErrorInvalidValue;
@@ -1162,7 +1205,7 @@ extern "C" int comorag_int4_matmul_splitk(const void* x, const void* packed, con
   A.out = static_cast<float*>(out);
   A.M = M;
   A.gs = gs;
-  cudaError_t err = splitk::set_stage(A, splitk::PRODUCT, &packed, &scales, 1, K, N, -1, splitk::PRODUCT_TILE,
+  cudaError_t err = splitk::set_stage(A, splitk::PRODUCT, P, S, blocks, K, N, -1, splitk::PRODUCT_TILE,
                                       N / splitk::PRODUCT_TILE, splits, static_cast<float*>(workspace),
                                       static_cast<unsigned*>(tickets));
   if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::PRODUCT], x, M, K);
@@ -1186,14 +1229,14 @@ extern "C" int comorag_int4_matmul_splitk_blocks_per_sm(int M) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// The prefill route: N a multiple of 128, every pointer 16-byte aligned
-// (any M; ops/int4 sends it M > 64). sm_count: SMs for the persistent grid.
-extern "C" int comorag_int4_matmul_wgmma(const void* x, const void* packed, const void* scales, void* out, int M,
-                                         int N, int K, int gs, int sm_count, void* stream) {
+// The prefill route: N a multiple of 128 (any M; ops/int4 sends it M >
+// 64). sm_count: SMs for the persistent grid.
+extern "C" int comorag_int4_matmul_wgmma(const void* x, const void* const* P, const void* const* S, int blocks,
+                                         void* out, int M, int N, int K, int gs, int sm_count, void* stream) {
   if (M <= 0 || N <= 0 || N % prefill::BN != 0 || gs <= 0 || gs % prefill::KS != 0 || K <= 0 || K % gs != 0 ||
       sm_count <= 0)
     return cudaErrorInvalidValue;
-  return prefill::launch(x, packed, scales, out, M, N, K, gs, sm_count, static_cast<cudaStream_t>(stream));
+  return prefill::launch(x, P, S, blocks, out, M, N, K, gs, sm_count, static_cast<cudaStream_t>(stream));
 }
 
 // ctx: [M, H] bf16; xres, out: [M, H] fp32; norm_w: [H] fp32; o: [H/2, H]

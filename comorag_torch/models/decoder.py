@@ -20,14 +20,16 @@ self-speculative decoding. What changes with the framework:
     their plain versions for CPU tensors;
   - tensor parallelism (``shard_params``, JAX's ``param_shardings``) keeps
     one process: a weight split over the mesh's ``model`` axis is a
-    ``parallel.mesh.Sharded`` leaf, each product runs once per shard on
-    the shard's device (an int4 shard through ``int4_matmul``) and merges
-    on the first device, where activations, the KV cache and attention
-    stay whole. A decode-sized layer whose int4 o / gate-up / down shards
-    all lie on that device (a mesh of one card) takes the fused tail over
-    the shards, read in place, as JAX's TP route launches it over gathered
-    shards; shards on distinct cards take the per-product route
-    (``tail_route``).
+    ``parallel.mesh.Sharded`` leaf, and activations, the KV cache and
+    attention stay whole on the first device, where products merge. An
+    int4 column split whose shards all lie on that device (a mesh of one
+    card) is one ``int4_matmul`` call over the shards, read in place, where
+    the kernel takes its blocks (``product_route``), and a decode-sized
+    layer's o / gate-up / down take the fused tail over them
+    (``tail_route``), as JAX launches both kernels once over gathered
+    shards; every other product runs once per shard on the shard's device
+    (shards on distinct cards, blocks the kernel refuses, float and int8
+    weights).
 """
 
 from __future__ import annotations
@@ -329,23 +331,68 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _int4_dot(inp: torch.Tensor, w: Int4Weight, compute_dtype: torch.dtype) -> torch.Tensor:
-    """[..., in] @ Int4Weight -> [..., out] in compute_dtype, through
-    ``int4_matmul`` at every M (the TPU route)."""
-    gs = int4_ops.group_size_of(w.packed, w.scale)
+def _int4_dot(inp: torch.Tensor, packed, scale, compute_dtype: torch.dtype) -> torch.Tensor:
+    """[..., in] @ an int4 weight -> [..., out] in compute_dtype, through
+    one ``int4_matmul`` call at every M (the TPU route); the weight is an
+    ``Int4Weight``'s (packed, scale) or the lists of its column blocks'."""
+    first = (packed, scale) if isinstance(packed, torch.Tensor) else (packed[0], scale[0])
     lead = inp.shape[:-1]
-    out = int4_ops.int4_matmul(inp.reshape(-1, inp.shape[-1]), w.packed, w.scale, gs)
-    return out.reshape(*lead, w.packed.shape[-1]).to(compute_dtype)
+    out = int4_ops.int4_matmul(inp.reshape(-1, inp.shape[-1]), packed, scale, int4_ops.group_size_of(*first))
+    return out.reshape(*lead, out.shape[-1]).to(compute_dtype)
+
+
+# The two routes of a ``Sharded`` int4 product (``product_route``)
+BLOCKS = "blocks"
+PER_SHARD = "per_shard"
+
+
+def _column_blocks(w, device: torch.device):
+    """The lists of a ``Sharded`` int4 column leaf's packed and scale
+    shards when every shard lies on ``device`` (a ``model`` axis on one
+    card: the kernels read them in place); None for any other leaf."""
+    if (isinstance(w, Sharded) and w.dim == "col" and all(isinstance(sh, Int4Weight) for sh in w.shards)
+            and all(d == device for d in w.devices)):
+        return [sh.packed for sh in w.shards], [sh.scale for sh in w.shards]
+    return None
+
+
+def product_route(w, m: int, device: torch.device) -> str:
+    """The route of a ``Sharded`` product of m (= batch x chunk) rows
+    merged on ``device``:
+      - ``BLOCKS``: one ``int4_matmul`` call over the column shards read in
+        place, where w is an int4 column split whose shards all lie on
+        ``device`` and ``int4_matmul_blocks_supported`` holds at m (the
+        JAX package's one launch a product);
+      - ``PER_SHARD``: ``sharded_matmul``, one product a shard on its
+        device, merged on ``device``: shards on distinct cards, blocks the
+        kernel refuses (off the 128-column unit, more than
+        ``TAIL_MAX_BLOCKS``, the ``mma_sync`` route), float and int8
+        weights, row splits."""
+    return PER_SHARD if _product_blocks(w, m, device) is None else BLOCKS
+
+
+def _product_blocks(w, m: int, device: torch.device):
+    """w's ``_column_blocks`` where ``int4_matmul`` takes them at m rows
+    (``product_route``'s ``BLOCKS``); None where it takes the per-shard
+    route."""
+    blocks = _column_blocks(w, device)
+    if blocks is not None and int4_ops.int4_matmul_blocks_supported(m, [p.shape[-1] for p in blocks[0]]):
+        return blocks
+    return None
 
 
 def _dot(inp: torch.Tensor, w, compute_dtype: torch.dtype, bias=None) -> torch.Tensor:
     """[..., in] @ w (+ ``bias``, split as w's columns under a model axis)."""
     if isinstance(w, Sharded):
+        blocks = _product_blocks(w, inp.numel() // inp.shape[-1], inp.device)  # product_route's BLOCKS
+        if blocks is not None:
+            out = _int4_dot(inp, *blocks, compute_dtype)
+            return out if bias is None else out + merge_blocks(bias, inp.device).to(compute_dtype)
         return sharded_matmul(inp, w, lambda x, shard, b: _dot(x, shard, compute_dtype, b), bias)
     if bias is not None:
         return _dot(inp, w, compute_dtype) + bias.to(compute_dtype)
     if isinstance(w, Int4Weight):
-        return _int4_dot(inp, w, compute_dtype)
+        return _int4_dot(inp, w.packed, w.scale, compute_dtype)
     if isinstance(w, QuantWeight):
         out = _dot(inp, w.q, compute_dtype)  # a row split's q: the scale goes on the summed product
         return out * w.scale.to(compute_dtype)
@@ -440,15 +487,9 @@ _TAIL_WEIGHTS = ("o_w", "gateup_w", "down_w")
 
 def _tail_blocks(w, device: torch.device):
     """An o / gate-up / down leaf as the fused tail reads it: the (packed,
-    scale) of a whole int4 weight, or the lists of its column shards'
-    packed and scale tensors when every shard lies on ``device``; None
-    for any other leaf."""
-    if isinstance(w, Int4Weight):
-        return w.packed, w.scale
-    if (isinstance(w, Sharded) and w.dim == "col" and all(isinstance(sh, Int4Weight) for sh in w.shards)
-            and all(d == device for d in w.devices)):
-        return [sh.packed for sh in w.shards], [sh.scale for sh in w.shards]
-    return None
+    scale) of a whole int4 weight, or its column shards' lists
+    (``_column_blocks``); None for any other leaf."""
+    return (w.packed, w.scale) if isinstance(w, Int4Weight) else _column_blocks(w, device)
 
 
 def _tail_weights(layer: Dict[str, Any], arch: DecoderArch, m: int, device: torch.device):
@@ -480,8 +521,8 @@ def tail_route(params: Dict[str, Any], arch: DecoderArch, m: int) -> str:
         m, and each is whole or a column split whose shards all lie on the
         merge device (a ``model`` axis on one card): the kernel reads every
         shard in place;
-      - ``PER_PRODUCT``: each product on its own (per shard under a model
-        axis, merged on the merge device), with the residuals, RMSNorm and
+      - ``PER_PRODUCT``: each product on its own (under a model axis, by
+        ``product_route``), with the residuals, RMSNorm and
         activation in PyTorch between them: float and int8 weights, prefill
         sizes, and shards on distinct cards (the kernel cannot read
         another card's memory)."""

@@ -12,10 +12,11 @@ versions for CPU tensors; there is no fallback from one to the other.
 ``int4_matmul`` has three kernel routes, chosen by shape
 (``int4_matmul_route``). ``int4_fused_layer_tail`` takes each weight whole
 or as column blocks (a ``model`` axis's shards on one device), read in
-place by the one launch. The plain versions repeat the kernels'
-arithmetic: x rounded to bf16, each group's product summed in fp32 (bf16
-x bf16 products are exact in fp32), times the group's scale row, added to
-the running fp32 sum.
+place by the one launch; so does ``int4_matmul`` on its ``splitk`` and
+``wgmma`` routes (``int4_matmul_blocks_supported``). The plain versions
+repeat the kernels' arithmetic: x rounded to bf16, each group's product
+summed in fp32 (bf16 x bf16 products are exact in fp32), times the
+group's scale row, added to the running fp32 sum.
 """
 
 from __future__ import annotations
@@ -80,11 +81,14 @@ def group_size_of(packed: torch.Tensor, scales: torch.Tensor) -> int:
     return (packed.shape[-2] * 2) // scales.shape[-2]
 
 
-def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                      group_size: int = 128) -> torch.Tensor:
+def int4_matmul_plain(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch.Tensor:
     """x [M, in] @ dequant(packed, scales) -> [M, out] f32 in the kernel's
     order: x rounded to bf16, per-group fp32 products, times the group's
-    scale row, summed over groups first to last."""
+    scale row, summed over groups first to last. The weight is one
+    (packed, scales) pair or two sequences of its column blocks, as
+    ``int4_matmul`` takes it: the blocks are concatenated by column first,
+    so the result equals the whole weight's bit for bit."""
+    packed, scales = _whole(packed, scales)
     m, d_in = x.shape
     xb = x.to(torch.bfloat16).to(torch.float32)
     rows = group_size // 2
@@ -105,10 +109,11 @@ _PTR, _I32, _PTRS = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_
 # csrc/int4.cu's C entries: (name, restype, argtypes)
 _C_ENTRIES = (
     ("comorag_int4_matmul", _I32, [_PTR] * 4 + [_I32] * 4 + [_PTR]),
-    ("comorag_int4_matmul_splitk", _I32, [_PTR] * 6 + [_I32] * 6 + [_PTR]),
+    ("comorag_int4_matmul_max_blocks", _I32, []),
+    ("comorag_int4_matmul_splitk", _I32, [_PTR, _PTRS, _PTRS, _I32] + [_PTR] * 3 + [_I32] * 6 + [_PTR]),
     ("comorag_int4_matmul_splitk_blocks_per_sm", _I32, [_I32]),
     ("comorag_int4_matmul_splitk_tile_n", _I32, []),
-    ("comorag_int4_matmul_wgmma", _I32, [_PTR] * 4 + [_I32] * 5 + [_PTR]),
+    ("comorag_int4_matmul_wgmma", _I32, [_PTR, _PTRS, _PTRS, _I32, _PTR] + [_I32] * 5 + [_PTR]),
     ("comorag_int4_fused_layer_tail", _I32,
      [_PTR] * 3 + [_PTRS, _PTRS, _I32] * 3 + [_PTR] * 3 + [_I32] * 7 + [ctypes.c_float, _I32, _I32, _I32, _PTR]),
     ("comorag_int4_tail_workspace_bytes", ctypes.c_longlong, [_I32] * 6),
@@ -166,44 +171,65 @@ def int4_matmul_route(m: int, n: int) -> str:
     return "mma_sync"
 
 
-def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                group_size: int = 128) -> torch.Tensor:
-    """x [M, in] @ dequant(packed, scales) -> [M, out] f32. CUDA tensors
-    launch the kernel of ``int4_matmul_route``'s choosing (any M; ``in`` a
-    multiple of group_size, group_size a multiple of 64); CPU tensors run
-    ``int4_matmul_plain``."""
+def int4_matmul_blocks_supported(m: int, widths) -> bool:
+    """Whether ``int4_matmul``'s kernel takes a weight of column blocks of
+    ``widths`` columns each at m rows in one launch: the whole width's
+    route is ``splitk`` or ``wgmma`` (whose TMA maps a block each), and the
+    blocks are at most ``TAIL_MAX_BLOCKS`` of equal width, a multiple of
+    ``TAIL_TILE_N`` (no 128-column box or tile straddles two blocks)."""
+    widths = list(widths)
+    return (int4_matmul_route(m, sum(widths)) != "mma_sync" and 1 <= len(widths) <= TAIL_MAX_BLOCKS
+            and len(set(widths)) == 1 and widths[0] % TAIL_TILE_N == 0)
+
+
+def int4_matmul(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch.Tensor:
+    """x [M, in] @ dequant(packed, scales) -> [M, out] f32. The weight is
+    one (packed [in/2, out], scales [in/gs, out]) pair or two sequences of
+    its column blocks in order (a ``model`` axis's column shards: block b
+    holds columns [b out / S, (b + 1) out / S)); the output is written
+    whole, once. CUDA tensors launch the kernel of ``int4_matmul_route``'s
+    choosing (any M; ``in`` a multiple of group_size, group_size a multiple
+    of 64) once, reading the blocks in place where
+    ``int4_matmul_blocks_supported`` holds and raising where it does not
+    (every block on x's device); CPU tensors run ``int4_matmul_plain``."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scales, group_size)
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul: unsupported device {x.device}")
     if x.dim() != 2:
         raise ValueError(f"int4_matmul: x must be [M, in], got {tuple(x.shape)}")
+    packed, scales = _as_blocks(packed, scales)
     m, d_in = x.shape
-    d_out = packed.shape[-1]
+    widths = [p.shape[-1] for p in packed]
+    d_out = sum(widths)
     dev = x.device
-    _check_weight("int4_matmul", packed, scales, d_in, d_out, group_size, dev)
+    route = int4_matmul_route(m, d_out)
+    if len(packed) > 1 and not int4_matmul_blocks_supported(m, widths):
+        raise ValueError(f"int4_matmul: the {route} route at M={m} takes no column blocks of widths {widths} (the "
+                         f"splitk and wgmma routes take 1 to {TAIL_MAX_BLOCKS} of equal width, a multiple of "
+                         f"{TAIL_TILE_N})")
+    if route == "mma_sync":
+        _check_weight("int4_matmul", packed[0], scales[0], d_in, d_out, group_size, dev)
+    else:  # the TMA copies need every block 16-byte aligned
+        p_ptrs, s_ptrs, blocks = _block_pointers("int4_matmul", packed, scales, d_in, d_out, group_size, dev)
     xb = _bf16_rows("int4_matmul", x)
     out = torch.empty(m, d_out, dtype=torch.float32, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    route = int4_matmul_route(m, d_out)
-    if route != "mma_sync" and (packed.data_ptr() % 16 or scales.data_ptr() % 16):
-        raise ValueError(f"int4_matmul: the {route} route's TMA copies need packed and scales 16-byte aligned")
     if route == "splitk":
-        tile_n, blocks = _splitk_geometry(dev, m)
-        splits = _plan_splits(m, d_in, d_out, group_size, _sm_count(dev), tile_n, blocks)
+        tile_n, per_sm = _splitk_geometry(dev, m)
+        splits = _plan_splits(m, d_in, d_out, group_size, _sm_count(dev), tile_n, per_sm)
         ws_ptr = tickets_ptr = None  # at one split the kernel writes out directly
         if splits > 1:
             workspace = torch.empty(splits * m * d_out, dtype=torch.float32, device=dev)
             ws_ptr, tickets_ptr = workspace.data_ptr(), _tickets_for(dev, stream, d_out // tile_n).data_ptr()
-        rc = lib.comorag_int4_matmul_splitk(xb.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                                            ws_ptr, tickets_ptr, m, d_out, d_in, group_size, splits,
-                                            _sm_count(dev), stream)
+        rc = lib.comorag_int4_matmul_splitk(xb.data_ptr(), p_ptrs, s_ptrs, blocks, out.data_ptr(), ws_ptr,
+                                            tickets_ptr, m, d_out, d_in, group_size, splits, _sm_count(dev), stream)
     elif route == "wgmma":
-        rc = lib.comorag_int4_matmul_wgmma(xb.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                                           m, d_out, d_in, group_size, _sm_count(dev), stream)
+        rc = lib.comorag_int4_matmul_wgmma(xb.data_ptr(), p_ptrs, s_ptrs, blocks, out.data_ptr(), m, d_out, d_in,
+                                           group_size, _sm_count(dev), stream)
     else:
-        rc = lib.comorag_int4_matmul(xb.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        rc = lib.comorag_int4_matmul(xb.data_ptr(), packed[0].data_ptr(), scales[0].data_ptr(), out.data_ptr(),
                                      m, d_out, d_in, group_size, stream)
     build.check(lib, rc, f"int4_matmul ({route})")
     LAUNCHES.add()
@@ -225,8 +251,8 @@ def _splitk_geometry(device: torch.device, m: int) -> Tuple[int, int]:
 
 
 # ---------------------------------------------------------------- fused tail
-TAIL_TILE_N = 128  # output columns of a fused-tail work item (csrc/int4.cu splitk::BN)
-TAIL_MAX_BLOCKS = 4  # column blocks a fused-tail weight may arrive in (splitk::MAX_BLOCKS)
+TAIL_TILE_N = 128  # output columns of a fused-tail work item (csrc/int4.cu splitk::BN; a column block's unit)
+TAIL_MAX_BLOCKS = 4  # column blocks a weight may arrive in, of the tail and of int4_matmul (splitk::MAX_BLOCKS)
 
 
 def fused_tail_supported(hidden: int, intermediate: int, group_size: int, m: int,
@@ -419,7 +445,7 @@ def _block_pointers(name: str, packed: list, scales: list, d_in: int, d_out: int
                     device: torch.device) -> tuple:
     """The C entry's arrays of block pointers for one weight of ``d_out``
     columns in ``len(packed)`` column blocks, after checking every block's
-    dtype, shape, device (``device``, ctx's), contiguity and 16-byte
+    dtype, shape, device (``device``: x's or ctx's), contiguity and 16-byte
     alignment, and that the blocks are at most ``TAIL_MAX_BLOCKS`` of equal
     width, a multiple of ``TAIL_TILE_N``."""
     n = len(packed)

@@ -149,31 +149,48 @@ PER_WEIGHT_TAIL_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
+# comorag_int4_matmul_splitk's and _wgmma's arguments with one packed and
+# one scale pointer (the interface up to eecb372; later builds take arrays
+# of column blocks: comorag_int4_matmul_max_blocks)
+PER_WEIGHT_MATMUL_ARGTYPES = {
+    "comorag_int4_matmul_splitk": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "comorag_int4_matmul_wgmma": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+}
+
+
 def type_int4_entries(lib: ctypes.CDLL) -> None:
     """Types the entries of ops.int4's C interface that an earlier build
-    of csrc/int4.cu has (it may lack the newer ones; a fused tail of the
-    per-weight interface gets its own argument types)."""
-    blocks = hasattr(lib, "comorag_int4_tail_max_blocks")
+    of csrc/int4.cu has (it may lack the newer ones; a fused tail, split-K
+    or wgmma entry of the per-weight interface gets its own argument
+    types)."""
+    tail_blocks = hasattr(lib, "comorag_int4_tail_max_blocks")
+    matmul_blocks = hasattr(lib, "comorag_int4_matmul_max_blocks")
     for name, restype, argtypes in int4._C_ENTRIES:
         if hasattr(lib, name):
-            if name == "comorag_int4_fused_layer_tail" and not blocks:
+            if name == "comorag_int4_fused_layer_tail" and not tail_blocks:
                 argtypes = PER_WEIGHT_TAIL_ARGTYPES
+            if name in PER_WEIGHT_MATMUL_ARGTYPES and not matmul_blocks:
+                argtypes = PER_WEIGHT_MATMUL_ARGTYPES[name]
             getattr(lib, name).restype, getattr(lib, name).argtypes = restype, argtypes
 
 
 def matmul_call(lib: ctypes.CDLL, route: str, x, packed, scales, out, workspace, tickets, splits: int,
                 sms: int, stream: int) -> None:
     """One launch of csrc/int4.cu's C entry for ``route``, on buffers made
-    by the caller."""
+    by the caller (the whole weight: one block where the entry takes
+    blocks)."""
     (m, k), n = x.shape, packed.shape[1]
-    ptrs = (x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr())
+    weight = (packed.data_ptr(), scales.data_ptr())
+    if route != "mma_sync" and hasattr(lib, "comorag_int4_matmul_max_blocks"):
+        one = ctypes.c_void_p * 1
+        weight = (one(packed.data_ptr()), one(scales.data_ptr()), 1)
     if route == "splitk":
-        rc = lib.comorag_int4_matmul_splitk(*ptrs, workspace.data_ptr(), tickets.data_ptr(), m, n, k, 128, splits,
-                                            sms, stream)
+        rc = lib.comorag_int4_matmul_splitk(x.data_ptr(), *weight, out.data_ptr(), workspace.data_ptr(),
+                                            tickets.data_ptr(), m, n, k, 128, splits, sms, stream)
     elif route == "wgmma":
-        rc = lib.comorag_int4_matmul_wgmma(*ptrs, m, n, k, 128, sms, stream)
+        rc = lib.comorag_int4_matmul_wgmma(x.data_ptr(), *weight, out.data_ptr(), m, n, k, 128, sms, stream)
     else:
-        rc = lib.comorag_int4_matmul(*ptrs, m, n, k, 128, stream)
+        rc = lib.comorag_int4_matmul(x.data_ptr(), *weight, out.data_ptr(), m, n, k, 128, stream)
     build.check(lib, rc, f"int4_matmul ({route})")
 
 

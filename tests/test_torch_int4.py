@@ -21,6 +21,8 @@ route against its split order to 1e-4 * max|plain| + 1e-4 * |plain| (the
 tensor cores sum a group in another fp32 order than torch.matmul).
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -336,8 +338,8 @@ def test_fused_tail_kernel_matches_plain(cuda_device, m, act, unit_offset, hidde
 def test_tail_geometry_is_the_kernels(cuda_device, m):
     assert tint4._tail_geometry(cuda_device, m) == (_TILE_N, _blocks_per_sm(m))
     lib = tint4._lib()
-    assert (lib.comorag_int4_tail_tile_n(), lib.comorag_int4_tail_max_blocks()) == (tint4.TAIL_TILE_N,
-                                                                                    tint4.TAIL_MAX_BLOCKS)
+    assert (lib.comorag_int4_tail_tile_n(), lib.comorag_int4_tail_max_blocks(),
+            lib.comorag_int4_matmul_max_blocks()) == (tint4.TAIL_TILE_N, tint4.TAIL_MAX_BLOCKS, tint4.TAIL_MAX_BLOCKS)
 
 
 @pytest.mark.cuda
@@ -364,9 +366,32 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
         with pytest.raises(ValueError):
             tint4.int4_matmul(torch.zeros(m, 256, device=cuda_device), p, sc)
     lib, stream = tint4._lib(), torch.cuda.current_stream().cuda_stream
-    # the C entries check their own gates: M above 64 on split-K, N off 128 on wgmma
-    assert lib.comorag_int4_matmul_splitk(None, None, None, None, None, None, 65, 128, 128, 64, 1, 132, stream) != 0
-    assert lib.comorag_int4_matmul_wgmma(None, None, None, None, 128, 200, 128, 64, 132, stream) != 0
+    # the C entries check their own gates: M above 64 on split-K, N off 128
+    # on wgmma, and on both a block width off 128 (768 or 384 columns in 4
+    # or 2 blocks) and more than 4 blocks, before reading a block pointer
+    null_ptrs = (ctypes.c_void_p * 8)()
+    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 1, None, None, None, 65, 128, 128, 64, 1, 132,
+                                          stream) != 0
+    assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 1, None, 128, 200, 128, 64, 132, stream) != 0
+    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 4, None, None, None, 8, 768, 128, 64, 1, 132,
+                                          stream) != 0
+    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 8, None, None, None, 8, 1024, 128, 64, 1, 132,
+                                          stream) != 0
+    assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 2, None, 128, 384, 128, 64, 132, stream) != 0
+    assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 8, None, 128, 1024, 128, 64, 132, stream) != 0
+    # the wrapper refuses blocks the rule refuses, and a block off x's card
+    def cut(*widths):
+        return ([torch.zeros(128, w, dtype=torch.int8, device=cuda_device) for w in widths],
+                [torch.zeros(2, w, device=cuda_device) for w in widths])
+
+    x8 = torch.zeros(8, 256, device=cuda_device)
+    for widths in ((64,) * 4, (128,) * 8, (128,) * 3, (256, 128, 128)):  # off 128, > 4, mma_sync, unequal
+        with pytest.raises(ValueError, match="no column blocks"):
+            tint4.int4_matmul(x8, *cut(*widths))
+    p2, s2 = cut(512, 512)
+    with pytest.raises(ValueError):  # a block on the CPU
+        tint4.int4_matmul(x8, [p2[0], p2[1].cpu()], [s2[0], s2[1].cpu()])
+    assert tint4.int4_matmul(x8, p2, s2).shape == (8, 1024)  # two blocks of 512: one launch
     ctx = torch.zeros(65, 512, device=cuda_device)
     w = torch.zeros(256, 512, dtype=torch.int8, device=cuda_device)
     s = torch.zeros(4, 512, device=cuda_device)

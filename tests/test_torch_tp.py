@@ -14,10 +14,12 @@ comes from numpy with a fixed seed (JAX's ``init_params`` converted with
   test_int4_forward_close_to_jax_with_same_top1 (the port rounds the
   activations to bf16 before each int4 product as the TPU kernel does);
 - greedy tokens, lengths and step counts: equal;
-- the fused tail over column blocks (a model axis's shards) against the
-  whole weight: bit-equal on the CPU (the plain version concatenates the
-  blocks); on the card the bf16 rule against the plain version and
-  bit-equal to the whole-weight launch (the same items, splits and sums).
+- the fused tail and int4_matmul over column blocks (a model axis's
+  shards) against the whole weight: bit-equal on the CPU (the plain
+  versions concatenate the blocks), and so is an int4 forward whose every
+  product takes the blocks against the unsharded forward; on the card the
+  bf16 rule against the plain version and bit-equal to the whole-weight
+  launch (the same items, splits and sums).
 The CUDA-marked tests hold the int4 kernels on the shards on the card and
 skip here.
 """
@@ -255,11 +257,29 @@ def _counted_int4(monkeypatch) -> dict:
     return calls
 
 
+def _product_calls(w, m, device=CPU):
+    """int4_matmul calls of one product of m rows: one for a whole weight
+    or a BLOCKS column split, one a shard for a PER_SHARD one."""
+    if not isinstance(w, Sharded) or tdec.product_route(w, m, device) == tdec.BLOCKS:
+        return 1
+    return len(w.shards)
+
+
+def _forward_calls(params, arch, m):
+    """The int4 calls of one forward of m tokens (the head over all of
+    them), as tail_route and product_route route them."""
+    layers = params["layers"]
+    tail = tdec.tail_route(params, arch, m) == tdec.FUSED_TAIL
+    names = ("qkv_w",) if tail else ("qkv_w", "o_w", "gateup_w", "down_w")
+    return {"matmul": arch.num_layers * sum(_product_calls(layers[n], m) for n in names)
+            + _product_calls(params["lm_head"], m), "tail": arch.num_layers * tail}
+
+
 def _int4_tp_against_jax(hidden, inter, n, monkeypatch):
     """The int4 forward over {"model": n} against JAX's over the same mesh
     (the file's int4 rule, top-1 on >= 95 % of the positions); returns the
-    port's int4 calls so far (a live count), its arch, its unsharded
-    params and the batch."""
+    port's int4 calls so far (a live count), the calls product_route and
+    tail_route give, its arch, its unsharded params and the batch."""
     jarch, tarch = _archs("gqa", hidden_size=hidden, intermediate_size=inter, num_heads=8, vocab_size=96)
     params = _jax_params(jarch, seed=5, kind="int4")
     ids, mask = _prompt_batch(np.random.default_rng(6), b=2, p=8, vocab=96)
@@ -271,33 +291,140 @@ def _int4_tp_against_jax(hidden, inter, n, monkeypatch):
     tl, _ = _torch_forward(tarch, sharded, ids, mask)
     np.testing.assert_allclose(tl, jl, rtol=2e-2, atol=2e-2 * np.abs(jl).max())
     assert (tl.argmax(-1) == jl.argmax(-1)).mean() >= 0.95
-    return calls, tarch, tparams, ids, mask
+    return calls, _forward_calls(sharded, tarch, ids.size), tarch, tparams, ids, mask
 
 
 @pytest.mark.parametrize("hidden,inter", [(64, 128), (512, 1024)])  # unfused, the fused tail's gate
 def test_int4_under_tp_close_to_jax_with_same_top1(hidden, inter, monkeypatch):
-    """Over {"model": 2}: at the fused-gate shape each layer's o / gate-up /
-    down half is one fused-tail call over the column shards, and qkv and
-    the head run once per shard through int4_matmul; below the gate every
-    product runs once per shard. The unsharded engine takes the tail at the
-    gate shape too."""
-    calls, tarch, tparams, ids, mask = _int4_tp_against_jax(hidden, inter, 2, monkeypatch)
+    """Over {"model": 2}, int4_matmul is called as product_route routes
+    each column split: at the fused-gate shape each layer's o / gate-up /
+    down half is one fused-tail call over the column shards, qkv (two
+    384-column shards) one call over its shards and the head (two 48-column
+    shards, off the 128-column unit) one a shard: layers + 2; below the
+    gate each product runs on its own, gate/up (two 128-column shards) in
+    one call, qkv, o, down and the head (48, 32 and 48 columns) once a
+    shard. The unsharded engine takes the tail at the gate shape too."""
+    calls, want, tarch, tparams, ids, mask = _int4_tp_against_jax(hidden, inter, 2, monkeypatch)
     layers = tarch.num_layers
-    if hidden == 512:  # 2 shards of qkv a layer + the head; one tail a layer
-        assert calls == {"matmul": 2 * (layers + 1), "tail": layers}
-    else:  # 2 shards of 4 products a layer + the head
-        assert calls == {"matmul": 2 * (4 * layers + 1), "tail": 0}
+    assert calls == want
+    if hidden == 512:
+        assert want == {"matmul": layers + 2, "tail": layers}
+    else:
+        assert want == {"matmul": 2 * (4 * layers + 1) - layers, "tail": 0}
     _torch_forward(tarch, tparams, ids, mask)
     assert calls["tail"] == (2 * layers if hidden == 512 else 0)
 
 
 def test_int4_over_model_4_takes_the_fused_tail_close_to_jax(monkeypatch):
     """{"model": 4} at the fused gate's shape: 128-column o and down blocks
-    and 512-column gate/up blocks, one fused-tail call a layer over them
-    (4 x (layers + 1) int4_matmul calls for qkv and the head), within the
-    file's int4 rule of JAX's forward over the same mesh."""
-    calls, tarch, *_ = _int4_tp_against_jax(512, 1024, 4, monkeypatch)
-    assert calls == {"matmul": 4 * (tarch.num_layers + 1), "tail": tarch.num_layers}
+    and 512-column gate/up blocks, one fused-tail call a layer over them;
+    qkv's 192-column and the head's 24-column shards are off the
+    128-column unit, so product_route takes them once a shard (4 x (layers
+    + 1) int4_matmul calls); within the file's int4 rule of JAX's forward
+    over the same mesh."""
+    calls, want, tarch, *_ = _int4_tp_against_jax(512, 1024, 4, monkeypatch)
+    assert calls == want == {"matmul": 4 * (tarch.num_layers + 1), "tail": tarch.num_layers}
+
+
+# every product's shards at a multiple of 128 columns over {"model": 2} and
+# {"model": 4}: qkv 1024, o 512, gate/up 2048, down 512, head 512
+_BLOCKS_ARCH = dict(hidden_size=512, intermediate_size=1024, num_heads=8, num_kv_heads=4, vocab_size=512,
+                    qkv_bias=True)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_int4_forward_over_blocks_equals_the_unsharded_forward(n, monkeypatch):
+    """Where every int4 product takes its column shards in one call
+    (product_route BLOCKS) and qkv_b is added once on the merged columns,
+    the forward over a [cpu] * n mesh equals the unsharded port forward bit
+    for bit (logits and KV cache), at a decode-sized chunk (the fused tail
+    over the shards) and at a prefill-sized one (every product one call):
+    the plain versions concatenate the blocks. The calls are those of the
+    unsharded forward."""
+    jarch, tarch = _archs("gqa", **_BLOCKS_ARCH)
+    tparams = tdec.params_from_jax(_np_tree(_jax_params(jarch, seed=7, kind="int4")), device="cpu")
+    sharded = tdec.shard_params(tparams, build_mesh({"model": n}, [CPU] * n))
+    calls = _counted_int4(monkeypatch)
+    for p in (8, 40):  # 16 tokens, 80 tokens
+        ids, mask = _prompt_batch(np.random.default_rng(8 + p), b=2, p=p, vocab=512)
+        m = ids.size
+        for name in ("qkv_w", "o_w", "gateup_w", "down_w"):
+            assert tdec.product_route(sharded["layers"][name], m, CPU) == tdec.BLOCKS, name
+        assert tdec.product_route(sharded["lm_head"], m, CPU) == tdec.BLOCKS
+        before = dict(calls)
+        got, got_cache = _torch_forward(tarch, sharded, ids, mask)
+        mid = dict(calls)
+        want, want_cache = _torch_forward(tarch, tparams, ids, mask)
+        sharded_calls = {k: mid[k] - before[k] for k in calls}
+        assert sharded_calls == {k: calls[k] - mid[k] for k in calls} == _forward_calls(sharded, tarch, m)
+        assert sharded_calls["tail"] == (tarch.num_layers if m <= tint4.TAIL_MAX_M else 0)
+        np.testing.assert_array_equal(got, want)
+        assert torch.equal(got_cache.k, want_cache.k) and torch.equal(got_cache.v, want_cache.v)
+
+
+@pytest.mark.parametrize("m", [1, 8, 64, 320])
+@pytest.mark.parametrize("n", [2, 4])
+def test_int4_matmul_over_column_blocks_equals_the_whole_weight(n, m):
+    """int4_matmul with the weight as n column blocks (split_blocks, as
+    shard_params cuts them) equals the whole weight's product bit for bit,
+    through the wrapper's CPU dispatch and the plain version alike; no
+    launch."""
+    rng = np.random.default_rng(50 + m + n)
+    w = torch.tensor(rng.standard_normal((512, 1024)) * 0.05, dtype=torch.float32)
+    packed, scales = tint4.quantize_int4_grouped(w, 128)
+    x = torch.tensor(rng.standard_normal((m, 512)), dtype=torch.float32)
+    blocks = split_blocks(packed, -1, [CPU] * n), split_blocks(scales, -1, [CPU] * n)
+    before = tint4.LAUNCHES.value
+    want = tint4.int4_matmul_plain(x, packed, scales, 128)
+    for fn in (tint4.int4_matmul, tint4.int4_matmul_plain):
+        got = fn(x, *blocks, 128)
+        assert got.dtype == torch.float32 and tuple(got.shape) == (m, 1024) and torch.equal(got, want)
+    assert tint4.LAUNCHES.value == before
+
+
+def _int4_sharded(widths, device=CPU):
+    """An int4 column split of K = 128 inputs into shards of the given
+    widths, every position on ``device``."""
+    packed, scales = tint4.quantize_int4_grouped(torch.ones(128, sum(widths)), 128)
+    bounds = np.cumsum([0] + list(widths))
+    shards = tuple(tdec.Int4Weight(packed[:, a:b].contiguous(), scales[:, a:b].contiguous())
+                   for a, b in zip(bounds[:-1], bounds[1:]))
+    return Sharded(shards, "col", (device,) * len(widths))
+
+
+@pytest.mark.parametrize("widths,m,ok", [
+    ([256, 256], 8, True), ([256, 256], 65, True),  # splitk, wgmma
+    ([64128, 64128], 8, True),  # the 8B head at {"model": 2}: an item's two boxes straddle the blocks
+    ([1536] * 4, 8, True), ([7168] * 4, 4096, True),  # the 8B qkv at decode, gate/up at prefill
+    ([128] * 3, 65, True),  # wgmma takes 384 columns
+    ([64] * 4, 8, False),  # widths off the 128-column unit (the route would be splitk)
+    ([32064] * 4, 8, False),  # the 8B head at {"model": 4}
+    ([128] * 8, 8, False),  # more than TAIL_MAX_BLOCKS
+    ([256, 128, 128], 65, False),  # unequal blocks
+    ([128] * 3, 8, False),  # 384 columns at decode: the mma_sync route
+    ([128] * 2, 8, True),  # 256 columns at decode: splitk, an item's two boxes one in each block
+])
+def test_int4_matmul_blocks_rule_and_the_decoders_route(widths, m, ok):
+    """int4_matmul_blocks_supported's cases, and product_route, which
+    follows it for a column split on the merge device."""
+    assert tint4.TAIL_TILE_N == 128 and tint4.TAIL_MAX_BLOCKS == 4
+    assert tint4.int4_matmul_blocks_supported(m, widths) == ok
+    assert tdec.product_route(_int4_sharded(widths), m, CPU) == (tdec.BLOCKS if ok else tdec.PER_SHARD)
+
+
+def test_product_route_takes_no_blocks_off_the_merge_device_or_outside_int4_columns():
+    """The per-shard route for shards off the merge device (another card),
+    float and int8 column splits, and row splits."""
+    w = _int4_sharded([256, 256])
+    assert tdec.product_route(w, 8, CPU) == tdec.BLOCKS
+    assert tdec.product_route(Sharded(w.shards, "col", (CPU, torch.device("cuda", 1))), 8, CPU) == tdec.PER_SHARD
+    assert tdec.product_route(w, 8, torch.device("cuda", 0)) == tdec.PER_SHARD
+    floats = Sharded((torch.zeros(256, 256), torch.zeros(256, 256)), "col", (CPU, CPU))
+    assert tdec.product_route(floats, 8, CPU) == tdec.PER_SHARD
+    assert tdec.product_route(Sharded(floats.shards, "row", (CPU, CPU)), 8, CPU) == tdec.PER_SHARD
+    q8 = Sharded(tuple(tdec.QuantWeight(torch.zeros(256, 256, dtype=torch.int8), torch.ones(256))
+                       for _ in range(2)), "col", (CPU, CPU))
+    assert tdec.product_route(q8, 8, CPU) == tdec.PER_SHARD
 
 
 def _blocked_tail_inputs(rng, m=8, hidden=512, inter=1024, gs=128):
@@ -485,13 +612,16 @@ def _prefill_and_step(engine, ids, mask):
 
 
 @pytest.mark.cuda
-def test_int4_shards_launch_the_kernel_per_shard_on_the_card():
-    """A {"model": 2} mesh of one card at the fused tail's gate shape: the
-    prefill (M = 320) launches int4_matmul once per shard of every product;
-    the decode step (M = 8) launches the fused tail once a layer over the
-    column shards and int4_matmul once per shard of qkv and the head. The
-    logits stay within the bf16 rule scaled to max |logit| of the
-    unsharded engine's on the same weights."""
+def test_int4_shards_launch_the_kernel_once_a_product_on_the_card():
+    """A {"model": 2} mesh of one card at the fused tail's gate shape, whose
+    every shard is a multiple of 128 columns: the prefill (M = 320)
+    launches int4_matmul once a product over the column shards (4 x layers
+    + 1, the head at the last position's 8 rows); the decode step (M = 8)
+    launches the fused tail once a layer and int4_matmul once for qkv and
+    once for the head (layers + 1). Every kernel then launches as the
+    unsharded engine's does, so the logits equal the unsharded engine's
+    (max |d| printed, 0 expected); the assertion is the bf16 rule scaled
+    to max |logit|."""
     from comorag_torch.llm.offline import TorchOfflineLLM
 
     if not torch.cuda.is_available():
@@ -502,27 +632,103 @@ def test_int4_shards_launch_the_kernel_per_shard_on_the_card():
     params = tdec.init_params(arch, torch.Generator(device=dev).manual_seed(0), dev)
     engines = [TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", mesh=mesh, device=dev)
                for mesh in (build_mesh({"model": 2}, [dev] * 2), None)]
-    assert tdec.tail_route(engines[0].params, arch, 8) == tdec.FUSED_TAIL
+    sharded = engines[0].params
+    assert tdec.tail_route(sharded, arch, 8) == tdec.FUSED_TAIL
+    for m in (8, 320):
+        assert all(tdec.product_route(sharded["layers"][name], m, dev) == tdec.BLOCKS
+                   for name in ("qkv_w", "o_w", "gateup_w", "down_w"))
+    assert tdec.product_route(sharded["lm_head"], 8, dev) == tdec.BLOCKS
     ids = torch.randint(0, 256, (8, 40), generator=torch.Generator().manual_seed(1)).to(dev)
     mask = torch.ones_like(ids)
     before = (tint4.LAUNCHES.value, tint4.TAIL_LAUNCHES.value)
     got = _prefill_and_step(engines[0], ids, mask)
     layers = arch.num_layers
-    assert tint4.LAUNCHES.value - before[0] == 2 * (4 * layers + 1) + 2 * (layers + 1)  # prefill + step, 2 shards
+    assert tint4.LAUNCHES.value - before[0] == (4 * layers + 1) + (layers + 1)  # prefill + step
     assert tint4.TAIL_LAUNCHES.value - before[1] == layers  # the step
     ref = _prefill_and_step(engines[1], ids, mask)
+    print(f"{{'model': 2}} int4 engine against the unsharded one: max |d| of the logits "
+          f"{float((got - ref).abs().max())}")
     assert _logits_ratio(got, ref) <= 1.0
 
 
+def _int4_weight_8b(gen, device, k, n):
+    """Random packed bytes and group-128 scales for a [k, n] weight of std
+    ~0.02 (chip_smoke.py's)."""
+    packed = torch.randint(-128, 128, (k // 2, n), generator=gen, device=device, dtype=torch.int8)
+    return packed, torch.empty(k // 128, n, device=device).uniform_(0.003, 0.006, generator=gen)
+
+
+# Llama-3.1-8B's products as a one-card model axis splits them: qkv and
+# gate/up over 2 and 4 shards, the head over {"model": 2}'s 2 (64,128
+# columns: an odd multiple of 128, so a split-K item's two boxes straddle
+# the blocks)
+_BLOCKED_8B = [("qkv", 6144, 2), ("qkv", 6144, 4), ("gate_up", 28672, 2), ("gate_up", 28672, 4),
+               ("lm_head", 128256, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 64, 320])  # splitk, splitk, splitk, wgmma
+@pytest.mark.parametrize("name,n,blocks", _BLOCKED_8B, ids=lambda v: str(v))
+def test_int4_matmul_over_column_blocks_on_the_card(name, n, blocks, m):
+    """int4_matmul over a weight's column blocks (split_blocks, as
+    shard_params cuts a one-card model axis's shards) at Llama-3.1-8B
+    widths: one launch, within the bf16 rule of the plain version, and
+    bit-equal to the whole weight's launch (the same plan, items and sums;
+    max |d| printed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(60 + m + blocks)
+    packed, scales = _int4_weight_8b(gen, dev, 4096, n)
+    x = torch.randn(m, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    cut = split_blocks(packed, -1, [dev] * blocks), split_blocks(scales, -1, [dev] * blocks)
+    assert tint4.int4_matmul_blocks_supported(m, [p.shape[-1] for p in cut[0]])
+    route = tint4.int4_matmul_route(m, n)
+    before = (tint4.LAUNCHES.value, tint4.ROUTE_LAUNCHES[route].value)
+    got = tint4.int4_matmul(x, *cut)
+    torch.cuda.synchronize()
+    assert (tint4.LAUNCHES.value, tint4.ROUTE_LAUNCHES[route].value) == (before[0] + 1, before[1] + 1)
+    ref = tint4.int4_matmul_plain(x, packed, scales)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
+    delta = float((got - tint4.int4_matmul(x, packed, scales)).abs().max())
+    print(f"int4_matmul {name} over {blocks} column blocks, M={m} ({route}): max |blocks - whole| = {delta}")
+    assert delta == 0.0
+
+
+@pytest.mark.cuda
+def test_column_split_bias_is_added_once_on_the_merged_blocks():
+    """A qwen2-class qkv with its bias split as its columns, over 2 blocks
+    of one card at Llama-3.1-8B width, M = 8: the blocks route adds the
+    bias once on the merged output; it equals the whole weight's product
+    plus the whole bias bit for bit, and the per-shard route (each shard's
+    product plus its bias block, gathered) within the bf16 rule."""
+    from comorag_torch.parallel.mesh import sharded_matmul
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(70)
+    packed, scales = _int4_weight_8b(gen, dev, 4096, 6144)
+    bias = torch.randn(6144, generator=gen, device=dev)
+    x = torch.randn(1, 8, 4096, generator=gen, device=dev)
+    devices = (dev, dev)
+    w = Sharded(tuple(tdec.Int4Weight(p, sc) for p, sc in zip(split_blocks(packed, -1, devices),
+                                                                split_blocks(scales, -1, devices))), "col", devices)
+    b = Sharded(split_blocks(bias, -1, devices), "col", devices)
+    assert tdec.product_route(w, 8, dev) == tdec.BLOCKS
+    before = tint4.LAUNCHES.value
+    got = tdec._dot(x, w, torch.float32, b)
+    torch.cuda.synchronize()
+    assert tint4.LAUNCHES.value == before + 1
+    whole = tdec._dot(x, tdec.Int4Weight(packed, scales), torch.float32, bias)
+    assert torch.equal(got, whole)
+    per_shard = sharded_matmul(x, w, lambda xs, shard, bs: tdec._dot(xs, shard, torch.float32, bs), b)
+    np.testing.assert_allclose(got.cpu().numpy(), per_shard.cpu().numpy(), rtol=2e-2, atol=2e-2)
+
+
 def _tail_weights_8b(gen, device):
-    """One layer's o, gate/up and down int4 weights at Llama-3.1-8B width:
-    random packed bytes and group-128 scales for weights of std ~0.02
-    (chip_smoke.py's)."""
-    out = []
-    for k, n in ((4096, 4096), (4096, 2 * 14336), (14336, 4096)):
-        packed = torch.randint(-128, 128, (k // 2, n), generator=gen, device=device, dtype=torch.int8)
-        out.append((packed, torch.empty(k // 128, n, device=device).uniform_(0.003, 0.006, generator=gen)))
-    return out
+    """One layer's o, gate/up and down int4 weights at Llama-3.1-8B width."""
+    return [_int4_weight_8b(gen, device, k, n) for k, n in ((4096, 4096), (4096, 2 * 14336), (14336, 4096))]
 
 
 @pytest.mark.cuda
@@ -572,7 +778,8 @@ def test_tp_over_distinct_cards_matches_one_card():
     mask = torch.ones_like(ids)
     cards = build_mesh({"model": 4}, [torch.device("cuda", i) for i in range(4)])
     # the decode step's route: the fused tail over one card's shards, the
-    # per-product route over distinct cards' (the kernel reads one card)
+    # per-product route over distinct cards' (the kernel reads one card);
+    # there qkv runs once a shard, over one card's shards in one launch
     routes = {"cards": tdec.PER_PRODUCT, "one_card": tdec.FUSED_TAIL, "whole": tdec.FUSED_TAIL}
     for param_dtype in ("int4", torch.bfloat16):
         logits = {}
@@ -583,6 +790,9 @@ def test_tp_over_distinct_cards_matches_one_card():
                 first = qkv.shards[0].packed if param_dtype == "int4" else qkv.shards[0]
                 assert [d.index for d in qkv.devices] == [0, 1, 2, 3] and first.device == dev
             int4 = param_dtype == "int4"
+            if mesh is not None:
+                qkv_route = tdec.product_route(engine.params["layers"]["qkv_w"], 8, dev)
+                assert qkv_route == (tdec.BLOCKS if int4 and tag == "one_card" else tdec.PER_SHARD)
             assert tdec.tail_route(engine.params, arch, 8) == (routes[tag] if int4 else tdec.PER_PRODUCT)
             tails = tint4.TAIL_LAUNCHES.value
             logits[tag] = _prefill_and_step(engine, ids, mask)
