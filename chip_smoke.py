@@ -165,15 +165,16 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      12b's; (c) (a)'s fp32 state saved and loaded into an unsharded state
      (bit-equal tensors), served by a bf16 BGETorchEncoder on the kernels
      (256 chunks, both encoder kernels launched, cosine >= 0.999 against
-     plain); (d) ``__graft_entry__.dryrun_multichip``'s sequence at its
-     arches: an encoder and an LM step, the trained decoder served with
-     int8 weights split over the model axis (guided JSON sampled, then
-     speculative at temperature 0) and with int4 weights (int4_matmul
-     launches a forward as ``decoder.product_route`` routes each column
-     split: its 128-column gate/up shards in one launch, its 64- and
-     32-column qkv, o and down shards once a shard), the qwen3- and
-     gemma-class families, the corpus-sharded index and PPR. None of the
-     six kernels launches in the training steps of (a), (b) and (d).
+     plain); (d) ``comorag_torch.graft_entry.dryrun_multichip(4)`` (the port
+     of ``__graft_entry__.dryrun_multichip``) over [card] * 4: an encoder
+     and an LM step, the trained decoder served with int8 weights split
+     over the model axis (guided JSON sampled, then speculative at
+     temperature 0) and with int4 weights (int4_matmul launches a forward
+     as ``decoder.product_route`` routes each column split: its
+     128-column gate/up shards in one launch, its 64- and 32-column qkv,
+     o and down shards once a shard), the qwen3- and gemma-class
+     families, the corpus-sharded index and PPR. None of the six kernels
+     launches in the training steps of (a), (b) and (d).
  16. the tiny decoder's training recipe (scripts/torch_train_tiny_lm.py,
      its own functions) on the card: (a) its arch (vocab 259, H 256, 6
      layers), B = 16, S = 2048, fp32, remat, AdamW under its warmup-cosine
@@ -190,11 +191,24 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      both stores non-empty); (d) the recipe's evaluate() table of the
      trained and of the committed assets/tiny_lm.npz, held to
      tests/test_torch_tiny_trained.py's golden floors after a full run.
-Then it checks that no module of jax or of the JAX package was loaded, and
+ 17. the root harness as a caller runs it (``comorag_torch/graft_entry.py``):
+     (a) ``entry()`` on the card, fp32 bert-base encode_pooled at B = 8,
+     S = 128 on the plain attention (as JAX's entry(), no kernel): [8, 768]
+     finite rows of norm 1 within 1e-5, the same ``fn`` on a CPU copy of
+     the weights within 1e-5 (fp32, TF32 off on both), the median ms of 20
+     CUDA-event samples of one call beside its fp32 bound; (b)
+     ``dryrun_multichip(8)`` with ``devices=None``, {"data": 2, "model": 4}
+     with position i on ``cuda:(i % cards)`` (one card: all 8 on cuda:0;
+     four: 2 a card, each model axis over 4 cards): the placement and
+     int4_matmul's launches against ``decoder.product_route``'s count.
+Then it checks that no module of jax, optax or of the JAX package
+(``comorag_tpu``, ``__graft_entry__``) was loaded, and
 prints the kernels JSON line (every kernel with its launches on the main
 path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms,
-``mesh_training_step_launches`` and ``tiny_recipe_step_launches``, 0, and
-``trained_tiny_launches``, phase 16b's), the
+``mesh_training_step_launches`` and ``tiny_recipe_step_launches``, 0,
+``trained_tiny_launches``, phase 16b's, and int4_matmul's
+``mesh_dryrun_launches`` and ``harness_dryrun_launches``, phases 15d and
+17b), the
 nvidia-smi line, and the result line.
 """
 
@@ -216,7 +230,7 @@ import time
 import numpy as np
 import torch
 
-from comorag_torch import ComoConfig, trace
+from comorag_torch import ComoConfig, graft_entry, trace
 from comorag_torch.cli import run as cli_run
 from comorag_torch.comorag import ComoRAG
 from comorag_torch.llm import serving
@@ -1527,8 +1541,7 @@ def phase_tiny(device, workdir: str) -> dict:
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 32, 128, 10  # cli/train.py's defaults: --batch 32 --max_seq_len 128
 LM_B, LM_S, LM_STEPS, LM_LAYERS, LM_LR = 4, 512, 5, 2, 1e-4
 CLI_STEPS, ROUNDTRIP_CHUNKS = 20, 256
-KERNEL_COUNTERS = (attention.LAUNCHES, ffn.LAUNCHES, mips.LAUNCHES, mips.INT8_LAUNCHES, int4.LAUNCHES,
-                   int4.TAIL_LAUNCHES)
+KERNEL_COUNTERS = graft_entry.KERNEL_COUNTERS
 
 
 def training_pairs(docs) -> list:
@@ -2012,35 +2025,15 @@ def forward_launches():
         decoder.decoder_forward = forward
 
 
-def product_launches(w, m: int, device) -> int:
-    """int4_matmul launches of one product of m rows: one for a whole
-    weight or a ``decoder.BLOCKS`` column split, one a shard for a
-    ``decoder.PER_SHARD`` one."""
-    if not isinstance(w, Sharded) or decoder.product_route(w, m, device) == decoder.BLOCKS:
-        return 1
-    return len(w.shards)
-
-
-def int4_forward_launches(params, arch, m: int, head_m: int) -> tuple:
-    """(int4_matmul, fused tail) launches of one int4 forward of m tokens
-    whose head takes head_m rows, as ``decoder.tail_route`` and
-    ``decoder.product_route`` route them."""
-    device, layer = params["embed"].device, params["layers"]
-    tail = decoder.tail_route(params, arch, m) == decoder.FUSED_TAIL
-    names = ("qkv_w",) if tail else ("qkv_w", "o_w", "gateup_w", "down_w")
-    per_layer = sum(product_launches(layer[name], m, device) for name in names)
-    return arch.num_layers * per_layer + product_launches(params["lm_head"], head_m, device), arch.num_layers * tail
-
-
 def checked_forwards(rec, params, arch, int4_kernels: bool, what: str) -> dict:
     """Each recorded forward's (int4_matmul, fused tail) launches against
-    ``int4_forward_launches`` (none with bf16 weights). Returns the
+    ``decoder.int4_forward_launches`` (none with bf16 weights). Returns the
     forwards by kind (<= 64 tokens: a decode step; above: a prefill chunk)
     and their launch counts."""
     out = {}
     for m, head_m, matmuls, tails in rec:
         kind = "le_64_tokens" if m <= int4.TAIL_MAX_M else "gt_64_tokens"
-        want = int4_forward_launches(params, arch, m, head_m) if int4_kernels else (0, 0)
+        want = decoder.int4_forward_launches(params, arch, m, head_m) if int4_kernels else (0, 0)
         if (matmuls, tails) != want:
             raise AssertionError(f"tp {what}: a forward of {m} tokens made (int4_matmul, fused tail) launches "
                                  f"{(matmuls, tails)}, expected {want}")
@@ -2145,7 +2138,7 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
 
 
 # ----------------------------------------------------------------- phase 15
-MESH_SHAPE = {"data": 2, "model": 2}  # __graft_entry__._factor_mesh(4)
+MESH_SHAPE = {"data": 2, "model": 2}  # graft_entry._factor_mesh(4), as __graft_entry__'s
 TRAIN_LR = 2e-5  # train.make_optimizer's default, the CLI's --lr
 MESH_LM_RTOL = 2e-2  # the bf16 rule, relative: a mesh LM loss against phase 12b's at the same step
 # fp32, relative: a mesh encoder loss against phase 12a's at the same step
@@ -2295,87 +2288,22 @@ def mesh_checkpoint(device, state, pairs, workdir: str) -> dict:
     return {"tensors_equal": len(trained), "launches": launches, "min_cosine": float(cos.min())}
 
 
-def mesh_dryrun(device, mesh) -> dict:
-    """15d: ``__graft_entry__.dryrun_multichip`` step for step at its
-    arches (:151-157, :178-181) over the mesh: an encoder and an LM step
-    (returns their kernel launches separately), the trained decoder served
-    with int8 weights split over the model axis (guided JSON sampled, then
-    speculative at temperature 0), with int4 weights (int4_matmul launches
-    a forward as ``decoder.product_route`` routes each column split), the
-    qwen3- and gemma-class
-    families, the corpus-sharded index (auto two-pass, top-k, top-k-min)
-    and the edge-sharded PPR."""
-    b = max(8, mesh.shape["data"] * 4)
-    for counter in KERNEL_COUNTERS:
-        counter.reset()
-    arch = bge.EncoderArch(vocab_size=512, hidden_size=64, num_layers=2, num_heads=8, intermediate_size=128,
-                           max_position=64)
-    ones = torch.ones((b, 16), dtype=torch.int64, device=device)
-    state = train.create_train_state(arch, torch.Generator().manual_seed(0), mesh=mesh)
-    _, loss = train.make_train_step(arch, mesh=mesh)(state, {"q_ids": ones, "q_mask": ones, "p_ids": ones,
-                                                            "p_mask": ones})
-    dec_arch = decoder.DecoderArch(vocab_size=259, hidden_size=64, num_layers=2, num_heads=8, num_kv_heads=4,
-                                   intermediate_size=128, max_seq_len=128, qkv_bias=True)
-    lm_state = train_lm.create_lm_train_state(dec_arch, torch.Generator(device=device).manual_seed(1), mesh=mesh)
-    lm_state, lm_loss = train_lm.make_lm_train_step(dec_arch, mesh=mesh)(lm_state, {"ids": ones, "mask": ones})
-    out = {"loss": float(loss), "lm_loss": float(lm_loss), "train_launches": training_launches()}
-    if not (np.isfinite(out["loss"]) and np.isfinite(out["lm_loss"])):
-        raise AssertionError(f"15d: non-finite losses {out}")
-
-    messages = [{"role": "user", "content": "dryrun"}]
-    llm = TorchOfflineLLM(params=lm_state.params, arch=dec_arch, mesh=mesh, temperature=0.8, speculative=True,
-                          param_dtype="int8")
-    qkv = llm.params["layers"]["qkv_w"]
-    if not (isinstance(qkv, Sharded) and qkv.shards[0].q.dtype == torch.int8):
-        raise AssertionError(f"15d: the int8 qkv_w is not split over the model axis: {type(qkv).__name__}")
-    gen = llm.infer(messages, max_tokens=8, json_template="ner")
-    spec = llm.infer(messages, max_tokens=8, json_template="ner", temperature=0)
-    if not isinstance(gen.text, str) or spec.metadata.get("decode_steps", 0) < 1:
-        raise AssertionError(f"15d: int8 generation {gen.text!r}, speculative {spec.metadata}")
-    int4.LAUNCHES.reset()
-    llm4 = TorchOfflineLLM(params=lm_state.params, arch=dec_arch, mesh=mesh, param_dtype="int4")
-    qkv4 = llm4.params["layers"]["qkv_w"]
-    gen4 = llm4.infer(messages, max_tokens=8)
-    tp = mesh.shape["model"]
-    # four column-split products a layer, each as product_route routes it
-    # (its 128-column gate/up shards take the splitk route at decode and
-    # wgmma at prefill alike), and the 259-column head whole
-    layers4 = llm4.params["layers"]
-    per_forward = dec_arch.num_layers * sum(product_launches(layers4[name], 1, llm4.params["embed"].device)
-                                            for name in ("qkv_w", "o_w", "gateup_w", "down_w")) + 1
-    expected = per_forward * gen4.metadata["decode_steps"]
-    if not (isinstance(qkv4, Sharded) and len(qkv4.shards) == tp and isinstance(gen4.text, str)
-            and int4.LAUNCHES.value == expected):
-        raise AssertionError(f"15d: int4 over the model axis launched int4_matmul {int4.LAUNCHES.value} times, "
-                             f"expected {expected}; text {gen4.text!r}")
-    out.update(int8_text_bytes=len(gen.text), speculative_decode_steps=spec.metadata["decode_steps"],
-               int4_matmul_launches=int4.LAUNCHES.value, int4_matmul_per_forward=per_forward,
-               int4_decode_steps=gen4.metadata["decode_steps"])
-    for fam_arch in (dataclasses.replace(dec_arch, qkv_bias=False, qk_norm=True, head_dim_override=16),
-                     dataclasses.replace(dec_arch, qkv_bias=False, num_kv_heads=1, embed_scale=True,
-                                         rms_unit_offset=True, mlp_act="gelu_tanh", tie_embeddings=True)):
-        fam = TorchOfflineLLM(params=decoder.init_params(fam_arch, torch.Generator(device=device).manual_seed(2),
-                                                         device), arch=fam_arch, mesh=mesh)
-        if not isinstance(fam.infer(messages, max_tokens=4).text, str):
-            raise AssertionError(f"15d: no text from {fam_arch}")
-
-    n = math.prod(mesh.shape.values())
-    corpus_mesh = card_mesh(device, {"corpus": n})
-    rng = np.random.default_rng(0)
-    index = MipsIndex(rng.standard_normal((n * 256, 32)).astype(np.float32), mesh=corpus_mesh)
-    if index.mesh is None or index.scan_dtype != "int8":
-        raise AssertionError(f"15d: the corpus index is not sharded on the two-pass: {index.scan_dtype}")
-    _, idx = index.topk(rng.standard_normal((4, 32)).astype(np.float32), k=8)
-    _, _, row_min = index.topk_min_async(rng.standard_normal((4, 32)).astype(np.float32), k=8).result()
-    src = np.arange(0, 64, dtype=np.int32)
-    dst = (src + 1) % 64
-    graph = ppr.PPRGraph(np.concatenate([src, dst]), np.concatenate([dst, src]), np.ones(128, np.float32), 64,
-                         backend="device", mesh=corpus_mesh)
-    scores = graph.query(np.ones(64, np.float32))
-    if np.asarray(idx).shape != (4, 8) or not np.isfinite(row_min).all() or not np.isfinite(scores).all():
-        raise AssertionError("15d: sharded top-k or PPR gave no finite result")
-    out.update(topk_shape=list(np.asarray(idx).shape), ppr_sum=float(scores.sum()))
-    return out
+def mesh_dryrun(device) -> dict:
+    """15d: ``graft_entry.dryrun_multichip(4)`` over [card] * 4
+    ({"data": 2, "model": 2}, MESH_SHAPE): an encoder and an LM step (their
+    kernel launches returned apart), the trained decoder served with int8
+    weights split over the model axis (guided JSON sampled, then
+    speculative at temperature 0) and with int4 weights (int4_matmul
+    launches a forward as ``decoder.product_route`` routes each column
+    split: its 128-column gate/up shards in one launch, its 64- and
+    32-column qkv, o and down shards once a shard), the qwen3- and
+    gemma-class families, the corpus-sharded index and PPR."""
+    dry = graft_entry.dryrun_multichip(4, devices=[device] * 4)
+    expected = dry["int4_matmul_per_forward"] * dry["int4_decode_steps"]
+    if dry["mesh"] != MESH_SHAPE or dry["int4_matmul_launches"] != expected or not expected:
+        raise AssertionError(f"15d: over {dry['mesh']} int4_matmul launched {dry['int4_matmul_launches']} times, "
+                             f"decoder.product_route gives {expected}")
+    return dry
 
 
 def phase_mesh_training(device, pairs, training: dict, smi: str) -> dict:
@@ -2391,7 +2319,7 @@ def phase_mesh_training(device, pairs, training: dict, smi: str) -> dict:
         roundtrip = mesh_checkpoint(device, state, pairs, workdir)
     del state
     torch.cuda.empty_cache()
-    dry = mesh_dryrun(device, mesh)
+    dry = mesh_dryrun(device)
     train_launches = {k: v + dry["train_launches"][k] for k, v in train_launches.items()}
     if any(train_launches.values()):
         raise AssertionError(f"the mesh training steps launched a kernel that has no backward: {train_launches}")
@@ -2417,7 +2345,7 @@ def phase_mesh_training(device, pairs, training: dict, smi: str) -> dict:
     print(f"phase 15c mesh-trained checkpoint into an unsharded bf16 encoder: {roundtrip['tensors_equal']} tensors "
           f"equal bit for bit, {ROUNDTRIP_CHUNKS} chunks, kernel launches {roundtrip['launches']}, min cosine vs plain "
           f"{roundtrip['min_cosine']:.6f}", flush=True)
-    print(f"phase 15d dryrun_multichip's sequence over {MESH_SHAPE} on one card: {json.dumps(dry)}; training-step "
+    print(f"phase 15d graft_entry.dryrun_multichip(4) over {MESH_SHAPE} on one card: {json.dumps(dry)}; training-step "
           f"kernel launches (a, b, d) {train_launches}", flush=True)
     return {"encoder": enc, "lm": lm, "roundtrip": roundtrip, "dryrun": dry, "train_launches": train_launches}
 
@@ -2575,6 +2503,66 @@ def phase_recipe(device, smi: str) -> dict:
     return {"training": training, "served": served, "meta_loop": meta, "eval": tables}
 
 
+# ----------------------------------------------------------------- phase 17
+ENTRY_TOL = 1e-5  # fp32 with TF32 off on both sides (comorag_torch/device.py)
+
+
+def entry_bound(arch: bge.EncoderArch, b: int, s: int) -> dict:
+    """entry()'s fp32 forward at the fp32 peak: the four projections and
+    the FFN's two products, QK^T and PV, 2 operations a multiply-add, and
+    its weights read once."""
+    h, i, layers = arch.hidden_size, arch.intermediate_size, arch.num_layers
+    macs = b * s * layers * (4 * h * h + 2 * h * i + 2 * s * h)
+    weights = (arch.vocab_size + arch.max_position + 2) * h + layers * (4 * h * h + 2 * h * i + 9 * h + i)
+    return bound(4 * weights + 8 * b * s * 2 + 4 * b * h, 2 * macs, "fp32")
+
+
+def phase_harness(device, smi: str) -> dict:
+    """Phase 17: the root harness as a caller runs it. (a) ``entry()`` on
+    the card: [8, 768] finite unit rows, held against the same ``fn`` on a
+    CPU copy of the weights, the median of 20 CUDA-event samples of one
+    call; (b) ``dryrun_multichip(8)`` with ``devices=None``: position i on
+    ``cuda:(i % cards)``, int4_matmul launched as ``decoder.product_route``
+    routes each split."""
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    model, ids, mask = args
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (graft_entry.ENTRY_BATCH, graft_entry.ENTRY_ARCH.hidden_size) or \
+            out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"17a: entry() gave {out.dtype} {tuple(out.shape)}, finite {torch.isfinite(out).all()}")
+    norm_err = float((out.norm(dim=-1) - 1).abs().max())
+    ref = fn(model.to("cpu"), ids.cpu(), mask.cpu())
+    model.to(device)
+    err = float((out.cpu() - ref).abs().max())
+    if norm_err > ENTRY_TOL or err > ENTRY_TOL:
+        raise AssertionError(f"17a: row norms off 1 by {norm_err:.3g}, card vs CPU max |d| {err:.3g} (rule {ENTRY_TOL})")
+    ms = median_ms(lambda: fn(*args), reps=1)
+    limit = entry_bound(graft_entry.ENTRY_ARCH, *ids.shape)
+    entry_out = {"ms": ms, "max_abs_err_vs_cpu": err, "max_norm_err": norm_err, **limit,
+                 "share": limit["bound_ms"] / ms}
+    print(f"phase 17a graft_entry.entry() on {device} ({smi}): fp32 encode_pooled of bert-base at B=8 S=128, "
+          f"{ms:.4f} ms a call (median of 20 CUDA-event samples of one call), bound {limit['bound_ms']:.4f} ms "
+          f"({limit['bound_by']}), share {entry_out['share']:.3f}; output (8, 768) finite, row norms within "
+          f"{norm_err:.3g} of 1, max |card - CPU| {err:.3g} (rule {ENTRY_TOL})", flush=True)
+    del fn, args, model, out
+    torch.cuda.empty_cache()
+
+    dry = graft_entry.dryrun_multichip(8)
+    cards = torch.cuda.device_count()
+    expected = dry["int4_matmul_per_forward"] * dry["int4_decode_steps"]
+    if dry["devices"] != [f"cuda:{i % cards}" for i in range(8)] or dry["int4_matmul_launches"] != expected \
+            or not expected or any(dry["train_launches"].values()):
+        raise AssertionError(f"17b: placement {dry['devices']}, int4_matmul {dry['int4_matmul_launches']} launches "
+                             f"(product_route: {expected}), training steps {dry['train_launches']}")
+    print(f"phase 17b graft_entry.dryrun_multichip(8), devices=None, over {dry['mesh']} on {cards} card(s): placement "
+          f"{dry['devices']}; int4_matmul {dry['int4_matmul_launches']} launches ({dry['int4_matmul_per_forward']} a "
+          f"forward x {dry['int4_decode_steps']}, as decoder.product_route routes each split); {json.dumps(dry)}; "
+          f"phase 17 {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"entry": entry_out, "dryrun": dry}
+
+
 def main() -> None:
     device = require_cuda()
     smi = nvidia_smi_line()
@@ -2607,6 +2595,7 @@ def main() -> None:
     tp = phase_tp(device, server, smi)
     mesh_training = phase_mesh_training(device, training_pairs(make_corpus(N_CHUNKS, N_QUESTIONS)[0]), training, smi)
     tiny_recipe = phase_recipe(device, smi)
+    harness = phase_harness(device, smi)
 
     entries = []
     for mod in (attention, ffn):
@@ -2650,7 +2639,8 @@ def main() -> None:
                                                                for r, c in int4.ROUTE_LAUNCHES.items()},
                             "tp_launches": tp["int4"]["launches"][counter.name],
                             "tp_launches_by_route": tp["int4"]["route_launches"], "tp_shard_shapes": tp["shards"],
-                            "mesh_dryrun_launches": mesh_training["dryrun"]["int4_matmul_launches"]}
+                            "mesh_dryrun_launches": mesh_training["dryrun"]["int4_matmul_launches"],
+                            "harness_dryrun_launches": harness["dryrun"]["int4_matmul_launches"]}
                            if counter is int4.LAUNCHES else
                            {"tp_launches": tp["int4"]["launches"][counter.name], "tp_routes": TP_ROUTES,
                             "tp_shard_shapes": tp["tail_shards"]}),
@@ -2665,7 +2655,8 @@ def main() -> None:
         entry["mesh_training_step_launches"] = mesh_training["train_launches"][entry["name"]]
         entry["tiny_recipe_step_launches"] = tiny_recipe["training"]["launches"][entry["name"]]
 
-    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "comorag_tpu"))
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "optax", "comorag_tpu",
+                                                                    "__graft_entry__"))
     if foreign:
         raise AssertionError(f"the port loaded jax or the JAX package: {foreign[:5]}")
 

@@ -97,19 +97,19 @@ class Int4Weight(NamedTuple):
 # ------------------------------------------------------------------- params
 def init_params(arch: DecoderArch, generator: torch.Generator, device: Union[str, torch.device] = "cuda",
                 dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-    """Random weights (std 0.02, norms ones) drawn from ``generator`` on
-    ``device`` in ``dtype``, one tensor at a time (a CUDA generator and bf16
-    build an 8B-parameter tree on the card without a host copy). The
-    generator must live on ``device``: a CPU generator needs
-    ``device="cpu"``. The draws differ from ``jax.random``'s: parity tests
-    convert JAX's tree instead (``params_from_jax``)."""
+    """Random weights (std 0.02, norms ones) in ``dtype``, drawn from
+    ``generator`` on its own device one tensor at a time and placed on
+    ``device`` (a CUDA generator and bf16 build an 8B-parameter tree on the
+    card without a host copy; a CPU generator gives one seed the same
+    weights on every device). The draws differ from ``jax.random``'s:
+    parity tests convert JAX's tree instead (``params_from_jax``)."""
     device = resolve_device(device)
     h, i, l = arch.hidden_size, arch.intermediate_size, arch.num_layers
     q_dim = arch.num_heads * arch.head_dim
     kv_dim = arch.num_kv_heads * arch.head_dim
 
     def normal(*shape):
-        return torch.randn(*shape, generator=generator, device=device, dtype=dtype).mul_(0.02)
+        return torch.randn(*shape, generator=generator, device=generator.device, dtype=dtype).mul_(0.02).to(device)
 
     def ones(*shape):
         return torch.ones(*shape, device=device, dtype=dtype)
@@ -528,6 +528,24 @@ def tail_route(params: Dict[str, Any], arch: DecoderArch, m: int) -> str:
         another card's memory)."""
     layer = _layer_at(params["layers"], 0)
     return PER_PRODUCT if _tail_weights(layer, arch, m, params["embed"].device) is None else FUSED_TAIL
+
+
+def _product_launches(w, m: int, device: torch.device) -> int:
+    if not isinstance(w, Sharded) or product_route(w, m, device) == BLOCKS:
+        return 1
+    return len(w.shards)
+
+
+def int4_forward_launches(params: Dict[str, Any], arch: DecoderArch, m: int, head_m: int) -> Tuple[int, int]:
+    """(``int4_matmul``, fused tail) launches of one forward of m tokens on
+    int4 weights whose head takes head_m rows, as ``tail_route`` and
+    ``product_route`` route them: a whole weight or a ``BLOCKS`` split
+    once, a ``PER_SHARD`` split once a shard."""
+    device, layer = params["embed"].device, params["layers"]
+    tail = tail_route(params, arch, m) == FUSED_TAIL
+    names = ("qkv_w",) if tail else ("qkv_w", "o_w", "gateup_w", "down_w")
+    per_layer = sum(_product_launches(layer[name], m, device) for name in names)
+    return arch.num_layers * per_layer + _product_launches(params["lm_head"], head_m, device), arch.num_layers * tail
 
 
 def _layer_rest(x: torch.Tensor, layer: Dict[str, Any], q: torch.Tensor, k_cache: torch.Tensor,

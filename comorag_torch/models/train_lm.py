@@ -68,10 +68,11 @@ def lm_loss(
 def create_lm_train_state(arch: DecoderArch, generator: torch.Generator, optimizer=None,
                           device: Union[str, torch.device, None] = None,
                           mesh: Optional[Mesh] = None) -> TrainState:
-    """Random fp32 parameters (``decoder.init_params``; the generator lives
-    on ``device``: "cuda" when None, the mesh's first device under a mesh,
-    where ``decoder.shard_params`` splits the weights over its ``model``
-    axis) with a fresh optimizer at step 0."""
+    """Random fp32 parameters (``decoder.init_params``, drawn on the
+    generator's device: the CPU or ``device``) on ``device`` ("cuda" when
+    None; the mesh's first device under a mesh, where
+    ``decoder.shard_params`` splits the weights over its ``model`` axis)
+    with a fresh optimizer at step 0."""
     params = init_params(arch, generator, mesh_device(mesh, device))
     if mesh is not None:
         params = shard_params(params, mesh)

@@ -337,6 +337,31 @@ def test_mesh_over_distinct_cards_matches_one_card(cuda_device, tmp_path):
     assert "cistern" in rag.try_answer(["Who hid the moonstone crown in the cistern?"])[0].answer
 
 
+def test_dryrun_multichip_over_four_distinct_cards(cuda_device):
+    """The port's ``dryrun_multichip(4)`` ({"data": 2, "model": 2}) over
+    cuda:0-3 against the same call over [cuda:0] * 4: the training losses
+    within rtol 1e-5 (tests/test_torch_train_mesh.py's rule; one seed draws
+    the same weights on every layout), the corpus-sharded top-k ids equal,
+    the PPR sums within 1e-5 relative, text from every engine call, and on
+    each layout ``int4_matmul`` launched as ``decoder.product_route``
+    routes each split (one launch a shard over distinct cards)."""
+    from comorag_torch import graft_entry
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (a data x model mesh over distinct devices)")
+    cards = graft_entry.dryrun_multichip(4, [torch.device("cuda", i) for i in range(4)])
+    one = graft_entry.dryrun_multichip(4, [torch.device("cuda", 0)] * 4)
+    assert cards["devices"] == [f"cuda:{i}" for i in range(4)] and one["devices"] == ["cuda:0"] * 4
+    np.testing.assert_allclose(cards["loss"], one["loss"], rtol=1e-5)
+    np.testing.assert_allclose(cards["lm_loss"], one["lm_loss"], rtol=1e-5)
+    assert cards["topk_ids"] == one["topk_ids"]
+    np.testing.assert_allclose(cards["ppr_sum"], one["ppr_sum"], rtol=1e-5)
+    for run in (cards, one):
+        assert all(isinstance(text, str) for text in run["texts"].values()), run["texts"]
+        assert run["int4_matmul_launches"] == run["int4_matmul_per_forward"] * run["int4_decode_steps"] > 0
+        assert not any(run["train_launches"].values())
+
+
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     from comorag_torch.ops import attention, ffn
 

@@ -8,8 +8,11 @@ server and the decoder among them), runs the CLI's ``--help``, indexes and
 answers the moonlantern set on the CPU with the hash encoder, runs one
 short ``jax-tiny`` generation on one device and one over a ``model`` mesh
 axis, and two steps of the training CLI on the CPU without a mesh and
-over a data x model mesh, imports the tiny decoder's training recipe
-(scripts/torch_train_tiny_lm.py), and checks that none of them was loaded.
+over a data x model mesh, runs the root harness's dry run
+(``comorag_torch.graft_entry.dryrun_multichip``, the port of
+``__graft_entry__``, which is blocked too) over four CPU positions, imports
+the tiny decoder's training recipe (scripts/torch_train_tiny_lm.py), and
+checks that none of them was loaded.
 httpx and pyarrow are not blocked: the host modules need them (the
 OpenAI client, the parquet store), and the H100 machine has them installed.
 """
@@ -25,7 +28,7 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, os, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "optax", "transformers", "comorag_tpu")
+    BLOCKED = ("jax", "jaxlib", "optax", "transformers", "comorag_tpu", "__graft_entry__")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -41,7 +44,7 @@ SCRIPT = textwrap.dedent(
         importlib.import_module(name)
     new = {"comorag_torch.models.train", "comorag_torch.models.train_lm", "comorag_torch.cli.train",
            "comorag_torch.cli.chunk", "comorag_torch.eval", "comorag_torch.eval.qa_eval",
-           "comorag_torch.parallel", "comorag_torch.parallel.mesh"}
+           "comorag_torch.parallel", "comorag_torch.parallel.mesh", "comorag_torch.graft_entry"}
     assert new <= set(modules), sorted(new - set(modules))
 
     from comorag_torch.cli import run
@@ -78,6 +81,9 @@ SCRIPT = textwrap.dedent(
         summary = train.main(["--pairs", pairs, "--output_dir", os.path.join(tmp, "ckpt"), "--init", "tiny",
                               "--steps", "2", "--batch", "4", "--max_seq_len", "8", "--device", "cpu", *mesh_args])
         assert os.path.exists(summary["checkpoint"]), summary
+
+    from comorag_torch import graft_entry
+    assert graft_entry.dryrun_multichip(4, [torch.device("cpu")] * 4)["mesh"] == {"data": 2, "model": 2}
 
     import importlib.util
     spec = importlib.util.spec_from_file_location(

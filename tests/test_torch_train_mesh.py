@@ -375,60 +375,25 @@ def test_parse_mesh_shape(spec, shape):
 
 # ------------------------------------------------------- the dry run's twin
 def test_dryrun_multichip_twin_over_eight_cpu_positions():
-    """``__graft_entry__.dryrun_multichip(8)`` step for step over
-    {"data": 2, "model": 4} of [cpu] * 8: an encoder step and an LM step
-    (qkv_bias, 4 kv heads) with finite losses, the trained decoder served
-    with int8 weights split over the model axis (guided JSON, sampled, then
+    """``__graft_entry__.dryrun_multichip(8)``'s port,
+    ``comorag_torch.graft_entry.dryrun_multichip``, over {"data": 2,
+    "model": 4} of [cpu] * 8: an encoder step and an LM step (qkv_bias, 4
+    kv heads) with finite losses, the trained decoder served with int8
+    weights split over the model axis (guided JSON, sampled, then
     speculative at temperature 0), then int4, the qwen3- and gemma-class
-    families over the same axis, the corpus-sharded index and PPR."""
-    from comorag_torch.llm.offline import TorchOfflineLLM
-    from comorag_torch.ops.ppr import PPRGraph
-    from comorag_torch.retrieval.index import MipsIndex
+    families over the same axis, the corpus-sharded index and PPR. The
+    function itself raises where a weight is not split over the axis (int8
+    ``q`` / int4 ``packed`` shards, four of them), where the index does not
+    shard or take the two-pass, or where a row minimum or PPR score is not
+    finite."""
+    from comorag_torch import graft_entry
 
-    mesh = build_mesh({"data": 2, "model": 4}, [CPU] * 8)
-    arch = tbge.EncoderArch(**ENC)
-    state = ttrain.create_train_state(arch, torch.Generator().manual_seed(0), mesh=mesh)
-    b = 8
-    ones = torch.ones((b, 16), dtype=torch.int64)
-    state, loss = ttrain.make_train_step(arch, mesh=mesh)(state, {"q_ids": ones, "q_mask": ones, "p_ids": ones,
-                                                                 "p_mask": ones})
-    assert np.isfinite(float(loss))
-
-    dec_arch = tdec.DecoderArch(**DEC)
-    lm_state = ttrain_lm.create_lm_train_state(dec_arch, torch.Generator().manual_seed(1), mesh=mesh)
-    lm_state, lm_loss = ttrain_lm.make_lm_train_step(dec_arch, mesh=mesh)(lm_state, {"ids": ones, "mask": ones})
-    assert np.isfinite(float(lm_loss))
-    llm = TorchOfflineLLM(params=lm_state.params, arch=dec_arch, mesh=mesh, temperature=0.8, speculative=True,
-                          param_dtype="int8")
-    qkv = llm.params["layers"]["qkv_w"]
-    assert isinstance(qkv, Sharded) and qkv.shards[0].q.dtype == torch.int8 and len(qkv.shards) == 4
-    messages = [{"role": "user", "content": "dryrun"}]
-    assert isinstance(llm.infer(messages, max_tokens=8, json_template="ner").text, str)
-    assert llm.infer(messages, max_tokens=8, json_template="ner", temperature=0).metadata["decode_steps"] >= 1
-    llm4 = TorchOfflineLLM(params=lm_state.params, arch=dec_arch, mesh=mesh, param_dtype="int4")
-    qkv4 = llm4.params["layers"]["qkv_w"]
-    assert isinstance(qkv4, Sharded) and qkv4.shards[0].packed.dtype == torch.int8
-    assert isinstance(llm4.infer(messages, max_tokens=8).text, str)
-    for fam_arch in (dataclasses.replace(dec_arch, qkv_bias=False, qk_norm=True, head_dim_override=16),
-                     dataclasses.replace(dec_arch, qkv_bias=False, num_kv_heads=1, embed_scale=True,
-                                         rms_unit_offset=True, mlp_act="gelu_tanh", tie_embeddings=True)):
-        fam = TorchOfflineLLM(params=tdec.init_params(fam_arch, torch.Generator().manual_seed(2), "cpu"),
-                              arch=fam_arch, mesh=mesh)
-        assert isinstance(fam.infer(messages, max_tokens=4).text, str)
-
-    corpus_mesh = build_mesh({"corpus": 8}, [CPU] * 8)
-    rng = np.random.default_rng(0)
-    index = MipsIndex(rng.standard_normal((8 * 256, 32)).astype(np.float32), mesh=corpus_mesh)
-    assert index.mesh is not None and index.scan_dtype == "int8"
-    _, idx = index.topk(rng.standard_normal((4, 32)).astype(np.float32), k=8)
-    assert np.asarray(idx).shape == (4, 8)
-    _, _, row_min = index.topk_min_async(rng.standard_normal((4, 32)).astype(np.float32), k=8).result()
-    assert np.isfinite(row_min).all()
-    src = np.arange(0, 64, dtype=np.int32)
-    dst = (src + 1) % 64
-    graph = PPRGraph(np.concatenate([src, dst]), np.concatenate([dst, src]), np.ones(128, np.float32), 64,
-                     backend="device", mesh=corpus_mesh)
-    assert np.isfinite(graph.query(np.ones(64, np.float32))).all()
+    out = graft_entry.dryrun_multichip(8, devices=[CPU] * 8)
+    assert out["mesh"] == {"data": 2, "model": 4}
+    assert np.isfinite(out["loss"]) and np.isfinite(out["lm_loss"])
+    assert all(isinstance(out["texts"][k], str) for k in ("int8", "int8_speculative", "int4", "qwen3", "gemma"))
+    assert out["speculative_decode_steps"] >= 1
+    assert out["topk_shape"] == [4, 8] and np.isfinite(out["ppr_sum"])
 
 
 # --------------------------------------------------------------- the card
