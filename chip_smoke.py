@@ -200,7 +200,24 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      ``dryrun_multichip(8)`` with ``devices=None``, {"data": 2, "model": 4}
      with position i on ``cuda:(i % cards)`` (one card: all 8 on cuda:0;
      four: 2 a card, each model axis over 4 cards): the placement and
-     int4_matmul's launches against ``decoder.product_route``'s count.
+     int4_matmul's launches against ``decoder.product_route``'s count;
+ 18. the corpus mesh across processes (``parallel/distributed.py``; run
+     right after phase 13, whose rankings it is held against): two
+     processes started by torch.multiprocessing's spawn (the kernels are
+     built in phase 2, so they only load them) join one gloo group on
+     127.0.0.1 and pass 4 positions each on the card: {"corpus": 8}. Each
+     makes phase 7's corpus from the seed and serves its batches (k = 50,
+     best of 4 rounds) through MipsIndex(mesh=) for the kernel routes over
+     fp32 and int8 rows and the default int8 two-pass, holding only its
+     own 4 shards; in both processes the rankings equal phase 13a's
+     (``same_ranking``) and each other's, the exact variants are at
+     overlap 1.0 with phase 7's oracle, and each kernel launches 4 a
+     dispatch on this process's shards (phase 13a's count a round, on
+     "tf32" / "mma"); qps per process beside phase 13a's. Then
+     make_sharded_ppr over the process mesh on a seeded random graph of
+     phase 8's size (13b's node and arc counts) within 1e-6 of one
+     process's 8-position mesh. A process that fails, or does not end in
+     300 s, fails the run (the other is killed).
 Then it checks that no module of jax, optax or of the JAX package
 (``comorag_tpu``, ``__graft_entry__``) was loaded, and
 prints the kernels JSON line (every kernel with its launches on the main
@@ -208,7 +225,8 @@ path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms,
 ``mesh_training_step_launches`` and ``tiny_recipe_step_launches``, 0,
 ``trained_tiny_launches``, phase 16b's, and int4_matmul's
 ``mesh_dryrun_launches`` and ``harness_dryrun_launches``, phases 15d and
-17b), the
+17b, and the top-k kernels' ``process_mesh_launches``, phase 18's a round
+in each process), the
 nvidia-smi line, and the result line.
 """
 
@@ -220,6 +238,7 @@ import importlib.util
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -238,6 +257,7 @@ from comorag_torch.llm.fake import FakeLLM
 from comorag_torch.llm.offline import TorchOfflineLLM
 from comorag_torch.models import bge, curriculum, decoder, train, train_lm
 from comorag_torch.ops import attention, build, ffn, int4, mips, ppr
+from comorag_torch.parallel import distributed
 from comorag_torch.parallel.mesh import Sharded, build_mesh, merge_blocks, split_blocks
 from comorag_torch.ops.topk import dense_scores, int8_scores, quantize_int8
 from comorag_torch.retrieval import index as index_mod
@@ -1744,12 +1764,11 @@ def sharded_serving(device, corpus: np.ndarray, serve_queries: np.ndarray, servi
         raise AssertionError(f"an index did not shard: {shards}")
     host = [serve_queries[i * SERVE_P : (i + 1) * SERVE_P].copy() for i in range(SERVE_BATCHES)]
     counters = (mips.LAUNCHES, mips.INT8_LAUNCHES, *mips.ROUTE_LAUNCHES.values())
-    ids, swaps = {}, {}
+    ids, scores, swaps = {}, {}, {}
     for name, ix in indexes.items():
         outs = ix.topk_many(host, k=BENCH_K)
-        ids[name] = np.concatenate([i for _, i in outs])
-        swaps[name] = same_ranking(np.concatenate([s for s, _ in outs]), ids[name], serving["scores"][name],
-                                   serving["ids"][name], name)
+        ids[name], scores[name] = np.concatenate([i for _, i in outs]), np.concatenate([s for s, _ in outs])
+        swaps[name] = same_ranking(scores[name], ids[name], serving["scores"][name], serving["ids"][name], name)
     best, launches, n_rescued = {name: 0.0 for name in indexes}, {}, {name: 0 for name in indexes}
     for _ in range(SERVE_ROUNDS):
         for name, ix in indexes.items():
@@ -1777,7 +1796,8 @@ def sharded_serving(device, corpus: np.ndarray, serve_queries: np.ndarray, servi
             "overlap_vs_float64": overlaps,
             "tie_swaps_vs_unsharded": swaps,
             "shard_rows": {name: [len(c) for c in ix.corpus] for name, ix in indexes.items()},
-            "kernel_launches_per_round": {k: v for k, v in launches.items() if k.startswith("pallas")}}
+            "kernel_launches_per_round": {k: v for k, v in launches.items() if k.startswith("pallas")},
+            "ids": ids, "scores": scores}  # for phase 18
 
 
 def same_ranking(s: np.ndarray, i: np.ndarray, ref_s: np.ndarray, ref_i: np.ndarray, what: str,
@@ -1899,8 +1919,9 @@ def sharded_meta_loop(device, workdir: str, meta: dict) -> dict:
 
 def phase_sharded(device, corpus, serve_queries, serving: dict, workdir: str, meta: dict, smi: str) -> dict:
     serve = sharded_serving(device, corpus, serve_queries, serving)
+    shown = {k: v for k, v in serve.items() if k not in ("ids", "scores")}
     print(f"phase 13a sharded serving, 4 shards on one card ({smi}), 100000x1024, 100 batches x 16 queries, "
-          f"k=50, best of 4 rounds, beside phase 7's unsharded qps of this run: {json.dumps(serve)}", flush=True)
+          f"k=50, best of 4 rounds, beside phase 7's unsharded qps of this run: {json.dumps(shown)}", flush=True)
     loop = sharded_meta_loop(device, workdir, meta)
     print(f"phase 13b sharded programs vs single-device on the card (4 shards on one card): "
           f"{json.dumps(loop['programs'])}", flush=True)
@@ -1915,6 +1936,195 @@ def phase_sharded(device, corpus, serve_queries, serving: dict, workdir: str, me
     print("phase 13c final answers beside phase 8's: " + json.dumps(
         [[final(a), final(b)] for a, b in zip(loop["answers"], loop["phase_8_answers"])]), flush=True)
     return {"serving": serve, "meta_loop": loop}
+
+
+# ----------------------------------------------------------------- phase 18
+DCN_PROCESSES, DCN_POSITIONS = 2, 4  # {"corpus": 8}: 4 positions in each of 2 processes
+DCN_VARIANTS = {"pallas_fp32": dict(method="pallas"), "pallas_int8": dict(method="pallas", dtype="int8"),
+                "two_pass_int8": dict()}
+DCN_TIMEOUT_S = 300
+
+
+def dcn_graph(nodes: int, arcs: int):
+    """A seeded random graph (src, dst, weights) of ``nodes`` nodes and
+    ``arcs`` arcs, and 16 resets drawn as phase 13b draws them."""
+    rng = np.random.default_rng(SEED + 18)
+    src = rng.integers(0, nodes, arcs).astype(np.int32)
+    dst = rng.integers(0, nodes, arcs).astype(np.int32)
+    w = rng.random(arcs).astype(np.float32)
+    resets = (rng.random((16, nodes)) * (rng.random((16, nodes)) > 0.999)).astype(np.float32)
+    resets[:, 0] += 1e-3  # no all-zero row
+    return src, dst, w, resets
+
+
+def dcn_ppr(mesh, spec: dict):
+    """``make_sharded_ppr`` over ``mesh`` on ``dcn_graph``'s graph, with the
+    meta loop's iteration cap and tolerance: (ranks [16, nodes] on the
+    host, seconds of the second call (the first warms this process's
+    kernels up), arcs a piece or None where another process holds it)."""
+    cfg = ComoConfig()
+    src, dst, w, resets = dcn_graph(spec["graph_nodes"], spec["graph_arcs"])
+    graph = ppr.PPRGraph(src, dst, w, spec["graph_nodes"], mesh=mesh, max_iters=cfg.ppr_max_iterations,
+                         tol=cfg.ppr_tolerance, backend="device")
+    normed = torch.tensor(resets / resets.sum(axis=1, keepdims=True), device=mesh.device)
+    fn = ppr.make_sharded_ppr(mesh, graph.max_iters)
+    fn(graph._arcs, graph._dangling, normed, cfg.damping, graph._tol())
+    trace.reset()  # the spans of the timed call alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = fn(graph._arcs, graph._dangling, normed, cfg.damping, graph._tol()).cpu().numpy()
+    return ranks, time.perf_counter() - t0, [None if a is None else len(a[0]) for a in graph._arcs]
+
+
+def process_mesh_child(rank: int, port: int, out_dir: str, spec: dict) -> None:
+    """One process of phase 18 (started by ``torch.multiprocessing``'s
+    spawn): joins the gloo group at 127.0.0.1:``port``, builds
+    {"corpus": 8} from its 4 positions on ``spec["device"]``, serves phase
+    7's corpus (made here from the seed) through MipsIndex(mesh=) for
+    ``DCN_VARIANTS``, runs ``dcn_ppr``, and writes its rankings, ranks and
+    numbers to ``out_dir``/rank<rank>.npz and .json."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // DCN_PROCESSES))  # the processes share the host's cores
+    device = torch.device(spec["device"])
+    distributed.initialize(f"127.0.0.1:{port}", DCN_PROCESSES, rank, backend="gloo", device=device, timeout_s=120)
+    try:
+        mesh = build_mesh({"corpus": DCN_PROCESSES * DCN_POSITIONS}, [device] * DCN_POSITIONS)
+        corpus, queries = bench_data(256 + SERVE_BATCHES * SERVE_P)
+        host = [queries[256 + i * SERVE_P : 256 + (i + 1) * SERVE_P].copy() for i in range(SERVE_BATCHES)]
+        t0 = time.perf_counter()
+        indexes = {name: MipsIndex(corpus, mesh=mesh, **kw) for name, kw in DCN_VARIANTS.items()}
+        stats = {"index_build_s": time.perf_counter() - t0, "qps": {}, "launches_per_round": {},
+                 "rescued_batches": {}, "mesh": repr(mesh),
+                 "local_shard_rows": {name: [None if c is None else len(c) for c in ix.corpus]
+                                      for name, ix in indexes.items()}}
+        del corpus
+        arrays = {}
+        for name, ix in indexes.items():  # warm-up, and the results the parent checks
+            outs = ix.topk_many(host, k=BENCH_K)
+            arrays[f"{name}/ids"] = np.concatenate([i for _, i in outs])
+            arrays[f"{name}/scores"] = np.concatenate([s for s, _ in outs])
+        counters = (mips.LAUNCHES, mips.INT8_LAUNCHES, *mips.ROUTE_LAUNCHES.values())
+        stats["round_s"], stats["dist_spans_s"] = {}, {}
+        for _ in range(SERVE_ROUNDS):
+            for name, ix in indexes.items():
+                for counter in counters:
+                    counter.reset()
+                trace.reset()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                ix.topk_many(host, k=BENCH_K)
+                torch.cuda.synchronize()
+                round_s = time.perf_counter() - start
+                if round_s < stats["round_s"].get(name, float("inf")):  # the best round and its spans
+                    spans = trace.summary()["spans"]
+                    stats["round_s"][name] = round_s
+                    stats["dist_spans_s"][name] = {k: v["total_s"] for k, v in spans.items() if k.startswith("dist.")}
+                stats["qps"][name] = len(host) * SERVE_P / stats["round_s"][name]
+                stats["launches_per_round"][name] = {c.name: c.value for c in counters}
+                stats["rescued_batches"][name] = stats["rescued_batches"].get(name, 0) + int(
+                    trace.summary()["counters"].get("two_pass.rescued_batches", 0))
+        del indexes
+        arrays["ppr/ranks"], stats["ppr_s"], stats["ppr_arcs_per_piece"] = dcn_ppr(mesh, spec)
+        stats["ppr_dist_spans"] = {k: v for k, v in trace.summary()["spans"].items() if k.startswith("dist.")}
+        stats["foreign_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "optax", "comorag_tpu", "__graft_entry__"))
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(stats, f)
+    finally:
+        distributed.shutdown()
+
+
+def run_process_mesh(spec: dict, out_dir: str) -> tuple:
+    """``process_mesh_child`` in ``DCN_PROCESSES`` spawned processes; raises
+    (after killing any still running) unless both exit 0 within
+    ``DCN_TIMEOUT_S``.
+    Returns each process's (arrays, numbers) and the wall seconds."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=process_mesh_child, args=(rank, port, out_dir, spec)) for rank in range(DCN_PROCESSES)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    try:  # until both end, one fails (the other then waits in a collective) or the time is up
+        while (any(proc.is_alive() for proc in procs) and time.perf_counter() - t0 < DCN_TIMEOUT_S
+               and all(proc.exitcode in (None, 0) for proc in procs)):
+            time.sleep(0.2)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    codes = [proc.exitcode for proc in procs]
+    if codes != [0] * DCN_PROCESSES:
+        raise AssertionError(f"phase 18: the processes exited with {codes} (None: killed at {DCN_TIMEOUT_S} s)")
+    results = []
+    for rank in range(DCN_PROCESSES):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            results.append((dict(np.load(os.path.join(out_dir, f"rank{rank}.npz"))), json.load(f)))
+    return results, time.perf_counter() - t0
+
+
+def phase_process_mesh(device, serving: dict, sharded: dict, smi: str) -> dict:
+    """Phase 18: the corpus mesh across two processes on the one card
+    (``parallel/distributed.py``, gloo): phase 7's serving through
+    MipsIndex(mesh=) over {"corpus": 8}, 4 positions a process, held
+    against phase 13a's rankings (``same_ranking``) and phase 7's oracle in
+    both processes, with the kernel launches of each process (4 a dispatch:
+    phase 13a's count); ``make_sharded_ppr`` on a seeded graph of phase 8's
+    size against one process's mesh of 8 positions. The kernels are built
+    (phase 2) before the processes start, so they only load them."""
+    programs = sharded["meta_loop"]["programs"]
+    spec = {"device": str(device), "graph_nodes": programs["graph_nodes"], "graph_arcs": programs["graph_arcs"]}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        results, wall_s = run_process_mesh(spec, out_dir)
+    serve = sharded["serving"]
+    swaps, overlaps = {}, {}
+    for rank, (arrays, stats) in enumerate(results):
+        if stats["foreign_modules"]:
+            raise AssertionError(f"process {rank} loaded jax or the JAX package: {stats['foreign_modules'][:5]}")
+        for name in DCN_VARIANTS:
+            ids, scores = arrays[f"{name}/ids"], arrays[f"{name}/scores"]
+            swaps[f"{rank}/{name}"] = same_ranking(scores, ids, serve["scores"][name], serve["ids"][name],
+                                                   f"process {rank} {name} vs phase 13a")
+            overlaps[f"{rank}/{name}"] = overlap(ids, serving["oracle"])
+            if rank and not (np.array_equal(ids, results[0][0][f"{name}/ids"])
+                             and np.array_equal(scores, results[0][0][f"{name}/scores"])):
+                raise AssertionError(f"phase 18 {name}: the two processes returned other rankings")
+        for name, counter, route in (("pallas_fp32", mips.LAUNCHES, "tf32"),
+                                     ("pallas_int8", mips.INT8_LAUNCHES, "mma")):
+            got, want = stats["launches_per_round"][name], serve["kernel_launches_per_round"][name][counter.name]
+            if got[counter.name] != want or got[mips.ROUTE_LAUNCHES[route].name] != want:
+                raise AssertionError(f"phase 18 process {rank} {name}: {got} launches a round, expected {want} "
+                                     f"(phase 13a's: 4 a dispatch) on {route}")
+    if min(v for k, v in overlaps.items() if not k.endswith("pallas_int8")) < 1.0:
+        raise AssertionError(f"phase 18: an exact variant missed the float64 oracle: {overlaps}")
+    src, dst, w, resets = dcn_graph(spec["graph_nodes"], spec["graph_arcs"])
+    one = card_mesh(device, {"corpus": DCN_PROCESSES * DCN_POSITIONS})
+    ref, ref_s, _ = dcn_ppr(one, spec)
+    ppr_err = [float(np.abs(arrays["ppr/ranks"] - ref).max()) for arrays, _ in results]
+    if max(ppr_err) > PPR_TOL:
+        raise AssertionError(f"phase 18 PPR across processes beyond {PPR_TOL} of one process's mesh: {ppr_err}")
+    out = {"wall_s": wall_s, "qps": [stats["qps"] for _, stats in results],
+           "sharded_qps_phase_13a": {k: serve["qps"][k] for k in DCN_VARIANTS},
+           "launches_per_round": [{k: stats["launches_per_round"][k] for k in ("pallas_fp32", "pallas_int8")}
+                                  for _, stats in results],
+           "rescued_batches": [stats["rescued_batches"] for _, stats in results],
+           "best_round_s": [stats["round_s"] for _, stats in results],
+           "best_round_dist_spans_s": [stats["dist_spans_s"] for _, stats in results],
+           "tie_swaps_vs_phase_13a": swaps, "overlap_vs_float64": overlaps,
+           "index_build_s": [stats["index_build_s"] for _, stats in results],
+           "local_shard_rows": [stats["local_shard_rows"]["pallas_fp32"] for _, stats in results],
+           "ppr": {"nodes": spec["graph_nodes"], "arcs": spec["graph_arcs"], "max_abs_err_vs_one_process": ppr_err,
+                   "s": [stats["ppr_s"] for _, stats in results], "one_process_s": ref_s,
+                   "dist_spans": [stats["ppr_dist_spans"] for _, stats in results],
+                   "arcs_per_piece": [stats["ppr_arcs_per_piece"] for _, stats in results]}}
+    print(f"phase 18 corpus mesh across {DCN_PROCESSES} processes (gloo) x {DCN_POSITIONS} positions on one card "
+          f"({smi}), 100000x1024, 100 batches x 16 queries, k=50, best of 4 rounds, each process's qps beside "
+          f"phase 13a's: {json.dumps(out)}", flush=True)
+    return out
 
 
 # ----------------------------------------------------------------- phase 14
@@ -2592,6 +2802,7 @@ def main() -> None:
             training = phase_training(device, workdir, smi)
         sharded = phase_sharded(device, corpus, queries[256:], serving, meta_dir, meta, smi)
     del corpus, queries
+    process_mesh = phase_process_mesh(device, serving, sharded, smi)
     tp = phase_tp(device, server, smi)
     mesh_training = phase_mesh_training(device, training_pairs(make_corpus(N_CHUNKS, N_QUESTIONS)[0]), training, smi)
     tiny_recipe = phase_recipe(device, smi)
@@ -2626,6 +2837,8 @@ def main() -> None:
                         "mesh_meta_loop_launches": sharded["meta_loop"]["launches"][name],
                         "mesh_serving_launches_per_round": sharded["serving"]["kernel_launches_per_round"][
                             "pallas_fp32" if run == "fp32" else "pallas_int8"][name],
+                        "process_mesh_launches": [r["pallas_fp32" if run == "fp32" else "pallas_int8"][name]
+                                                  for r in process_mesh["launches_per_round"]],
                         "main_path_calls": main_path})
     for counter, replaces, rows in ((int4.LAUNCHES, int4.REPLACES, int4_kernels["int4_matmul"]),
                                     (int4.TAIL_LAUNCHES, int4.TAIL_REPLACES, int4_kernels["int4_fused_layer_tail"])):

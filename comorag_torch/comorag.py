@@ -44,7 +44,7 @@ from comorag_torch.graph.builder import GraphBuilder, GraphData
 from comorag_torch.llm import get_llm
 from comorag_torch.memory.pool import NO_MEMORY_SENTINEL, MemoryNode, MemoryPool, NodeType
 from comorag_torch.models.registry import get_encoder
-from comorag_torch.parallel.mesh import Mesh, device_mesh, mesh_device
+from comorag_torch.parallel.mesh import Mesh, device_mesh, mesh_device, one_process
 from comorag_torch.retrieval.engine import RetrievalEngine, RetrievalWindow
 from comorag_torch.agents.pool_agent import PoolAgent
 from comorag_torch.agents.probe_agent import ProbeAgent
@@ -96,6 +96,7 @@ class ComoRAG:
         self.config = config or ComoConfig()
         if mesh is None and self.config.mesh_shape:
             mesh = device_mesh(dict(self.config.mesh_shape), device)
+        one_process(mesh, "ComoRAG (the meta loop)")
         self.mesh = mesh
         self.device = mesh_device(mesh, device)
         os.makedirs(self.config.working_dir, exist_ok=True)

@@ -37,7 +37,8 @@ import torch
 from torch import nn
 
 from comorag_torch.device import HostCopy, resolve_device
-from comorag_torch.parallel.mesh import Mesh, Sharded, mesh_device, on_device, sharded_matmul, split_blocks
+from comorag_torch.parallel.mesh import (Mesh, Sharded, mesh_device, on_device, one_process, sharded_matmul,
+                                         split_blocks)
 from comorag_torch.ops.attention import encoder_attention, encoder_attention_plain
 from comorag_torch.ops.ffn import encoder_ffn, fused_ffn_supported, layer_norm
 from comorag_torch.models.base import BaseEncoder
@@ -190,6 +191,7 @@ def shard_params(model: Encoder, mesh: Mesh) -> Encoder:
     tensor whole on the mesh's first device (JAX's replicas compute the
     same values, so the port keeps none). A mesh without the axis splits
     nothing."""
+    one_process(mesh, "the encoder's model axis")
     model.to(mesh.device)
     devices = tuple(mesh.axis_devices("model")) if "model" in mesh.shape else ()
     if len(devices) < 2:
@@ -416,6 +418,7 @@ class BGETorchEncoder(BaseEncoder):
         attention: str = "auto",  # "auto" | "plain" | "kernel"
         mesh=None,
     ):
+        one_process(mesh, "the encoder's data axis")
         self.device = mesh_device(mesh, device)
         if params is None:
             if model_name_or_path is None:

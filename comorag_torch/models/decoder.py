@@ -44,7 +44,7 @@ import torch.utils.checkpoint
 
 from comorag_torch.device import resolve_device
 from comorag_torch.ops import int4 as int4_ops
-from comorag_torch.parallel.mesh import Mesh, Sharded, merge_blocks, sharded_matmul, split_blocks
+from comorag_torch.parallel.mesh import Mesh, Sharded, merge_blocks, one_process, sharded_matmul, split_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,6 +232,7 @@ def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     device along the axis; a whole leaf lives once, on the mesh's first
     device (JAX's replicas compute the same values, so the port keeps
     none). A mesh without the axis splits nothing."""
+    one_process(mesh, "tensor-parallel generation (the model axis)")
     merge = mesh.device
     devices = tuple(mesh.axis_devices("model")) if "model" in mesh.shape else ()
 

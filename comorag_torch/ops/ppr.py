@@ -23,6 +23,14 @@ mesh's first device; JAX's ``psum``), which also holds the state. The
 one-device graph is the one-piece case of the same code, so ``PPRGraph``
 runs one path; ``make_sharded_ppr`` and ``make_sharded_ppr_seed_topk``
 are the JAX-shaped programs over arc pieces placed by the caller.
+
+Over a mesh that spans processes (``parallel/distributed.py``) each
+process holds the pieces of its own positions (None at the others) and
+the whole state, sums its pieces' flows and adds every process's with one
+``all_reduce`` SUM a step (JAX's ``psum``); the stop test reduces the
+step's error by MAX first, so every process leaves the loop at the same
+step. Only the torch iteration runs there: the native host solver is not
+used over such a mesh.
 """
 
 from __future__ import annotations
@@ -33,52 +41,61 @@ import numpy as np
 import torch
 
 from comorag_torch.ops.topk import exact_topk
-from comorag_torch.parallel.mesh import Mesh, mesh_device
+from comorag_torch.parallel import distributed
+from comorag_torch.parallel.mesh import Mesh, is_local_device, mesh_device
 
 # batch x arcs at which the device solve beats the native host solver, as
 # measured for the JAX package (ops/device_profile.py); the rule is kept
 # unchanged until the crossover is re-derived on the H100 (ROADMAP)
 CROSSOVER_BATCH_ARCS = 16_000_000
 
-Arcs = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]  # (src, dst, rate) per piece
+Arcs = Sequence[Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]]  # (src, dst, rate) per piece; None: another process's
 
 
 def split_arcs(src: np.ndarray, dst: np.ndarray, rate: np.ndarray,
-               devices: Sequence[torch.device]) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+               devices: Sequence[torch.device]) -> List[Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]]:
     """Dst-sorted arcs cut into ``len(devices)`` contiguous pieces of
     ceil(E / n) arcs (the last ones may be short or empty), each on its
-    device as (src int64, dst int64, rate fp32)."""
+    device as (src int64, dst int64, rate fp32); None where another process
+    owns the device."""
     per = -(-len(src) // len(devices))
     out = []
     for i, dev in enumerate(devices):
         sl = slice(i * per, (i + 1) * per)
         out.append((torch.as_tensor(src[sl], dtype=torch.int64, device=dev),
                     torch.as_tensor(dst[sl], dtype=torch.int64, device=dev),
-                    torch.as_tensor(rate[sl], dtype=torch.float32, device=dev)))
+                    torch.as_tensor(rate[sl], dtype=torch.float32, device=dev)) if is_local_device(dev) else None)
     return out
 
 
-def _flow(arcs: Arcs, x: torch.Tensor) -> torch.Tensor:
-    """P^T x: each piece's index_add_ on its device, partial flows summed
-    on x's device in piece order."""
+def _flow(arcs: Arcs, x: torch.Tensor, across_processes: bool = False) -> torch.Tensor:
+    """P^T x: each local piece's index_add_ on its device, partial flows
+    summed on x's device in piece order, then over the processes."""
     flowed = None
-    for src, dst, rate in arcs:
+    for piece in arcs:
+        if piece is None:
+            continue
+        src, dst, rate = piece
         xs = x.to(src.device)
         part = torch.zeros_like(xs).index_add_(0, dst, xs[src] * rate[:, None]).to(x.device)
         flowed = part if flowed is None else flowed + part
-    return flowed if flowed is not None else torch.zeros_like(x)
+    flowed = flowed if flowed is not None else torch.zeros_like(x)
+    return distributed.all_reduce(flowed, "sum") if across_processes else flowed
 
 
 def ppr_iterate(arcs: Arcs, is_dangling: torch.Tensor, resets_nb: torch.Tensor, alpha: float,
-                tol: float, max_iters: int) -> torch.Tensor:
+                tol: float, max_iters: int, across_processes: bool = False) -> torch.Tensor:
     """Power iteration over an [N, B] state (ppr.py:106 ``_ppr_iterate_nb``).
-    Columns that converge early keep iterating until the worst one does."""
+    Columns that converge early keep iterating until the worst one does.
+    ``across_processes``: the pieces are one process's of a process mesh."""
     x = resets_nb
     for _ in range(max_iters):
-        flowed = _flow(arcs, x)
+        flowed = _flow(arcs, x, across_processes)
         dangling_mass = (x * is_dangling[:, None]).sum(dim=0)
         new_x = (1.0 - alpha) * resets_nb + alpha * (flowed + dangling_mass[None, :] * resets_nb)
         err = (new_x - x).abs().sum(dim=0).max()
+        if across_processes:
+            err = distributed.all_reduce(err, "max")  # one stop decision for every process
         x = new_x
         if not bool(err > tol):
             break
@@ -93,7 +110,7 @@ def _normalize_columns(rt: torch.Tensor) -> torch.Tensor:
 
 def seed_ppr_topk(arcs: Arcs, is_dangling: torch.Tensor, seed_idx: torch.Tensor, seed_w: torch.Tensor,
                   prior_idx: torch.Tensor, prior_w: torch.Tensor, alpha: float, tol: float,
-                  max_iters: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  max_iters: int, k: int, across_processes: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Seeds -> PPR -> top-k of the prior nodes (ppr.py:394
     ``_seed_ppr_doc_ranks``): the [N, B] resets are built on the state's
     device from sparse seeds plus the dense prior; (scores [B, k],
@@ -104,7 +121,7 @@ def seed_ppr_topk(arcs: Arcs, is_dangling: torch.Tensor, seed_idx: torch.Tensor,
     rt = torch.zeros((is_dangling.shape[0], b), dtype=torch.float32, device=dev)
     rt.index_put_((seed_idx.T, cols), seed_w.T, accumulate=True)
     rt.index_add_(0, prior_idx, prior_w.T)
-    ranks = ppr_iterate(arcs, is_dangling, _normalize_columns(rt), alpha, tol, max_iters)
+    ranks = ppr_iterate(arcs, is_dangling, _normalize_columns(rt), alpha, tol, max_iters, across_processes)
     doc = ranks.index_select(0, prior_idx).T  # [B, n_sel]
     return exact_topk(doc, min(k, doc.shape[1]))
 
@@ -116,7 +133,8 @@ def make_sharded_ppr(mesh: Mesh, max_iters: int) -> Callable:
     def fn(arcs, is_dangling, resets, alpha, tol):
         dev = mesh.device
         r = resets.to(dev, torch.float32).T.contiguous()
-        return ppr_iterate(arcs, is_dangling.to(dev), r, float(alpha), float(tol), max_iters).T
+        return ppr_iterate(arcs, is_dangling.to(dev), r, float(alpha), float(tol), max_iters,
+                           mesh.process_count > 1).T
 
     return fn
 
@@ -130,14 +148,15 @@ def make_sharded_ppr_seed_topk(mesh: Mesh, max_iters: int, k: int) -> Callable:
     def fn(arcs, is_dangling, seed_idx, seed_w, prior_idx, prior_w, alpha, tol):
         dev = mesh.device
         return seed_ppr_topk(arcs, is_dangling.to(dev), seed_idx.to(dev), seed_w.to(dev), prior_idx.to(dev),
-                             prior_w.to(dev), float(alpha), float(tol), max_iters, k)
+                             prior_w.to(dev), float(alpha), float(tol), max_iters, k, mesh.process_count > 1)
 
     return fn
 
 
 class PPRGraph:
     """Graph for batched PPR queries, arcs resident on one device or, with
-    a mesh that has ``axis``, split over that axis's devices."""
+    a mesh that has ``axis``, split over that axis's devices (this
+    process's pieces alone over a mesh that spans processes)."""
 
     def __init__(
         self,
@@ -160,6 +179,7 @@ class PPRGraph:
         self.backend = backend
         self.mesh = mesh if (mesh is not None and axis in mesh.shape) else None
         self.device = mesh_device(self.mesh, device)
+        self._across = self.mesh is not None and self.mesh.process_count > 1
         self.max_iters = max_iters
         self.tol = tol
         self._native = None
@@ -185,8 +205,9 @@ class PPRGraph:
         """Whether a b-reset batch solves on the device (vs the native host
         solver) — the JAX package's rule (ppr.py:376), unchanged: under a
         mesh it compares the arcs of one shard with the crossover, and a
-        small batch still takes the float64 host solver."""
-        if self._native is None or self.backend == "device":
+        small batch still takes the float64 host solver. Over a mesh that
+        spans processes every batch solves on the devices."""
+        if self._native is None or self.backend == "device" or self._across:
             return True
         if self.backend == "native":
             return False
@@ -219,7 +240,7 @@ class PPRGraph:
             torch.as_tensor(np.asarray(seed_w, np.float32), device=dev),
             torch.as_tensor(np.asarray(prior_idx, np.int64), device=dev),
             torch.as_tensor(prior_w, dtype=torch.float32, device=dev), float(damping), self._tol(),
-            self.max_iters, k)
+            self.max_iters, k, self._across)
         return vals.cpu().numpy(), pos.cpu().numpy()
 
     def query(self, resets: np.ndarray, damping: float = 0.5) -> np.ndarray:
@@ -246,7 +267,8 @@ class PPRGraph:
             if out is not None:
                 return out
         r = torch.as_tensor(resets.T.copy(), device=self.device)
-        return ppr_iterate(self._arcs, self._dangling, r, float(damping), self._tol(), self.max_iters).T.cpu().numpy()
+        return ppr_iterate(self._arcs, self._dangling, r, float(damping), self._tol(), self.max_iters,
+                           self._across).T.cpu().numpy()
 
 
 def ppr_dense_reference(

@@ -17,12 +17,24 @@ single-device code once per shard on that shard's device
 (``parallel/mesh.py``) and merge on the mesh's first device. A shard holds
 only real rows (the JAX layout's padding rows are not stored), so a shard
 may be short or empty; an empty shard adds no candidates, no flag and no
-launch. Local ids get the shard's offset after local selection, and the
-merge concatenates in shard order and selects with ``exact_topk``, so
-ties go to the lowest global id as with ``lax.top_k`` over JAX's gather.
-The shards are already on the devices of the mesh axis they were placed
-along (``retrieval/index.py``), so the programs take no axis name; the
-mesh gives the merge device.
+launch. Local ids get the shard's offset after local selection: its
+position in the even split times the shard rows (JAX's ``axis_index *
+shard_rows``, ``parallel/mesh.shard_bounds``), and the merge concatenates
+in shard order and selects with ``exact_topk``, so ties go to the lowest
+global id as with ``lax.top_k`` over JAX's gather. The shards are already
+on the devices of the mesh axis they were placed along
+(``retrieval/index.py``), so the programs take no axis name; the mesh
+gives the merge device.
+
+Over a mesh that spans processes (``parallel/distributed.py``) a shard
+list holds None at the positions other processes own, and every process
+calls the program with the same queries: it runs its local shards,
+concatenates their candidates in position order and gathers the blocks
+of every process in process order (``all_gather_cols``), which is the
+one-process concatenation, so the merged ranking is the same bit for bit.
+The two-pass flag is each process's certificate of its own shards against
+the merged k-th value, reduced by MAX; the row minimum is reduced by MIN;
+full scores are gathered. Every process returns the same tensors.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from comorag_torch.parallel import distributed
 from comorag_torch.parallel.mesh import Mesh, on_device
 
 
@@ -231,32 +244,48 @@ def two_pass_topk(queries: torch.Tensor, scan_mat: torch.Tensor, scales: Optiona
 
 
 # ---------------------------------------------------------- corpus-sharded
-def _shard_calls(mesh: Mesh, queries: torch.Tensor, shards: Sequence[Sequence[Optional[torch.Tensor]]],
-                 local: Callable) -> List[tuple]:
-    """``local(q, offset, *tensors)`` on each non-empty shard, on its
+def _shard_calls(queries: torch.Tensor, shards: Sequence[Sequence[Optional[torch.Tensor]]], local: Callable,
+                 shard_rows: Optional[int]) -> List[tuple]:
+    """``local(q, offset, *tensors)`` on each local non-empty shard, on its
     device, with the queries copied there (shard_map's body). ``shards``
-    holds per-shard lists (rows first) in shard order; returns the local
-    results in shard order, still on the shard devices."""
+    holds per-shard lists (rows first) in shard order, None where another
+    process owns the shard; shard s starts at id ``s * shard_rows`` (when
+    None, the first shard's length: every shard but the trailing ones is
+    full). Returns the local results in shard order, still on the shard
+    devices."""
+    first = shards[0][0]
+    if shard_rows is None:
+        if first is None:
+            raise ValueError("a shard list whose first shard another process owns needs shard_rows")
+        shard_rows = int(first.shape[0])
     out = []
-    offset = 0
-    for tensors in zip(*shards):
+    for s, tensors in enumerate(zip(*shards)):
         rows = tensors[0]
-        n = int(rows.shape[0])
-        if n:
+        if rows is not None and rows.shape[0]:
             with on_device(rows.device):
-                out.append(local(queries.to(rows.device), offset, *tensors))
-        offset += n
+                out.append(local(queries.to(rows.device), s * shard_rows, *tensors))
     return out
+
+
+def _gather(mesh: Mesh, block: torch.Tensor) -> torch.Tensor:
+    """This process's columns, then every process's in process order."""
+    return distributed.all_gather_cols(block) if mesh.process_count > 1 else block
+
+
+def _reduce(mesh: Mesh, t: torch.Tensor, op: str) -> torch.Tensor:
+    return distributed.all_reduce(t, op) if mesh.process_count > 1 else t
 
 
 def _merge_topk(mesh: Mesh, parts: List[tuple], k: int, p: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The all_gather merge: shard candidates (scores, global ids)
     concatenated in shard order on the merge device, then the exact top-k."""
     dev = mesh.device
-    if not parts:
-        return torch.zeros((p, 0), device=dev), torch.zeros((p, 0), dtype=torch.int64, device=dev)
-    scores = torch.cat([s.to(dev) for s, i, *_ in parts], dim=1)
-    ids = torch.cat([i.to(dev) for s, i, *_ in parts], dim=1)
+    scores = torch.cat([s.to(dev) for s, i, *_ in parts], dim=1) if parts else torch.zeros((p, 0), device=dev)
+    ids = (torch.cat([i.to(dev) for s, i, *_ in parts], dim=1) if parts
+           else torch.zeros((p, 0), dtype=torch.int64, device=dev))
+    scores, ids = _gather(mesh, scores), _gather(mesh, ids)
+    if not scores.shape[1]:
+        return scores, ids
     vals, pos = exact_topk(scores, k)
     return vals, ids.gather(1, pos)
 
@@ -265,14 +294,16 @@ def _none_shards(shards, like) -> list:
     return list(shards) if shards is not None else [None] * len(like)
 
 
-def make_sharded_topk(mesh: Mesh, k: int, method: str = "xla", int8: bool = False) -> Callable:
+def make_sharded_topk(mesh: Mesh, k: int, method: str = "xla", int8: bool = False,
+                      shard_rows: Optional[int] = None) -> Callable:
     """Sharded exact top-k (topk.py:514): fn(queries [P, d] on the merge
     device, corpus shards, scales shards or None) -> (scores [P, k'], ids
     [P, k']) on the merge device. Each shard selects its local top
     min(k, shard rows): with ``method="pallas"`` through the streaming
     kernels (``ops/mips``: the kernel on a CUDA shard, its plain version on
     a CPU one; k above the kernels' bound raises there as on one device),
-    else from the full score block."""
+    else from the full score block. ``shard_rows``: the even split's rows
+    a shard (see ``_shard_calls``)."""
     from comorag_torch.ops import mips
 
     def local(q, offset, rows, scales):
@@ -284,13 +315,13 @@ def make_sharded_topk(mesh: Mesh, k: int, method: str = "xla", int8: bool = Fals
         return s, i + offset
 
     def fn(queries, corpus_shards, scales_shards=None):
-        parts = _shard_calls(mesh, queries, (corpus_shards, _none_shards(scales_shards, corpus_shards)), local)
+        parts = _shard_calls(queries, (corpus_shards, _none_shards(scales_shards, corpus_shards)), local, shard_rows)
         return _merge_topk(mesh, parts, k, queries.shape[0])
 
     return fn
 
 
-def make_sharded_two_pass_topk(mesh: Mesh, k: int, candidates: int) -> Callable:
+def make_sharded_two_pass_topk(mesh: Mesh, k: int, candidates: int, shard_rows: Optional[int] = None) -> Callable:
     """Sharded certified two-pass (topk.py:611): fn(queries, scan shards,
     scan-scales shards or None (bf16 scan), fp32 shards, bound) ->
     (scores, ids, flag [P] int32) on the merge device. Each shard scans
@@ -304,7 +335,7 @@ def make_sharded_two_pass_topk(mesh: Mesh, k: int, candidates: int) -> Callable:
 
     def fn(queries, scan_shards, scales_shards, f32_shards, bound):
         shards = (scan_shards, _none_shards(scales_shards, scan_shards), f32_shards)
-        parts = _shard_calls(mesh, queries, shards, local)
+        parts = _shard_calls(queries, shards, local, shard_rows)
         vals, ids = _merge_topk(mesh, parts, k, queries.shape[0])
         dev = mesh.device
         flag = torch.zeros(queries.shape[0], dtype=torch.int32, device=dev)
@@ -313,12 +344,12 @@ def make_sharded_two_pass_topk(mesh: Mesh, k: int, candidates: int) -> Callable:
             for _, _, boundary, qnorm, immune in parts:
                 flag = torch.maximum(flag, exactness_flag(boundary.to(dev), kth, qnorm.to(dev), bound,
                                                           immune.to(dev)))
-        return vals, ids, flag
+        return vals, ids, _reduce(mesh, flag, "max")
 
     return fn
 
 
-def make_sharded_topk_min(mesh: Mesh, k: int, int8: bool = False) -> Callable:
+def make_sharded_topk_min(mesh: Mesh, k: int, int8: bool = False, shard_rows: Optional[int] = None) -> Callable:
     """Sharded top-k plus row minimum (topk.py:690): fn(queries, corpus
     shards, scales shards or None) -> (scores, ids, row_min [P]) on the
     merge device. The row minimum is the min over shards; an empty shard
@@ -330,12 +361,12 @@ def make_sharded_topk_min(mesh: Mesh, k: int, int8: bool = False) -> Callable:
         return vals, idx + offset, s.amin(dim=1)
 
     def fn(queries, corpus_shards, scales_shards=None):
-        parts = _shard_calls(mesh, queries, (corpus_shards, _none_shards(scales_shards, corpus_shards)), local)
+        parts = _shard_calls(queries, (corpus_shards, _none_shards(scales_shards, corpus_shards)), local, shard_rows)
         vals, ids = _merge_topk(mesh, parts, k, queries.shape[0])
         row_min = torch.full((queries.shape[0],), float("inf"), device=mesh.device)
         for _, _, m in parts:
             row_min = torch.minimum(row_min, m.to(mesh.device))
-        return vals, ids, row_min
+        return vals, ids, _reduce(mesh, row_min, "min")
 
     return fn
 
@@ -349,9 +380,10 @@ def make_sharded_scores(mesh: Mesh, int8: bool = False) -> Callable:
         return (int8_scores(q, rows, scales) if int8 else dense_scores(q, rows),)
 
     def fn(queries, corpus_shards, scales_shards=None):
-        parts = _shard_calls(mesh, queries, (corpus_shards, _none_shards(scales_shards, corpus_shards)), local)
-        if not parts:
-            return torch.zeros((queries.shape[0], 0), device=mesh.device)
-        return torch.cat([s.to(mesh.device) for s, in parts], dim=1)
+        shards = (corpus_shards, _none_shards(scales_shards, corpus_shards))
+        parts = _shard_calls(queries, shards, local, 0)  # full blocks: no id offset
+        block = (torch.cat([s.to(mesh.device) for s, in parts], dim=1) if parts
+                 else torch.zeros((queries.shape[0], 0), device=mesh.device))
+        return _gather(mesh, block)
 
     return fn

@@ -11,7 +11,8 @@ first device (the merge device). On a multi-card mesh each shard's work is
 queued on its own device's current stream, so the shards overlap without
 threads, and the cross-device copies order the merge after them. A
 process group would turn every retrieval call into a collective that all
-ranks must enter in step, which the single meta loop cannot do.
+ranks must enter in step: the corpus programs do so over a mesh that spans
+processes (below); the meta loop does not.
 
 Axes (as in the JAX package):
 
@@ -35,6 +36,21 @@ Axes (as in the JAX package):
 A device list may repeat a device: ``[torch.device("cpu")] * 8`` or
 ``[torch.device("cuda", 0)] * 4`` build a mesh of 8 or 4 positions on one
 device, the counterpart of ``--xla_force_host_platform_device_count``.
+
+Across processes (``parallel/distributed.py``, JAX's multi-controller
+mesh under ``jax.distributed``): after ``distributed.initialize``,
+``build_mesh`` takes this process's local devices and exchanges them once
+with every process; the mesh's positions are every process's local
+devices, process-major. A position another process owns holds a
+``RemoteDevice`` placeholder that no code places a tensor on
+(``process_of``, ``is_local``), and ``Mesh.device`` is this process's
+first local position. Every process then runs the same calls in the same
+order: the corpus programs (``ops/topk.make_sharded_*``,
+``ops/ppr.make_sharded_ppr*``, ``MipsIndex(mesh=)``, ``PPRGraph(mesh=)``)
+compute on their local shards and meet in the collectives of
+``distributed``, and every process returns the same result. The ``data``
+and ``model`` axes, and so the encoder, the decoder, training and
+``ComoRAG``, run on one process's meshes only (``one_process``).
 """
 
 from __future__ import annotations
@@ -47,33 +63,71 @@ import numpy as np
 import torch
 
 from comorag_torch.device import resolve_device
+from comorag_torch.parallel import distributed
 
 DeviceLike = Union[str, torch.device]
 
 
-class Mesh:
-    """A named grid of ``torch.device``s: ``devices`` is a numpy object
-    array shaped by the axis sizes, ``shape`` maps axis name -> size."""
+@dataclasses.dataclass(frozen=True)
+class RemoteDevice:
+    """A mesh position owned by another process: its process index and its
+    device's name there. It is no ``torch.device``, so no tensor can be
+    placed on it."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    process: int
+    name: str
+
+
+def is_local_device(dev) -> bool:
+    """Whether a mesh position's device belongs to this process."""
+    return not isinstance(dev, RemoteDevice)
+
+
+class Mesh:
+    """A named grid of devices: ``devices`` is a numpy object array shaped
+    by the axis sizes, ``shape`` maps axis name -> size. ``processes``
+    (same shape; zeros when None) gives the process that owns each
+    position; this process (``process_index``) holds ``torch.device``s at
+    its own positions and ``RemoteDevice``s at the others."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str], processes: Optional[np.ndarray] = None,
+                 process_index: int = 0):
         if devices.ndim != len(axis_names):
             raise ValueError(f"{devices.ndim}-d device grid for axes {tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.processes = np.zeros(devices.shape, np.int64) if processes is None else processes
+        self.process_index = process_index
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
     @property
+    def process_count(self) -> int:
+        """The number of processes that own positions of this mesh."""
+        return len(np.unique(self.processes))
+
+    @property
     def device(self) -> torch.device:
-        """The merge device: the mesh's first device."""
-        return self.devices.flat[0]
+        """The merge device: this process's first position's device."""
+        return next(d for d in self.devices.flat if is_local_device(d))
+
+    def _index(self, index: Dict[str, int]) -> tuple:
+        return tuple(index.get(name, 0) for name in self.axis_names)
 
     def at(self, **index: int) -> torch.device:
         """The device at ``index`` (axis name -> position), at position 0
         of every axis not named (or not in the mesh)."""
-        return self.devices[tuple(index.get(name, 0) for name in self.axis_names)]
+        return self.devices[self._index(index)]
+
+    def process_of(self, **index: int) -> int:
+        """The process that owns the position at ``index`` (as ``at``)."""
+        return int(self.processes[self._index(index)])
+
+    def is_local(self, **index: int) -> bool:
+        """Whether this process owns the position at ``index`` (as ``at``)."""
+        return self.process_of(**index) == self.process_index
 
     def axis_devices(self, axis: str) -> List[torch.device]:
         """The devices along ``axis`` at index 0 of every other axis (the
@@ -84,7 +138,8 @@ class Mesh:
         return list(self.devices[at])
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, first device {self.device})"
+        procs = f", {self.process_count} processes" if self.process_count > 1 else ""
+        return f"Mesh({self.shape}, first device {self.device}{procs})"
 
 
 def build_mesh(shape: Optional[Dict[str, int]] = None,
@@ -94,6 +149,9 @@ def build_mesh(shape: Optional[Dict[str, int]] = None,
     ``[torch.device("cpu")] * 8``, to build one on the CPU).
 
     ``shape`` maps axis name -> size, e.g. ``{"data": 2, "corpus": 4}``.
+    After ``distributed.initialize`` in a group of several processes,
+    ``devices`` are this process's local devices and the mesh spans every
+    process's (``process_mesh``).
     """
     if devices is None:
         if not torch.cuda.is_available():
@@ -102,8 +160,14 @@ def build_mesh(shape: Optional[Dict[str, int]] = None,
                                "(device='cpu' for ComoRAG) to build a mesh on the CPU")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [resolve_device(d) for d in devices]
+    if distributed.process_count() > 1:
+        return process_mesh(shape, devices)
     if len({d.type for d in devices}) > 1:
         raise ValueError(f"a mesh's devices must be of one type, got {sorted({str(d) for d in devices})}")
+    return _grid(shape, devices, None, 0)
+
+
+def _grid(shape: Optional[Dict[str, int]], devices: list, processes: Optional[list], me: int) -> Mesh:
     if shape is None:
         shape = {"corpus": len(devices)}
     sizes = list(shape.values())
@@ -112,7 +176,40 @@ def build_mesh(shape: Optional[Dict[str, int]] = None,
         raise ValueError(f"mesh shape {shape} needs {total} devices, have {len(devices)}")
     grid = np.empty(len(devices), dtype=object)
     grid[:] = devices
-    return Mesh(grid.reshape(sizes), tuple(shape.keys()))
+    procs = None if processes is None else np.asarray(processes, np.int64).reshape(sizes)
+    return Mesh(grid.reshape(sizes), tuple(shape.keys()), procs, me)
+
+
+def process_mesh(shape: Optional[Dict[str, int]], local: Sequence[torch.device]) -> Mesh:
+    """A mesh over every process of the group: each process passes its
+    local devices (at least one), the lists are exchanged once, and the
+    positions are every process's devices, process-major (rank 0's first).
+    Under NCCL the merge device (this process's first) must be the device
+    passed to ``distributed.initialize``: its collectives run there."""
+    names = distributed.all_gather_object([str(d) for d in local])
+    me = distributed.process_index()
+    if not all(names):
+        raise ValueError(f"every process needs a local device: {names}")
+    kinds = {torch.device(n).type for per in names for n in per}
+    if len(kinds) > 1:
+        raise ValueError(f"a mesh's devices must be of one type, got {sorted(kinds)} across processes")
+    home = distributed.home_device()
+    if distributed.backend() == "nccl" and local[0] != home:
+        raise ValueError(f"nccl: this process's first mesh device {local[0]} is not the device passed to "
+                         f"initialize ({home}), where its collectives run")
+    devices, processes = [], []
+    for p, per in enumerate(names):
+        devices += list(local) if p == me else [RemoteDevice(p, n) for n in per]
+        processes += [p] * len(per)
+    return _grid(shape, devices, processes, me)
+
+
+def one_process(mesh: Optional[Mesh], what: str) -> None:
+    """Refuse a mesh that spans processes where ``what`` runs on one
+    process's meshes only."""
+    if mesh is not None and mesh.process_count > 1:
+        raise NotImplementedError(f"{what} over a mesh of {mesh.process_count} processes is not ported: across "
+                                  "processes only the corpus programs run (MipsIndex, PPRGraph, ops/topk, ops/ppr)")
 
 
 def parse_mesh_shape(spec: str) -> Dict[str, int]:
@@ -252,6 +349,7 @@ def split_batch(batch: Dict[str, torch.Tensor], mesh: Mesh) -> List[Dict[str, to
     other axis). A mesh without the axis gives one part, the whole batch on
     the first device (JAX's replicated batch); a batch the axis does not
     divide raises."""
+    one_process(mesh, "a batch split over the data axis")
     dp = mesh.shape.get("data", 1)
     rows = {int(t.shape[0]) for t in batch.values()}
     if len(rows) != 1:

@@ -33,6 +33,15 @@ where the handles start their host copies. Under a mesh the index's
 device arrays (``corpus``, ``scales``, ``scan_corpus``, ``scan_scales``)
 are lists of per-shard tensors in shard order. An index that does not
 shard lives on the mesh's first device.
+
+Over a mesh that spans processes (``parallel/distributed.py``) every
+process builds the index from the same host matrix and places only the
+shards of its own positions (None at the others), as
+``jax.device_put(host, NamedSharding(...))`` keeps each process's
+addressable shards; every process must then make the same calls in the
+same order, and gets the same results (the programs' collectives meet
+inside each call). A two-pass flag is reduced over the processes, so a
+rescue and the adaptive pool margin are decided alike everywhere.
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from comorag_torch.ops.topk import (
     topk_min_from_scores,
     two_pass_topk,
 )
-from comorag_torch.parallel.mesh import Mesh, mesh_device, shard_bounds
+from comorag_torch.parallel.mesh import Mesh, is_local_device, mesh_device, shard_bounds
 from comorag_torch.utils import trace
 from comorag_torch.utils.logging import get_logger
 
@@ -326,12 +335,13 @@ class MipsIndex:
 
     def _place(self, rows) -> Union[torch.Tensor, List[torch.Tensor]]:
         """A host array on this index's device, or under a mesh its row
-        shards, each on its device of the mesh axis (contiguous copies)."""
+        shards, each on its device of the mesh axis (contiguous copies;
+        None at a position another process owns)."""
         rows = torch.as_tensor(rows)
         if self.mesh is None:
             return rows.to(self.device)
         bounds = shard_bounds(self.n, self.n_shards, self.shard_rows)
-        return [rows[r.start : r.stop].to(dev).contiguous()
+        return [rows[r.start : r.stop].to(dev).contiguous() if is_local_device(dev) else None
                 for r, dev in zip(bounds, self.mesh.axis_devices(self.axis))]
 
     # ------------------------------------------------------------ scoring
@@ -381,14 +391,14 @@ class MipsIndex:
                 self._note_rescue_rate(frac, _margin)
 
             if self.mesh is not None:
-                vals, idx, flag = make_sharded_two_pass_topk(self.mesh, k_pad, c)(
+                vals, idx, flag = make_sharded_two_pass_topk(self.mesh, k_pad, c, self.shard_rows)(
                     q, self.scan_corpus, self.scan_scales, self.corpus, self.scan_bound)
             else:
                 vals, idx, flag = two_pass_topk(q, self.scan_corpus, self.scan_scales, self.corpus,
                                                 self.scan_bound, k_pad, c)
             return TwoPassHandle(vals, idx, flag, k_eff, rescue, on_rate)
         if self.mesh is not None:
-            fn = make_sharded_topk(self.mesh, k_eff, method=self.method, int8=self.int8)
+            fn = make_sharded_topk(self.mesh, k_eff, method=self.method, int8=self.int8, shard_rows=self.shard_rows)
             return TopkHandle(*fn(q, self.corpus, self.scales))
         if self.method == "pallas":
             if self.int8:
@@ -482,7 +492,7 @@ class MipsIndex:
         if self.n == 0:
             return TopkMinHandle(*_no_hits(p), torch.zeros(p))
         if self.mesh is not None:
-            fn = make_sharded_topk_min(self.mesh, min(k, self.n), int8=self.int8)
+            fn = make_sharded_topk_min(self.mesh, min(k, self.n), int8=self.int8, shard_rows=self.shard_rows)
             return TopkMinHandle(*fn(q, self.corpus, self.scales))
         return TopkMinHandle(*topk_min_from_scores(self._scores(q), min(k, self.n)))
 

@@ -362,6 +362,93 @@ def test_dryrun_multichip_over_four_distinct_cards(cuda_device):
         assert not any(run["train_launches"].values())
 
 
+def _two_processes(tmp_path, mode: str) -> list:
+    """tests/_torch_dcn_worker.py in two processes (``mode``: its card
+    modes): their logs, after both ended within 240 s (else both are killed
+    and the test fails)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "_torch_dcn_worker.py"), str(port), str(pid),
+                               str(tmp_path), mode], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for pid in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail(f"the two-process {mode} job timed out")
+    for pid, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"process {pid} failed:\n{log[-4000:]}"
+    return logs
+
+
+def _one_process_on_one_card() -> dict:
+    """The worker's ``run_card`` on one process's mesh of 8 positions on
+    cuda:0; the top-k kernels are built here, so the two processes only
+    load them."""
+    import importlib.util
+    import os
+
+    from comorag_torch.ops import build
+    from comorag_torch.parallel.mesh import build_mesh
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_dcn_worker.py")
+    spec = importlib.util.spec_from_file_location("_torch_dcn_worker", path)
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    build.load_all(["mips_topk"])
+    return worker.run_card(build_mesh({"corpus": 8}, [torch.device("cuda", 0)] * 8))
+
+
+def _held_against_one_process(tmp_path, ref):
+    """Both processes' results equal each other and one process's mesh
+    (ids and scores bit for bit, PPR ranks within 1e-6); each process
+    launched each top-k kernel once per local shard: 4 a call."""
+    got = [dict(np.load(tmp_path / f"rank{pid}.npz")) for pid in (0, 1)]
+    for key, value in ref.items():
+        for r in got:
+            if key == "ppr/ranks":
+                assert np.abs(r[key] - value).max() < 1e-6
+            elif key.endswith("/launches"):
+                assert int(r[key]) == (4 if key.startswith("pallas") else 0) and int(value) == 2 * int(r[key])
+            else:
+                np.testing.assert_array_equal(r[key], value, err_msg=key)
+    return got
+
+
+def test_process_mesh_gloo_on_one_card_matches_one_process(cuda_device, tmp_path):
+    """Two processes on cuda:0 under gloo, 4 positions each ({"corpus": 8});
+    the kernel routes launch on each process's shards alone. nccl asked for
+    with both ranks on cuda:0 is refused in both processes, never swapped
+    for gloo."""
+    ref = _one_process_on_one_card()
+    _two_processes(tmp_path, "gloo-cuda")
+    got = _held_against_one_process(tmp_path, ref)
+    assert all(str(r["mesh/backend"]) == "gloo" for r in got)
+    logs = _two_processes(tmp_path, "nccl-one-card")
+    assert all(f"TORCH_DCN_REFUSED {pid}" in log and "same card" in log for pid, log in enumerate(logs))
+
+
+def test_process_mesh_nccl_over_distinct_cards_matches_one_card(cuda_device, tmp_path):
+    """Two processes under nccl, each on its own half of the cards (2 each
+    on four cards, 1 each on two), 4 positions a process, held against one
+    card's mesh of 8 positions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards (one NCCL rank a card)")
+    ref = _one_process_on_one_card()
+    _two_processes(tmp_path, "nccl")
+    got = _held_against_one_process(tmp_path, ref)
+    assert all(str(r["mesh/backend"]) == "nccl" for r in got)
+
+
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     from comorag_torch.ops import attention, ffn
 

@@ -3,6 +3,9 @@ run on the card unless the caller asks for the CPU: without a card, a call
 that names no device raises and says how to ask for the CPU, and
 ``device="cpu"`` builds (or computes on the CPU)."""
 
+import socket
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -161,12 +164,29 @@ def _offline_llm_over_a_mesh(tmp_path, device=None):
     return engine
 
 
+def _process_group(tmp_path, device=None):
+    """``distributed.initialize`` (a group of one process on a free port):
+    its home device, the backend's default for it, then the group is shut."""
+    from comorag_torch.parallel import distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, device=device, timeout_s=30)
+    try:
+        assert distributed.backend() == ("gloo" if distributed.home_device().type == "cpu" else "nccl")
+        return types.SimpleNamespace(device=distributed.home_device())
+    finally:
+        distributed.shutdown()
+
+
 ENTRY_POINTS = {
     "BGETorchEncoder": _bge_encoder,
     "TorchOfflineLLM(mesh=)": _offline_llm_over_a_mesh,
     "MipsIndex": _mips_index,
     "RetrievalEngine": _retrieval_engine,
     "PPRGraph": _ppr_graph,
+    "distributed.initialize": _process_group,
     "SemanticTree": _semantic_tree,
     "load_hf_decoder_checkpoint": _hf_checkpoint,
     "fit_gmm_bic": _fit_gmm_bic,
@@ -250,3 +270,24 @@ def test_mesh_shape_over_too_few_cards_raises(monkeypatch, tmp_path):
     config = ComoConfig(mesh_shape={"corpus": 4}, embedding_model_name="hash", save_dir=str(tmp_path))
     with pytest.raises(ValueError, match=r"mesh shape \{'corpus': 4\} needs 4 devices, have 1"):
         ComoRAG(config, device="cuda")
+
+
+def test_process_mesh_without_a_card_raises(monkeypatch):
+    """After ``distributed.initialize`` (two processes, simulated here),
+    ``build_mesh(devices=None)`` means this process's every card: without
+    one it raises and names the CPU; CPU positions build the process mesh,
+    the other process's positions held by placeholders."""
+    from comorag_torch.parallel import distributed
+    from comorag_torch.parallel.mesh import RemoteDevice, build_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(distributed, "process_count", lambda: 2)
+    monkeypatch.setattr(distributed, "process_index", lambda: 1)
+    monkeypatch.setattr(distributed, "backend", lambda: "gloo")
+    monkeypatch.setattr(distributed, "all_gather_object", lambda obj: [["cpu", "cpu"], obj])
+    with pytest.raises(RuntimeError, match=r"devices=\[torch.device\('cpu'\)\]"):
+        build_mesh({"corpus": 4})
+    mesh = build_mesh({"corpus": 4}, [torch.device("cpu")] * 2)
+    assert mesh.process_count == 2 and mesh.process_index == 1 and mesh.device == torch.device("cpu")
+    assert [mesh.is_local(corpus=i) for i in range(4)] == [False, False, True, True]
+    assert mesh.axis_devices("corpus")[:2] == [RemoteDevice(0, "cpu")] * 2

@@ -44,7 +44,8 @@ SCRIPT = textwrap.dedent(
         importlib.import_module(name)
     new = {"comorag_torch.models.train", "comorag_torch.models.train_lm", "comorag_torch.cli.train",
            "comorag_torch.cli.chunk", "comorag_torch.eval", "comorag_torch.eval.qa_eval",
-           "comorag_torch.parallel", "comorag_torch.parallel.mesh", "comorag_torch.graft_entry"}
+           "comorag_torch.parallel", "comorag_torch.parallel.mesh", "comorag_torch.parallel.distributed",
+           "comorag_torch.graft_entry"}
     assert new <= set(modules), sorted(new - set(modules))
 
     from comorag_torch.cli import run
