@@ -218,6 +218,23 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      phase 8's size (13b's node and arc counts) within 1e-6 of one
      process's 8-position mesh. A process that fails, or does not end in
      300 s, fails the run (the other is killed).
+ 19. the meta loop across processes (``ComoRAG(mesh=)``, the questions in
+     lockstep; run right after phase 13, while phase 8's stores exist):
+     two spawned processes as phase 18's, each in a directory of its own,
+     each drawing phase 5's bert-base from seed 0 on the CPU. 19a indexes
+     phase 5's corpus and answers its 16 questions over {"data": 2,
+     "corpus": 4} (each process encodes its data index's sub-batches on
+     both encoder kernels; the corpus shards all sit in process 0): index
+     wall, questions/s, launches and ``dist.*`` span seconds a process;
+     stores of phase 5's sizes, the veridical top-k against an unsharded
+     index (``same_ranking``) and the query embeddings at cosine >= 0.999
+     against the unsharded encoder. 19b runs phase 8's meta loop over
+     {"corpus": 8} on a copy of phase 8's stores a process (no indexing;
+     topk_method="pallas", fp32 rows then int8 rows): launches by route
+     (``tf32`` / ``mma`` > 0), questions/s beside phases 8 and 13c, the
+     veridical top-k against an unsharded index. In both, 16 non-empty
+     answers equal across the processes. A process that fails, or does
+     not end in 300 s, fails the run (the other is killed).
 Then it checks that no module of jax, optax or of the JAX package
 (``comorag_tpu``, ``__graft_entry__``) was loaded, and
 prints the kernels JSON line (every kernel with its launches on the main
@@ -225,8 +242,9 @@ path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms,
 ``mesh_training_step_launches`` and ``tiny_recipe_step_launches``, 0,
 ``trained_tiny_launches``, phase 16b's, and int4_matmul's
 ``mesh_dryrun_launches`` and ``harness_dryrun_launches``, phases 15d and
-17b, and the top-k kernels' ``process_mesh_launches``, phase 18's a round
-in each process), the
+17b, the top-k kernels' ``process_mesh_launches``, phase 18's a round
+in each process, and ``process_meta_loop_launches``, each process's in
+19a for the encoder kernels and in 19b for the top-k kernels), the
 nvidia-smi line, and the result line.
 """
 
@@ -238,6 +256,7 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -2034,16 +2053,16 @@ def process_mesh_child(rank: int, port: int, out_dir: str, spec: dict) -> None:
         distributed.shutdown()
 
 
-def run_process_mesh(spec: dict, out_dir: str) -> tuple:
-    """``process_mesh_child`` in ``DCN_PROCESSES`` spawned processes; raises
-    (after killing any still running) unless both exit 0 within
-    ``DCN_TIMEOUT_S``.
+def run_process_mesh(spec: dict, out_dir: str, target=process_mesh_child, phase: str = "phase 18") -> tuple:
+    """``target`` (``process_mesh_child`` unless named) in ``DCN_PROCESSES``
+    spawned processes; raises (after killing any still running) unless
+    both exit 0 within ``DCN_TIMEOUT_S``.
     Returns each process's (arrays, numbers) and the wall seconds."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     ctx = torch.multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=process_mesh_child, args=(rank, port, out_dir, spec)) for rank in range(DCN_PROCESSES)]
+    procs = [ctx.Process(target=target, args=(rank, port, out_dir, spec)) for rank in range(DCN_PROCESSES)]
     t0 = time.perf_counter()
     for proc in procs:
         proc.start()
@@ -2058,7 +2077,7 @@ def run_process_mesh(spec: dict, out_dir: str) -> tuple:
                 proc.join()
     codes = [proc.exitcode for proc in procs]
     if codes != [0] * DCN_PROCESSES:
-        raise AssertionError(f"phase 18: the processes exited with {codes} (None: killed at {DCN_TIMEOUT_S} s)")
+        raise AssertionError(f"{phase}: the processes exited with {codes} (None: killed at {DCN_TIMEOUT_S} s)")
     results = []
     for rank in range(DCN_PROCESSES):
         with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
@@ -2124,6 +2143,171 @@ def phase_process_mesh(device, serving: dict, sharded: dict, smi: str) -> dict:
     print(f"phase 18 corpus mesh across {DCN_PROCESSES} processes (gloo) x {DCN_POSITIONS} positions on one card "
           f"({smi}), 100000x1024, 100 batches x 16 queries, k=50, best of 4 rounds, each process's qps beside "
           f"phase 13a's: {json.dumps(out)}", flush=True)
+    return out
+
+
+# ----------------------------------------------------------------- phase 19
+def dist_spans() -> dict:
+    """The ``dist.*`` span seconds since the last ``trace.reset()``."""
+    return {k: v["total_s"] for k, v in trace.summary()["spans"].items() if k.startswith("dist.")}
+
+
+def process_slice(device, model, workdir: str) -> tuple:
+    """19a, in one process of the group: phase 5's slice (index 2,000
+    chunks, answer 16 questions) over {"data": 2, "corpus": 4} with phase
+    5's encoder on this process's data index alone; then the veridical
+    top-k of the questions against an unsharded index over the same
+    matrix, and the query embeddings against the unsharded encoder."""
+    mesh = build_mesh({"data": 2, "corpus": SHARDS}, [device] * DCN_POSITIONS)
+    docs, queries = make_corpus(N_CHUNKS, N_QUESTIONS)
+    encoder = bert_base_encoder(device, model, mesh)
+    rag = ComoRAG(slice_config(workdir), encoder=encoder, mesh=mesh)
+    out = run_slice(rag, docs, queries, (attention.LAUNCHES, ffn.LAUNCHES))
+    out["dist_spans_s"] = dist_spans()
+    engine = rag.engine
+    out["local_ver_shards"] = [c is not None for c in engine.ver_index.corpus] if engine.ver_index.mesh else None
+    q = engine.encode_queries(queries)["passage"]
+    k = rag.config.qa_ver_top_k
+    (s, i), (ref_s, ref_i) = engine.ver_index.topk(q, k), MipsIndex(rag.ver_store.matrix, device=device).topk(q, k)
+    out["veridical_tie_swaps"] = same_ranking(s, i, ref_s, ref_i, "19a veridical top-k vs unsharded")
+    a, b = encoder.encode_device(queries), bert_base_encoder(device, model).encode_device(queries)
+    out["min_query_cosine"] = float(torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=1).min())
+    if out["min_query_cosine"] < 0.999:
+        raise AssertionError(f"19a query embeddings at cosine {out['min_query_cosine']} against the unsharded encoder")
+    return out, {"a/ver_ids": i, "a/ver_scores": s}
+
+
+def process_meta_loop(device, model, workdir: str, questions) -> tuple:
+    """19b, in one process of the group: phase 8's meta loop over
+    {"corpus": 8} (this process's 4 positions) on a copy of phase 8's
+    stores (no indexing), fp32 rows then int8 rows, topk_method="pallas";
+    each run's launches by route, and its veridical top-k against an
+    unsharded index over the same matrix."""
+    mesh = build_mesh({"corpus": DCN_PROCESSES * DCN_POSITIONS}, [device] * DCN_POSITIONS)
+    encoder = bert_base_encoder(device, model, mesh)
+    counters = (attention.LAUNCHES, ffn.LAUNCHES, mips.LAUNCHES, mips.INT8_LAUNCHES, *mips.ROUTE_LAUNCHES.values())
+    runs, arrays = {}, {}
+    for tag, retrieval in (("fp32", dict(topk_method="pallas")),
+                           ("int8", dict(topk_method="pallas", embedding_dtype="int8"))):
+        rag = ComoRAG(slice_config(workdir, **retrieval), encoder=encoder, mesh=mesh)
+        trace.reset()
+        for counter in counters:
+            counter.reset()
+        solutions, qa_s = timed(lambda: rag.try_answer(questions))
+        launches = {c.name: c.value for c in counters}
+        engine = rag.engine
+        q = engine.encode_queries(questions)["passage"]
+        k = rag.config.qa_ver_top_k
+        single = MipsIndex(rag.ver_store.matrix, device=device, method="pallas", **(
+            {"dtype": "int8"} if tag == "int8" else {}))
+        (s, i), (ref_s, ref_i) = engine.ver_index.topk(q, k), single.topk(q, k)
+        runs[tag] = {"qa_s": qa_s, "questions_per_s": len(questions) / qa_s, "launches": launches,
+                     "dist_spans_s": dist_spans(), "answers": [x.answer for x in solutions],
+                     "ver_shards": engine.ver_index.n_shards,
+                     "local_ver_shard_rows": [None if c is None else len(c) for c in engine.ver_index.corpus],
+                     "kernel_route_layers": {name: ix.n for name, ix in (
+                         ("veridical", engine.ver_index), ("semantic", engine.sem_index),
+                         ("episodic", engine.epi_index)) if ix is not None and ix.method == "pallas"},
+                     "veridical_tie_swaps": same_ranking(s, i, ref_s, ref_i, f"19b {tag} veridical top-k vs unsharded")}
+        arrays[f"b/{tag}/ver_ids"] = i
+    return runs, arrays
+
+
+def process_meta_child(rank: int, port: int, out_dir: str, spec: dict) -> None:
+    """One process of phase 19 (spawned as phase 18's): joins the gloo
+    group, draws phase 5's bert-base from seed 0 on the CPU (so every
+    process holds the same weights), runs 19a in its own directory and
+    19b on its own copy of phase 8's stores, and writes its answers,
+    rankings and numbers to ``out_dir``/rank<rank>.npz and .json."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // DCN_PROCESSES))
+    device = torch.device(spec["device"])
+    # the processes' host stages (OpenIE, timeline, summaries) may drift
+    # apart between two collectives by more than the default 60 s
+    distributed.initialize(f"127.0.0.1:{port}", DCN_PROCESSES, rank, backend="gloo", device=device, timeout_s=120)
+    try:
+        model = bert_base("cpu")
+        work = os.path.join(spec["workdir"], f"rank{rank}")
+        stats, arrays = {}, {}
+        stats["a"], more = process_slice(device, model, os.path.join(work, "a"))
+        arrays.update(more)
+        stats["b"], more = process_meta_loop(device, model, os.path.join(work, "b"), spec["questions"])
+        arrays.update(more)
+        stats["foreign_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "optax", "comorag_tpu", "__graft_entry__"))
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(stats, f)
+    finally:
+        distributed.shutdown()
+
+
+def phase_process_meta_loop(device, slice_out: dict, meta: dict, sharded: dict, meta_dir: str, smi: str) -> dict:
+    """Phase 19: the meta loop across two processes on the one card
+    (``ComoRAG(mesh=)`` in lockstep, gloo, 4 positions a process): 19a
+    phase 5's slice over {"data": 2, "corpus": 4} (both encoder kernels on
+    each process's data sub-batches; the corpus shards all in process 0),
+    19b phase 8's meta loop over {"corpus": 8} on copies of phase 8's
+    stores (the top-k kernels on each process's shards). In both processes:
+    16 non-empty answers, equal across the processes; 19a's stores of phase
+    5's sizes, its rankings against an unsharded index and its query
+    embeddings against the unsharded encoder (checked in each process);
+    19b's launches on ``tf32`` (fp32 rows) and ``mma`` (int8 rows)."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        spec = {"device": str(device), "workdir": out_dir, "questions": meta["questions"]}
+        for rank in range(DCN_PROCESSES):  # one copy of phase 8's stores a process
+            shutil.copytree(os.path.join(meta_dir, "outputs"), os.path.join(out_dir, f"rank{rank}", "b", "outputs"))
+        results, wall_s = run_process_mesh(spec, out_dir, process_meta_child, "phase 19")
+    (arrays0, stats0), (arrays1, stats1) = results
+    for rank, (_, stats) in enumerate(results):
+        if stats["foreign_modules"]:
+            raise AssertionError(f"phase 19 process {rank} loaded jax or the JAX package: {stats['foreign_modules'][:5]}")
+        a = stats["a"]
+        if a["stores"] != slice_out["stores"]:
+            raise AssertionError(f"19a process {rank}: stores {a['stores']}, phase 5's {slice_out['stores']}")
+        if min(a["launches"].values()) <= 0:
+            raise AssertionError(f"19a process {rank}: an encoder kernel was not launched: {a['launches']}")
+        for tag, counter, route in (("fp32", mips.LAUNCHES, "tf32"), ("int8", mips.INT8_LAUNCHES, "mma")):
+            got = stats["b"][tag]["launches"]
+            if got[counter.name] <= 0 or got[mips.ROUTE_LAUNCHES[route].name] <= 0:
+                raise AssertionError(f"19b {tag} process {rank}: {counter.name} not launched on {route}: {got}")
+            if len(stats["b"][tag]["answers"]) != len(meta["questions"]) or not all(stats["b"][tag]["answers"]):
+                raise AssertionError(f"19b {tag} process {rank}: answers missing")
+    if stats0["a"]["answers"] != stats1["a"]["answers"] or not np.array_equal(arrays0["a/ver_ids"], arrays1["a/ver_ids"]):
+        raise AssertionError("19a: the two processes returned other answers or rankings")
+    for tag in ("fp32", "int8"):
+        if (stats0["b"][tag]["answers"] != stats1["b"][tag]["answers"]
+                or not np.array_equal(arrays0[f"b/{tag}/ver_ids"], arrays1[f"b/{tag}/ver_ids"])):
+            raise AssertionError(f"19b {tag}: the two processes returned other answers or rankings")
+    phase_13c = sharded["meta_loop"]
+    out = {"wall_s": wall_s,
+           "a": {"index_s": [st["a"]["index_s"] for _, st in results],
+                 "questions_per_s": [st["a"]["questions_per_s"] for _, st in results],
+                 "phase_5_questions_per_s": slice_out["questions_per_s"], "phase_5_index_s": slice_out["index_s"],
+                 "launches": [st["a"]["launches"] for _, st in results], "phase_5_launches": slice_out["launches"],
+                 "dist_spans_s": [st["a"]["dist_spans_s"] for _, st in results],
+                 "stores": stats0["a"]["stores"], "graph_arcs": stats0["a"]["graph_arcs"],
+                 "local_ver_shards": [st["a"]["local_ver_shards"] for _, st in results],
+                 "veridical_tie_swaps": [st["a"]["veridical_tie_swaps"] for _, st in results],
+                 "min_query_cosine": [st["a"]["min_query_cosine"] for _, st in results],
+                 "answers_equal_phase_5": sum(x == y for x, y in zip(stats0["a"]["answers"], slice_out["answers"]))},
+           "b": {tag: {"questions_per_s": [st["b"][tag]["questions_per_s"] for _, st in results],
+                       "phase_8_questions_per_s": meta[tag]["questions_per_s"],
+                       "launches": [st["b"][tag]["launches"] for _, st in results],
+                       "dist_spans_s": [st["b"][tag]["dist_spans_s"] for _, st in results],
+                       "ver_shards": stats0["b"][tag]["ver_shards"],
+                       "local_ver_shard_rows": [st["b"][tag]["local_ver_shard_rows"] for _, st in results],
+                       "kernel_route_layers": stats0["b"][tag]["kernel_route_layers"],
+                       "veridical_tie_swaps": [st["b"][tag]["veridical_tie_swaps"] for _, st in results],
+                       "answers_equal_phase_8": sum(x == y for x, y in zip(stats0["b"][tag]["answers"],
+                                                                           meta[tag]["answers"]))}
+                 for tag in ("fp32", "int8")}}
+    out["b"]["fp32"]["phase_13c_questions_per_s"] = phase_13c["questions_per_s"]
+    out["b"]["fp32"]["answers_equal_phase_13c"] = sum(x == y for x, y in zip(stats0["b"]["fp32"]["answers"],
+                                                                             phase_13c["answers"]))
+    print(f"phase 19 meta loop across {DCN_PROCESSES} processes (gloo) x {DCN_POSITIONS} positions on one card "
+          f"({smi}), questions in lockstep: 19a phase 5's slice over {{'data': 2, 'corpus': 4}}, 19b phase 8's "
+          f"stores over {{'corpus': 8}}; answers equal across the processes: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -2801,6 +2985,7 @@ def main() -> None:
             tiny = phase_tiny(device, workdir)
             training = phase_training(device, workdir, smi)
         sharded = phase_sharded(device, corpus, queries[256:], serving, meta_dir, meta, smi)
+        process_meta = phase_process_meta_loop(device, slice_out, meta, sharded, meta_dir, smi)
     del corpus, queries
     process_mesh = phase_process_mesh(device, serving, sharded, smi)
     tp = phase_tp(device, server, smi)
@@ -2815,7 +3000,9 @@ def main() -> None:
                         "launches": slice_out["launches"][name],
                         "trained_encoder_launches": training["cli"]["launches"][name],
                         "mesh_trained_encoder_launches": mesh_training["roundtrip"]["launches"][name],
-                        "mesh_meta_loop_launches": sharded["meta_loop"]["launches"][name], **kernels[name],
+                        "mesh_meta_loop_launches": sharded["meta_loop"]["launches"][name],
+                        "process_meta_loop_launches": [r[name] for r in process_meta["a"]["launches"]],
+                        **kernels[name],
                         "max_abs_err": max(kernels[name]["max_abs_err"], small[name]["max_abs_err"]),
                         **{f"small_batch_{k}": small[name][k]
                            for k in ("ms", "plain_ms", "bound_ms", "products_library_ms", "host_us", "splits")
@@ -2839,6 +3026,7 @@ def main() -> None:
                             "pallas_fp32" if run == "fp32" else "pallas_int8"][name],
                         "process_mesh_launches": [r["pallas_fp32" if run == "fp32" else "pallas_int8"][name]
                                                   for r in process_mesh["launches_per_round"]],
+                        "process_meta_loop_launches": [r[name] for r in process_meta["b"][run]["launches"]],
                         "main_path_calls": main_path})
     for counter, replaces, rows in ((int4.LAUNCHES, int4.REPLACES, int4_kernels["int4_matmul"]),
                                     (int4.TAIL_LAUNCHES, int4.TAIL_REPLACES, int4_kernels["int4_fused_layer_tail"])):

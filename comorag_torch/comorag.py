@@ -27,6 +27,19 @@ JAX package's: the probe fan-out encodes and scores as batches on the
 device; dedup in the memory pool works; LLM fan-out is a bounded pool.
 Host stages (OpenIE, timeline, summaries, prompts, agents, the embedding
 store) are the JAX package's own modules, reused as they are.
+
+Across processes (JAX's multi-controller program under
+``jax.distributed``): every process calls ``distributed.initialize``,
+builds the same ``build_mesh(shape, local_devices)`` and a ``ComoRAG`` on
+the same config, corpus and store state, in a ``save_dir`` and
+``output_dir`` of its own (each process writes its stores, graph and
+trace, as each JAX process does). Every retrieval call is then a
+collective that all processes enter in the same order, so ``try_answer``
+runs the questions one after another in input order, with no thread pool
+and no retrieval window, and the processes agree on each answer's digest
+(``distributed.agree``): a question that fails or answers otherwise in
+one process raises in every process. After ``index`` they agree on each
+store's row count and the graph's signature.
 """
 
 from __future__ import annotations
@@ -44,7 +57,8 @@ from comorag_torch.graph.builder import GraphBuilder, GraphData
 from comorag_torch.llm import get_llm
 from comorag_torch.memory.pool import NO_MEMORY_SENTINEL, MemoryNode, MemoryPool, NodeType
 from comorag_torch.models.registry import get_encoder
-from comorag_torch.parallel.mesh import Mesh, device_mesh, mesh_device, one_process
+from comorag_torch.parallel import distributed
+from comorag_torch.parallel.mesh import Mesh, device_mesh, mesh_device
 from comorag_torch.retrieval.engine import RetrievalEngine, RetrievalWindow
 from comorag_torch.agents.pool_agent import PoolAgent
 from comorag_torch.agents.probe_agent import ProbeAgent
@@ -96,8 +110,10 @@ class ComoRAG:
         self.config = config or ComoConfig()
         if mesh is None and self.config.mesh_shape:
             mesh = device_mesh(dict(self.config.mesh_shape), device)
-        one_process(mesh, "ComoRAG (the meta loop)")
         self.mesh = mesh
+        # a mesh that spans processes: every process makes the same calls in
+        # the same order (try_answer's questions in lockstep)
+        self._lockstep = mesh is not None and mesh.process_count > 1
         self.device = mesh_device(mesh, device)
         os.makedirs(self.config.working_dir, exist_ok=True)
 
@@ -192,6 +208,14 @@ class ComoRAG:
             with trace.span("index.graph"):
                 self._build_graph(chunk_ids, chunk_triples, per_chunk_entities)
         self._engine = None  # force re-prepare with fresh stores
+        if self._lockstep:
+            # processes that started from other store files differ here,
+            # before their retrieval calls pair up wrongly
+            stores = {name: len(store) for name, store in (
+                ("chunk", self.ver_store), ("entity", self.entity_store), ("fact", self.fact_store),
+                ("summary", self.sem_store), ("timeline", self.epi_store)) if store is not None}
+            distributed.agree((stores, self.graph.signature() if self.graph is not None else None),
+                              "index (store rows, graph signature)")
 
     def _build_timeline(self) -> None:
         timeline = TimelineSummarizer(
@@ -692,6 +716,10 @@ class ComoRAG:
     # -------------------------------------------------------------- try_answer
     def try_answer(self, queries: Sequence[str]) -> List[QuerySolution]:
         self.engine.prepare()
+        if self._lockstep:
+            solutions = self._answer_in_lockstep(queries)
+            trace.dump(os.path.join(self.config.output_dir, "trace.json"))
+            return solutions
         max_workers = min(16, max(1, len(queries)))
         solutions: List[Optional[QuerySolution]] = [None] * len(queries)
         # Coalesce the question threads' retrieval calls into shared
@@ -731,3 +759,30 @@ class ComoRAG:
             s if s is not None else QuerySolution(question=q, answer="")
             for s, q in zip(solutions, queries)
         ]
+
+    def _answer_in_lockstep(self, queries: Sequence[str]) -> List[QuerySolution]:
+        """The questions one after another in input order, with no thread
+        pool and no retrieval window, so that every process of the mesh
+        makes the same retrieval calls in the same order. Unlike the
+        threaded path, a question's error is not isolated: it is carried
+        to that question's ``agree``, so that every process raises there
+        (the next collective would pair with another process's other call).
+        An error between two collectives of a question leaves the other
+        processes waiting in one until the process group's timeout."""
+        solutions: List[QuerySolution] = []
+        for i, q in enumerate(queries):
+            error: Optional[Exception] = None
+            try:
+                _, solution, _ = self.meta_control_loop(i, q)
+                outcome = ("answer", solution.answer)
+            except Exception as e:  # noqa: BLE001 — carried to every process below
+                # the kind alone: a message may name this process's own paths
+                error, outcome = e, ("error", type(e).__name__)
+            try:
+                distributed.agree(outcome, f"question {i}")
+            except RuntimeError as e:
+                raise RuntimeError(f"{e}; this process: {outcome[0]}") from error
+            if error is not None:  # every process failed alike
+                raise error
+            solutions.append(solution)
+        return solutions

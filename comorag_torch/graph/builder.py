@@ -242,7 +242,9 @@ class GraphBuilder:
         so streaming below the memory budget would only cost throughput.
         With a mesh the key matrix goes into one ``MipsIndex(mesh=...)``,
         which shards it over the ``corpus`` axis when it is large enough,
-        instead of the key-blocked single-device sweep (builder.py:263).
+        instead of the key-blocked single-device sweep (builder.py:263);
+        over a mesh that spans processes every process runs the sweep in
+        lockstep (the index's collectives) and adds the same edges.
         Runs on the card unless ``device="cpu"`` (under a mesh, on the
         mesh's first device); without a card the default raises."""
         device = mesh_device(mesh, device)

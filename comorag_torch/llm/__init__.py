@@ -35,7 +35,8 @@ def get_llm(config, device: Union[str, torch.device, None] = None, mesh=None) ->
 
     ``mesh`` goes to the in-process engine as in JAX (llm/__init__.py:40,
     :59): a ``model`` axis splits its weights for tensor-parallel
-    generation; a mesh without one changes nothing.
+    generation; a mesh without one changes nothing (over a mesh that
+    spans processes each process runs its own replica of the engine).
     """
     name = str(config.llm_name)
     if name == "fake" or name.startswith("fake:"):

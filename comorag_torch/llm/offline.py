@@ -19,6 +19,9 @@ product runs once per shard, on the int4 kernels for an int4 engine.
 ``params`` may be a tree trained over a mesh (``Sharded`` leaves, from
 ``models.train_lm``): it is unsharded first (``decoder.unshard_params``)
 and split anew over the engine's own mesh, as JAX takes global arrays.
+Over a mesh that spans processes without a ``model`` axis each process
+runs its own replica of the engine on its merge device (greedy decoding
+gives every process the same text); a ``model`` axis there raises.
 """
 
 from __future__ import annotations

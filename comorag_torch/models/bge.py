@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from comorag_torch.device import HostCopy, resolve_device
+from comorag_torch.parallel import distributed
 from comorag_torch.parallel.mesh import (Mesh, Sharded, mesh_device, on_device, one_process, sharded_matmul,
                                          split_blocks)
 from comorag_torch.ops.attention import encoder_attention, encoder_attention_plain
@@ -401,7 +402,16 @@ class BGETorchEncoder(BaseEncoder):
     order on the mesh's first device. Under a mesh JAX's "auto" drops to
     XLA attention because GSPMD cannot partition a ``pallas_call``; a
     launch per device has no such limit, so "auto" keeps the kernels for
-    bf16 on a card and every sub-batch launches both encoder kernels."""
+    bf16 on a card and every sub-batch launches both encoder kernels.
+
+    Over a mesh that spans processes (JAX's ``P("data", None)`` batch
+    under ``jax.distributed``) each process encodes only the sub-batches
+    of its own data indices (``Mesh.local_indices``), with a replica on
+    its own devices alone, and the pooled rows of every process are
+    gathered in data-index order (``distributed.all_gather_rows``), so
+    every process returns the whole batch; every process must then encode
+    the same texts in the same order. A mesh without a ``data`` axis
+    encodes the whole batch in every process (JAX's replicated encoder)."""
 
     default_instruction = ""
 
@@ -418,7 +428,6 @@ class BGETorchEncoder(BaseEncoder):
         attention: str = "auto",  # "auto" | "plain" | "kernel"
         mesh=None,
     ):
-        one_process(mesh, "the encoder's data axis")
         self.device = mesh_device(mesh, device)
         if params is None:
             if model_name_or_path is None:
@@ -428,11 +437,16 @@ class BGETorchEncoder(BaseEncoder):
         self.arch = arch
         self.compute_dtype = compute_dtype
         self.model = params.to(self.device).cast_matrices_(compute_dtype).eval().requires_grad_(False)
-        self._data_devices = mesh.axis_devices("data") if mesh is not None else [self.device]
-        # one parameter tree per distinct device, built once (what
+        # the batch splits over every data index; this process encodes the
+        # sub-batches of its own (all of them on one process's mesh)
+        self._dp = mesh.shape.get("data", 1) if mesh is not None else 1
+        self._local_parts = ([(d, mesh.at(data=d)) for d in mesh.local_indices("data")] if self._dp > 1
+                             else [(0, self.device)])
+        self._across = mesh is not None and mesh.process_count > 1 and self._dp > 1
+        # one parameter tree per distinct local device, built once (what
         # encoder_forward reads: Encoder.leaves() walks every module)
         self._replicas = {self.device: self.model.leaves()}
-        for dev in self._data_devices:
+        for _, dev in self._local_parts:
             if dev not in self._replicas:
                 self._replicas[dev] = copy.deepcopy(self.model).to(dev).leaves()
         self.fingerprint_extra = (
@@ -467,7 +481,7 @@ class BGETorchEncoder(BaseEncoder):
         max_len = max((len(r) for r in ids), default=1)
         s = _seq_bucket(max_len, self.max_seq_len)
         b = len(ids)
-        pad_unit = math.lcm(8, len(self._data_devices))  # divides by the data axis, as bge.py:488
+        pad_unit = math.lcm(8, self._dp)  # divides by the data axis, as bge.py:488
         b_pad = ((b + pad_unit - 1) // pad_unit) * pad_unit
         id_arr = np.zeros((b_pad, s), np.int64)
         mask_arr = np.zeros((b_pad, s), np.int32)
@@ -481,11 +495,11 @@ class BGETorchEncoder(BaseEncoder):
 
     def _pooled(self, texts: List[str], norm: bool) -> torch.Tensor:
         ids, mask = self._tokenize(texts)
-        rows = len(ids) // len(self._data_devices)
+        rows = len(ids) // self._dp
         parts = []
         with torch.no_grad():
-            for i, dev in enumerate(self._data_devices):
-                sl = slice(i * rows, (i + 1) * rows)
+            for d, dev in self._local_parts:
+                sl = slice(d * rows, (d + 1) * rows)
                 with on_device(dev):
                     pooled = encode_pooled(
                         self._replicas[dev],
@@ -494,7 +508,11 @@ class BGETorchEncoder(BaseEncoder):
                         self.compute_dtype, normalize=norm, attention=self.attention,
                     )
                 parts.append(pooled.to(self.device))
+        if not parts:  # a process that owns no data index
+            parts = [torch.zeros((0, self.dim), dtype=torch.float32, device=self.device)]
         pooled = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        if self._across:  # every process's rows, in data-index order (process-major positions)
+            pooled = distributed.all_gather_rows(pooled)
         return pooled[: len(texts)]
 
     def _prepared(self, texts, instruction: str) -> List[str]:

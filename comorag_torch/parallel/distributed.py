@@ -20,16 +20,18 @@ Backends, as the caller names them, never swapped:
     candidate or state tensor to the host, exchanges it there and copies
     the result back to the tensor's device.
 
-Without an initialized group both collectives are the identity, so a
-single-process mesh never calls into ``torch.distributed``. Trace spans:
-``dist.all_gather_cols`` and ``dist.all_reduce`` (a whole collective),
-inside each ``dist.stage`` (the copy of the tensor to exchange, which
-under gloo waits for the card's work on it).
+Without an initialized group every collective is the identity (``agree``
+passes), so a single-process mesh never calls into
+``torch.distributed``. Trace spans: ``dist.all_gather_cols``,
+``dist.all_gather_rows``, ``dist.all_reduce`` and ``dist.agree`` (a whole
+collective), inside each ``dist.stage`` (the copy of the tensor to
+exchange, which under gloo waits for the card's work on it).
 """
 
 from __future__ import annotations
 
 import datetime
+import hashlib
 import json
 from typing import Any, List, Optional, Union
 
@@ -155,6 +157,19 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
         return t.detach().clone().contiguous()
 
 
+def _gather_cols(t: torch.Tensor) -> torch.Tensor:
+    x = _staged(t)
+    width = torch.tensor([x.shape[1]], dtype=torch.int64, device=x.device)
+    widths = [torch.empty_like(width) for _ in range(process_count())]
+    dist.all_gather(widths, width)
+    widths = [int(w) for w in torch.cat(widths).tolist()]
+    padded = x.new_zeros((x.shape[0], max(widths)))
+    padded[:, : x.shape[1]] = x
+    blocks = [torch.empty_like(padded) for _ in widths]
+    dist.all_gather(blocks, padded)
+    return torch.cat([b[:, :w] for b, w in zip(blocks, widths)], dim=1).to(t.device)
+
+
 def all_gather_cols(t: torch.Tensor) -> torch.Tensor:
     """Each process's [P, c_i] block concatenated along dim 1 in process
     order, on ``t``'s device (the widths may differ: they are exchanged
@@ -162,16 +177,31 @@ def all_gather_cols(t: torch.Tensor) -> torch.Tensor:
     if not initialized():
         return t
     with trace.span("dist.all_gather_cols"):
-        x = _staged(t)
-        width = torch.tensor([x.shape[1]], dtype=torch.int64, device=x.device)
-        widths = [torch.empty_like(width) for _ in range(process_count())]
-        dist.all_gather(widths, width)
-        widths = [int(w) for w in torch.cat(widths).tolist()]
-        padded = x.new_zeros((x.shape[0], max(widths)))
-        padded[:, : x.shape[1]] = x
-        blocks = [torch.empty_like(padded) for _ in widths]
-        dist.all_gather(blocks, padded)
-        return torch.cat([b[:, :w] for b, w in zip(blocks, widths)], dim=1).to(t.device)
+        return _gather_cols(t)
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Each process's [r_i, d] block concatenated along dim 0 in process
+    order, on ``t``'s device (``all_gather_cols`` on the transpose: the
+    row counts may differ, a process may give none)."""
+    if not initialized():
+        return t
+    with trace.span("dist.all_gather_rows"):
+        return _gather_cols(t.T).T.contiguous()
+
+
+def agree(value: Any, what: str) -> None:
+    """Raise RuntimeError in every process unless every process passed an
+    equal ``value`` (compared by a digest of its ``repr``, so only the
+    digests travel); the message names ``what`` and the processes whose
+    value differs from process 0's."""
+    if not initialized():
+        return
+    with trace.span("dist.agree"):
+        digests = all_gather_object(hashlib.sha256(repr(value).encode()).hexdigest()[:16])
+    differ = [p for p, d in enumerate(digests) if d != digests[0]]
+    if differ:
+        raise RuntimeError(f"{what}: process(es) {differ} disagree with process 0 (digests {digests})")
 
 
 def all_reduce(t: torch.Tensor, op: str) -> torch.Tensor:

@@ -11,8 +11,8 @@ first device (the merge device). On a multi-card mesh each shard's work is
 queued on its own device's current stream, so the shards overlap without
 threads, and the cross-device copies order the merge after them. A
 process group would turn every retrieval call into a collective that all
-ranks must enter in step: the corpus programs do so over a mesh that spans
-processes (below); the meta loop does not.
+ranks must enter in step: the corpus programs, and the meta loop with its
+questions in lockstep, do so over a mesh that spans processes (below).
 
 Axes (as in the JAX package):
 
@@ -48,9 +48,13 @@ first local position. Every process then runs the same calls in the same
 order: the corpus programs (``ops/topk.make_sharded_*``,
 ``ops/ppr.make_sharded_ppr*``, ``MipsIndex(mesh=)``, ``PPRGraph(mesh=)``)
 compute on their local shards and meet in the collectives of
-``distributed``, and every process returns the same result. The ``data``
-and ``model`` axes, and so the encoder, the decoder, training and
-``ComoRAG``, run on one process's meshes only (``one_process``).
+``distributed``, and every process returns the same result. ``ComoRAG``
+runs its meta loop over such a mesh with the questions in lockstep, and
+the encoder splits a batch over the ``data`` axis by process: each
+encodes the sub-batches of its own data indices (``local_indices``) and
+the rows are gathered. The ``model`` axis (TP generation, the encoder's
+split weights) and the training batch split run on one process's meshes
+only (``one_process``).
 """
 
 from __future__ import annotations
@@ -137,6 +141,17 @@ class Mesh:
         at = tuple(slice(None) if name == axis else 0 for name in self.axis_names)
         return list(self.devices[at])
 
+    def local_indices(self, axis: str) -> List[int]:
+        """The indices along ``axis`` (at index 0 of every other axis) whose
+        position this process owns, in order; ``[0]`` when the mesh has no
+        such axis (the first device alone, as ``axis_devices``). The
+        positions are process-major, so along any axis the owners never
+        decrease: every process's indices follow those of the processes
+        before it, and a process may own none."""
+        if axis not in self.axis_names:
+            return [0]
+        return [i for i in range(self.shape[axis]) if self.is_local(**{axis: i})]
+
     def __repr__(self) -> str:
         procs = f", {self.process_count} processes" if self.process_count > 1 else ""
         return f"Mesh({self.shape}, first device {self.device}{procs})"
@@ -209,7 +224,9 @@ def one_process(mesh: Optional[Mesh], what: str) -> None:
     process's meshes only."""
     if mesh is not None and mesh.process_count > 1:
         raise NotImplementedError(f"{what} over a mesh of {mesh.process_count} processes is not ported: across "
-                                  "processes only the corpus programs run (MipsIndex, PPRGraph, ops/topk, ops/ppr)")
+                                  "processes run the corpus programs (MipsIndex, PPRGraph, ops/topk, ops/ppr), "
+                                  "ComoRAG's meta loop and the encoder's data axis; the model axis and the "
+                                  "training batch split run on one process's meshes")
 
 
 def parse_mesh_shape(spec: str) -> Dict[str, int]:

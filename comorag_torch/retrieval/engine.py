@@ -6,7 +6,10 @@ device, and the fused PPR ranking reads the DPR prior where it was scored.
 With a mesh every index and the PPR graph get it (each decides whether to
 shard, as in JAX), and the engine's device is the mesh's first device,
 where the sharded results merge. The logic is unchanged from the JAX
-engine.
+engine. Over a mesh that spans processes every call is a collective: each
+process runs the same calls in the same order (``ComoRAG``'s lockstep),
+an index too small to shard stays whole in every process, and the graph
+search takes ``PPRGraph``'s torch iteration over the process group.
 
 Implements the query-time call stack of the reference (SURVEY.md §3.3 —
 tri_retrieve, dense_passage_retrieval, get_fact_scores,
@@ -647,9 +650,18 @@ class RetrievalWindow(RequestWindow):
     Rows are computed independently throughout the engine (per-row
     encode, per-row rerank, independent PPR columns), so merged results
     are identical to separate calls.
+
+    It refuses an engine over a mesh that spans processes: each process's
+    window would form its own batches from its own thread timing, so the
+    processes would enter different sequences of collectives (the
+    reference's ``try_answer`` hangs so over a process mesh with more than
+    one question; ``ComoRAG`` runs such questions in lockstep instead).
     """
 
     def __init__(self, engine: RetrievalEngine, window_ms: float = 4.0, max_rows: int = 64):
+        if engine.mesh is not None and engine.mesh.process_count > 1:
+            raise ValueError("a RetrievalWindow coalesces by thread timing, which differs between processes: "
+                             "over a mesh that spans processes call the engine in lockstep")
         self.engine = engine
         self.max_rows = max_rows
         # scheduler plumbing (queue/drain/close) is the RequestWindow

@@ -362,10 +362,10 @@ def test_dryrun_multichip_over_four_distinct_cards(cuda_device):
         assert not any(run["train_launches"].values())
 
 
-def _two_processes(tmp_path, mode: str) -> list:
-    """tests/_torch_dcn_worker.py in two processes (``mode``: its card
-    modes): their logs, after both ended within 240 s (else both are killed
-    and the test fails)."""
+def _two_processes(tmp_path, mode: str, worker: str = "_torch_dcn_worker.py") -> list:
+    """tests/``worker`` in two processes (``mode``: its card modes): their
+    logs, after both ended within 240 s (else both are killed and the test
+    fails)."""
     import os
     import socket
     import subprocess
@@ -376,7 +376,7 @@ def _two_processes(tmp_path, mode: str) -> list:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
-    procs = [subprocess.Popen([sys.executable, os.path.join(here, "_torch_dcn_worker.py"), str(port), str(pid),
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, worker), str(port), str(pid),
                                str(tmp_path), mode], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                               env=env) for pid in (0, 1)]
     try:
@@ -447,6 +447,52 @@ def test_process_mesh_nccl_over_distinct_cards_matches_one_card(cuda_device, tmp
     _two_processes(tmp_path, "nccl")
     got = _held_against_one_process(tmp_path, ref)
     assert all(str(r["mesh/backend"]) == "nccl" for r in got)
+
+
+def _meta_loop_one_process(tmp_path) -> dict:
+    """tests/_torch_dcn_meta_worker.py's ``run_corpus`` (index, retrieve and
+    answer 12 questions) on one process's {"corpus": 8} mesh of cuda:0."""
+    import importlib.util
+    import os
+
+    from comorag_torch.parallel.mesh import build_mesh
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_dcn_meta_worker.py")
+    spec = importlib.util.spec_from_file_location("_torch_dcn_meta_worker", path)
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    return worker.run_corpus(build_mesh({"corpus": 8}, [torch.device("cuda", 0)] * 8), str(tmp_path / "one"))
+
+
+def _meta_loop_held_against_one_process(tmp_path, mode: str) -> list:
+    """The meta loop across two processes (``mode``) on the CPU test's
+    corpus: answers, tri_retrieve docs and veridical ids equal in both
+    processes and to one process's mesh, scores within 1e-6."""
+    ref = _meta_loop_one_process(tmp_path)
+    logs = _two_processes(tmp_path, mode, "_torch_dcn_meta_worker.py")
+    assert all(f"TORCH_DCN_META_OK {pid}" in log for pid, log in enumerate(logs))
+    got = [dict(np.load(tmp_path / f"rank{pid}.npz")) for pid in (0, 1)]
+    for r in got:
+        for key in ("a/answers", "a/docs", "a/ver_ids", "a/shards"):
+            np.testing.assert_array_equal(r[key], ref[key], err_msg=key)
+        assert np.abs(r["a/ver_scores"] - ref["a/ver_scores"]).max() < 1e-6
+    assert len(ref["a/answers"]) == 12 and all(ref["a/answers"])
+    return got
+
+
+def test_meta_loop_process_mesh_gloo_on_one_card_matches_one_process(cuda_device, tmp_path):
+    """ComoRAG over {"corpus": 8} across two processes on cuda:0 under
+    gloo, 4 positions each, the questions in lockstep."""
+    got = _meta_loop_held_against_one_process(tmp_path, "gloo-cuda")
+    assert all(str(r["backend"]) == "gloo" for r in got)
+
+
+def test_meta_loop_process_mesh_nccl_over_distinct_cards(cuda_device, tmp_path):
+    """The same under nccl, 2 cards a process on four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (2 a process under nccl)")
+    got = _meta_loop_held_against_one_process(tmp_path, "nccl")
+    assert all(str(r["backend"]) == "nccl" for r in got)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):

@@ -353,24 +353,35 @@ def test_card_exchange_outlives_every_read():
     assert read_when_rank0_returned == [True]
 
 
-def test_one_process_parts_refuse_a_process_mesh():
-    """The meta loop, the encoder's axes, TP generation and the data-axis
-    batch split run on one process's meshes only: over a mesh that spans
-    processes they raise, where the corpus programs run. A position of
-    another process holds a RemoteDevice, on which no tensor can be put."""
+def test_one_process_parts_refuse_a_process_mesh(tmp_path):
+    """The encoder's model axis, TP generation and the data-axis batch split
+    of training run on one process's meshes only: over a mesh that spans
+    processes they raise, where the corpus programs, ComoRAG's meta loop
+    (its questions in lockstep) and the encoder's data axis (its own data
+    indices' sub-batches) run. A position of another process holds a
+    RemoteDevice, on which no tensor can be put."""
     devices = np.empty(4, dtype=object)
     devices[:] = [CPU, CPU, RemoteDevice(1, "cpu"), RemoteDevice(1, "cpu")]
     mesh = Mesh(devices.reshape(2, 2), ("data", "corpus"), np.asarray([[0, 0], [1, 1]]), 0)
     assert mesh.process_count == 2 and mesh.device == CPU
     assert mesh.is_local(data=0, corpus=1) and not mesh.is_local(data=1) and mesh.process_of(data=1) == 1
-    with pytest.raises(NotImplementedError, match="across processes only the corpus programs run"):
-        one_process(mesh, "ComoRAG (the meta loop)")
+    with pytest.raises(NotImplementedError, match="the model axis and the training batch split run on one"):
+        one_process(mesh, "the encoder's model axis")
     from comorag_torch.comorag import ComoRAG
     from comorag_torch.config import ComoConfig
+    from comorag_torch.models import bge, decoder
     from comorag_torch.parallel.mesh import split_batch
 
+    rag = ComoRAG(ComoConfig(llm_name="fake", embedding_model_name="hash", save_dir=str(tmp_path / "outputs"),
+                             output_dir=str(tmp_path / "results")), mesh=mesh)
+    assert rag._lockstep and rag.mesh is mesh and rag.device == CPU
+    model = bge.init_params(bge.EncoderArch.tiny(), torch.Generator().manual_seed(0), "cpu")
+    encoder = bge.BGETorchEncoder(params=model, max_seq_len=16, mesh=mesh)
+    assert mesh.local_indices("data") == [0] and encoder._local_parts == [(0, CPU)] and encoder._across
     with pytest.raises(NotImplementedError):
-        ComoRAG(ComoConfig(llm_name="fake", embedding_model_name="hash"), mesh=mesh)
+        bge.shard_params(model, Mesh(devices.reshape(2, 2), ("model", "corpus"), np.asarray([[0, 0], [1, 1]]), 0))
+    with pytest.raises(NotImplementedError):
+        decoder.shard_params({}, mesh)
     with pytest.raises(NotImplementedError):
         split_batch({"x": torch.zeros(4, 2)}, mesh)
     with pytest.raises(TypeError):
