@@ -235,6 +235,26 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      veridical top-k against an unsharded index. In both, 16 non-empty
      answers equal across the processes. A process that fails, or does
      not end in 300 s, fails the run (the other is killed).
+ 20. TP generation across processes (``decoder.shard_params`` and
+     ``TorchOfflineLLM(mesh=)`` over a process mesh's model axis; run
+     right after phase 14, whose logits it is held against): two spawned
+     processes as phase 18's join one gloo group and pass 2 positions
+     each on the card: {"model": 4}, process p holding blocks 2p and 2p +
+     1 of every split weight. Each draws phase 10's weights (seed SEED +
+     10, on the card), then for int4 and bf16 weights: the engine built
+     (the whole bf16 tree dropped once the bf16 engine holds its blocks),
+     the fp32-compute last-prompt and decode-step logits within phase
+     10's rule of phase 14's one-process engine (its token fed to the
+     step), every forward's launches against
+     ``decoder.int4_forward_launches`` (int4_matmul over this process's
+     blocks, no fused tail: the per-product route), then phase 10's 8
+     requests as one ``batch_infer`` of a GenerationServer (which serves
+     each call alone, in order) at ``PROCESS_TP_TOKENS`` (24) new
+     tokens, phase 10's 64 cut to a 30 s decode budget a kind: no
+     error response, greedy tokens equal across the processes and
+     compared with phase 14's; tok/s, ``dist.*`` seconds and peak memory
+     a process. A process that fails, or does not end in 600 s, fails the
+     run.
 Then it checks that no module of jax, optax or of the JAX package
 (``comorag_tpu``, ``__graft_entry__``) was loaded, and
 prints the kernels JSON line (every kernel with its launches on the main
@@ -244,8 +264,10 @@ path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms,
 ``mesh_dryrun_launches`` and ``harness_dryrun_launches``, phases 15d and
 17b, the top-k kernels' ``process_mesh_launches``, phase 18's a round
 in each process, and ``process_meta_loop_launches``, each process's in
-19a for the encoder kernels and in 19b for the top-k kernels), the
-nvidia-smi line, and the result line.
+19a for the encoder kernels and in 19b for the top-k kernels, and the
+int4 kernels' ``process_tp_launches``, each process's in phase 20's
+int4 serving run, with their launches a forward), the run's wall
+seconds before it, the nvidia-smi line, and the result line.
 """
 
 from __future__ import annotations
@@ -1246,14 +1268,14 @@ def serve_concurrently(engine, prompts, max_tokens: int) -> list:
     return results
 
 
-def serve_route(engine, prompts, max_tokens: int, route: str) -> dict:
+def serve_route(engine, prompts, max_tokens: int, route: str, serve=serve_concurrently) -> dict:
     trace.reset()
     for counter in (int4.LAUNCHES, int4.TAIL_LAUNCHES, *int4.ROUTE_LAUNCHES.values()):
         counter.reset()
     with error_responses() as errors, timed_generation() as rec, \
             (plain_int4() if route == "int4_plain" else contextlib.nullcontext()):
         t0 = time.perf_counter()
-        responses = serve_concurrently(engine, prompts, max_tokens)
+        responses = serve(engine, prompts, max_tokens)
         wall = time.perf_counter() - t0
     launches = {c.name: c.value for c in (int4.LAUNCHES, int4.TAIL_LAUNCHES)}
     route_launches = {c.name: c.value for c in int4.ROUTE_LAUNCHES.values()}
@@ -2053,10 +2075,11 @@ def process_mesh_child(rank: int, port: int, out_dir: str, spec: dict) -> None:
         distributed.shutdown()
 
 
-def run_process_mesh(spec: dict, out_dir: str, target=process_mesh_child, phase: str = "phase 18") -> tuple:
+def run_process_mesh(spec: dict, out_dir: str, target=process_mesh_child, phase: str = "phase 18",
+                     timeout_s: float = DCN_TIMEOUT_S) -> tuple:
     """``target`` (``process_mesh_child`` unless named) in ``DCN_PROCESSES``
     spawned processes; raises (after killing any still running) unless
-    both exit 0 within ``DCN_TIMEOUT_S``.
+    both exit 0 within ``timeout_s``.
     Returns each process's (arrays, numbers) and the wall seconds."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2067,7 +2090,7 @@ def run_process_mesh(spec: dict, out_dir: str, target=process_mesh_child, phase:
     for proc in procs:
         proc.start()
     try:  # until both end, one fails (the other then waits in a collective) or the time is up
-        while (any(proc.is_alive() for proc in procs) and time.perf_counter() - t0 < DCN_TIMEOUT_S
+        while (any(proc.is_alive() for proc in procs) and time.perf_counter() - t0 < timeout_s
                and all(proc.exitcode in (None, 0) for proc in procs)):
             time.sleep(0.2)
     finally:
@@ -2077,7 +2100,7 @@ def run_process_mesh(spec: dict, out_dir: str, target=process_mesh_child, phase:
                 proc.join()
     codes = [proc.exitcode for proc in procs]
     if codes != [0] * DCN_PROCESSES:
-        raise AssertionError(f"{phase}: the processes exited with {codes} (None: killed at {DCN_TIMEOUT_S} s)")
+        raise AssertionError(f"{phase}: the processes exited with {codes} (None: killed at {timeout_s} s)")
     results = []
     for rank in range(DCN_PROCESSES):
         with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
@@ -2401,15 +2424,21 @@ def tp_tail_timings(device) -> list:
 def forward_launches():
     """Records each decoder_forward call's tokens (batch x chunk), the
     rows its head takes (the batch where it asks for the last position
-    only) and the int4_matmul and fused-tail launches it made."""
+    only), the int4_matmul and fused-tail launches it made and its
+    synchronized seconds."""
     rec = []
     forward = decoder.decoder_forward
 
     def counted(params, input_ids, *a, **kw):
         before = int4.LAUNCHES.value, int4.TAIL_LAUNCHES.value
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         out = forward(params, input_ids, *a, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
         head_m = input_ids.shape[0] if kw.get("last_only") else input_ids.numel()
-        rec.append((input_ids.numel(), head_m, int4.LAUNCHES.value - before[0], int4.TAIL_LAUNCHES.value - before[1]))
+        rec.append((input_ids.numel(), head_m, int4.LAUNCHES.value - before[0], int4.TAIL_LAUNCHES.value - before[1],
+                    seconds))
         return out
 
     decoder.decoder_forward = counted
@@ -2425,7 +2454,7 @@ def checked_forwards(rec, params, arch, int4_kernels: bool, what: str) -> dict:
     forwards by kind (<= 64 tokens: a decode step; above: a prefill chunk)
     and their launch counts."""
     out = {}
-    for m, head_m, matmuls, tails in rec:
+    for m, head_m, matmuls, tails, _ in rec:
         kind = "le_64_tokens" if m <= int4.TAIL_MAX_M else "gt_64_tokens"
         want = decoder.int4_forward_launches(params, arch, m, head_m) if int4_kernels else (0, 0)
         if (matmuls, tails) != want:
@@ -2478,6 +2507,10 @@ def tp_generation(device, params, arch, mesh, name: str, param_dtype, server: di
     if [r[0] <= int4.TAIL_MAX_M for r in rec] != [False, True]:
         raise AssertionError(f"tp {name} fp32 forwards: {rec}, expected one prefill chunk and one decode step")
     out["logits_fp32_vs_unsharded"] = checked_pair(got, ref, f"{TP} {name} shards vs unsharded", torch.float32)
+    # phase 20's references: these fp32 logits, the token fed to the step,
+    # and the served logits and greedy tokens
+    out["fp32_logits"] = tuple(t.cpu() for t in got)
+    out["served"] = {f: run[f] for f in ("logits", "tokens")}
     if int4_kernels:
         with plain_int4():
             plain = forward_logits(engine, prompts, torch.float32, ref[2])
@@ -2528,6 +2561,174 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
               f"{r['plain_ms']:.4f} ms bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) roofline share {r['roofline_share']:.3f}; wrapper host "
               f"{r['host_us']:.1f} us a call", flush=True)
+    return out
+
+
+# ----------------------------------------------------------------- phase 20
+PROCESS_TP_POSITIONS = TP // DCN_PROCESSES  # {"model": 4}: 2 positions in each of 2 processes
+PROCESS_TP_DECODE_BUDGET_S = 30.0  # a weight kind's served decode share of the smoke run's 1,200 s
+# new tokens a request: phase 10's 64 cut to what the budget holds at the
+# slowest served decode step measured (int4, 1.17 s on an H100 80GB HBM3 at
+# 700 W; PERF.md §6). A fixed count: every process serves the same calls
+# (a cap timed in each process could differ between them) and the launch
+# counts repeat from run to run.
+PROCESS_TP_TOKENS = 24
+PROCESS_TP_TIMEOUT_S = 600  # the phase's two processes (~230 s: the host's gloo merges, PERF.md §6)
+
+
+def serve_in_order(engine, prompts, max_tokens: int) -> list:
+    """The requests as one ``batch_infer`` of a GenerationServer over
+    ``engine``: over a model axis across processes the server takes each
+    call whole, in order, with no window."""
+    server = serving.GenerationServer(engine)
+    try:
+        if not server.in_order:
+            raise AssertionError("the GenerationServer over a process mesh's model axis kept its request window")
+        return server.batch_infer(prompts, max_tokens=max_tokens)
+    finally:
+        server.close()
+
+
+def process_tp_generation(device, weights: dict, arch, mesh, name: str, param_dtype, ref: tuple) -> tuple:
+    """One weight kind of phase 20 in one process of the group: the engine
+    split over the process mesh's model axis (this process's blocks alone,
+    the rest freed), then the fp32-compute last-prompt and decode-step
+    logits within phase 10's rule of phase 14's one-process engine
+    (``ref``: its logits and the token its step was fed), every forward's
+    launches as ``checked_forwards`` expects them (no fused tail: the
+    per-product route), then phase 10's 8 requests as one batch_infer, as
+    PROCESS_TP_TOKENS new tokens, the decode step's measured seconds
+    reported beside PROCESS_TP_DECODE_BUDGET_S. ``weights["params"]`` is the whole tree; popped
+    once the engine holds its blocks where ``weights["drop"]`` says so.
+    Returns (numbers, the served logits and tokens)."""
+    int4_kernels = param_dtype == "int4"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = TorchOfflineLLM(params=weights["params"], arch=arch, param_dtype=param_dtype,
+                             compute_dtype=torch.bfloat16, device=device, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    if weights["drop"]:  # what is not local: the other process's blocks of the whole tree
+        weights.pop("params")
+    torch.cuda.empty_cache()
+    out["resident_gib_after_build"] = torch.cuda.memory_allocated() / 2**30
+    qkv = engine.params["layers"]["qkv_w"]
+    out["qkv_blocks"] = [qkv.position(i) for i in range(len(qkv.shards))]
+    out["decode_route"] = decoder.tail_route(engine.params, arch, 8)
+    if not engine.across_processes or out["decode_route"] != decoder.PER_PRODUCT:
+        raise AssertionError(f"phase 20 {name}: across processes {engine.across_processes}, decode route "
+                             f"{out['decode_route']} (expected the per-product route)")
+    prompts = server_prompts()
+    with forward_launches() as rec:
+        got = forward_logits(engine, prompts, torch.float32, ref[2].to(device))
+    out["forwards_fp32"] = checked_forwards(rec, engine.params, arch, int4_kernels, f"phase 20 {name} fp32 forwards")
+    if [r[0] <= int4.TAIL_MAX_M for r in rec] != [False, True] or any(r[3] for r in rec):
+        raise AssertionError(f"phase 20 {name} fp32 forwards: {rec}, expected one prefill chunk and one decode step "
+                             "and no fused tail")
+    out["fp32_forward_s"] = [r[4] for r in rec]
+    out["logits_fp32_vs_phase_14"] = checked_pair(got[:2], tuple(t.to(device) for t in ref[:2]),
+                                                  f"phase 20 {name} vs phase 14's one-process engine", torch.float32)
+    out["served_tokens"] = PROCESS_TP_TOKENS
+    out["decode_s_at_fp32_step"] = {"s": PROCESS_TP_TOKENS * rec[1][4], "budget_s": PROCESS_TP_DECODE_BUDGET_S}
+    with forward_launches() as rec:
+        run = serve_route(engine, prompts, PROCESS_TP_TOKENS, f"phase 20 {name}", serve=serve_in_order)
+    out["forwards"] = checked_forwards(rec, engine.params, arch, int4_kernels, f"phase 20 {name}")
+    launches = run["launches"]
+    if (launches["int4_matmul"], launches["int4_fused_layer_tail"]) != (sum(r[2] for r in rec), 0):
+        raise AssertionError(f"phase 20 {name}: launches {launches} outside the recorded forwards {rec}, or a tail")
+    if int4_kernels and launches["int4_matmul"] <= 0:
+        raise AssertionError(f"phase 20 {name}: int4_matmul was not launched")
+    out.update({k: run[k] for k in ("prefill_tok_s", "decode_tok_s", "wall_s", "launches", "route_launches",
+                                    "llm_counters", "completion_tokens")}, dist_spans_s=dist_spans())
+    del engine
+    torch.cuda.empty_cache()
+    return out, {f: run[f] for f in ("logits", "tokens")}
+
+
+def process_tp_child(rank: int, port: int, out_dir: str, spec: dict) -> None:
+    """One process of phase 20 (spawned as phase 18's): joins the gloo
+    group, builds {"model": 4} from its 2 positions on the card, draws
+    phase 10's weights (Llama-3.1-8B width, 32 layers, bf16, seed SEED +
+    10) on the card, runs ``process_tp_generation`` on int4 then on bf16
+    weights (the whole bf16 tree dropped once the bf16 engine holds its
+    blocks), and writes its numbers, served logits and tokens to
+    ``out_dir``/rank<rank>.npz and .json."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // DCN_PROCESSES))
+    device = torch.device(spec["device"])
+    distributed.initialize(f"127.0.0.1:{port}", DCN_PROCESSES, rank, backend="gloo", device=device, timeout_s=300)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        mesh = build_mesh({"model": TP}, [device] * PROCESS_TP_POSITIONS)
+        refs = torch.load(spec["refs"])
+        arch = llama_8b()
+        weights = {"params": decoder.init_params(arch, torch.Generator(device=device).manual_seed(SEED + 10), device,
+                                                 torch.bfloat16)}  # phase 10's weights
+        stats, arrays = {"mesh": repr(mesh), "local_model": mesh.local_indices("model")}, {}
+        for name, dtype in (("int4", "int4"), ("bf16", torch.bfloat16)):
+            weights["drop"] = name == "bf16"  # the int4 engine quantizes a copy: the bf16 run still needs the tree
+            stats[name], served = process_tp_generation(device, weights, arch, mesh, name, dtype, refs[name])
+            for field, calls in served.items():
+                for i, call in enumerate(calls):
+                    for j, t in enumerate(call):
+                        arrays[f"{name}/{field}/{i}/{j}"] = t.numpy()
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        stats["foreign_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "optax", "comorag_tpu", "__graft_entry__"))
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(stats, f)
+    finally:
+        distributed.shutdown()
+
+
+def served_calls(arrays: dict, name: str) -> dict:
+    """A process's served logits and tokens of one weight kind, as the
+    lists of calls ``serve_route`` records."""
+    out = {}
+    for field in ("logits", "tokens"):
+        calls, i = [], 0
+        while f"{name}/{field}/{i}/0" in arrays:
+            calls.append(tuple(torch.from_numpy(arrays[f"{name}/{field}/{i}/{j}"])
+                               for j in range(3 if field == "tokens" else 2)))
+            i += 1
+        out[field] = calls
+    return out
+
+
+def phase_process_tp(device, tp: dict, smi: str) -> dict:
+    """Phase 20: TP generation across two processes on the one card
+    (``decoder.shard_params`` and ``TorchOfflineLLM(mesh=)`` over a process
+    mesh's model axis, gloo, 2 positions a process: {"model": 4}), int4
+    then bf16 weights: in each process the fp32 logits within phase 10's
+    rule of phase 14's one-process engine, the launches of every forward
+    (int4_matmul over its own blocks, no fused tail), phase 10's 8
+    requests served with no error response; the greedy tokens equal
+    across the processes, and beside phase 14's."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        refs = os.path.join(out_dir, "phase_14_logits.pt")
+        torch.save({name: tp[name]["fp32_logits"] for name in ("int4", "bf16")}, refs)
+        results, wall_s = run_process_mesh({"device": str(device), "refs": refs}, out_dir, process_tp_child,
+                                           "phase 20", PROCESS_TP_TIMEOUT_S)
+    out = {"wall_s": wall_s, "peak_gib": [st["peak_gib"] for _, st in results],
+           "local_model": [st["local_model"] for _, st in results]}
+    for rank, (_, stats) in enumerate(results):
+        if stats["foreign_modules"]:
+            raise AssertionError(f"phase 20 process {rank} loaded jax or the JAX package: "
+                                 f"{stats['foreign_modules'][:5]}")
+    for name in ("int4", "bf16"):
+        served = [served_calls(arrays, name) for arrays, _ in results]
+        tokens = [by_row(s["tokens"]) for s in served]
+        if tokens[0].keys() != tokens[1].keys() or any(
+                not all(torch.equal(a, b) for a, b in zip(tokens[0][k], tokens[1][k])) for k in tokens[0]):
+            raise AssertionError(f"phase 20 {name}: the two processes served other greedy tokens")
+        runs = [st[name] for _, st in results]
+        out[name] = {"served_vs_phase_14": served_comparison(served[0], tp[name]["served"]),
+                     "phase_14": {k: tp[name][k] for k in ("prefill_tok_s", "decode_tok_s", "launches")},
+                     **{k: [r[k] for r in runs] for k in runs[0]}}
+    print(f"phase 20 TP generation across {DCN_PROCESSES} processes (gloo) x {PROCESS_TP_POSITIONS} positions on one "
+          f"card ({smi}), {{'model': {TP}}}, phase 10's weights (Llama-3.1-8B width, 32 layers) and 8 requests: "
+          f"phase wall {wall_s:.1f} s; {json.dumps(out)}", flush=True)
     return out
 
 
@@ -2958,6 +3159,7 @@ def phase_harness(device, smi: str) -> dict:
 
 
 def main() -> None:
+    run_t0 = time.perf_counter()
     device = require_cuda()
     smi = nvidia_smi_line()
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
@@ -2989,6 +3191,7 @@ def main() -> None:
     del corpus, queries
     process_mesh = phase_process_mesh(device, serving, sharded, smi)
     tp = phase_tp(device, server, smi)
+    process_tp = phase_process_tp(device, tp, smi)
     mesh_training = phase_mesh_training(device, training_pairs(make_corpus(N_CHUNKS, N_QUESTIONS)[0]), training, smi)
     tiny_recipe = phase_recipe(device, smi)
     harness = phase_harness(device, smi)
@@ -3040,12 +3243,15 @@ def main() -> None:
                                                                for r, c in int4.ROUTE_LAUNCHES.items()},
                             "tp_launches": tp["int4"]["launches"][counter.name],
                             "tp_launches_by_route": tp["int4"]["route_launches"], "tp_shard_shapes": tp["shards"],
+                            "process_tp_launches_by_route": process_tp["int4"]["route_launches"],
                             "mesh_dryrun_launches": mesh_training["dryrun"]["int4_matmul_launches"],
                             "harness_dryrun_launches": harness["dryrun"]["int4_matmul_launches"]}
                            if counter is int4.LAUNCHES else
                            {"tp_launches": tp["int4"]["launches"][counter.name], "tp_routes": TP_ROUTES,
                             "tp_shard_shapes": tp["tail_shards"]}),
                         "tp_launches_per_forward": tp["int4"]["forwards"],
+                        "process_tp_launches": [r[counter.name] for r in process_tp["int4"]["launches"]],
+                        "process_tp_launches_per_forward": process_tp["int4"]["forwards"],
                         "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks
                                            + (tp["shards"] if counter is int4.LAUNCHES else tp["tail_shards"])),
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -3061,6 +3267,7 @@ def main() -> None:
     if foreign:
         raise AssertionError(f"the port loaded jax or the JAX package: {foreign[:5]}")
 
+    print(f"run wall {time.perf_counter() - run_t0:.1f} s (phase 20: {process_tp['wall_s']:.1f} s)", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,10 @@ runs the questions one after another in input order, with no thread pool
 and no retrieval window, and the processes agree on each answer's digest
 (``distributed.agree``): a question that fails or answers otherwise in
 one process raises in every process. After ``index`` they agree on each
-store's row count and the graph's signature.
+store's row count and the graph's signature. An in-process LLM (``get_llm``)
+over a mesh whose ``model`` axis spans processes is split over that axis,
+each process holding its own blocks, and answers in the same lockstep;
+without such an axis each process runs a replica of it.
 """
 
 from __future__ import annotations

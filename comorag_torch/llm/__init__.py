@@ -35,8 +35,11 @@ def get_llm(config, device: Union[str, torch.device, None] = None, mesh=None) ->
 
     ``mesh`` goes to the in-process engine as in JAX (llm/__init__.py:40,
     :59): a ``model`` axis splits its weights for tensor-parallel
-    generation; a mesh without one changes nothing (over a mesh that
-    spans processes each process runs its own replica of the engine).
+    generation, also where the axis spans processes (each process holds
+    its own blocks, the products merge across processes and the server
+    takes the calls in order, one at a time); a mesh without one changes
+    nothing (over a mesh that spans processes each process then runs its
+    own replica of the engine).
     """
     name = str(config.llm_name)
     if name == "fake" or name.startswith("fake:"):

@@ -19,9 +19,19 @@ product runs once per shard, on the int4 kernels for an int4 engine.
 ``params`` may be a tree trained over a mesh (``Sharded`` leaves, from
 ``models.train_lm``): it is unsharded first (``decoder.unshard_params``)
 and split anew over the engine's own mesh, as JAX takes global arrays.
-Over a mesh that spans processes without a ``model`` axis each process
-runs its own replica of the engine on its merge device (greedy decoding
-gives every process the same text); a ``model`` axis there raises.
+
+Over a mesh that spans processes (``parallel/distributed.py``) every
+process builds the engine on its own merge device from the same weights
+and seed. Where the ``model`` axis crosses processes each keeps its own
+blocks alone and every product merges across processes
+(``across_processes``): every process must then make the same calls in
+the same order (``GenerationServer`` serves them one at a time), and each
+engine call first agrees on a digest of its token rows and generation
+arguments (``distributed.agree``), so that a call that differs in one
+process raises in every process instead of pairing other collectives.
+Without a model axis there, or where each process holds the whole axis,
+each process runs a replica of the engine that meets no other process
+(greedy decoding gives every process the same text).
 """
 
 from __future__ import annotations
@@ -35,7 +45,8 @@ import torch
 
 from comorag_torch.llm.base import BaseLLM, LLMResponse, Messages
 from comorag_torch.llm.guided import JSON_TEMPLATES, compile_json_schema, make_token_table
-from comorag_torch.parallel.mesh import Sharded, mesh_device
+from comorag_torch.parallel import distributed
+from comorag_torch.parallel.mesh import Sharded, mesh_device, model_part
 from comorag_torch.utils import trace
 from comorag_torch.utils.logging import get_logger
 
@@ -216,6 +227,9 @@ class TorchOfflineLLM(BaseLLM):
         if mesh is not None and "model" in mesh.shape:
             params = decoder.shard_params(params, mesh)
         self.params = params
+        # products merge across processes: every engine call is a sequence
+        # of collectives that all processes enter in the same order
+        self.across_processes = mesh is not None and model_part(mesh)[0] is not None
 
         self.speculative = bool(speculative)
         self.draft_len = int(draft_len)
@@ -465,17 +479,23 @@ class TorchOfflineLLM(BaseLLM):
 
     def infer(self, messages: Messages, **gen_kwargs) -> LLMResponse:
         text, sp = self._render(messages)
-        return self._generate_batch([text], max_tokens=self._max_tokens(gen_kwargs),
-                                    json_template=gen_kwargs.get("json_template"),
-                                    temperature=gen_kwargs.get("temperature"),
-                                    id_rows=[self._ids(text, sp)])[0]
+        id_rows = [self._ids(text, sp)]
+        max_tokens, template, temperature = (self._max_tokens(gen_kwargs), gen_kwargs.get("json_template"),
+                                             gen_kwargs.get("temperature"))
+        if self.across_processes:  # before the first merge, as batch_infer
+            distributed.agree((id_rows, max_tokens, template, temperature),
+                              "a call over a model axis across processes")
+        return self._generate_batch([text], max_tokens, template, temperature, id_rows=id_rows)[0]
 
     def batch_infer(self, batch: Sequence[Messages], **gen_kwargs) -> List[LLMResponse]:
         """Real batched decoding, one device call per prompt-length group
         (one group when the batch shares a cacheable header), each group
         split by the KV token budget. A row that fails to render or
         tokenize, and a device call that raises, answer with
-        ``finish_reason: "error"`` for their own rows only."""
+        ``finish_reason: "error"`` for their own rows only, except across
+        processes (``across_processes``), where the device call's error
+        propagates: it may be a disagreement that every process raised,
+        and the processes must not go on apart."""
         if not batch:
             return []
         rendered: List[Optional[Tuple[str, object]]] = []
@@ -501,6 +521,9 @@ class TorchOfflineLLM(BaseLLM):
             except Exception as e:  # noqa: BLE001 — per-item isolation
                 id_rows.append(None)
                 render_errs[i] = str(e)
+        if self.across_processes:  # the groups and chunks below must be every process's
+            distributed.agree((id_rows, max_tokens, template, temperature),
+                              "a batch over a model axis across processes")
         ok = [i for i in range(len(prompts)) if id_rows[i] is not None]
         common = _common_prefix_len([id_rows[i] for i in ok]) if ok else 0
         groups: Dict[int, List[int]] = {}
@@ -532,6 +555,8 @@ class TorchOfflineLLM(BaseLLM):
                     rs = self._generate_batch([prompts[i] for i in chunk], max_tokens, template, temperature,
                                               id_rows=[id_rows[i] for i in chunk])
                 except Exception as e:  # noqa: BLE001 — per-chunk isolation
+                    if self.across_processes:
+                        raise
                     logger.warning("offline generation chunk failed: %s", e)
                     rs = [LLMResponse(text="", metadata={"error": str(e), "finish_reason": "error"})
                           for _ in chunk]

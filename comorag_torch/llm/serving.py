@@ -23,10 +23,22 @@ device utilization, which wins whenever two requests overlap.
 
 Port of ``comorag_tpu/llm/serving.py`` over the port's ``TorchOfflineLLM``
 and ``RequestWindow``; the scheduler is unchanged.
+
+Over an engine whose model axis spans processes
+(``engine.across_processes``) the window would form batches by thread
+timing, so two processes could form different batches and pair different
+collectives. There each ``infer`` / ``batch_infer`` call is served as one
+engine call of its own, in call order, in the caller's thread, with no
+window, and only from the thread that built the server: a call from any
+other thread raises, in every process alike, since whether two threads'
+calls overlap is timing that each process sees otherwise (the processes'
+lockstep callers, such as ComoRAG's meta loop over a process mesh, build
+the server and call it from one thread).
 """
 
 from __future__ import annotations
 
+import threading
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -62,11 +74,18 @@ class GenerationServer(RequestWindow, BaseLLM):
         # supports exactly what its engine supports.
         self.supports_guided_json = getattr(engine, "supports_guided_json", False)
         self.max_batch = max_batch
+        # an engine whose products merge across processes: calls in order,
+        # no window (see the module docstring)
+        self.in_order = bool(getattr(engine, "across_processes", False))
+        self._owner = threading.get_ident()  # the one thread an in-order server serves
         super().__init__(window_ms / 1000.0, max_batch, "gen-server")
 
     # ------------------------------------------------------------ interface
     def submit(self, messages: Messages, **gen_kwargs) -> "Future[LLMResponse]":
         fut: "Future[LLMResponse]" = Future()
+        if self.in_order:
+            fut.set_result(self._call([messages], gen_kwargs)[0])
+            return fut
         self._enqueue((messages, gen_kwargs, fut))
         return fut
 
@@ -74,8 +93,22 @@ class GenerationServer(RequestWindow, BaseLLM):
         return self.submit(messages, **gen_kwargs).result()
 
     def batch_infer(self, batch: Sequence[Messages], **gen_kwargs) -> List[LLMResponse]:
+        if self.in_order:
+            return self._call(list(batch), gen_kwargs) if batch else []
         futures = [self.submit(m, **gen_kwargs) for m in batch]
         return [f.result() for f in futures]
+
+    def _call(self, batch: List[Messages], gen_kwargs: Dict[str, Any]) -> List[LLMResponse]:
+        """One engine call for one caller's requests, in the caller's
+        thread; an engine error raises to the caller (in every process)."""
+        if threading.get_ident() != self._owner:
+            raise RuntimeError("GenerationServer over a model axis that spans processes serves only the thread that "
+                               "built it: every process must make the same calls in the same order, and calls from "
+                               "other threads would interleave by thread timing; call it from that thread")
+        results = self.engine.batch_infer(batch, **gen_kwargs)
+        for r in results:
+            r.metadata["batched_with"] = len(batch) - 1
+        return results
 
     # ------------------------------------------------------------ scheduler
     def _on_serve_error(self, batch, e: Exception) -> None:

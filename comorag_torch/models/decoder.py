@@ -18,8 +18,8 @@ self-speculative decoding. What changes with the framework:
     ``ops.int4.int4_fused_layer_tail`` where ``fused_tail_supported``
     holds. The wrappers launch the Hopper kernels for CUDA tensors and run
     their plain versions for CPU tensors;
-  - tensor parallelism (``shard_params``, JAX's ``param_shardings``) keeps
-    one process: a weight split over the mesh's ``model`` axis is a
+  - tensor parallelism (``shard_params``, JAX's ``param_shardings``): a
+    weight split over the mesh's ``model`` axis is a
     ``parallel.mesh.Sharded`` leaf, and activations, the KV cache and
     attention stay whole on the first device, where products merge. An
     int4 column split whose shards all lie on that device (a mesh of one
@@ -29,7 +29,14 @@ self-speculative decoding. What changes with the framework:
     (``tail_route``), as JAX launches both kernels once over gathered
     shards; every other product runs once per shard on the shard's device
     (shards on distinct cards, blocks the kernel refuses, float and int8
-    weights).
+    weights). Over a ``model`` axis that spans processes each process
+    holds its own blocks alone; it runs the same routes over them and
+    merges the products with the other processes' (``sharded_matmul``),
+    and computes the activations, the KV cache, attention and the whole
+    leaves itself, so every process holds the same logits and draws the
+    same tokens (JAX's replicated activations). The fused tail takes the
+    per-product route there: its o / gate-up / down columns lie in several
+    processes.
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ import torch.utils.checkpoint
 
 from comorag_torch.device import resolve_device
 from comorag_torch.ops import int4 as int4_ops
-from comorag_torch.parallel.mesh import Mesh, Sharded, merge_blocks, one_process, sharded_matmul, split_blocks
+from comorag_torch.parallel.mesh import (Mesh, Sharded, gather_processes, merge_blocks, model_part, sharded_matmul,
+                                         split_blocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,27 +239,34 @@ def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     A split leaf is a ``Sharded`` of JAX's contiguous blocks, one per
     device along the axis; a whole leaf lives once, on the mesh's first
     device (JAX's replicas compute the same values, so the port keeps
-    none). A mesh without the axis splits nothing."""
-    one_process(mesh, "tensor-parallel generation (the model axis)")
+    none). A mesh without the axis splits nothing. Over a ``model`` axis
+    that spans processes every process passes the same whole tree and
+    keeps its own blocks alone (``parallel.mesh.model_part``), and the
+    whole leaves on its own first device."""
     merge = mesh.device
-    devices = tuple(mesh.axis_devices("model")) if "model" in mesh.shape else ()
+    size = mesh.shape.get("model", 1)
+    indices, devices = model_part(mesh)
 
     def whole(w):
         return type(w)(*(t.to(merge) for t in w)) if isinstance(w, tuple) else w.to(merge)
 
     def split(w, dim: str):
-        if len(devices) < 2:
+        if size < 2:
             return whole(w)
         axis = -1 if dim == "col" else -2
+
+        def blocks(t):
+            return split_blocks(t, axis, devices, indices, size)
+
         if isinstance(w, tuple):
-            shards = tuple(type(w)(*parts) for parts in zip(*(split_blocks(t, axis, devices) for t in w)))
+            shards = tuple(type(w)(*parts) for parts in zip(*(blocks(t) for t in w)))
         else:
-            shards = split_blocks(w, axis, devices)
-        return Sharded(shards, dim, devices)
+            shards = blocks(w)
+        return Sharded(shards, dim, devices, indices)
 
     def weight(w, dim: str):
         if isinstance(w, Int4Weight):  # column-parallel where the width divides the axis
-            return split(w, "col") if w.packed.shape[-1] % max(len(devices), 1) == 0 else whole(w)
+            return split(w, "col") if w.packed.shape[-1] % size == 0 else whole(w)
         if isinstance(w, QuantWeight) and dim == "row":
             return QuantWeight(split(w.q, "row"), whole(w.scale))
         return split(w, dim)
@@ -268,9 +283,10 @@ def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
 
 def unshard_params(params: Dict[str, Any], device: Union[str, torch.device]) -> Dict[str, Any]:
     """The inverse of ``shard_params``: every ``Sharded`` leaf's blocks
-    concatenated on ``device`` (``parallel.mesh.merge_blocks``), every
-    whole leaf moved there; detached, as a serving engine or a checkpoint
-    takes them."""
+    concatenated on ``device`` (``parallel.mesh.merge_blocks``; across
+    processes with the other processes' blocks, so every process must call
+    it), every whole leaf moved there; detached, as a serving engine or a
+    checkpoint takes them."""
     device = resolve_device(device)
 
     def whole(w):
@@ -350,7 +366,8 @@ PER_SHARD = "per_shard"
 def _column_blocks(w, device: torch.device):
     """The lists of a ``Sharded`` int4 column leaf's packed and scale
     shards when every shard lies on ``device`` (a ``model`` axis on one
-    card: the kernels read them in place); None for any other leaf."""
+    card: the kernels read them in place; across processes, this process's
+    shards); None for any other leaf."""
     if (isinstance(w, Sharded) and w.dim == "col" and all(isinstance(sh, Int4Weight) for sh in w.shards)
             and all(d == device for d in w.devices)):
         return [sh.packed for sh in w.shards], [sh.scale for sh in w.shards]
@@ -368,7 +385,10 @@ def product_route(w, m: int, device: torch.device) -> str:
         device, merged on ``device``: shards on distinct cards, blocks the
         kernel refuses (off the 128-column unit, more than
         ``TAIL_MAX_BLOCKS``, the ``mma_sync`` route), float and int8
-        weights, row splits."""
+        weights, row splits.
+    Over a model axis that spans processes both routes run over this
+    process's shards, and the outputs are then gathered from every
+    process."""
     return PER_SHARD if _product_blocks(w, m, device) is None else BLOCKS
 
 
@@ -388,7 +408,9 @@ def _dot(inp: torch.Tensor, w, compute_dtype: torch.dtype, bias=None) -> torch.T
         blocks = _product_blocks(w, inp.numel() // inp.shape[-1], inp.device)  # product_route's BLOCKS
         if blocks is not None:
             out = _int4_dot(inp, *blocks, compute_dtype)
-            return out if bias is None else out + merge_blocks(bias, inp.device).to(compute_dtype)
+            if bias is not None:  # this process's bias blocks, on its own columns
+                out = out + torch.cat([b.to(inp.device) for b in bias.shards], dim=-1).to(compute_dtype)
+            return out if w.indices is None else gather_processes(out)
         return sharded_matmul(inp, w, lambda x, shard, b: _dot(x, shard, compute_dtype, b), bias)
     if bias is not None:
         return _dot(inp, w, compute_dtype) + bias.to(compute_dtype)
@@ -489,7 +511,10 @@ _TAIL_WEIGHTS = ("o_w", "gateup_w", "down_w")
 def _tail_blocks(w, device: torch.device):
     """An o / gate-up / down leaf as the fused tail reads it: the (packed,
     scale) of a whole int4 weight, or its column shards' lists
-    (``_column_blocks``); None for any other leaf."""
+    (``_column_blocks``); None for any other leaf, and for shards of an
+    axis that spans processes (the tail would need the others' columns)."""
+    if isinstance(w, Sharded) and w.indices is not None:
+        return None
     return (w.packed, w.scale) if isinstance(w, Int4Weight) else _column_blocks(w, device)
 
 
@@ -525,8 +550,9 @@ def tail_route(params: Dict[str, Any], arch: DecoderArch, m: int) -> str:
       - ``PER_PRODUCT``: each product on its own (under a model axis, by
         ``product_route``), with the residuals, RMSNorm and
         activation in PyTorch between them: float and int8 weights, prefill
-        sizes, and shards on distinct cards (the kernel cannot read
-        another card's memory)."""
+        sizes, shards on distinct cards (the kernel cannot read another
+        card's memory) and a model axis that spans processes (the o /
+        gate-up / down columns lie in several processes)."""
     layer = _layer_at(params["layers"], 0)
     return PER_PRODUCT if _tail_weights(layer, arch, m, params["embed"].device) is None else FUSED_TAIL
 
@@ -541,7 +567,8 @@ def int4_forward_launches(params: Dict[str, Any], arch: DecoderArch, m: int, hea
     """(``int4_matmul``, fused tail) launches of one forward of m tokens on
     int4 weights whose head takes head_m rows, as ``tail_route`` and
     ``product_route`` route them: a whole weight or a ``BLOCKS`` split
-    once, a ``PER_SHARD`` split once a shard."""
+    once, a ``PER_SHARD`` split once a shard (this process's shards: the
+    launches this process makes)."""
     device, layer = params["embed"].device, params["layers"]
     tail = tail_route(params, arch, m) == FUSED_TAIL
     names = ("qkv_w",) if tail else ("qkv_w", "o_w", "gateup_w", "down_w")
@@ -790,7 +817,12 @@ def generate(
     package's while_loop, run as a host loop with one sync per step).
     ``token_table`` masks each step's logits to the DFA's allowed tokens
     and advances every row's automaton state; ``prefix`` shares a cached
-    prompt header across the batch."""
+    prompt header across the batch. Over a ``model`` axis that spans
+    processes every process runs this loop in step with the others: each
+    stop decision reads only the merged logits, the tokens drawn from them
+    and ``rng`` (seeded alike in every process), which every process holds
+    bit for bit, so none leaves the loop alone (the others would wait in
+    the next merge)."""
     dev = input_ids.device
     b, p = input_ids.shape
     p0 = 0 if prefix is None else prefix.k.shape[2]
@@ -853,7 +885,8 @@ def generate_speculative(
     ``generate(temperature=0)``; at temperature > 0 verification is
     rejection sampling (a rejected draft's logit is carried as -inf into
     the next entry draw), so the committed sequence is distributed as
-    sequential sampling."""
+    sequential sampling. Its stop decisions, like ``generate``'s, read only
+    values that every process of a model axis holds alike."""
     dev = input_ids.device
     b, p = input_ids.shape
     k_draft = int(draft_len)

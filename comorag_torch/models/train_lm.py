@@ -23,7 +23,7 @@ import torch
 
 from comorag_torch.models.decoder import DecoderArch, decoder_forward, init_params, shard_params
 from comorag_torch.models.train import TrainState, make_optimizer, make_step
-from comorag_torch.parallel.mesh import Mesh, data_replica, mesh_device, split_batch
+from comorag_torch.parallel.mesh import Mesh, data_replica, mesh_device, one_process, split_batch
 
 
 def lm_loss_terms(
@@ -72,7 +72,9 @@ def create_lm_train_state(arch: DecoderArch, generator: torch.Generator, optimiz
     generator's device: the CPU or ``device``) on ``device`` ("cuda" when
     None; the mesh's first device under a mesh, where
     ``decoder.shard_params`` splits the weights over its ``model`` axis)
-    with a fresh optimizer at step 0."""
+    with a fresh optimizer at step 0. A mesh that spans processes raises
+    (dp x tp training runs on one process's meshes)."""
+    one_process(mesh, "the decoder's training (dp x tp)")
     params = init_params(arch, generator, mesh_device(mesh, device))
     if mesh is not None:
         params = shard_params(params, mesh)

@@ -31,7 +31,9 @@ Axes (as in the JAX package):
     once per shard on the shard's device and merges on the first device by
     a column gather (``gather_columns``) or a sum of partial products
     (``sum_partials``). Activations, the KV cache and attention stay whole
-    on the merge device.
+    on the merge device. Where the axis spans processes, each process
+    holds only its own blocks (``model_part``) and the merges meet across
+    processes (below).
 
 A device list may repeat a device: ``[torch.device("cpu")] * 8`` or
 ``[torch.device("cuda", 0)] * 4`` build a mesh of 8 or 4 positions on one
@@ -52,9 +54,16 @@ compute on their local shards and meet in the collectives of
 runs its meta loop over such a mesh with the questions in lockstep, and
 the encoder splits a batch over the ``data`` axis by process: each
 encodes the sub-batches of its own data indices (``local_indices``) and
-the rows are gathered. The ``model`` axis (TP generation, the encoder's
-split weights) and the training batch split run on one process's meshes
-only (``one_process``).
+the rows are gathered. TP generation splits the decoder over a ``model``
+axis that spans processes: a ``Sharded`` leaf holds this process's blocks
+alone, with their axis ``indices``; every process computes the
+activations, the KV cache and the whole leaves itself from the same
+inputs (JAX's replicated activations), runs its own blocks' products and
+merges them with every other process's (``distributed.all_gather_cols``:
+the column blocks in position order, or every shard's partial product,
+summed in shard order as ``sum_partials`` sums them), so every process
+holds the same merged values. The encoder's split weights and the
+training batch split run on one process's meshes only (``one_process``).
 """
 
 from __future__ import annotations
@@ -225,8 +234,9 @@ def one_process(mesh: Optional[Mesh], what: str) -> None:
     if mesh is not None and mesh.process_count > 1:
         raise NotImplementedError(f"{what} over a mesh of {mesh.process_count} processes is not ported: across "
                                   "processes run the corpus programs (MipsIndex, PPRGraph, ops/topk, ops/ppr), "
-                                  "ComoRAG's meta loop and the encoder's data axis; the model axis and the "
-                                  "training batch split run on one process's meshes")
+                                  "ComoRAG's meta loop, the encoder's data axis and TP generation (the decoder's "
+                                  "model axis); the encoder's model axis and training (its batch split) run on "
+                                  "one process's meshes")
 
 
 def parse_mesh_shape(spec: str) -> Dict[str, int]:
@@ -285,28 +295,70 @@ class Sharded:
     contiguous tensor of its own on its device, or a ``QuantWeight`` /
     ``Int4Weight`` of such tensors; ``dim`` is ``"col"`` for a split of the
     output columns (the last dim) or ``"row"`` for a split of the input
-    rows (the dim before it)."""
+    rows (the dim before it). ``indices``: None where ``shards`` are every
+    position's; on an axis that spans processes, the axis indices of the
+    blocks this process holds (``model_part``), the others' held by the
+    other processes, whose merges meet across processes."""
 
     shards: Tuple[Any, ...]
     dim: str
     devices: Tuple[torch.device, ...]
+    indices: Optional[Tuple[int, ...]] = None
 
     def __getitem__(self, index) -> "Sharded":
         """The same index of every shard (a layer of stacked [L, ...] blocks)."""
         shards = tuple(type(s)(*(t[index] for t in s)) if isinstance(s, tuple) else s[index] for s in self.shards)
-        return Sharded(shards, self.dim, self.devices)
+        return dataclasses.replace(self, shards=shards)
+
+    def position(self, i: int) -> int:
+        """The axis index of ``shards[i]``."""
+        return i if self.indices is None else self.indices[i]
 
 
-def split_blocks(t: torch.Tensor, dim: int, devices: Sequence[torch.device]) -> Tuple[torch.Tensor, ...]:
-    """``t`` cut along ``dim`` into one equal block per device (JAX's
-    blocks: block i holds [i * n / s, (i + 1) * n / s)), each copied into a
-    new contiguous tensor on its device: no block is a view of ``t`` (a
-    column view would carry the whole width as its row stride)."""
-    n, s = t.shape[dim], len(devices)
+def model_part(mesh: Mesh) -> Tuple[Optional[Tuple[int, ...]], Tuple[torch.device, ...]]:
+    """This process's part of ``mesh``'s ``model`` axis: (the axis indices
+    whose blocks it holds, or None where it holds every block; the device
+    of each block it holds). Block m lives on this process's first
+    position at model index m (on one process's mesh: index 0 of every
+    other axis). Where every process owns a position at every model index,
+    each holds every block (a replica: no merge leaves the process);
+    otherwise the positions of each model index must lie in one process,
+    which alone holds that block (JAX's blocks, one per device, with the
+    copies of a block all in one process), and the merges meet across
+    processes. A mesh without the axis gives one block on its first
+    device."""
+    if "model" not in mesh.shape:
+        return None, (mesh.device,)
+    size, axis, me = mesh.shape["model"], mesh.axis_names.index("model"), mesh.process_index
+    procs = np.moveaxis(mesh.processes, axis, 0).reshape(size, -1)
+    devs = np.moveaxis(mesh.devices, axis, 0).reshape(size, -1)
+    held = [m for m in range(size) if me in procs[m]]
+    devices = tuple(next(d for d, p in zip(devs[m], procs[m]) if p == me) for m in held)
+    everyone = set(mesh.processes.flat)
+    if all(set(procs[m]) == everyone for m in range(size)):
+        return None, devices
+    shared = [m for m in range(size) if len(set(procs[m])) > 1]
+    if shared:
+        raise NotImplementedError(f"model indices {shared} of {mesh!r} have positions in several processes, but "
+                                  "not in every one: a block copied across some processes is not ported (put the "
+                                  "model axis first, or give every process positions at every model index)")
+    return tuple(held), devices
+
+
+def split_blocks(t: torch.Tensor, dim: int, devices: Sequence[torch.device],
+                 indices: Optional[Sequence[int]] = None, size: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """``t`` cut along ``dim`` into ``size`` equal blocks (JAX's blocks:
+    block i holds [i * n / size, (i + 1) * n / size)), of which block
+    ``indices[j]`` is copied into a new contiguous tensor on
+    ``devices[j]``: no block is a view of ``t`` (a column view would carry
+    the whole width as its row stride). By default every block, one a
+    device (``size = len(devices)``)."""
+    n = t.shape[dim]
+    s = len(devices) if size is None else size
     if n % s:
         raise ValueError(f"dimension {dim} of a {tuple(t.shape)} weight is not divisible by the model axis size {s}")
     blocks = []
-    for i, dev in enumerate(devices):
+    for i, dev in zip(range(s) if indices is None else indices, devices):
         block = t.narrow(dim, i * (n // s), n // s)
         blocks.append(torch.empty(block.shape, dtype=t.dtype, device=dev).copy_(block))
     return tuple(blocks)
@@ -327,6 +379,16 @@ def sum_partials(parts: Sequence[torch.Tensor], device: torch.device) -> torch.T
     return out
 
 
+def gather_processes(t: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Every process's ``t`` concatenated along ``axis`` in process order,
+    on t's device (``distributed.all_gather_cols``; the other dims must
+    agree). On a model axis that spans processes, process order is
+    position order: the owners of the positions never decrease."""
+    moved = t.movedim(axis, -1)
+    flat = distributed.all_gather_cols(moved.reshape(-1, moved.shape[-1]))
+    return flat.reshape(*moved.shape[:-1], flat.shape[-1]).movedim(-1, axis)
+
+
 def sharded_matmul(inp: torch.Tensor, w: Sharded, dot, bias: Optional[Sharded] = None) -> torch.Tensor:
     """[..., in] @ a ``Sharded`` weight, merged on inp's device:
     ``dot(x, shard, bias_block)`` runs once per shard on the shard's device
@@ -335,27 +397,44 @@ def sharded_matmul(inp: torch.Tensor, w: Sharded, dot, bias: Optional[Sharded] =
     the same columns, or None) and gathers the outputs; a row split gives
     each shard its block of inp's last dim and sums the partial products
     (a row split's bias is whole: the caller adds it once to the sum).
-    Every step is differentiable, so the backward runs per shard too."""
-    parts, lo = [], 0
+    Every step is differentiable, so the backward runs per shard too.
+    Across processes (``w.indices``) the outputs of this process's shards
+    are gathered with every other process's (``gather_processes``), and a
+    row split sums every shard's partial product, in shard order, on every
+    process: the sum of one process's mesh, bit for bit (no
+    ``all_reduce``, whose association is the library's). That merge is not
+    differentiable."""
+    parts = []
     for i, (shard, dev) in enumerate(zip(w.shards, w.devices)):
         x = inp
         if w.dim == "row":
             k = shard.shape[-2]
-            x, lo = inp[..., lo:lo + k], lo + k
+            x = inp[..., w.position(i) * k:(w.position(i) + 1) * k]
         with on_device(dev):
             parts.append(dot(x.to(dev), shard, None if bias is None else bias.shards[i]))
-    return gather_columns(parts, inp.device) if w.dim == "col" else sum_partials(parts, inp.device)
+    if w.indices is None:
+        return gather_columns(parts, inp.device) if w.dim == "col" else sum_partials(parts, inp.device)
+    merged = gather_processes(gather_columns(parts, inp.device))
+    if w.dim == "col":
+        return merged
+    return sum_partials(merged.split(parts[0].shape[-1], dim=-1), inp.device)
 
 
 def merge_blocks(w: Sharded, device: torch.device) -> Any:
     """The whole weight of a ``Sharded`` leaf on ``device``: its blocks
     concatenated along the split dim (field by field for quantized
-    shards), the inverse of ``split_blocks``."""
+    shards), the inverse of ``split_blocks``; across processes with every
+    other process's blocks (``gather_processes``), so any process can
+    write the whole weight."""
     axis = -1 if w.dim == "col" else -2
+
+    def cat(blocks):
+        local = torch.cat([b.to(device) for b in blocks], dim=axis)
+        return local if w.indices is None else gather_processes(local, axis).contiguous()
+
     if isinstance(w.shards[0], tuple):
-        return type(w.shards[0])(*(torch.cat([t.to(device) for t in fields], dim=axis)
-                                   for fields in zip(*w.shards)))
-    return torch.cat([s.to(device) for s in w.shards], dim=axis)
+        return type(w.shards[0])(*(cat(fields) for fields in zip(*w.shards)))
+    return cat(w.shards)
 
 
 # ------------------------------------------------------- the ``data`` axis
@@ -398,7 +477,8 @@ def data_replica(tree: Any, mesh: Mesh, d: int) -> Any:
         if isinstance(x, list):
             return [rep(v) for v in x]
         if isinstance(x, Sharded):
-            return Sharded(tuple(rep_on(s, dev) for s, dev in zip(x.shards, devices)), x.dim, devices)
+            return dataclasses.replace(x, shards=tuple(rep_on(s, dev) for s, dev in zip(x.shards, devices)),
+                                       devices=devices)
         if isinstance(x, tuple):
             values = [rep(v) for v in x]
             return type(x)(*values) if hasattr(x, "_fields") else tuple(values)

@@ -211,9 +211,11 @@ def run_errors(mesh, workdir: str) -> dict:
 
 def run_parts(mesh) -> dict:
     """(d): what still refuses a process mesh, what runs per process, and
-    the local positions: the engine's retrieval window and the model axis
-    raise; the in-process LLM runs a replica on each process's merge
-    device; the GMM clusters locally."""
+    the local positions: the engine's retrieval window, the encoder's
+    model axis and the training batch split raise; the in-process LLM
+    runs a replica on each process's merge device, and over a model axis
+    across the processes holds its own block and answers as one process
+    does; the GMM clusters locally."""
     from comorag_torch.llm.offline import TorchOfflineLLM
     from comorag_torch.ops.gmm import fit_gmm_bic
     from comorag_torch.parallel.mesh import split_batch
@@ -222,6 +224,8 @@ def run_parts(mesh) -> dict:
     engine = RetrievalEngine(ComoConfig(), None, None, mesh=mesh)
     model_mesh = build_mesh({"model": 2, "corpus": 2}, [CPU] * 2)
     llm = TorchOfflineLLM(mesh=mesh, max_new_tokens=6)
+    split = TorchOfflineLLM(mesh=model_mesh, max_new_tokens=6)
+    qkv = split.params["layers"]["qkv_w"]
     rng = np.random.default_rng(3)  # three separated blobs
     x = (rng.standard_normal((120, 4)) + np.repeat(np.eye(3, 4) * 6.0, 40, axis=0)).astype(np.float32)
     k, resp = fit_gmm_bic(x, max_clusters=4, seed=5, device="cpu")
@@ -229,7 +233,8 @@ def run_parts(mesh) -> dict:
             "d/split_batch": _raised(lambda: split_batch({"x": torch.zeros(4, 2)}, mesh)),
             "d/encoder_model_axis": _raised(lambda: bge.shard_params(bge.init_params(
                 bge.EncoderArch.tiny(), torch.Generator().manual_seed(0), "cpu"), model_mesh)),
-            "d/llm_model_axis": _raised(lambda: TorchOfflineLLM(mesh=model_mesh)),
+            "d/llm_model_axis": np.asarray([qkv.position(i) for i in range(len(qkv.shards))]),
+            "d/llm_model_axis_text": np.asarray(split.infer([{"role": "user", "content": "Name a lamp."}]).text),
             "d/llm_text": np.asarray(llm.infer([{"role": "user", "content": "Name a lamp."}]).text),
             "d/llm_device": np.asarray(str(llm.device)),
             "d/gmm_k": np.int64(k), "d/gmm_resp": resp,

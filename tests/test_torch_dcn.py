@@ -354,18 +354,20 @@ def test_card_exchange_outlives_every_read():
 
 
 def test_one_process_parts_refuse_a_process_mesh(tmp_path):
-    """The encoder's model axis, TP generation and the data-axis batch split
-    of training run on one process's meshes only: over a mesh that spans
-    processes they raise, where the corpus programs, ComoRAG's meta loop
-    (its questions in lockstep) and the encoder's data axis (its own data
-    indices' sub-batches) run. A position of another process holds a
+    """The encoder's model axis and the data-axis batch split of training
+    run on one process's meshes only: over a mesh that spans processes
+    they raise, where the corpus programs, ComoRAG's meta loop (its
+    questions in lockstep), the encoder's data axis (its own data indices'
+    sub-batches) and TP generation run: the decoder's split builds this
+    process's blocks alone. A position of another process holds a
     RemoteDevice, on which no tensor can be put."""
     devices = np.empty(4, dtype=object)
     devices[:] = [CPU, CPU, RemoteDevice(1, "cpu"), RemoteDevice(1, "cpu")]
     mesh = Mesh(devices.reshape(2, 2), ("data", "corpus"), np.asarray([[0, 0], [1, 1]]), 0)
     assert mesh.process_count == 2 and mesh.device == CPU
     assert mesh.is_local(data=0, corpus=1) and not mesh.is_local(data=1) and mesh.process_of(data=1) == 1
-    with pytest.raises(NotImplementedError, match="the model axis and the training batch split run on one"):
+    with pytest.raises(NotImplementedError, match=r"the encoder's model axis and training \(its batch split\) run on "
+                                                  "one process's meshes"):
         one_process(mesh, "the encoder's model axis")
     from comorag_torch.comorag import ComoRAG
     from comorag_torch.config import ComoConfig
@@ -380,8 +382,12 @@ def test_one_process_parts_refuse_a_process_mesh(tmp_path):
     assert mesh.local_indices("data") == [0] and encoder._local_parts == [(0, CPU)] and encoder._across
     with pytest.raises(NotImplementedError):
         bge.shard_params(model, Mesh(devices.reshape(2, 2), ("model", "corpus"), np.asarray([[0, 0], [1, 1]]), 0))
-    with pytest.raises(NotImplementedError):
-        decoder.shard_params({}, mesh)
+    model_mesh = Mesh(devices.reshape(2, 2), ("model", "corpus"), np.asarray([[0, 0], [1, 1]]), 0)
+    params = decoder.init_params(decoder.DecoderArch.tiny(), torch.Generator().manual_seed(0), "cpu")
+    qkv = decoder.shard_params(params, model_mesh)["layers"]["qkv_w"]
+    assert qkv.indices == (0,) and qkv.devices == (CPU,) and len(qkv.shards) == 1
+    whole = params["layers"]["qkv_w"]
+    assert torch.equal(qkv.shards[0], whole[..., : whole.shape[-1] // 2])
     with pytest.raises(NotImplementedError):
         split_batch({"x": torch.zeros(4, 2)}, mesh)
     with pytest.raises(TypeError):

@@ -23,9 +23,10 @@ job runs once per module, while this process computes the references:
   - (c) lockstep: a question that fails in one process (or in both), or
     whose answer differs between them, raises in every process; none
     hangs, and the group is in step after each;
-  - (d) what still refuses a process mesh (the model axis, the training
-    batch split, the retrieval window) and what runs per process (the
-    in-process LLM, the GMM).
+  - (d) what still refuses a process mesh (the encoder's model axis, the
+    training batch split, the retrieval window) and what runs per process
+    (the in-process LLM, also split over a model axis across the
+    processes, the GMM).
 """
 
 import importlib.util
@@ -250,24 +251,28 @@ def test_the_group_stays_in_step_after_each_error(runs):
 
 # -------------------------------------------------- (d) what runs where
 def test_process_mesh_parts(runs):
-    """The retrieval window, the training batch split and the model axis
-    (the encoder's split weights, TP generation) still refuse a process
-    mesh; the in-process LLM runs a replica in each process, as on one
-    device; the GMM runs locally, alike in each."""
+    """The retrieval window, the training batch split and the encoder's
+    model axis still refuse a process mesh; the in-process LLM runs a
+    replica in each process, as on one device, and over {"model": 2,
+    "corpus": 2} across the processes (TP generation) each process holds
+    its own block of every split weight and the engine answers as the
+    unsplit one; the GMM runs locally, alike in each."""
     from comorag_torch.llm.offline import TorchOfflineLLM
     from comorag_torch.ops.gmm import fit_gmm_bic
 
     ranks, _, _ = runs
     for r in ranks:
         assert str(r["d/window"]).startswith("ValueError: a RetrievalWindow")
-        for key in ("split_batch", "encoder_model_axis", "llm_model_axis"):
+        for key in ("split_batch", "encoder_model_axis"):
             assert str(r[f"d/{key}"]).startswith("NotImplementedError:"), (key, r[f"d/{key}"])
         assert str(r["d/llm_device"]) == "cpu"
     assert ranks[0]["d/local_data"].tolist() == [0] and ranks[1]["d/local_data"].tolist() == [1]
     assert ranks[0]["d/local_corpus"].tolist() == [0, 1, 2, 3] and ranks[1]["d/local_corpus"].tolist() == [4, 5, 6, 7]
     one = TorchOfflineLLM(max_new_tokens=6, device="cpu")
-    assert str(ranks[0]["d/llm_text"]) == str(ranks[1]["d/llm_text"]) == one.infer(
-        [{"role": "user", "content": "Name a lamp."}]).text
+    text = one.infer([{"role": "user", "content": "Name a lamp."}]).text
+    assert str(ranks[0]["d/llm_text"]) == str(ranks[1]["d/llm_text"]) == text
+    assert [r["d/llm_model_axis"].tolist() for r in ranks] == [[0], [1]]
+    assert str(ranks[0]["d/llm_model_axis_text"]) == str(ranks[1]["d/llm_model_axis_text"]) == text
     rng = np.random.default_rng(3)
     x = (rng.standard_normal((120, 4)) + np.repeat(np.eye(3, 4) * 6.0, 40, axis=0)).astype(np.float32)
     k, resp = fit_gmm_bic(x, max_clusters=4, seed=5, device="cpu")
