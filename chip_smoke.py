@@ -134,10 +134,12 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      forward of <= 64 tokens, a decode step, launches the fused tail once
      a layer over the o, gate/up and down column shards, read in place,
      and int4_matmul once a layer for qkv over its 4 column shards, read
-     in place, plus once per shard of the head, whose 32,064-column
-     shards are no multiple of 128: 36 + 32 at 32 layers; a prefill chunk
-     int4_matmul once a product over the shards, 4 x layers + 4, no tail;
-     per route, beside phase 10's); the last-prompt and first-decode-step
+     in place, plus once for the head over its 4 column shards, whose
+     32,064 columns are a multiple of 64 (split-K's ragged unit) but not
+     of 128: 33 + 32 at 32 layers; a prefill chunk int4_matmul once a
+     product over the shards and once for the head at its 8 rows, 4 x
+     layers + 1, no tail; per route, beside phase 10's, equal where both
+     served the same steps); the last-prompt and first-decode-step
      logits in fp32 compute against the unsharded engine on the same
      weights and against the plain versions on the same shards, under
      phase 10's rule; the served bf16 logits and greedy tokens beside
@@ -145,10 +147,11 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      bf16 weights (o/down row-parallel, partial sums on the merge device,
      no int4 launch); (c) int4_matmul over column blocks (qkv at M = 8
      over its 4 shards, gate/up at M = 4,096 over its 4, the head at M = 8
-     over {"model": 2}'s 2, whose items straddle the blocks), each held
-     against its plain version under the bf16 rule and against the
-     whole-weight launch (bit-equal required), timed beside it; the head's
-     per-shard shape at {"model": 4} (M = 8, 4096->32064); and the fused
+     over {"model": 2}'s 2 and over {"model": 4}'s 4 ragged 32,064-column
+     blocks), each held against its plain version under the bf16 rule and
+     against the whole-weight launch (bit-equal required, at the same K
+     splits), timed beside it; one 32,064-column head shard alone (M = 8,
+     split-K: a distinct card's launch); and the fused
      tail over the 4 column shards at M = 8 and 64 (against its plain
      version and the whole-weight launch) as phase 9 times its shapes;
  15. dp x tp training over {"data": 2, "model": 2} of the one card
@@ -171,8 +174,8 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      over the model axis (guided JSON sampled, then speculative at
      temperature 0) and with int4 weights (int4_matmul launches a forward
      as ``decoder.product_route`` routes each column split: its
-     128-column gate/up shards in one launch, its 64- and 32-column qkv,
-     o and down shards once a shard), the qwen3- and gemma-class
+     128-column gate/up and 64-column qkv shards in one launch each, its
+     32-column o and down shards once a shard), the qwen3- and gemma-class
      families, the corpus-sharded index and PPR. None of the six kernels
      launches in the training steps of (a), (b) and (d).
  16. the tiny decoder's training recipe (scripts/torch_train_tiny_lm.py,
@@ -247,7 +250,8 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      10's rule of phase 14's one-process engine (its token fed to the
      step), every forward's launches against
      ``decoder.int4_forward_launches`` (int4_matmul over this process's
-     blocks, no fused tail: the per-product route), then phase 10's 8
+     blocks, its two 32,064-column head blocks in one split-K launch, no
+     fused tail: the per-product route), then phase 10's 8
      requests as one ``batch_infer`` of a GenerationServer (which serves
      each call alone, in order) at ``PROCESS_TP_TOKENS`` (24) new
      tokens, phase 10's 64 cut to a 30 s decode budget a kind: no
@@ -1009,11 +1013,13 @@ def tail_bound(m: int, h: int, i: int, gs: int = 128) -> dict:
     return bound(m * h * (2 + 4 + 4) + h * 4 + weights, 2 * m * (h * h + h * 2 * i + i * h), "bf16")
 
 
-def matmul_splits(device, m: int, k: int, n: int, route: str) -> int:
-    """K splits of the route's launch: matmul_plan's on the split-K route, else 1."""
+def matmul_splits(device, m: int, k: int, n: int, route: str, blocks: int = 1) -> int:
+    """K splits of the route's launch over ``blocks`` column blocks:
+    matmul_plan's on the split-K route, else 1."""
     if route != "splitk":
         return 1
-    return int4.matmul_plan(m, k, n, 128, int4._sm_count(device), *int4._splitk_geometry(device, m))["splits"]
+    return int4.matmul_plan(m, k, n, 128, int4._sm_count(device), *int4._splitk_geometry(device, m),
+                            blocks)["splits"]
 
 
 def int4_yardsticks(x, packed, scales, ref, gs: int = 128) -> dict:
@@ -1059,12 +1065,12 @@ def time_int4_matmul(device, gen, m: int, name: str, packed: torch.Tensor, scale
                      blocks: int = 1) -> dict:
     """int4_matmul at M = m against its plain version on the first layer's
     weight (the bf16 rule), timed cycling through every layer's weight,
-    with its route, K splits, host time, yardsticks and bound. With
-    ``blocks`` > 1 each layer's weight goes in as that many column blocks
-    (``split_blocks``, as ``decoder.shard_params`` cuts a one-card model
-    axis's shards), one launch over them: held against the whole weight's
-    launch too (bit-equal required), and timed beside it, also with the
-    kernels alone (``device_ms``)."""
+    also with the kernels alone (``device_ms``), with its route, K splits,
+    host time, yardsticks and bound. With ``blocks`` > 1 each layer's
+    weight goes in as that many column blocks (``split_blocks``, as
+    ``decoder.shard_params`` cuts a one-card model axis's shards), one
+    launch over them: held against the whole weight's launch too (the
+    same route and K splits, bit-equal required), and timed beside it."""
     k, n = packed.shape[1] * 2, packed.shape[2]
     layers = packed.shape[0]
     x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
@@ -1082,24 +1088,30 @@ def time_int4_matmul(device, gen, m: int, name: str, packed: torch.Tensor, scale
     got = call(0)
     ref = int4.int4_matmul_plain(x, packed[0], scales[0])
     torch.cuda.synchronize()
-    route = int4.int4_matmul_route(m, n)
+    route = int4.int4_matmul_route(m, n, blocks)
     what = f"int4_matmul M={m} {name}" + (f" over {blocks} column blocks" if blocks > 1 else "")
     r = {"M": m, "weight": name, "K": k, "N": n, "blocks": blocks, "route": route,
-         "splits": matmul_splits(device, m, k, n, route), "max_abs_err": compare(got, ref, what),
-         "ms": median_ms(cycling(call, layers)),
+         "splits": matmul_splits(device, m, k, n, route, blocks), "max_abs_err": compare(got, ref, what),
+         "ms": median_ms(cycling(call, layers)), "device_ms": device_ms(cycling(call, layers)),
          "plain_ms": median_ms(lambda: int4.int4_matmul_plain(x, packed[0], scales[0]), runs=3, reps=1, warmup=1),
          "host_us": host_us(lambda: call(0)),
          **int4_yardsticks(x, packed[0], scales[0], ref), **int4_bound(m, k, n)}
     if blocks > 1:
+        r["whole_route"] = int4.int4_matmul_route(m, n)
+        r["whole_splits"] = matmul_splits(device, m, k, n, r["whole_route"])
         r["max_abs_diff_vs_whole_kernel"] = float((got - whole(0)).abs().max())
+        if (r["route"], r["splits"]) != (r["whole_route"], r["whole_splits"]):
+            raise AssertionError(f"{what}: route {r['route']} at {r['splits']} K splits, the whole weight's "
+                                 f"{r['whole_route']} at {r['whole_splits']}")
         if r["max_abs_diff_vs_whole_kernel"] != 0.0:
             raise AssertionError(f"{what}: differs from the whole weight's launch by "
                                  f"{r['max_abs_diff_vs_whole_kernel']} (the same items and sums: bit-equal)")
-        r.update(device_ms=device_ms(cycling(call, layers)), whole_ms=median_ms(cycling(whole, layers)),
-                 whole_device_ms=device_ms(cycling(whole, layers)), whole_host_us=host_us(lambda: whole(0)))
+        r.update(whole_ms=median_ms(cycling(whole, layers)), whole_device_ms=device_ms(cycling(whole, layers)),
+                 whole_host_us=host_us(lambda: whole(0)))
     # the library call: tinygemm, the same formula ((q - 8) * scale a group) with bf16 scales and output
     r["library_ms"] = r["int4pack_mm_ms"]
     r["roofline_share"] = r["bound_ms"] / r["ms"]
+    r["device_roofline_share"] = r["bound_ms"] / r["device_ms"]
     del got, ref, x, cut
     torch.cuda.empty_cache()
     return r
@@ -1108,13 +1120,14 @@ def time_int4_matmul(device, gen, m: int, name: str, packed: torch.Tensor, scale
 def int4_matmul_line(r: dict) -> str:
     blocked = ""
     if r["blocks"] > 1:
-        blocked = (f" over {r['blocks']} column blocks in one launch (max |d| against the whole weight's launch "
-                   f"{r['max_abs_diff_vs_whole_kernel']:.4g}; device alone {r['device_ms']:.4f} ms; the whole "
-                   f"weight {r['whole_ms']:.4f} ms, device alone {r['whole_device_ms']:.4f} ms, host "
-                   f"{r['whole_host_us']:.1f} us a call)")
+        blocked = (f" over {r['blocks']} column blocks of {r['N'] // r['blocks']} in one launch (max |d| against the "
+                   f"whole weight's launch at its {r['whole_splits']} K split(s) "
+                   f"{r['max_abs_diff_vs_whole_kernel']:.4g}; the whole weight {r['whole_ms']:.4f} ms, device alone "
+                   f"{r['whole_device_ms']:.4f} ms, host {r['whole_host_us']:.1f} us a call)")
     return (f"int4_matmul M={r['M']} {r['weight']} {r['K']}->{r['N']}{blocked} route {r['route']} ({r['splits']} K "
-            f"split(s)): max_abs_err={r['max_abs_err']:.4g} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) roofline share {r['roofline_share']:.3f}; wrapper host "
+            f"split(s)): max_abs_err={r['max_abs_err']:.4g} kernel {r['ms']:.4f} ms (device alone "
+            f"{r['device_ms']:.4f} ms) plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+            f"roofline share {r['roofline_share']:.3f} (device alone {r['device_roofline_share']:.3f}); wrapper host "
             f"{r['host_us']:.1f} us a call; yardsticks (not this function): bf16 torch.matmul on the dequantized "
             f"weight {r['bf16_matmul_ms']:.4f} ms, torch._weight_int4pack_mm {r['int4pack_mm']}")
 
@@ -2339,15 +2352,18 @@ TP = 4
 # int4_matmul over a one-card model axis's column shards at Llama-3.1-8B
 # widths: (weight, M, blocks). qkv at decode and gate/up at prefill over
 # {"model": 4}'s shards, in one launch; the head over {"model": 2}'s
-# 64,128-column blocks in one launch (an item's two 128-column boxes
-# straddle the blocks); the head's 32,064-column shard of {"model": 4},
-# no multiple of 128, launched per shard (o, gate/up and down run in the
-# fused tail over their shards at decode)
-TP_MATMUL_SHAPES = (("qkv", 8, TP), ("gate_up", 4096, TP), ("lm_head", 8, 2), ("lm_head shard", 8, 1))
+# 64,128-column blocks (each block's last split-K item holds one box) and
+# over {"model": 4}'s 32,064-column blocks (a multiple of 64, not of 128:
+# each block's last item holds 64 columns), each in one launch; one
+# 32,064-column head shard alone, as a distinct card launches it (o,
+# gate/up and down run in the fused tail over their shards at decode)
+TP_MATMUL_SHAPES = (("qkv", 8, TP), ("gate_up", 4096, TP), ("lm_head", 8, 2), ("lm_head", 8, TP),
+                    ("lm_head shard", 8, 1))
 TP_ROUTES = (f"int4_matmul: {decoder.BLOCKS} where a column split's shards all lie on the merge device (this "
-             f"mesh of one card) and the kernel takes them (splitk or wgmma route, equal widths a multiple of "
-             f"128, at most {int4.TAIL_MAX_BLOCKS}): one launch a product reads the shards in place; "
-             f"{decoder.PER_SHARD} otherwise (the head's 32,064-column shards here; distinct cards): one launch a "
+             f"mesh of one card) and the kernel takes them (at most {int4.TAIL_MAX_BLOCKS} of equal width: splitk "
+             f"up to 64 rows, each a multiple of 64 columns, the head's 32,064-column shards among them; wgmma "
+             f"above, each a multiple of 128): one launch a product reads the shards in place; "
+             f"{decoder.PER_SHARD} otherwise (distinct cards; blocks off those units): one launch a "
              f"shard, gathered on the merge device. The layer tail: {decoder.FUSED_TAIL} where every shard lies "
              f"on the merge device: one launch a layer of <= 64 tokens reads the o, gate/up and down column "
              f"shards in place; {decoder.PER_PRODUCT} over distinct cards (the kernel reads one card's memory) "
@@ -2546,7 +2562,8 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
               f"width, {arch.num_layers} layers, 8 requests x {max_tokens} tokens, 512-token bucket: prefill {r['prefill_tok_s']:.1f} "
               f"tok/s, decode {r['decode_tok_s']:.1f} tok/s (phase 10 unsharded: {r['phase_10']['prefill_tok_s']:.1f}, "
               f"{r['phase_10']['decode_tok_s']:.1f}), wall {r['wall_s']:.3f} s, build {r['build_s']:.3f} s; launches "
-              f"{r['launches']}, int4_matmul by route {r['route_launches']} (phase 10: {r['phase_10']['route_launches']})"
+              f"{r['launches']}, int4_matmul by route {r['route_launches']} (phase 10: {r['phase_10']['route_launches']}"
+              f", equal: {r['route_launches'] == r['phase_10']['route_launches']})"
               f"; per forward (checked) {json.dumps(r['forwards'])}; decode route {r['decode_route']} (routes: "
               f"{TP_ROUTES}); qkv_w {r['qkv_shard']}; fp32-compute logits (checked) "
               f"{json.dumps(logits)}; served bf16 logits and greedy tokens beside phase 10's (reported) "
@@ -2728,7 +2745,9 @@ def phase_process_tp(device, tp: dict, smi: str) -> dict:
                      **{k: [r[k] for r in runs] for k in runs[0]}}
     print(f"phase 20 TP generation across {DCN_PROCESSES} processes (gloo) x {PROCESS_TP_POSITIONS} positions on one "
           f"card ({smi}), {{'model': {TP}}}, phase 10's weights (Llama-3.1-8B width, 32 layers) and 8 requests: "
-          f"phase wall {wall_s:.1f} s; {json.dumps(out)}", flush=True)
+          f"phase wall {wall_s:.1f} s; int4 forwards a process (checked) {json.dumps(out['int4']['forwards'])}, "
+          f"int4_matmul by route a process {json.dumps(out['int4']['route_launches'])}; {json.dumps(out)}",
+          flush=True)
     return out
 
 
@@ -2890,8 +2909,8 @@ def mesh_dryrun(device) -> dict:
     weights split over the model axis (guided JSON sampled, then
     speculative at temperature 0) and with int4 weights (int4_matmul
     launches a forward as ``decoder.product_route`` routes each column
-    split: its 128-column gate/up shards in one launch, its 64- and
-    32-column qkv, o and down shards once a shard), the qwen3- and
+    split: its 128-column gate/up and 64-column qkv shards in one launch
+    each, its 32-column o and down shards once a shard), the qwen3- and
     gemma-class families, the corpus-sharded index and PPR."""
     dry = graft_entry.dryrun_multichip(4, devices=[device] * 4)
     expected = dry["int4_matmul_per_forward"] * dry["int4_decode_steps"]
@@ -3190,7 +3209,9 @@ def main() -> None:
         process_meta = phase_process_meta_loop(device, slice_out, meta, sharded, meta_dir, smi)
     del corpus, queries
     process_mesh = phase_process_mesh(device, serving, sharded, smi)
+    tp_t0 = time.perf_counter()
     tp = phase_tp(device, server, smi)
+    tp_wall_s = time.perf_counter() - tp_t0
     process_tp = phase_process_tp(device, tp, smi)
     mesh_training = phase_mesh_training(device, training_pairs(make_corpus(N_CHUNKS, N_QUESTIONS)[0]), training, smi)
     tiny_recipe = phase_recipe(device, smi)
@@ -3267,7 +3288,8 @@ def main() -> None:
     if foreign:
         raise AssertionError(f"the port loaded jax or the JAX package: {foreign[:5]}")
 
-    print(f"run wall {time.perf_counter() - run_t0:.1f} s (phase 20: {process_tp['wall_s']:.1f} s)", flush=True)
+    print(f"run wall {time.perf_counter() - run_t0:.1f} s (phase 14: {tp_wall_s:.1f} s, phase 20: "
+          f"{process_tp['wall_s']:.1f} s)", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

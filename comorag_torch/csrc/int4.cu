@@ -18,11 +18,14 @@
 // 2*M*K*N operations at the bf16 tensor-core rate.
 //
 // int4_matmul has three routes, chosen by shape in ops/int4.int4_matmul:
-// - decode, M <= 64 and N a multiple of 256: one stage of the fused tail's
-//   split-K streaming code below (splitk::product_kernel, an ordinary
-//   launch over a persistent grid): work items of two 128-column boxes
-//   side by side (256-byte runs of each packed row: 128-byte runs, rows
-//   N bytes apart, streamed at a third of the card's rate) split along K
+// - decode, M <= 64 and each block's width a multiple of 64: one stage of
+//   the fused tail's split-K streaming code below (splitk::product_kernel,
+//   an ordinary launch over a persistent grid): work items of two
+//   128-column boxes side by side (256-byte runs of each packed row:
+//   128-byte runs, rows N bytes apart, streamed at a third of the card's
+//   rate), laid out block by block (a block's last item holds its ragged
+//   rest of 64, 128 or 192 columns: TMA fills the part of a box past the
+//   block's edge with zeros, and the stores stop at the edge), split along K
 //   on scale-group boundaries (ops/int4.matmul_plan), TMA boxes in a ring
 //   on mbarriers, the weights as the m16n8k16 A operand and the tokens as
 //   its 8-wide N (W^T x^T), the exact nibble unpack, fp32 partials summed
@@ -44,7 +47,7 @@
 //   next stage's bytes already loaded; setmaxnreg moves the producer's
 //   registers to the consumers; the epilogue stages out^T through shared
 //   memory for 16-byte row stores;
-// - every other shape (N no multiple of 256 up to 64 rows, of 128 above,
+// - every other shape (N no multiple of 64 up to 64 rows, of 128 above,
 //   e.g. a 259-token vocabulary): the first design, int4_matmul_kernel. A block owns a
 //   [BM, BN] output tile and walks K in slabs of 64 through a cp.async
 //   ring (the x rows as bf16, the packed bytes as they are); the
@@ -54,10 +57,10 @@
 //   mma.sync, no split of K.
 // The split-K and wgmma routes take the weight whole or as up to
 // splitk::MAX_BLOCKS column blocks (a `model` axis's shards on one
-// device): each block has its own tensor map and scale pointer, and a
-// box's (split-K) or tile's (wgmma) global column picks its block, so one
-// launch reads the shards in place with the whole weight's items and sums
-// (bit-equal output).
+// device): each block has its own tensor map and scale pointer; a split-K
+// item lies in one block, and a wgmma tile's global column picks its
+// block, so one launch reads the shards in place with the whole weight's
+// sums (bit-equal output at the same K splits).
 
 // The fused layer tail, x_res + FFN(RMSNorm(x_res + ctx @ O)), is one
 // cooperative launch (the TPU kernel exists to be one invocation instead
@@ -374,8 +377,11 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w_hi) {
 // A weight arrives as `blocks` column blocks of `bw` columns each (one
 // block: the whole weight; more: a model axis's column shards, each its
 // own [K/2, bw] packed tensor and [K/gs, bw] scales, read in place).
-// Global output column c lies in block c / bw at local column c % bw; bw
-// is a multiple of BN, so no box straddles two blocks.
+// Global output column c lies in block c / bw at local column c % bw. The
+// tail's stages take bw a multiple of BN and tile the whole N, so no box
+// straddles two blocks; PRODUCT takes bw a multiple of PRODUCT_UNIT and
+// tiles each block on its own (block_tiles items a block, the last one
+// ragged where bw is no multiple of its span).
 constexpr int MAX_BLOCKS = 4;
 
 struct Gemm {
@@ -384,6 +390,7 @@ struct Gemm {
   int bw;              // columns of a block (N for a whole weight)
   int second;          // column offset of the second half (gate/up: I), else -1
   int span;            // output columns a tile advances (a product item's boxes lie side by side)
+  int block_tiles;     // PRODUCT: tiles a block, ceil(bw / span); the tail's stages: 0 (tiles over the whole N)
   int tiles, splits;
   float* ws;           // [splits, M, N] fp32 partials, by global column
   unsigned* tickets;   // [tiles], 0 between launches
@@ -396,6 +403,10 @@ struct Gemm {
 enum Stage { O_PROJ = 0, GATE_UP = 1, DOWN = 2, PRODUCT = 3 };
 constexpr int PRODUCT_NB = 2;  // a stage holds two boxes
 constexpr int PRODUCT_TILE = PRODUCT_NB * BN;
+// PRODUCT's block width unit: a block's last item may end 64 columns into
+// a box (the scale row's bulk copy and the stores stop there; 16-byte
+// aligned rows of packed bytes and scales)
+constexpr int PRODUCT_UNIT = BN / 2;
 // The product's rings: at M <= 8 more blocks of fewer stages stream
 // faster (5 x 4 and 4 x 4 beat the tail's 2 x 10 at lm_head: PERF.md); above,
 // the tail's, untuned
@@ -458,6 +469,24 @@ __device__ __forceinline__ int out_col(const Gemm& g, int n0, int col) {
   return (col < BN || g.second < 0 ? n0 : g.second + n0 - BN) + col;
 }
 
+// A tile's place: its block, its first column in that block, its first
+// output column n0 and its columns inside the block (PRODUCT: its block's
+// tiles run from the block's column 0, so the last may hold fewer than
+// span; the tail's stages: tiles of span columns over the whole N, block
+// found per box)
+struct Place {
+  int block, local, n0, cols;
+};
+template <int STAGE_ID>
+__device__ __forceinline__ Place place_of(const Gemm& g, int tile) {
+  if constexpr (STAGE_ID == PRODUCT) {
+    const int b = tile / g.block_tiles, local = (tile - b * g.block_tiles) * g.span;
+    return {b, local, b * g.bw + local, min(g.span, g.bw - local)};
+  } else {
+    return {-1, -1, tile * g.span, g.span};
+  }
+}
+
 // Where a work item's NB packed boxes lie: each box's block map, its
 // column within the block and its block's scales. The loader finds them
 // once per item, not per step: the block of a global column costs a
@@ -468,35 +497,62 @@ struct Boxes {
   const CUtensorMap* map[NB];
   const float* S[NB];
   int col[NB];
+  int cols[NB];  // PRODUCT: the box's columns inside its block (BN, PRODUCT_UNIT or 0)
   int item = -1;
-  __device__ __forceinline__ void find(const Args& A, const Gemm& g, int stage_id, const Cursor& c) {
+  template <int STAGE_ID>
+  __device__ __forceinline__ void find(const Args& A, const Gemm& g, const Cursor& c) {
     if (c.item == item) return;
     item = c.item;
-    const int n0 = c.tile() * g.span;
+    if constexpr (STAGE_ID == PRODUCT) {
+      const Place p = place_of<PRODUCT>(g, c.tile());
 #pragma unroll
-    for (int cb = 0; cb < NB; ++cb) {
-      const int global = out_col(g, n0, cb * BN), b = global / g.bw;
-      map[cb] = &A.pmap[stage_id][b];
-      S[cb] = g.S[b];
-      col[cb] = global - b * g.bw;
+      for (int cb = 0; cb < NB; ++cb) {
+        map[cb] = &A.pmap[PRODUCT][p.block];
+        S[cb] = g.S[p.block];
+        col[cb] = p.local + cb * BN;
+        cols[cb] = max(0, min(BN, p.cols - cb * BN));
+      }
+    } else {
+      const int n0 = c.tile() * g.span;
+#pragma unroll
+      for (int cb = 0; cb < NB; ++cb) {
+        const int global = out_col(g, n0, cb * BN), b = global / g.bw;
+        map[cb] = &A.pmap[STAGE_ID][b];
+        S[cb] = g.S[b];
+        col[cb] = global - b * g.bw;
+      }
     }
   }
 };
 
 // One step into a ring stage, issued by one thread: the x box, NB packed
-// boxes and NB scale rows, all completing on the stage's barrier.
+// boxes and NB scale rows, all completing on the stage's barrier. A
+// PRODUCT box that runs past its block's edge is loaded whole (TMA fills
+// the columns past the edge with zeros and counts the whole box's bytes)
+// beside the scales of its columns inside the block; a box wholly past
+// the edge is not loaded. Either way the stage's columns past the edge
+// hold stale bytes, which reach only sums that are never stored.
 template <class C, int NB, int STAGE_ID>
 __device__ __forceinline__ void issue_step(unsigned char* stage, uint64_t* bar, const Args& A, const Cursor& c,
                                            Boxes<NB>& bx) {
   const Gemm& g = A.g[STAGE_ID];
-  bx.find(A, g, STAGE_ID, c);
-  mbar_expect_tx(bar, C::X_BYTES + NB * BOX + NB * BN * 4);
+  bx.template find<STAGE_ID>(A, g, c);
+  uint32_t bytes = C::X_BYTES + NB * BOX + NB * BN * 4;
+  if constexpr (STAGE_ID == PRODUCT) {
+    bytes = C::X_BYTES;
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb)
+      if (bx.cols[cb] > 0) bytes += BOX + bx.cols[cb] * 4;
+  }
+  mbar_expect_tx(bar, bytes);
   tma_load_2d(stage, &A.xmap[STAGE_ID], bar, c.k, 0);
   const size_t row = (size_t)(c.k / A.gs) * g.bw;  // the step's scale row in its block
 #pragma unroll
   for (int cb = 0; cb < NB; ++cb) {
+    const int cols = STAGE_ID == PRODUCT ? bx.cols[cb] : BN;
+    if (cols == 0) continue;
     tma_load_2d(stage + C::X_BYTES + cb * BOX, bx.map[cb], bar, bx.col[cb], c.k / 2);
-    bulk_copy(stage + C::X_BYTES + C::W_BYTES + cb * BN * 4, bx.S[cb] + row + bx.col[cb], BN * 4, bar);
+    bulk_copy(stage + C::X_BYTES + C::W_BYTES + cb * BN * 4, bx.S[cb] + row + bx.col[cb], cols * 4, bar);
   }
 }
 
@@ -571,13 +627,15 @@ __device__ __forceinline__ void compute_step(const unsigned char* stage, const C
 // Writes this warp's part of the item's partial to the workspace and
 // takes a ticket; the tile's last split sums the workspace in split order
 // and finishes the stage's function there. A product of one split writes
-// its sums to out directly (no workspace, no ticket).
+// its sums to out directly (no workspace, no ticket). PRODUCT writes no
+// column past its block's edge.
 template <class C, int NB, int STAGE_ID>
 __device__ void finish_item(const Args& A, const Cursor& c, const Acc<C, NB>& acc, unsigned* flag) {
   const Gemm& g = A.g[STAGE_ID];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g8 = lane >> 2, t4 = lane & 3, ng = warp % 4, wt = warp / 4;
-  const int M = A.M, n0 = c.tile() * g.span;
+  const Place p = place_of<STAGE_ID>(g, c.tile());
+  const int M = A.M, n0 = p.n0;
   const bool direct = STAGE_ID == PRODUCT && g.splits == 1;
   float* ws = direct ? A.out : g.ws + (size_t)c.split() * M * g.N;
 #pragma unroll
@@ -586,9 +644,9 @@ __device__ void finish_item(const Args& A, const Cursor& c, const Acc<C, NB>& ac
     for (int n = 0; n < C::NT; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int tok = wt * 8 * C::NT + n * 8 + 2 * t4 + e;
-        if (tok < M)
-          *reinterpret_cast<float4*>(ws + (size_t)tok * g.N + out_col(g, n0, cb * BN + ng * 32 + 4 * g8)) =
+        const int tok = wt * 8 * C::NT + n * 8 + 2 * t4 + e, col = cb * BN + ng * 32 + 4 * g8;
+        if (tok < M && (STAGE_ID != PRODUCT || col < p.cols))
+          *reinterpret_cast<float4*>(ws + (size_t)tok * g.N + out_col(g, n0, col)) =
               make_float4(acc.v[cb][0][n][e], acc.v[cb][0][n][2 + e], acc.v[cb][1][n][e], acc.v[cb][1][n][2 + e]);
       }
   if (direct) return;
@@ -633,8 +691,9 @@ __device__ void finish_item(const Args& A, const Cursor& c, const Acc<C, NB>& ac
           pack_bf16(activation(gt.z, A.act) * up.z, activation(gt.w, A.act) * up.w);
     }
   } else if (STAGE_ID == PRODUCT) {
-    for (int i = threadIdx.x; i < M * NB * Q4; i += C::THREADS) {
-      const int tok = i / (NB * Q4), col = n0 + 4 * (i % (NB * Q4));
+    const int q = p.cols / 4;  // float4 columns of the item inside its block
+    for (int i = threadIdx.x; i < M * q; i += C::THREADS) {
+      const int tok = i / q, col = n0 + 4 * (i % q);
       *reinterpret_cast<float4*>(A.out + (size_t)tok * g.N + col) = split_sum(tok, col);
     }
   } else {
@@ -830,10 +889,12 @@ cudaError_t p_map(CUtensorMap* map, const void* packed, int K, int N) {
 // Stage `id` of A over a [K, N] weight that arrives as `blocks` column
 // blocks (P[b], S[b]: block b's packed [K/2, N/blocks] bytes and [K/gs,
 // N/blocks] scales): its Gemm and one packed-weight map a block. Refuses a
-// block width that is no multiple of BN.
+// block width that is no multiple of BN (PRODUCT: of PRODUCT_UNIT, its
+// tiles laid out block by block, `tiles` ignored).
 cudaError_t set_stage(Args& A, int id, const void* const* P, const void* const* S, int blocks, int K, int N,
                       int second, int span, int tiles, int splits, float* ws, unsigned* tickets) {
-  if (P == nullptr || S == nullptr || blocks < 1 || blocks > MAX_BLOCKS || N % blocks != 0 || (N / blocks) % BN != 0)
+  const int unit = id == PRODUCT ? PRODUCT_UNIT : BN;
+  if (P == nullptr || S == nullptr || blocks < 1 || blocks > MAX_BLOCKS || N % blocks != 0 || (N / blocks) % unit != 0)
     return cudaErrorInvalidValue;
   Gemm& g = A.g[id];
   g = Gemm{};
@@ -842,7 +903,8 @@ cudaError_t set_stage(Args& A, int id, const void* const* P, const void* const* 
   g.bw = N / blocks;
   g.second = second;
   g.span = span;
-  g.tiles = tiles;
+  g.block_tiles = id == PRODUCT ? (g.bw + span - 1) / span : 0;
+  g.tiles = id == PRODUCT ? blocks * g.block_tiles : tiles;
   g.splits = splits;
   g.ws = ws;
   g.tickets = tickets;
@@ -1181,33 +1243,34 @@ extern "C" int comorag_int4_matmul(const void* x, const void* packed, const void
 // The split-K and wgmma routes take the weight as `blocks` column blocks
 // (1 to comorag_int4_matmul_max_blocks: the whole weight, or a model
 // axis's column shards in order, block b holding columns [b N / blocks,
-// (b + 1) N / blocks), a width that is a multiple of 128), given as arrays
-// of packed [K/2, N/blocks] int8 and scale [K/gs, N/blocks] fp32 pointers
-// read in place; every pointer 16-byte aligned. One launch, whatever the
-// blocks, with the whole N's items: the output equals the whole weight's
-// bit for bit.
+// (b + 1) N / blocks), of equal width: a multiple of 64 on split-K, of
+// 128 on wgmma), given as arrays of packed [K/2, N/blocks] int8 and scale
+// [K/gs, N/blocks] fp32 pointers read in place; every pointer 16-byte
+// aligned. One launch, whatever the blocks: at the same K splits the
+// output equals the whole weight's bit for bit.
 extern "C" int comorag_int4_matmul_max_blocks() { return splitk::MAX_BLOCKS; }
 
-// The decode route: M <= 64, N a multiple of the item's columns
-// (comorag_int4_matmul_splitk_tile_n). splits: K splits on group
-// boundaries, 1 <= splits <= K / gs (ops/int4.matmul_plan of the whole
-// N). workspace: splits * M * N fp32; tickets: one unsigned int per item
-// column tile, zero before the first launch (each launch leaves them
-// zero); at one split neither is read (may be null). sm_count: SMs for
-// the persistent grid.
+// The decode route: M <= 64, each block's width a multiple of 64. Items
+// of comorag_int4_matmul_splitk_tile_n columns run block by block,
+// ceil(N / blocks / tile_n) a block (the last one of a block ragged where
+// its width is no multiple of tile_n). splits: K splits on group
+// boundaries, 1 <= splits <= K / gs (ops/int4.matmul_plan over those
+// items). workspace: splits * M * N fp32; tickets: one unsigned int per
+// item column tile, zero before the first launch (each launch leaves
+// them zero); at one split neither is read (may be null). sm_count: SMs
+// for the persistent grid.
 extern "C" int comorag_int4_matmul_splitk(const void* x, const void* const* P, const void* const* S, int blocks,
                                           void* out, void* workspace, void* tickets, int M, int N, int K, int gs,
                                           int splits, int sm_count, void* stream) {
-  if (M <= 0 || M > splitk::MAX_TOKENS || N <= 0 || N % splitk::PRODUCT_TILE != 0 || gs <= 0 || gs % splitk::KS != 0 ||
-      K <= 0 || K % gs != 0 || splits < 1 || splits > K / gs || sm_count <= 0)
+  if (M <= 0 || M > splitk::MAX_TOKENS || N <= 0 || gs <= 0 || gs % splitk::KS != 0 || K <= 0 || K % gs != 0 ||
+      splits < 1 || splits > K / gs || sm_count <= 0)
     return cudaErrorInvalidValue;
   splitk::Args A{};
   A.out = static_cast<float*>(out);
   A.M = M;
   A.gs = gs;
-  cudaError_t err = splitk::set_stage(A, splitk::PRODUCT, P, S, blocks, K, N, -1, splitk::PRODUCT_TILE,
-                                      N / splitk::PRODUCT_TILE, splits, static_cast<float*>(workspace),
-                                      static_cast<unsigned*>(tickets));
+  cudaError_t err = splitk::set_stage(A, splitk::PRODUCT, P, S, blocks, K, N, -1, splitk::PRODUCT_TILE, 0, splits,
+                                      static_cast<float*>(workspace), static_cast<unsigned*>(tickets));
   if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::PRODUCT], x, M, K);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -15,7 +15,8 @@ caller passes ``device="cpu"`` (the plain PyTorch path). ``mesh=`` (a
 ``parallel.mesh.Mesh``) runs the engine on the mesh's first device and,
 where the mesh has a ``model`` axis, splits the weights over it after
 quantization (``decoder.shard_params``, jax_offline.py:248-256): each
-product runs once per shard, on the int4 kernels for an int4 engine.
+product runs as ``decoder.product_route`` routes it, on the int4 kernels
+for an int4 engine.
 ``params`` may be a tree trained over a mesh (``Sharded`` leaves, from
 ``models.train_lm``): it is unsharded first (``decoder.unshard_params``)
 and split anew over the engine's own mesh, as JAX takes global arrays.

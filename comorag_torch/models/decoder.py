@@ -383,9 +383,9 @@ def product_route(w, m: int, device: torch.device) -> str:
         JAX package's one launch a product);
       - ``PER_SHARD``: ``sharded_matmul``, one product a shard on its
         device, merged on ``device``: shards on distinct cards, blocks the
-        kernel refuses (off the 128-column unit, more than
-        ``TAIL_MAX_BLOCKS``, the ``mma_sync`` route), float and int8
-        weights, row splits.
+        kernel refuses (off the 64-column unit up to 64 rows or the
+        128-column one above, more than ``TAIL_MAX_BLOCKS``), float and
+        int8 weights, row splits.
     Over a model axis that spans processes both routes run over this
     process's shards, and the outputs are then gathered from every
     process."""

@@ -40,7 +40,7 @@ TAIL_REPLACES = "comorag_tpu/ops/pallas_int4.py:365"
 _ACTS = {"silu": 0, "gelu_tanh": 1, "gelu": 2}
 _KERNEL_K_STEP = 64  # the kernels stage K in slabs of 64: group_size must divide by it
 _WGMMA_TILE_N = 128  # output columns of a tile of the wgmma route
-_SPLITK_TILE_N = 256  # output columns of a work item of the split-K route (two 128-column boxes)
+_SPLITK_UNIT = 64  # a split-K block's width unit: a block's last item may end halfway into a box
 SPLITK_MAX_M = 64  # the split-K route's most tokens (its token tiles: 8, 16, 32, 64)
 
 
@@ -155,31 +155,34 @@ def _bf16_rows(name: str, x: torch.Tensor) -> torch.Tensor:
     return xb
 
 
-def int4_matmul_route(m: int, n: int) -> str:
+def int4_matmul_route(m: int, n: int, blocks: int = 1) -> str:
     """The kernel route ``int4_matmul`` takes for a CUDA x of m rows and n
-    output columns (the first two copy packed and scales by TMA, which
-    needs both on 16 bytes):
-    - ``"splitk"``, decode (m <= 64, n a multiple of 256): one stage of the
-      fused tail's split-K streaming code, over ``matmul_plan``'s items;
-    - ``"wgmma"``, prefill (m > 64, n a multiple of 128): a warp-specialized
-      wgmma kernel with the weights as its register operand;
-    - ``"mma_sync"``, every other shape: the first design (mma.sync tiles)."""
-    if m <= SPLITK_MAX_M and n % _SPLITK_TILE_N == 0:
-        return "splitk"
-    if m > SPLITK_MAX_M and n % _WGMMA_TILE_N == 0:
-        return "wgmma"
-    return "mma_sync"
+    output columns in ``blocks`` equal column blocks (a whole weight is one
+    block; the first two routes copy packed and scales by TMA, which needs
+    both on 16 bytes):
+    - ``"splitk"``, decode (m <= 64, each block a multiple of 64 columns):
+      one stage of the fused tail's split-K streaming code, over
+      ``matmul_plan``'s items, laid out block by block (a block's last item
+      holds its ragged rest of 64, 128 or 192 columns);
+    - ``"wgmma"``, prefill (m > 64, each block a multiple of 128 columns):
+      a warp-specialized wgmma kernel with the weights as its register
+      operand;
+    - ``"mma_sync"``, every other shape: the first design (mma.sync tiles),
+      which takes a whole weight only."""
+    if m <= SPLITK_MAX_M:
+        return "splitk" if n % (blocks * _SPLITK_UNIT) == 0 else "mma_sync"
+    return "wgmma" if n % (blocks * _WGMMA_TILE_N) == 0 else "mma_sync"
 
 
 def int4_matmul_blocks_supported(m: int, widths) -> bool:
     """Whether ``int4_matmul``'s kernel takes a weight of column blocks of
-    ``widths`` columns each at m rows in one launch: the whole width's
-    route is ``splitk`` or ``wgmma`` (whose TMA maps a block each), and the
-    blocks are at most ``TAIL_MAX_BLOCKS`` of equal width, a multiple of
-    ``TAIL_TILE_N`` (no 128-column box or tile straddles two blocks)."""
+    ``widths`` columns each at m rows in one launch: at most
+    ``TAIL_MAX_BLOCKS`` blocks of equal width, whose route
+    (``int4_matmul_route`` over the blocks) is ``splitk`` (each a multiple
+    of 64 columns) or ``wgmma`` (of 128), whose TMA maps a block each."""
     widths = list(widths)
-    return (int4_matmul_route(m, sum(widths)) != "mma_sync" and 1 <= len(widths) <= TAIL_MAX_BLOCKS
-            and len(set(widths)) == 1 and widths[0] % TAIL_TILE_N == 0)
+    return (1 <= len(widths) <= TAIL_MAX_BLOCKS and len(set(widths)) == 1
+            and int4_matmul_route(m, sum(widths), len(widths)) != "mma_sync")
 
 
 def int4_matmul(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch.Tensor:
@@ -191,7 +194,9 @@ def int4_matmul(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch
     choosing (any M; ``in`` a multiple of group_size, group_size a multiple
     of 64) once, reading the blocks in place where
     ``int4_matmul_blocks_supported`` holds and raising where it does not
-    (every block on x's device); CPU tensors run ``int4_matmul_plain``."""
+    (every block on x's device; at m <= 64 blocks of a width off 64 raise,
+    as does a block off 128 above); CPU tensors run
+    ``int4_matmul_plain``."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scales, group_size)
     if x.device.type != "cuda":
@@ -203,26 +208,28 @@ def int4_matmul(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch
     widths = [p.shape[-1] for p in packed]
     d_out = sum(widths)
     dev = x.device
-    route = int4_matmul_route(m, d_out)
+    route = int4_matmul_route(m, d_out, len(packed))
     if len(packed) > 1 and not int4_matmul_blocks_supported(m, widths):
-        raise ValueError(f"int4_matmul: the {route} route at M={m} takes no column blocks of widths {widths} (the "
-                         f"splitk and wgmma routes take 1 to {TAIL_MAX_BLOCKS} of equal width, a multiple of "
-                         f"{TAIL_TILE_N})")
+        raise ValueError(f"int4_matmul: M={m} takes no column blocks of widths {widths} (1 to {TAIL_MAX_BLOCKS} of "
+                         f"equal width: splitk up to {SPLITK_MAX_M} rows takes a multiple of {_SPLITK_UNIT}, "
+                         f"wgmma above a multiple of {_WGMMA_TILE_N})")
     if route == "mma_sync":
         _check_weight("int4_matmul", packed[0], scales[0], d_in, d_out, group_size, dev)
     else:  # the TMA copies need every block 16-byte aligned
-        p_ptrs, s_ptrs, blocks = _block_pointers("int4_matmul", packed, scales, d_in, d_out, group_size, dev)
+        unit = _SPLITK_UNIT if route == "splitk" else _WGMMA_TILE_N
+        p_ptrs, s_ptrs, blocks = _block_pointers("int4_matmul", packed, scales, d_in, d_out, group_size, dev, unit)
     xb = _bf16_rows("int4_matmul", x)
     out = torch.empty(m, d_out, dtype=torch.float32, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if route == "splitk":
         tile_n, per_sm = _splitk_geometry(dev, m)
-        splits = _plan_splits(m, d_in, d_out, group_size, _sm_count(dev), tile_n, per_sm)
+        splits = _plan_splits(m, d_in, d_out, group_size, _sm_count(dev), tile_n, per_sm, blocks)
         ws_ptr = tickets_ptr = None  # at one split the kernel writes out directly
         if splits > 1:
             workspace = torch.empty(splits * m * d_out, dtype=torch.float32, device=dev)
-            ws_ptr, tickets_ptr = workspace.data_ptr(), _tickets_for(dev, stream, d_out // tile_n).data_ptr()
+            tickets = _tickets_for(dev, stream, splitk_tiles(d_out, tile_n, blocks))
+            ws_ptr, tickets_ptr = workspace.data_ptr(), tickets.data_ptr()
         rc = lib.comorag_int4_matmul_splitk(xb.data_ptr(), p_ptrs, s_ptrs, blocks, out.data_ptr(), ws_ptr,
                                             tickets_ptr, m, d_out, d_in, group_size, splits, _sm_count(dev), stream)
     elif route == "wgmma":
@@ -357,22 +364,38 @@ def _splits_for(tiles: int, groups: int, sm_count: int, slots: int, m: int, grou
     return groups if best is None else best[1]
 
 
+def splitk_tiles(n: int, tile_n: int, blocks: int = 1) -> int:
+    """Column tiles of a split-K product of n columns in ``blocks`` equal
+    column blocks: ceil(n / blocks / tile_n) a block, laid out block by
+    block (n // tile_n where each block is a multiple of tile_n)."""
+    return blocks * -(-(n // blocks) // tile_n)
+
+
 @functools.lru_cache(maxsize=None)
-def _plan_splits(m: int, k: int, n: int, group_size: int, sm_count: int, tile_n: int, blocks_per_sm: int) -> int:
+def _plan_splits(m: int, k: int, n: int, group_size: int, sm_count: int, tile_n: int, blocks_per_sm: int,
+                 blocks: int = 1) -> int:
     """The K splits of one product of split-K items (``_splits_for`` over
-    its ``n // tile_n`` column tiles and ``k // group_size`` groups)."""
-    return _splits_for(n // tile_n, k // group_size, sm_count, sm_count * blocks_per_sm, m, group_size)
+    its ``splitk_tiles`` column tiles and ``k // group_size`` groups)."""
+    return _splits_for(splitk_tiles(n, tile_n, blocks), k // group_size, sm_count, sm_count * blocks_per_sm, m,
+                       group_size)
 
 
-def matmul_plan(m: int, k: int, n: int, group_size: int, sm_count: int, tile_n: int, blocks_per_sm: int) -> dict:
+def matmul_plan(m: int, k: int, n: int, group_size: int, sm_count: int, tile_n: int, blocks_per_sm: int,
+                blocks: int = 1) -> dict:
     """Work items of one split-K product (``int4_matmul``'s decode route,
-    and each stage of the fused tail): its K, its column tiles of
-    ``tile_n`` outputs and its K splits on group boundaries, chosen for a
-    card of ``sm_count`` SMs of ``blocks_per_sm`` block slots each."""
-    splits = _plan_splits(m, k, n, group_size, sm_count, tile_n, blocks_per_sm)
-    tiles = n // tile_n
-    return {"m": m, "k": k, "n": n, "k_step": _KERNEL_K_STEP, "tile_n": tile_n, "tiles": tiles, "splits": splits,
-            "items": tiles * splits, "bounds": split_bounds(k, group_size, splits)}
+    and each stage of the fused tail): its K, its column tiles of up to
+    ``tile_n`` outputs, laid out block by block over ``blocks`` equal
+    column blocks (``columns``: each tile's [c0, c1) output columns; a
+    block's last tile holds what is left of it), and its K splits on group
+    boundaries, chosen for a card of ``sm_count`` SMs of ``blocks_per_sm``
+    block slots each."""
+    splits = _plan_splits(m, k, n, group_size, sm_count, tile_n, blocks_per_sm, blocks)
+    tiles, width = splitk_tiles(n, tile_n, blocks), n // blocks
+    columns = [(b * width + c, b * width + min(c + tile_n, width)) for b in range(blocks)
+               for c in range(0, width, tile_n)]
+    return {"m": m, "k": k, "n": n, "k_step": _KERNEL_K_STEP, "tile_n": tile_n, "blocks": blocks, "tiles": tiles,
+            "columns": columns, "splits": splits, "items": tiles * splits,
+            "bounds": split_bounds(k, group_size, splits)}
 
 
 _TAIL_STAGES = ("o", "gate_up", "down")
@@ -442,16 +465,17 @@ def _tickets_for(device: torch.device, stream: int, count: int) -> torch.Tensor:
 
 
 def _block_pointers(name: str, packed: list, scales: list, d_in: int, d_out: int, group_size: int,
-                    device: torch.device) -> tuple:
+                    device: torch.device, unit: int = TAIL_TILE_N) -> tuple:
     """The C entry's arrays of block pointers for one weight of ``d_out``
     columns in ``len(packed)`` column blocks, after checking every block's
     dtype, shape, device (``device``: x's or ctx's), contiguity and 16-byte
     alignment, and that the blocks are at most ``TAIL_MAX_BLOCKS`` of equal
-    width, a multiple of ``TAIL_TILE_N``."""
+    width, a multiple of ``unit`` (the fused tail's and wgmma's
+    ``TAIL_TILE_N``, split-K's 64)."""
     n = len(packed)
-    if n > TAIL_MAX_BLOCKS or d_out % n or (d_out // n) % TAIL_TILE_N:
+    if n > TAIL_MAX_BLOCKS or d_out % n or (d_out // n) % unit:
         raise ValueError(f"{name}: the kernel takes 1 to {TAIL_MAX_BLOCKS} column blocks of equal width, a multiple "
-                         f"of {TAIL_TILE_N}; got {n} blocks of {d_out} columns")
+                         f"of {unit}; got {n} blocks of {d_out} columns")
     width = d_out // n
     p_shape, s_shape = (d_in // 2, width), (d_in // group_size, width)
     p_ptrs, s_ptrs = [], []

@@ -219,11 +219,95 @@ def test_tail_plan_stages_are_matmul_plans():
 
 @pytest.mark.parametrize("m,n,route", [
     (1, 6144, "splitk"), (8, 128256, "splitk"), (64, 256, "splitk"),
+    (64, 384, "splitk"), (8, 32064, "splitk"), (8, 320, "splitk"),  # a ragged last item of 128 or 64 columns
     (65, 128, "wgmma"), (4096, 28672, "wgmma"), (65, 384, "wgmma"),
-    (8, 259, "mma_sync"), (4096, 600, "mma_sync"), (64, 384, "mma_sync"),
-    (2, 259, "mma_sync"), (512, 259, "mma_sync")])
+    (8, 259, "mma_sync"), (4096, 600, "mma_sync"), (64, 600, "mma_sync"), (8, 96, "mma_sync"),
+    (65, 32064, "mma_sync"), (2, 259, "mma_sync"), (512, 259, "mma_sync")])
 def test_int4_matmul_route_gates(m, n, route):
     assert tint4.int4_matmul_route(m, n) == route
+
+
+# (m, n, blocks, route): n columns in `blocks` equal blocks; "mma_sync"
+# for blocks > 1 is a weight the kernels do not take in one launch
+@pytest.mark.parametrize("m,n,blocks,route", [
+    (8, 4 * 32064, 4, "splitk"), (8, 2 * 32064, 2, "splitk"), (64, 4 * 320, 4, "splitk"), (1, 4 * 64, 4, "splitk"),
+    (8, 2 * 64128, 2, "splitk"), (65, 2 * 64128, 2, "wgmma"), (4096, 4 * 7168, 4, "wgmma"),
+    (65, 4 * 32064, 4, "mma_sync"), (8, 4 * 96, 4, "mma_sync"), (8, 2 * 32, 2, "mma_sync"), (8, 1000, 3, "mma_sync")])
+def test_int4_matmul_route_over_column_blocks(m, n, blocks, route):
+    """The route of a weight in equal column blocks: split-K up to 64 rows
+    where each block is a multiple of 64 columns, wgmma above where each is
+    a multiple of 128."""
+    assert tint4.int4_matmul_route(m, n, blocks) == route
+    assert tint4.int4_matmul_blocks_supported(m, [n // blocks] * blocks) == (route != "mma_sync" and n % blocks == 0)
+
+
+# column blocks of the split-K route, (n, blocks): the 8B head over
+# {"model": 4} and a process's pair of its blocks, the tiny ragged head,
+# 64-column blocks, a whole 384-column weight, the 8B head over
+# {"model": 2}, the 8B qkv over 4, the whole 8B head
+_BLOCK_PLANS = [(4 * 32064, 4), (2 * 32064, 2), (4 * 320, 4), (4 * 64, 4), (384, 1), (2 * 64128, 2), (6144, 4),
+                (128256, 1)]
+
+
+@pytest.mark.parametrize("n,blocks", _BLOCK_PLANS)
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_matmul_plan_over_ragged_blocks_covers_every_column_once(n, blocks, m):
+    """matmul_plan's tiles run block by block, ceil(width / 256) a block:
+    every column in exactly one tile, no tile across two blocks, every
+    tile but a block's last 256 columns wide and the last a multiple of 64;
+    items count those tiles times the K splits."""
+    plan = tint4.matmul_plan(m, 4096, n, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m), blocks)
+    width = n // blocks
+    per_block = -(-width // _SPLITK_TILE_N)
+    cols = plan["columns"]
+    assert plan["tiles"] == len(cols) == blocks * per_block and plan["items"] == plan["tiles"] * plan["splits"]
+    assert cols[0][0] == 0 and cols[-1][1] == n and all(a[1] == b[0] for a, b in zip(cols, cols[1:]))
+    for b in range(blocks):
+        mine = cols[b * per_block:(b + 1) * per_block]
+        assert mine[0][0] == b * width and mine[-1][1] == (b + 1) * width
+        assert all(c1 - c0 == _SPLITK_TILE_N for c0, c1 in mine[:-1])
+        last = mine[-1][1] - mine[-1][0]
+        assert 0 < last <= _SPLITK_TILE_N and last % 64 == 0
+    if width % _SPLITK_TILE_N == 0:  # blocks of whole tiles: the whole weight's plan
+        whole = tint4.matmul_plan(m, 4096, n, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m))
+        assert {k: v for k, v in plan.items() if k != "blocks"} == {k: v for k, v in whole.items() if k != "blocks"}
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64])
+def test_ragged_head_blocks_take_the_whole_heads_split_count(m):
+    """The 8B head over {"model": 4} (4 x 32,064 columns: 504 tiles) takes
+    the whole head's K split count (501 tiles): 5 splits up to 2 rows, one
+    above (the sums written to out directly), so the blocks' launch can
+    equal the whole weight's bit for bit; a process's pair of its blocks
+    runs 2 x 126 tiles."""
+    args = (m, 4096, 128256, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m))
+    whole, blocked = tint4.matmul_plan(*args), tint4.matmul_plan(*args, 4)
+    assert (whole["tiles"], blocked["tiles"]) == (501, 504)
+    assert whole["splits"] == blocked["splits"] == (5 if m <= 2 else 1)
+    assert tint4.matmul_plan(m, 4096, 64128, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m), 2)["tiles"] == 252
+
+
+@pytest.mark.parametrize("m", [1, 8, 40])
+def test_int4_matmul_over_ragged_blocks_matches_jax_interpret(m):
+    """The port's int4_matmul over 4 column blocks of 320 columns (2 x 128 +
+    64: each block's last split-K item ragged) on the CPU against JAX's
+    int4_matmul on the whole weight in interpret mode, and the sum of the
+    ragged plan's K split partials in split order: fp32 rounding only,
+    1e-5 + 1e-5*|jax| (the file's rule)."""
+    rng = np.random.default_rng(300 + m)
+    k, width, blocks, gs = 256, 320, 4, 128
+    _, (jp, js), (tp, ts) = _weights(rng, k, blocks * width, gs)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    want = np.asarray(jint4.int4_matmul(jnp.asarray(x), jnp.asarray(jp), jnp.asarray(js), group_size=gs,
+                                        interpret=True))
+    cut = ([t[:, b * width:(b + 1) * width].contiguous() for b in range(blocks)] for t in (tp, ts))
+    got = tint4.int4_matmul(torch.tensor(x), *cut, gs)
+    assert tuple(got.shape) == (m, blocks * width)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    plan = tint4.matmul_plan(m, k, blocks * width, gs, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m), blocks)
+    assert plan["tiles"] == 8 and plan["splits"] == k // gs  # 8 tiles x 2 groups cannot fill 132 SMs
+    split = tint4.split_partials_plain(torch.tensor(x), tp, ts, gs, plan["bounds"])
+    np.testing.assert_allclose(split.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("m", [1, 8, 40])
@@ -279,7 +363,8 @@ def test_int4_matmul_kernel_matches_plain(cuda_device, m, d_in, d_out, gs):
 
 
 # every route's gates crossed: M = 64 / 65, N a multiple of 256, of 128
-# only (384, 640) or of neither (259, 600), group sizes 64 and 128, K of 2
+# only (384, 640), of 64 only (320, 192, 32064: a ragged last split-K item)
+# or of none (259, 600), group sizes 64 and 128, K of 2
 # groups; N = 128256 at M = 8 and 33792 at M = 40 give every block slot a
 # column tile, so the plan takes one K split (out written directly)
 _ROUTE_CASES = [(1, 256, 256, 128, "splitk"), (8, 256, 512, 128, "splitk"), (8, 4096, 6144, 128, "splitk"),
@@ -287,7 +372,9 @@ _ROUTE_CASES = [(1, 256, 256, 128, "splitk"), (8, 256, 512, 128, "splitk"), (8, 
                 (16, 512, 256, 64, "splitk"), (40, 512, 768, 128, "splitk"), (64, 1024, 512, 64, "splitk"),
                 (65, 512, 640, 128, "wgmma"), (130, 256, 384, 128, "wgmma"), (300, 1024, 256, 64, "wgmma"),
                 (512, 4096, 1024, 128, "wgmma"), (8, 256, 259, 128, "mma_sync"), (64, 512, 600, 64, "mma_sync"),
-                (64, 256, 384, 128, "mma_sync"), (65, 512, 600, 128, "mma_sync"), (130, 256, 259, 128, "mma_sync")]
+                (64, 256, 384, 128, "splitk"), (8, 256, 320, 128, "splitk"), (40, 512, 192, 64, "splitk"),
+                (8, 4096, 32064, 128, "splitk"), (65, 512, 600, 128, "mma_sync"), (130, 256, 259, 128, "mma_sync"),
+                (130, 256, 320, 128, "mma_sync")]
 
 
 @pytest.mark.cuda
@@ -346,7 +433,6 @@ def test_tail_geometry_is_the_kernels(cuda_device, m):
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 33, 64])
 def test_splitk_geometry_is_the_kernels(cuda_device, m):
     assert tint4._splitk_geometry(cuda_device, m) == (_SPLITK_TILE_N, _splitk_blocks_per_sm(m))
-    assert tint4._SPLITK_TILE_N == _SPLITK_TILE_N
 
 
 @pytest.mark.cuda
@@ -367,13 +453,16 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
             tint4.int4_matmul(torch.zeros(m, 256, device=cuda_device), p, sc)
     lib, stream = tint4._lib(), torch.cuda.current_stream().cuda_stream
     # the C entries check their own gates: M above 64 on split-K, N off 128
-    # on wgmma, and on both a block width off 128 (768 or 384 columns in 4
-    # or 2 blocks) and more than 4 blocks, before reading a block pointer
+    # on wgmma, a block width off 64 on split-K (384 columns in 4 blocks)
+    # and off 128 on wgmma (384 in 2), and more than 4 blocks, before
+    # reading a block pointer
     null_ptrs = (ctypes.c_void_p * 8)()
     assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 1, None, None, None, 65, 128, 128, 64, 1, 132,
                                           stream) != 0
     assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 1, None, 128, 200, 128, 64, 132, stream) != 0
-    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 4, None, None, None, 8, 768, 128, 64, 1, 132,
+    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 4, None, None, None, 8, 384, 128, 64, 1, 132,
+                                          stream) != 0
+    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 1, None, None, None, 8, 96, 128, 64, 1, 132,
                                           stream) != 0
     assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 8, None, None, None, 8, 1024, 128, 64, 1, 132,
                                           stream) != 0
@@ -385,9 +474,13 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
                 [torch.zeros(2, w, device=cuda_device) for w in widths])
 
     x8 = torch.zeros(8, 256, device=cuda_device)
-    for widths in ((64,) * 4, (128,) * 8, (128,) * 3, (256, 128, 128)):  # off 128, > 4, mma_sync, unequal
+    for widths in ((96,) * 2, (32,) * 4, (128,) * 8, (256, 128, 128)):  # off 64 (twice), > 4, unequal
         with pytest.raises(ValueError, match="no column blocks"):
             tint4.int4_matmul(x8, *cut(*widths))
+    with pytest.raises(ValueError, match="no column blocks"):  # ragged blocks above 64 rows: wgmma's 128
+        tint4.int4_matmul(torch.zeros(96, 256, device=cuda_device), *cut(192, 192))
+    for widths in ((64,) * 4, (128,) * 3):  # ragged split-K blocks: one launch
+        assert tint4.int4_matmul(x8, *cut(*widths)).shape == (8, sum(widths))
     p2, s2 = cut(512, 512)
     with pytest.raises(ValueError):  # a block on the CPU
         tint4.int4_matmul(x8, [p2[0], p2[1].cpu()], [s2[0], s2[1].cpu()])

@@ -25,6 +25,7 @@ skip here.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -300,7 +301,7 @@ def test_int4_under_tp_close_to_jax_with_same_top1(hidden, inter, monkeypatch):
     each column split: at the fused-gate shape each layer's o / gate-up /
     down half is one fused-tail call over the column shards, qkv (two
     384-column shards) one call over its shards and the head (two 48-column
-    shards, off the 128-column unit) one a shard: layers + 2; below the
+    shards, off the 64-column unit) one a shard: layers + 2; below the
     gate each product runs on its own, gate/up (two 128-column shards) in
     one call, qkv, o, down and the head (48, 32 and 48 columns) once a
     shard. The unsharded engine takes the tail at the gate shape too."""
@@ -318,12 +319,13 @@ def test_int4_under_tp_close_to_jax_with_same_top1(hidden, inter, monkeypatch):
 def test_int4_over_model_4_takes_the_fused_tail_close_to_jax(monkeypatch):
     """{"model": 4} at the fused gate's shape: 128-column o and down blocks
     and 512-column gate/up blocks, one fused-tail call a layer over them;
-    qkv's 192-column and the head's 24-column shards are off the
-    128-column unit, so product_route takes them once a shard (4 x (layers
-    + 1) int4_matmul calls); within the file's int4 rule of JAX's forward
-    over the same mesh."""
+    qkv's 192-column shards are a multiple of the split-K route's 64-column
+    unit (one call a layer over them, the last item of each block ragged),
+    the head's 24-column shards are not, so product_route takes the head
+    once a shard (layers + 4 int4_matmul calls); within the file's int4
+    rule of JAX's forward over the same mesh."""
     calls, want, tarch, *_ = _int4_tp_against_jax(512, 1024, 4, monkeypatch)
-    assert calls == want == {"matmul": 4 * (tarch.num_layers + 1), "tail": tarch.num_layers}
+    assert calls == want == {"matmul": tarch.num_layers + 4, "tail": tarch.num_layers}
 
 
 # every product's shards at a multiple of 128 columns over {"model": 2} and
@@ -394,15 +396,18 @@ def _int4_sharded(widths, device=CPU):
 
 @pytest.mark.parametrize("widths,m,ok", [
     ([256, 256], 8, True), ([256, 256], 65, True),  # splitk, wgmma
-    ([64128, 64128], 8, True),  # the 8B head at {"model": 2}: an item's two boxes straddle the blocks
+    ([64128, 64128], 8, True),  # the 8B head at {"model": 2}: each block's last item holds one box
     ([1536] * 4, 8, True), ([7168] * 4, 4096, True),  # the 8B qkv at decode, gate/up at prefill
     ([128] * 3, 65, True),  # wgmma takes 384 columns
-    ([64] * 4, 8, False),  # widths off the 128-column unit (the route would be splitk)
-    ([32064] * 4, 8, False),  # the 8B head at {"model": 4}
+    ([64] * 4, 8, True),  # 64-column blocks at decode: one ragged split-K item a block
+    ([32064] * 4, 8, True),  # the 8B head at {"model": 4}: each block's last item holds 64 columns
+    ([32064] * 2, 8, True),  # a process's two blocks of that head
+    ([32] * 4, 8, False), ([96] * 2, 8, False),  # widths off the split-K route's 64-column unit
+    ([192] * 2, 65, False), ([32064] * 4, 65, False),  # ragged blocks above 64 rows: wgmma keeps 128
     ([128] * 8, 8, False),  # more than TAIL_MAX_BLOCKS
     ([256, 128, 128], 65, False),  # unequal blocks
-    ([128] * 3, 8, False),  # 384 columns at decode: the mma_sync route
-    ([128] * 2, 8, True),  # 256 columns at decode: splitk, an item's two boxes one in each block
+    ([128] * 3, 8, True),  # 384 columns at decode: splitk, the last item of each block half full
+    ([128] * 2, 8, True),  # 256 columns at decode: splitk, an item a block
 ])
 def test_int4_matmul_blocks_rule_and_the_decoders_route(widths, m, ok):
     """int4_matmul_blocks_supported's cases, and product_route, which
@@ -410,6 +415,35 @@ def test_int4_matmul_blocks_rule_and_the_decoders_route(widths, m, ok):
     assert tint4.TAIL_TILE_N == 128 and tint4.TAIL_MAX_BLOCKS == 4
     assert tint4.int4_matmul_blocks_supported(m, widths) == ok
     assert tdec.product_route(_int4_sharded(widths), m, CPU) == (tdec.BLOCKS if ok else tdec.PER_SHARD)
+
+
+# a tiny int4 decoder whose head splits over {"model": 4} into ragged
+# blocks: 320 = 2 x 128 + 64 columns a shard
+_RAGGED_HEAD_ARCH = dict(hidden_size=256, intermediate_size=512, num_heads=4, num_kv_heads=2, vocab_size=1280)
+
+
+@pytest.mark.parametrize("m", [2, 16])
+def test_int4_forward_launches_one_head_launch_over_ragged_blocks(m):
+    """int4_forward_launches over {"model": 4} of one device when the
+    head's 320-column shards are a multiple of 64 but not of 128: the head
+    is one launch over its 4 blocks (product_route BLOCKS), and a
+    process's share of the axis (2 of the 4 blocks, ``Sharded.indices``)
+    is one launch too; at 80 rows (wgmma's 128-column unit) it is one a
+    shard."""
+    jarch, tarch = _archs("gqa", **_RAGGED_HEAD_ARCH)
+    tparams = tdec.params_from_jax(_np_tree(_jax_params(jarch, seed=9, kind="int4")), device="cpu")
+    sharded = tdec.shard_params(tparams, build_mesh({"model": 4}, [CPU] * 4))
+    head = sharded["lm_head"]
+    assert [sh.packed.shape[-1] for sh in head.shards] == [320] * 4
+    assert tdec.product_route(head, m, CPU) == tdec.BLOCKS
+    # no fused tail (hidden 256 is off its 512-column tile): 4 products a
+    # layer and the head, each once over its blocks, as the whole weights
+    want = (4 * tarch.num_layers + 1, 0)
+    assert tdec.int4_forward_launches(sharded, tarch, m, m) == tdec.int4_forward_launches(tparams, tarch, m, m) == want
+    share = dataclasses.replace(head, shards=head.shards[2:], devices=head.devices[2:], indices=(2, 3))
+    assert tdec.product_route(share, m, CPU) == tdec.BLOCKS
+    assert tdec._product_launches(share, m, CPU) == 1
+    assert tdec._product_launches(head, 80, CPU) == 4 and tdec._product_launches(share, 80, CPU) == 2
 
 
 def test_product_route_takes_no_blocks_off_the_merge_device_or_outside_int4_columns():
@@ -660,10 +694,14 @@ def _int4_weight_8b(gen, device, k, n):
 
 # Llama-3.1-8B's products as a one-card model axis splits them: qkv and
 # gate/up over 2 and 4 shards, the head over {"model": 2}'s 2 (64,128
-# columns: an odd multiple of 128, so a split-K item's two boxes straddle
-# the blocks)
+# columns: an odd multiple of 128, so each block's last split-K item
+# holds one box) and over {"model": 4}'s 4 (32,064 columns: a multiple of
+# 64 only, so each block's last item holds 64 columns); a process's pair
+# of those blocks (64,128 columns in 2), and one 32,064-column shard alone
+# (a distinct card's)
 _BLOCKED_8B = [("qkv", 6144, 2), ("qkv", 6144, 4), ("gate_up", 28672, 2), ("gate_up", 28672, 4),
-               ("lm_head", 128256, 2)]
+               ("lm_head", 128256, 2), ("lm_head", 128256, 4), ("lm_head pair", 64128, 2),
+               ("lm_head shard", 32064, 1)]
 
 
 @pytest.mark.cuda
@@ -673,8 +711,10 @@ def test_int4_matmul_over_column_blocks_on_the_card(name, n, blocks, m):
     """int4_matmul over a weight's column blocks (split_blocks, as
     shard_params cuts a one-card model axis's shards) at Llama-3.1-8B
     widths: one launch, within the bf16 rule of the plain version, and
-    bit-equal to the whole weight's launch (the same plan, items and sums;
-    max |d| printed)."""
+    bit-equal to the whole weight's launch (the same K splits and sums;
+    max |d| printed). Blocks off 128 columns above 64 rows are refused
+    (wgmma's unit); a single 32,064-column shard takes split-K up to 64
+    rows and mma_sync above."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda", 0)
@@ -682,8 +722,17 @@ def test_int4_matmul_over_column_blocks_on_the_card(name, n, blocks, m):
     packed, scales = _int4_weight_8b(gen, dev, 4096, n)
     x = torch.randn(m, 4096, generator=gen, device=dev).to(torch.bfloat16)
     cut = split_blocks(packed, -1, [dev] * blocks), split_blocks(scales, -1, [dev] * blocks)
-    assert tint4.int4_matmul_blocks_supported(m, [p.shape[-1] for p in cut[0]])
-    route = tint4.int4_matmul_route(m, n)
+    route = tint4.int4_matmul_route(m, n, blocks)
+    if blocks > 1 and route == "mma_sync":
+        assert not tint4.int4_matmul_blocks_supported(m, [p.shape[-1] for p in cut[0]])
+        with pytest.raises(ValueError, match="no column blocks"):
+            tint4.int4_matmul(x, *cut)
+        return
+    assert blocks == 1 or tint4.int4_matmul_blocks_supported(m, [p.shape[-1] for p in cut[0]])
+    if route == "splitk":  # bit-equality needs the whole weight's K splits
+        plan = functools.partial(tint4.matmul_plan, m, 4096, n, 128, tint4._sm_count(dev),
+                                 *tint4._splitk_geometry(dev, m))
+        assert plan(blocks)["splits"] == plan()["splits"]
     before = (tint4.LAUNCHES.value, tint4.ROUTE_LAUNCHES[route].value)
     got = tint4.int4_matmul(x, *cut)
     torch.cuda.synchronize()
