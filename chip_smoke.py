@@ -1,6 +1,7 @@
 """Smoke run of comorag_torch's main paths on one NVIDIA card (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 21   # phases 1, 2 and 21 alone (two or more cards)
 
 Phases, one line each (any failed check raises and the exit code is not 0):
   1. device: require CUDA; the card's name and power limit from nvidia-smi;
@@ -259,6 +260,27 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      compared with phase 14's; tok/s, ``dist.*`` seconds and peak memory
      a process. A process that fails, or does not end in 600 s, fails the
      run.
+ 21. the fused tail over a model axis on distinct cards (run after phase
+     20; with two or more cards, on cuda:0..n-1, n = min(4, cards); on one
+     card a line says it did not run and why): (a) int4_fused_layer_tail
+     launched on cuda:0 over o / gate-up / down column blocks spread one a
+     card (read in place, a peer card's over NVLink) at Llama-3.1-8B
+     width, M = 8 and 64: one launch, bit-equal (max |d| 0 required) to
+     the same blocks on cuda:0, within the bf16 rule of plain; ms with
+     the host and device alone, in turns beside the one-card blocks, plain
+     ms, the bound (the peer cards' bytes over NVLink at 450 GB/s, the
+     card's own bytes at 3.35 TB/s, the products at the bf16 peak: the
+     largest) and share, wrapper host us; (b) phase 10's weights as an
+     int4 engine over {"model": n} on those cards: the decode route
+     ``fused_tail``, the last-prompt and decode-step fp32 logits within
+     phase 10's rule of phase 14's one-card engine rebuilt from the same
+     weights, each forward's launches against
+     ``decoder.int4_forward_launches`` and the route's counts (a decode
+     forward n x 33 int4_matmul + 32 tails, 132 + 32 over 4 cards; a
+     prefill forward 516 + 0); (c) phase 10's 8 requests served at
+     ``PEER_TP_TOKENS`` new tokens on this route and on the parent's
+     per-product route (``no_peer_reads``) in turns, decode tok/s of each.
+     ``--phase 21`` runs it alone after phases 1 and 2.
 Then it checks that no module of jax, optax or of the JAX package
 (``comorag_tpu``, ``__graft_entry__``) was loaded, and
 prints the kernels JSON line (every kernel with its launches on the main
@@ -270,12 +292,15 @@ path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms,
 in each process, and ``process_meta_loop_launches``, each process's in
 19a for the encoder kernels and in 19b for the top-k kernels, and the
 int4 kernels' ``process_tp_launches``, each process's in phase 20's
-int4 serving run, with their launches a forward), the run's wall
-seconds before it, the nvidia-smi line, and the result line.
+int4 serving run, with their launches a forward, and the fused tail's
+``distinct_cards_launches``, phase 21c's first served run on its route,
+null where phase 21 did not run), the run's wall seconds before it
+(phases 14, 20 and 21 named), the nvidia-smi line, and the result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import importlib.util
@@ -2365,10 +2390,11 @@ TP_ROUTES = (f"int4_matmul: {decoder.BLOCKS} where a column split's shards all l
              f"above, each a multiple of 128): one launch a product reads the shards in place; "
              f"{decoder.PER_SHARD} otherwise (distinct cards; blocks off those units): one launch a "
              f"shard, gathered on the merge device. The layer tail: {decoder.FUSED_TAIL} where every shard lies "
-             f"on the merge device: one launch a layer of <= 64 tokens reads the o, gate/up and down column "
-             f"shards in place; {decoder.PER_PRODUCT} over distinct cards (the kernel reads one card's memory) "
-             f"and above 64 tokens: each product on its own route, the norm, activation and residuals in "
-             f"PyTorch")
+             f"on the merge device or on a card it may read (peer access; phase 21): one launch a layer of "
+             f"<= 64 tokens on the merge device reads the o, gate/up and down column shards in place; "
+             f"{decoder.PER_PRODUCT} where a shard lies on a card without peer access, across processes, past "
+             f"{int4.TAIL_MAX_BLOCKS} shards and above 64 tokens: each product on its own route, the norm, "
+             f"activation and residuals in PyTorch")
 
 
 def tp_shard_timings(device) -> list:
@@ -2749,6 +2775,221 @@ def phase_process_tp(device, tp: dict, smi: str) -> dict:
           f"int4_matmul by route a process {json.dumps(out['int4']['route_launches'])}; {json.dumps(out)}",
           flush=True)
     return out
+
+
+# ----------------------------------------------------------------- phase 21
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM: NVLink into one card (900 GB/s both ways; NVIDIA's data sheet)
+# new tokens a request of 21c's served runs: phase 10's 64. At the
+# slowest decode step measured over distinct cards (the per-product
+# route, ~0.2 s over four H100s at 700 W; PERF.md §6) they take ~13 s of
+# a 30 s decode budget a run; fixed so that the launch counts repeat.
+PEER_TP_TOKENS = 64
+
+
+@contextlib.contextmanager
+def no_peer_reads():
+    """The parent's route over distinct cards, for comparison: no card
+    reads another's memory (``int4.peer_readable`` false between cards),
+    so ``decoder.tail_route`` takes the per-product route."""
+    readable = int4.peer_readable
+    int4.peer_readable = lambda device, other: device == other
+    try:
+        yield
+    finally:
+        int4.peer_readable = readable
+
+
+def peer_tail_bound(m: int, h: int, i: int, cards: int, gs: int = 128) -> dict:
+    """The least time of the fused tail on the first of ``cards`` cards
+    with each weight's column blocks spread one a card: the peer cards'
+    share of the weight bytes over NVLink into the card, its own share and
+    the activations over its memory rate, or the products at the bf16
+    peak, whichever is the largest."""
+    weights = sum(k // 2 * n + k // gs * n * 4 for k, n in ((h, h), (h, 2 * i), (i, h)))
+    peer = weights * (cards - 1) / cards
+    local = weights / cards + m * h * (2 + 4 + 4) + h * 4
+    times = {"nvlink_bytes": peer / NVLINK_BYTES_PER_S * 1e3, "hbm_bytes": local / HBM_BYTES_PER_S * 1e3,
+             "operations": 2 * m * (h * h + h * 2 * i + i * h) / PEAK_OPS_PER_S["bf16"] * 1e3}
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": by, "peer_bytes": peer, "local_bytes": local}
+
+
+def peer_tail_timings(device, cards: list) -> list:
+    """21a: the fused tail on the first card over the o / gate-up / down
+    column blocks spread over ``cards`` (block b on card b, as
+    ``decoder.shard_params`` places a model axis over distinct cards) at
+    Llama-3.1-8B width, M = 8 and 64: one launch each, held against its
+    plain version under the bf16 rule and against the same blocks on the
+    first card (bit-equal required), then timed cycling through 32 layers'
+    blocks, with the host and device alone, beside the one-card blocks in
+    turns (one card, cards, cards, one card), against the NVLink bound."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    arch = llama_8b()
+    h, inter, layers, n = arch.hidden_size, arch.intermediate_size, arch.num_layers, len(cards)
+    whole = [int4_weights(gen, device, k, w, layers) for k, w in ((h, h), (h, 2 * inter), (inter, h))]
+    placed = {tag: [[blocks for p, sc in whole for blocks in (split_blocks(p[li], -1, devices),
+                                                              split_blocks(sc[li], -1, devices))]
+                    for li in range(layers)]
+              for tag, devices in (("cards", cards), ("one_card", [device] * n))}
+    del whole
+    torch.cuda.empty_cache()
+    rows = []
+    for m in (8, 64):
+        ctx = torch.randn(m, h, generator=gen, device=device).to(torch.bfloat16)
+        xres = torch.randn(m, h, generator=gen, device=device)
+        nw = 1.0 + 0.1 * torch.randn(h, generator=gen, device=device)
+
+        def tail(tag, li=0):
+            return int4.int4_fused_layer_tail(ctx, xres, nw, *placed[tag][li], eps=1e-5)
+
+        def cycled(tag):
+            return cycling(lambda li: tail(tag, li), layers)
+
+        what = f"phase 21 int4_fused_layer_tail over blocks on {n} cards M={m}"
+        before = int4.TAIL_LAUNCHES.value
+        got = tail("cards")
+        torch.cuda.synchronize()
+        if int4.TAIL_LAUNCHES.value != before + 1:
+            raise AssertionError(f"{what}: {int4.TAIL_LAUNCHES.value - before} launches, expected 1")
+        one_card = tail("one_card")
+        ref = int4.int4_fused_layer_tail_plain(ctx, xres, nw, *placed["one_card"][0], eps=1e-5)
+        r = {"M": m, "H": h, "I": inter, "cards": n, "max_abs_err": compare(got, ref, what),
+             "rule_ratio": rule_ratio(got, ref), "max_abs_diff_vs_one_card": float((got - one_card).abs().max())}
+        if r["max_abs_diff_vs_one_card"] != 0.0:
+            raise AssertionError(f"{what}: differs from the same blocks on one card by "
+                                 f"{r['max_abs_diff_vs_one_card']} (the same plan, items and sums: bit-equal)")
+        turns = {"one_card": [], "cards": []}
+        for tag in ("one_card", "cards", "cards", "one_card"):
+            turns[tag].append((median_ms(cycled(tag)), device_ms(cycled(tag))))
+        for tag, prefix in (("cards", ""), ("one_card", "one_card_")):
+            r[f"{prefix}ms"] = statistics.mean(t[0] for t in turns[tag])
+            r[f"{prefix}device_ms"] = statistics.mean(t[1] for t in turns[tag])
+        r.update(turns=turns, plain_ms=median_ms(lambda: int4.int4_fused_layer_tail_plain(
+                     ctx, xres, nw, *placed["one_card"][0], eps=1e-5), runs=3, reps=1, warmup=1),
+                 host_us=host_us(lambda: tail("cards")), one_card_host_us=host_us(lambda: tail("one_card")),
+                 **peer_tail_bound(m, h, inter, n))
+        r["share"] = r["bound_ms"] / r["ms"]
+        r["device_share"] = r["bound_ms"] / r["device_ms"]
+        rows.append(r)
+        del got, one_card, ref
+    del placed
+    torch.cuda.empty_cache()
+    return rows
+
+
+def peer_tp_generation(device, cards: list) -> dict:
+    """21b-c: phase 10's weights as an int4 engine over {"model": n} on
+    ``cards``: every forward's launches against
+    ``decoder.int4_forward_launches`` and the route's counts (a decode
+    forward n x (layers + 1) int4_matmul, qkv and the head once a shard,
+    and one tail a layer over the peer cards' blocks; a prefill forward
+    4n x layers + n and no tail), the fp32-compute last-prompt and
+    decode-step logits within phase 10's rule of phase 14's one-card
+    engine rebuilt from the same weights (fed its greedy token); then
+    phase 10's 8 requests served at PEER_TP_TOKENS new tokens on this
+    route and on the parent's per-product one (``no_peer_reads``), in
+    turns (tail, per-product, per-product, tail)."""
+    arch = llama_8b()
+    n, layers = len(cards), arch.num_layers
+    params = decoder.init_params(arch, torch.Generator(device=device).manual_seed(SEED + 10), device,
+                                 torch.bfloat16)  # phase 10's weights
+    prompts = server_prompts()
+    one_card = TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", compute_dtype=torch.bfloat16,
+                               device=device, mesh=card_mesh(device, {"model": TP}))
+    ref = forward_logits(one_card, prompts, torch.float32)
+    del one_card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", compute_dtype=torch.bfloat16,
+                             device=device, mesh=build_mesh({"model": n}, cards))
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    del params
+    torch.cuda.empty_cache()
+    qkv = engine.params["layers"]["qkv_w"]
+    out["qkv_shard_devices"] = [str(d) for d in qkv.devices]
+    out["decode_route"] = decoder.tail_route(engine.params, arch, len(prompts))
+    if out["qkv_shard_devices"] != [str(c) for c in cards] or out["decode_route"] != decoder.FUSED_TAIL:
+        raise AssertionError(f"phase 21: shards on {out['qkv_shard_devices']}, decode route {out['decode_route']} "
+                             f"(expected {decoder.FUSED_TAIL} over {cards})")
+    want = [(4 * n * layers + n, 0), (n * (layers + 1), layers)]  # a prefill chunk, a decode step
+    with forward_launches() as rec:
+        got = forward_logits(engine, prompts, torch.float32, ref[2])
+    out["forwards_fp32"] = checked_forwards(rec, engine.params, arch, True, "phase 21 fp32 forwards")
+    if [(r[2], r[3]) for r in rec] != want:
+        raise AssertionError(f"phase 21 fp32 forwards: {rec}, expected (int4_matmul, tail) launches {want}")
+    out["fp32_forward_s"] = [r[4] for r in rec]
+    out["logits_fp32_vs_phase_14"] = checked_pair(got, ref, "phase 21 vs phase 14's one-card engine", torch.float32)
+    out["runs"] = {decoder.FUSED_TAIL: [], decoder.PER_PRODUCT: []}
+    for route in (decoder.FUSED_TAIL, decoder.PER_PRODUCT, decoder.PER_PRODUCT, decoder.FUSED_TAIL):
+        with (no_peer_reads() if route == decoder.PER_PRODUCT else contextlib.nullcontext()), \
+                forward_launches() as rec:
+            if decoder.tail_route(engine.params, arch, len(prompts)) != route:
+                raise AssertionError(f"phase 21: the decode route is not {route}")
+            run = serve_route(engine, prompts, PEER_TP_TOKENS, f"phase 21 {route}")
+            forwards = checked_forwards(rec, engine.params, arch, True, f"phase 21 {route}")
+        launches = run["launches"]
+        if (launches["int4_matmul"], launches["int4_fused_layer_tail"]) != (sum(r[2] for r in rec),
+                                                                           sum(r[3] for r in rec)):
+            raise AssertionError(f"phase 21 {route}: launches {launches} outside the recorded forwards {rec}")
+        out["runs"][route].append({"forwards": forwards, **{k: run[k] for k in (
+            "prefill_tok_s", "decode_tok_s", "decode_s", "wall_s", "launches", "route_launches",
+            "completion_tokens")}})
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_peer_tp(device, smi: str) -> dict:
+    """Phase 21: the fused tail over a model axis on distinct cards (two
+    or more; up to TAIL_MAX_BLOCKS of them): 21a the kernel over peer
+    blocks, 21b the engine's forwards and logits, 21c the served decode on
+    this route and the parent's per-product one. On one card it prints
+    why it did not run and returns None."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"phase 21 did not run: {count} card (the fused tail over a model axis on distinct cards needs two "
+              f"or more)", flush=True)
+        return None
+    t0 = time.perf_counter()
+    cards = [torch.device("cuda", i) for i in range(min(int4.TAIL_MAX_BLOCKS, count))]
+    out = {"cards": len(cards), "tail": peer_tail_timings(device, cards), **peer_tp_generation(device, cards)}
+    out["wall_s"] = time.perf_counter() - t0
+    for r in out["tail"]:
+        print(f"phase 21a int4_fused_layer_tail on cuda:0 over o / gate-up / down blocks on {r['cards']} cards "
+              f"M={r['M']} H={r['H']} I={r['I']} ({smi}): max_abs_err={r['max_abs_err']:.4g} (worst ratio to the "
+              f"rule {r['rule_ratio']:.3f}), max |d| against the same blocks on one card "
+              f"{r['max_abs_diff_vs_one_card']:.4g}; "
+              f"kernel {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} ms (the blocks on one card: "
+              f"{r['one_card_ms']:.4f}, {r['one_card_device_ms']:.4f}; turns {json.dumps(r['turns'])}); plain "
+              f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['peer_bytes']:.0f} bytes "
+              f"over NVLink at {NVLINK_BYTES_PER_S / 1e9:.0f} GB/s, {r['local_bytes']:.0f} from its own memory), "
+              f"share {r['share']:.3f} (device alone {r['device_share']:.3f}); wrapper host {r['host_us']:.1f} us "
+              f"a call (one card {r['one_card_host_us']:.1f})", flush=True)
+    tok_s = {route: [run["decode_tok_s"] for run in runs] for route, runs in out["runs"].items()}
+    print(f"phase 21b-c TP generation, int4 weights over {{'model': {len(cards)}}} on cuda:0-{len(cards) - 1} "
+          f"({smi}), phase 10's weights (Llama-3.1-8B width, 32 layers): forwards (checked) "
+          f"{json.dumps(out['forwards_fp32'])}, fp32 seconds {out['fp32_forward_s']}; fp32-compute logits "
+          f"against phase 14's one-card engine (checked) {json.dumps(out['logits_fp32_vs_phase_14'])}; 8 requests x "
+          f"{PEER_TP_TOKENS} tokens, decode tok/s in turns {json.dumps(tok_s)}; runs {json.dumps(out['runs'])}; "
+          f"build {out['build_s']:.3f} s; phase wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def main_peer_tp() -> None:
+    """``--phase 21``: phases 1, 2 (the int4 source) and 21 alone, for a
+    machine of two or more cards."""
+    run_t0 = time.perf_counter()
+    device = require_cuda()
+    smi = nvidia_smi_line()
+    print(f"phase 1 device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
+          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    build.load_all(("int4",))
+    print(f"phase 2 build: int4 built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    if phase_peer_tp(device, smi) is None:
+        raise SystemExit("chip_smoke --phase 21: needs two or more cards")
+    print(f"run wall {time.perf_counter() - run_t0:.1f} s", flush=True)
 
 
 # ----------------------------------------------------------------- phase 15
@@ -3213,6 +3454,7 @@ def main() -> None:
     tp = phase_tp(device, server, smi)
     tp_wall_s = time.perf_counter() - tp_t0
     process_tp = phase_process_tp(device, tp, smi)
+    peer_tp = phase_peer_tp(device, smi)
     mesh_training = phase_mesh_training(device, training_pairs(make_corpus(N_CHUNKS, N_QUESTIONS)[0]), training, smi)
     tiny_recipe = phase_recipe(device, smi)
     harness = phase_harness(device, smi)
@@ -3269,12 +3511,16 @@ def main() -> None:
                             "harness_dryrun_launches": harness["dryrun"]["int4_matmul_launches"]}
                            if counter is int4.LAUNCHES else
                            {"tp_launches": tp["int4"]["launches"][counter.name], "tp_routes": TP_ROUTES,
-                            "tp_shard_shapes": tp["tail_shards"]}),
+                            "tp_shard_shapes": tp["tail_shards"],
+                            "distinct_cards_launches": None if peer_tp is None else
+                            peer_tp["runs"][decoder.FUSED_TAIL][0]["launches"][counter.name],
+                            "distinct_cards_shapes": None if peer_tp is None else peer_tp["tail"]}),
                         "tp_launches_per_forward": tp["int4"]["forwards"],
                         "process_tp_launches": [r[counter.name] for r in process_tp["int4"]["launches"]],
                         "process_tp_launches_per_forward": process_tp["int4"]["forwards"],
                         "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks
-                                           + (tp["shards"] if counter is int4.LAUNCHES else tp["tail_shards"])),
+                                           + (tp["shards"] if counter is int4.LAUNCHES else tp["tail_shards"]
+                                              + ([] if peer_tp is None else peer_tp["tail"]))),
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         "shapes": rows})
 
@@ -3288,8 +3534,9 @@ def main() -> None:
     if foreign:
         raise AssertionError(f"the port loaded jax or the JAX package: {foreign[:5]}")
 
+    peer_wall = "not run" if peer_tp is None else f"{peer_tp['wall_s']:.1f} s"
     print(f"run wall {time.perf_counter() - run_t0:.1f} s (phase 14: {tp_wall_s:.1f} s, phase 20: "
-          f"{process_tp['wall_s']:.1f} s)", flush=True)
+          f"{process_tp['wall_s']:.1f} s, phase 21: {peer_wall})", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3297,4 +3544,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    parser = argparse.ArgumentParser(description="Smoke run of comorag_torch's main paths on the card(s).")
+    parser.add_argument("--phase", type=int, choices=[21], help="run phase 21 alone (two or more cards)")
+    if parser.parse_args().phase == 21:
+        main_peer_tp()
+    else:
+        main()

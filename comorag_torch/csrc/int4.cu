@@ -93,7 +93,15 @@
 //   axis's shards on one device, the TP decode path): a block has its own
 //   tensor map and scale pointer, and a box's global column picks its
 //   block, so the shards are read in place, in one launch, with the same
-//   items, splits and sums as the whole weight (bit-equal output).
+//   items, splits and sums as the whole weight (bit-equal output). A
+//   block may also lie on a peer card of the launching one (a `model` axis
+//   over distinct cards, after comorag_enable_peer_access): its tensor
+//   map and scale copies address it in the unified address space, so the
+//   TMA boxes and bulk copies read it over NVLink, in place, into the
+//   same ring, with the same items and sums (bit-equal to the blocks on
+//   one card). Over 4 cards 3/4 of the weight bytes cross NVLink (450
+//   GB/s into a card against 3.35 TB/s from its own memory), so that is
+//   the bound there; nothing is copied to the launching card first.
 // The rounding points are the TPU kernel's: ctx -> bf16, xmid and the
 // norm in fp32, xn -> bf16, gate/up in fp32, h -> bf16, down in fp32 plus
 // xmid. Grid-wide barriers separate the o product, the RMSNorm, gate/up
@@ -1308,9 +1316,10 @@ extern "C" int comorag_int4_matmul_wgmma(const void* x, const void* const* P, co
 // comorag_int4_tail_max_blocks: the whole weight, or a model axis's column
 // shards in order, block b holding columns [b N / blocks, (b + 1) N /
 // blocks), a width that is a multiple of comorag_int4_tail_tile_n), given
-// as arrays of packed and scale pointers read in place; every pointer
-// 16-byte aligned. M <= 64; H and I multiples of 512; gs a multiple of 64
-// dividing H and I. splits: the K splits of the o, gate/up and down stages
+// as arrays of packed and scale pointers read in place, each block on the
+// current device or on a peer card it may read (comorag_enable_peer_access),
+// everything else on the current device; every pointer 16-byte aligned.
+// M <= 64; H and I multiples of 512; gs a multiple of 64 dividing H and I. splits: the K splits of the o, gate/up and down stages
 // (ops/int4.tail_plan). workspace: comorag_int4_tail_workspace_bytes
 // bytes; tickets: (2H + I) / 128 unsigned ints, zero before the first
 // launch (each launch leaves them zero). act: 0 silu, 1 gelu (tanh), 2
@@ -1332,6 +1341,25 @@ extern "C" int comorag_int4_tail_blocks_per_sm(int M) {
   int blocks = 0;
   const cudaError_t err = splitk::blocks_at<false>(M, &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Lets kernels launched on `device` read `peer`'s memory in place
+// (cudaDeviceEnablePeerAccess from `device`), for the fused tail's blocks
+// on a peer card. Access already enabled counts as success, its error
+// cleared so that the next cudaGetLastError stays clean. The current
+// device is restored. Returns a cudaError_t (0 on success).
+extern "C" int comorag_enable_peer_access(int device, int peer) {
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err != cudaSuccess) cudaGetLastError();
+    if (err == cudaErrorPeerAccessAlreadyEnabled) err = cudaSuccess;
+  }
+  const cudaError_t restored = cudaSetDevice(current);
+  return err != cudaSuccess ? err : restored;
 }
 
 extern "C" int comorag_int4_fused_layer_tail(const void* ctx, const void* xres, const void* norm_w,

@@ -27,10 +27,11 @@ self-speculative decoding. What changes with the framework:
     the kernel takes its blocks (``product_route``), and a decode-sized
     layer's o / gate-up / down take the fused tail over them
     (``tail_route``), as JAX launches both kernels once over gathered
-    shards; every other product runs once per shard on the shard's device
-    (shards on distinct cards, blocks the kernel refuses, float and int8
-    weights). Over a ``model`` axis that spans processes each process
-    holds its own blocks alone; it runs the same routes over them and
+    shards; so do shards on distinct cards with peer access, read over
+    NVLink by the tail on the first card; every other product runs once
+    per shard on the shard's device (qkv and the head on distinct cards,
+    blocks the kernel refuses, float and int8 weights). Over a ``model``
+    axis that spans processes each process holds its own blocks alone; it runs the same routes over them and
     merges the products with the other processes' (``sharded_matmul``),
     and computes the activations, the KV cache, attention and the whole
     leaves itself, so every process holds the same logits and draws the
@@ -363,13 +364,15 @@ BLOCKS = "blocks"
 PER_SHARD = "per_shard"
 
 
-def _column_blocks(w, device: torch.device):
+def _column_blocks(w, device: torch.device, peers: bool = False):
     """The lists of a ``Sharded`` int4 column leaf's packed and scale
     shards when every shard lies on ``device`` (a ``model`` axis on one
     card: the kernels read them in place; across processes, this process's
-    shards); None for any other leaf."""
+    shards), or with ``peers`` also on a card a kernel on ``device`` may
+    read (``int4.peer_readable``: the fused tail's rule); None for any
+    other leaf."""
     if (isinstance(w, Sharded) and w.dim == "col" and all(isinstance(sh, Int4Weight) for sh in w.shards)
-            and all(d == device for d in w.devices)):
+            and all(d == device or (peers and int4_ops.peer_readable(device, d)) for d in w.devices)):
         return [sh.packed for sh in w.shards], [sh.scale for sh in w.shards]
     return None
 
@@ -510,12 +513,14 @@ _TAIL_WEIGHTS = ("o_w", "gateup_w", "down_w")
 
 def _tail_blocks(w, device: torch.device):
     """An o / gate-up / down leaf as the fused tail reads it: the (packed,
-    scale) of a whole int4 weight, or its column shards' lists
-    (``_column_blocks``); None for any other leaf, and for shards of an
-    axis that spans processes (the tail would need the others' columns)."""
+    scale) of a whole int4 weight, or its column shards' lists, each shard
+    on ``device`` or on a card a kernel there may read
+    (``_column_blocks`` with peers); None for any other leaf, and for
+    shards of an axis that spans processes (the tail would need the
+    others' columns)."""
     if isinstance(w, Sharded) and w.indices is not None:
         return None
-    return (w.packed, w.scale) if isinstance(w, Int4Weight) else _column_blocks(w, device)
+    return (w.packed, w.scale) if isinstance(w, Int4Weight) else _column_blocks(w, device, peers=True)
 
 
 def _tail_weights(layer: Dict[str, Any], arch: DecoderArch, m: int, device: torch.device):
@@ -542,17 +547,22 @@ def _layer_at(layers: Dict[str, Any], li: int) -> Dict[str, Any]:
 def tail_route(params: Dict[str, Any], arch: DecoderArch, m: int) -> str:
     """The route of the layers' o / gate-up / down half in a forward of m
     (= batch x chunk) tokens:
-      - ``FUSED_TAIL``: one ``int4_fused_layer_tail`` launch a layer, where
-        o_w, gateup_w and down_w are int4, ``fused_tail_supported`` holds at
-        m, and each is whole or a column split whose shards all lie on the
-        merge device (a ``model`` axis on one card): the kernel reads every
-        shard in place;
+      - ``FUSED_TAIL``: one ``int4_fused_layer_tail`` launch a layer on the
+        merge device, where o_w, gateup_w and down_w are int4,
+        ``fused_tail_supported`` holds at m (at most ``TAIL_MAX_BLOCKS``
+        shards), and each is whole or a column split of this process
+        whose shards lie on the merge device or on cards it may read
+        (``int4.peer_readable``: a ``model`` axis on one card, or over
+        distinct cards with peer access): the kernel reads every shard in
+        place, a peer card's over NVLink;
       - ``PER_PRODUCT``: each product on its own (under a model axis, by
         ``product_route``), with the residuals, RMSNorm and
         activation in PyTorch between them: float and int8 weights, prefill
-        sizes, shards on distinct cards (the kernel cannot read another
-        card's memory) and a model axis that spans processes (the o /
-        gate-up / down columns lie in several processes)."""
+        sizes (m > 64), more than ``TAIL_MAX_BLOCKS`` shards, a shard on a
+        card without peer access from the merge device (decided here,
+        before any launch, from ``torch.cuda.can_device_access_peer``) and
+        a model axis that spans processes (the o / gate-up / down columns
+        lie in several processes)."""
     layer = _layer_at(params["layers"], 0)
     return PER_PRODUCT if _tail_weights(layer, arch, m, params["embed"].device) is None else FUSED_TAIL
 
@@ -568,7 +578,10 @@ def int4_forward_launches(params: Dict[str, Any], arch: DecoderArch, m: int, hea
     int4 weights whose head takes head_m rows, as ``tail_route`` and
     ``product_route`` route them: a whole weight or a ``BLOCKS`` split
     once, a ``PER_SHARD`` split once a shard (this process's shards: the
-    launches this process makes)."""
+    launches this process makes). Over ``{"model": 4}`` on four distinct
+    cards at Llama-3.1-8B width a decode forward makes (132, 32): qkv and
+    the head once a shard, the tail once a layer over the peer cards'
+    shards; a prefill forward (516, 0)."""
     device, layer = params["embed"].device, params["layers"]
     tail = tail_route(params, arch, m) == FUSED_TAIL
     names = ("qkv_w",) if tail else ("qkv_w", "o_w", "gateup_w", "down_w")

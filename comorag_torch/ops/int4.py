@@ -11,12 +11,13 @@ Hopper kernels (``csrc/int4.cu``) for CUDA tensors and run their plain
 versions for CPU tensors; there is no fallback from one to the other.
 ``int4_matmul`` has three kernel routes, chosen by shape
 (``int4_matmul_route``). ``int4_fused_layer_tail`` takes each weight whole
-or as column blocks (a ``model`` axis's shards on one device), read in
-place by the one launch; so does ``int4_matmul`` on its ``splitk`` and
-``wgmma`` routes (``int4_matmul_blocks_supported``). The plain versions
-repeat the kernels' arithmetic: x rounded to bf16, each group's product
-summed in fp32 (bf16 x bf16 products are exact in fp32), times the
-group's scale row, added to the running fp32 sum.
+or as column blocks (a ``model`` axis's shards), read in place by the one
+launch on ctx's card, each block there or on a card it may read
+(``peer_readable``); ``int4_matmul`` takes column blocks on x's device on
+its ``splitk`` and ``wgmma`` routes (``int4_matmul_blocks_supported``).
+The plain versions repeat the kernels' arithmetic: x rounded to bf16,
+each group's product summed in fp32 (bf16 x bf16 products are exact in
+fp32), times the group's scale row, added to the running fp32 sum.
 """
 
 from __future__ import annotations
@@ -120,6 +121,7 @@ _C_ENTRIES = (
     ("comorag_int4_tail_tile_n", _I32, []),
     ("comorag_int4_tail_max_blocks", _I32, []),
     ("comorag_int4_tail_blocks_per_sm", _I32, [_I32]),
+    ("comorag_enable_peer_access", _I32, [_I32, _I32]),
 )
 
 
@@ -464,14 +466,47 @@ def _tickets_for(device: torch.device, stream: int, count: int) -> torch.Tensor:
     return t
 
 
+def peer_readable(device: torch.device, other: torch.device) -> bool:
+    """Whether a kernel launched on ``device`` may read ``other``'s memory
+    in place: the same device, or two cards with peer access
+    (``torch.cuda.can_device_access_peer``; on an H100 host, any two cards
+    joined by NVLink)."""
+    if device == other:
+        return True
+    return device.type == other.type == "cuda" and _can_access_peer(device.index, other.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _can_access_peer(device: int, other: int) -> bool:
+    return torch.cuda.can_device_access_peer(device, other)
+
+
+_peers_enabled: set = set()
+
+
+def _peer_block(name: str, card: torch.device, device: torch.device) -> None:
+    """Lets ``device``'s kernels read a weight block on ``card`` in place
+    (the C entry once a pair, then cached), or raises where
+    ``peer_readable`` says it may not."""
+    if not peer_readable(device, card):
+        raise ValueError(f"{name}: a weight block lies on {card}, which a kernel on {device} cannot read "
+                         f"(no peer access)")
+    pair = (device.index, card.index)
+    if pair not in _peers_enabled:
+        lib = _lib()
+        build.check(lib, lib.comorag_enable_peer_access(*pair), f"{name}: peer access from {device} to {card}")
+        _peers_enabled.add(pair)
+
+
 def _block_pointers(name: str, packed: list, scales: list, d_in: int, d_out: int, group_size: int,
-                    device: torch.device, unit: int = TAIL_TILE_N) -> tuple:
+                    device: torch.device, unit: int = TAIL_TILE_N, peers: bool = False) -> tuple:
     """The C entry's arrays of block pointers for one weight of ``d_out``
     columns in ``len(packed)`` column blocks, after checking every block's
-    dtype, shape, device (``device``: x's or ctx's), contiguity and 16-byte
-    alignment, and that the blocks are at most ``TAIL_MAX_BLOCKS`` of equal
-    width, a multiple of ``unit`` (the fused tail's and wgmma's
-    ``TAIL_TILE_N``, split-K's 64)."""
+    dtype, shape, device (``device``: x's or ctx's; with ``peers``, the
+    fused tail's rule, also a card ``device`` may read, whose peer access
+    is then enabled), contiguity and 16-byte alignment, and that the
+    blocks are at most ``TAIL_MAX_BLOCKS`` of equal width, a multiple of
+    ``unit`` (the fused tail's and wgmma's ``TAIL_TILE_N``, split-K's 64)."""
     n = len(packed)
     if n > TAIL_MAX_BLOCKS or d_out % n or (d_out // n) % unit:
         raise ValueError(f"{name}: the kernel takes 1 to {TAIL_MAX_BLOCKS} column blocks of equal width, a multiple "
@@ -480,10 +515,14 @@ def _block_pointers(name: str, packed: list, scales: list, d_in: int, d_out: int
     p_shape, s_shape = (d_in // 2, width), (d_in // group_size, width)
     p_ptrs, s_ptrs = [], []
     for p, sc in zip(packed, scales):  # one pass of cheap checks a block; _check_weight words a failure
-        pp, sp = p.data_ptr(), sc.data_ptr()
+        pp, sp, card = p.data_ptr(), sc.data_ptr(), p.device
         if (p.dtype != torch.int8 or sc.dtype != torch.float32 or p.shape != p_shape or sc.shape != s_shape
-                or p.device != device or sc.device != device or not (p.is_contiguous() and sc.is_contiguous())):
-            _check_weight(name, p, sc, d_in, width, group_size, device)
+                or sc.device != card or not (p.is_contiguous() and sc.is_contiguous())):
+            _check_weight(name, p, sc, d_in, width, group_size, card)
+        if card != device:
+            if not peers:
+                _check_weight(name, p, sc, d_in, width, group_size, device)  # raises: the block is elsewhere
+            _peer_block(name, card, device)
         if (pp | sp) % 16:
             raise ValueError(f"{name}: every weight block must be 16-byte aligned (TMA copies)")
         p_ptrs.append(pp)
@@ -511,8 +550,10 @@ def int4_fused_layer_tail(
     one (packed, scale) pair or two sequences of its column blocks in
     order (a ``model`` axis's column shards: block b holds columns [b N /
     S, (b + 1) N / S)). CUDA tensors run one cooperative kernel launch (M
-    <= 64) that reads every block in place, on ctx's device, which every
-    block must lie on; CPU tensors the plain version."""
+    <= 64) on ctx's device that reads every block in place, there or on a
+    card it may read (``peer_readable``: a ``model`` axis over distinct
+    cards; a block on any other device raises); CPU tensors the plain
+    version."""
     if ctx.device.type == "cpu":
         return int4_fused_layer_tail_plain(ctx, x_res, norm_w, o_packed, o_scale, gu_packed, gu_scale,
                                            down_packed, down_scale, group_size, eps, unit_offset, act)
@@ -527,9 +568,9 @@ def int4_fused_layer_tail(
         raise ValueError(f"int4_fused_layer_tail: the kernel takes M <= {TAIL_MAX_M} and H, I multiples of "
                          f"512, got M={m}, H={hidden}, I={inter}")
     dev = ctx.device
-    o_ptrs = _block_pointers("int4_fused_layer_tail o", *o, hidden, hidden, group_size, dev)
-    gu_ptrs = _block_pointers("int4_fused_layer_tail gate/up", *gu, hidden, 2 * inter, group_size, dev)
-    down_ptrs = _block_pointers("int4_fused_layer_tail down", *down, inter, hidden, group_size, dev)
+    o_ptrs = _block_pointers("int4_fused_layer_tail o", *o, hidden, hidden, group_size, dev, peers=True)
+    gu_ptrs = _block_pointers("int4_fused_layer_tail gate/up", *gu, hidden, 2 * inter, group_size, dev, peers=True)
+    down_ptrs = _block_pointers("int4_fused_layer_tail down", *down, inter, hidden, group_size, dev, peers=True)
     ctx_b = _bf16_rows("int4_fused_layer_tail", ctx)
     xres = x_res.to(torch.float32).contiguous()
     nw = norm_w.to(torch.float32).contiguous()

@@ -508,7 +508,8 @@ def test_fused_tail_gate_refuses_blocks_off_the_tile():
         routes[n] = [tdec.tail_route(sharded, tarch, m) for m in (16, 65)]
     assert routes == {2: [tdec.FUSED_TAIL, tdec.PER_PRODUCT], 4: [tdec.FUSED_TAIL, tdec.PER_PRODUCT],
                       8: [tdec.PER_PRODUCT, tdec.PER_PRODUCT]}
-    # a shard off the merge device (another card) takes the per-product route
+    # a shard on a device the merge device cannot read (a card, from the
+    # CPU) takes the per-product route
     sharded = tdec.shard_params(tparams, build_mesh({"model": 2}, [CPU] * 2))
     elsewhere = (CPU, torch.device("cuda", 1))
     sharded["layers"] = {k: Sharded(w.shards, w.dim, elsewhere) if isinstance(w, Sharded) else w
@@ -813,9 +814,10 @@ def test_fused_tail_over_column_blocks_on_the_card(n, m):
 def test_tp_over_distinct_cards_matches_one_card():
     """A {"model": 4} mesh over four distinct cards at Llama-3.1-8B width
     (2 layers, int4 group 128, then bf16 weights): every shard on its own
-    card, and the fp32-compute last-prompt and decode-step logits within
-    the bf16 rule scaled to max |logit| of the same mesh on one card and
-    of the unsharded engine."""
+    card, the int4 decode step's fused tail once a layer on cuda:0 over
+    the peer cards' shards, and the fp32-compute last-prompt and
+    decode-step logits within the bf16 rule scaled to max |logit| of the
+    same mesh on one card and of the unsharded engine."""
     from comorag_torch.llm.offline import TorchOfflineLLM
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
@@ -826,10 +828,10 @@ def test_tp_over_distinct_cards_matches_one_card():
     ids = torch.randint(0, 256, (8, 128), generator=torch.Generator().manual_seed(1)).to(dev)
     mask = torch.ones_like(ids)
     cards = build_mesh({"model": 4}, [torch.device("cuda", i) for i in range(4)])
-    # the decode step's route: the fused tail over one card's shards, the
-    # per-product route over distinct cards' (the kernel reads one card);
-    # there qkv runs once a shard, over one card's shards in one launch
-    routes = {"cards": tdec.PER_PRODUCT, "one_card": tdec.FUSED_TAIL, "whole": tdec.FUSED_TAIL}
+    # the decode step's route: the fused tail over the shards, on one card
+    # or read from the peer cards; qkv runs once a shard over distinct
+    # cards, over one card's shards in one launch
+    routes = {"cards": tdec.FUSED_TAIL, "one_card": tdec.FUSED_TAIL, "whole": tdec.FUSED_TAIL}
     for param_dtype in ("int4", torch.bfloat16):
         logits = {}
         for tag, mesh in (("cards", cards), ("one_card", build_mesh({"model": 4}, [dev] * 4)), ("whole", None)):

@@ -1,0 +1,231 @@
+"""The fused int4 layer tail over a ``model`` axis on distinct cards.
+
+JAX launches ``int4_fused_layer_tail`` once a layer on any mesh
+(``comorag_tpu/models/decoder.py:606-621``, ``fused_ok``: int4 weights, a
+TPU backend and ``fused_tail_supported``). The port does the same over
+distinct cards with peer access: the launch runs on the merge card, and
+its tensor maps and bulk copies read each o / gate-up / down column shard
+where it lies (``decoder.tail_route``, ``ops.int4.peer_readable``).
+
+On the CPU the gate and the launch counts are checked with the shards
+relabelled onto cards and ``peer_readable`` monkeypatched (the routes are
+decided from shapes and devices alone, before any launch), and the
+wrapper's refusal of a block it may not read. The CUDA-marked tests hold
+the tail over blocks on 2 and 4 cards bit-equal (max |d| 0) to the same
+blocks on one card, and within the bf16 rule of the plain version; they
+skip here and below their card count. This file imports no JAX, so the
+card's lane runs it as it is.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from comorag_torch.models import decoder as tdec
+from comorag_torch.ops import int4 as tint4
+from comorag_torch.parallel.mesh import Sharded, build_mesh, split_blocks
+
+CPU = torch.device("cpu")
+CARDS = tuple(torch.device("cuda", i) for i in range(8))
+# the fused tail's gate shape at a small width: 4 shards of 128 (o, down)
+# and 512 (gate/up) columns, 2 layers
+SMALL = tdec.DecoderArch(vocab_size=512, hidden_size=512, num_layers=2, num_heads=8, num_kv_heads=4,
+                         intermediate_size=1024, max_seq_len=256)
+LLAMA_8B = tdec.DecoderArch(vocab_size=128256, hidden_size=4096, num_layers=32, num_heads=32, num_kv_heads=8,
+                            intermediate_size=14336, max_seq_len=131072)
+
+
+@dataclasses.dataclass
+class _Merge:
+    """Stands in for ``params["embed"]``: the routes read only its device."""
+
+    device: torch.device
+
+
+def _on_cards(params, n: int, indices=None):
+    """``params`` (split over a CPU mesh of n positions) with every split
+    leaf's shards relabelled onto cuda:0..n-1 (``indices``: as a process's
+    share of the axis) and the merge device cuda:0: the routes' view of a
+    model axis over distinct cards."""
+    def relabel(w):
+        return dataclasses.replace(w, devices=CARDS[:n], indices=indices) if isinstance(w, Sharded) else w
+
+    out = dict(params, embed=_Merge(CARDS[0]), layers={k: relabel(w) for k, w in params["layers"].items()})
+    out["lm_head"] = relabel(params["lm_head"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def small_int4():
+    params = tdec.init_params(SMALL, torch.Generator().manual_seed(0), CPU)
+    return tdec.quantize_params_int4(params)
+
+
+def _readable_except(monkeypatch, blocked=()):
+    """``peer_readable`` as on a host whose cards all see each other, but
+    for the (merge, card) index pairs in ``blocked``."""
+    def readable(device, other):
+        if device == other:
+            return True
+        return device.type == other.type == "cuda" and (device.index, other.index) not in blocked
+
+    monkeypatch.setattr(tint4, "peer_readable", readable)
+
+
+# (case, shards, blocked pairs, process indices) -> the decode route and the
+# launches of a decode (M = 8) and a prefill (M = 65) forward, the head at
+# each forward's own rows: at 2 layers and 4 shards the tail leaves qkv and
+# the head once a shard (4 x 2 + 4); the per-product route 4 products a
+# layer once a shard (16 x 2 + 4); at 8 shards (64-column o / down blocks,
+# more than TAIL_MAX_BLOCKS) 32 x 2 + 8
+_SMALL_CASES = [
+    ("every peer readable", 4, (), None, tdec.FUSED_TAIL, (12, 2), (36, 0)),
+    ("cuda:2 not readable from cuda:0", 4, ((0, 2),), None, tdec.PER_PRODUCT, (36, 0), (36, 0)),
+    ("across processes", 4, (), (0, 1, 2, 3), tdec.PER_PRODUCT, (36, 0), (36, 0)),
+    ("8 shards", 8, (), None, tdec.PER_PRODUCT, (72, 0), (72, 0)),
+]
+
+
+@pytest.mark.parametrize("case,n,blocked,indices,route,decode,prefill", _SMALL_CASES, ids=[c[0] for c in _SMALL_CASES])
+def test_tail_route_over_distinct_cards(small_int4, monkeypatch, case, n, blocked, indices, route, decode, prefill):
+    """tail_route and int4_forward_launches over {"model": n} on distinct
+    cards: the fused tail where every shard lies on a card the merge card
+    may read; the per-product route where one may not, across processes,
+    past TAIL_MAX_BLOCKS and above 64 tokens. qkv and the head keep
+    product_route's per-shard route over distinct cards."""
+    _readable_except(monkeypatch, blocked)
+    params = _on_cards(tdec.shard_params(small_int4, build_mesh({"model": n}, [CPU] * n)), n, indices)
+    assert tdec.tail_route(params, SMALL, 8) == route
+    assert tdec.tail_route(params, SMALL, 65) == tdec.PER_PRODUCT
+    assert tdec.product_route(params["layers"]["qkv_w"], 8, CARDS[0]) == tdec.PER_SHARD
+    assert tdec.int4_forward_launches(params, SMALL, 8, 8) == decode
+    assert tdec.int4_forward_launches(params, SMALL, 65, 65) == prefill
+
+
+def _meta_8b(n: int):
+    """The routes' view of Llama-3.1-8B's int4 tree over {"model": n} on
+    cuda:0..n-1: every product column-split into n blocks of meta tensors
+    (shapes only; nothing is allocated), stacked over the 32 layers."""
+    arch, gs = LLAMA_8B, 128
+    h, i, layers = arch.hidden_size, arch.intermediate_size, arch.num_layers
+    q, kv = arch.num_heads * arch.head_dim, arch.num_kv_heads * arch.head_dim
+
+    def split(k, width, lead=(layers,)):
+        shards = tuple(tdec.Int4Weight(torch.empty(*lead, k // 2, width // n, dtype=torch.int8, device="meta"),
+                                       torch.empty(*lead, k // gs, width // n, device="meta")) for _ in range(n))
+        return Sharded(shards, "col", CARDS[:n])
+
+    return {"embed": _Merge(CARDS[0]),
+            "layers": {"qkv_w": split(h, q + 2 * kv), "o_w": split(h, h), "gateup_w": split(h, 2 * i),
+                       "down_w": split(i, h)},
+            "lm_head": split(h, arch.vocab_size, lead=())}
+
+
+@pytest.mark.parametrize("n,decode,prefill", [(4, (132, 32), (516, 0)), (2, (66, 32), (258, 0))])
+def test_int4_forward_launches_at_8b_width_over_distinct_cards(monkeypatch, n, decode, prefill):
+    """At Llama-3.1-8B width over {"model": n} on distinct cards with peer
+    access, a decode forward (M = 8) launches the tail once a layer and
+    int4_matmul for qkv and the head once a shard: (132, 32) over 4 cards;
+    a prefill forward (M = 8 x 512, the head at the last position's 8
+    rows) every product once a shard: (516, 0). Without peer access the
+    decode forward is the prefill's count."""
+    params = _meta_8b(n)
+    _readable_except(monkeypatch)
+    assert tdec.tail_route(params, LLAMA_8B, 8) == tdec.FUSED_TAIL
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == decode
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == prefill
+    _readable_except(monkeypatch, blocked=((0, 1),))
+    assert tdec.tail_route(params, LLAMA_8B, 8) == tdec.PER_PRODUCT
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == prefill
+
+
+def test_peer_readable_on_one_device():
+    assert tint4.peer_readable(CPU, CPU) and tint4.peer_readable(CARDS[0], CARDS[0])
+    assert not tint4.peer_readable(CARDS[0], CPU) and not tint4.peer_readable(CPU, CARDS[1])
+
+
+@pytest.mark.parametrize("peers", [False, True])
+def test_block_pointers_refuse_a_block_the_card_cannot_read(peers):
+    """The kernel's block checks with ctx on cuda:0 and a block on the CPU:
+    int4_matmul's rule (every block on x's device) and the tail's (there
+    or on a card it may read) both raise, the tail's naming the device,
+    before anything is launched."""
+    packed, scales = tint4.quantize_int4_grouped(torch.ones(256, 512), 128)
+    blocks = split_blocks(packed, -1, [CPU] * 4), split_blocks(scales, -1, [CPU] * 4)
+    match = "lies on cpu, which a kernel on cuda:0 cannot read" if peers else "contiguous on cuda:0"
+    with pytest.raises(ValueError, match=match):
+        tint4._block_pointers("tail o", *blocks, 256, 512, 128, CARDS[0], peers=peers)
+
+
+# ----------------------------------------------------------------- the card
+def _cards(n: int):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards (a model axis over distinct devices)")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _tail_inputs_8b(m: int, seed: int, device):
+    """ctx, x_res, norm_w and one layer's o, gate/up and down int4 weights
+    at Llama-3.1-8B width (random packed bytes, scales of a weight of std
+    ~0.02), on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    weights = []
+    for k, n in ((4096, 4096), (4096, 2 * 14336), (14336, 4096)):
+        packed = torch.randint(-128, 128, (k // 2, n), generator=gen, device=device, dtype=torch.int8)
+        weights.append((packed, torch.empty(k // 128, n, device=device).uniform_(0.003, 0.006, generator=gen)))
+    ctx = torch.randn(m, 4096, generator=gen, device=device).to(torch.bfloat16)
+    xres = torch.randn(m, 4096, generator=gen, device=device)
+    nw = 1.0 + 0.1 * torch.randn(4096, generator=gen, device=device)
+    return ctx, xres, nw, weights
+
+
+def _blocks(weights, devices):
+    return [part for p, sc in weights for part in (split_blocks(p, -1, devices), split_blocks(sc, -1, devices))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("n", [2, 4])
+def test_fused_tail_over_peer_cards_equals_one_card(n, m):
+    """One launch on cuda:0 over o / gate-up / down blocks on cuda:0..n-1
+    (block b on card b, read in place over NVLink) at Llama-3.1-8B width:
+    bit-equal to the launch over the same blocks on cuda:0 (the same plan
+    on cuda:0's SM count, the same items and sums; max |d| printed), and
+    within the bf16 rule of the plain version."""
+    cards = _cards(n)
+    ctx, xres, nw, weights = _tail_inputs_8b(m, 80 + m, cards[0])
+    spread = _blocks(weights, cards)
+    assert [p.device.index for p in spread[0]] == list(range(n))
+    before = tint4.TAIL_LAUNCHES.value
+    got = tint4.int4_fused_layer_tail(ctx, xres, nw, *spread, eps=1e-5)
+    torch.cuda.synchronize()
+    assert tint4.TAIL_LAUNCHES.value == before + 1
+    local = _blocks(weights, [cards[0]] * n)
+    one_card = tint4.int4_fused_layer_tail(ctx, xres, nw, *local, eps=1e-5)
+    ref = tint4.int4_fused_layer_tail_plain(ctx, xres, nw, *local, eps=1e-5)  # the plain version concatenates
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
+    delta = float((got - one_card).abs().max())
+    print(f"fused tail over blocks on {n} cards, M={m}: max |peer blocks - one card| = {delta}")
+    assert delta == 0.0
+
+
+@pytest.mark.cuda
+def test_fused_tail_refuses_a_card_it_may_not_read(monkeypatch):
+    """With cuda:1 unreadable from cuda:0 (peer_readable patched), the
+    tail over blocks on cuda:0-1 raises naming cuda:1 and launches
+    nothing; int4_matmul keeps its rule: a block off x's card raises."""
+    cards = _cards(2)
+    ctx, xres, nw, weights = _tail_inputs_8b(8, 90, cards[0])
+    spread = _blocks(weights, cards)
+    monkeypatch.setattr(tint4, "peer_readable", lambda device, other: device == other)
+    before = tint4.TAIL_LAUNCHES.value
+    with pytest.raises(ValueError, match="lies on cuda:1"):
+        tint4.int4_fused_layer_tail(ctx, xres, nw, *spread, eps=1e-5)
+    assert tint4.TAIL_LAUNCHES.value == before
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="contiguous on cuda:0"):
+        tint4.int4_matmul(ctx, spread[0], spread[1])
