@@ -152,7 +152,7 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      blocks), each held against its plain version under the bf16 rule and
      against the whole-weight launch (bit-equal required, at the same K
      splits), timed beside it; one 32,064-column head shard alone (M = 8,
-     split-K: a distinct card's launch); and the fused
+     split-K: the per-shard route's launch on a shard's own card); and the fused
      tail over the 4 column shards at M = 8 and 64 (against its plain
      version and the whole-weight launch) as phase 9 times its shapes;
  15. dp x tp training over {"data": 2, "model": 2} of the one card
@@ -260,26 +260,31 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      compared with phase 14's; tok/s, ``dist.*`` seconds and peak memory
      a process. A process that fails, or does not end in 600 s, fails the
      run.
- 21. the fused tail over a model axis on distinct cards (run after phase
-     20; with two or more cards, on cuda:0..n-1, n = min(4, cards); on one
-     card a line says it did not run and why): (a) int4_fused_layer_tail
-     launched on cuda:0 over o / gate-up / down column blocks spread one a
-     card (read in place, a peer card's over NVLink) at Llama-3.1-8B
-     width, M = 8 and 64: one launch, bit-equal (max |d| 0 required) to
-     the same blocks on cuda:0, within the bf16 rule of plain; ms with
-     the host and device alone, in turns beside the one-card blocks, plain
-     ms, the bound (the peer cards' bytes over NVLink at 450 GB/s, the
-     card's own bytes at 3.35 TB/s, the products at the bf16 peak: the
-     largest) and share, wrapper host us; (b) phase 10's weights as an
-     int4 engine over {"model": n} on those cards: the decode route
-     ``fused_tail``, the last-prompt and decode-step fp32 logits within
-     phase 10's rule of phase 14's one-card engine rebuilt from the same
-     weights, each forward's launches against
-     ``decoder.int4_forward_launches`` and the route's counts (a decode
-     forward n x 33 int4_matmul + 32 tails, 132 + 32 over 4 cards; a
-     prefill forward 516 + 0); (c) phase 10's 8 requests served at
-     ``PEER_TP_TOKENS`` new tokens on this route and on the parent's
-     per-product route (``no_peer_reads``) in turns, decode tok/s of each.
+ 21. the int4 kernels over a model axis on distinct cards (run after
+     phase 20; with two or more cards, on cuda:0..n-1, n = min(4, cards);
+     on one card a line says it did not run and why): (a) int4_matmul
+     (qkv and the head at M = 8 on ``splitk``, gate/up at M = 4,096 on
+     ``wgmma``) and int4_fused_layer_tail (M = 8 and 64) launched on
+     cuda:0 over column blocks spread one a card (read in place, a peer
+     card's over NVLink) at Llama-3.1-8B width: one launch, bit-equal
+     (max |d| 0 required) to the same blocks on cuda:0, within the bf16
+     rule of plain; ms with the host and device alone, in turns beside
+     the one-card blocks, int4_matmul's per-shard route (a launch a card
+     and the gather) beside it, plain ms, the bound (the peer cards' bytes
+     over NVLink at 450 GB/s, the card's own bytes at 3.35 TB/s, the
+     products at the bf16 peak: the largest) and share, wrapper host us;
+     (b) phase 10's weights as an int4 engine over {"model": 2} and, on
+     four cards, {"model": 4}: the decode route ``fused_tail`` with qkv
+     and the head one launch over their blocks, the last-prompt and
+     decode-step fp32 logits within phase 10's rule of phase 14's
+     one-card engine rebuilt from the same weights (max |d| printed),
+     each forward's launches against ``decoder.int4_forward_launches``
+     and JAX's (a decode forward 33 int4_matmul + 32 tails, a prefill
+     forward 129 + 0, over any n); (c) phase 10's 8 requests served at
+     ``PEER_TP_TOKENS`` new tokens over every card on three routes in
+     turns (``PEER_ROUTES``: the package's, the tail over peer blocks
+     with the products once a shard, and no peer reads), prefill and
+     decode tok/s and launches of each.
      ``--phase 21`` runs it alone after phases 1 and 2.
 Then it checks that no module of jax, optax or of the JAX package
 (``comorag_tpu``, ``__graft_entry__``) was loaded, and
@@ -292,9 +297,9 @@ path, max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms,
 in each process, and ``process_meta_loop_launches``, each process's in
 19a for the encoder kernels and in 19b for the top-k kernels, and the
 int4 kernels' ``process_tp_launches``, each process's in phase 20's
-int4 serving run, with their launches a forward, and the fused tail's
-``distinct_cards_launches``, phase 21c's first served run on its route,
-null where phase 21 did not run), the run's wall seconds before it
+int4 serving run, with their launches a forward, and their
+``distinct_cards_launches``, phase 21c's first served run on the
+package's route, null where phase 21 did not run), the run's wall seconds before it
 (phases 14, 20 and 21 named), the nvidia-smi line, and the result line.
 """
 
@@ -328,7 +333,7 @@ from comorag_torch.llm.offline import TorchOfflineLLM
 from comorag_torch.models import bge, curriculum, decoder, train, train_lm
 from comorag_torch.ops import attention, build, ffn, int4, mips, ppr
 from comorag_torch.parallel import distributed
-from comorag_torch.parallel.mesh import Sharded, build_mesh, merge_blocks, split_blocks
+from comorag_torch.parallel.mesh import Sharded, build_mesh, merge_blocks, sharded_matmul, split_blocks
 from comorag_torch.ops.topk import dense_scores, int8_scores, quantize_int8
 from comorag_torch.retrieval import index as index_mod
 from comorag_torch.retrieval.index import MipsIndex
@@ -2380,16 +2385,16 @@ TP = 4
 # 64,128-column blocks (each block's last split-K item holds one box) and
 # over {"model": 4}'s 32,064-column blocks (a multiple of 64, not of 128:
 # each block's last item holds 64 columns), each in one launch; one
-# 32,064-column head shard alone, as a distinct card launches it (o,
+# 32,064-column head shard alone, as the per-shard route launches it (o,
 # gate/up and down run in the fused tail over their shards at decode)
 TP_MATMUL_SHAPES = (("qkv", 8, TP), ("gate_up", 4096, TP), ("lm_head", 8, 2), ("lm_head", 8, TP),
                     ("lm_head shard", 8, 1))
 TP_ROUTES = (f"int4_matmul: {decoder.BLOCKS} where a column split's shards all lie on the merge device (this "
-             f"mesh of one card) and the kernel takes them (at most {int4.TAIL_MAX_BLOCKS} of equal width: splitk "
-             f"up to 64 rows, each a multiple of 64 columns, the head's 32,064-column shards among them; wgmma "
-             f"above, each a multiple of 128): one launch a product reads the shards in place; "
-             f"{decoder.PER_SHARD} otherwise (distinct cards; blocks off those units): one launch a "
-             f"shard, gathered on the merge device. The layer tail: {decoder.FUSED_TAIL} where every shard lies "
+             f"mesh of one card) or on cards it may read (peer access; phase 21) and the kernel takes them (at "
+             f"most {int4.TAIL_MAX_BLOCKS} of equal width: splitk up to 64 rows, each a multiple of 64 columns, "
+             f"the head's 32,064-column shards among them; wgmma above, each a multiple of 128): one launch a "
+             f"product reads the shards in place; {decoder.PER_SHARD} otherwise (a card without peer access; "
+             f"blocks off those units): one launch a shard, gathered on the merge device. The layer tail: {decoder.FUSED_TAIL} where every shard lies "
              f"on the merge device or on a card it may read (peer access; phase 21): one launch a layer of "
              f"<= 64 tokens on the merge device reads the o, gate/up and down column shards in place; "
              f"{decoder.PER_PRODUCT} where a shard lies on a card without peer access, across processes, past "
@@ -2779,18 +2784,32 @@ def phase_process_tp(device, tp: dict, smi: str) -> dict:
 
 # ----------------------------------------------------------------- phase 21
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM: NVLink into one card (900 GB/s both ways; NVIDIA's data sheet)
-# new tokens a request of 21c's served runs: phase 10's 64. At the
-# slowest decode step measured over distinct cards (the per-product
-# route, ~0.2 s over four H100s at 700 W; PERF.md §6) they take ~13 s of
-# a 30 s decode budget a run; fixed so that the launch counts repeat.
-PEER_TP_TOKENS = 64
+# new tokens a request of 21c's served runs: phase 10's 64 cut to 32, so
+# that six runs (three routes in turns) take less of the 1,200 s than
+# four at 64 did. At the slowest decode step measured over distinct cards
+# (the per-product route, ~0.15-0.20 s over four H100s at 700 W; PERF.md
+# §6) a run's decode takes ~5-6 s; fixed so that the launch counts repeat.
+PEER_TP_TOKENS = 32
+# 21a's int4_matmul products at Llama-3.1-8B width, split one block a
+# card: (weight, M, layers cycled). qkv at decode (splitk, K split), the
+# head at decode (splitk, one split: over 4 cards its ragged 32,064-column
+# blocks), gate/up at prefill (wgmma, every 128-token tile re-reading
+# each weight box)
+PEER_MATMUL_SHAPES = (("qkv", 8, 32), ("lm_head", 8, 1), ("gate_up", 4096, 32))
+# 21c's routes over distinct cards, served in turns: one int4_matmul
+# launch a product over the peer cards' blocks and the fused tail over
+# them (the package's route); the tail over them with each product once a
+# shard (``products_per_shard``); no card reading another's memory
+# (``no_peer_reads``: each product once a shard, no tail)
+PEER_ROUTES = ("peer_blocks", "peer_tail", "per_product")
 
 
 @contextlib.contextmanager
 def no_peer_reads():
-    """The parent's route over distinct cards, for comparison: no card
-    reads another's memory (``int4.peer_readable`` false between cards),
-    so ``decoder.tail_route`` takes the per-product route."""
+    """The route over distinct cards without peer reads, for comparison:
+    no card reads another's memory (``int4.peer_readable`` false between
+    cards), so ``decoder.tail_route`` takes the per-product route and
+    ``decoder.product_route`` the per-shard one."""
     readable = int4.peer_readable
     int4.peer_readable = lambda device, other: device == other
     try:
@@ -2799,19 +2818,125 @@ def no_peer_reads():
         int4.peer_readable = readable
 
 
-def peer_tail_bound(m: int, h: int, i: int, cards: int, gs: int = 128) -> dict:
-    """The least time of the fused tail on the first of ``cards`` cards
-    with each weight's column blocks spread one a card: the peer cards'
-    share of the weight bytes over NVLink into the card, its own share and
-    the activations over its memory rate, or the products at the bf16
-    peak, whichever is the largest."""
-    weights = sum(k // 2 * n + k // gs * n * 4 for k, n in ((h, h), (h, 2 * i), (i, h)))
+@contextlib.contextmanager
+def products_per_shard():
+    """The route over distinct cards with peer reads in the fused tail
+    only, for comparison: ``decoder._product_blocks`` refuses a column
+    split whose shards lie off the merge card, so every such int4 product
+    runs once a shard on its card and is gathered on the merge card
+    (``decoder.product_route`` ``per_shard``), while the tail still reads
+    the peer cards' o / gate-up / down blocks."""
+    blocks = decoder._product_blocks
+
+    def merge_card_only(w, m, device):
+        return None if any(d != device for d in w.devices) else blocks(w, m, device)
+
+    decoder._product_blocks = merge_card_only
+    try:
+        yield
+    finally:
+        decoder._product_blocks = blocks
+
+
+def peer_route(route: str):
+    return {"peer_blocks": contextlib.nullcontext, "peer_tail": products_per_shard,
+            "per_product": no_peer_reads}[route]()
+
+
+def peer_bound(m: int, products, cards: int, act_bytes: int, gs: int = 128) -> dict:
+    """The least time of one launch on the first of ``cards`` cards over
+    int4 weights of ``products`` ((K, N) each) whose column blocks lie one
+    a card: the peer cards' share of the weight bytes over NVLink into the
+    card, its own share and ``act_bytes`` of activations over its memory
+    rate, or the products at the bf16 peak, whichever is the largest."""
+    weights = sum(k // 2 * n + k // gs * n * 4 for k, n in products)
     peer = weights * (cards - 1) / cards
-    local = weights / cards + m * h * (2 + 4 + 4) + h * 4
+    local = weights / cards + act_bytes
     times = {"nvlink_bytes": peer / NVLINK_BYTES_PER_S * 1e3, "hbm_bytes": local / HBM_BYTES_PER_S * 1e3,
-             "operations": 2 * m * (h * h + h * 2 * i + i * h) / PEAK_OPS_PER_S["bf16"] * 1e3}
+             "operations": 2 * m * sum(k * n for k, n in products) / PEAK_OPS_PER_S["bf16"] * 1e3}
     by = max(times, key=times.get)
     return {"bound_ms": times[by], "bound_by": by, "peer_bytes": peer, "local_bytes": local}
+
+
+def in_turns(timers: dict, order) -> dict:
+    """Each tag's (median_ms, device_ms) of ``timers[tag]`` (a cycling
+    call), taken in ``order`` (e.g. one card, cards, cards, one card), and
+    their means."""
+    turns = {tag: [] for tag in timers}
+    for tag in order:
+        turns[tag].append((median_ms(timers[tag]), device_ms(timers[tag])))
+    means = {tag: (statistics.mean(t[0] for t in ts), statistics.mean(t[1] for t in ts)) for tag, ts in turns.items()}
+    return {"turns": turns, "means": means}
+
+
+def peer_matmul_timings(device, cards: list) -> list:
+    """21a: int4_matmul launched on the first card over a weight's column
+    blocks spread over ``cards`` (block b on card b, as
+    ``decoder.shard_params`` places a model axis over distinct cards) at
+    Llama-3.1-8B width (``PEER_MATMUL_SHAPES``): one launch each, held
+    against its plain version under the bf16 rule and against the same
+    blocks on the first card (bit-equal required), then timed cycling
+    through the layers' blocks, with the host and device alone, beside the
+    one-card blocks in turns (one card, cards, cards, one card), beside
+    the per-shard route (each shard's launch on its own card and the
+    gather to the first card), against the NVLink bound."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    arch = llama_8b()
+    n = len(cards)
+    rows = []
+    for name, m, layers in PEER_MATMUL_SHAPES:
+        k, width = int4_matmul_dims(arch, name)
+        packed, scales = int4_weights(gen, device, k, width, layers)
+        placed = {tag: [(split_blocks(packed[li], -1, devices), split_blocks(scales[li], -1, devices))
+                        for li in range(layers)]
+                  for tag, devices in (("cards", cards), ("one_card", [device] * n))}
+        del packed, scales
+        torch.cuda.empty_cache()
+        shards = [Sharded(tuple(decoder.Int4Weight(p, sc) for p, sc in zip(*placed["cards"][li])), "col",
+                          tuple(cards)) for li in range(layers)]
+        x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
+
+        def product(tag, li=0):
+            return int4.int4_matmul(x, *placed[tag][li])
+
+        def per_shard(li=0):  # the decoder's per-shard route: a launch a shard on its card, gathered here
+            return sharded_matmul(x, shards[li], lambda xs, shard, _: int4.int4_matmul(xs, shard.packed, shard.scale))
+
+        route = int4.int4_matmul_route(m, width, n)
+        what = f"phase 21a int4_matmul {name} M={m} over blocks on {n} cards ({route})"
+        before = int4.LAUNCHES.value, int4.ROUTE_LAUNCHES[route].value
+        got = product("cards")
+        torch.cuda.synchronize()
+        launched = int4.LAUNCHES.value - before[0], int4.ROUTE_LAUNCHES[route].value - before[1]
+        if launched != (1, 1):
+            raise AssertionError(f"{what}: (all, {route}) launches {launched}, expected (1, 1)")
+        one_card = product("one_card")
+        ref = int4.int4_matmul_plain(x, *placed["one_card"][0])
+        r = {"weight": name, "M": m, "K": k, "N": width, "cards": n, "route": route,
+             "splits": matmul_splits(device, m, k, width, route, n), "max_abs_err": compare(got, ref, what),
+             "rule_ratio": rule_ratio(got, ref), "max_abs_diff_vs_one_card": float((got - one_card).abs().max())}
+        if r["max_abs_diff_vs_one_card"] != 0.0:
+            raise AssertionError(f"{what}: differs from the same blocks on one card by "
+                                 f"{r['max_abs_diff_vs_one_card']} (the same plan, items and sums: bit-equal)")
+        per_shard_out = per_shard()
+        r["per_shard_max_abs_err"] = compare(per_shard_out, ref, f"{what}, per-shard route")
+        del got, one_card, ref, per_shard_out
+        timed = in_turns({tag: cycling(lambda li, tag=tag: product(tag, li), layers) for tag in ("one_card", "cards")},
+                         ("one_card", "cards", "cards", "one_card"))
+        (r["ms"], r["device_ms"]), (r["one_card_ms"], r["one_card_device_ms"]) = (timed["means"]["cards"],
+                                                                                   timed["means"]["one_card"])
+        r.update(turns=timed["turns"], per_shard_ms=median_ms(cycling(per_shard, layers)),
+                 plain_ms=median_ms(lambda: int4.int4_matmul_plain(x, *placed["one_card"][0]), runs=3, reps=1,
+                                    warmup=1),
+                 host_us=host_us(lambda: product("cards")), one_card_host_us=host_us(lambda: product("one_card")),
+                 per_shard_host_us=host_us(per_shard, calls=50), library_ms=None,
+                 **peer_bound(m, ((k, width),), n, m * k * 2 + m * width * 4))
+        r["share"] = r["bound_ms"] / r["ms"]
+        r["device_share"] = r["bound_ms"] / r["device_ms"]
+        rows.append(r)
+        del placed, shards, x
+        torch.cuda.empty_cache()
+    return rows
 
 
 def peer_tail_timings(device, cards: list) -> list:
@@ -2842,9 +2967,6 @@ def peer_tail_timings(device, cards: list) -> list:
         def tail(tag, li=0):
             return int4.int4_fused_layer_tail(ctx, xres, nw, *placed[tag][li], eps=1e-5)
 
-        def cycled(tag):
-            return cycling(lambda li: tail(tag, li), layers)
-
         what = f"phase 21 int4_fused_layer_tail over blocks on {n} cards M={m}"
         before = int4.TAIL_LAUNCHES.value
         got = tail("cards")
@@ -2858,16 +2980,15 @@ def peer_tail_timings(device, cards: list) -> list:
         if r["max_abs_diff_vs_one_card"] != 0.0:
             raise AssertionError(f"{what}: differs from the same blocks on one card by "
                                  f"{r['max_abs_diff_vs_one_card']} (the same plan, items and sums: bit-equal)")
-        turns = {"one_card": [], "cards": []}
-        for tag in ("one_card", "cards", "cards", "one_card"):
-            turns[tag].append((median_ms(cycled(tag)), device_ms(cycled(tag))))
-        for tag, prefix in (("cards", ""), ("one_card", "one_card_")):
-            r[f"{prefix}ms"] = statistics.mean(t[0] for t in turns[tag])
-            r[f"{prefix}device_ms"] = statistics.mean(t[1] for t in turns[tag])
-        r.update(turns=turns, plain_ms=median_ms(lambda: int4.int4_fused_layer_tail_plain(
+        timed = in_turns({tag: cycling(lambda li, tag=tag: tail(tag, li), layers) for tag in ("one_card", "cards")},
+                         ("one_card", "cards", "cards", "one_card"))
+        (r["ms"], r["device_ms"]), (r["one_card_ms"], r["one_card_device_ms"]) = (timed["means"]["cards"],
+                                                                                   timed["means"]["one_card"])
+        r.update(turns=timed["turns"], plain_ms=median_ms(lambda: int4.int4_fused_layer_tail_plain(
                      ctx, xres, nw, *placed["one_card"][0], eps=1e-5), runs=3, reps=1, warmup=1),
                  host_us=host_us(lambda: tail("cards")), one_card_host_us=host_us(lambda: tail("one_card")),
-                 **peer_tail_bound(m, h, inter, n))
+                 **peer_bound(m, ((h, h), (h, 2 * inter), (inter, h)), n,
+                              m * h * (2 + 4 + 4) + h * 4))  # ctx bf16; x_res, out fp32; the norm weight
         r["share"] = r["bound_ms"] / r["ms"]
         r["device_share"] = r["bound_ms"] / r["device_ms"]
         rows.append(r)
@@ -2877,20 +2998,53 @@ def peer_tail_timings(device, cards: list) -> list:
     return rows
 
 
+def peer_forwards(engine, arch, prompts, ref: tuple, what: str) -> dict:
+    """21b: the engine's prefill chunk and decode step in fp32 compute (the
+    step fed ``ref``'s token): each forward's launches against
+    ``decoder.int4_forward_launches`` and against the one-card axis's (a
+    prefill forward 4 x layers + 1 int4_matmul and no tail, a decode
+    forward layers + 1 and a tail a layer: JAX's), the logits within phase
+    10's rule of ``ref``'s (phase 14's one-card engine), max |d|
+    reported."""
+    layers = arch.num_layers
+    want = [(4 * layers + 1, 0), (layers + 1, layers)]  # a prefill chunk, a decode step
+    with forward_launches() as rec:
+        got = forward_logits(engine, prompts, torch.float32, ref[2])
+    out = {"forwards": checked_forwards(rec, engine.params, arch, True, f"{what} fp32 forwards")}
+    if [(r[2], r[3]) for r in rec] != want:
+        raise AssertionError(f"{what} fp32 forwards: {rec}, expected (int4_matmul, tail) launches {want}")
+    out["fp32_forward_s"] = [r[4] for r in rec]
+    out["logits_fp32_vs_phase_14"] = checked_pair(got, ref, f"{what} vs phase 14's one-card engine", torch.float32)
+    return out
+
+
+def peer_engine(params, arch, device, cards: list):
+    """Phase 10's weights as an int4 engine over {"model": n} on ``cards``,
+    its build seconds, and its decode route checked: shards on the cards,
+    the fused tail, qkv one launch over its blocks."""
+    t0 = time.perf_counter()
+    engine = TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", compute_dtype=torch.bfloat16,
+                             device=device, mesh=build_mesh({"model": len(cards)}, cards))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    qkv = engine.params["layers"]["qkv_w"]
+    routes = (decoder.tail_route(engine.params, arch, 8), decoder.product_route(qkv, 8, device),
+              decoder.product_route(engine.params["lm_head"], 8, device))
+    if [str(d) for d in qkv.devices] != [str(c) for c in cards] or routes != (decoder.FUSED_TAIL, decoder.BLOCKS,
+                                                                              decoder.BLOCKS):
+        raise AssertionError(f"phase 21: shards on {qkv.devices}, decode routes (tail, qkv, head) {routes}")
+    return engine, build_s
+
+
 def peer_tp_generation(device, cards: list) -> dict:
-    """21b-c: phase 10's weights as an int4 engine over {"model": n} on
-    ``cards``: every forward's launches against
-    ``decoder.int4_forward_launches`` and the route's counts (a decode
-    forward n x (layers + 1) int4_matmul, qkv and the head once a shard,
-    and one tail a layer over the peer cards' blocks; a prefill forward
-    4n x layers + n and no tail), the fp32-compute last-prompt and
-    decode-step logits within phase 10's rule of phase 14's one-card
-    engine rebuilt from the same weights (fed its greedy token); then
-    phase 10's 8 requests served at PEER_TP_TOKENS new tokens on this
-    route and on the parent's per-product one (``no_peer_reads``), in
-    turns (tail, per-product, per-product, tail)."""
+    """21b-c: phase 10's weights as an int4 engine over {"model": n} on the
+    first n of ``cards`` for n = 2 and, with four cards, 4
+    (``peer_forwards``: JAX's launches a forward, the fp32 logits against
+    phase 14's one-card engine rebuilt from the same weights); then, over
+    every card, phase 10's 8 requests served at PEER_TP_TOKENS new tokens
+    on each of ``PEER_ROUTES`` in turns (each route, then each again in
+    reverse), each forward's launches checked on its route."""
     arch = llama_8b()
-    n, layers = len(cards), arch.num_layers
     params = decoder.init_params(arch, torch.Generator(device=device).manual_seed(SEED + 10), device,
                                  torch.bfloat16)  # phase 10's weights
     prompts = server_prompts()
@@ -2899,39 +3053,28 @@ def peer_tp_generation(device, cards: list) -> dict:
     ref = forward_logits(one_card, prompts, torch.float32)
     del one_card
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    engine = TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", compute_dtype=torch.bfloat16,
-                             device=device, mesh=build_mesh({"model": n}, cards))
-    torch.cuda.synchronize()
-    out = {"build_s": time.perf_counter() - t0}
+    out = {"by_cards": {}}
+    for n in sorted({2, len(cards)}):
+        engine, build_s = peer_engine(params, arch, device, cards[:n])
+        out["by_cards"][n] = {"build_s": build_s, **peer_forwards(engine, arch, prompts, ref,
+                                                                   f"phase 21b over {n} cards")}
+        if n < len(cards):
+            del engine
+            torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
-    qkv = engine.params["layers"]["qkv_w"]
-    out["qkv_shard_devices"] = [str(d) for d in qkv.devices]
-    out["decode_route"] = decoder.tail_route(engine.params, arch, len(prompts))
-    if out["qkv_shard_devices"] != [str(c) for c in cards] or out["decode_route"] != decoder.FUSED_TAIL:
-        raise AssertionError(f"phase 21: shards on {out['qkv_shard_devices']}, decode route {out['decode_route']} "
-                             f"(expected {decoder.FUSED_TAIL} over {cards})")
-    want = [(4 * n * layers + n, 0), (n * (layers + 1), layers)]  # a prefill chunk, a decode step
-    with forward_launches() as rec:
-        got = forward_logits(engine, prompts, torch.float32, ref[2])
-    out["forwards_fp32"] = checked_forwards(rec, engine.params, arch, True, "phase 21 fp32 forwards")
-    if [(r[2], r[3]) for r in rec] != want:
-        raise AssertionError(f"phase 21 fp32 forwards: {rec}, expected (int4_matmul, tail) launches {want}")
-    out["fp32_forward_s"] = [r[4] for r in rec]
-    out["logits_fp32_vs_phase_14"] = checked_pair(got, ref, "phase 21 vs phase 14's one-card engine", torch.float32)
-    out["runs"] = {decoder.FUSED_TAIL: [], decoder.PER_PRODUCT: []}
-    for route in (decoder.FUSED_TAIL, decoder.PER_PRODUCT, decoder.PER_PRODUCT, decoder.FUSED_TAIL):
-        with (no_peer_reads() if route == decoder.PER_PRODUCT else contextlib.nullcontext()), \
-                forward_launches() as rec:
-            if decoder.tail_route(engine.params, arch, len(prompts)) != route:
-                raise AssertionError(f"phase 21: the decode route is not {route}")
-            run = serve_route(engine, prompts, PEER_TP_TOKENS, f"phase 21 {route}")
-            forwards = checked_forwards(rec, engine.params, arch, True, f"phase 21 {route}")
+    out["runs"] = {route: [] for route in PEER_ROUTES}
+    for route in PEER_ROUTES + PEER_ROUTES[::-1]:
+        with peer_route(route), forward_launches() as rec:
+            tail = decoder.tail_route(engine.params, arch, len(prompts))
+            if tail != (decoder.PER_PRODUCT if route == "per_product" else decoder.FUSED_TAIL):
+                raise AssertionError(f"phase 21c {route}: the decode step takes {tail}")
+            run = serve_route(engine, prompts, PEER_TP_TOKENS, f"phase 21c {route}")
+            forwards = checked_forwards(rec, engine.params, arch, True, f"phase 21c {route}")
         launches = run["launches"]
         if (launches["int4_matmul"], launches["int4_fused_layer_tail"]) != (sum(r[2] for r in rec),
                                                                            sum(r[3] for r in rec)):
-            raise AssertionError(f"phase 21 {route}: launches {launches} outside the recorded forwards {rec}")
+            raise AssertionError(f"phase 21c {route}: launches {launches} outside the recorded forwards {rec}")
         out["runs"][route].append({"forwards": forwards, **{k: run[k] for k in (
             "prefill_tok_s", "decode_tok_s", "decode_s", "wall_s", "launches", "route_launches",
             "completion_tokens")}})
@@ -2941,20 +3084,34 @@ def peer_tp_generation(device, cards: list) -> dict:
 
 
 def phase_peer_tp(device, smi: str) -> dict:
-    """Phase 21: the fused tail over a model axis on distinct cards (two
-    or more; up to TAIL_MAX_BLOCKS of them): 21a the kernel over peer
-    blocks, 21b the engine's forwards and logits, 21c the served decode on
-    this route and the parent's per-product one. On one card it prints
-    why it did not run and returns None."""
+    """Phase 21: the int4 kernels over a model axis on distinct cards (two
+    or more; up to TAIL_MAX_BLOCKS of them): 21a int4_matmul and the fused
+    tail over peer blocks, 21b the engine's forwards and logits over 2 and
+    4 cards, 21c the served requests on the three routes of
+    ``PEER_ROUTES``. On one card it prints why it did not run and returns
+    None."""
     count = torch.cuda.device_count()
     if count < 2:
-        print(f"phase 21 did not run: {count} card (the fused tail over a model axis on distinct cards needs two "
+        print(f"phase 21 did not run: {count} card (the int4 kernels over a model axis on distinct cards need two "
               f"or more)", flush=True)
         return None
     t0 = time.perf_counter()
     cards = [torch.device("cuda", i) for i in range(min(int4.TAIL_MAX_BLOCKS, count))]
-    out = {"cards": len(cards), "tail": peer_tail_timings(device, cards), **peer_tp_generation(device, cards)}
+    out = {"cards": len(cards), "matmul": peer_matmul_timings(device, cards), "tail": peer_tail_timings(device, cards),
+           **peer_tp_generation(device, cards)}
     out["wall_s"] = time.perf_counter() - t0
+    for r in out["matmul"]:
+        print(f"phase 21a int4_matmul {r['weight']} {r['K']}->{r['N']} M={r['M']} on cuda:0 over blocks on "
+              f"{r['cards']} cards ({r['route']}, {r['splits']} K split(s); {smi}): max_abs_err={r['max_abs_err']:.4g} "
+              f"(worst ratio to the rule {r['rule_ratio']:.3f}), max |d| against the same blocks on one card "
+              f"{r['max_abs_diff_vs_one_card']:.4g}; kernel {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} ms "
+              f"(the blocks on one card: {r['one_card_ms']:.4f}, {r['one_card_device_ms']:.4f}; turns "
+              f"{json.dumps(r['turns'])}); the per-shard route (a launch a card, gathered) {r['per_shard_ms']:.4f} ms, "
+              f"host {r['per_shard_host_us']:.1f} us; plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['peer_bytes']:.0f} bytes over NVLink at {NVLINK_BYTES_PER_S / 1e9:.0f} GB/s, "
+              f"{r['local_bytes']:.0f} from its own memory), share {r['share']:.3f} (device alone "
+              f"{r['device_share']:.3f}); wrapper host {r['host_us']:.1f} us a call (one card "
+              f"{r['one_card_host_us']:.1f})", flush=True)
     for r in out["tail"]:
         print(f"phase 21a int4_fused_layer_tail on cuda:0 over o / gate-up / down blocks on {r['cards']} cards "
               f"M={r['M']} H={r['H']} I={r['I']} ({smi}): max_abs_err={r['max_abs_err']:.4g} (worst ratio to the "
@@ -2966,13 +3123,19 @@ def phase_peer_tp(device, smi: str) -> dict:
               f"over NVLink at {NVLINK_BYTES_PER_S / 1e9:.0f} GB/s, {r['local_bytes']:.0f} from its own memory), "
               f"share {r['share']:.3f} (device alone {r['device_share']:.3f}); wrapper host {r['host_us']:.1f} us "
               f"a call (one card {r['one_card_host_us']:.1f})", flush=True)
-    tok_s = {route: [run["decode_tok_s"] for run in runs] for route, runs in out["runs"].items()}
-    print(f"phase 21b-c TP generation, int4 weights over {{'model': {len(cards)}}} on cuda:0-{len(cards) - 1} "
-          f"({smi}), phase 10's weights (Llama-3.1-8B width, 32 layers): forwards (checked) "
-          f"{json.dumps(out['forwards_fp32'])}, fp32 seconds {out['fp32_forward_s']}; fp32-compute logits "
-          f"against phase 14's one-card engine (checked) {json.dumps(out['logits_fp32_vs_phase_14'])}; 8 requests x "
-          f"{PEER_TP_TOKENS} tokens, decode tok/s in turns {json.dumps(tok_s)}; runs {json.dumps(out['runs'])}; "
-          f"build {out['build_s']:.3f} s; phase wall {out['wall_s']:.1f} s", flush=True)
+    for n, r in out["by_cards"].items():
+        logits = r["logits_fp32_vs_phase_14"]
+        print(f"phase 21b TP generation, int4 weights over {{'model': {n}}} on cuda:0-{n - 1} ({smi}), phase 10's "
+              f"weights (Llama-3.1-8B width, 32 layers): forwards (checked) {json.dumps(r['forwards'])}, fp32 "
+              f"seconds {r['fp32_forward_s']}; fp32-compute logits against phase 14's one-card engine (checked): "
+              f"max |d| prefill {logits['prefill']['max_abs_err']:.4g}, decode step "
+              f"{logits['decode_step']['max_abs_err']:.4g}; {json.dumps(logits)}; build {r['build_s']:.3f} s",
+              flush=True)
+    tok_s = {route: {k: [run[k] for run in runs] for k in ("prefill_tok_s", "decode_tok_s")}
+             for route, runs in out["runs"].items()}
+    print(f"phase 21c TP serving over {{'model': {len(cards)}}} on cuda:0-{len(cards) - 1} ({smi}), 8 requests x "
+          f"{PEER_TP_TOKENS} tokens, routes in turns {list(PEER_ROUTES + PEER_ROUTES[::-1])}: tok/s "
+          f"{json.dumps(tok_s)}; runs {json.dumps(out['runs'])}; phase wall {out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -3511,16 +3674,18 @@ def main() -> None:
                             "harness_dryrun_launches": harness["dryrun"]["int4_matmul_launches"]}
                            if counter is int4.LAUNCHES else
                            {"tp_launches": tp["int4"]["launches"][counter.name], "tp_routes": TP_ROUTES,
-                            "tp_shard_shapes": tp["tail_shards"],
-                            "distinct_cards_launches": None if peer_tp is None else
-                            peer_tp["runs"][decoder.FUSED_TAIL][0]["launches"][counter.name],
-                            "distinct_cards_shapes": None if peer_tp is None else peer_tp["tail"]}),
+                            "tp_shard_shapes": tp["tail_shards"]}),
+                        "distinct_cards_launches": None if peer_tp is None else
+                        peer_tp["runs"][PEER_ROUTES[0]][0]["launches"][counter.name],
+                        "distinct_cards_shapes": None if peer_tp is None else
+                        peer_tp["matmul" if counter is int4.LAUNCHES else "tail"],
                         "tp_launches_per_forward": tp["int4"]["forwards"],
                         "process_tp_launches": [r[counter.name] for r in process_tp["int4"]["launches"]],
                         "process_tp_launches_per_forward": process_tp["int4"]["forwards"],
                         "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks
-                                           + (tp["shards"] if counter is int4.LAUNCHES else tp["tail_shards"]
-                                              + ([] if peer_tp is None else peer_tp["tail"]))),
+                                           + (tp["shards"] if counter is int4.LAUNCHES else tp["tail_shards"])
+                                           + ([] if peer_tp is None else
+                                              peer_tp["matmul" if counter is int4.LAUNCHES else "tail"])),
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         "shapes": rows})
 

@@ -56,11 +56,19 @@
 //   Tiles: 16 x 64 for M <= 16, 64 x 64 up to 64 rows, 128 x 128 above;
 //   mma.sync, no split of K.
 // The split-K and wgmma routes take the weight whole or as up to
-// splitk::MAX_BLOCKS column blocks (a `model` axis's shards on one
-// device): each block has its own tensor map and scale pointer; a split-K
-// item lies in one block, and a wgmma tile's global column picks its
-// block, so one launch reads the shards in place with the whole weight's
-// sums (bit-equal output at the same K splits).
+// splitk::MAX_BLOCKS column blocks (a `model` axis's shards): each block
+// has its own tensor map and scale pointer; a split-K item lies in one
+// block, and a wgmma tile's global column picks its block, so one launch
+// reads the shards in place with the whole weight's sums (bit-equal
+// output at the same K splits). A block may lie on the launching card or
+// on a peer card (a `model` axis over distinct cards, after
+// comorag_enable_peer_access), as in the fused tail below: the split-K
+// PRODUCT stage and prefill::matmul_kernel's producer read it through the
+// same tensor map and scale bulk copies, over NVLink, with the same items
+// and sums as the blocks on one card. The wgmma route reads each weight
+// box once a 128-token tile, and a peer's box crosses NVLink each time:
+// gate/up at M = 4,096 over blocks on 4 H100s (700 W) took ~2.1x the
+// same blocks on one card, ~350 GB/s over NVLink (chip_smoke.py phase 21a).
 
 // The fused layer tail, x_res + FFN(RMSNorm(x_res + ctx @ O)), is one
 // cooperative launch (the TPU kernel exists to be one invocation instead
@@ -102,6 +110,8 @@
 //   one card). Over 4 cards 3/4 of the weight bytes cross NVLink (450
 //   GB/s into a card against 3.35 TB/s from its own memory), so that is
 //   the bound there; nothing is copied to the launching card first.
+//   int4_matmul's split-K route runs this stage code as its PRODUCT
+//   stage, and so reads a peer card's blocks the same way.
 // The rounding points are the TPU kernel's: ctx -> bf16, xmid and the
 // norm in fp32, xn -> bf16, gate/up in fp32, h -> bf16, down in fp32 plus
 // xmid. Grid-wide barriers separate the o product, the RMSNorm, gate/up

@@ -23,14 +23,14 @@ self-speculative decoding. What changes with the framework:
     ``parallel.mesh.Sharded`` leaf, and activations, the KV cache and
     attention stay whole on the first device, where products merge. An
     int4 column split whose shards all lie on that device (a mesh of one
-    card) is one ``int4_matmul`` call over the shards, read in place, where
-    the kernel takes its blocks (``product_route``), and a decode-sized
-    layer's o / gate-up / down take the fused tail over them
+    card) or on cards it may read (distinct cards with peer access, read
+    over NVLink) is one ``int4_matmul`` call over the shards, read in
+    place, where the kernel takes its blocks (``product_route``), and a
+    decode-sized layer's o / gate-up / down take the fused tail over them
     (``tail_route``), as JAX launches both kernels once over gathered
-    shards; so do shards on distinct cards with peer access, read over
-    NVLink by the tail on the first card; every other product runs once
-    per shard on the shard's device (qkv and the head on distinct cards,
-    blocks the kernel refuses, float and int8 weights). Over a ``model``
+    shards; every other product runs once per shard on the shard's device
+    (a shard on a card the first device may not read, blocks the kernel
+    refuses, float and int8 weights). Over a ``model``
     axis that spans processes each process holds its own blocks alone; it runs the same routes over them and
     merges the products with the other processes' (``sharded_matmul``),
     and computes the activations, the KV cache, attention and the whole
@@ -364,15 +364,14 @@ BLOCKS = "blocks"
 PER_SHARD = "per_shard"
 
 
-def _column_blocks(w, device: torch.device, peers: bool = False):
+def _column_blocks(w, device: torch.device):
     """The lists of a ``Sharded`` int4 column leaf's packed and scale
-    shards when every shard lies on ``device`` (a ``model`` axis on one
-    card: the kernels read them in place; across processes, this process's
-    shards), or with ``peers`` also on a card a kernel on ``device`` may
-    read (``int4.peer_readable``: the fused tail's rule); None for any
-    other leaf."""
+    shards when every shard lies on ``device`` or on a card a kernel there
+    may read (``int4.peer_readable``: a ``model`` axis on one card, or over
+    distinct cards with peer access; across processes, this process's
+    shards): the kernels read them in place. None for any other leaf."""
     if (isinstance(w, Sharded) and w.dim == "col" and all(isinstance(sh, Int4Weight) for sh in w.shards)
-            and all(d == device or (peers and int4_ops.peer_readable(device, d)) for d in w.devices)):
+            and all(int4_ops.peer_readable(device, d) for d in w.devices)):
         return [sh.packed for sh in w.shards], [sh.scale for sh in w.shards]
     return None
 
@@ -380,15 +379,18 @@ def _column_blocks(w, device: torch.device, peers: bool = False):
 def product_route(w, m: int, device: torch.device) -> str:
     """The route of a ``Sharded`` product of m (= batch x chunk) rows
     merged on ``device``:
-      - ``BLOCKS``: one ``int4_matmul`` call over the column shards read in
-        place, where w is an int4 column split whose shards all lie on
-        ``device`` and ``int4_matmul_blocks_supported`` holds at m (the
-        JAX package's one launch a product);
+      - ``BLOCKS``: one ``int4_matmul`` call on ``device`` over the column
+        shards read in place, where w is an int4 column split whose shards
+        all lie on ``device`` or on cards it may read
+        (``int4.peer_readable``: distinct cards with peer access, read over
+        NVLink) and ``int4_matmul_blocks_supported`` holds at m (the JAX
+        package's one launch a product);
       - ``PER_SHARD``: ``sharded_matmul``, one product a shard on its
-        device, merged on ``device``: shards on distinct cards, blocks the
-        kernel refuses (off the 64-column unit up to 64 rows or the
-        128-column one above, more than ``TAIL_MAX_BLOCKS``), float and
-        int8 weights, row splits.
+        device, merged on ``device``: a shard on a card ``device`` may not
+        read (decided here, before any launch), blocks the kernel refuses
+        (off the 64-column unit up to 64 rows or the 128-column one above,
+        more than ``TAIL_MAX_BLOCKS``), float and int8 weights, row
+        splits.
     Over a model axis that spans processes both routes run over this
     process's shards, and the outputs are then gathered from every
     process."""
@@ -515,12 +517,12 @@ def _tail_blocks(w, device: torch.device):
     """An o / gate-up / down leaf as the fused tail reads it: the (packed,
     scale) of a whole int4 weight, or its column shards' lists, each shard
     on ``device`` or on a card a kernel there may read
-    (``_column_blocks`` with peers); None for any other leaf, and for
+    (``_column_blocks``); None for any other leaf, and for
     shards of an axis that spans processes (the tail would need the
     others' columns)."""
     if isinstance(w, Sharded) and w.indices is not None:
         return None
-    return (w.packed, w.scale) if isinstance(w, Int4Weight) else _column_blocks(w, device, peers=True)
+    return (w.packed, w.scale) if isinstance(w, Int4Weight) else _column_blocks(w, device)
 
 
 def _tail_weights(layer: Dict[str, Any], arch: DecoderArch, m: int, device: torch.device):
@@ -578,10 +580,11 @@ def int4_forward_launches(params: Dict[str, Any], arch: DecoderArch, m: int, hea
     int4 weights whose head takes head_m rows, as ``tail_route`` and
     ``product_route`` route them: a whole weight or a ``BLOCKS`` split
     once, a ``PER_SHARD`` split once a shard (this process's shards: the
-    launches this process makes). Over ``{"model": 4}`` on four distinct
-    cards at Llama-3.1-8B width a decode forward makes (132, 32): qkv and
-    the head once a shard, the tail once a layer over the peer cards'
-    shards; a prefill forward (516, 0)."""
+    launches this process makes). Over ``{"model": 4}`` (or 2) on distinct
+    cards with peer access at Llama-3.1-8B width a decode forward makes
+    (33, 32): qkv once a layer and the head once over the peer cards'
+    shards, the tail once a layer; a prefill forward (129, 0): JAX's
+    launches, and those of the same axis on one card."""
     device, layer = params["embed"].device, params["layers"]
     tail = tail_route(params, arch, m) == FUSED_TAIL
     names = ("qkv_w",) if tail else ("qkv_w", "o_w", "gateup_w", "down_w")

@@ -11,10 +11,12 @@ Hopper kernels (``csrc/int4.cu``) for CUDA tensors and run their plain
 versions for CPU tensors; there is no fallback from one to the other.
 ``int4_matmul`` has three kernel routes, chosen by shape
 (``int4_matmul_route``). ``int4_fused_layer_tail`` takes each weight whole
-or as column blocks (a ``model`` axis's shards), read in place by the one
-launch on ctx's card, each block there or on a card it may read
-(``peer_readable``); ``int4_matmul`` takes column blocks on x's device on
-its ``splitk`` and ``wgmma`` routes (``int4_matmul_blocks_supported``).
+or as column blocks (a ``model`` axis's shards), and ``int4_matmul`` takes
+column blocks on its ``splitk`` and ``wgmma`` routes
+(``int4_matmul_blocks_supported``): the one launch on ctx's or x's card
+reads every block in place, there or on a card it may read
+(``peer_readable``: a ``model`` axis over distinct cards, the peers'
+blocks over NVLink).
 The plain versions repeat the kernels' arithmetic: x rounded to bf16,
 each group's product summed in fp32 (bf16 x bf16 products are exact in
 fp32), times the group's scale row, added to the running fp32 sum.
@@ -194,11 +196,15 @@ def int4_matmul(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch
     holds columns [b out / S, (b + 1) out / S)); the output is written
     whole, once. CUDA tensors launch the kernel of ``int4_matmul_route``'s
     choosing (any M; ``in`` a multiple of group_size, group_size a multiple
-    of 64) once, reading the blocks in place where
+    of 64) once on x's device, reading the blocks in place where
     ``int4_matmul_blocks_supported`` holds and raising where it does not
-    (every block on x's device; at m <= 64 blocks of a width off 64 raise,
-    as does a block off 128 above); CPU tensors run
-    ``int4_matmul_plain``."""
+    (at m <= 64 blocks of a width off 64 raise, as does a block off 128
+    above). On ``splitk`` and ``wgmma`` each block lies on x's device or
+    on a card it may read (``peer_readable``; a block on any other device
+    raises before the launch); ``mma_sync`` takes a whole weight on x's
+    device. ``out``, the split-K workspace and its tickets stay on x's
+    device, and the plan is its own, so the output equals the same blocks'
+    on x's device bit for bit. CPU tensors run ``int4_matmul_plain``."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scales, group_size)
     if x.device.type != "cuda":
@@ -499,14 +505,14 @@ def _peer_block(name: str, card: torch.device, device: torch.device) -> None:
 
 
 def _block_pointers(name: str, packed: list, scales: list, d_in: int, d_out: int, group_size: int,
-                    device: torch.device, unit: int = TAIL_TILE_N, peers: bool = False) -> tuple:
+                    device: torch.device, unit: int = TAIL_TILE_N) -> tuple:
     """The C entry's arrays of block pointers for one weight of ``d_out``
     columns in ``len(packed)`` column blocks, after checking every block's
-    dtype, shape, device (``device``: x's or ctx's; with ``peers``, the
-    fused tail's rule, also a card ``device`` may read, whose peer access
-    is then enabled), contiguity and 16-byte alignment, and that the
-    blocks are at most ``TAIL_MAX_BLOCKS`` of equal width, a multiple of
-    ``unit`` (the fused tail's and wgmma's ``TAIL_TILE_N``, split-K's 64)."""
+    dtype, shape, device (``device``, x's or ctx's, or a card it may read,
+    whose peer access is then enabled), contiguity and 16-byte alignment,
+    and that the blocks are at most ``TAIL_MAX_BLOCKS`` of equal width, a
+    multiple of ``unit`` (the fused tail's and wgmma's ``TAIL_TILE_N``,
+    split-K's 64)."""
     n = len(packed)
     if n > TAIL_MAX_BLOCKS or d_out % n or (d_out // n) % unit:
         raise ValueError(f"{name}: the kernel takes 1 to {TAIL_MAX_BLOCKS} column blocks of equal width, a multiple "
@@ -520,8 +526,6 @@ def _block_pointers(name: str, packed: list, scales: list, d_in: int, d_out: int
                 or sc.device != card or not (p.is_contiguous() and sc.is_contiguous())):
             _check_weight(name, p, sc, d_in, width, group_size, card)
         if card != device:
-            if not peers:
-                _check_weight(name, p, sc, d_in, width, group_size, device)  # raises: the block is elsewhere
             _peer_block(name, card, device)
         if (pp | sp) % 16:
             raise ValueError(f"{name}: every weight block must be 16-byte aligned (TMA copies)")
@@ -568,9 +572,9 @@ def int4_fused_layer_tail(
         raise ValueError(f"int4_fused_layer_tail: the kernel takes M <= {TAIL_MAX_M} and H, I multiples of "
                          f"512, got M={m}, H={hidden}, I={inter}")
     dev = ctx.device
-    o_ptrs = _block_pointers("int4_fused_layer_tail o", *o, hidden, hidden, group_size, dev, peers=True)
-    gu_ptrs = _block_pointers("int4_fused_layer_tail gate/up", *gu, hidden, 2 * inter, group_size, dev, peers=True)
-    down_ptrs = _block_pointers("int4_fused_layer_tail down", *down, inter, hidden, group_size, dev, peers=True)
+    o_ptrs = _block_pointers("int4_fused_layer_tail o", *o, hidden, hidden, group_size, dev)
+    gu_ptrs = _block_pointers("int4_fused_layer_tail gate/up", *gu, hidden, 2 * inter, group_size, dev)
+    down_ptrs = _block_pointers("int4_fused_layer_tail down", *down, inter, hidden, group_size, dev)
     ctx_b = _bf16_rows("int4_fused_layer_tail", ctx)
     xres = x_res.to(torch.float32).contiguous()
     nw = norm_w.to(torch.float32).contiguous()

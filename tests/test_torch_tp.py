@@ -446,9 +446,52 @@ def test_int4_forward_launches_one_head_launch_over_ragged_blocks(m):
     assert tdec._product_launches(head, 80, CPU) == 4 and tdec._product_launches(share, 80, CPU) == 2
 
 
+@pytest.mark.parametrize("p", [8, 40])  # 32 tokens, 160 tokens
+def test_int4_forward_over_readable_cards_matches_jax(p, monkeypatch):
+    """{"model": 4} with the shards relabelled onto (cpu, cuda:1, cuda:2,
+    cuda:3) and peer_readable patched so that the merge device may read
+    every card: the routes' view of four distinct cards with peer access
+    (the plain versions run on the CPU, where the blocks lie; a per-shard
+    product would move x to a card and fail). Every int4 product is one
+    int4_matmul call over its blocks and a decode-sized forward takes the
+    fused tail, as JAX launches each kernel once over its gathered shards
+    (layers + 1 calls and a tail a layer at 32 tokens, 4 x layers + 1 at
+    160, as int4_forward_launches gives them); the logits are within the
+    file's int4 rule of JAX's forward over the same mesh (4 rows, so that
+    the 95 % top-1 share is a share of 32 positions and not all of 16: a
+    random 512-token head has top twos closer than the logits' rounding
+    differences) and equal the unsharded port forward's bit for bit (the
+    plain versions concatenate the blocks)."""
+    jarch, tarch = _archs("gqa", **_BLOCKS_ARCH)
+    params = _jax_params(jarch, seed=11, kind="int4")
+    tparams = tdec.params_from_jax(_np_tree(params), device="cpu")
+    tmesh, jmesh = _meshes({"model": 4})
+    cards = (CPU, *(torch.device("cuda", i) for i in (1, 2, 3)))
+
+    def relabel(w):
+        return dataclasses.replace(w, devices=cards) if isinstance(w, Sharded) else w
+
+    sharded = tdec.shard_params(tparams, tmesh)
+    sharded = dict(sharded, layers={k: relabel(w) for k, w in sharded["layers"].items()},
+                   lm_head=relabel(sharded["lm_head"]))
+    monkeypatch.setattr(tint4, "peer_readable", lambda device, other: device == other or other.type == "cuda")
+    ids, mask = _prompt_batch(np.random.default_rng(12 + p), b=4, p=p, vocab=512)
+    m, layers = ids.size, tarch.num_layers
+    assert tdec.int4_forward_launches(sharded, tarch, m, m) == ((layers + 1, layers) if m <= tint4.TAIL_MAX_M
+                                                                else (4 * layers + 1, 0))
+    calls = _counted_int4(monkeypatch)
+    got, _ = _torch_forward(tarch, sharded, ids, mask)
+    assert (calls["matmul"], calls["tail"]) == tdec.int4_forward_launches(sharded, tarch, m, m)
+    jl, _ = _jax_forward(jarch, _jax_tp(params, jmesh, jarch, "int4"), ids, mask)
+    np.testing.assert_allclose(got, jl, rtol=2e-2, atol=2e-2 * np.abs(jl).max())
+    assert (got.argmax(-1) == jl.argmax(-1)).mean() >= 0.95
+    np.testing.assert_array_equal(got, _torch_forward(tarch, tparams, ids, mask)[0])
+
+
 def test_product_route_takes_no_blocks_off_the_merge_device_or_outside_int4_columns():
-    """The per-shard route for shards off the merge device (another card),
-    float and int8 column splits, and row splits."""
+    """The per-shard route for shards on a device the merge device may not
+    read (a card, from the CPU; the CPU, from a card), float and int8
+    column splits, and row splits."""
     w = _int4_sharded([256, 256])
     assert tdec.product_route(w, 8, CPU) == tdec.BLOCKS
     assert tdec.product_route(Sharded(w.shards, "col", (CPU, torch.device("cuda", 1))), 8, CPU) == tdec.PER_SHARD
@@ -814,8 +857,9 @@ def test_fused_tail_over_column_blocks_on_the_card(n, m):
 def test_tp_over_distinct_cards_matches_one_card():
     """A {"model": 4} mesh over four distinct cards at Llama-3.1-8B width
     (2 layers, int4 group 128, then bf16 weights): every shard on its own
-    card, the int4 decode step's fused tail once a layer on cuda:0 over
-    the peer cards' shards, and the fp32-compute last-prompt and
+    card, the int4 decode step's fused tail once a layer and qkv's
+    int4_matmul once a layer on cuda:0 over the peer cards' shards, and
+    the fp32-compute last-prompt and
     decode-step logits within the bf16 rule scaled to max |logit| of the
     same mesh on one card and of the unsharded engine."""
     from comorag_torch.llm.offline import TorchOfflineLLM
@@ -829,8 +873,7 @@ def test_tp_over_distinct_cards_matches_one_card():
     mask = torch.ones_like(ids)
     cards = build_mesh({"model": 4}, [torch.device("cuda", i) for i in range(4)])
     # the decode step's route: the fused tail over the shards, on one card
-    # or read from the peer cards; qkv runs once a shard over distinct
-    # cards, over one card's shards in one launch
+    # or read from the peer cards; so is qkv's one launch over its shards
     routes = {"cards": tdec.FUSED_TAIL, "one_card": tdec.FUSED_TAIL, "whole": tdec.FUSED_TAIL}
     for param_dtype in ("int4", torch.bfloat16):
         logits = {}
@@ -843,7 +886,7 @@ def test_tp_over_distinct_cards_matches_one_card():
             int4 = param_dtype == "int4"
             if mesh is not None:
                 qkv_route = tdec.product_route(engine.params["layers"]["qkv_w"], 8, dev)
-                assert qkv_route == (tdec.BLOCKS if int4 and tag == "one_card" else tdec.PER_SHARD)
+                assert qkv_route == (tdec.BLOCKS if int4 else tdec.PER_SHARD)
             assert tdec.tail_route(engine.params, arch, 8) == (routes[tag] if int4 else tdec.PER_PRODUCT)
             tails = tint4.TAIL_LAUNCHES.value
             logits[tag] = _prefill_and_step(engine, ids, mask)

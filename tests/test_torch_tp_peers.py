@@ -1,20 +1,22 @@
-"""The fused int4 layer tail over a ``model`` axis on distinct cards.
+"""The int4 kernels over a ``model`` axis on distinct cards.
 
 JAX launches ``int4_fused_layer_tail`` once a layer on any mesh
 (``comorag_tpu/models/decoder.py:606-621``, ``fused_ok``: int4 weights, a
-TPU backend and ``fused_tail_supported``). The port does the same over
-distinct cards with peer access: the launch runs on the merge card, and
-its tensor maps and bulk copies read each o / gate-up / down column shard
-where it lies (``decoder.tail_route``, ``ops.int4.peer_readable``).
+TPU backend and ``fused_tail_supported``), and ``int4_matmul`` once a
+product over its gathered column shards (``_int4_dot``, :377-397). The
+port does the same over distinct cards with peer access: each launch runs
+on the merge card, and its tensor maps and bulk copies read every column
+shard where it lies (``decoder.tail_route``, ``decoder.product_route``,
+``ops.int4.peer_readable``).
 
-On the CPU the gate and the launch counts are checked with the shards
+On the CPU the gates and the launch counts are checked with the shards
 relabelled onto cards and ``peer_readable`` monkeypatched (the routes are
 decided from shapes and devices alone, before any launch), and the
-wrapper's refusal of a block it may not read. The CUDA-marked tests hold
-the tail over blocks on 2 and 4 cards bit-equal (max |d| 0) to the same
-blocks on one card, and within the bf16 rule of the plain version; they
-skip here and below their card count. This file imports no JAX, so the
-card's lane runs it as it is.
+wrappers' refusal of a block they may not read. The CUDA-marked tests
+hold the tail and ``int4_matmul`` over blocks on 2 and 4 cards bit-equal
+(max |d| 0) to the same blocks on one card, and within the bf16 rule of
+the plain version; they skip here and below their card count. This file
+imports no JAX, so the card's lane runs it as it is.
 """
 
 from __future__ import annotations
@@ -76,32 +78,40 @@ def _readable_except(monkeypatch, blocked=()):
     monkeypatch.setattr(tint4, "peer_readable", readable)
 
 
-# (case, shards, blocked pairs, process indices) -> the decode route and the
-# launches of a decode (M = 8) and a prefill (M = 65) forward, the head at
-# each forward's own rows: at 2 layers and 4 shards the tail leaves qkv and
-# the head once a shard (4 x 2 + 4); the per-product route 4 products a
-# layer once a shard (16 x 2 + 4); at 8 shards (64-column o / down blocks,
-# more than TAIL_MAX_BLOCKS) 32 x 2 + 8
+# (case, shards, blocked pairs, process indices) -> the decode route, qkv's
+# route and the launches of a decode (M = 8) and a prefill (M = 65)
+# forward, the head at each forward's own rows. At 2 layers and 4 shards
+# (qkv 256 columns a shard, o and down 128, gate/up 512, the head 128)
+# every product's blocks suit the kernel at both sizes (splitk's 64 and
+# wgmma's 128-column units): over readable cards qkv once a layer and the
+# head once (2 + 1) beside 2 tails, and at prefill 4 products a layer once
+# (8 + 1). Across processes each process's own blocks take the same
+# product routes, without the tail (9 at both sizes). A blocked pair puts
+# every product once a shard (16 x 2 + 4); so do 8 shards (more than
+# TAIL_MAX_BLOCKS: 32 x 2 + 8).
 _SMALL_CASES = [
-    ("every peer readable", 4, (), None, tdec.FUSED_TAIL, (12, 2), (36, 0)),
-    ("cuda:2 not readable from cuda:0", 4, ((0, 2),), None, tdec.PER_PRODUCT, (36, 0), (36, 0)),
-    ("across processes", 4, (), (0, 1, 2, 3), tdec.PER_PRODUCT, (36, 0), (36, 0)),
-    ("8 shards", 8, (), None, tdec.PER_PRODUCT, (72, 0), (72, 0)),
+    ("every peer readable", 4, (), None, tdec.FUSED_TAIL, tdec.BLOCKS, (3, 2), (9, 0)),
+    ("cuda:2 not readable from cuda:0", 4, ((0, 2),), None, tdec.PER_PRODUCT, tdec.PER_SHARD, (36, 0), (36, 0)),
+    ("across processes", 4, (), (0, 1, 2, 3), tdec.PER_PRODUCT, tdec.BLOCKS, (9, 0), (9, 0)),
+    ("8 shards", 8, (), None, tdec.PER_PRODUCT, tdec.PER_SHARD, (72, 0), (72, 0)),
 ]
 
 
-@pytest.mark.parametrize("case,n,blocked,indices,route,decode,prefill", _SMALL_CASES, ids=[c[0] for c in _SMALL_CASES])
-def test_tail_route_over_distinct_cards(small_int4, monkeypatch, case, n, blocked, indices, route, decode, prefill):
-    """tail_route and int4_forward_launches over {"model": n} on distinct
-    cards: the fused tail where every shard lies on a card the merge card
-    may read; the per-product route where one may not, across processes,
-    past TAIL_MAX_BLOCKS and above 64 tokens. qkv and the head keep
-    product_route's per-shard route over distinct cards."""
+@pytest.mark.parametrize("case,n,blocked,indices,route,qkv,decode,prefill", _SMALL_CASES,
+                         ids=[c[0] for c in _SMALL_CASES])
+def test_tail_route_over_distinct_cards(small_int4, monkeypatch, case, n, blocked, indices, route, qkv, decode,
+                                        prefill):
+    """tail_route, product_route and int4_forward_launches over {"model": n}
+    on distinct cards: the fused tail, and int4_matmul once a product over
+    its blocks, where every shard lies on a card the merge card may read;
+    the per-product and per-shard routes where one may not and past
+    TAIL_MAX_BLOCKS; the per-product route across processes and above 64
+    tokens."""
     _readable_except(monkeypatch, blocked)
     params = _on_cards(tdec.shard_params(small_int4, build_mesh({"model": n}, [CPU] * n)), n, indices)
     assert tdec.tail_route(params, SMALL, 8) == route
     assert tdec.tail_route(params, SMALL, 65) == tdec.PER_PRODUCT
-    assert tdec.product_route(params["layers"]["qkv_w"], 8, CARDS[0]) == tdec.PER_SHARD
+    assert tdec.product_route(params["layers"]["qkv_w"], 8, CARDS[0]) == qkv
     assert tdec.int4_forward_launches(params, SMALL, 8, 8) == decode
     assert tdec.int4_forward_launches(params, SMALL, 65, 65) == prefill
 
@@ -125,22 +135,57 @@ def _meta_8b(n: int):
             "lm_head": split(h, arch.vocab_size, lead=())}
 
 
-@pytest.mark.parametrize("n,decode,prefill", [(4, (132, 32), (516, 0)), (2, (66, 32), (258, 0))])
-def test_int4_forward_launches_at_8b_width_over_distinct_cards(monkeypatch, n, decode, prefill):
+@pytest.mark.parametrize("n,per_shard", [(4, (516, 0)), (2, (258, 0))])
+def test_int4_forward_launches_at_8b_width_over_distinct_cards(monkeypatch, n, per_shard):
     """At Llama-3.1-8B width over {"model": n} on distinct cards with peer
     access, a decode forward (M = 8) launches the tail once a layer and
-    int4_matmul for qkv and the head once a shard: (132, 32) over 4 cards;
-    a prefill forward (M = 8 x 512, the head at the last position's 8
-    rows) every product once a shard: (516, 0). Without peer access the
-    decode forward is the prefill's count."""
+    int4_matmul once for qkv a layer and once for the head over the peer
+    cards' blocks: (33, 32); a prefill forward (M = 8 x 512, the head at
+    the last position's 8 rows) every product once over its blocks: (129,
+    0). These are JAX's launches and the one-card axis's. With the pair
+    (0, 1) blocked, every product runs once a shard at decode too:
+    ``per_shard``."""
     params = _meta_8b(n)
     _readable_except(monkeypatch)
     assert tdec.tail_route(params, LLAMA_8B, 8) == tdec.FUSED_TAIL
-    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == decode
-    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == prefill
+    assert all(tdec.product_route(params["layers"][name], m, CARDS[0]) == tdec.BLOCKS
+               for name in ("qkv_w", "o_w", "gateup_w", "down_w") for m in (8, 4096))
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == (33, 32)
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == (129, 0)
     _readable_except(monkeypatch, blocked=((0, 1),))
     assert tdec.tail_route(params, LLAMA_8B, 8) == tdec.PER_PRODUCT
-    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == prefill
+    assert tdec.product_route(params["layers"]["qkv_w"], 8, CARDS[0]) == tdec.PER_SHARD
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == per_shard
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == per_shard
+
+
+# (leaf with its last block on cuda:4, which cuda:0 may not read) -> a
+# decode and a prefill forward's launches at Llama-3.1-8B width, every
+# other leaf over readable cuda:0-3: the head alone once a shard (32 + 4;
+# 128 + 4); qkv once a shard (4 x 32 + 1; 7 x 32 + 1); down once a shard,
+# which also takes the layer tail off the fused route (7 x 32 + 1 at both)
+_UNREADABLE_LEAF = [("lm_head", (36, 32), (132, 0)), ("qkv_w", (129, 32), (225, 0)), ("down_w", (225, 0), (225, 0))]
+
+
+@pytest.mark.parametrize("leaf,decode,prefill", _UNREADABLE_LEAF, ids=[c[0] for c in _UNREADABLE_LEAF])
+def test_an_unreadable_card_changes_only_its_products_route(monkeypatch, leaf, decode, prefill):
+    """A product's route is decided per leaf from its own shards' devices:
+    with one leaf's last block on a card the merge card may not read, that
+    product alone runs once a shard; every other product stays one launch
+    over its blocks (the layer tail leaves the fused route only where the
+    leaf is one of its o / gate-up / down weights)."""
+    params = _meta_8b(4)
+    moved = (*CARDS[:3], CARDS[4])
+    if leaf == "lm_head":
+        params["lm_head"] = dataclasses.replace(params["lm_head"], devices=moved)
+    else:
+        params["layers"][leaf] = dataclasses.replace(params["layers"][leaf], devices=moved)
+    _readable_except(monkeypatch, blocked=((0, 4),))
+    for name, w in [*params["layers"].items(), ("lm_head", params["lm_head"])]:
+        assert tdec.product_route(w, 8, CARDS[0]) == (tdec.PER_SHARD if name == leaf else tdec.BLOCKS), name
+    assert tdec.tail_route(params, LLAMA_8B, 8) == (tdec.PER_PRODUCT if leaf == "down_w" else tdec.FUSED_TAIL)
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == decode
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == prefill
 
 
 def test_peer_readable_on_one_device():
@@ -148,17 +193,16 @@ def test_peer_readable_on_one_device():
     assert not tint4.peer_readable(CARDS[0], CPU) and not tint4.peer_readable(CPU, CARDS[1])
 
 
-@pytest.mark.parametrize("peers", [False, True])
-def test_block_pointers_refuse_a_block_the_card_cannot_read(peers):
-    """The kernel's block checks with ctx on cuda:0 and a block on the CPU:
-    int4_matmul's rule (every block on x's device) and the tail's (there
-    or on a card it may read) both raise, the tail's naming the device,
-    before anything is launched."""
+@pytest.mark.parametrize("name,unit", [("int4_matmul", 64), ("int4_fused_layer_tail o", 128)])
+def test_block_pointers_refuse_a_block_the_card_cannot_read(name, unit):
+    """The kernels' block checks with x or ctx on cuda:0 and a block on the
+    CPU: int4_matmul (split-K's 64-column unit) and the tail keep one rule
+    (every block on that card or on a card it may read), and both raise
+    naming the device before anything is launched."""
     packed, scales = tint4.quantize_int4_grouped(torch.ones(256, 512), 128)
     blocks = split_blocks(packed, -1, [CPU] * 4), split_blocks(scales, -1, [CPU] * 4)
-    match = "lies on cpu, which a kernel on cuda:0 cannot read" if peers else "contiguous on cuda:0"
-    with pytest.raises(ValueError, match=match):
-        tint4._block_pointers("tail o", *blocks, 256, 512, 128, CARDS[0], peers=peers)
+    with pytest.raises(ValueError, match=f"{name}: a weight block lies on cpu, which a kernel on cuda:0 cannot read"):
+        tint4._block_pointers(name, *blocks, 256, 512, 128, CARDS[0], unit)
 
 
 # ----------------------------------------------------------------- the card
@@ -217,15 +261,53 @@ def test_fused_tail_over_peer_cards_equals_one_card(n, m):
 def test_fused_tail_refuses_a_card_it_may_not_read(monkeypatch):
     """With cuda:1 unreadable from cuda:0 (peer_readable patched), the
     tail over blocks on cuda:0-1 raises naming cuda:1 and launches
-    nothing; int4_matmul keeps its rule: a block off x's card raises."""
+    nothing; so does int4_matmul over o's blocks there."""
     cards = _cards(2)
     ctx, xres, nw, weights = _tail_inputs_8b(8, 90, cards[0])
     spread = _blocks(weights, cards)
     monkeypatch.setattr(tint4, "peer_readable", lambda device, other: device == other)
-    before = tint4.TAIL_LAUNCHES.value
+    before = tint4.TAIL_LAUNCHES.value, tint4.LAUNCHES.value
     with pytest.raises(ValueError, match="lies on cuda:1"):
         tint4.int4_fused_layer_tail(ctx, xres, nw, *spread, eps=1e-5)
-    assert tint4.TAIL_LAUNCHES.value == before
-    monkeypatch.undo()
-    with pytest.raises(ValueError, match="contiguous on cuda:0"):
+    with pytest.raises(ValueError, match="lies on cuda:1"):
         tint4.int4_matmul(ctx, spread[0], spread[1])
+    assert (tint4.TAIL_LAUNCHES.value, tint4.LAUNCHES.value) == before
+
+
+# int4_matmul over Llama-3.1-8B products split one block a card: (name, K,
+# N, M). qkv at decode (splitk, K split), the head's ragged 32,064-column
+# blocks over 4 cards (64,128 over 2) at M = 8 (splitk), gate/up at M =
+# 128 (wgmma)
+_PEER_PRODUCTS = [("qkv", 4096, 6144, 1), ("qkv", 4096, 6144, 8), ("qkv", 4096, 6144, 64),
+                  ("lm_head", 4096, 128256, 8), ("gate_up", 4096, 28672, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k,width,m", _PEER_PRODUCTS, ids=[f"{c[0]}-M{c[3]}" for c in _PEER_PRODUCTS])
+@pytest.mark.parametrize("n", [2, 4])
+def test_int4_matmul_over_peer_cards_equals_one_card(n, name, k, width, m):
+    """One int4_matmul launch on cuda:0 over a weight's column blocks on
+    cuda:0..n-1 (block b on card b, read in place over NVLink):
+    bit-equal to the launch over the same blocks on cuda:0 (the same plan
+    on cuda:0's SM count, the same items and sums; max |d| printed), and
+    within the bf16 rule of the plain version."""
+    cards = _cards(n)
+    gen = torch.Generator(device=cards[0]).manual_seed(100 + m + n)
+    packed = torch.randint(-128, 128, (k // 2, width), generator=gen, device=cards[0], dtype=torch.int8)
+    scales = torch.empty(k // 128, width, device=cards[0]).uniform_(0.003, 0.006, generator=gen)
+    x = torch.randn(m, k, generator=gen, device=cards[0]).to(torch.bfloat16)
+    spread = split_blocks(packed, -1, cards), split_blocks(scales, -1, cards)
+    local = split_blocks(packed, -1, [cards[0]] * n), split_blocks(scales, -1, [cards[0]] * n)
+    assert [p.device.index for p in spread[0]] == list(range(n))
+    route = tint4.int4_matmul_route(m, width, n)
+    assert route == ("splitk" if m <= tint4.SPLITK_MAX_M else "wgmma")
+    before = tint4.LAUNCHES.value, tint4.ROUTE_LAUNCHES[route].value
+    got = tint4.int4_matmul(x, *spread)
+    torch.cuda.synchronize()
+    assert (tint4.LAUNCHES.value, tint4.ROUTE_LAUNCHES[route].value) == (before[0] + 1, before[1] + 1)
+    one_card = tint4.int4_matmul(x, *local)
+    ref = tint4.int4_matmul_plain(x, *local)  # the plain version concatenates
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
+    delta = float((got - one_card).abs().max())
+    print(f"int4_matmul {name} over blocks on {n} cards, M={m} ({route}): max |peer blocks - one card| = {delta}")
+    assert delta == 0.0
