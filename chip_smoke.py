@@ -154,7 +154,17 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      splits), timed beside it; one 32,064-column head shard alone (M = 8,
      split-K: the per-shard route's launch on a shard's own card); and the fused
      tail over the 4 column shards at M = 8 and 64 (against its plain
-     version and the whole-weight launch) as phase 9 times its shapes;
+     version and the whole-weight launch, bit-equal required) as phase 9
+     times its shapes; (d) {"model": 8} of the one card, an 8-card node's
+     axis (the kernels' 8-block table): phase 10's weights as an int4
+     engine, one prefill chunk and one decode step in fp32 compute, their
+     launches against ``decoder.int4_forward_launches`` and 136 + 0 / 40 +
+     32 (the head's 16,032-column shards, off split-K's 64-column unit,
+     once a shard), the logits under phase 10's rule of (a)'s unsharded
+     engine; then qkv (M = 8, splitk) and gate/up (M = 4,096, wgmma) over
+     8 column blocks and the fused tail over 8 (M = 8, 64), each held as
+     in (c) (bit-equal to the whole-weight launch required) and timed
+     beside it; the seconds of (d) are printed;
  15. dp x tp training over {"data": 2, "model": 2} of the one card
      (``models/train.py`` and ``train_lm.py`` with ``mesh=``; no
      multi-card speed is read from it): (a) bert-base with phase 12a's
@@ -182,7 +192,7 @@ Phases, one line each (any failed check raises and the exit code is not 0):
  16. the tiny decoder's training recipe (scripts/torch_train_tiny_lm.py,
      its own functions) on the card: (a) its arch (vocab 259, H 256, 6
      layers), B = 16, S = 2048, fp32, remat, AdamW under its warmup-cosine
-     schedule, for as many of its 3,000 steps as 240 s hold at the step
+     schedule, for as many of its 3,000 steps as 150 s hold at the step
      time of a profiled throwaway run (the count and the reason printed):
      steps/s, tokens/s, peak memory, the host's batch-making ms a step, the
      device's busy time and idle share over 20 profiled steps, no kernel
@@ -254,8 +264,8 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      blocks, its two 32,064-column head blocks in one split-K launch, no
      fused tail: the per-product route), then phase 10's 8
      requests as one ``batch_infer`` of a GenerationServer (which serves
-     each call alone, in order) at ``PROCESS_TP_TOKENS`` (24) new
-     tokens, phase 10's 64 cut to a 30 s decode budget a kind: no
+     each call alone, in order) at ``PROCESS_TP_TOKENS`` (16) new
+     tokens, phase 10's 64 cut to a 20 s decode budget a kind: no
      error response, greedy tokens equal across the processes and
      compared with phase 14's; tok/s, ``dist.*`` seconds and peak memory
      a process. A process that fails, or does not end in 600 s, fails the
@@ -284,7 +294,12 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      ``PEER_TP_TOKENS`` new tokens over every card on three routes in
      turns (``PEER_ROUTES``: the package's, the tail over peer blocks
      with the products once a shard, and no peer reads), prefill and
-     decode tok/s and launches of each.
+     decode tok/s and launches of each; (d) {"model": 8} with block i on
+     cuda:(i % n): qkv's int4_matmul (M = 8) and the fused tail (M = 8,
+     64) over 8 blocks as in (a) (bit-equal to the same blocks on cuda:0
+     required), and phase 10's weights as an int4 engine over that axis,
+     its forwards as in (b) (136 + 0 and 40 + 32); the seconds of (d) are
+     printed.
      ``--phase 21`` runs it alone after phases 1 and 2.
 Then it checks that no module of jax, optax or of the JAX package
 (``comorag_tpu``, ``__graft_entry__``) was loaded, and
@@ -2379,6 +2394,7 @@ def phase_process_meta_loop(device, slice_out: dict, meta: dict, sharded: dict, 
 
 # ----------------------------------------------------------------- phase 14
 TP = 4
+TP_WIDE = 8  # (d): {"model": 8}, an 8-card node's axis, on the one card (int4.TAIL_MAX_BLOCKS blocks)
 # int4_matmul over a one-card model axis's column shards at Llama-3.1-8B
 # widths: (weight, M, blocks). qkv at decode and gate/up at prefill over
 # {"model": 4}'s shards, in one launch; the head over {"model": 2}'s
@@ -2386,9 +2402,13 @@ TP = 4
 # over {"model": 4}'s 32,064-column blocks (a multiple of 64, not of 128:
 # each block's last item holds 64 columns), each in one launch; one
 # 32,064-column head shard alone, as the per-shard route launches it (o,
-# gate/up and down run in the fused tail over their shards at decode)
+# gate/up and down run in the fused tail over their shards at decode);
+# (d) qkv and gate/up over {"model": 8}'s 8 blocks (768 and 3,584 columns),
+# and one of its eight 16,032-column head shards alone (off split-K's
+# 64-column unit: a launch a shard, 8 a forward)
 TP_MATMUL_SHAPES = (("qkv", 8, TP), ("gate_up", 4096, TP), ("lm_head", 8, 2), ("lm_head", 8, TP),
                     ("lm_head shard", 8, 1))
+TP_WIDE_MATMUL_SHAPES = (("qkv", 8, TP_WIDE), ("gate_up", 4096, TP_WIDE), ("lm_head shard", 8, 1))
 TP_ROUTES = (f"int4_matmul: {decoder.BLOCKS} where a column split's shards all lie on the merge device (this "
              f"mesh of one card) or on cards it may read (peer access; phase 21) and the kernel takes them (at "
              f"most {int4.TAIL_MAX_BLOCKS} of equal width: splitk up to 64 rows, each a multiple of 64 columns, "
@@ -2402,35 +2422,38 @@ TP_ROUTES = (f"int4_matmul: {decoder.BLOCKS} where a column split's shards all l
              f"activation and residuals in PyTorch")
 
 
-def tp_shard_timings(device) -> list:
-    """(c) int4_matmul over column blocks (``TP_MATMUL_SHAPES``), timed as
-    phase 9 times its shapes (32 layers' weights cycled, plain, bound,
-    tinygemm as the library call), each blocked launch held against and
-    timed beside the whole weight's; the head's per-shard shape alone."""
+def tp_shard_timings(device, shapes, axis: int) -> list:
+    """(c, d) int4_matmul over column blocks (``shapes``: (weight, M,
+    blocks)), timed as phase 9 times its shapes (32 layers' weights
+    cycled, plain, bound, tinygemm as the library call), each blocked
+    launch held against and timed beside the whole weight's; the head's
+    per-shard shape (a 1/``axis`` column shard of {"model": axis}) alone.
+    Each row carries ``axis``."""
     gen = torch.Generator(device=device).manual_seed(SEED + 14)
     arch = llama_8b()
     rows = []
-    for name, m, blocks in TP_MATMUL_SHAPES:
+    for name, m, blocks in shapes:
         k, n = int4_matmul_dims(arch, name.split()[0])
-        n = n // TP if name.endswith("shard") else n
+        n = n // axis if name.endswith("shard") else n
         packed, scales = int4_weights(gen, device, k, n, 1 if name.startswith("lm_head") else arch.num_layers)
-        rows.append(time_int4_matmul(device, gen, m, name, packed, scales, blocks))
+        rows.append({**time_int4_matmul(device, gen, m, name, packed, scales, blocks), "axis": axis})
         del packed, scales
     torch.cuda.empty_cache()
     return rows
 
 
-def tp_tail_timings(device) -> list:
-    """(c) the fused tail over the column shards of {"model": 4} at
-    Llama-3.1-8B width, M = 8 and 64, timed as phase 9 times the whole
-    tail (32 layers' shards cycled, plain, bound): held against its plain
-    version under the bf16 rule, and against the launch over the whole
-    weights (the same plan: bit-equal expected, the max |d| reported)."""
+def tp_tail_timings(device, blocks: int) -> list:
+    """(c) the fused tail over the column shards of {"model": 4} or (d)
+    of {"model": 8} (``blocks``) at Llama-3.1-8B width, M = 8 and 64,
+    timed as phase 9 times the whole tail (32 layers' shards cycled,
+    plain, bound): held against its plain version under the bf16 rule,
+    and against the launch over the whole weights (the same plan:
+    bit-equal required), timed beside it."""
     gen = torch.Generator(device=device).manual_seed(SEED + 15)
     arch = llama_8b()
     h, inter, layers = arch.hidden_size, arch.intermediate_size, arch.num_layers
-    devices = [device] * TP
     whole = [int4_weights(gen, device, k, n, layers) for k, n in ((h, h), (h, 2 * inter), (inter, h))]
+    devices = [device] * blocks
     # each layer's shards, cut as decoder.shard_params cuts them (contiguous
     # tensors of their own): [layer][weight] -> (packed blocks, scale blocks)
     shards = [[(split_blocks(p[i], -1, devices), split_blocks(sc[i], -1, devices)) for p, sc in whole]
@@ -2444,12 +2467,16 @@ def tp_tail_timings(device) -> list:
         def args(i):
             return (ctx, xres, nw, *(t for pair in shards[i] for t in pair))
 
+        what = f"int4_fused_layer_tail over {blocks} shards M={m}"
+        before = int4.TAIL_LAUNCHES.value
         got = int4.int4_fused_layer_tail(*args(0), eps=1e-5)
+        torch.cuda.synchronize()
+        if int4.TAIL_LAUNCHES.value != before + 1:
+            raise AssertionError(f"{what}: {int4.TAIL_LAUNCHES.value - before} launches, expected 1")
         ref = int4.int4_fused_layer_tail_plain(*args(0), eps=1e-5)
         whole_out = int4.int4_fused_layer_tail(ctx, xres, nw, *(t[0] for pair in whole for t in pair), eps=1e-5)
         torch.cuda.synchronize()
-        r = {"M": m, "H": h, "I": inter, "blocks": TP,
-             "max_abs_err": compare(got, ref, f"int4_fused_layer_tail over {TP} shards M={m}"),
+        r = {"M": m, "H": h, "I": inter, "blocks": blocks, "max_abs_err": compare(got, ref, what),
              "rule_ratio": rule_ratio(got, ref), "max_abs_diff_vs_whole_kernel": float((got - whole_out).abs().max()),
              "ms": median_ms(cycling(lambda i: int4.int4_fused_layer_tail(*args(i), eps=1e-5), layers)),
              "device_ms": device_ms(cycling(lambda i: int4.int4_fused_layer_tail(*args(i), eps=1e-5), layers)),
@@ -2458,8 +2485,14 @@ def tp_tail_timings(device) -> list:
              "plain_ms": median_ms(lambda: int4.int4_fused_layer_tail_plain(*args(0), eps=1e-5), runs=3, reps=1,
                                    warmup=1),
              "host_us": host_us(lambda: int4.int4_fused_layer_tail(*args(0), eps=1e-5)),
+             "whole_host_us": host_us(lambda: int4.int4_fused_layer_tail(
+                 ctx, xres, nw, *(t[0] for pair in whole for t in pair), eps=1e-5)),
              "library_ms": None, **tail_bound(m, h, inter)}
+        if r["max_abs_diff_vs_whole_kernel"] != 0.0:
+            raise AssertionError(f"{what}: differs from the whole weights' launch by "
+                                 f"{r['max_abs_diff_vs_whole_kernel']} (the same plan, items and sums: bit-equal)")
         r["roofline_share"] = r["bound_ms"] / r["ms"]
+        r["device_roofline_share"] = r["bound_ms"] / r["device_ms"]
         rows.append(r)
         del got, ref, whole_out
     del whole, shards
@@ -2559,6 +2592,7 @@ def tp_generation(device, params, arch, mesh, name: str, param_dtype, server: di
     out["fp32_logits"] = tuple(t.cpu() for t in got)
     out["served"] = {f: run[f] for f in ("logits", "tokens")}
     if int4_kernels:
+        out["unsharded_fp32"] = ref  # (d)'s reference
         with plain_int4():
             plain = forward_logits(engine, prompts, torch.float32, ref[2])
         out["logits_fp32_vs_shard_plain"] = checked_pair(got, plain, f"{TP} int4 shards, kernels vs plain",
@@ -2570,22 +2604,50 @@ def tp_generation(device, params, arch, mesh, name: str, param_dtype, server: di
     return out
 
 
+def tp_wide_forwards(device, params, arch, ref: tuple) -> dict:
+    """(d) phase 10's weights as an int4 engine over {"model": 8} of the
+    one card (``peer_engine``: the fused tail over the o / gate-up / down
+    blocks of 512, 3,584 and 512 columns, qkv one launch over its blocks
+    of 768, the head's eight 16,032-column shards, off split-K's
+    64-column unit, once a shard), its prefill chunk and decode step in
+    fp32 compute as ``peer_forwards`` checks them: (4 x layers + 8, 0) /
+    (layers + 8, layers), the logits against ``ref`` ((a)'s unsharded
+    engine, whose token the step is fed) and against the same engine's
+    under ``plain_int4``."""
+    engine, build_s = peer_engine(params, arch, device, [device] * TP_WIDE, decoder.PER_SHARD)
+    out = {"build_s": build_s, **peer_forwards(engine, arch, server_prompts(), ref,
+                                               f"phase 14d over {{'model': {TP_WIDE}}}", head=TP_WIDE,
+                                               plain=True)}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
     """Tensor-parallel generation over {"model": 4} on the one card (the
     four shards of every product on one device: what the split products
     and merges cost, no multi-card speed), on phase 10's weights and
     requests: (a) int4, (b) bf16 weights, (c) int4_matmul over column
-    blocks, the head's shard and the fused tail over shards timed."""
+    blocks, the head's shard and the fused tail over shards timed; (d)
+    {"model": 8}: the int4 engine's forwards and logits, int4_matmul and
+    the fused tail over 8 blocks timed."""
     arch = llama_8b()
     mesh = card_mesh(device, {"model": TP})
     params = decoder.init_params(arch, torch.Generator(device=device).manual_seed(SEED + 10), device,
                                  torch.bfloat16)  # phase 10's weights
     out = {name: tp_generation(device, params, arch, mesh, name, dtype, server, max_tokens)
            for name, dtype in (("int4", "int4"), ("bf16", torch.bfloat16))}
+    t0 = time.perf_counter()
+    out["wide"] = tp_wide_forwards(device, params, arch, out["int4"].pop("unsharded_fp32"))
+    wide_s = time.perf_counter() - t0
     del params
     torch.cuda.empty_cache()
-    out["shards"] = tp_shard_timings(device)
-    out["tail_shards"] = tp_tail_timings(device)
+    out["shards"] = tp_shard_timings(device, TP_MATMUL_SHAPES, TP)
+    out["tail_shards"] = tp_tail_timings(device, TP)
+    t0 = time.perf_counter()
+    out["shards"] += tp_shard_timings(device, TP_WIDE_MATMUL_SHAPES, TP_WIDE)
+    out["tail_shards"] += tp_tail_timings(device, TP_WIDE)
+    out["wide_s"] = wide_s + time.perf_counter() - t0
     for tag, name in (("a", "int4"), ("b", "bf16")):
         r = out[name]
         logits = {k: v for k, v in r.items() if k.startswith("logits")}
@@ -2599,28 +2661,36 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
               f"{TP_ROUTES}); qkv_w {r['qkv_shard']}; fp32-compute logits (checked) "
               f"{json.dumps(logits)}; served bf16 logits and greedy tokens beside phase 10's (reported) "
               f"{json.dumps(r['served_vs_phase_10'])}; {json.dumps(r['llm_counters'])}", flush=True)
+    wide = out["wide"]
+    print(f"phase 14d TP forwards, int4 weights over {{'model': {TP_WIDE}}} on one card ({smi}), phase 10's weights "
+          f"(Llama-3.1-8B width, {arch.num_layers} layers): forwards (checked) {json.dumps(wide['forwards'])}, fp32 "
+          f"seconds {wide['fp32_forward_s']}; fp32-compute logits against (a)'s unsharded engine (checked) "
+          f"{json.dumps(wide['logits_fp32_vs_phase_14'])}, against the same engine on the plain versions (checked) "
+          f"{json.dumps(wide['logits_fp32_vs_plain'])}; build {wide['build_s']:.3f} s; (d) in all "
+          f"{out['wide_s']:.1f} s", flush=True)
     for r in out["shards"]:
-        print(f"phase 14c {int4_matmul_line(r)}", flush=True)
+        print(f"phase 14{'d' if r['axis'] == TP_WIDE else 'c'} {int4_matmul_line(r)}", flush=True)
     for r in out["tail_shards"]:
-        print(f"phase 14c int4_fused_layer_tail over {r['blocks']} column shards M={r['M']} H={r['H']} I={r['I']} "
-              f"({smi}): max_abs_err={r['max_abs_err']:.4g} (worst ratio to the rule {r['rule_ratio']:.3f}), max |d| "
-              f"against the whole-weight launch {r['max_abs_diff_vs_whole_kernel']:.4g}; kernel {r['ms']:.4f} ms, "
-              f"device alone {r['device_ms']:.4f} ms (whole weights: {r['whole_device_ms']:.4f}) plain "
-              f"{r['plain_ms']:.4f} ms bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) roofline share {r['roofline_share']:.3f}; wrapper host "
-              f"{r['host_us']:.1f} us a call", flush=True)
+        print(f"phase 14{'d' if r['blocks'] == TP_WIDE else 'c'} int4_fused_layer_tail over {r['blocks']} column "
+              f"shards M={r['M']} H={r['H']} I={r['I']} ({smi}): max_abs_err={r['max_abs_err']:.4g} (worst ratio to "
+              f"the rule {r['rule_ratio']:.3f}), max |d| against the whole-weight launch "
+              f"{r['max_abs_diff_vs_whole_kernel']:.4g}; kernel {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} ms "
+              f"(whole weights: {r['whole_device_ms']:.4f}) plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) roofline share {r['roofline_share']:.3f} (device alone "
+              f"{r['device_roofline_share']:.3f}); wrapper host {r['host_us']:.1f} us a call (whole weights "
+              f"{r['whole_host_us']:.1f})", flush=True)
     return out
 
 
 # ----------------------------------------------------------------- phase 20
 PROCESS_TP_POSITIONS = TP // DCN_PROCESSES  # {"model": 4}: 2 positions in each of 2 processes
-PROCESS_TP_DECODE_BUDGET_S = 30.0  # a weight kind's served decode share of the smoke run's 1,200 s
+PROCESS_TP_DECODE_BUDGET_S = 20.0  # a weight kind's served decode share of the smoke run's 1,200 s
 # new tokens a request: phase 10's 64 cut to what the budget holds at the
 # slowest served decode step measured (int4, 1.17 s on an H100 80GB HBM3 at
 # 700 W; PERF.md §6). A fixed count: every process serves the same calls
 # (a cap timed in each process could differ between them) and the launch
 # counts repeat from run to run.
-PROCESS_TP_TOKENS = 24
+PROCESS_TP_TOKENS = 16
 PROCESS_TP_TIMEOUT_S = 600  # the phase's two processes (~230 s: the host's gloo merges, PERF.md §6)
 
 
@@ -2796,6 +2866,9 @@ PEER_TP_TOKENS = 32
 # blocks), gate/up at prefill (wgmma, every 128-token tile re-reading
 # each weight box)
 PEER_MATMUL_SHAPES = (("qkv", 8, 32), ("lm_head", 8, 1), ("gate_up", 4096, 32))
+# 21d: qkv over {"model": 8}'s 8 blocks, block i on card i % n (the head's
+# 16,032-column blocks are off split-K's unit: once a shard)
+PEER_WIDE_MATMUL_SHAPES = (("qkv", 8, 32),)
 # 21c's routes over distinct cards, served in turns: one int4_matmul
 # launch a product over the peer cards' blocks and the fused tail over
 # them (the package's route); the tail over them with each product once a
@@ -2843,15 +2916,16 @@ def peer_route(route: str):
             "per_product": no_peer_reads}[route]()
 
 
-def peer_bound(m: int, products, cards: int, act_bytes: int, gs: int = 128) -> dict:
-    """The least time of one launch on the first of ``cards`` cards over
-    int4 weights of ``products`` ((K, N) each) whose column blocks lie one
-    a card: the peer cards' share of the weight bytes over NVLink into the
-    card, its own share and ``act_bytes`` of activations over its memory
-    rate, or the products at the bf16 peak, whichever is the largest."""
+def peer_bound(m: int, products, local_share: float, act_bytes: int, gs: int = 128) -> dict:
+    """The least time of one launch on a card over int4 weights of
+    ``products`` ((K, N) each) whose column blocks lie ``local_share`` on
+    that card and the rest on peer cards: the peer cards' share of the
+    weight bytes over NVLink into the card, its own share and
+    ``act_bytes`` of activations over its memory rate, or the products at
+    the bf16 peak, whichever is the largest."""
     weights = sum(k // 2 * n + k // gs * n * 4 for k, n in products)
-    peer = weights * (cards - 1) / cards
-    local = weights / cards + act_bytes
+    peer = weights * (1 - local_share)
+    local = weights * local_share + act_bytes
     times = {"nvlink_bytes": peer / NVLINK_BYTES_PER_S * 1e3, "hbm_bytes": local / HBM_BYTES_PER_S * 1e3,
              "operations": 2 * m * sum(k * n for k, n in products) / PEAK_OPS_PER_S["bf16"] * 1e3}
     by = max(times, key=times.get)
@@ -2869,12 +2943,14 @@ def in_turns(timers: dict, order) -> dict:
     return {"turns": turns, "means": means}
 
 
-def peer_matmul_timings(device, cards: list) -> list:
-    """21a: int4_matmul launched on the first card over a weight's column
-    blocks spread over ``cards`` (block b on card b, as
-    ``decoder.shard_params`` places a model axis over distinct cards) at
-    Llama-3.1-8B width (``PEER_MATMUL_SHAPES``): one launch each, held
-    against its plain version under the bf16 rule and against the same
+def peer_matmul_timings(device, cards: list, shapes=PEER_MATMUL_SHAPES, blocks: int = 0) -> list:
+    """21a (21d): int4_matmul launched on the first card over a weight's
+    column blocks spread over ``cards`` (block b on card b % n for
+    ``blocks`` blocks, one a card by default, as ``decoder.shard_params``
+    places a model axis over distinct cards) at Llama-3.1-8B width
+    (``shapes``; the weights drawn from one seed, so 21d's qkv is 21a's):
+    one launch each, held against its plain version under the bf16 rule
+    and against the same
     blocks on the first card (bit-equal required), then timed cycling
     through the layers' blocks, with the host and device alone, beside the
     one-card blocks in turns (one card, cards, cards, one card), beside
@@ -2883,17 +2959,19 @@ def peer_matmul_timings(device, cards: list) -> list:
     gen = torch.Generator(device=device).manual_seed(SEED + 24)
     arch = llama_8b()
     n = len(cards)
+    blocks = blocks or n
+    spread = [cards[b % n] for b in range(blocks)]
     rows = []
-    for name, m, layers in PEER_MATMUL_SHAPES:
+    for name, m, layers in shapes:
         k, width = int4_matmul_dims(arch, name)
         packed, scales = int4_weights(gen, device, k, width, layers)
         placed = {tag: [(split_blocks(packed[li], -1, devices), split_blocks(scales[li], -1, devices))
                         for li in range(layers)]
-                  for tag, devices in (("cards", cards), ("one_card", [device] * n))}
+                  for tag, devices in (("cards", spread), ("one_card", [device] * blocks))}
         del packed, scales
         torch.cuda.empty_cache()
         shards = [Sharded(tuple(decoder.Int4Weight(p, sc) for p, sc in zip(*placed["cards"][li])), "col",
-                          tuple(cards)) for li in range(layers)]
+                          tuple(spread)) for li in range(layers)]
         x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
 
         def product(tag, li=0):
@@ -2902,8 +2980,8 @@ def peer_matmul_timings(device, cards: list) -> list:
         def per_shard(li=0):  # the decoder's per-shard route: a launch a shard on its card, gathered here
             return sharded_matmul(x, shards[li], lambda xs, shard, _: int4.int4_matmul(xs, shard.packed, shard.scale))
 
-        route = int4.int4_matmul_route(m, width, n)
-        what = f"phase 21a int4_matmul {name} M={m} over blocks on {n} cards ({route})"
+        route = int4.int4_matmul_route(m, width, blocks)
+        what = f"phase 21 int4_matmul {name} M={m} over {blocks} blocks on {n} cards ({route})"
         before = int4.LAUNCHES.value, int4.ROUTE_LAUNCHES[route].value
         got = product("cards")
         torch.cuda.synchronize()
@@ -2912,8 +2990,8 @@ def peer_matmul_timings(device, cards: list) -> list:
             raise AssertionError(f"{what}: (all, {route}) launches {launched}, expected (1, 1)")
         one_card = product("one_card")
         ref = int4.int4_matmul_plain(x, *placed["one_card"][0])
-        r = {"weight": name, "M": m, "K": k, "N": width, "cards": n, "route": route,
-             "splits": matmul_splits(device, m, k, width, route, n), "max_abs_err": compare(got, ref, what),
+        r = {"weight": name, "M": m, "K": k, "N": width, "cards": n, "blocks": blocks, "route": route,
+             "splits": matmul_splits(device, m, k, width, route, blocks), "max_abs_err": compare(got, ref, what),
              "rule_ratio": rule_ratio(got, ref), "max_abs_diff_vs_one_card": float((got - one_card).abs().max())}
         if r["max_abs_diff_vs_one_card"] != 0.0:
             raise AssertionError(f"{what}: differs from the same blocks on one card by "
@@ -2930,7 +3008,7 @@ def peer_matmul_timings(device, cards: list) -> list:
                                     warmup=1),
                  host_us=host_us(lambda: product("cards")), one_card_host_us=host_us(lambda: product("one_card")),
                  per_shard_host_us=host_us(per_shard, calls=50), library_ms=None,
-                 **peer_bound(m, ((k, width),), n, m * k * 2 + m * width * 4))
+                 **peer_bound(m, ((k, width),), spread.count(device) / blocks, m * k * 2 + m * width * 4))
         r["share"] = r["bound_ms"] / r["ms"]
         r["device_share"] = r["bound_ms"] / r["device_ms"]
         rows.append(r)
@@ -2939,10 +3017,11 @@ def peer_matmul_timings(device, cards: list) -> list:
     return rows
 
 
-def peer_tail_timings(device, cards: list) -> list:
-    """21a: the fused tail on the first card over the o / gate-up / down
-    column blocks spread over ``cards`` (block b on card b, as
-    ``decoder.shard_params`` places a model axis over distinct cards) at
+def peer_tail_timings(device, cards: list, blocks: int = 0) -> list:
+    """21a (21d): the fused tail on the first card over the o / gate-up /
+    down column blocks spread over ``cards`` (block b on card b % n for
+    ``blocks`` blocks, one a card by default, as ``decoder.shard_params``
+    places a model axis over distinct cards) at
     Llama-3.1-8B width, M = 8 and 64: one launch each, held against its
     plain version under the bf16 rule and against the same blocks on the
     first card (bit-equal required), then timed cycling through 32 layers'
@@ -2951,11 +3030,13 @@ def peer_tail_timings(device, cards: list) -> list:
     gen = torch.Generator(device=device).manual_seed(SEED + 21)
     arch = llama_8b()
     h, inter, layers, n = arch.hidden_size, arch.intermediate_size, arch.num_layers, len(cards)
+    blocks = blocks or n
+    spread = [cards[b % n] for b in range(blocks)]
     whole = [int4_weights(gen, device, k, w, layers) for k, w in ((h, h), (h, 2 * inter), (inter, h))]
-    placed = {tag: [[blocks for p, sc in whole for blocks in (split_blocks(p[li], -1, devices),
-                                                              split_blocks(sc[li], -1, devices))]
+    placed = {tag: [[part for p, sc in whole for part in (split_blocks(p[li], -1, devices),
+                                                          split_blocks(sc[li], -1, devices))]
                     for li in range(layers)]
-              for tag, devices in (("cards", cards), ("one_card", [device] * n))}
+              for tag, devices in (("cards", spread), ("one_card", [device] * blocks))}
     del whole
     torch.cuda.empty_cache()
     rows = []
@@ -2967,7 +3048,7 @@ def peer_tail_timings(device, cards: list) -> list:
         def tail(tag, li=0):
             return int4.int4_fused_layer_tail(ctx, xres, nw, *placed[tag][li], eps=1e-5)
 
-        what = f"phase 21 int4_fused_layer_tail over blocks on {n} cards M={m}"
+        what = f"phase 21 int4_fused_layer_tail over {blocks} blocks on {n} cards M={m}"
         before = int4.TAIL_LAUNCHES.value
         got = tail("cards")
         torch.cuda.synchronize()
@@ -2975,7 +3056,7 @@ def peer_tail_timings(device, cards: list) -> list:
             raise AssertionError(f"{what}: {int4.TAIL_LAUNCHES.value - before} launches, expected 1")
         one_card = tail("one_card")
         ref = int4.int4_fused_layer_tail_plain(ctx, xres, nw, *placed["one_card"][0], eps=1e-5)
-        r = {"M": m, "H": h, "I": inter, "cards": n, "max_abs_err": compare(got, ref, what),
+        r = {"M": m, "H": h, "I": inter, "cards": n, "blocks": blocks, "max_abs_err": compare(got, ref, what),
              "rule_ratio": rule_ratio(got, ref), "max_abs_diff_vs_one_card": float((got - one_card).abs().max())}
         if r["max_abs_diff_vs_one_card"] != 0.0:
             raise AssertionError(f"{what}: differs from the same blocks on one card by "
@@ -2987,7 +3068,7 @@ def peer_tail_timings(device, cards: list) -> list:
         r.update(turns=timed["turns"], plain_ms=median_ms(lambda: int4.int4_fused_layer_tail_plain(
                      ctx, xres, nw, *placed["one_card"][0], eps=1e-5), runs=3, reps=1, warmup=1),
                  host_us=host_us(lambda: tail("cards")), one_card_host_us=host_us(lambda: tail("one_card")),
-                 **peer_bound(m, ((h, h), (h, 2 * inter), (inter, h)), n,
+                 **peer_bound(m, ((h, h), (h, 2 * inter), (inter, h)), spread.count(device) / blocks,
                               m * h * (2 + 4 + 4) + h * 4))  # ctx bf16; x_res, out fp32; the norm weight
         r["share"] = r["bound_ms"] / r["ms"]
         r["device_share"] = r["bound_ms"] / r["device_ms"]
@@ -2998,30 +3079,38 @@ def peer_tail_timings(device, cards: list) -> list:
     return rows
 
 
-def peer_forwards(engine, arch, prompts, ref: tuple, what: str) -> dict:
-    """21b: the engine's prefill chunk and decode step in fp32 compute (the
-    step fed ``ref``'s token): each forward's launches against
+def peer_forwards(engine, arch, prompts, ref: tuple, what: str, head: int = 1, plain: bool = False) -> dict:
+    """21b (14d, 21d): the engine's prefill chunk and decode step in fp32
+    compute (the step fed ``ref``'s token): each forward's launches against
     ``decoder.int4_forward_launches`` and against the one-card axis's (a
-    prefill forward 4 x layers + 1 int4_matmul and no tail, a decode
-    forward layers + 1 and a tail a layer: JAX's), the logits within phase
-    10's rule of ``ref``'s (phase 14's one-card engine), max |d|
-    reported."""
+    prefill forward 4 x layers + ``head`` int4_matmul and no tail, a
+    decode forward layers + ``head`` and a tail a layer: JAX's at one head
+    launch; over 8 blocks the head's shards run once a shard), the logits
+    within phase 10's rule of ``ref``'s (phase 14's engine: the one-card
+    axis's in 21, the unsharded one in 14d), max |d| reported; with
+    ``plain``, also within it of the same engine's under ``plain_int4``
+    (the plain versions on the same blocks and shards)."""
     layers = arch.num_layers
-    want = [(4 * layers + 1, 0), (layers + 1, layers)]  # a prefill chunk, a decode step
+    want = [(4 * layers + head, 0), (layers + head, layers)]  # a prefill chunk, a decode step
     with forward_launches() as rec:
         got = forward_logits(engine, prompts, torch.float32, ref[2])
     out = {"forwards": checked_forwards(rec, engine.params, arch, True, f"{what} fp32 forwards")}
     if [(r[2], r[3]) for r in rec] != want:
         raise AssertionError(f"{what} fp32 forwards: {rec}, expected (int4_matmul, tail) launches {want}")
     out["fp32_forward_s"] = [r[4] for r in rec]
-    out["logits_fp32_vs_phase_14"] = checked_pair(got, ref, f"{what} vs phase 14's one-card engine", torch.float32)
+    out["logits_fp32_vs_phase_14"] = checked_pair(got, ref, f"{what} vs phase 14's engine", torch.float32)
+    if plain:
+        with plain_int4():
+            plain_logits = forward_logits(engine, prompts, torch.float32, ref[2])
+        out["logits_fp32_vs_plain"] = checked_pair(got, plain_logits, f"{what}, kernels vs plain", torch.float32)
     return out
 
 
-def peer_engine(params, arch, device, cards: list):
-    """Phase 10's weights as an int4 engine over {"model": n} on ``cards``,
-    its build seconds, and its decode route checked: shards on the cards,
-    the fused tail, qkv one launch over its blocks."""
+def peer_engine(params, arch, device, cards: list, head_route: str = decoder.BLOCKS):
+    """Phase 10's weights as an int4 engine over {"model": n} with position
+    i on ``cards[i]`` (a card may repeat), its build seconds, and its
+    decode route checked: shards on the cards, the fused tail, qkv one
+    launch over its blocks, the head on ``head_route``."""
     t0 = time.perf_counter()
     engine = TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", compute_dtype=torch.bfloat16,
                              device=device, mesh=build_mesh({"model": len(cards)}, cards))
@@ -3031,16 +3120,19 @@ def peer_engine(params, arch, device, cards: list):
     routes = (decoder.tail_route(engine.params, arch, 8), decoder.product_route(qkv, 8, device),
               decoder.product_route(engine.params["lm_head"], 8, device))
     if [str(d) for d in qkv.devices] != [str(c) for c in cards] or routes != (decoder.FUSED_TAIL, decoder.BLOCKS,
-                                                                              decoder.BLOCKS):
-        raise AssertionError(f"phase 21: shards on {qkv.devices}, decode routes (tail, qkv, head) {routes}")
+                                                                              head_route):
+        raise AssertionError(f"{{'model': {len(cards)}}}: shards on {qkv.devices}, decode routes (tail, qkv, head) "
+                             f"{routes}")
     return engine, build_s
 
 
 def peer_tp_generation(device, cards: list) -> dict:
-    """21b-c: phase 10's weights as an int4 engine over {"model": n} on the
+    """21b-d: phase 10's weights as an int4 engine over {"model": n} on the
     first n of ``cards`` for n = 2 and, with four cards, 4
     (``peer_forwards``: JAX's launches a forward, the fp32 logits against
-    phase 14's one-card engine rebuilt from the same weights); then, over
+    phase 14's one-card engine rebuilt from the same weights), and (21d)
+    over {"model": 8} with position i on card i % len(cards) (40 + 32 /
+    136 + 0 a forward: the head's 16,032-column shards once a shard); then, over
     every card, phase 10's 8 requests served at PEER_TP_TOKENS new tokens
     on each of ``PEER_ROUTES`` in turns (each route, then each again in
     reverse), each forward's launches checked on its route."""
@@ -3061,8 +3153,14 @@ def peer_tp_generation(device, cards: list) -> dict:
         if n < len(cards):
             del engine
             torch.cuda.empty_cache()
-    del params
+    t0 = time.perf_counter()  # 21d: {"model": 8}, position i on card i % n
+    wide, build_s = peer_engine(params, arch, device, [cards[i % len(cards)] for i in range(TP_WIDE)],
+                                decoder.PER_SHARD)
+    out["wide"] = {"build_s": build_s, **peer_forwards(wide, arch, prompts, ref, f"phase 21d over {TP_WIDE} blocks "
+                                                       f"on {len(cards)} cards", head=TP_WIDE)}
+    del wide, params
     torch.cuda.empty_cache()
+    out["wide_s"] = time.perf_counter() - t0
     out["runs"] = {route: [] for route in PEER_ROUTES}
     for route in PEER_ROUTES + PEER_ROUTES[::-1]:
         with peer_route(route), forward_launches() as rec:
@@ -3085,24 +3183,30 @@ def peer_tp_generation(device, cards: list) -> dict:
 
 def phase_peer_tp(device, smi: str) -> dict:
     """Phase 21: the int4 kernels over a model axis on distinct cards (two
-    or more; up to TAIL_MAX_BLOCKS of them): 21a int4_matmul and the fused
-    tail over peer blocks, 21b the engine's forwards and logits over 2 and
-    4 cards, 21c the served requests on the three routes of
-    ``PEER_ROUTES``. On one card it prints why it did not run and returns
-    None."""
+    or more; up to TP of them): 21a int4_matmul and the fused tail over
+    peer blocks, 21b the engine's forwards and logits over 2 and 4 cards,
+    21c the served requests on the three routes of ``PEER_ROUTES``, 21d
+    qkv's int4_matmul and the fused tail over {"model": 8}'s 8 blocks,
+    block i on card i % n, and that engine's forwards. On one card it
+    prints why it did not run and returns None."""
     count = torch.cuda.device_count()
     if count < 2:
         print(f"phase 21 did not run: {count} card (the int4 kernels over a model axis on distinct cards need two "
               f"or more)", flush=True)
         return None
     t0 = time.perf_counter()
-    cards = [torch.device("cuda", i) for i in range(min(int4.TAIL_MAX_BLOCKS, count))]
+    cards = [torch.device("cuda", i) for i in range(min(TP, count))]
     out = {"cards": len(cards), "matmul": peer_matmul_timings(device, cards), "tail": peer_tail_timings(device, cards),
            **peer_tp_generation(device, cards)}
+    wide_t0 = time.perf_counter()
+    out["matmul"] += peer_matmul_timings(device, cards, PEER_WIDE_MATMUL_SHAPES, TP_WIDE)
+    out["tail"] += peer_tail_timings(device, cards, TP_WIDE)
+    out["wide_s"] += time.perf_counter() - wide_t0
     out["wall_s"] = time.perf_counter() - t0
     for r in out["matmul"]:
-        print(f"phase 21a int4_matmul {r['weight']} {r['K']}->{r['N']} M={r['M']} on cuda:0 over blocks on "
-              f"{r['cards']} cards ({r['route']}, {r['splits']} K split(s); {smi}): max_abs_err={r['max_abs_err']:.4g} "
+        print(f"phase 21{'d' if r['blocks'] == TP_WIDE else 'a'} int4_matmul {r['weight']} {r['K']}->{r['N']} "
+              f"M={r['M']} on cuda:0 over {r['blocks']} blocks on {r['cards']} cards ({r['route']}, {r['splits']} K "
+              f"split(s); {smi}): max_abs_err={r['max_abs_err']:.4g} "
               f"(worst ratio to the rule {r['rule_ratio']:.3f}), max |d| against the same blocks on one card "
               f"{r['max_abs_diff_vs_one_card']:.4g}; kernel {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} ms "
               f"(the blocks on one card: {r['one_card_ms']:.4f}, {r['one_card_device_ms']:.4f}; turns "
@@ -3113,8 +3217,9 @@ def phase_peer_tp(device, smi: str) -> dict:
               f"{r['device_share']:.3f}); wrapper host {r['host_us']:.1f} us a call (one card "
               f"{r['one_card_host_us']:.1f})", flush=True)
     for r in out["tail"]:
-        print(f"phase 21a int4_fused_layer_tail on cuda:0 over o / gate-up / down blocks on {r['cards']} cards "
-              f"M={r['M']} H={r['H']} I={r['I']} ({smi}): max_abs_err={r['max_abs_err']:.4g} (worst ratio to the "
+        print(f"phase 21{'d' if r['blocks'] == TP_WIDE else 'a'} int4_fused_layer_tail on cuda:0 over o / gate-up / "
+              f"down in {r['blocks']} blocks on {r['cards']} cards M={r['M']} H={r['H']} I={r['I']} ({smi}): "
+              f"max_abs_err={r['max_abs_err']:.4g} (worst ratio to the "
               f"rule {r['rule_ratio']:.3f}), max |d| against the same blocks on one card "
               f"{r['max_abs_diff_vs_one_card']:.4g}; "
               f"kernel {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} ms (the blocks on one card: "
@@ -3131,6 +3236,12 @@ def phase_peer_tp(device, smi: str) -> dict:
               f"max |d| prefill {logits['prefill']['max_abs_err']:.4g}, decode step "
               f"{logits['decode_step']['max_abs_err']:.4g}; {json.dumps(logits)}; build {r['build_s']:.3f} s",
               flush=True)
+    wide = out["wide"]
+    print(f"phase 21d int4 weights over {{'model': {TP_WIDE}}}, position i on cuda:(i % {len(cards)}) ({smi}), phase "
+          f"10's weights: forwards (checked) {json.dumps(wide['forwards'])}, fp32 seconds {wide['fp32_forward_s']}; "
+          f"fp32-compute logits against phase 14's one-card engine (checked) "
+          f"{json.dumps(wide['logits_fp32_vs_phase_14'])}; build {wide['build_s']:.3f} s; 21d in all "
+          f"{out['wide_s']:.1f} s", flush=True)
     tok_s = {route: {k: [run[k] for run in runs] for k in ("prefill_tok_s", "decode_tok_s")}
              for route, runs in out["runs"].items()}
     print(f"phase 21c TP serving over {{'model': {len(cards)}}} on cuda:0-{len(cards) - 1} ({smi}), 8 requests x "
@@ -3370,7 +3481,7 @@ def phase_mesh_training(device, pairs, training: dict, smi: str) -> dict:
 
 # ----------------------------------------------------------------- phase 16
 TINY_B, TINY_S, TINY_LR, TINY_FULL_STEPS = 16, 2048, 6e-4, 3000  # the recipe's defaults
-TINY_BUDGET_S = 240.0  # the training run's share of the smoke run's 1,200 s
+TINY_BUDGET_S = 150.0  # the training run's share of the smoke run's 1,200 s (~500 steps at ~0.29 s a step)
 TINY_PROFILE_STEPS = 20
 # tests/test_torch_tiny_trained.py's golden floors (at N = 4 samples a task) as rates
 TINY_FLOORS = {"ner_parse_rate": 0.75, "ner_entity_recall": 0.6, "triples_parse_rate": 0.75,
@@ -3509,7 +3620,7 @@ def phase_recipe(device, smi: str) -> dict:
     full = training["steps"] == TINY_FULL_STEPS
     below = {k: tables["trained"][k] for k, floor in TINY_FLOORS.items() if tables["trained"][k] < floor}
     # the floors bind a run of all 3,000 steps only: on the H100 (~0.29 s a
-    # step) the phase's budget holds ~800, so there this check never fires
+    # step) the phase's budget holds ~500, so there this check never fires
     # and the full recipe's table is recorded from the script's own run
     verdict = ("held" if not below else f"below: {json.dumps(below)}") if full else \
         (f"not applied: {training['steps']} of {TINY_FULL_STEPS} steps, the floors bind the full run only "
@@ -3619,7 +3730,9 @@ def main() -> None:
     process_tp = phase_process_tp(device, tp, smi)
     peer_tp = phase_peer_tp(device, smi)
     mesh_training = phase_mesh_training(device, training_pairs(make_corpus(N_CHUNKS, N_QUESTIONS)[0]), training, smi)
+    recipe_t0 = time.perf_counter()
     tiny_recipe = phase_recipe(device, smi)
+    recipe_wall_s = time.perf_counter() - recipe_t0
     harness = phase_harness(device, smi)
 
     entries = []
@@ -3680,6 +3793,7 @@ def main() -> None:
                         "distinct_cards_shapes": None if peer_tp is None else
                         peer_tp["matmul" if counter is int4.LAUNCHES else "tail"],
                         "tp_launches_per_forward": tp["int4"]["forwards"],
+                        "tp_model_8_launches_per_forward": tp["wide"]["forwards"],
                         "process_tp_launches": [r[counter.name] for r in process_tp["int4"]["launches"]],
                         "process_tp_launches_per_forward": process_tp["int4"]["forwards"],
                         "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks
@@ -3699,9 +3813,10 @@ def main() -> None:
     if foreign:
         raise AssertionError(f"the port loaded jax or the JAX package: {foreign[:5]}")
 
-    peer_wall = "not run" if peer_tp is None else f"{peer_tp['wall_s']:.1f} s"
-    print(f"run wall {time.perf_counter() - run_t0:.1f} s (phase 14: {tp_wall_s:.1f} s, phase 20: "
-          f"{process_tp['wall_s']:.1f} s, phase 21: {peer_wall})", flush=True)
+    peer_wall = "not run" if peer_tp is None else f"{peer_tp['wall_s']:.1f} s, 21d {peer_tp['wide_s']:.1f} s"
+    print(f"run wall {time.perf_counter() - run_t0:.1f} s (phase 14: {tp_wall_s:.1f} s, 14d {tp['wide_s']:.1f} s; "
+          f"phase 16: {recipe_wall_s:.1f} s; phase 20: {process_tp['wall_s']:.1f} s; phase 21: {peer_wall})",
+          flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,11 +56,12 @@
 //   Tiles: 16 x 64 for M <= 16, 64 x 64 up to 64 rows, 128 x 128 above;
 //   mma.sync, no split of K.
 // The split-K and wgmma routes take the weight whole or as up to
-// splitk::MAX_BLOCKS column blocks (a `model` axis's shards): each block
-// has its own tensor map and scale pointer; a split-K item lies in one
-// block, and a wgmma tile's global column picks its block, so one launch
-// reads the shards in place with the whole weight's sums (bit-equal
-// output at the same K splits). A block may lie on the launching card or
+// splitk::MAX_BLOCKS (8) column blocks (a `model` axis's shards, up to
+// an 8-card node's): each block has its own tensor map and scale
+// pointer; a split-K item lies in one block, and a wgmma tile's global
+// column picks its block, so one launch reads the shards in place with
+// the whole weight's sums (bit-equal output at the same K splits). A
+// block may lie on the launching card or
 // on a peer card (a `model` axis over distinct cards, after
 // comorag_enable_peer_access), as in the fused tail below: the split-K
 // PRODUCT stage and prefill::matmul_kernel's producer read it through the
@@ -97,11 +98,13 @@
 //   tensor-core rows; a lane reads whole 32-bit words of the JAX packing
 //   (4 adjacent columns of one packed row) and turns each byte into a
 //   bf16 pair with one PRMT, one LOP3 and one HSUB2 (nibble_pair), exact.
-// - each weight may arrive as up to MAX_BLOCKS column blocks (a `model`
-//   axis's shards on one device, the TP decode path): a block has its own
-//   tensor map and scale pointer, and a box's global column picks its
-//   block, so the shards are read in place, in one launch, with the same
-//   items, splits and sums as the whole weight (bit-equal output). A
+// - each weight may arrive as up to MAX_BLOCKS (8) column blocks (a
+//   `model` axis's shards on one device, the TP decode path): a block has
+//   its own tensor map and scale pointer, passed by value in the
+//   kernel's parameters (5 KB at 8 blocks: past the 4 KB of toolkits
+//   before 12.1), and a box's global column picks its block, so the
+//   shards are read in place, in one launch, with the same items,
+//   splits and sums as the whole weight (bit-equal output). A
 //   block may also lie on a peer card of the launching one (a `model` axis
 //   over distinct cards, after comorag_enable_peer_access): its tensor
 //   map and scale copies address it in the unified address space, so the
@@ -128,6 +131,13 @@
 #include "mma_sm90.cuh"
 #include "tma_sm90.cuh"
 #include "wgmma_sm90.cuh"
+
+// splitk::Args, the fused tail's and the split-K product's parameters, holds
+// 36 tensor maps at 8 column blocks a weight: kernel parameters past 4 KB,
+// which CUDA 12.1 and later take on Volta and newer (up to 32,764 bytes)
+#if CUDART_VERSION < 12010
+#error "csrc/int4.cu needs CUDA 12.1 or later (kernel parameters past 4 KB)"
+#endif
 
 namespace cg = cooperative_groups;
 using namespace comorag;
@@ -399,8 +409,10 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w_hi) {
 // tail's stages take bw a multiple of BN and tile the whole N, so no box
 // straddles two blocks; PRODUCT takes bw a multiple of PRODUCT_UNIT and
 // tiles each block on its own (block_tiles items a block, the last one
-// ragged where bw is no multiple of its span).
-constexpr int MAX_BLOCKS = 4;
+// ragged where bw is no multiple of its span). Up to 8 blocks: a `model`
+// axis as wide as an 8-card node (Llama-3.1-8B's shards there: qkv 768,
+// o and down 512, gate/up 3,584 columns, each a multiple of BN).
+constexpr int MAX_BLOCKS = 8;
 
 struct Gemm {
   const float* S[MAX_BLOCKS];  // per block: [K/gs, bw] scales
@@ -447,9 +459,10 @@ struct Args {
   int M, H, I, gs, unit_offset, act;
   float eps;
 };
-// 20 tensor maps and the rest: inside the 4 KB of kernel parameters that
-// every toolkit takes
-static_assert(sizeof(Args) <= 4096, "kernel parameters exceed 4 KB");
+// 36 tensor maps and the rest, 5,184 bytes, passed by value
+// (__grid_constant__, so that &A.pmap[s][b] stays a parameter-space address
+// for TMA): past 4 KB, inside the 32,764 bytes of CUDA 12.1 and later
+static_assert(sizeof(Args) <= 32764, "kernel parameters exceed 32,764 bytes");
 
 // Walks the steps of this block's work items (item = blockIdx.x + r * gridDim.x;
 // tile = item % tiles, split = item / tiles; split s holds the groups

@@ -389,8 +389,11 @@ def product_route(w, m: int, device: torch.device) -> str:
         device, merged on ``device``: a shard on a card ``device`` may not
         read (decided here, before any launch), blocks the kernel refuses
         (off the 64-column unit up to 64 rows or the 128-column one above,
-        more than ``TAIL_MAX_BLOCKS``), float and int8 weights, row
+        more than ``TAIL_MAX_BLOCKS`` = 8), float and int8 weights, row
         splits.
+    Over ``{"model": 8}`` at Llama-3.1-8B width qkv (768 columns a shard),
+    o and down (512) and gate/up (3,584) take ``BLOCKS`` at every m; the
+    head's 16,032-column shards, off both units, run once a shard.
     Over a model axis that spans processes both routes run over this
     process's shards, and the outputs are then gathered from every
     process."""
@@ -551,20 +554,22 @@ def tail_route(params: Dict[str, Any], arch: DecoderArch, m: int) -> str:
     (= batch x chunk) tokens:
       - ``FUSED_TAIL``: one ``int4_fused_layer_tail`` launch a layer on the
         merge device, where o_w, gateup_w and down_w are int4,
-        ``fused_tail_supported`` holds at m (at most ``TAIL_MAX_BLOCKS``
-        shards), and each is whole or a column split of this process
-        whose shards lie on the merge device or on cards it may read
-        (``int4.peer_readable``: a ``model`` axis on one card, or over
-        distinct cards with peer access): the kernel reads every shard in
-        place, a peer card's over NVLink;
+        ``fused_tail_supported`` holds at m (at most ``TAIL_MAX_BLOCKS`` =
+        8 shards, each a multiple of 128 columns: Llama-3.1-8B over
+        ``{"model": 8}`` among them), and each is whole or a column split
+        of this process whose shards lie on the merge device or on cards
+        it may read (``int4.peer_readable``: a ``model`` axis on one card,
+        or over distinct cards with peer access): the kernel reads every
+        shard in place, a peer card's over NVLink;
       - ``PER_PRODUCT``: each product on its own (under a model axis, by
-        ``product_route``), with the residuals, RMSNorm and
-        activation in PyTorch between them: float and int8 weights, prefill
-        sizes (m > 64), more than ``TAIL_MAX_BLOCKS`` shards, a shard on a
-        card without peer access from the merge device (decided here,
-        before any launch, from ``torch.cuda.can_device_access_peer``) and
-        a model axis that spans processes (the o / gate-up / down columns
-        lie in several processes)."""
+        ``product_route``), with the residuals, RMSNorm and activation in
+        PyTorch between them: float and int8 weights, prefill sizes (m >
+        64), more than ``TAIL_MAX_BLOCKS`` shards or shards off the
+        128-column tile, a shard on a card without peer access from the
+        merge device (decided here, before any launch, from
+        ``torch.cuda.can_device_access_peer``) and a model axis that spans
+        processes (the o / gate-up / down columns lie in several
+        processes)."""
     layer = _layer_at(params["layers"], 0)
     return PER_PRODUCT if _tail_weights(layer, arch, m, params["embed"].device) is None else FUSED_TAIL
 
@@ -584,7 +589,11 @@ def int4_forward_launches(params: Dict[str, Any], arch: DecoderArch, m: int, hea
     cards with peer access at Llama-3.1-8B width a decode forward makes
     (33, 32): qkv once a layer and the head once over the peer cards'
     shards, the tail once a layer; a prefill forward (129, 0): JAX's
-    launches, and those of the same axis on one card."""
+    launches, and those of the same axis on one card. Over ``{"model":
+    8}``, on one card or on distinct cards with peer access, a decode
+    forward makes (40, 32) and a prefill one (136, 0): the same, but for
+    the head's eight 16,032-column shards (off split-K's 64-column unit
+    and wgmma's 128), once a shard (JAX: 33 + 32 and 129 + 0)."""
     device, layer = params["embed"].device, params["layers"]
     tail = tail_route(params, arch, m) == FUSED_TAIL
     names = ("qkv_w",) if tail else ("qkv_w", "o_w", "gateup_w", "down_w")

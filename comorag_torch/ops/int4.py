@@ -16,7 +16,8 @@ column blocks on its ``splitk`` and ``wgmma`` routes
 (``int4_matmul_blocks_supported``): the one launch on ctx's or x's card
 reads every block in place, there or on a card it may read
 (``peer_readable``: a ``model`` axis over distinct cards, the peers'
-blocks over NVLink).
+blocks over NVLink), up to ``TAIL_MAX_BLOCKS`` (8) blocks a weight: an
+8-card node's axis.
 The plain versions repeat the kernels' arithmetic: x rounded to bf16,
 each group's product summed in fp32 (bf16 x bf16 products are exact in
 fp32), times the group's scale row, added to the running fp32 sum.
@@ -267,7 +268,7 @@ def _splitk_geometry(device: torch.device, m: int) -> Tuple[int, int]:
 
 # ---------------------------------------------------------------- fused tail
 TAIL_TILE_N = 128  # output columns of a fused-tail work item (csrc/int4.cu splitk::BN; a column block's unit)
-TAIL_MAX_BLOCKS = 4  # column blocks a weight may arrive in, of the tail and of int4_matmul (splitk::MAX_BLOCKS)
+TAIL_MAX_BLOCKS = 8  # column blocks a weight may arrive in, of the tail and of int4_matmul (splitk::MAX_BLOCKS)
 
 
 def fused_tail_supported(hidden: int, intermediate: int, group_size: int, m: int,

@@ -24,7 +24,10 @@ directly: the current one at ``ops.mips.scan_route``'s route, the earlier
 one (dbd2d73's interface and routes: ``scan`` / ``wide`` for fp32 rows,
 ``mma`` for int8 rows) at the route dbd2d73's scan_route chose. Times are
 medians of CUDA-event samples (chip_smoke's ``median_ms``), taken in
-turns: earlier, current, current, earlier. Prints one JSON line per shape
+turns: earlier, current, current, earlier; int4_matmul at decode (M <= 64)
+and the fused tail (where the earlier library has the current interface)
+also give the host's microseconds a call in turns, as quartiles
+(``host_in_turns``). Prints one JSON line per shape
 and the card's nvidia-smi name and power limit.
 """
 
@@ -34,6 +37,7 @@ import argparse
 import ctypes
 import json
 import os
+import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -69,6 +73,28 @@ def in_turns(old, new) -> dict:
 def device_in_turns(old, new) -> dict:
     t = [device_ms(old), device_ms(new), device_ms(new), device_ms(old)]
     return {"earlier_device_ms": [t[0], t[3]], "current_device_ms": [t[1], t[2]]}
+
+
+def host_in_turns(old, new, rounds: int = 25) -> dict:
+    """The host's microseconds a call (chip_smoke's ``host_us``: 200 calls
+    back to back, no sync) of each, taken in turns (earlier, current,
+    current, earlier) ``rounds`` times: the quartiles of each one's
+    2 x ``rounds`` samples, and of the current minus the earlier within a
+    round (each round's mean of two against two)."""
+    samples = {"earlier": [], "current": []}
+    deltas = []
+    for _ in range(rounds):
+        t = [host_us(old), host_us(new), host_us(new), host_us(old)]
+        samples["earlier"] += [t[0], t[3]]
+        samples["current"] += [t[1], t[2]]
+        deltas.append((t[1] + t[2] - t[0] - t[3]) / 2)
+
+    def quartiles(v):
+        return [float(q) for q in statistics.quantiles(v, n=4)]
+
+    return {"earlier_host_us_quartiles": quartiles(samples["earlier"]),
+            "current_host_us_quartiles": quartiles(samples["current"]),
+            "current_minus_earlier_host_us_quartiles": quartiles(deltas)}
 
 
 def through_wrapper(name: str, lib: ctypes.CDLL, fn):
@@ -241,7 +267,7 @@ def matmul_ab(old_lib: ctypes.CDLL, device) -> list:
             ratios[f"{tag}_rule_ratio"] = rule_ratio(outs[lib], plain)
         rows.append({"kernel": "int4_matmul", "M": m, "weight": name, "K": k, "N": n, "route": route,
                      "earlier_route": old_route, "splits": splits, **int4_bound(m, k, n), **in_turns(old, new),
-                     **device_in_turns(old, new),
+                     **device_in_turns(old, new), **(host_in_turns(old, new) if m <= int4.TAIL_MAX_M else {}),
                      **ratios})
         del packed, scales, x, plain, workspace, tickets, outs
         torch.cuda.empty_cache()
@@ -317,7 +343,8 @@ def tail_ab(old_lib: ctypes.CDLL, device) -> list:
         if same_interface:
             old = through_wrapper("int4", old_lib, new)
             timed = {**in_turns(old, through_wrapper("int4", new_lib, new)),
-                     **device_in_turns(old, through_wrapper("int4", new_lib, new))}
+                     **device_in_turns(old, through_wrapper("int4", new_lib, new)),
+                     **host_in_turns(old, through_wrapper("int4", new_lib, new))}
         elif per_weight:  # both C entries called directly: the kernels' times without the wrapper's host work
             out_new, tickets_new = torch.empty_like(out), torch.zeros_like(tickets)
             timed = {**in_turns(old, new_direct), **device_in_turns(old, new_direct),

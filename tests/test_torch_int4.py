@@ -454,9 +454,9 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
     lib, stream = tint4._lib(), torch.cuda.current_stream().cuda_stream
     # the C entries check their own gates: M above 64 on split-K, N off 128
     # on wgmma, a block width off 64 on split-K (384 columns in 4 blocks)
-    # and off 128 on wgmma (384 in 2), and more than 4 blocks, before
+    # and off 128 on wgmma (384 in 2), and more than 8 blocks, before
     # reading a block pointer
-    null_ptrs = (ctypes.c_void_p * 8)()
+    null_ptrs = (ctypes.c_void_p * 16)()
     assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 1, None, None, None, 65, 128, 128, 64, 1, 132,
                                           stream) != 0
     assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 1, None, 128, 200, 128, 64, 132, stream) != 0
@@ -464,22 +464,22 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
                                           stream) != 0
     assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 1, None, None, None, 8, 96, 128, 64, 1, 132,
                                           stream) != 0
-    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 8, None, None, None, 8, 1024, 128, 64, 1, 132,
+    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 16, None, None, None, 8, 2048, 128, 64, 1, 132,
                                           stream) != 0
     assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 2, None, 128, 384, 128, 64, 132, stream) != 0
-    assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 8, None, 128, 1024, 128, 64, 132, stream) != 0
+    assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 16, None, 128, 2048, 128, 64, 132, stream) != 0
     # the wrapper refuses blocks the rule refuses, and a block off x's card
     def cut(*widths):
         return ([torch.zeros(128, w, dtype=torch.int8, device=cuda_device) for w in widths],
                 [torch.zeros(2, w, device=cuda_device) for w in widths])
 
     x8 = torch.zeros(8, 256, device=cuda_device)
-    for widths in ((96,) * 2, (32,) * 4, (128,) * 8, (256, 128, 128)):  # off 64 (twice), > 4, unequal
+    for widths in ((96,) * 2, (32,) * 4, (128,) * 16, (256, 128, 128)):  # off 64 (twice), > 8, unequal
         with pytest.raises(ValueError, match="no column blocks"):
             tint4.int4_matmul(x8, *cut(*widths))
     with pytest.raises(ValueError, match="no column blocks"):  # ragged blocks above 64 rows: wgmma's 128
         tint4.int4_matmul(torch.zeros(96, 256, device=cuda_device), *cut(192, 192))
-    for widths in ((64,) * 4, (128,) * 3):  # ragged split-K blocks: one launch
+    for widths in ((64,) * 4, (128,) * 3, (128,) * 8):  # ragged split-K blocks, 8 blocks: one launch
         assert tint4.int4_matmul(x8, *cut(*widths)).shape == (8, sum(widths))
     p2, s2 = cut(512, 512)
     with pytest.raises(ValueError):  # a block on the CPU
@@ -490,8 +490,8 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
     s = torch.zeros(4, 512, device=cuda_device)
     with pytest.raises(ValueError):  # M above 64
         tint4.int4_fused_layer_tail(ctx, ctx, torch.ones(512, device=cuda_device), w, s, w, s, w, s)
-    # column blocks: 8 of 64 columns (more than 4, off the 128-column tile),
-    # and a scale list that does not match the packed one
+    # column blocks: 8 of 64 columns (off the 128-column tile), and a
+    # scale list that does not match the packed one
     ctx, nw = torch.zeros(8, 512, device=cuda_device), torch.ones(512, device=cuda_device)
     gu = torch.zeros(256, 2048, dtype=torch.int8, device=cuda_device), torch.zeros(4, 2048, device=cuda_device)
     dn = torch.zeros(512, 512, dtype=torch.int8, device=cuda_device), torch.zeros(8, 512, device=cuda_device)

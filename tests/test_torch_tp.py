@@ -365,7 +365,7 @@ def test_int4_forward_over_blocks_equals_the_unsharded_forward(n, monkeypatch):
 
 
 @pytest.mark.parametrize("m", [1, 8, 64, 320])
-@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n", [2, 4, 8])
 def test_int4_matmul_over_column_blocks_equals_the_whole_weight(n, m):
     """int4_matmul with the weight as n column blocks (split_blocks, as
     shard_params cuts them) equals the whole weight's product bit for bit,
@@ -404,7 +404,10 @@ def _int4_sharded(widths, device=CPU):
     ([32064] * 2, 8, True),  # a process's two blocks of that head
     ([32] * 4, 8, False), ([96] * 2, 8, False),  # widths off the split-K route's 64-column unit
     ([192] * 2, 65, False), ([32064] * 4, 65, False),  # ragged blocks above 64 rows: wgmma keeps 128
-    ([128] * 8, 8, False),  # more than TAIL_MAX_BLOCKS
+    ([128] * 8, 8, True),  # 8 blocks (TAIL_MAX_BLOCKS): an 8-card node's model axis
+    ([768] * 8, 8, True), ([3584] * 8, 4096, True),  # the 8B qkv at decode, gate/up at prefill, {"model": 8}
+    ([16032] * 8, 8, False), ([16032] * 8, 4096, False),  # the 8B head at {"model": 8}: off both units
+    ([128] * 16, 8, False),  # more than TAIL_MAX_BLOCKS
     ([256, 128, 128], 65, False),  # unequal blocks
     ([128] * 3, 8, True),  # 384 columns at decode: splitk, the last item of each block half full
     ([128] * 2, 8, True),  # 256 columns at decode: splitk, an item a block
@@ -412,7 +415,7 @@ def _int4_sharded(widths, device=CPU):
 def test_int4_matmul_blocks_rule_and_the_decoders_route(widths, m, ok):
     """int4_matmul_blocks_supported's cases, and product_route, which
     follows it for a column split on the merge device."""
-    assert tint4.TAIL_TILE_N == 128 and tint4.TAIL_MAX_BLOCKS == 4
+    assert tint4.TAIL_TILE_N == 128 and tint4.TAIL_MAX_BLOCKS == 8
     assert tint4.int4_matmul_blocks_supported(m, widths) == ok
     assert tdec.product_route(_int4_sharded(widths), m, CPU) == (tdec.BLOCKS if ok else tdec.PER_SHARD)
 
@@ -488,6 +491,44 @@ def test_int4_forward_over_readable_cards_matches_jax(p, monkeypatch):
     np.testing.assert_array_equal(got, _torch_forward(tarch, tparams, ids, mask)[0])
 
 
+# every product's shards over {"model": 8} on each kernel's unit: qkv 256
+# columns a shard, o and down 128 (the tail's tile), gate/up 256, head 128
+_MODEL_8_ARCH = dict(hidden_size=1024, intermediate_size=1024, num_heads=8, num_kv_heads=4, vocab_size=1024)
+
+
+@pytest.mark.parametrize("p", [8, 40])  # 32 tokens, 160 tokens
+def test_int4_forward_over_model_8_matches_jax(p, monkeypatch):
+    """{"model": 8}, an 8-card node's axis, at widths whose shards suit
+    every kernel unit: every int4 product is one int4_matmul call over its
+    8 blocks and a decode-sized forward takes the fused tail over them, as
+    JAX launches each kernel once over its gathered shards (layers + 1
+    calls and a tail a layer at 32 tokens, 4 x layers + 1 at 160, as
+    int4_forward_launches gives them); the logits are within the file's
+    int4 rule of JAX's forward over the same mesh of 8 virtual devices,
+    top-1 on >= 95 % of the positions, and equal the unsharded port
+    forward's bit for bit (the plain versions concatenate the blocks)."""
+    jarch, tarch = _archs("gqa", **_MODEL_8_ARCH)
+    params = _jax_params(jarch, seed=13, kind="int4")
+    tparams = tdec.params_from_jax(_np_tree(params), device="cpu")
+    tmesh, jmesh = _meshes({"model": 8})
+    sharded = tdec.shard_params(tparams, tmesh)
+    widths = {name: sharded["layers"][name].shards[0].packed.shape[-1] for name in ("qkv_w", "o_w", "gateup_w",
+                                                                                    "down_w")}
+    assert widths == {"qkv_w": 256, "o_w": 128, "gateup_w": 256, "down_w": 128}
+    assert sharded["lm_head"].shards[0].packed.shape[-1] == 128
+    ids, mask = _prompt_batch(np.random.default_rng(14 + p), b=4, p=p, vocab=1024)
+    m, layers = ids.size, tarch.num_layers
+    assert tdec.int4_forward_launches(sharded, tarch, m, m) == ((layers + 1, layers) if m <= tint4.TAIL_MAX_M
+                                                                else (4 * layers + 1, 0))
+    calls = _counted_int4(monkeypatch)
+    got, _ = _torch_forward(tarch, sharded, ids, mask)
+    assert (calls["matmul"], calls["tail"]) == tdec.int4_forward_launches(sharded, tarch, m, m)
+    jl, _ = _jax_forward(jarch, _jax_tp(params, jmesh, jarch, "int4"), ids, mask)
+    np.testing.assert_allclose(got, jl, rtol=2e-2, atol=2e-2 * np.abs(jl).max())
+    assert (got.argmax(-1) == jl.argmax(-1)).mean() >= 0.95
+    np.testing.assert_array_equal(got, _torch_forward(tarch, tparams, ids, mask)[0])
+
+
 def test_product_route_takes_no_blocks_off_the_merge_device_or_outside_int4_columns():
     """The per-shard route for shards on a device the merge device may not
     read (a card, from the CPU; the CPU, from a card), float and int8
@@ -514,7 +555,7 @@ def _blocked_tail_inputs(rng, m=8, hidden=512, inter=1024, gs=128):
     return ctx, xres, nw, weights
 
 
-@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n", [2, 4, 8])
 @pytest.mark.parametrize("act", ["silu", "gelu_tanh"])
 @pytest.mark.parametrize("unit_offset", [False, True])
 def test_plain_tail_over_column_blocks_equals_the_whole_weight(n, act, unit_offset):
@@ -537,11 +578,12 @@ def test_fused_tail_gate_refuses_blocks_off_the_tile():
     """fused_tail_supported's block condition, and the decoder's route that
     follows it: column blocks of a multiple of the kernel's 128-column tile,
     at most TAIL_MAX_BLOCKS of them, all on the merge device."""
-    assert tint4.TAIL_TILE_N == 128 and tint4.TAIL_MAX_BLOCKS == 4
+    assert tint4.TAIL_TILE_N == 128 and tint4.TAIL_MAX_BLOCKS == 8
     assert tint4.fused_tail_supported(512, 1024, 128, 8, blocks=4)  # 128-column o / down blocks
     assert not tint4.fused_tail_supported(512, 1024, 128, 8, blocks=8)  # 64 columns: no multiple of the tile
     assert not tint4.fused_tail_supported(1536, 1536, 128, 8, blocks=5)  # 1536 / 5 is no whole width
-    assert not tint4.fused_tail_supported(4096, 14336, 128, 8, blocks=8)  # 512-column blocks, but 8 of them
+    assert tint4.fused_tail_supported(4096, 14336, 128, 8, blocks=8)  # 512-column blocks: {"model": 8}
+    assert not tint4.fused_tail_supported(4096, 14336, 128, 8, blocks=16)  # 256-column blocks, but 16 of them
     assert tint4.fused_tail_supported(4096, 14336, 128, 8, blocks=4)  # phase 14's {"model": 4}
     jarch, tarch = _archs("gqa", hidden_size=512, intermediate_size=1024, num_heads=8, vocab_size=96)
     tparams = tdec.params_from_jax(_np_tree(_jax_params(jarch, seed=5, kind="int4")), device="cpu")
@@ -737,15 +779,16 @@ def _int4_weight_8b(gen, device, k, n):
 
 
 # Llama-3.1-8B's products as a one-card model axis splits them: qkv and
-# gate/up over 2 and 4 shards, the head over {"model": 2}'s 2 (64,128
+# gate/up over 2, 4 and 8 shards, the head over {"model": 2}'s 2 (64,128
 # columns: an odd multiple of 128, so each block's last split-K item
 # holds one box) and over {"model": 4}'s 4 (32,064 columns: a multiple of
 # 64 only, so each block's last item holds 64 columns); a process's pair
-# of those blocks (64,128 columns in 2), and one 32,064-column shard alone
-# (a distinct card's)
+# of those blocks (64,128 columns in 2), one 32,064-column shard alone
+# (a distinct card's), and the head over {"model": 8}'s 8 (16,032 columns:
+# off both units, refused)
 _BLOCKED_8B = [("qkv", 6144, 2), ("qkv", 6144, 4), ("gate_up", 28672, 2), ("gate_up", 28672, 4),
                ("lm_head", 128256, 2), ("lm_head", 128256, 4), ("lm_head pair", 64128, 2),
-               ("lm_head shard", 32064, 1)]
+               ("lm_head shard", 32064, 1), ("qkv", 6144, 8), ("gate_up", 28672, 8), ("lm_head", 128256, 8)]
 
 
 @pytest.mark.cuda
@@ -826,7 +869,7 @@ def _tail_weights_8b(gen, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 8, 64])
-@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n", [2, 4, 8])
 def test_fused_tail_over_column_blocks_on_the_card(n, m):
     """The fused-tail kernel over n column blocks of each weight (one card's
     model axis) at Llama-3.1-8B width: within the bf16 rule of its plain

@@ -22,6 +22,7 @@ imports no JAX, so the card's lane runs it as it is.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -87,13 +88,18 @@ def _readable_except(monkeypatch, blocked=()):
 # head once (2 + 1) beside 2 tails, and at prefill 4 products a layer once
 # (8 + 1). Across processes each process's own blocks take the same
 # product routes, without the tail (9 at both sizes). A blocked pair puts
-# every product once a shard (16 x 2 + 4); so do 8 shards (more than
-# TAIL_MAX_BLOCKS: 32 x 2 + 8).
+# every product once a shard (16 x 2 + 4). Over 8 shards (qkv 128 columns
+# a shard, o and down 64, gate/up 256, the head 64) the tail's 128-column
+# tile refuses o and down, so the layers take the per-product route; at
+# decode every product's blocks suit splitk's 64-column unit, one call
+# each (4 x 2 + 1); at prefill wgmma's 128-column unit takes qkv and
+# gate/up and refuses o, down and the head, once a shard (2 x (1 + 8 + 1
+# + 8) + 8).
 _SMALL_CASES = [
     ("every peer readable", 4, (), None, tdec.FUSED_TAIL, tdec.BLOCKS, (3, 2), (9, 0)),
     ("cuda:2 not readable from cuda:0", 4, ((0, 2),), None, tdec.PER_PRODUCT, tdec.PER_SHARD, (36, 0), (36, 0)),
     ("across processes", 4, (), (0, 1, 2, 3), tdec.PER_PRODUCT, tdec.BLOCKS, (9, 0), (9, 0)),
-    ("8 shards", 8, (), None, tdec.PER_PRODUCT, tdec.PER_SHARD, (72, 0), (72, 0)),
+    ("8 shards", 8, (), None, tdec.PER_PRODUCT, tdec.BLOCKS, (9, 0), (44, 0)),
 ]
 
 
@@ -104,9 +110,9 @@ def test_tail_route_over_distinct_cards(small_int4, monkeypatch, case, n, blocke
     """tail_route, product_route and int4_forward_launches over {"model": n}
     on distinct cards: the fused tail, and int4_matmul once a product over
     its blocks, where every shard lies on a card the merge card may read;
-    the per-product and per-shard routes where one may not and past
-    TAIL_MAX_BLOCKS; the per-product route across processes and above 64
-    tokens."""
+    the per-product and per-shard routes where one may not and where
+    blocks are off a kernel's unit; the per-product route across processes
+    and above 64 tokens."""
     _readable_except(monkeypatch, blocked)
     params = _on_cards(tdec.shard_params(small_int4, build_mesh({"model": n}, [CPU] * n)), n, indices)
     assert tdec.tail_route(params, SMALL, 8) == route
@@ -116,18 +122,20 @@ def test_tail_route_over_distinct_cards(small_int4, monkeypatch, case, n, blocke
     assert tdec.int4_forward_launches(params, SMALL, 65, 65) == prefill
 
 
-def _meta_8b(n: int):
+def _meta_8b(n: int, cards: int = 0):
     """The routes' view of Llama-3.1-8B's int4 tree over {"model": n} on
-    cuda:0..n-1: every product column-split into n blocks of meta tensors
-    (shapes only; nothing is allocated), stacked over the 32 layers."""
+    cuda:0..n-1 (``cards`` = 1: every position on cuda:0): every product
+    column-split into n blocks of meta tensors (shapes only; nothing is
+    allocated), stacked over the 32 layers."""
     arch, gs = LLAMA_8B, 128
+    devices = CARDS[:n] if cards != 1 else (CARDS[0],) * n
     h, i, layers = arch.hidden_size, arch.intermediate_size, arch.num_layers
     q, kv = arch.num_heads * arch.head_dim, arch.num_kv_heads * arch.head_dim
 
     def split(k, width, lead=(layers,)):
         shards = tuple(tdec.Int4Weight(torch.empty(*lead, k // 2, width // n, dtype=torch.int8, device="meta"),
                                        torch.empty(*lead, k // gs, width // n, device="meta")) for _ in range(n))
-        return Sharded(shards, "col", CARDS[:n])
+        return Sharded(shards, "col", devices)
 
     return {"embed": _Merge(CARDS[0]),
             "layers": {"qkv_w": split(h, q + 2 * kv), "o_w": split(h, h), "gateup_w": split(h, 2 * i),
@@ -135,28 +143,51 @@ def _meta_8b(n: int):
             "lm_head": split(h, arch.vocab_size, lead=())}
 
 
-@pytest.mark.parametrize("n,per_shard", [(4, (516, 0)), (2, (258, 0))])
-def test_int4_forward_launches_at_8b_width_over_distinct_cards(monkeypatch, n, per_shard):
+# {"model": n} -> (decode, prefill) launches over readable cards, and with
+# the pair (0, 1) blocked. Over 8 the head's 16,032-column shards are off
+# split-K's 64-column unit (and wgmma's 128): once a shard, 8 a forward
+_MODEL_AXES_8B = [(4, (33, 32), (129, 0), (516, 0)), (2, (33, 32), (129, 0), (258, 0)),
+                  (8, (40, 32), (136, 0), (1032, 0))]
+
+
+@pytest.mark.parametrize("n,decode,prefill,per_shard", _MODEL_AXES_8B)
+def test_int4_forward_launches_at_8b_width_over_distinct_cards(monkeypatch, n, decode, prefill, per_shard):
     """At Llama-3.1-8B width over {"model": n} on distinct cards with peer
     access, a decode forward (M = 8) launches the tail once a layer and
     int4_matmul once for qkv a layer and once for the head over the peer
     cards' blocks: (33, 32); a prefill forward (M = 8 x 512, the head at
     the last position's 8 rows) every product once over its blocks: (129,
-    0). These are JAX's launches and the one-card axis's. With the pair
-    (0, 1) blocked, every product runs once a shard at decode too:
+    0). These are JAX's launches and the one-card axis's. Over 8 cards the
+    same, but for the head once a shard: (40, 32) and (136, 0). With the
+    pair (0, 1) blocked, every product runs once a shard at decode too:
     ``per_shard``."""
     params = _meta_8b(n)
     _readable_except(monkeypatch)
     assert tdec.tail_route(params, LLAMA_8B, 8) == tdec.FUSED_TAIL
     assert all(tdec.product_route(params["layers"][name], m, CARDS[0]) == tdec.BLOCKS
                for name in ("qkv_w", "o_w", "gateup_w", "down_w") for m in (8, 4096))
-    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == (33, 32)
-    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == (129, 0)
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == decode
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == prefill
     _readable_except(monkeypatch, blocked=((0, 1),))
     assert tdec.tail_route(params, LLAMA_8B, 8) == tdec.PER_PRODUCT
     assert tdec.product_route(params["layers"]["qkv_w"], 8, CARDS[0]) == tdec.PER_SHARD
     assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == per_shard
     assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == per_shard
+
+
+def test_int4_forward_launches_at_8b_width_over_model_8_on_one_card():
+    """{"model": 8} of one card at Llama-3.1-8B width: every shard on the
+    merge card, so the routes are those of 8 readable cards: the tail
+    once a layer over the o / gate-up / down blocks (512 and 3,584 columns
+    a shard) and int4_matmul once over qkv's (768), the head's eight
+    16,032-column shards once a shard: (40, 32) a decode forward, (136, 0)
+    a prefill one."""
+    params = _meta_8b(8, cards=1)
+    assert tdec.tail_route(params, LLAMA_8B, 8) == tdec.FUSED_TAIL
+    assert tdec.product_route(params["layers"]["qkv_w"], 8, CARDS[0]) == tdec.BLOCKS
+    assert tdec.product_route(params["lm_head"], 8, CARDS[0]) == tdec.PER_SHARD
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == (40, 32)
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == (136, 0)
 
 
 # (leaf with its last block on cuda:4, which cuda:0 may not read) -> a
@@ -231,30 +262,41 @@ def _blocks(weights, devices):
     return [part for p, sc in weights for part in (split_blocks(p, -1, devices), split_blocks(sc, -1, devices))]
 
 
+def _cycled(cards, blocks: int):
+    """Block i of ``blocks`` on cards[i % len(cards)]: an 8-wide model
+    axis over fewer cards, as ``build_mesh`` lays a repeated device list."""
+    return [cards[i % len(cards)] for i in range(blocks)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("blocks", [0, 8], ids=["a block a card", "8 blocks"])
 @pytest.mark.parametrize("n", [2, 4])
-def test_fused_tail_over_peer_cards_equals_one_card(n, m):
+def test_fused_tail_over_peer_cards_equals_one_card(n, blocks, m):
     """One launch on cuda:0 over o / gate-up / down blocks on cuda:0..n-1
-    (block b on card b, read in place over NVLink) at Llama-3.1-8B width:
-    bit-equal to the launch over the same blocks on cuda:0 (the same plan
-    on cuda:0's SM count, the same items and sums; max |d| printed), and
-    within the bf16 rule of the plain version."""
+    (one block a card, or 8 blocks, TAIL_MAX_BLOCKS: {"model": 8}'s 512 /
+    3,584 / 512 columns a block, block i on cuda:(i % n); read in place
+    over NVLink) at Llama-3.1-8B width: bit-equal to the launch over the
+    same blocks on cuda:0 (the same plan on cuda:0's SM count, the same
+    items and sums; max |d| printed), 8 blocks to the whole weights'
+    launch too, and within the bf16 rule of the plain version."""
     cards = _cards(n)
-    ctx, xres, nw, weights = _tail_inputs_8b(m, 80 + m, cards[0])
-    spread = _blocks(weights, cards)
-    assert [p.device.index for p in spread[0]] == list(range(n))
+    blocks = blocks or n
+    ctx, xres, nw, weights = _tail_inputs_8b(m, 80 + m + blocks, cards[0])
+    spread = _blocks(weights, _cycled(cards, blocks))
+    assert [p.device.index for p in spread[0]] == [i % n for i in range(blocks)]
     before = tint4.TAIL_LAUNCHES.value
     got = tint4.int4_fused_layer_tail(ctx, xres, nw, *spread, eps=1e-5)
     torch.cuda.synchronize()
     assert tint4.TAIL_LAUNCHES.value == before + 1
-    local = _blocks(weights, [cards[0]] * n)
-    one_card = tint4.int4_fused_layer_tail(ctx, xres, nw, *local, eps=1e-5)
+    local = _blocks(weights, [cards[0]] * blocks)
     ref = tint4.int4_fused_layer_tail_plain(ctx, xres, nw, *local, eps=1e-5)  # the plain version concatenates
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
-    delta = float((got - one_card).abs().max())
-    print(f"fused tail over blocks on {n} cards, M={m}: max |peer blocks - one card| = {delta}")
-    assert delta == 0.0
+    against = {"one card": local, **({"whole": [t for w in weights for t in w]} if blocks == 8 else {})}
+    deltas = {tag: float((got - tint4.int4_fused_layer_tail(ctx, xres, nw, *args, eps=1e-5)).abs().max())
+              for tag, args in against.items()}
+    print(f"fused tail over {blocks} blocks on {n} cards, M={m}: max |d| {deltas}")
+    assert deltas == dict.fromkeys(against, 0.0)
 
 
 @pytest.mark.cuda
@@ -274,40 +316,55 @@ def test_fused_tail_refuses_a_card_it_may_not_read(monkeypatch):
     assert (tint4.TAIL_LAUNCHES.value, tint4.LAUNCHES.value) == before
 
 
-# int4_matmul over Llama-3.1-8B products split one block a card: (name, K,
-# N, M). qkv at decode (splitk, K split), the head's ragged 32,064-column
-# blocks over 4 cards (64,128 over 2) at M = 8 (splitk), gate/up at M =
-# 128 (wgmma)
-_PEER_PRODUCTS = [("qkv", 4096, 6144, 1), ("qkv", 4096, 6144, 8), ("qkv", 4096, 6144, 64),
-                  ("lm_head", 4096, 128256, 8), ("gate_up", 4096, 28672, 128)]
+# int4_matmul over Llama-3.1-8B products in column blocks on the cards:
+# (name, K, N, M, blocks). One block a card (0): qkv at decode (splitk, K
+# split), the head's ragged 32,064-column blocks over 4 cards (64,128 over
+# 2) at M = 8 (splitk), gate/up at M = 128 (wgmma). 8 blocks
+# ({"model": 8}): qkv at decode (768 columns a block, splitk), gate/up at
+# M = 128 (3,584, wgmma); the head's 16,032-column blocks are off both
+# units (refused)
+_PEER_PRODUCTS = [("qkv", 4096, 6144, 1, 0), ("qkv", 4096, 6144, 8, 0), ("qkv", 4096, 6144, 64, 0),
+                  ("lm_head", 4096, 128256, 8, 0), ("gate_up", 4096, 28672, 128, 0),
+                  ("qkv", 4096, 6144, 8, 8), ("qkv", 4096, 6144, 64, 8), ("gate_up", 4096, 28672, 128, 8)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,k,width,m", _PEER_PRODUCTS, ids=[f"{c[0]}-M{c[3]}" for c in _PEER_PRODUCTS])
+@pytest.mark.parametrize("name,k,width,m,blocks", _PEER_PRODUCTS,
+                         ids=[f"{c[0]}-M{c[3]}" + ("-8blocks" if c[4] else "") for c in _PEER_PRODUCTS])
 @pytest.mark.parametrize("n", [2, 4])
-def test_int4_matmul_over_peer_cards_equals_one_card(n, name, k, width, m):
+def test_int4_matmul_over_peer_cards_equals_one_card(n, name, k, width, m, blocks):
     """One int4_matmul launch on cuda:0 over a weight's column blocks on
-    cuda:0..n-1 (block b on card b, read in place over NVLink):
-    bit-equal to the launch over the same blocks on cuda:0 (the same plan
-    on cuda:0's SM count, the same items and sums; max |d| printed), and
-    within the bf16 rule of the plain version."""
+    cuda:0..n-1 (one block a card, or 8 blocks with block i on
+    cuda:(i % n); read in place over NVLink): bit-equal to the launch over
+    the same blocks on cuda:0 (the same plan on cuda:0's SM count, the
+    same items and sums; max |d| printed), 8 blocks to the whole weight's
+    launch too (the same route and K splits), and within the bf16 rule of
+    the plain version."""
     cards = _cards(n)
-    gen = torch.Generator(device=cards[0]).manual_seed(100 + m + n)
+    blocks = blocks or n
+    gen = torch.Generator(device=cards[0]).manual_seed(100 + m + n + blocks)
     packed = torch.randint(-128, 128, (k // 2, width), generator=gen, device=cards[0], dtype=torch.int8)
     scales = torch.empty(k // 128, width, device=cards[0]).uniform_(0.003, 0.006, generator=gen)
     x = torch.randn(m, k, generator=gen, device=cards[0]).to(torch.bfloat16)
-    spread = split_blocks(packed, -1, cards), split_blocks(scales, -1, cards)
-    local = split_blocks(packed, -1, [cards[0]] * n), split_blocks(scales, -1, [cards[0]] * n)
-    assert [p.device.index for p in spread[0]] == list(range(n))
-    route = tint4.int4_matmul_route(m, width, n)
+    spread = split_blocks(packed, -1, _cycled(cards, blocks)), split_blocks(scales, -1, _cycled(cards, blocks))
+    local = split_blocks(packed, -1, [cards[0]] * blocks), split_blocks(scales, -1, [cards[0]] * blocks)
+    assert [p.device.index for p in spread[0]] == [i % n for i in range(blocks)]
+    route = tint4.int4_matmul_route(m, width, blocks)
     assert route == ("splitk" if m <= tint4.SPLITK_MAX_M else "wgmma")
+    against = {"one card": local}
+    if blocks == 8:
+        assert route == tint4.int4_matmul_route(m, width)
+        if route == "splitk":  # bit-equality with the whole weight needs its K splits
+            plan = functools.partial(tint4.matmul_plan, m, k, width, 128, tint4._sm_count(cards[0]),
+                                     *tint4._splitk_geometry(cards[0], m))
+            assert plan(8)["splits"] == plan()["splits"]
+        against["whole"] = (packed, scales)
     before = tint4.LAUNCHES.value, tint4.ROUTE_LAUNCHES[route].value
     got = tint4.int4_matmul(x, *spread)
     torch.cuda.synchronize()
     assert (tint4.LAUNCHES.value, tint4.ROUTE_LAUNCHES[route].value) == (before[0] + 1, before[1] + 1)
-    one_card = tint4.int4_matmul(x, *local)
     ref = tint4.int4_matmul_plain(x, *local)  # the plain version concatenates
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
-    delta = float((got - one_card).abs().max())
-    print(f"int4_matmul {name} over blocks on {n} cards, M={m} ({route}): max |peer blocks - one card| = {delta}")
-    assert delta == 0.0
+    deltas = {tag: float((got - tint4.int4_matmul(x, *args)).abs().max()) for tag, args in against.items()}
+    print(f"int4_matmul {name} over {blocks} blocks on {n} cards, M={m} ({route}): max |d| {deltas}")
+    assert deltas == dict.fromkeys(against, 0.0)
