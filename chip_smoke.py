@@ -158,13 +158,19 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      times its shapes; (d) {"model": 8} of the one card, an 8-card node's
      axis (the kernels' 8-block table): phase 10's weights as an int4
      engine, one prefill chunk and one decode step in fp32 compute, their
-     launches against ``decoder.int4_forward_launches`` and 136 + 0 / 40 +
-     32 (the head's 16,032-column shards, off split-K's 64-column unit,
-     once a shard), the logits under phase 10's rule of (a)'s unsharded
-     engine; then qkv (M = 8, splitk) and gate/up (M = 4,096, wgmma) over
-     8 column blocks and the fused tail over 8 (M = 8, 64), each held as
-     in (c) (bit-equal to the whole-weight launch required) and timed
-     beside it; the seconds of (d) are printed;
+     launches against ``decoder.int4_forward_launches`` and 129 + 0 / 33 +
+     32 (JAX's: the head once over its eight 16,032-column shards, a
+     multiple of split-K's 16-column unit), the logits under phase 10's
+     rule of (a)'s unsharded engine and of the same engine's plain
+     versions; then qkv (M = 8, splitk), gate/up (M = 4,096, wgmma) and the
+     head (M = 8, splitk, 160 columns in each block's last item) over 8
+     column blocks and the fused tail over 8 (M = 8, 64), each held as in
+     (c) (bit-equal to the whole-weight launch required) and timed beside
+     it, one 16,032-column head shard alone (splitk, the per-shard route's
+     launch), and split-K blocks narrower than a box (8 x 16 and 2 x 48
+     columns, K = 1,024 at 8 K splits, M = 1, 8, 64) against plain and
+     bit-equal to the whole weight's launch; the seconds of (d) are
+     printed;
  15. dp x tp training over {"data": 2, "model": 2} of the one card
      (``models/train.py`` and ``train_lm.py`` with ``mesh=``; no
      multi-card speed is read from it): (a) bert-base with phase 12a's
@@ -185,8 +191,8 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      over the model axis (guided JSON sampled, then speculative at
      temperature 0) and with int4 weights (int4_matmul launches a forward
      as ``decoder.product_route`` routes each column split: its
-     128-column gate/up and 64-column qkv shards in one launch each, its
-     32-column o and down shards once a shard), the qwen3- and gemma-class
+     128-column gate/up, 64-column qkv and 32-column o and down shards in
+     one launch each), the qwen3- and gemma-class
      families, the corpus-sharded index and PPR. None of the six kernels
      launches in the training steps of (a), (b) and (d).
  16. the tiny decoder's training recipe (scripts/torch_train_tiny_lm.py,
@@ -295,11 +301,11 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      turns (``PEER_ROUTES``: the package's, the tail over peer blocks
      with the products once a shard, and no peer reads), prefill and
      decode tok/s and launches of each; (d) {"model": 8} with block i on
-     cuda:(i % n): qkv's int4_matmul (M = 8) and the fused tail (M = 8,
-     64) over 8 blocks as in (a) (bit-equal to the same blocks on cuda:0
-     required), and phase 10's weights as an int4 engine over that axis,
-     its forwards as in (b) (136 + 0 and 40 + 32); the seconds of (d) are
-     printed.
+     cuda:(i % n): qkv's and the head's int4_matmul (M = 8) and the fused
+     tail (M = 8, 64) over 8 blocks as in (a) (bit-equal to the same
+     blocks on cuda:0 required), and phase 10's weights as an int4 engine
+     over that axis, its forwards as in (b) (129 + 0 and 33 + 32); the
+     seconds of (d) are printed.
      ``--phase 21`` runs it alone after phases 1 and 2.
 Then it checks that no module of jax, optax or of the JAX package
 (``comorag_tpu``, ``__graft_entry__``) was loaded, and
@@ -2403,17 +2409,23 @@ TP_WIDE = 8  # (d): {"model": 8}, an 8-card node's axis, on the one card (int4.T
 # each block's last item holds 64 columns), each in one launch; one
 # 32,064-column head shard alone, as the per-shard route launches it (o,
 # gate/up and down run in the fused tail over their shards at decode);
-# (d) qkv and gate/up over {"model": 8}'s 8 blocks (768 and 3,584 columns),
-# and one of its eight 16,032-column head shards alone (off split-K's
-# 64-column unit: a launch a shard, 8 a forward)
+# (d) qkv, gate/up and the head over {"model": 8}'s 8 blocks (768, 3,584
+# and 16,032 columns: the head's a multiple of split-K's 16-column unit,
+# each block's last item 160 columns), and one of its eight 16,032-column
+# head shards alone (split-K; the per-shard route's launch)
 TP_MATMUL_SHAPES = (("qkv", 8, TP), ("gate_up", 4096, TP), ("lm_head", 8, 2), ("lm_head", 8, TP),
                     ("lm_head shard", 8, 1))
-TP_WIDE_MATMUL_SHAPES = (("qkv", 8, TP_WIDE), ("gate_up", 4096, TP_WIDE), ("lm_head shard", 8, 1))
+TP_WIDE_MATMUL_SHAPES = (("qkv", 8, TP_WIDE), ("gate_up", 4096, TP_WIDE), ("lm_head", 8, TP_WIDE),
+                         ("lm_head shard", 8, 1))
+# (d) split-K blocks narrower than a 128-column box, (width, blocks): K =
+# 1,024 (8 groups) gives the blocks and the whole weight 8 K splits each
+NARROW_BLOCKS = ((16, 8), (48, 2))
+NARROW_K = 1024
 TP_ROUTES = (f"int4_matmul: {decoder.BLOCKS} where a column split's shards all lie on the merge device (this "
              f"mesh of one card) or on cards it may read (peer access; phase 21) and the kernel takes them (at "
-             f"most {int4.TAIL_MAX_BLOCKS} of equal width: splitk up to 64 rows, each a multiple of 64 columns, "
-             f"the head's 32,064-column shards among them; wgmma above, each a multiple of 128): one launch a "
-             f"product reads the shards in place; {decoder.PER_SHARD} otherwise (a card without peer access; "
+             f"most {int4.TAIL_MAX_BLOCKS} of equal width: splitk up to 64 rows, each a multiple of 16 columns, "
+             f"the head's 32,064- and 16,032-column shards among them; wgmma above, each a multiple of 128): one "
+             f"launch a product reads the shards in place; {decoder.PER_SHARD} otherwise (a card without peer access; "
              f"blocks off those units): one launch a shard, gathered on the merge device. The layer tail: {decoder.FUSED_TAIL} where every shard lies "
              f"on the merge device or on a card it may read (peer access; phase 21): one launch a layer of "
              f"<= 64 tokens on the merge device reads the o, gate/up and down column shards in place; "
@@ -2497,6 +2509,42 @@ def tp_tail_timings(device, blocks: int) -> list:
         del got, ref, whole_out
     del whole, shards
     torch.cuda.empty_cache()
+    return rows
+
+
+def narrow_block_checks(device) -> list:
+    """(d) int4_matmul over split-K column blocks narrower than a
+    128-column box (``NARROW_BLOCKS``: a box wider than its block, TMA
+    filling the columns past the edge with zeros) at K = ``NARROW_K``, M =
+    1, 8 and 64: one splitk launch at the whole weight's K splits (more
+    than one: the ticketed split sum over ragged tiles), within the bf16
+    rule of the plain version and bit-equal to the whole weight's launch."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 26)
+    rows = []
+    for width, blocks in NARROW_BLOCKS:
+        n = width * blocks
+        packed, scales = (t[0] for t in int4_weights(gen, device, NARROW_K, n, 1))
+        cut = split_blocks(packed, -1, [device] * blocks), split_blocks(scales, -1, [device] * blocks)
+        for m in (1, 8, 64):
+            what = f"int4_matmul M={m} over {blocks} column blocks of {width}"
+            x = torch.randn(m, NARROW_K, generator=gen, device=device).to(torch.bfloat16)
+            route = int4.int4_matmul_route(m, n, blocks)
+            splits = matmul_splits(device, m, NARROW_K, n, route, blocks)
+            if route != "splitk" or splits < 2 or splits != matmul_splits(device, m, NARROW_K, n, route):
+                raise AssertionError(f"{what}: route {route} at {splits} K splits, expected splitk at the whole "
+                                     f"weight's, more than one")
+            before = int4.ROUTE_LAUNCHES[route].value
+            got = int4.int4_matmul(x, *cut)
+            torch.cuda.synchronize()
+            if int4.ROUTE_LAUNCHES[route].value != before + 1:
+                raise AssertionError(f"{what}: {int4.ROUTE_LAUNCHES[route].value - before} splitk launches, expected 1")
+            r = {"M": m, "K": NARROW_K, "width": width, "blocks": blocks, "route": route, "splits": splits,
+                 "max_abs_err": compare(got, int4.int4_matmul_plain(x, packed, scales), what),
+                 "max_abs_diff_vs_whole_kernel": float((got - int4.int4_matmul(x, packed, scales)).abs().max())}
+            if r["max_abs_diff_vs_whole_kernel"] != 0.0:
+                raise AssertionError(f"{what}: differs from the whole weight's launch by "
+                                     f"{r['max_abs_diff_vs_whole_kernel']} (the same splits and sums: bit-equal)")
+            rows.append(r)
     return rows
 
 
@@ -2608,16 +2656,15 @@ def tp_wide_forwards(device, params, arch, ref: tuple) -> dict:
     """(d) phase 10's weights as an int4 engine over {"model": 8} of the
     one card (``peer_engine``: the fused tail over the o / gate-up / down
     blocks of 512, 3,584 and 512 columns, qkv one launch over its blocks
-    of 768, the head's eight 16,032-column shards, off split-K's
-    64-column unit, once a shard), its prefill chunk and decode step in
-    fp32 compute as ``peer_forwards`` checks them: (4 x layers + 8, 0) /
-    (layers + 8, layers), the logits against ``ref`` ((a)'s unsharded
-    engine, whose token the step is fed) and against the same engine's
-    under ``plain_int4``."""
-    engine, build_s = peer_engine(params, arch, device, [device] * TP_WIDE, decoder.PER_SHARD)
+    of 768 and the head one over its eight 16,032-column blocks, on
+    split-K's 16-column unit), its prefill chunk and decode step in fp32
+    compute as ``peer_forwards`` checks them: (4 x layers + 1, 0) /
+    (layers + 1, layers), JAX's, the logits against ``ref`` ((a)'s
+    unsharded engine, whose token the step is fed) and against the same
+    engine's under ``plain_int4``."""
+    engine, build_s = peer_engine(params, arch, device, [device] * TP_WIDE)
     out = {"build_s": build_s, **peer_forwards(engine, arch, server_prompts(), ref,
-                                               f"phase 14d over {{'model': {TP_WIDE}}}", head=TP_WIDE,
-                                               plain=True)}
+                                               f"phase 14d over {{'model': {TP_WIDE}}}", plain=True)}
     del engine
     torch.cuda.empty_cache()
     return out
@@ -2629,8 +2676,9 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
     and merges cost, no multi-card speed), on phase 10's weights and
     requests: (a) int4, (b) bf16 weights, (c) int4_matmul over column
     blocks, the head's shard and the fused tail over shards timed; (d)
-    {"model": 8}: the int4 engine's forwards and logits, int4_matmul and
-    the fused tail over 8 blocks timed."""
+    {"model": 8}: the int4 engine's forwards and logits, int4_matmul (qkv,
+    gate/up, the head) and the fused tail over 8 blocks timed, and
+    int4_matmul over split-K blocks narrower than a box checked."""
     arch = llama_8b()
     mesh = card_mesh(device, {"model": TP})
     params = decoder.init_params(arch, torch.Generator(device=device).manual_seed(SEED + 10), device,
@@ -2647,6 +2695,7 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
     t0 = time.perf_counter()
     out["shards"] += tp_shard_timings(device, TP_WIDE_MATMUL_SHAPES, TP_WIDE)
     out["tail_shards"] += tp_tail_timings(device, TP_WIDE)
+    out["narrow_blocks"] = narrow_block_checks(device)
     out["wide_s"] = wide_s + time.perf_counter() - t0
     for tag, name in (("a", "int4"), ("b", "bf16")):
         r = out[name]
@@ -2670,6 +2719,9 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
           f"{out['wide_s']:.1f} s", flush=True)
     for r in out["shards"]:
         print(f"phase 14{'d' if r['axis'] == TP_WIDE else 'c'} {int4_matmul_line(r)}", flush=True)
+    print(f"phase 14d int4_matmul over split-K blocks narrower than a box, K = {NARROW_K} ({smi}): one splitk "
+          f"launch each, at the whole weight's K splits, within the bf16 rule of plain and bit-equal to the whole "
+          f"weight's launch (checked): {json.dumps(out['narrow_blocks'])}", flush=True)
     for r in out["tail_shards"]:
         print(f"phase 14{'d' if r['blocks'] == TP_WIDE else 'c'} int4_fused_layer_tail over {r['blocks']} column "
               f"shards M={r['M']} H={r['H']} I={r['I']} ({smi}): max_abs_err={r['max_abs_err']:.4g} (worst ratio to "
@@ -2866,9 +2918,10 @@ PEER_TP_TOKENS = 32
 # blocks), gate/up at prefill (wgmma, every 128-token tile re-reading
 # each weight box)
 PEER_MATMUL_SHAPES = (("qkv", 8, 32), ("lm_head", 8, 1), ("gate_up", 4096, 32))
-# 21d: qkv over {"model": 8}'s 8 blocks, block i on card i % n (the head's
-# 16,032-column blocks are off split-K's unit: once a shard)
-PEER_WIDE_MATMUL_SHAPES = (("qkv", 8, 32),)
+# 21d: qkv and the head over {"model": 8}'s 8 blocks, block i on card i % n
+# (the head's 16,032-column blocks on split-K's 16-column unit; its
+# weights are 21a's, drawn in the same order)
+PEER_WIDE_MATMUL_SHAPES = (("qkv", 8, 32), ("lm_head", 8, 1))
 # 21c's routes over distinct cards, served in turns: one int4_matmul
 # launch a product over the peer cards' blocks and the fused tail over
 # them (the package's route); the tail over them with each product once a
@@ -3079,19 +3132,19 @@ def peer_tail_timings(device, cards: list, blocks: int = 0) -> list:
     return rows
 
 
-def peer_forwards(engine, arch, prompts, ref: tuple, what: str, head: int = 1, plain: bool = False) -> dict:
+def peer_forwards(engine, arch, prompts, ref: tuple, what: str, plain: bool = False) -> dict:
     """21b (14d, 21d): the engine's prefill chunk and decode step in fp32
     compute (the step fed ``ref``'s token): each forward's launches against
     ``decoder.int4_forward_launches`` and against the one-card axis's (a
-    prefill forward 4 x layers + ``head`` int4_matmul and no tail, a
-    decode forward layers + ``head`` and a tail a layer: JAX's at one head
-    launch; over 8 blocks the head's shards run once a shard), the logits
+    prefill forward 4 x layers + 1 int4_matmul and no tail, a decode
+    forward layers + 1 and a tail a layer: JAX's, the head one launch over
+    2, 4 or 8 blocks), the logits
     within phase 10's rule of ``ref``'s (phase 14's engine: the one-card
     axis's in 21, the unsharded one in 14d), max |d| reported; with
     ``plain``, also within it of the same engine's under ``plain_int4``
     (the plain versions on the same blocks and shards)."""
     layers = arch.num_layers
-    want = [(4 * layers + head, 0), (layers + head, layers)]  # a prefill chunk, a decode step
+    want = [(4 * layers + 1, 0), (layers + 1, layers)]  # a prefill chunk, a decode step
     with forward_launches() as rec:
         got = forward_logits(engine, prompts, torch.float32, ref[2])
     out = {"forwards": checked_forwards(rec, engine.params, arch, True, f"{what} fp32 forwards")}
@@ -3106,11 +3159,11 @@ def peer_forwards(engine, arch, prompts, ref: tuple, what: str, head: int = 1, p
     return out
 
 
-def peer_engine(params, arch, device, cards: list, head_route: str = decoder.BLOCKS):
+def peer_engine(params, arch, device, cards: list):
     """Phase 10's weights as an int4 engine over {"model": n} with position
     i on ``cards[i]`` (a card may repeat), its build seconds, and its
-    decode route checked: shards on the cards, the fused tail, qkv one
-    launch over its blocks, the head on ``head_route``."""
+    decode route checked: shards on the cards, the fused tail, qkv and the
+    head one launch each over their blocks."""
     t0 = time.perf_counter()
     engine = TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", compute_dtype=torch.bfloat16,
                              device=device, mesh=build_mesh({"model": len(cards)}, cards))
@@ -3120,7 +3173,7 @@ def peer_engine(params, arch, device, cards: list, head_route: str = decoder.BLO
     routes = (decoder.tail_route(engine.params, arch, 8), decoder.product_route(qkv, 8, device),
               decoder.product_route(engine.params["lm_head"], 8, device))
     if [str(d) for d in qkv.devices] != [str(c) for c in cards] or routes != (decoder.FUSED_TAIL, decoder.BLOCKS,
-                                                                              head_route):
+                                                                              decoder.BLOCKS):
         raise AssertionError(f"{{'model': {len(cards)}}}: shards on {qkv.devices}, decode routes (tail, qkv, head) "
                              f"{routes}")
     return engine, build_s
@@ -3131,8 +3184,9 @@ def peer_tp_generation(device, cards: list) -> dict:
     first n of ``cards`` for n = 2 and, with four cards, 4
     (``peer_forwards``: JAX's launches a forward, the fp32 logits against
     phase 14's one-card engine rebuilt from the same weights), and (21d)
-    over {"model": 8} with position i on card i % len(cards) (40 + 32 /
-    136 + 0 a forward: the head's 16,032-column shards once a shard); then, over
+    over {"model": 8} with position i on card i % len(cards) (33 + 32 /
+    129 + 0 a forward, JAX's: the head once over its 16,032-column
+    blocks); then, over
     every card, phase 10's 8 requests served at PEER_TP_TOKENS new tokens
     on each of ``PEER_ROUTES`` in turns (each route, then each again in
     reverse), each forward's launches checked on its route."""
@@ -3154,10 +3208,9 @@ def peer_tp_generation(device, cards: list) -> dict:
             del engine
             torch.cuda.empty_cache()
     t0 = time.perf_counter()  # 21d: {"model": 8}, position i on card i % n
-    wide, build_s = peer_engine(params, arch, device, [cards[i % len(cards)] for i in range(TP_WIDE)],
-                                decoder.PER_SHARD)
+    wide, build_s = peer_engine(params, arch, device, [cards[i % len(cards)] for i in range(TP_WIDE)])
     out["wide"] = {"build_s": build_s, **peer_forwards(wide, arch, prompts, ref, f"phase 21d over {TP_WIDE} blocks "
-                                                       f"on {len(cards)} cards", head=TP_WIDE)}
+                                                       f"on {len(cards)} cards")}
     del wide, params
     torch.cuda.empty_cache()
     out["wide_s"] = time.perf_counter() - t0
@@ -3424,8 +3477,8 @@ def mesh_dryrun(device) -> dict:
     weights split over the model axis (guided JSON sampled, then
     speculative at temperature 0) and with int4 weights (int4_matmul
     launches a forward as ``decoder.product_route`` routes each column
-    split: its 128-column gate/up and 64-column qkv shards in one launch
-    each, its 32-column o and down shards once a shard), the qwen3- and
+    split: its 128-column gate/up, 64-column qkv and 32-column o and down
+    shards in one launch each), the qwen3- and
     gemma-class families, the corpus-sharded index and PPR."""
     dry = graft_entry.dryrun_multichip(4, devices=[device] * 4)
     expected = dry["int4_matmul_per_forward"] * dry["int4_decode_steps"]
@@ -3782,6 +3835,7 @@ def main() -> None:
                                                                for r, c in int4.ROUTE_LAUNCHES.items()},
                             "tp_launches": tp["int4"]["launches"][counter.name],
                             "tp_launches_by_route": tp["int4"]["route_launches"], "tp_shard_shapes": tp["shards"],
+                            "narrow_block_checks": tp["narrow_blocks"],
                             "process_tp_launches_by_route": process_tp["int4"]["route_launches"],
                             "mesh_dryrun_launches": mesh_training["dryrun"]["int4_matmul_launches"],
                             "harness_dryrun_launches": harness["dryrun"]["int4_matmul_launches"]}
@@ -3797,7 +3851,8 @@ def main() -> None:
                         "process_tp_launches": [r[counter.name] for r in process_tp["int4"]["launches"]],
                         "process_tp_launches_per_forward": process_tp["int4"]["forwards"],
                         "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks
-                                           + (tp["shards"] if counter is int4.LAUNCHES else tp["tail_shards"])
+                                           + (tp["shards"] + tp["narrow_blocks"] if counter is int4.LAUNCHES
+                                              else tp["tail_shards"])
                                            + ([] if peer_tp is None else
                                               peer_tp["matmul" if counter is int4.LAUNCHES else "tail"])),
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

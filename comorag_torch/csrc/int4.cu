@@ -18,14 +18,15 @@
 // 2*M*K*N operations at the bf16 tensor-core rate.
 //
 // int4_matmul has three routes, chosen by shape in ops/int4.int4_matmul:
-// - decode, M <= 64 and each block's width a multiple of 64: one stage of
+// - decode, M <= 64 and each block's width a multiple of 16: one stage of
 //   the fused tail's split-K streaming code below (splitk::product_kernel,
 //   an ordinary launch over a persistent grid): work items of two
 //   128-column boxes side by side (256-byte runs of each packed row:
 //   128-byte runs, rows N bytes apart, streamed at a third of the card's
 //   rate), laid out block by block (a block's last item holds its ragged
-//   rest of 64, 128 or 192 columns: TMA fills the part of a box past the
-//   block's edge with zeros, and the stores stop at the edge), split along K
+//   rest, any multiple of 16 columns up to 240: TMA fills the part of a
+//   box past the block's edge with zeros, and the stores stop at the
+//   edge; a block narrower than a box is one such item), split along K
 //   on scale-group boundaries (ops/int4.matmul_plan), TMA boxes in a ring
 //   on mbarriers, the weights as the m16n8k16 A operand and the tokens as
 //   its 8-wide N (W^T x^T), the exact nibble unpack, fp32 partials summed
@@ -47,7 +48,7 @@
 //   next stage's bytes already loaded; setmaxnreg moves the producer's
 //   registers to the consumers; the epilogue stages out^T through shared
 //   memory for 16-byte row stores;
-// - every other shape (N no multiple of 64 up to 64 rows, of 128 above,
+// - every other shape (N no multiple of 16 up to 64 rows, of 128 above,
 //   e.g. a 259-token vocabulary): the first design, int4_matmul_kernel. A block owns a
 //   [BM, BN] output tile and walks K in slabs of 64 through a cp.async
 //   ring (the x rows as bf16, the packed bytes as they are); the
@@ -411,7 +412,8 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w_hi) {
 // tiles each block on its own (block_tiles items a block, the last one
 // ragged where bw is no multiple of its span). Up to 8 blocks: a `model`
 // axis as wide as an 8-card node (Llama-3.1-8B's shards there: qkv 768,
-// o and down 512, gate/up 3,584 columns, each a multiple of BN).
+// o and down 512, gate/up 3,584 columns, each a multiple of BN; the head
+// 16,032, a multiple of PRODUCT_UNIT only).
 constexpr int MAX_BLOCKS = 8;
 
 struct Gemm {
@@ -433,10 +435,12 @@ struct Gemm {
 enum Stage { O_PROJ = 0, GATE_UP = 1, DOWN = 2, PRODUCT = 3 };
 constexpr int PRODUCT_NB = 2;  // a stage holds two boxes
 constexpr int PRODUCT_TILE = PRODUCT_NB * BN;
-// PRODUCT's block width unit: a block's last item may end 64 columns into
-// a box (the scale row's bulk copy and the stores stop there; 16-byte
-// aligned rows of packed bytes and scales)
-constexpr int PRODUCT_UNIT = BN / 2;
+// PRODUCT's block width unit: a block's last item may end any multiple of
+// 16 columns into a box (the scale row's bulk copy of cols * 4 bytes, at
+// least 64, and the float4 stores stop there). 16 is the floor: a
+// block's packed map has a row stride of bw bytes, and a tensor map
+// takes strides in multiples of 16 bytes only
+constexpr int PRODUCT_UNIT = 16;
 // The product's rings: at M <= 8 more blocks of fewer stages stream
 // faster (5 x 4 and 4 x 4 beat the tail's 2 x 10 at lm_head: PERF.md); above,
 // the tail's, untuned
@@ -528,7 +532,7 @@ struct Boxes {
   const CUtensorMap* map[NB];
   const float* S[NB];
   int col[NB];
-  int cols[NB];  // PRODUCT: the box's columns inside its block (BN, PRODUCT_UNIT or 0)
+  int cols[NB];  // PRODUCT: the box's columns inside its block (a multiple of PRODUCT_UNIT up to BN, or 0)
   int item = -1;
   template <int STAGE_ID>
   __device__ __forceinline__ void find(const Args& A, const Gemm& g, const Cursor& c) {
@@ -558,9 +562,10 @@ struct Boxes {
 
 // One step into a ring stage, issued by one thread: the x box, NB packed
 // boxes and NB scale rows, all completing on the stage's barrier. A
-// PRODUCT box that runs past its block's edge is loaded whole (TMA fills
-// the columns past the edge with zeros and counts the whole box's bytes)
-// beside the scales of its columns inside the block; a box wholly past
+// PRODUCT box that runs past its block's edge, or is wider than its
+// block, is loaded whole (TMA fills the columns past the edge with zeros
+// and counts the whole box's bytes) beside the scales of its columns
+// inside the block, a multiple of 16 (64 bytes and up); a box wholly past
 // the edge is not loaded. Either way the stage's columns past the edge
 // hold stale bytes, which reach only sums that are never stored.
 template <class C, int NB, int STAGE_ID>
@@ -1274,14 +1279,14 @@ extern "C" int comorag_int4_matmul(const void* x, const void* packed, const void
 // The split-K and wgmma routes take the weight as `blocks` column blocks
 // (1 to comorag_int4_matmul_max_blocks: the whole weight, or a model
 // axis's column shards in order, block b holding columns [b N / blocks,
-// (b + 1) N / blocks), of equal width: a multiple of 64 on split-K, of
+// (b + 1) N / blocks), of equal width: a multiple of 16 on split-K, of
 // 128 on wgmma), given as arrays of packed [K/2, N/blocks] int8 and scale
 // [K/gs, N/blocks] fp32 pointers read in place; every pointer 16-byte
 // aligned. One launch, whatever the blocks: at the same K splits the
 // output equals the whole weight's bit for bit.
 extern "C" int comorag_int4_matmul_max_blocks() { return splitk::MAX_BLOCKS; }
 
-// The decode route: M <= 64, each block's width a multiple of 64. Items
+// The decode route: M <= 64, each block's width a multiple of 16. Items
 // of comorag_int4_matmul_splitk_tile_n columns run block by block,
 // ceil(N / blocks / tile_n) a block (the last one of a block ragged where
 // its width is no multiple of tile_n). splits: K splits on group

@@ -388,12 +388,14 @@ def product_route(w, m: int, device: torch.device) -> str:
       - ``PER_SHARD``: ``sharded_matmul``, one product a shard on its
         device, merged on ``device``: a shard on a card ``device`` may not
         read (decided here, before any launch), blocks the kernel refuses
-        (off the 64-column unit up to 64 rows or the 128-column one above,
-        more than ``TAIL_MAX_BLOCKS`` = 8), float and int8 weights, row
-        splits.
+        (off split-K's 16-column unit up to 64 rows or wgmma's 128-column
+        one above, more than ``TAIL_MAX_BLOCKS`` = 8), float and int8
+        weights, row splits.
     Over ``{"model": 8}`` at Llama-3.1-8B width qkv (768 columns a shard),
-    o and down (512) and gate/up (3,584) take ``BLOCKS`` at every m; the
-    head's 16,032-column shards, off both units, run once a shard.
+    o and down (512) and gate/up (3,584) take ``BLOCKS`` at every m, and
+    the head's 16,032-column shards (a multiple of 16, not of 128) up to
+    64 rows: the last-position head of a decode step or a prefill
+    chunk.
     Over a model axis that spans processes both routes run over this
     process's shards, and the outputs are then gathered from every
     process."""
@@ -585,15 +587,12 @@ def int4_forward_launches(params: Dict[str, Any], arch: DecoderArch, m: int, hea
     int4 weights whose head takes head_m rows, as ``tail_route`` and
     ``product_route`` route them: a whole weight or a ``BLOCKS`` split
     once, a ``PER_SHARD`` split once a shard (this process's shards: the
-    launches this process makes). Over ``{"model": 4}`` (or 2) on distinct
-    cards with peer access at Llama-3.1-8B width a decode forward makes
-    (33, 32): qkv once a layer and the head once over the peer cards'
-    shards, the tail once a layer; a prefill forward (129, 0): JAX's
-    launches, and those of the same axis on one card. Over ``{"model":
-    8}``, on one card or on distinct cards with peer access, a decode
-    forward makes (40, 32) and a prefill one (136, 0): the same, but for
-    the head's eight 16,032-column shards (off split-K's 64-column unit
-    and wgmma's 128), once a shard (JAX: 33 + 32 and 129 + 0)."""
+    launches this process makes). Over ``{"model": 2}``, 4 or 8, on one
+    card or on distinct cards with peer access, at Llama-3.1-8B width a
+    decode forward makes (33, 32): qkv once a layer and the head once
+    over its shards (over 8, eight 16,032-column shards on split-K's
+    16-column unit), the tail once a layer; a prefill forward whose head
+    takes the last position's rows (129, 0): JAX's launches."""
     device, layer = params["embed"].device, params["layers"]
     tail = tail_route(params, arch, m) == FUSED_TAIL
     names = ("qkv_w",) if tail else ("qkv_w", "o_w", "gateup_w", "down_w")

@@ -13,7 +13,9 @@ versions for CPU tensors; there is no fallback from one to the other.
 (``int4_matmul_route``). ``int4_fused_layer_tail`` takes each weight whole
 or as column blocks (a ``model`` axis's shards), and ``int4_matmul`` takes
 column blocks on its ``splitk`` and ``wgmma`` routes
-(``int4_matmul_blocks_supported``): the one launch on ctx's or x's card
+(``int4_matmul_blocks_supported``: split-K blocks of any multiple of 16
+columns, so Llama-3.1-8B's head over 8 shards of 16,032 columns is one
+launch too): the one launch on ctx's or x's card
 reads every block in place, there or on a card it may read
 (``peer_readable``: a ``model`` axis over distinct cards, the peers'
 blocks over NVLink), up to ``TAIL_MAX_BLOCKS`` (8) blocks a weight: an
@@ -44,7 +46,7 @@ TAIL_REPLACES = "comorag_tpu/ops/pallas_int4.py:365"
 _ACTS = {"silu": 0, "gelu_tanh": 1, "gelu": 2}
 _KERNEL_K_STEP = 64  # the kernels stage K in slabs of 64: group_size must divide by it
 _WGMMA_TILE_N = 128  # output columns of a tile of the wgmma route
-_SPLITK_UNIT = 64  # a split-K block's width unit: a block's last item may end halfway into a box
+_SPLITK_UNIT = 16  # a split-K block's width unit (csrc/int4.cu PRODUCT_UNIT): a block's last item may end anywhere on it
 SPLITK_MAX_M = 64  # the split-K route's most tokens (its token tiles: 8, 16, 32, 64)
 
 
@@ -165,15 +167,16 @@ def int4_matmul_route(m: int, n: int, blocks: int = 1) -> str:
     output columns in ``blocks`` equal column blocks (a whole weight is one
     block; the first two routes copy packed and scales by TMA, which needs
     both on 16 bytes):
-    - ``"splitk"``, decode (m <= 64, each block a multiple of 64 columns):
+    - ``"splitk"``, decode (m <= 64, each block a multiple of 16 columns):
       one stage of the fused tail's split-K streaming code, over
       ``matmul_plan``'s items, laid out block by block (a block's last item
-      holds its ragged rest of 64, 128 or 192 columns);
+      holds its ragged rest, a multiple of 16 columns: 160 of each of the
+      8B head's 16,032-column shards);
     - ``"wgmma"``, prefill (m > 64, each block a multiple of 128 columns):
       a warp-specialized wgmma kernel with the weights as its register
       operand;
-    - ``"mma_sync"``, every other shape: the first design (mma.sync tiles),
-      which takes a whole weight only."""
+    - ``"mma_sync"``, every other shape (a 259-token vocabulary): the
+      first design (mma.sync tiles), which takes a whole weight only."""
     if m <= SPLITK_MAX_M:
         return "splitk" if n % (blocks * _SPLITK_UNIT) == 0 else "mma_sync"
     return "wgmma" if n % (blocks * _WGMMA_TILE_N) == 0 else "mma_sync"
@@ -184,7 +187,7 @@ def int4_matmul_blocks_supported(m: int, widths) -> bool:
     ``widths`` columns each at m rows in one launch: at most
     ``TAIL_MAX_BLOCKS`` blocks of equal width, whose route
     (``int4_matmul_route`` over the blocks) is ``splitk`` (each a multiple
-    of 64 columns) or ``wgmma`` (of 128), whose TMA maps a block each."""
+    of 16 columns) or ``wgmma`` (of 128), whose TMA maps a block each."""
     widths = list(widths)
     return (1 <= len(widths) <= TAIL_MAX_BLOCKS and len(set(widths)) == 1
             and int4_matmul_route(m, sum(widths), len(widths)) != "mma_sync")
@@ -199,7 +202,7 @@ def int4_matmul(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch
     choosing (any M; ``in`` a multiple of group_size, group_size a multiple
     of 64) once on x's device, reading the blocks in place where
     ``int4_matmul_blocks_supported`` holds and raising where it does not
-    (at m <= 64 blocks of a width off 64 raise, as does a block off 128
+    (at m <= 64 blocks of a width off 16 raise, as does a block off 128
     above). On ``splitk`` and ``wgmma`` each block lies on x's device or
     on a card it may read (``peer_readable``; a block on any other device
     raises before the launch); ``mma_sync`` takes a whole weight on x's
@@ -513,7 +516,7 @@ def _block_pointers(name: str, packed: list, scales: list, d_in: int, d_out: int
     whose peer access is then enabled), contiguity and 16-byte alignment,
     and that the blocks are at most ``TAIL_MAX_BLOCKS`` of equal width, a
     multiple of ``unit`` (the fused tail's and wgmma's ``TAIL_TILE_N``,
-    split-K's 64)."""
+    split-K's 16)."""
     n = len(packed)
     if n > TAIL_MAX_BLOCKS or d_out % n or (d_out // n) % unit:
         raise ValueError(f"{name}: the kernel takes 1 to {TAIL_MAX_BLOCKS} column blocks of equal width, a multiple "

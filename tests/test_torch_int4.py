@@ -22,6 +22,7 @@ tensor cores sum a group in another fp32 order than torch.matmul).
 """
 
 import ctypes
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -221,8 +222,9 @@ def test_tail_plan_stages_are_matmul_plans():
     (1, 6144, "splitk"), (8, 128256, "splitk"), (64, 256, "splitk"),
     (64, 384, "splitk"), (8, 32064, "splitk"), (8, 320, "splitk"),  # a ragged last item of 128 or 64 columns
     (65, 128, "wgmma"), (4096, 28672, "wgmma"), (65, 384, "wgmma"),
-    (8, 259, "mma_sync"), (4096, 600, "mma_sync"), (64, 600, "mma_sync"), (8, 96, "mma_sync"),
-    (65, 32064, "mma_sync"), (2, 259, "mma_sync"), (512, 259, "mma_sync")])
+    (8, 259, "mma_sync"), (4096, 600, "mma_sync"), (64, 600, "mma_sync"), (8, 96, "splitk"),  # 96: 16-column unit
+    (65, 32064, "mma_sync"), (2, 259, "mma_sync"), (512, 259, "mma_sync"),
+    (8, 16032, "splitk"), (64, 16, "splitk"), (8, 40, "mma_sync"), (8, 24, "mma_sync"), (65, 16032, "mma_sync")])
 def test_int4_matmul_route_gates(m, n, route):
     assert tint4.int4_matmul_route(m, n) == route
 
@@ -232,10 +234,12 @@ def test_int4_matmul_route_gates(m, n, route):
 @pytest.mark.parametrize("m,n,blocks,route", [
     (8, 4 * 32064, 4, "splitk"), (8, 2 * 32064, 2, "splitk"), (64, 4 * 320, 4, "splitk"), (1, 4 * 64, 4, "splitk"),
     (8, 2 * 64128, 2, "splitk"), (65, 2 * 64128, 2, "wgmma"), (4096, 4 * 7168, 4, "wgmma"),
-    (65, 4 * 32064, 4, "mma_sync"), (8, 4 * 96, 4, "mma_sync"), (8, 2 * 32, 2, "mma_sync"), (8, 1000, 3, "mma_sync")])
+    (65, 4 * 32064, 4, "mma_sync"), (8, 4 * 96, 4, "splitk"), (8, 2 * 32, 2, "splitk"), (8, 1000, 3, "mma_sync"),
+    (8, 8 * 16032, 8, "splitk"), (1, 8 * 16, 8, "splitk"), (64, 2 * 48, 2, "splitk"),  # the 8B head over 8, narrow
+    (4096, 8 * 16032, 8, "mma_sync"), (8, 4 * 24, 4, "mma_sync"), (8, 2 * 40, 2, "mma_sync")])  # off 128, off 16
 def test_int4_matmul_route_over_column_blocks(m, n, blocks, route):
     """The route of a weight in equal column blocks: split-K up to 64 rows
-    where each block is a multiple of 64 columns, wgmma above where each is
+    where each block is a multiple of 16 columns, wgmma above where each is
     a multiple of 128."""
     assert tint4.int4_matmul_route(m, n, blocks) == route
     assert tint4.int4_matmul_blocks_supported(m, [n // blocks] * blocks) == (route != "mma_sync" and n % blocks == 0)
@@ -244,9 +248,10 @@ def test_int4_matmul_route_over_column_blocks(m, n, blocks, route):
 # column blocks of the split-K route, (n, blocks): the 8B head over
 # {"model": 4} and a process's pair of its blocks, the tiny ragged head,
 # 64-column blocks, a whole 384-column weight, the 8B head over
-# {"model": 2}, the 8B qkv over 4, the whole 8B head
+# {"model": 2}, the 8B qkv over 4, the whole 8B head; the 8B head over
+# {"model": 8} (16,032 columns a block), blocks of 16, 48 and 80 columns
 _BLOCK_PLANS = [(4 * 32064, 4), (2 * 32064, 2), (4 * 320, 4), (4 * 64, 4), (384, 1), (2 * 64128, 2), (6144, 4),
-                (128256, 1)]
+                (128256, 1), (8 * 16032, 8), (8 * 16, 8), (2 * 48, 2), (4 * 80, 4)]
 
 
 @pytest.mark.parametrize("n,blocks", _BLOCK_PLANS)
@@ -254,8 +259,8 @@ _BLOCK_PLANS = [(4 * 32064, 4), (2 * 32064, 2), (4 * 320, 4), (4 * 64, 4), (384,
 def test_matmul_plan_over_ragged_blocks_covers_every_column_once(n, blocks, m):
     """matmul_plan's tiles run block by block, ceil(width / 256) a block:
     every column in exactly one tile, no tile across two blocks, every
-    tile but a block's last 256 columns wide and the last a multiple of 64;
-    items count those tiles times the K splits."""
+    tile but a block's last 256 columns wide and the last a multiple of 16
+    (split-K's unit); items count those tiles times the K splits."""
     plan = tint4.matmul_plan(m, 4096, n, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m), blocks)
     width = n // blocks
     per_block = -(-width // _SPLITK_TILE_N)
@@ -267,7 +272,7 @@ def test_matmul_plan_over_ragged_blocks_covers_every_column_once(n, blocks, m):
         assert mine[0][0] == b * width and mine[-1][1] == (b + 1) * width
         assert all(c1 - c0 == _SPLITK_TILE_N for c0, c1 in mine[:-1])
         last = mine[-1][1] - mine[-1][0]
-        assert 0 < last <= _SPLITK_TILE_N and last % 64 == 0
+        assert 0 < last <= _SPLITK_TILE_N and last % 16 == 0
     if width % _SPLITK_TILE_N == 0:  # blocks of whole tiles: the whole weight's plan
         whole = tint4.matmul_plan(m, 4096, n, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m))
         assert {k: v for k, v in plan.items() if k != "blocks"} == {k: v for k, v in whole.items() if k != "blocks"}
@@ -285,6 +290,26 @@ def test_ragged_head_blocks_take_the_whole_heads_split_count(m):
     assert (whole["tiles"], blocked["tiles"]) == (501, 504)
     assert whole["splits"] == blocked["splits"] == (5 if m <= 2 else 1)
     assert tint4.matmul_plan(m, 4096, 64128, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m), 2)["tiles"] == 252
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64])
+def test_head_over_8_blocks_takes_the_whole_heads_split_count(m):
+    """The 8B head over {"model": 8} (8 x 16,032 columns, a multiple of
+    split-K's 16-column unit): 63 tiles a block, the last [15,872, 16,032)
+    holding 160 columns, 504 in all as over {"model": 4}, so the plan
+    takes the whole head's K splits (5 up to 2 rows, one above) and the
+    blocks' launch can equal the whole head's bit for bit; blocks of 16
+    and 48 columns are one tile each."""
+    args = (m, 4096, 128256, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m))
+    whole, blocked = tint4.matmul_plan(*args), tint4.matmul_plan(*args, 8)
+    assert blocked["tiles"] == len(blocked["columns"]) == 504
+    assert blocked["columns"][62] == (15872, 16032) and blocked["columns"][63] == (16032, 16288)
+    assert blocked["columns"][-1] == (7 * 16032 + 15872, 128256)
+    assert whole["splits"] == blocked["splits"] == (5 if m <= 2 else 1)
+    for width, blocks in ((16, 8), (48, 2), (16, 1)):
+        plan = tint4.matmul_plan(m, 4096, width * blocks, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m), blocks)
+        assert plan["tiles"] == blocks
+        assert plan["columns"] == [(b * width, (b + 1) * width) for b in range(blocks)]
 
 
 @pytest.mark.parametrize("m", [1, 8, 40])
@@ -420,6 +445,40 @@ def test_fused_tail_kernel_matches_plain(cuda_device, m, act, unit_offset, hidde
     _close(got, tint4.int4_fused_layer_tail_plain(*args, **kw), scaled=True)
 
 
+# split-K column blocks narrower than a 128-column box or ending inside
+# one, (width, blocks): K = 1,024 (8 groups) leaves every plan of <= 8
+# tiles at 8 K splits, so the ticketed split sum runs over ragged tiles,
+# and the whole weight (one tile) takes the same splits
+_NARROW_BLOCKS = [(16, 8), (16, 2), (48, 4), (48, 2), (80, 2), (80, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("width,blocks", _NARROW_BLOCKS)
+def test_int4_matmul_over_narrow_blocks_matches_plain(cuda_device, width, blocks, m):
+    """int4_matmul over column blocks of 16, 48 and 80 columns (the split-K
+    route's 16-column unit; a box past the block's edge, or wider than the
+    block, TMA-filled with zeros): one splitk launch at more than one K
+    split, within the bf16 rule of the plain version, and bit-equal to the
+    launch over the concatenated weight at the same K splits."""
+    rng = np.random.default_rng(500 + width + blocks + m)
+    k, gs = 1024, 128
+    _, _, (tp, ts) = _weights(rng, k, width * blocks, gs)
+    tp, ts = tp.to(cuda_device), ts.to(cuda_device)
+    x = torch.tensor(rng.standard_normal((m, k)), dtype=torch.float32, device=cuda_device)
+    cut = ([t[:, b * width:(b + 1) * width].contiguous() for b in range(blocks)] for t in (tp, ts))
+    assert tint4.int4_matmul_route(m, width * blocks, blocks) == "splitk"
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = functools.partial(tint4.matmul_plan, m, k, width * blocks, gs, sms, *tint4._splitk_geometry(cuda_device, m))
+    assert plan(blocks)["splits"] == plan()["splits"] == k // gs
+    before = tint4.ROUTE_LAUNCHES["splitk"].value
+    got = tint4.int4_matmul(x, *cut, gs)
+    torch.cuda.synchronize()
+    assert tint4.ROUTE_LAUNCHES["splitk"].value == before + 1
+    _close(got, tint4.int4_matmul_plain(x, tp, ts, gs))
+    assert float((got - tint4.int4_matmul(x, tp, ts, gs)).abs().max()) == 0.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 33, 64])
 def test_tail_geometry_is_the_kernels(cuda_device, m):
@@ -453,16 +512,16 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
             tint4.int4_matmul(torch.zeros(m, 256, device=cuda_device), p, sc)
     lib, stream = tint4._lib(), torch.cuda.current_stream().cuda_stream
     # the C entries check their own gates: M above 64 on split-K, N off 128
-    # on wgmma, a block width off 64 on split-K (384 columns in 4 blocks)
-    # and off 128 on wgmma (384 in 2), and more than 8 blocks, before
-    # reading a block pointer
+    # on wgmma, a block width off 16 on split-K (96 columns in 4 blocks,
+    # and a whole 40) and off 128 on wgmma (384 in 2), and more than 8
+    # blocks, before reading a block pointer
     null_ptrs = (ctypes.c_void_p * 16)()
     assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 1, None, None, None, 65, 128, 128, 64, 1, 132,
                                           stream) != 0
     assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 1, None, 128, 200, 128, 64, 132, stream) != 0
-    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 4, None, None, None, 8, 384, 128, 64, 1, 132,
+    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 4, None, None, None, 8, 96, 128, 64, 1, 132,
                                           stream) != 0
-    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 1, None, None, None, 8, 96, 128, 64, 1, 132,
+    assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 1, None, None, None, 8, 40, 128, 64, 1, 132,
                                           stream) != 0
     assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 16, None, None, None, 8, 2048, 128, 64, 1, 132,
                                           stream) != 0
@@ -474,12 +533,13 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
                 [torch.zeros(2, w, device=cuda_device) for w in widths])
 
     x8 = torch.zeros(8, 256, device=cuda_device)
-    for widths in ((96,) * 2, (32,) * 4, (128,) * 16, (256, 128, 128)):  # off 64 (twice), > 8, unequal
+    for widths in ((40,) * 2, (24,) * 4, (128,) * 16, (256, 128, 128)):  # off 16 (twice), > 8, unequal
         with pytest.raises(ValueError, match="no column blocks"):
             tint4.int4_matmul(x8, *cut(*widths))
     with pytest.raises(ValueError, match="no column blocks"):  # ragged blocks above 64 rows: wgmma's 128
         tint4.int4_matmul(torch.zeros(96, 256, device=cuda_device), *cut(192, 192))
-    for widths in ((64,) * 4, (128,) * 3, (128,) * 8):  # ragged split-K blocks, 8 blocks: one launch
+    # ragged split-K blocks, 8 blocks, blocks narrower than a 128-column box: one launch
+    for widths in ((64,) * 4, (128,) * 3, (128,) * 8, (96,) * 2, (32,) * 4, (16,) * 8):
         assert tint4.int4_matmul(x8, *cut(*widths)).shape == (8, sum(widths))
     p2, s2 = cut(512, 512)
     with pytest.raises(ValueError):  # a block on the CPU

@@ -301,17 +301,18 @@ def test_int4_under_tp_close_to_jax_with_same_top1(hidden, inter, monkeypatch):
     each column split: at the fused-gate shape each layer's o / gate-up /
     down half is one fused-tail call over the column shards, qkv (two
     384-column shards) one call over its shards and the head (two 48-column
-    shards, off the 64-column unit) one a shard: layers + 2; below the
-    gate each product runs on its own, gate/up (two 128-column shards) in
-    one call, qkv, o, down and the head (48, 32 and 48 columns) once a
-    shard. The unsharded engine takes the tail at the gate shape too."""
+    shards, a multiple of split-K's 16-column unit) one call over its
+    shards: layers + 1; below the gate each product runs on its own, one
+    call over its shards (gate/up 128 columns a shard; qkv, o, down and
+    the head 48, 32, 32 and 48), as JAX launches it once. The unsharded
+    engine takes the tail at the gate shape too."""
     calls, want, tarch, tparams, ids, mask = _int4_tp_against_jax(hidden, inter, 2, monkeypatch)
     layers = tarch.num_layers
     assert calls == want
     if hidden == 512:
-        assert want == {"matmul": layers + 2, "tail": layers}
+        assert want == {"matmul": layers + 1, "tail": layers}
     else:
-        assert want == {"matmul": 2 * (4 * layers + 1) - layers, "tail": 0}
+        assert want == {"matmul": 4 * layers + 1, "tail": 0}
     _torch_forward(tarch, tparams, ids, mask)
     assert calls["tail"] == (2 * layers if hidden == 512 else 0)
 
@@ -319,7 +320,7 @@ def test_int4_under_tp_close_to_jax_with_same_top1(hidden, inter, monkeypatch):
 def test_int4_over_model_4_takes_the_fused_tail_close_to_jax(monkeypatch):
     """{"model": 4} at the fused gate's shape: 128-column o and down blocks
     and 512-column gate/up blocks, one fused-tail call a layer over them;
-    qkv's 192-column shards are a multiple of the split-K route's 64-column
+    qkv's 192-column shards are a multiple of the split-K route's 16-column
     unit (one call a layer over them, the last item of each block ragged),
     the head's 24-column shards are not, so product_route takes the head
     once a shard (layers + 4 int4_matmul calls); within the file's int4
@@ -402,11 +403,13 @@ def _int4_sharded(widths, device=CPU):
     ([64] * 4, 8, True),  # 64-column blocks at decode: one ragged split-K item a block
     ([32064] * 4, 8, True),  # the 8B head at {"model": 4}: each block's last item holds 64 columns
     ([32064] * 2, 8, True),  # a process's two blocks of that head
-    ([32] * 4, 8, False), ([96] * 2, 8, False),  # widths off the split-K route's 64-column unit
+    ([32] * 4, 8, True), ([96] * 2, 8, True),  # multiples of the split-K route's 16-column unit
+    ([24] * 4, 8, False), ([40] * 2, 8, False),  # widths off it
+    ([16] * 8, 8, True), ([48] * 2, 64, True),  # blocks narrower than a 128-column box
     ([192] * 2, 65, False), ([32064] * 4, 65, False),  # ragged blocks above 64 rows: wgmma keeps 128
     ([128] * 8, 8, True),  # 8 blocks (TAIL_MAX_BLOCKS): an 8-card node's model axis
     ([768] * 8, 8, True), ([3584] * 8, 4096, True),  # the 8B qkv at decode, gate/up at prefill, {"model": 8}
-    ([16032] * 8, 8, False), ([16032] * 8, 4096, False),  # the 8B head at {"model": 8}: off both units
+    ([16032] * 8, 8, True), ([16032] * 8, 4096, False),  # the 8B head at {"model": 8}: splitk, off wgmma's 128
     ([128] * 16, 8, False),  # more than TAIL_MAX_BLOCKS
     ([256, 128, 128], 65, False),  # unequal blocks
     ([128] * 3, 8, True),  # 384 columns at decode: splitk, the last item of each block half full
@@ -496,27 +499,21 @@ def test_int4_forward_over_readable_cards_matches_jax(p, monkeypatch):
 _MODEL_8_ARCH = dict(hidden_size=1024, intermediate_size=1024, num_heads=8, num_kv_heads=4, vocab_size=1024)
 
 
-@pytest.mark.parametrize("p", [8, 40])  # 32 tokens, 160 tokens
-def test_int4_forward_over_model_8_matches_jax(p, monkeypatch):
-    """{"model": 8}, an 8-card node's axis, at widths whose shards suit
-    every kernel unit: every int4 product is one int4_matmul call over its
-    8 blocks and a decode-sized forward takes the fused tail over them, as
-    JAX launches each kernel once over its gathered shards (layers + 1
-    calls and a tail a layer at 32 tokens, 4 x layers + 1 at 160, as
-    int4_forward_launches gives them); the logits are within the file's
-    int4 rule of JAX's forward over the same mesh of 8 virtual devices,
-    top-1 on >= 95 % of the positions, and equal the unsharded port
-    forward's bit for bit (the plain versions concatenate the blocks)."""
-    jarch, tarch = _archs("gqa", **_MODEL_8_ARCH)
-    params = _jax_params(jarch, seed=13, kind="int4")
+def _model_8_against_jax(p, monkeypatch, vocab_size=1024, seed=13):
+    """The int4 forward of ``_MODEL_8_ARCH`` (with ``vocab_size``) over
+    {"model": 8} against JAX's over the same mesh of 8 virtual devices, on
+    a batch of 4 prompts of p tokens: the calls equal
+    ``int4_forward_launches`` (layers + 1 and a tail a layer up to 64
+    tokens, 4 x layers + 1 above), the logits within the file's int4 rule
+    of JAX's, top-1 on >= 95 % of the positions, and equal to the
+    unsharded port forward's bit for bit (the plain versions concatenate
+    the blocks). Returns the split tree."""
+    jarch, tarch = _archs("gqa", **dict(_MODEL_8_ARCH, vocab_size=vocab_size))
+    params = _jax_params(jarch, seed=seed, kind="int4")
     tparams = tdec.params_from_jax(_np_tree(params), device="cpu")
     tmesh, jmesh = _meshes({"model": 8})
     sharded = tdec.shard_params(tparams, tmesh)
-    widths = {name: sharded["layers"][name].shards[0].packed.shape[-1] for name in ("qkv_w", "o_w", "gateup_w",
-                                                                                    "down_w")}
-    assert widths == {"qkv_w": 256, "o_w": 128, "gateup_w": 256, "down_w": 128}
-    assert sharded["lm_head"].shards[0].packed.shape[-1] == 128
-    ids, mask = _prompt_batch(np.random.default_rng(14 + p), b=4, p=p, vocab=1024)
+    ids, mask = _prompt_batch(np.random.default_rng(seed + 1 + p), b=4, p=p, vocab=vocab_size)
     m, layers = ids.size, tarch.num_layers
     assert tdec.int4_forward_launches(sharded, tarch, m, m) == ((layers + 1, layers) if m <= tint4.TAIL_MAX_M
                                                                 else (4 * layers + 1, 0))
@@ -527,6 +524,34 @@ def test_int4_forward_over_model_8_matches_jax(p, monkeypatch):
     np.testing.assert_allclose(got, jl, rtol=2e-2, atol=2e-2 * np.abs(jl).max())
     assert (got.argmax(-1) == jl.argmax(-1)).mean() >= 0.95
     np.testing.assert_array_equal(got, _torch_forward(tarch, tparams, ids, mask)[0])
+    return sharded
+
+
+@pytest.mark.parametrize("p", [8, 40])  # 32 tokens, 160 tokens
+def test_int4_forward_over_model_8_matches_jax(p, monkeypatch):
+    """{"model": 8}, an 8-card node's axis, at widths whose shards suit
+    every kernel unit: every int4 product is one int4_matmul call over its
+    8 blocks and a decode-sized forward takes the fused tail over them, as
+    JAX launches each kernel once over its gathered shards
+    (``_model_8_against_jax``)."""
+    sharded = _model_8_against_jax(p, monkeypatch)
+    widths = {name: sharded["layers"][name].shards[0].packed.shape[-1] for name in ("qkv_w", "o_w", "gateup_w",
+                                                                                    "down_w")}
+    assert widths == {"qkv_w": 256, "o_w": 128, "gateup_w": 256, "down_w": 128}
+    assert sharded["lm_head"].shards[0].packed.shape[-1] == 128
+
+
+def test_int4_forward_over_model_8_with_80_column_head_shards_matches_jax(monkeypatch):
+    """The same arch with a 640-token vocabulary: the head splits into
+    eight 80-column shards, a multiple of split-K's 16-column unit and of
+    neither 32 nor 64, so at 32 tokens the head is one int4_matmul call
+    over its 8 blocks (product_route BLOCKS), as the 8B head's 16,032-column
+    shards; the calls, the logits against JAX's forward and the unsharded
+    port forward as ``_model_8_against_jax`` holds them."""
+    sharded = _model_8_against_jax(8, monkeypatch, vocab_size=640, seed=15)
+    head = sharded["lm_head"]
+    assert [sh.packed.shape[-1] for sh in head.shards] == [80] * 8
+    assert tdec.product_route(head, 32, CPU) == tdec.BLOCKS
 
 
 def test_product_route_takes_no_blocks_off_the_merge_device_or_outside_int4_columns():
@@ -785,7 +810,8 @@ def _int4_weight_8b(gen, device, k, n):
 # 64 only, so each block's last item holds 64 columns); a process's pair
 # of those blocks (64,128 columns in 2), one 32,064-column shard alone
 # (a distinct card's), and the head over {"model": 8}'s 8 (16,032 columns:
-# off both units, refused)
+# a multiple of split-K's 16-column unit, each block's last item 160
+# columns, so one launch up to 64 rows; off wgmma's 128, refused above)
 _BLOCKED_8B = [("qkv", 6144, 2), ("qkv", 6144, 4), ("gate_up", 28672, 2), ("gate_up", 28672, 4),
                ("lm_head", 128256, 2), ("lm_head", 128256, 4), ("lm_head pair", 64128, 2),
                ("lm_head shard", 32064, 1), ("qkv", 6144, 8), ("gate_up", 28672, 8), ("lm_head", 128256, 8)]
@@ -801,7 +827,8 @@ def test_int4_matmul_over_column_blocks_on_the_card(name, n, blocks, m):
     bit-equal to the whole weight's launch (the same K splits and sums;
     max |d| printed). Blocks off 128 columns above 64 rows are refused
     (wgmma's unit); a single 32,064-column shard takes split-K up to 64
-    rows and mma_sync above."""
+    rows and mma_sync above. The head over 8 blocks takes the whole
+    head's K splits (504 tiles against 501)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda", 0)

@@ -91,7 +91,7 @@ def _readable_except(monkeypatch, blocked=()):
 # every product once a shard (16 x 2 + 4). Over 8 shards (qkv 128 columns
 # a shard, o and down 64, gate/up 256, the head 64) the tail's 128-column
 # tile refuses o and down, so the layers take the per-product route; at
-# decode every product's blocks suit splitk's 64-column unit, one call
+# decode every product's blocks suit splitk's 16-column unit, one call
 # each (4 x 2 + 1); at prefill wgmma's 128-column unit takes qkv and
 # gate/up and refuses o, down and the head, once a shard (2 x (1 + 8 + 1
 # + 8) + 8).
@@ -144,10 +144,11 @@ def _meta_8b(n: int, cards: int = 0):
 
 
 # {"model": n} -> (decode, prefill) launches over readable cards, and with
-# the pair (0, 1) blocked. Over 8 the head's 16,032-column shards are off
-# split-K's 64-column unit (and wgmma's 128): once a shard, 8 a forward
+# the pair (0, 1) blocked. Over 8 the head's 16,032-column shards are a
+# multiple of split-K's 16-column unit: one launch at its 8 rows, as over
+# 2 and 4
 _MODEL_AXES_8B = [(4, (33, 32), (129, 0), (516, 0)), (2, (33, 32), (129, 0), (258, 0)),
-                  (8, (40, 32), (136, 0), (1032, 0))]
+                  (8, (33, 32), (129, 0), (1032, 0))]
 
 
 @pytest.mark.parametrize("n,decode,prefill,per_shard", _MODEL_AXES_8B)
@@ -157,15 +158,16 @@ def test_int4_forward_launches_at_8b_width_over_distinct_cards(monkeypatch, n, d
     int4_matmul once for qkv a layer and once for the head over the peer
     cards' blocks: (33, 32); a prefill forward (M = 8 x 512, the head at
     the last position's 8 rows) every product once over its blocks: (129,
-    0). These are JAX's launches and the one-card axis's. Over 8 cards the
-    same, but for the head once a shard: (40, 32) and (136, 0). With the
-    pair (0, 1) blocked, every product runs once a shard at decode too:
-    ``per_shard``."""
+    0). These are JAX's launches and the one-card axis's, over 2, 4 and 8
+    cards (the 8-wide head's 16,032-column shards on split-K's 16-column
+    unit). With the pair (0, 1) blocked, every product runs once a shard
+    at decode too: ``per_shard``."""
     params = _meta_8b(n)
     _readable_except(monkeypatch)
     assert tdec.tail_route(params, LLAMA_8B, 8) == tdec.FUSED_TAIL
     assert all(tdec.product_route(params["layers"][name], m, CARDS[0]) == tdec.BLOCKS
                for name in ("qkv_w", "o_w", "gateup_w", "down_w") for m in (8, 4096))
+    assert tdec.product_route(params["lm_head"], 8, CARDS[0]) == tdec.BLOCKS
     assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == decode
     assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == prefill
     _readable_except(monkeypatch, blocked=((0, 1),))
@@ -179,15 +181,19 @@ def test_int4_forward_launches_at_8b_width_over_model_8_on_one_card():
     """{"model": 8} of one card at Llama-3.1-8B width: every shard on the
     merge card, so the routes are those of 8 readable cards: the tail
     once a layer over the o / gate-up / down blocks (512 and 3,584 columns
-    a shard) and int4_matmul once over qkv's (768), the head's eight
-    16,032-column shards once a shard: (40, 32) a decode forward, (136, 0)
-    a prefill one."""
+    a shard) and int4_matmul once over qkv's (768) and over the head's
+    eight 16,032-column shards at its 8 rows (split-K's 16-column unit):
+    (33, 32) a decode forward, (129, 0) a prefill one, JAX's launches.
+    A head of every position's logits (4,096 rows) is off wgmma's
+    128-column unit and runs once a shard."""
     params = _meta_8b(8, cards=1)
     assert tdec.tail_route(params, LLAMA_8B, 8) == tdec.FUSED_TAIL
     assert tdec.product_route(params["layers"]["qkv_w"], 8, CARDS[0]) == tdec.BLOCKS
-    assert tdec.product_route(params["lm_head"], 8, CARDS[0]) == tdec.PER_SHARD
-    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == (40, 32)
-    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == (136, 0)
+    assert tdec.product_route(params["lm_head"], 8, CARDS[0]) == tdec.BLOCKS
+    assert tdec.product_route(params["lm_head"], 4096, CARDS[0]) == tdec.PER_SHARD
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == (33, 32)
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == (129, 0)
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 4096) == (136, 0)
 
 
 # (leaf with its last block on cuda:4, which cuda:0 may not read) -> a
@@ -224,10 +230,10 @@ def test_peer_readable_on_one_device():
     assert not tint4.peer_readable(CARDS[0], CPU) and not tint4.peer_readable(CPU, CARDS[1])
 
 
-@pytest.mark.parametrize("name,unit", [("int4_matmul", 64), ("int4_fused_layer_tail o", 128)])
+@pytest.mark.parametrize("name,unit", [("int4_matmul", 16), ("int4_fused_layer_tail o", 128)])
 def test_block_pointers_refuse_a_block_the_card_cannot_read(name, unit):
     """The kernels' block checks with x or ctx on cuda:0 and a block on the
-    CPU: int4_matmul (split-K's 64-column unit) and the tail keep one rule
+    CPU: int4_matmul (split-K's 16-column unit) and the tail keep one rule
     (every block on that card or on a card it may read), and both raise
     naming the device before anything is launched."""
     packed, scales = tint4.quantize_int4_grouped(torch.ones(256, 512), 128)
@@ -321,11 +327,12 @@ def test_fused_tail_refuses_a_card_it_may_not_read(monkeypatch):
 # split), the head's ragged 32,064-column blocks over 4 cards (64,128 over
 # 2) at M = 8 (splitk), gate/up at M = 128 (wgmma). 8 blocks
 # ({"model": 8}): qkv at decode (768 columns a block, splitk), gate/up at
-# M = 128 (3,584, wgmma); the head's 16,032-column blocks are off both
-# units (refused)
+# M = 128 (3,584, wgmma), the head at decode (16,032 columns a block,
+# splitk on its 16-column unit, one K split as the whole head)
 _PEER_PRODUCTS = [("qkv", 4096, 6144, 1, 0), ("qkv", 4096, 6144, 8, 0), ("qkv", 4096, 6144, 64, 0),
                   ("lm_head", 4096, 128256, 8, 0), ("gate_up", 4096, 28672, 128, 0),
-                  ("qkv", 4096, 6144, 8, 8), ("qkv", 4096, 6144, 64, 8), ("gate_up", 4096, 28672, 128, 8)]
+                  ("qkv", 4096, 6144, 8, 8), ("qkv", 4096, 6144, 64, 8), ("gate_up", 4096, 28672, 128, 8),
+                  ("lm_head", 4096, 128256, 8, 8)]
 
 
 @pytest.mark.cuda
