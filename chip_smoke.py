@@ -170,7 +170,24 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      launch), and split-K blocks narrower than a box (8 x 16 and 2 x 48
      columns, K = 1,024 at 8 K splits, M = 1, 8, 64) against plain and
      bit-equal to the whole weight's launch; the seconds of (d) are
-     printed;
+     printed; (e) Qwen2.5-7B-Instruct's width (the qwen2 family, a bias on
+     qkv: vocab 152,064, H 3,584, 28 layers, 28 heads, 4 KV heads, I
+     18,944), seeded random bf16 weights made on the card after phase
+     14's are freed, int4 group 128: the unsharded int4 engine's prefill
+     chunk and decode step in fp32 compute (its whole-weight fused tail at
+     H = 3,584), the reference; the same weights over {"model": 8} of the
+     card (o and down 448 columns a shard, 3.5 of the tail's 128-column
+     tiles, on its 16-column block unit): 29 + 28 launches a decode
+     forward (JAX's), 701 + 0 a prefill forward
+     (``decoder.int4_forward_launches``: qkv's 576 and o / down's 448
+     columns run once a shard off wgmma's 128; JAX's 113 + 0 printed
+     beside), fp32 logits within phase 10's rule of the unsharded
+     engine's (max |d| printed); phase 10's 8 requests served over the
+     axis at 16 new tokens (no error response, decode route
+     ``fused_tail``, tok/s); the fused tail over the 8 blocks of 448 /
+     4,736 / 448 columns at M = 8 and 64 held as in (c) (bit-equal to the
+     whole-weight launch required) and timed beside it; the seconds of (e)
+     are printed;
  15. dp x tp training over {"data": 2, "model": 2} of the one card
      (``models/train.py`` and ``train_lm.py`` with ``mesh=``; no
      multi-card speed is read from it): (a) bert-base with phase 12a's
@@ -302,8 +319,9 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      with the products once a shard, and no peer reads), prefill and
      decode tok/s and launches of each; (d) {"model": 8} with block i on
      cuda:(i % n): qkv's and the head's int4_matmul (M = 8) and the fused
-     tail (M = 8, 64) over 8 blocks as in (a) (bit-equal to the same
-     blocks on cuda:0 required), and phase 10's weights as an int4 engine
+     tail (M = 8, 64; and at Qwen2.5-7B's width, 448 / 4,736 / 448
+     columns a block, M = 8) over 8 blocks as in (a) (bit-equal to the
+     same blocks on cuda:0 required), and phase 10's weights as an int4 engine
      over that axis, its forwards as in (b) (129 + 0 and 33 + 32); the
      seconds of (d) are printed.
      ``--phase 21`` runs it alone after phases 1 and 2.
@@ -1024,6 +1042,15 @@ def llama_8b(layers: int = 32) -> decoder.DecoderArch:
                                num_kv_heads=8, intermediate_size=14336, max_seq_len=131072,
                                rope_theta=500000.0, rms_norm_eps=1e-5,
                                rope_scaling=("llama3", 8.0, 1.0, 4.0, 8192.0))
+
+
+def qwen25_7b(layers: int = 28) -> decoder.DecoderArch:
+    """Qwen2.5-7B-Instruct's published config.json shapes (Hugging Face
+    Qwen/Qwen2.5-7B-Instruct): the qwen2 family, a bias on qkv, an untied
+    head."""
+    return decoder.DecoderArch(vocab_size=152064, hidden_size=3584, num_layers=layers, num_heads=28,
+                               num_kv_heads=4, intermediate_size=18944, max_seq_len=32768, rope_theta=1e6,
+                               rms_norm_eps=1e-6, qkv_bias=True)
 
 
 # int4_matmul's main-path shapes: (M, weight) at decode and at prefill
@@ -2428,7 +2455,9 @@ TP_ROUTES = (f"int4_matmul: {decoder.BLOCKS} where a column split's shards all l
              f"launch a product reads the shards in place; {decoder.PER_SHARD} otherwise (a card without peer access; "
              f"blocks off those units): one launch a shard, gathered on the merge device. The layer tail: {decoder.FUSED_TAIL} where every shard lies "
              f"on the merge device or on a card it may read (peer access; phase 21): one launch a layer of "
-             f"<= 64 tokens on the merge device reads the o, gate/up and down column shards in place; "
+             f"<= 64 tokens on the merge device reads the o, gate/up and down column shards in place (o and down "
+             f"shards each a multiple of 16 columns, the last tile of each ragged, Qwen2.5-7B's 448 over 8 among "
+             f"them; gate/up's of 128); "
              f"{decoder.PER_PRODUCT} where a shard lies on a card without peer access, across processes, past "
              f"{int4.TAIL_MAX_BLOCKS} shards and above 64 tokens: each product on its own route, the norm, "
              f"activation and residuals in PyTorch")
@@ -2454,15 +2483,16 @@ def tp_shard_timings(device, shapes, axis: int) -> list:
     return rows
 
 
-def tp_tail_timings(device, blocks: int) -> list:
+def tp_tail_timings(device, blocks: int, arch=None) -> list:
     """(c) the fused tail over the column shards of {"model": 4} or (d)
-    of {"model": 8} (``blocks``) at Llama-3.1-8B width, M = 8 and 64,
-    timed as phase 9 times the whole tail (32 layers' shards cycled,
-    plain, bound): held against its plain version under the bf16 rule,
-    and against the launch over the whole weights (the same plan:
-    bit-equal required), timed beside it."""
+    of {"model": 8} (``blocks``) at Llama-3.1-8B width (``arch``'s: (e)
+    Qwen2.5-7B's), M = 8 and 64, timed as phase 9 times the whole tail
+    (the layers' shards cycled, plain, bound): held against its plain
+    version under the bf16 rule, and against the launch over the whole
+    weights (the same K splits and sums: bit-equal required), timed
+    beside it."""
     gen = torch.Generator(device=device).manual_seed(SEED + 15)
-    arch = llama_8b()
+    arch = arch or llama_8b()
     h, inter, layers = arch.hidden_size, arch.intermediate_size, arch.num_layers
     whole = [int4_weights(gen, device, k, n, layers) for k, n in ((h, h), (h, 2 * inter), (inter, h))]
     devices = [device] * blocks
@@ -2488,7 +2518,7 @@ def tp_tail_timings(device, blocks: int) -> list:
         ref = int4.int4_fused_layer_tail_plain(*args(0), eps=1e-5)
         whole_out = int4.int4_fused_layer_tail(ctx, xres, nw, *(t[0] for pair in whole for t in pair), eps=1e-5)
         torch.cuda.synchronize()
-        r = {"M": m, "H": h, "I": inter, "blocks": blocks, "max_abs_err": compare(got, ref, what),
+        r = {"M": m, "H": h, "I": inter, "layers": layers, "blocks": blocks, "max_abs_err": compare(got, ref, what),
              "rule_ratio": rule_ratio(got, ref), "max_abs_diff_vs_whole_kernel": float((got - whole_out).abs().max()),
              "ms": median_ms(cycling(lambda i: int4.int4_fused_layer_tail(*args(i), eps=1e-5), layers)),
              "device_ms": device_ms(cycling(lambda i: int4.int4_fused_layer_tail(*args(i), eps=1e-5), layers)),
@@ -2723,14 +2753,105 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
           f"launch each, at the whole weight's K splits, within the bf16 rule of plain and bit-equal to the whole "
           f"weight's launch (checked): {json.dumps(out['narrow_blocks'])}", flush=True)
     for r in out["tail_shards"]:
-        print(f"phase 14{'d' if r['blocks'] == TP_WIDE else 'c'} int4_fused_layer_tail over {r['blocks']} column "
-              f"shards M={r['M']} H={r['H']} I={r['I']} ({smi}): max_abs_err={r['max_abs_err']:.4g} (worst ratio to "
-              f"the rule {r['rule_ratio']:.3f}), max |d| against the whole-weight launch "
-              f"{r['max_abs_diff_vs_whole_kernel']:.4g}; kernel {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} ms "
-              f"(whole weights: {r['whole_device_ms']:.4f}) plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) roofline share {r['roofline_share']:.3f} (device alone "
-              f"{r['device_roofline_share']:.3f}); wrapper host {r['host_us']:.1f} us a call (whole weights "
-              f"{r['whole_host_us']:.1f})", flush=True)
+        print(tail_shards_line(r, "d" if r["blocks"] == TP_WIDE else "c", smi), flush=True)
+    return out
+
+
+def tail_shards_line(r: dict, tag: str, smi: str) -> str:
+    return (f"phase 14{tag} int4_fused_layer_tail over {r['blocks']} column shards M={r['M']} H={r['H']} I={r['I']} "
+            f"({r['layers']} layers cycled; {smi}): max_abs_err={r['max_abs_err']:.4g} (worst ratio to the rule "
+            f"{r['rule_ratio']:.3f}), max |d| against the whole-weight launch {r['max_abs_diff_vs_whole_kernel']:.4g}; "
+            f"kernel {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} ms (whole weights: "
+            f"{r['whole_device_ms']:.4f}) plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+            f"roofline share {r['roofline_share']:.3f} (device alone {r['device_roofline_share']:.3f}); wrapper host "
+            f"{r['host_us']:.1f} us a call (whole weights {r['whole_host_us']:.1f})")
+
+
+# ---------------------------------------------------------------- phase 14e
+QWEN_SEED = SEED + 27
+QWEN_TOKENS = 16  # new tokens a served request (phase 20's count)
+# a forward's (int4_matmul, fused tail) launches at Qwen2.5-7B width over
+# {"model": 8} (28 layers): a prefill chunk runs qkv (576 columns a shard),
+# o and down (448) once a shard, off wgmma's 128-column unit, and gate/up
+# (4,736) and the head (the last position's 8 rows) once, 28 x (3 x 8 + 1)
+# + 1; a decode step qkv and the head once and the tail once a layer, over
+# o / down's 448-column blocks. JAX's: every product once over its gathered
+# shards, (113, 0) and (29, 28)
+QWEN_TP_LAUNCHES = [(701, 0), (29, 28)]
+QWEN_JAX_LAUNCHES = [(113, 0), (29, 28)]
+
+
+def phase_tp_qwen(device, smi: str) -> dict:
+    """Phase 14e: Qwen2.5-7B-Instruct's full width (the qwen2 family: a
+    bias on qkv; seeded random bf16 weights made on the card, int4 group
+    128) on the one card. (a) The unsharded int4 engine's prefill chunk
+    and decode step in fp32 compute (its whole-weight fused tail at H =
+    3,584), the reference; (b) the same weights over {"model": 8}
+    (``peer_engine``): the forwards' launches (``QWEN_TP_LAUNCHES``,
+    ``decoder.int4_forward_launches``'; JAX's beside them) and the fp32
+    logits within phase 10's rule of (a)'s, max |d| printed, and of the
+    same engine's under ``plain_int4`` (every int4_matmul and tail launch
+    at Qwen's shapes held against its plain version); (c) phase
+    10's 8 requests served over the axis at ``QWEN_TOKENS`` new tokens
+    (no error response; decode route ``fused_tail``; every forward's
+    launches checked); (d) the fused tail over the 8 blocks of 448 / 4,736
+    / 448 columns at M = 8 and 64 (``tp_tail_timings``: bit-equal to the
+    whole weights' launch)."""
+    t0 = time.perf_counter()
+    arch = qwen25_7b()
+    layers = arch.num_layers
+    params = decoder.init_params(arch, torch.Generator(device=device).manual_seed(QWEN_SEED), device,
+                                 torch.bfloat16)
+    prompts = server_prompts()
+    whole = TorchOfflineLLM(params=params, arch=arch, param_dtype="int4", compute_dtype=torch.bfloat16,
+                            device=device)
+    with forward_launches() as rec:
+        ref = forward_logits(whole, prompts, torch.float32)
+    out = {"unsharded_forwards": checked_forwards(rec, whole.params, arch, True, "phase 14e unsharded")}
+    if [(r[2], r[3]) for r in rec] != [(4 * layers + 1, 0), (layers + 1, layers)]:
+        raise AssertionError(f"phase 14e unsharded fp32 forwards: {rec}, expected whole-weight launches")
+    out["unsharded_fp32_forward_s"] = [r[4] for r in rec]
+    del whole
+    torch.cuda.empty_cache()
+    engine, out["build_s"] = peer_engine(params, arch, device, [device] * TP_WIDE)
+    del params
+    torch.cuda.empty_cache()
+    out["widths"] = {name: engine.params["layers"][name].shards[0].packed.shape[-1]
+                     for name in ("qkv_w", "o_w", "gateup_w", "down_w")}
+    out["widths"]["lm_head"] = engine.params["lm_head"].shards[0].packed.shape[-1]
+    out.update(peer_forwards(engine, arch, prompts, ref, f"phase 14e over {{'model': {TP_WIDE}}}", plain=True,
+                             want=QWEN_TP_LAUNCHES))
+    out["decode_route"] = decoder.tail_route(engine.params, arch, len(prompts))
+    with forward_launches() as rec:
+        run = serve_route(engine, prompts, QWEN_TOKENS, "phase 14e")
+    out["served_forwards"] = checked_forwards(rec, engine.params, arch, True, "phase 14e served")
+    launches = run["launches"]
+    if (launches["int4_matmul"], launches["int4_fused_layer_tail"]) != (sum(r[2] for r in rec), sum(r[3] for r in rec)):
+        raise AssertionError(f"phase 14e served: launches {launches} outside the recorded forwards {rec}")
+    out.update({k: run[k] for k in ("prefill_tok_s", "decode_tok_s", "wall_s", "launches", "route_launches",
+                                    "completion_tokens")})
+    del engine
+    torch.cuda.empty_cache()
+    out["tail_shards"] = tp_tail_timings(device, TP_WIDE, arch)
+    out["phase_s"] = time.perf_counter() - t0
+    logits = out["logits_fp32_vs_phase_14"]
+    print(f"phase 14e Qwen2.5-7B-Instruct width ({arch.num_layers} layers, H {arch.hidden_size}, I "
+          f"{arch.intermediate_size}, qkv bias), int4 weights over {{'model': {TP_WIDE}}} on one card ({smi}): shard "
+          f"widths {json.dumps(out['widths'])}; forwards (checked) {json.dumps(out['forwards'])} (expected "
+          f"{QWEN_TP_LAUNCHES}, int4_forward_launches'; JAX's {QWEN_JAX_LAUNCHES}); the unsharded engine's "
+          f"{json.dumps(out['unsharded_forwards'])}; fp32 seconds {out['fp32_forward_s']} (unsharded "
+          f"{out['unsharded_fp32_forward_s']}); fp32-compute logits against the unsharded engine (checked): max |d| "
+          f"prefill {logits['prefill']['max_abs_err']:.4g}, decode step {logits['decode_step']['max_abs_err']:.4g}; "
+          f"{json.dumps(logits)}; against the same engine on the plain versions (checked) "
+          f"{json.dumps(out['logits_fp32_vs_plain'])}; build {out['build_s']:.3f} s", flush=True)
+    print(f"phase 14e served over {{'model': {TP_WIDE}}} ({smi}): 8 requests x {QWEN_TOKENS} tokens, 512-token "
+          f"bucket, decode route {out['decode_route']}, no error response: prefill {out['prefill_tok_s']:.1f} tok/s, "
+          f"decode {out['decode_tok_s']:.1f} tok/s, wall {out['wall_s']:.3f} s; launches {out['launches']}, "
+          f"int4_matmul by route {out['route_launches']}; per forward (checked) "
+          f"{json.dumps(out['served_forwards'])}; completion tokens {out['completion_tokens']}", flush=True)
+    for r in out["tail_shards"]:
+        print(tail_shards_line(r, "e", smi), flush=True)
+    print(f"phase 14e in all {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -3070,18 +3191,19 @@ def peer_matmul_timings(device, cards: list, shapes=PEER_MATMUL_SHAPES, blocks: 
     return rows
 
 
-def peer_tail_timings(device, cards: list, blocks: int = 0) -> list:
+def peer_tail_timings(device, cards: list, blocks: int = 0, arch=None) -> list:
     """21a (21d): the fused tail on the first card over the o / gate-up /
     down column blocks spread over ``cards`` (block b on card b % n for
     ``blocks`` blocks, one a card by default, as ``decoder.shard_params``
-    places a model axis over distinct cards) at
-    Llama-3.1-8B width, M = 8 and 64: one launch each, held against its
-    plain version under the bf16 rule and against the same blocks on the
-    first card (bit-equal required), then timed cycling through 32 layers'
+    places a model axis over distinct cards) at Llama-3.1-8B width
+    (``arch``'s: 21d also Qwen2.5-7B's, whose o and down blocks end in a
+    ragged tile), M = 8 and 64: one launch each, held against its plain
+    version under the bf16 rule and against the same blocks on the first
+    card (bit-equal required), then timed cycling through the layers'
     blocks, with the host and device alone, beside the one-card blocks in
     turns (one card, cards, cards, one card), against the NVLink bound."""
     gen = torch.Generator(device=device).manual_seed(SEED + 21)
-    arch = llama_8b()
+    arch = arch or llama_8b()
     h, inter, layers, n = arch.hidden_size, arch.intermediate_size, arch.num_layers, len(cards)
     blocks = blocks or n
     spread = [cards[b % n] for b in range(blocks)]
@@ -3132,19 +3254,19 @@ def peer_tail_timings(device, cards: list, blocks: int = 0) -> list:
     return rows
 
 
-def peer_forwards(engine, arch, prompts, ref: tuple, what: str, plain: bool = False) -> dict:
-    """21b (14d, 21d): the engine's prefill chunk and decode step in fp32
-    compute (the step fed ``ref``'s token): each forward's launches against
-    ``decoder.int4_forward_launches`` and against the one-card axis's (a
-    prefill forward 4 x layers + 1 int4_matmul and no tail, a decode
-    forward layers + 1 and a tail a layer: JAX's, the head one launch over
-    2, 4 or 8 blocks), the logits
-    within phase 10's rule of ``ref``'s (phase 14's engine: the one-card
-    axis's in 21, the unsharded one in 14d), max |d| reported; with
-    ``plain``, also within it of the same engine's under ``plain_int4``
-    (the plain versions on the same blocks and shards)."""
+def peer_forwards(engine, arch, prompts, ref: tuple, what: str, plain: bool = False, want=None) -> dict:
+    """21b (14d, 14e, 21d): the engine's prefill chunk and decode step in
+    fp32 compute (the step fed ``ref``'s token): each forward's launches
+    against ``decoder.int4_forward_launches`` and against ``want`` (by
+    default the one-card axis's at Llama-3.1-8B width: a prefill forward 4
+    x layers + 1 int4_matmul and no tail, a decode forward layers + 1 and
+    a tail a layer: JAX's, the head one launch over 2, 4 or 8 blocks), the
+    logits within phase 10's rule of ``ref``'s (phase 14's engine: the
+    one-card axis's in 21, the unsharded one in 14d and 14e), max |d|
+    reported; with ``plain``, also within it of the same engine's under
+    ``plain_int4`` (the plain versions on the same blocks and shards)."""
     layers = arch.num_layers
-    want = [(4 * layers + 1, 0), (layers + 1, layers)]  # a prefill chunk, a decode step
+    want = want or [(4 * layers + 1, 0), (layers + 1, layers)]  # a prefill chunk, a decode step
     with forward_launches() as rec:
         got = forward_logits(engine, prompts, torch.float32, ref[2])
     out = {"forwards": checked_forwards(rec, engine.params, arch, True, f"{what} fp32 forwards")}
@@ -3240,7 +3362,8 @@ def phase_peer_tp(device, smi: str) -> dict:
     peer blocks, 21b the engine's forwards and logits over 2 and 4 cards,
     21c the served requests on the three routes of ``PEER_ROUTES``, 21d
     qkv's int4_matmul and the fused tail over {"model": 8}'s 8 blocks,
-    block i on card i % n, and that engine's forwards. On one card it
+    block i on card i % n (the tail at Llama-3.1-8B's and at Qwen2.5-7B's
+    widths), and that engine's forwards. On one card it
     prints why it did not run and returns None."""
     count = torch.cuda.device_count()
     if count < 2:
@@ -3254,6 +3377,8 @@ def phase_peer_tp(device, smi: str) -> dict:
     wide_t0 = time.perf_counter()
     out["matmul"] += peer_matmul_timings(device, cards, PEER_WIDE_MATMUL_SHAPES, TP_WIDE)
     out["tail"] += peer_tail_timings(device, cards, TP_WIDE)
+    # Qwen2.5-7B's 448 / 4,736 / 448-column blocks (o and down off the 128-column tile)
+    out["tail"] += peer_tail_timings(device, cards, TP_WIDE, qwen25_7b())
     out["wide_s"] += time.perf_counter() - wide_t0
     out["wall_s"] = time.perf_counter() - t0
     for r in out["matmul"]:
@@ -3779,6 +3904,7 @@ def main() -> None:
     process_mesh = phase_process_mesh(device, serving, sharded, smi)
     tp_t0 = time.perf_counter()
     tp = phase_tp(device, server, smi)
+    qwen = phase_tp_qwen(device, smi)
     tp_wall_s = time.perf_counter() - tp_t0
     process_tp = phase_process_tp(device, tp, smi)
     peer_tp = phase_peer_tp(device, smi)
@@ -3841,18 +3967,20 @@ def main() -> None:
                             "harness_dryrun_launches": harness["dryrun"]["int4_matmul_launches"]}
                            if counter is int4.LAUNCHES else
                            {"tp_launches": tp["int4"]["launches"][counter.name], "tp_routes": TP_ROUTES,
-                            "tp_shard_shapes": tp["tail_shards"]}),
+                            "tp_shard_shapes": tp["tail_shards"], "qwen_tp_shard_shapes": qwen["tail_shards"]}),
                         "distinct_cards_launches": None if peer_tp is None else
                         peer_tp["runs"][PEER_ROUTES[0]][0]["launches"][counter.name],
                         "distinct_cards_shapes": None if peer_tp is None else
                         peer_tp["matmul" if counter is int4.LAUNCHES else "tail"],
                         "tp_launches_per_forward": tp["int4"]["forwards"],
                         "tp_model_8_launches_per_forward": tp["wide"]["forwards"],
+                        "qwen_tp_model_8_launches_per_forward": qwen["forwards"],
+                        "qwen_tp_model_8_served_launches": qwen["launches"][counter.name],
                         "process_tp_launches": [r[counter.name] for r in process_tp["int4"]["launches"]],
                         "process_tp_launches_per_forward": process_tp["int4"]["forwards"],
                         "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks
                                            + (tp["shards"] + tp["narrow_blocks"] if counter is int4.LAUNCHES
-                                              else tp["tail_shards"])
+                                              else tp["tail_shards"] + qwen["tail_shards"])
                                            + ([] if peer_tp is None else
                                               peer_tp["matmul" if counter is int4.LAUNCHES else "tail"])),
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -3869,7 +3997,8 @@ def main() -> None:
         raise AssertionError(f"the port loaded jax or the JAX package: {foreign[:5]}")
 
     peer_wall = "not run" if peer_tp is None else f"{peer_tp['wall_s']:.1f} s, 21d {peer_tp['wide_s']:.1f} s"
-    print(f"run wall {time.perf_counter() - run_t0:.1f} s (phase 14: {tp_wall_s:.1f} s, 14d {tp['wide_s']:.1f} s; "
+    print(f"run wall {time.perf_counter() - run_t0:.1f} s (phase 14: {tp_wall_s:.1f} s, 14d {tp['wide_s']:.1f} s, "
+          f"14e {qwen['phase_s']:.1f} s; "
           f"phase 16: {recipe_wall_s:.1f} s; phase 20: {process_tp['wall_s']:.1f} s; phase 21: {peer_wall})",
           flush=True)
     print(json.dumps({"kernels": entries}))

@@ -77,8 +77,8 @@
 // of three). At decode it is bound by its weight bytes (~102 MB of packed
 // weights and scales per call at Llama-3.1-8B width, 30.7 us at 3.35
 // TB/s), so its design is about keeping every SM's memory pipe full:
-// - split-K: a work item is (128-column tile, K split) and a split is a
-//   run of whole scale groups; ops/int4.tail_plan picks the split count
+// - split-K: a work item is (a tile of up to 128 columns, K split) and a
+//   split is a run of whole scale groups; ops/int4.tail_plan picks the split count
 //   that gives every block an item at the least cost. fp32 partials go to
 //   a workspace, and the tile's last split to arrive (an integer ticket)
 //   sums them in split order, adding x_res (o) or xmid (down), so the
@@ -103,9 +103,15 @@
 //   `model` axis's shards on one device, the TP decode path): a block has
 //   its own tensor map and scale pointer, passed by value in the
 //   kernel's parameters (5 KB at 8 blocks: past the 4 KB of toolkits
-//   before 12.1), and a box's global column picks its block, so the
-//   shards are read in place, in one launch, with the same items,
-//   splits and sums as the whole weight (bit-equal output). A
+//   before 12.1). The o and down stages tile each block on its own, the
+//   last tile of a block ragged (blocks of any multiple of 16 columns:
+//   Qwen2.5-7B's 448 over an 8-card axis), as int4_matmul's split-K
+//   route does; gate/up's item pairs a gate box with its up box I
+//   columns on, and takes blocks of a multiple of 128. The sums of
+//   squares behind the RMSNorm are one partial per 16 columns by global
+//   column, summed in an order that H alone sets. So the shards are read
+//   in place, in one launch, with the whole weight's splits and sums
+//   (bit-equal output). A
 //   block may also lie on a peer card of the launching one (a `model` axis
 //   over distinct cards, after comorag_enable_peer_access): its tensor
 //   map and scale copies address it in the unified address space, so the
@@ -406,14 +412,15 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w_hi) {
 // A weight arrives as `blocks` column blocks of `bw` columns each (one
 // block: the whole weight; more: a model axis's column shards, each its
 // own [K/2, bw] packed tensor and [K/gs, bw] scales, read in place).
-// Global output column c lies in block c / bw at local column c % bw. The
-// tail's stages take bw a multiple of BN and tile the whole N, so no box
-// straddles two blocks; PRODUCT takes bw a multiple of PRODUCT_UNIT and
-// tiles each block on its own (block_tiles items a block, the last one
-// ragged where bw is no multiple of its span). Up to 8 blocks: a `model`
-// axis as wide as an 8-card node (Llama-3.1-8B's shards there: qkv 768,
-// o and down 512, gate/up 3,584 columns, each a multiple of BN; the head
-// 16,032, a multiple of PRODUCT_UNIT only).
+// Global output column c lies in block c / bw at local column c % bw.
+// PRODUCT and the tail's o and down stages take bw a multiple of
+// BLOCK_UNIT and tile each block on its own (block_tiles items a block,
+// the last one ragged where bw is no multiple of its span); gate/up takes
+// bw a multiple of BN and tiles the whole I, so neither of an item's two
+// boxes (at n0 and I + n0) straddles two blocks. Up to 8 blocks: a
+// `model` axis as wide as an 8-card node (Llama-3.1-8B's shards there:
+// qkv 768, o and down 512, gate/up 3,584 columns; the head 16,032;
+// Qwen2.5-7B's: qkv 576, o and down 448, gate/up 4,736, the head 19,008).
 constexpr int MAX_BLOCKS = 8;
 
 struct Gemm {
@@ -422,7 +429,7 @@ struct Gemm {
   int bw;              // columns of a block (N for a whole weight)
   int second;          // column offset of the second half (gate/up: I), else -1
   int span;            // output columns a tile advances (a product item's boxes lie side by side)
-  int block_tiles;     // PRODUCT: tiles a block, ceil(bw / span); the tail's stages: 0 (tiles over the whole N)
+  int block_tiles;     // tiles a block, ceil(bw / span); GATE_UP: 0 (tiles over the whole I)
   int tiles, splits;
   float* ws;           // [splits, M, N] fp32 partials, by global column
   unsigned* tickets;   // [tiles], 0 between launches
@@ -435,12 +442,13 @@ struct Gemm {
 enum Stage { O_PROJ = 0, GATE_UP = 1, DOWN = 2, PRODUCT = 3 };
 constexpr int PRODUCT_NB = 2;  // a stage holds two boxes
 constexpr int PRODUCT_TILE = PRODUCT_NB * BN;
-// PRODUCT's block width unit: a block's last item may end any multiple of
-// 16 columns into a box (the scale row's bulk copy of cols * 4 bytes, at
-// least 64, and the float4 stores stop there). 16 is the floor: a
-// block's packed map has a row stride of bw bytes, and a tensor map
-// takes strides in multiples of 16 bytes only
-constexpr int PRODUCT_UNIT = 16;
+// The block width unit of PRODUCT, O_PROJ and DOWN: a block's last item
+// may end any multiple of 16 columns into a box (the scale row's bulk
+// copy of cols * 4 bytes, at least 64, and the float4 stores stop there).
+// 16 is the floor: a block's packed map has a row stride of bw bytes, and
+// a tensor map takes strides in multiples of 16 bytes only. It is also
+// the width of a sum-of-squares partial (Args::sq)
+constexpr int BLOCK_UNIT = 16;
 // The product's rings: at M <= 8 more blocks of fewer stages stream
 // faster (5 x 4 and 4 x 4 beat the tail's 2 x 10 at lm_head: PERF.md); above,
 // the tail's, untuned
@@ -458,7 +466,7 @@ struct Args {
   float* xmid;    // [M, H] fp32
   bf16* xn;       // [M, H]
   bf16* h;        // [M, I]
-  float* sq;      // [H / BN, M] per-tile sums of squares of xmid
+  float* sq;      // [H / BLOCK_UNIT, M] sums of squares of xmid, one per 16 columns by global column
   Gemm g[4];
   int M, H, I, gs, unit_offset, act;
   float eps;
@@ -505,16 +513,15 @@ __device__ __forceinline__ int out_col(const Gemm& g, int n0, int col) {
 }
 
 // A tile's place: its block, its first column in that block, its first
-// output column n0 and its columns inside the block (PRODUCT: its block's
-// tiles run from the block's column 0, so the last may hold fewer than
-// span; the tail's stages: tiles of span columns over the whole N, block
-// found per box)
+// output column n0 and its columns inside the block (its block's tiles
+// run from the block's column 0, so the last may hold fewer than span;
+// GATE_UP: tiles of span columns over the whole I, block found per box)
 struct Place {
   int block, local, n0, cols;
 };
 template <int STAGE_ID>
 __device__ __forceinline__ Place place_of(const Gemm& g, int tile) {
-  if constexpr (STAGE_ID == PRODUCT) {
+  if constexpr (STAGE_ID != GATE_UP) {
     const int b = tile / g.block_tiles, local = (tile - b * g.block_tiles) * g.span;
     return {b, local, b * g.bw + local, min(g.span, g.bw - local)};
   } else {
@@ -532,17 +539,17 @@ struct Boxes {
   const CUtensorMap* map[NB];
   const float* S[NB];
   int col[NB];
-  int cols[NB];  // PRODUCT: the box's columns inside its block (a multiple of PRODUCT_UNIT up to BN, or 0)
+  int cols[NB];  // the box's columns inside its block (a multiple of BLOCK_UNIT up to BN, or 0; GATE_UP: BN)
   int item = -1;
   template <int STAGE_ID>
   __device__ __forceinline__ void find(const Args& A, const Gemm& g, const Cursor& c) {
     if (c.item == item) return;
     item = c.item;
-    if constexpr (STAGE_ID == PRODUCT) {
-      const Place p = place_of<PRODUCT>(g, c.tile());
+    if constexpr (STAGE_ID != GATE_UP) {
+      const Place p = place_of<STAGE_ID>(g, c.tile());
 #pragma unroll
       for (int cb = 0; cb < NB; ++cb) {
-        map[cb] = &A.pmap[PRODUCT][p.block];
+        map[cb] = &A.pmap[STAGE_ID][p.block];
         S[cb] = g.S[p.block];
         col[cb] = p.local + cb * BN;
         cols[cb] = max(0, min(BN, p.cols - cb * BN));
@@ -555,15 +562,16 @@ struct Boxes {
         map[cb] = &A.pmap[STAGE_ID][b];
         S[cb] = g.S[b];
         col[cb] = global - b * g.bw;
+        cols[cb] = BN;
       }
     }
   }
 };
 
 // One step into a ring stage, issued by one thread: the x box, NB packed
-// boxes and NB scale rows, all completing on the stage's barrier. A
-// PRODUCT box that runs past its block's edge, or is wider than its
-// block, is loaded whole (TMA fills the columns past the edge with zeros
+// boxes and NB scale rows, all completing on the stage's barrier. A box
+// that runs past its block's edge, or is wider than its block, is loaded
+// whole (TMA fills the columns past the edge with zeros
 // and counts the whole box's bytes) beside the scales of its columns
 // inside the block, a multiple of 16 (64 bytes and up); a box wholly past
 // the edge is not loaded. Either way the stage's columns past the edge
@@ -573,19 +581,16 @@ __device__ __forceinline__ void issue_step(unsigned char* stage, uint64_t* bar, 
                                            Boxes<NB>& bx) {
   const Gemm& g = A.g[STAGE_ID];
   bx.template find<STAGE_ID>(A, g, c);
-  uint32_t bytes = C::X_BYTES + NB * BOX + NB * BN * 4;
-  if constexpr (STAGE_ID == PRODUCT) {
-    bytes = C::X_BYTES;
+  uint32_t bytes = C::X_BYTES;
 #pragma unroll
-    for (int cb = 0; cb < NB; ++cb)
-      if (bx.cols[cb] > 0) bytes += BOX + bx.cols[cb] * 4;
-  }
+  for (int cb = 0; cb < NB; ++cb)
+    if (bx.cols[cb] > 0) bytes += BOX + bx.cols[cb] * 4;
   mbar_expect_tx(bar, bytes);
   tma_load_2d(stage, &A.xmap[STAGE_ID], bar, c.k, 0);
   const size_t row = (size_t)(c.k / A.gs) * g.bw;  // the step's scale row in its block
 #pragma unroll
   for (int cb = 0; cb < NB; ++cb) {
-    const int cols = STAGE_ID == PRODUCT ? bx.cols[cb] : BN;
+    const int cols = bx.cols[cb];
     if (cols == 0) continue;
     tma_load_2d(stage + C::X_BYTES + cb * BOX, bx.map[cb], bar, bx.col[cb], c.k / 2);
     bulk_copy(stage + C::X_BYTES + C::W_BYTES + cb * BN * 4, bx.S[cb] + row + bx.col[cb], cols * 4, bar);
@@ -663,7 +668,7 @@ __device__ __forceinline__ void compute_step(const unsigned char* stage, const C
 // Writes this warp's part of the item's partial to the workspace and
 // takes a ticket; the tile's last split sums the workspace in split order
 // and finishes the stage's function there. A product of one split writes
-// its sums to out directly (no workspace, no ticket). PRODUCT writes no
+// its sums to out directly (no workspace, no ticket). No stage writes a
 // column past its block's edge.
 template <class C, int NB, int STAGE_ID>
 __device__ void finish_item(const Args& A, const Cursor& c, const Acc<C, NB>& acc, unsigned* flag) {
@@ -681,7 +686,7 @@ __device__ void finish_item(const Args& A, const Cursor& c, const Acc<C, NB>& ac
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int tok = wt * 8 * C::NT + n * 8 + 2 * t4 + e, col = cb * BN + ng * 32 + 4 * g8;
-        if (tok < M && (STAGE_ID != PRODUCT || col < p.cols))
+        if (tok < M && (STAGE_ID == GATE_UP || col < p.cols))
           *reinterpret_cast<float4*>(ws + (size_t)tok * g.N + out_col(g, n0, col)) =
               make_float4(acc.v[cb][0][n][e], acc.v[cb][0][n][2 + e], acc.v[cb][1][n][e], acc.v[cb][1][n][2 + e]);
       }
@@ -701,21 +706,28 @@ __device__ void finish_item(const Args& A, const Cursor& c, const Acc<C, NB>& ac
     }
     return v;
   };
-  constexpr int Q4 = BN / 4;  // float4 columns of the tile
+  constexpr int Q4 = BN / 4;  // float4 columns of a whole tile
+  const int q = p.cols / 4;   // float4 columns of the tile inside its block
   if (STAGE_ID == O_PROJ) {
-    // xmid = x_res + ctx @ O for this tile, and its sum of squares per
-    // token: a warp per token, a lane per 4 of the tile's 128 columns
-    static_assert(Q4 == 32, "one float4 column per lane");
+    // xmid = x_res + ctx @ O for this tile's columns, and the sums of
+    // squares of each 16 of them per token, by global column (the same
+    // partials whatever the blocks): a warp per token, a lane per 4
+    // columns, four lanes a partial
+    static_assert(Q4 == 32 && BLOCK_UNIT == 16, "one float4 column per lane, four lanes a partial");
     for (int tok = warp; tok < M; tok += C::WARPS) {
       const int col = n0 + 4 * lane;
-      const size_t o = (size_t)tok * A.H + col;
-      const float4 r = *reinterpret_cast<const float4*>(A.xres + o), p = split_sum(tok, col);
-      const float4 v = make_float4(r.x + p.x, r.y + p.y, r.z + p.z, r.w + p.w);
-      *reinterpret_cast<float4*>(A.xmid + o) = v;
-      float q = v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
-      if (lane == 0) A.sq[c.tile() * M + tok] = q;
+      const bool inside = lane < q;
+      float sq = 0.f;
+      if (inside) {
+        const size_t o = (size_t)tok * A.H + col;
+        const float4 r = *reinterpret_cast<const float4*>(A.xres + o), s = split_sum(tok, col);
+        const float4 v = make_float4(r.x + s.x, r.y + s.y, r.z + s.z, r.w + s.w);
+        *reinterpret_cast<float4*>(A.xmid + o) = v;
+        sq = v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+      }
+      sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+      sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+      if (inside && lane % 4 == 0) A.sq[(col / BLOCK_UNIT) * M + tok] = sq;
     }
   } else if (STAGE_ID == GATE_UP) {
     for (int i = threadIdx.x; i < M * Q4; i += C::THREADS) {
@@ -727,14 +739,13 @@ __device__ void finish_item(const Args& A, const Cursor& c, const Acc<C, NB>& ac
           pack_bf16(activation(gt.z, A.act) * up.z, activation(gt.w, A.act) * up.w);
     }
   } else if (STAGE_ID == PRODUCT) {
-    const int q = p.cols / 4;  // float4 columns of the item inside its block
     for (int i = threadIdx.x; i < M * q; i += C::THREADS) {
       const int tok = i / q, col = n0 + 4 * (i % q);
       *reinterpret_cast<float4*>(A.out + (size_t)tok * g.N + col) = split_sum(tok, col);
     }
   } else {
-    for (int i = threadIdx.x; i < M * Q4; i += C::THREADS) {
-      const int tok = i / Q4, col = n0 + 4 * (i % Q4);
+    for (int i = threadIdx.x; i < M * q; i += C::THREADS) {
+      const int tok = i / q, col = n0 + 4 * (i % q);
       const size_t o = (size_t)tok * A.H + col;
       const float4 x = __ldcg(reinterpret_cast<const float4*>(A.xmid + o)), p = split_sum(tok, col);
       *reinterpret_cast<float4*>(A.out + o) = make_float4(x.x + p.x, x.y + p.y, x.z + p.z, x.w + p.w);
@@ -801,16 +812,21 @@ __global__ void __launch_bounds__(C::THREADS, C::BLOCKS) fused_tail_kernel(const
   cg::grid_group grid = cg::this_grid();
   int steps = 0;
 
-  // 1. xmid = x_res + ctx @ O (the tile's last split), sums of squares per tile
+  // 1. xmid = x_res + ctx @ O (the tile's last split), sums of squares per 16 columns
   run_stage<C, 1, O_PROJ>(A, ring, full, steps, &flag);
   grid.sync();
 
-  // 2. xn = RMSNorm(xmid) -> bf16: items of (token, 512 columns)
-  const int chunks = A.H / 512, o_tiles = A.H / BN;
+  // 2. xn = RMSNorm(xmid) -> bf16: items of (token, 512 columns). Each
+  // warp sums the token's H / 16 partials in an order that H alone sets
+  // (lane l: partials l, l + 32, ...; then a butterfly, which leaves every
+  // lane the same sum), so the norm does not depend on the blocks
+  const int chunks = A.H / 512, parts = A.H / BLOCK_UNIT, lane = threadIdx.x & 31;
   for (int item = blockIdx.x; item < A.M * chunks; item += gridDim.x) {
     const int tok = item / chunks, c0 = (item % chunks) * 512;
     float total = 0.f;
-    for (int t = 0; t < o_tiles; ++t) total += __ldcg(A.sq + t * A.M + tok);
+    for (int t = lane; t < parts; t += 32) total += __ldcg(A.sq + t * A.M + tok);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
     const float inv = rsqrtf(total / A.H + A.eps);
     for (int c = c0 + threadIdx.x; c < c0 + 512; c += C::THREADS) {
       const float normed = __ldcg(A.xmid + (size_t)tok * A.H + c) * inv;
@@ -924,13 +940,16 @@ cudaError_t p_map(CUtensorMap* map, const void* packed, int K, int N) {
 
 // Stage `id` of A over a [K, N] weight that arrives as `blocks` column
 // blocks (P[b], S[b]: block b's packed [K/2, N/blocks] bytes and [K/gs,
-// N/blocks] scales): its Gemm and one packed-weight map a block. Refuses a
-// block width that is no multiple of BN (PRODUCT: of PRODUCT_UNIT, its
-// tiles laid out block by block, `tiles` ignored).
+// N/blocks] scales): its Gemm and one packed-weight map a block. Tiles of
+// `span` columns are laid out block by block, ceil(bw / span) a block,
+// over blocks of a multiple of BLOCK_UNIT columns; GATE_UP's tile the
+// whole I (`second`) and take blocks of a multiple of BN, so that an
+// item's box at I + n0 lies in one block too. Refuses other widths.
 cudaError_t set_stage(Args& A, int id, const void* const* P, const void* const* S, int blocks, int K, int N,
-                      int second, int span, int tiles, int splits, float* ws, unsigned* tickets) {
-  const int unit = id == PRODUCT ? PRODUCT_UNIT : BN;
-  if (P == nullptr || S == nullptr || blocks < 1 || blocks > MAX_BLOCKS || N % blocks != 0 || (N / blocks) % unit != 0)
+                      int second, int span, int splits, float* ws, unsigned* tickets) {
+  const int unit = id == GATE_UP ? BN : BLOCK_UNIT;
+  if (P == nullptr || S == nullptr || blocks < 1 || blocks > MAX_BLOCKS || N % blocks != 0 ||
+      (N / blocks) % unit != 0 || (id == GATE_UP && (second % BN != 0 || N != 2 * second)))
     return cudaErrorInvalidValue;
   Gemm& g = A.g[id];
   g = Gemm{};
@@ -939,8 +958,8 @@ cudaError_t set_stage(Args& A, int id, const void* const* P, const void* const* 
   g.bw = N / blocks;
   g.second = second;
   g.span = span;
-  g.block_tiles = id == PRODUCT ? (g.bw + span - 1) / span : 0;
-  g.tiles = id == PRODUCT ? blocks * g.block_tiles : tiles;
+  g.block_tiles = id == GATE_UP ? 0 : (g.bw + span - 1) / span;
+  g.tiles = id == GATE_UP ? second / span : blocks * g.block_tiles;
   g.splits = splits;
   g.ws = ws;
   g.tickets = tickets;
@@ -965,7 +984,7 @@ struct Layout {
       return here;
     };
     xmid = take((size_t)M * H * 4);
-    sq = take((size_t)(H / BN) * M * 4);
+    sq = take((size_t)(H / BLOCK_UNIT) * M * 4);
     ws[O_PROJ] = take((size_t)splits[0] * M * H * 4);
     ws[GATE_UP] = take((size_t)splits[1] * M * 2 * I * 4);
     ws[DOWN] = take((size_t)splits[2] * M * H * 4);
@@ -1290,8 +1309,8 @@ extern "C" int comorag_int4_matmul_max_blocks() { return splitk::MAX_BLOCKS; }
 // of comorag_int4_matmul_splitk_tile_n columns run block by block,
 // ceil(N / blocks / tile_n) a block (the last one of a block ragged where
 // its width is no multiple of tile_n). splits: K splits on group
-// boundaries, 1 <= splits <= K / gs (ops/int4.matmul_plan over those
-// items). workspace: splits * M * N fp32; tickets: one unsigned int per
+// boundaries, 1 <= splits <= K / gs (ops/int4.matmul_plan: the whole
+// weight's, which give its sums bit for bit). workspace: splits * M * N fp32; tickets: one unsigned int per
 // item column tile, zero before the first launch (each launch leaves
 // them zero); at one split neither is read (may be null). sm_count: SMs
 // for the persistent grid.
@@ -1305,7 +1324,7 @@ extern "C" int comorag_int4_matmul_splitk(const void* x, const void* const* P, c
   A.out = static_cast<float*>(out);
   A.M = M;
   A.gs = gs;
-  cudaError_t err = splitk::set_stage(A, splitk::PRODUCT, P, S, blocks, K, N, -1, splitk::PRODUCT_TILE, 0, splits,
+  cudaError_t err = splitk::set_stage(A, splitk::PRODUCT, P, S, blocks, K, N, -1, splitk::PRODUCT_TILE, splits,
                                       static_cast<float*>(workspace), static_cast<unsigned*>(tickets));
   if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::PRODUCT], x, M, K);
   if (err != cudaSuccess) return err;
@@ -1343,14 +1362,18 @@ extern "C" int comorag_int4_matmul_wgmma(const void* x, const void* const* P, co
 // each weight as o_blocks / gu_blocks / d_blocks column blocks (1 to
 // comorag_int4_tail_max_blocks: the whole weight, or a model axis's column
 // shards in order, block b holding columns [b N / blocks, (b + 1) N /
-// blocks), a width that is a multiple of comorag_int4_tail_tile_n), given
-// as arrays of packed and scale pointers read in place, each block on the
+// blocks); o and down blocks a multiple of comorag_int4_block_unit
+// columns wide, gate/up blocks of comorag_int4_tail_tile_n), given as
+// arrays of packed and scale pointers read in place, each block on the
 // current device or on a peer card it may read (comorag_enable_peer_access),
 // everything else on the current device; every pointer 16-byte aligned.
-// M <= 64; H and I multiples of 512; gs a multiple of 64 dividing H and I. splits: the K splits of the o, gate/up and down stages
-// (ops/int4.tail_plan). workspace: comorag_int4_tail_workspace_bytes
-// bytes; tickets: (2H + I) / 128 unsigned ints, zero before the first
-// launch (each launch leaves them zero). act: 0 silu, 1 gelu (tanh), 2
+// M <= 64; H and I multiples of 512; gs a multiple of 64 dividing H and I.
+// splits: the K splits of the o, gate/up and down stages (ops/int4.tail_plan;
+// the whole weights' splits give the whole weights' sums, bit for bit).
+// workspace: comorag_int4_tail_workspace_bytes bytes; tickets: one a tile,
+// o_blocks ceil(H / o_blocks / 128) + I / 128 + d_blocks ceil(H / d_blocks /
+// 128) unsigned ints, zero before the first launch (each launch leaves
+// them zero). act: 0 silu, 1 gelu (tanh), 2
 // gelu (erf). One cooperative launch on `stream`, whatever the blocks.
 extern "C" long long comorag_int4_tail_workspace_bytes(int M, int H, int I, int so, int sgu, int sd) {
   const int splits[3] = {so, sgu, sd};
@@ -1361,6 +1384,8 @@ extern "C" long long comorag_int4_tail_workspace_bytes(int M, int H, int I, int 
 // item, and blocks an SM holds at M tokens on the current device (a
 // negative cudaError_t on failure).
 extern "C" int comorag_int4_tail_tile_n() { return splitk::BN; }
+
+extern "C" int comorag_int4_block_unit() { return splitk::BLOCK_UNIT; }
 
 extern "C" int comorag_int4_tail_max_blocks() { return splitk::MAX_BLOCKS; }
 
@@ -1413,14 +1438,16 @@ extern "C" int comorag_int4_fused_layer_tail(const void* ctx, const void* xres, 
   A.xn = reinterpret_cast<bf16*>(ws + L.xn);
   A.h = reinterpret_cast<bf16*>(ws + L.h);
   A.M = M; A.H = H; A.I = I; A.gs = gs; A.unit_offset = unit_offset; A.act = act; A.eps = eps;
-  cudaError_t err = splitk::set_stage(A, splitk::O_PROJ, oP, oS, o_blocks, H, H, -1, BN, H / BN, so,
+  // each stage's tickets follow the previous stage's tiles
+  cudaError_t err = splitk::set_stage(A, splitk::O_PROJ, oP, oS, o_blocks, H, H, -1, BN, so,
                                       reinterpret_cast<float*>(ws + L.ws[splitk::O_PROJ]), tk);
   if (err == cudaSuccess)
-    err = splitk::set_stage(A, splitk::GATE_UP, guP, guS, gu_blocks, H, 2 * I, I, BN, I / BN, sgu,
-                            reinterpret_cast<float*>(ws + L.ws[splitk::GATE_UP]), tk + H / BN);
+    err = splitk::set_stage(A, splitk::GATE_UP, guP, guS, gu_blocks, H, 2 * I, I, BN, sgu,
+                            reinterpret_cast<float*>(ws + L.ws[splitk::GATE_UP]), tk + A.g[splitk::O_PROJ].tiles);
   if (err == cudaSuccess)
-    err = splitk::set_stage(A, splitk::DOWN, dP, dS, d_blocks, I, H, -1, BN, H / BN, sd,
-                            reinterpret_cast<float*>(ws + L.ws[splitk::DOWN]), tk + H / BN + I / BN);
+    err = splitk::set_stage(A, splitk::DOWN, dP, dS, d_blocks, I, H, -1, BN, sd,
+                            reinterpret_cast<float*>(ws + L.ws[splitk::DOWN]),
+                            tk + A.g[splitk::O_PROJ].tiles + A.g[splitk::GATE_UP].tiles);
   if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::O_PROJ], ctx, M, H);
   if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::GATE_UP], A.xn, M, H);
   if (err == cudaSuccess) err = splitk::x_map(&A.xmap[splitk::DOWN], A.h, M, I);

@@ -557,8 +557,9 @@ def tail_route(params: Dict[str, Any], arch: DecoderArch, m: int) -> str:
       - ``FUSED_TAIL``: one ``int4_fused_layer_tail`` launch a layer on the
         merge device, where o_w, gateup_w and down_w are int4,
         ``fused_tail_supported`` holds at m (at most ``TAIL_MAX_BLOCKS`` =
-        8 shards, each a multiple of 128 columns: Llama-3.1-8B over
-        ``{"model": 8}`` among them), and each is whole or a column split
+        8 shards, o and down shards each a multiple of 16 columns, gate/up
+        of 128: Llama-3.1-8B's 512 and Qwen2.5-7B's 448 o / down columns
+        over ``{"model": 8}`` among them), and each is whole or a column split
         of this process whose shards lie on the merge device or on cards
         it may read (``int4.peer_readable``: a ``model`` axis on one card,
         or over distinct cards with peer access): the kernel reads every
@@ -566,8 +567,8 @@ def tail_route(params: Dict[str, Any], arch: DecoderArch, m: int) -> str:
       - ``PER_PRODUCT``: each product on its own (under a model axis, by
         ``product_route``), with the residuals, RMSNorm and activation in
         PyTorch between them: float and int8 weights, prefill sizes (m >
-        64), more than ``TAIL_MAX_BLOCKS`` shards or shards off the
-        128-column tile, a shard on a card without peer access from the
+        64), more than ``TAIL_MAX_BLOCKS`` shards, a shard on a card
+        without peer access from the
         merge device (decided here, before any launch, from
         ``torch.cuda.can_device_access_peer``) and a model axis that spans
         processes (the o / gate-up / down columns lie in several
@@ -592,7 +593,11 @@ def int4_forward_launches(params: Dict[str, Any], arch: DecoderArch, m: int, hea
     decode forward makes (33, 32): qkv once a layer and the head once
     over its shards (over 8, eight 16,032-column shards on split-K's
     16-column unit), the tail once a layer; a prefill forward whose head
-    takes the last position's rows (129, 0): JAX's launches."""
+    takes the last position's rows (129, 0): JAX's launches. At
+    Qwen2.5-7B width over ``{"model": 8}`` a decode forward makes (29,
+    28), JAX's, the tail over o / down shards of 448 columns; a prefill
+    forward (701, 0): qkv's 576 and o / down's 448 columns are off
+    wgmma's 128, so each runs once a shard (JAX: 113 + 0)."""
     device, layer = params["embed"].device, params["layers"]
     tail = tail_route(params, arch, m) == FUSED_TAIL
     names = ("qkv_w",) if tail else ("qkv_w", "o_w", "gateup_w", "down_w")

@@ -11,7 +11,9 @@ Hopper kernels (``csrc/int4.cu``) for CUDA tensors and run their plain
 versions for CPU tensors; there is no fallback from one to the other.
 ``int4_matmul`` has three kernel routes, chosen by shape
 (``int4_matmul_route``). ``int4_fused_layer_tail`` takes each weight whole
-or as column blocks (a ``model`` axis's shards), and ``int4_matmul`` takes
+or as column blocks (a ``model`` axis's shards: o and down blocks of any
+multiple of 16 columns, so Qwen2.5-7B's 448-column shards over 8 cards
+are one launch; gate/up blocks of 128), and ``int4_matmul`` takes
 column blocks on its ``splitk`` and ``wgmma`` routes
 (``int4_matmul_blocks_supported``: split-K blocks of any multiple of 16
 columns, so Llama-3.1-8B's head over 8 shards of 16,032 columns is one
@@ -46,7 +48,9 @@ TAIL_REPLACES = "comorag_tpu/ops/pallas_int4.py:365"
 _ACTS = {"silu": 0, "gelu_tanh": 1, "gelu": 2}
 _KERNEL_K_STEP = 64  # the kernels stage K in slabs of 64: group_size must divide by it
 _WGMMA_TILE_N = 128  # output columns of a tile of the wgmma route
-_SPLITK_UNIT = 16  # a split-K block's width unit (csrc/int4.cu PRODUCT_UNIT): a block's last item may end anywhere on it
+# a split-K block's width unit (csrc/int4.cu BLOCK_UNIT): a block's last item may end anywhere on it. The
+# int4_matmul split-K route's blocks and the fused tail's o and down blocks take it
+_BLOCK_UNIT = 16
 SPLITK_MAX_M = 64  # the split-K route's most tokens (its token tiles: 8, 16, 32, 64)
 
 
@@ -124,6 +128,7 @@ _C_ENTRIES = (
      [_PTR] * 3 + [_PTRS, _PTRS, _I32] * 3 + [_PTR] * 3 + [_I32] * 7 + [ctypes.c_float, _I32, _I32, _I32, _PTR]),
     ("comorag_int4_tail_workspace_bytes", ctypes.c_longlong, [_I32] * 6),
     ("comorag_int4_tail_tile_n", _I32, []),
+    ("comorag_int4_block_unit", _I32, []),
     ("comorag_int4_tail_max_blocks", _I32, []),
     ("comorag_int4_tail_blocks_per_sm", _I32, [_I32]),
     ("comorag_enable_peer_access", _I32, [_I32, _I32]),
@@ -178,7 +183,7 @@ def int4_matmul_route(m: int, n: int, blocks: int = 1) -> str:
     - ``"mma_sync"``, every other shape (a 259-token vocabulary): the
       first design (mma.sync tiles), which takes a whole weight only."""
     if m <= SPLITK_MAX_M:
-        return "splitk" if n % (blocks * _SPLITK_UNIT) == 0 else "mma_sync"
+        return "splitk" if n % (blocks * _BLOCK_UNIT) == 0 else "mma_sync"
     return "wgmma" if n % (blocks * _WGMMA_TILE_N) == 0 else "mma_sync"
 
 
@@ -208,7 +213,9 @@ def int4_matmul(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch
     raises before the launch); ``mma_sync`` takes a whole weight on x's
     device. ``out``, the split-K workspace and its tickets stay on x's
     device, and the plan is its own, so the output equals the same blocks'
-    on x's device bit for bit. CPU tensors run ``int4_matmul_plain``."""
+    on x's device bit for bit; split-K takes the whole weight's K splits
+    (``matmul_plan``), so it equals the whole weight's too. CPU tensors run
+    ``int4_matmul_plain``."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scales, group_size)
     if x.device.type != "cuda":
@@ -223,12 +230,12 @@ def int4_matmul(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch
     route = int4_matmul_route(m, d_out, len(packed))
     if len(packed) > 1 and not int4_matmul_blocks_supported(m, widths):
         raise ValueError(f"int4_matmul: M={m} takes no column blocks of widths {widths} (1 to {TAIL_MAX_BLOCKS} of "
-                         f"equal width: splitk up to {SPLITK_MAX_M} rows takes a multiple of {_SPLITK_UNIT}, "
+                         f"equal width: splitk up to {SPLITK_MAX_M} rows takes a multiple of {_BLOCK_UNIT}, "
                          f"wgmma above a multiple of {_WGMMA_TILE_N})")
     if route == "mma_sync":
         _check_weight("int4_matmul", packed[0], scales[0], d_in, d_out, group_size, dev)
     else:  # the TMA copies need every block 16-byte aligned
-        unit = _SPLITK_UNIT if route == "splitk" else _WGMMA_TILE_N
+        unit = _BLOCK_UNIT if route == "splitk" else _WGMMA_TILE_N
         p_ptrs, s_ptrs, blocks = _block_pointers("int4_matmul", packed, scales, d_in, d_out, group_size, dev, unit)
     xb = _bf16_rows("int4_matmul", x)
     out = torch.empty(m, d_out, dtype=torch.float32, device=dev)
@@ -236,7 +243,7 @@ def int4_matmul(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch
     stream = torch.cuda.current_stream(dev).cuda_stream
     if route == "splitk":
         tile_n, per_sm = _splitk_geometry(dev, m)
-        splits = _plan_splits(m, d_in, d_out, group_size, _sm_count(dev), tile_n, per_sm, blocks)
+        splits = _plan_splits(m, d_in, d_out, group_size, _sm_count(dev), tile_n, per_sm)  # the whole weight's
         ws_ptr = tickets_ptr = None  # at one split the kernel writes out directly
         if splits > 1:
             workspace = torch.empty(splits * m * d_out, dtype=torch.float32, device=dev)
@@ -270,7 +277,9 @@ def _splitk_geometry(device: torch.device, m: int) -> Tuple[int, int]:
 
 
 # ---------------------------------------------------------------- fused tail
-TAIL_TILE_N = 128  # output columns of a fused-tail work item (csrc/int4.cu splitk::BN; a column block's unit)
+# output columns of a fused-tail work item (csrc/int4.cu splitk::BN), and the width unit of its gate/up blocks: an
+# item pairs a gate box with its up box I columns on, each in one block. Its o and down blocks take _BLOCK_UNIT
+TAIL_TILE_N = 128
 TAIL_MAX_BLOCKS = 8  # column blocks a weight may arrive in, of the tail and of int4_matmul (splitk::MAX_BLOCKS)
 
 
@@ -279,9 +288,10 @@ def fused_tail_supported(hidden: int, intermediate: int, group_size: int, m: int
     """The JAX package's static shape gate (pallas_int4.py:234): decode-sized
     M and tile-aligned widths; and, for weights that arrive as ``blocks``
     column blocks each (a ``model`` axis's shards), at most
-    ``TAIL_MAX_BLOCKS`` of them, each a multiple of the kernel's
-    ``TAIL_TILE_N`` columns wide. The decoder takes the fused tail where
-    this holds, as the TPU route does."""
+    ``TAIL_MAX_BLOCKS`` of them, o and down blocks each a multiple of
+    ``_BLOCK_UNIT`` (16) columns wide and gate/up blocks of
+    ``TAIL_TILE_N`` (128). The decoder takes the fused tail where this
+    holds, as the TPU route does."""
     return (
         m <= 64
         and tile_n % group_size == 0
@@ -290,7 +300,8 @@ def fused_tail_supported(hidden: int, intermediate: int, group_size: int, m: int
         and hidden % group_size == 0
         and intermediate % group_size == 0
         and 1 <= blocks <= TAIL_MAX_BLOCKS
-        and all(n % blocks == 0 and (n // blocks) % TAIL_TILE_N == 0 for n in (hidden, 2 * intermediate))
+        and all(n % blocks == 0 and (n // blocks) % unit == 0
+                for n, unit in ((hidden, _BLOCK_UNIT), (2 * intermediate, TAIL_TILE_N)))
     )
 
 
@@ -384,12 +395,12 @@ def splitk_tiles(n: int, tile_n: int, blocks: int = 1) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_splits(m: int, k: int, n: int, group_size: int, sm_count: int, tile_n: int, blocks_per_sm: int,
-                 blocks: int = 1) -> int:
-    """The K splits of one product of split-K items (``_splits_for`` over
-    its ``splitk_tiles`` column tiles and ``k // group_size`` groups)."""
-    return _splits_for(splitk_tiles(n, tile_n, blocks), k // group_size, sm_count, sm_count * blocks_per_sm, m,
-                       group_size)
+def _plan_splits(m: int, k: int, n: int, group_size: int, sm_count: int, tile_n: int, blocks_per_sm: int) -> int:
+    """The K splits of one [k, n] product of split-K items (``_splits_for``
+    over the whole weight's n / tile_n column tiles and ``k // group_size``
+    groups). A launch over the weight's column blocks takes them too, so
+    its sums are the whole weight's, bit for bit."""
+    return _splits_for(splitk_tiles(n, tile_n), k // group_size, sm_count, sm_count * blocks_per_sm, m, group_size)
 
 
 def matmul_plan(m: int, k: int, n: int, group_size: int, sm_count: int, tile_n: int, blocks_per_sm: int,
@@ -399,9 +410,9 @@ def matmul_plan(m: int, k: int, n: int, group_size: int, sm_count: int, tile_n: 
     ``tile_n`` outputs, laid out block by block over ``blocks`` equal
     column blocks (``columns``: each tile's [c0, c1) output columns; a
     block's last tile holds what is left of it), and its K splits on group
-    boundaries, chosen for a card of ``sm_count`` SMs of ``blocks_per_sm``
-    block slots each."""
-    splits = _plan_splits(m, k, n, group_size, sm_count, tile_n, blocks_per_sm, blocks)
+    boundaries, the whole weight's (``_plan_splits``), chosen for a card of
+    ``sm_count`` SMs of ``blocks_per_sm`` block slots each."""
+    splits = _plan_splits(m, k, n, group_size, sm_count, tile_n, blocks_per_sm)
     tiles, width = splitk_tiles(n, tile_n, blocks), n // blocks
     columns = [(b * width + c, b * width + min(c + tile_n, width)) for b in range(blocks)
                for c in range(0, width, tile_n)]
@@ -421,19 +432,23 @@ def _tail_shapes(hidden: int, inter: int) -> tuple:
 
 def _tail_splits(m: int, hidden: int, inter: int, group_size: int, sm_count: int, tile_n: int,
                  blocks_per_sm: int) -> Tuple[int, int, int]:
+    """The stages' K splits, the whole weights' (``_plan_splits``)."""
     return tuple(_plan_splits(m, k, n, group_size, sm_count, tile_n, blocks_per_sm)
                  for k, n in _tail_shapes(hidden, inter))
 
 
 def tail_plan(m: int, hidden: int, inter: int, group_size: int, sm_count: int, tile_n: int,
-              blocks_per_sm: int) -> dict:
-    """Work items of the fused-tail kernel: per stage, ``matmul_plan`` of
-    its product (gate/up: ``tile_n`` columns of each block an item). The
-    kernel reports its ``tile_n`` and ``blocks_per_sm``
-    (``_tail_geometry``)."""
-    stages = {name: matmul_plan(m, k, n, group_size, sm_count, tile_n, blocks_per_sm)
+              blocks_per_sm: int, blocks: int = 1) -> dict:
+    """Work items of the fused-tail kernel over weights in ``blocks``
+    column blocks: per stage, ``matmul_plan`` of its product (the whole
+    weights' K splits), o and down tiled block by block (a block's last
+    tile ragged), gate/up over the whole I (``tile_n`` columns of each
+    half an item, whatever the blocks). The kernel reports its ``tile_n``
+    and ``blocks_per_sm`` (``_tail_geometry``)."""
+    stages = {name: matmul_plan(m, k, n, group_size, sm_count, tile_n, blocks_per_sm,
+                                1 if name == "gate_up" else blocks)
               for name, (k, n) in zip(_TAIL_STAGES, _tail_shapes(hidden, inter))}
-    return {"m": m, "k_step": _KERNEL_K_STEP, "tile_n": tile_n, "stages": stages}
+    return {"m": m, "k_step": _KERNEL_K_STEP, "tile_n": tile_n, "blocks": blocks, "stages": stages}
 
 
 @functools.lru_cache(maxsize=None)
@@ -509,14 +524,14 @@ def _peer_block(name: str, card: torch.device, device: torch.device) -> None:
 
 
 def _block_pointers(name: str, packed: list, scales: list, d_in: int, d_out: int, group_size: int,
-                    device: torch.device, unit: int = TAIL_TILE_N) -> tuple:
+                    device: torch.device, unit: int) -> tuple:
     """The C entry's arrays of block pointers for one weight of ``d_out``
     columns in ``len(packed)`` column blocks, after checking every block's
     dtype, shape, device (``device``, x's or ctx's, or a card it may read,
     whose peer access is then enabled), contiguity and 16-byte alignment,
     and that the blocks are at most ``TAIL_MAX_BLOCKS`` of equal width, a
-    multiple of ``unit`` (the fused tail's and wgmma's ``TAIL_TILE_N``,
-    split-K's 16)."""
+    multiple of ``unit`` (wgmma's and the tail's gate/up ``TAIL_TILE_N``,
+    split-K's and the tail's o and down 16)."""
     n = len(packed)
     if n > TAIL_MAX_BLOCKS or d_out % n or (d_out // n) % unit:
         raise ValueError(f"{name}: the kernel takes 1 to {TAIL_MAX_BLOCKS} column blocks of equal width, a multiple "
@@ -557,11 +572,13 @@ def int4_fused_layer_tail(
     """x_res + FFN(norm(x_res + ctx @ o)) -> [M, H] f32. Each weight is
     one (packed, scale) pair or two sequences of its column blocks in
     order (a ``model`` axis's column shards: block b holds columns [b N /
-    S, (b + 1) N / S)). CUDA tensors run one cooperative kernel launch (M
-    <= 64) on ctx's device that reads every block in place, there or on a
-    card it may read (``peer_readable``: a ``model`` axis over distinct
-    cards; a block on any other device raises); CPU tensors the plain
-    version."""
+    S, (b + 1) N / S); o and down blocks a multiple of 16 columns,
+    gate/up blocks of 128, as ``fused_tail_supported`` asks). CUDA tensors
+    run one cooperative kernel launch (M <= 64) on ctx's device that reads
+    every block in place, there or on a card it may read
+    (``peer_readable``: a ``model`` axis over distinct cards; a block on
+    any other device, or blocks of other widths, raise); CPU tensors the
+    plain version."""
     if ctx.device.type == "cpu":
         return int4_fused_layer_tail_plain(ctx, x_res, norm_w, o_packed, o_scale, gu_packed, gu_scale,
                                            down_packed, down_scale, group_size, eps, unit_offset, act)
@@ -576,9 +593,9 @@ def int4_fused_layer_tail(
         raise ValueError(f"int4_fused_layer_tail: the kernel takes M <= {TAIL_MAX_M} and H, I multiples of "
                          f"512, got M={m}, H={hidden}, I={inter}")
     dev = ctx.device
-    o_ptrs = _block_pointers("int4_fused_layer_tail o", *o, hidden, hidden, group_size, dev)
-    gu_ptrs = _block_pointers("int4_fused_layer_tail gate/up", *gu, hidden, 2 * inter, group_size, dev)
-    down_ptrs = _block_pointers("int4_fused_layer_tail down", *down, inter, hidden, group_size, dev)
+    o_ptrs = _block_pointers("int4_fused_layer_tail o", *o, hidden, hidden, group_size, dev, _BLOCK_UNIT)
+    gu_ptrs = _block_pointers("int4_fused_layer_tail gate/up", *gu, hidden, 2 * inter, group_size, dev, TAIL_TILE_N)
+    down_ptrs = _block_pointers("int4_fused_layer_tail down", *down, inter, hidden, group_size, dev, _BLOCK_UNIT)
     ctx_b = _bf16_rows("int4_fused_layer_tail", ctx)
     xres = x_res.to(torch.float32).contiguous()
     nw = norm_w.to(torch.float32).contiguous()
@@ -593,7 +610,9 @@ def int4_fused_layer_tail(
     workspace = torch.empty(lib.comorag_int4_tail_workspace_bytes(m, hidden, inter, *splits),
                             dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tickets = _tickets_for(dev, stream, (2 * hidden + inter) // tile_n)
+    # a ticket a tile: o and down tiled block by block, gate/up over the whole I
+    tickets = _tickets_for(dev, stream, splitk_tiles(hidden, tile_n, o_ptrs[2]) + inter // tile_n
+                           + splitk_tiles(hidden, tile_n, down_ptrs[2]))
     rc = lib.comorag_int4_fused_layer_tail(
         ctx_b.data_ptr(), xres.data_ptr(), nw.data_ptr(), *o_ptrs, *gu_ptrs, *down_ptrs,
         out.data_ptr(), workspace.data_ptr(), tickets.data_ptr(), m, hidden, inter, group_size, *splits,

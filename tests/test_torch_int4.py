@@ -218,6 +218,46 @@ def test_tail_plan_stages_are_matmul_plans():
         assert plan[name] == tint4.matmul_plan(8, k, n, 128, *args)
 
 
+# the tail over a model axis's column blocks, (H, I, blocks): Qwen2.5-7B over
+# {"model": 8} (o / down 448 columns a block: 3 whole tiles and one of 64),
+# and H = 512 / 1,536 over 8 (64 and 192 columns: a tile narrower than a
+# whole one a block, and one and a half), Llama-3.1-8B over 8 (512: whole
+# tiles)
+_TAIL_BLOCKS = [(3584, 18944, 8), (512, 1024, 8), (1536, 512, 8), (4096, 14336, 8)]
+
+
+@pytest.mark.parametrize("hidden,inter,blocks", _TAIL_BLOCKS)
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_tail_plan_over_column_blocks_tiles_o_and_down_block_by_block(hidden, inter, blocks, m):
+    """tail_plan over o / down / gate-up column blocks: the o and down
+    tiles run block by block, ceil(width / 128) a block, the last of each
+    block ragged, and cover every column once; gate/up's tiles are the
+    whole weights' (its blocks are whole tiles); every stage takes the
+    whole weights' K splits (a blocked launch's sums are the whole
+    weights'), and the split bounds are theirs."""
+    plan = tint4.tail_plan(m, hidden, inter, 128, 132, _TILE_N, _blocks_per_sm(m), blocks)
+    whole = _plan(m, hidden, inter, 128)
+    assert plan["blocks"] == blocks and whole["blocks"] == 1
+    width = hidden // blocks
+    per_block = -(-width // _TILE_N)
+    for name in ("o", "down"):
+        stage = plan["stages"][name]
+        assert stage["tiles"] == blocks * per_block == len(stage["columns"])
+        assert stage["items"] == stage["tiles"] * stage["splits"]
+        cols = stage["columns"]
+        for b in range(blocks):
+            mine = cols[b * per_block:(b + 1) * per_block]
+            assert mine[0][0] == b * width and mine[-1][1] == (b + 1) * width
+            assert [c1 - c0 for c0, c1 in mine] == [_TILE_N] * (per_block - 1) + [width - (per_block - 1) * _TILE_N]
+        assert [c for c0, c1 in cols for c in range(c0, c1)] == list(range(hidden))
+    assert plan["stages"]["gate_up"] == whole["stages"]["gate_up"]
+    for name in ("o", "gate_up", "down"):
+        assert plan["stages"][name]["splits"] == whole["stages"][name]["splits"]
+        assert plan["stages"][name]["bounds"] == whole["stages"][name]["bounds"]
+    if hidden == 3584:
+        assert [c1 - c0 for c0, c1 in plan["stages"]["o"]["columns"][:4]] == [128, 128, 128, 64]
+
+
 @pytest.mark.parametrize("m,n,route", [
     (1, 6144, "splitk"), (8, 128256, "splitk"), (64, 256, "splitk"),
     (64, 384, "splitk"), (8, 32064, "splitk"), (8, 320, "splitk"),  # a ragged last item of 128 or 64 columns
@@ -276,6 +316,28 @@ def test_matmul_plan_over_ragged_blocks_covers_every_column_once(n, blocks, m):
     if width % _SPLITK_TILE_N == 0:  # blocks of whole tiles: the whole weight's plan
         whole = tint4.matmul_plan(m, 4096, n, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m))
         assert {k: v for k, v in plan.items() if k != "blocks"} == {k: v for k, v in whole.items() if k != "blocks"}
+
+
+# (k, n, blocks) whose blocks hold more split-K tiles than the whole
+# weight: Qwen2.5-7B's qkv over {"model": 8} (8 x 576 columns: 24 tiles
+# against 18) and its head (8 x 19,008: 600 against 594)
+_MORE_TILES_BLOCKED = [(3584, 4608, 8), (3584, 152064, 8)]
+
+
+@pytest.mark.parametrize("k,n,blocks", _MORE_TILES_BLOCKED)
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_blocked_products_take_the_whole_weights_split_count(k, n, blocks, m):
+    """A product over column blocks plans the whole weight's K splits
+    even where its blocks hold more tiles (so its launch's sums are the
+    whole weight's, bit for bit): Qwen2.5-7B's qkv at 8 rows takes 8
+    splits, which its 24 tiles alone would have made 7."""
+    args = (m, k, n, 128, 132, _SPLITK_TILE_N, _splitk_blocks_per_sm(m))
+    whole, blocked = tint4.matmul_plan(*args), tint4.matmul_plan(*args, blocks)
+    assert blocked["tiles"] > whole["tiles"]
+    assert (blocked["splits"], blocked["bounds"]) == (whole["splits"], whole["bounds"])
+    if (n, m) == (4608, 8):
+        assert whole["splits"] == 8
+        assert tint4._splits_for(blocked["tiles"], k // 128, 132, 132 * _splitk_blocks_per_sm(m), m, 128) == 7
 
 
 @pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64])
@@ -484,8 +546,9 @@ def test_int4_matmul_over_narrow_blocks_matches_plain(cuda_device, width, blocks
 def test_tail_geometry_is_the_kernels(cuda_device, m):
     assert tint4._tail_geometry(cuda_device, m) == (_TILE_N, _blocks_per_sm(m))
     lib = tint4._lib()
-    assert (lib.comorag_int4_tail_tile_n(), lib.comorag_int4_tail_max_blocks(),
-            lib.comorag_int4_matmul_max_blocks()) == (tint4.TAIL_TILE_N, tint4.TAIL_MAX_BLOCKS, tint4.TAIL_MAX_BLOCKS)
+    assert (lib.comorag_int4_tail_tile_n(), lib.comorag_int4_block_unit(), lib.comorag_int4_tail_max_blocks(),
+            lib.comorag_int4_matmul_max_blocks()) == (tint4.TAIL_TILE_N, tint4._BLOCK_UNIT, tint4.TAIL_MAX_BLOCKS,
+                                                      tint4.TAIL_MAX_BLOCKS)
 
 
 @pytest.mark.cuda
@@ -550,14 +613,21 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
     s = torch.zeros(4, 512, device=cuda_device)
     with pytest.raises(ValueError):  # M above 64
         tint4.int4_fused_layer_tail(ctx, ctx, torch.ones(512, device=cuda_device), w, s, w, s, w, s)
-    # column blocks: 8 of 64 columns (off the 128-column tile), and a
+    # column blocks: 8 of 64 columns (off the 128-column tile, on the
+    # 16-column block unit) launch; 3 unequal ones and 16 raise, as does a
     # scale list that does not match the packed one
     ctx, nw = torch.zeros(8, 512, device=cuda_device), torch.ones(512, device=cuda_device)
     gu = torch.zeros(256, 2048, dtype=torch.int8, device=cuda_device), torch.zeros(4, 2048, device=cuda_device)
     dn = torch.zeros(512, 512, dtype=torch.int8, device=cuda_device), torch.zeros(8, 512, device=cuda_device)
-    narrow = [w[:, i * 64:(i + 1) * 64].contiguous() for i in range(8)], [s[:, i * 64:(i + 1) * 64].contiguous()
-                                                                          for i in range(8)]
-    with pytest.raises(ValueError, match="column blocks"):
-        tint4.int4_fused_layer_tail(ctx, ctx, nw, *narrow, *gu, *dn)
+
+    def o_blocks(*widths):
+        edges = np.cumsum((0,) + widths)
+        return ([w[:, a:b].contiguous() for a, b in zip(edges[:-1], edges[1:])],
+                [s[:, a:b].contiguous() for a, b in zip(edges[:-1], edges[1:])])
+
+    assert tint4.int4_fused_layer_tail(ctx, ctx, nw, *o_blocks(*(64,) * 8), *gu, *dn).shape == (8, 512)
+    for widths in ((256, 128, 128), (32,) * 16):
+        with pytest.raises(ValueError, match="column blocks"):
+            tint4.int4_fused_layer_tail(ctx, ctx, nw, *o_blocks(*widths), *gu, *dn)
     with pytest.raises(ValueError, match="as many scale blocks"):
         tint4.int4_fused_layer_tail(ctx, ctx, nw, [w[:, :256].contiguous(), w[:, 256:].contiguous()], [s], *gu, *dn)

@@ -499,32 +499,32 @@ def test_int4_forward_over_readable_cards_matches_jax(p, monkeypatch):
 _MODEL_8_ARCH = dict(hidden_size=1024, intermediate_size=1024, num_heads=8, num_kv_heads=4, vocab_size=1024)
 
 
-def _model_8_against_jax(p, monkeypatch, vocab_size=1024, seed=13):
-    """The int4 forward of ``_MODEL_8_ARCH`` (with ``vocab_size``) over
-    {"model": 8} against JAX's over the same mesh of 8 virtual devices, on
-    a batch of 4 prompts of p tokens: the calls equal
+def _model_8_against_jax(p, monkeypatch, vocab_size=1024, seed=13, arch=_MODEL_8_ARCH):
+    """The int4 forward of ``arch`` (with ``vocab_size``) over {"model": 8}
+    against JAX's over the same mesh of 8 virtual devices, on a batch of 4 prompts of p tokens: the calls equal
     ``int4_forward_launches`` (layers + 1 and a tail a layer up to 64
-    tokens, 4 x layers + 1 above), the logits within the file's int4 rule
-    of JAX's, top-1 on >= 95 % of the positions, and equal to the
-    unsharded port forward's bit for bit (the plain versions concatenate
-    the blocks). Returns the split tree."""
-    jarch, tarch = _archs("gqa", **dict(_MODEL_8_ARCH, vocab_size=vocab_size))
+    tokens: JAX's), the logits within the file's int4 rule of JAX's, top-1
+    on >= 95 % of the positions, and equal to the unsharded port forward's
+    bit for bit (the plain versions concatenate the blocks). Returns the
+    split tree and the forward's (int4_matmul, fused tail) calls."""
+    jarch, tarch = _archs("gqa", **dict(arch, vocab_size=vocab_size))
     params = _jax_params(jarch, seed=seed, kind="int4")
     tparams = tdec.params_from_jax(_np_tree(params), device="cpu")
     tmesh, jmesh = _meshes({"model": 8})
     sharded = tdec.shard_params(tparams, tmesh)
     ids, mask = _prompt_batch(np.random.default_rng(seed + 1 + p), b=4, p=p, vocab=vocab_size)
     m, layers = ids.size, tarch.num_layers
-    assert tdec.int4_forward_launches(sharded, tarch, m, m) == ((layers + 1, layers) if m <= tint4.TAIL_MAX_M
-                                                                else (4 * layers + 1, 0))
+    if m <= tint4.TAIL_MAX_M:
+        assert tdec.int4_forward_launches(sharded, tarch, m, m) == (layers + 1, layers)
     calls = _counted_int4(monkeypatch)
     got, _ = _torch_forward(tarch, sharded, ids, mask)
-    assert (calls["matmul"], calls["tail"]) == tdec.int4_forward_launches(sharded, tarch, m, m)
+    launches = (calls["matmul"], calls["tail"])
+    assert launches == tdec.int4_forward_launches(sharded, tarch, m, m)
     jl, _ = _jax_forward(jarch, _jax_tp(params, jmesh, jarch, "int4"), ids, mask)
     np.testing.assert_allclose(got, jl, rtol=2e-2, atol=2e-2 * np.abs(jl).max())
     assert (got.argmax(-1) == jl.argmax(-1)).mean() >= 0.95
     np.testing.assert_array_equal(got, _torch_forward(tarch, tparams, ids, mask)[0])
-    return sharded
+    return sharded, launches
 
 
 @pytest.mark.parametrize("p", [8, 40])  # 32 tokens, 160 tokens
@@ -533,8 +533,11 @@ def test_int4_forward_over_model_8_matches_jax(p, monkeypatch):
     every kernel unit: every int4 product is one int4_matmul call over its
     8 blocks and a decode-sized forward takes the fused tail over them, as
     JAX launches each kernel once over its gathered shards
-    (``_model_8_against_jax``)."""
-    sharded = _model_8_against_jax(p, monkeypatch)
+    (``_model_8_against_jax``): layers + 1 calls and a tail a layer at 32
+    tokens, 4 x layers + 1 at 160."""
+    sharded, calls = _model_8_against_jax(p, monkeypatch)
+    layers = TINY["num_layers"]
+    assert calls == ((layers + 1, layers) if p == 8 else (4 * layers + 1, 0))
     widths = {name: sharded["layers"][name].shards[0].packed.shape[-1] for name in ("qkv_w", "o_w", "gateup_w",
                                                                                     "down_w")}
     assert widths == {"qkv_w": 256, "o_w": 128, "gateup_w": 256, "down_w": 128}
@@ -548,10 +551,38 @@ def test_int4_forward_over_model_8_with_80_column_head_shards_matches_jax(monkey
     over its 8 blocks (product_route BLOCKS), as the 8B head's 16,032-column
     shards; the calls, the logits against JAX's forward and the unsharded
     port forward as ``_model_8_against_jax`` holds them."""
-    sharded = _model_8_against_jax(8, monkeypatch, vocab_size=640, seed=15)
+    sharded, _ = _model_8_against_jax(8, monkeypatch, vocab_size=640, seed=15)
     head = sharded["lm_head"]
     assert [sh.packed.shape[-1] for sh in head.shards] == [80] * 8
     assert tdec.product_route(head, 32, CPU) == tdec.BLOCKS
+
+
+# qwen2-family widths (qkv bias) whose o / down shards over {"model": 8} are
+# off the tail's 128-column tile, on its 16-column block unit: hidden ->
+# (the arch, o / down columns a shard), each at ``_model_8_against_jax``'s
+# 1,024-token vocabulary (the head 128 columns a shard). H = 512:
+# ``_BLOCKS_ARCH``'s layers, 64 columns (qkv 128, gate/up 256); H = 1,536:
+# 192 columns (qkv 320, gate/up 128; 1.5 tiles: the ragged o / down tiles
+# of Qwen2.5-7B's 448 in small)
+_QWEN_BLOCKS = {512: (_BLOCKS_ARCH, 64),
+                1536: (dict(hidden_size=1536, intermediate_size=512, num_heads=12, num_kv_heads=4, qkv_bias=True),
+                       192)}
+
+
+@pytest.mark.parametrize("hidden", sorted(_QWEN_BLOCKS))
+def test_int4_forward_over_model_8_with_ragged_tail_blocks_matches_jax(hidden, monkeypatch):
+    """A qwen2-family arch over {"model": 8} with o / down shards of 64 or
+    192 columns (off the tail's 128-column tile; on its 16-column block
+    unit): a decode-sized forward (32 tokens) takes the fused tail over
+    the blocks, (layers + 1, layers) calls as JAX launches, and the
+    logits, JAX's forward and the unsharded port forward as
+    ``_model_8_against_jax`` holds them."""
+    arch, width = _QWEN_BLOCKS[hidden]
+    sharded, calls = _model_8_against_jax(8, monkeypatch, seed=17, arch=arch)
+    layers = TINY["num_layers"]
+    assert [sharded["layers"][name].shards[0].packed.shape[-1] for name in ("o_w", "down_w")] == [width, width]
+    assert tdec.tail_route(sharded, _archs("gqa", **dict(arch, vocab_size=1024))[1], 32) == tdec.FUSED_TAIL
+    assert calls == (layers + 1, layers)
 
 
 def test_product_route_takes_no_blocks_off_the_merge_device_or_outside_int4_columns():
@@ -601,15 +632,25 @@ def test_plain_tail_over_column_blocks_equals_the_whole_weight(n, act, unit_offs
 
 def test_fused_tail_gate_refuses_blocks_off_the_tile():
     """fused_tail_supported's block condition, and the decoder's route that
-    follows it: column blocks of a multiple of the kernel's 128-column tile,
-    at most TAIL_MAX_BLOCKS of them, all on the merge device."""
-    assert tint4.TAIL_TILE_N == 128 and tint4.TAIL_MAX_BLOCKS == 8
+    follows it: o and down blocks of a multiple of the kernel's 16-column
+    block unit, gate/up blocks of its 128-column tile, at most
+    TAIL_MAX_BLOCKS of them, all on the merge device, at most 64 tokens."""
+    assert tint4.TAIL_TILE_N == 128 and tint4.TAIL_MAX_BLOCKS == 8 and tint4._BLOCK_UNIT == 16
     assert tint4.fused_tail_supported(512, 1024, 128, 8, blocks=4)  # 128-column o / down blocks
-    assert not tint4.fused_tail_supported(512, 1024, 128, 8, blocks=8)  # 64 columns: no multiple of the tile
+    assert tint4.fused_tail_supported(512, 1024, 128, 8, blocks=8)  # 64 columns: off the tile, on the unit
+    assert not tint4.fused_tail_supported(512, 1024, 128, 65, blocks=8)  # above 64 tokens
     assert not tint4.fused_tail_supported(1536, 1536, 128, 8, blocks=5)  # 1536 / 5 is no whole width
     assert tint4.fused_tail_supported(4096, 14336, 128, 8, blocks=8)  # 512-column blocks: {"model": 8}
     assert not tint4.fused_tail_supported(4096, 14336, 128, 8, blocks=16)  # 256-column blocks, but 16 of them
     assert tint4.fused_tail_supported(4096, 14336, 128, 8, blocks=4)  # phase 14's {"model": 4}
+    assert tint4.fused_tail_supported(3584, 18944, 128, 8, blocks=8)  # Qwen2.5-7B: 448 / 4,736 / 448
+    # gate/up blocks off the 128-column tile (a 128-column gate tile: 2 x 384 / 8 = 96 columns), o / down on
+    # the unit (48); over 2 blocks gate/up's 384 is 3 tiles
+    assert not tint4.fused_tail_supported(384, 384, 128, 8, tile_n=128, blocks=8)
+    assert tint4.fused_tail_supported(384, 384, 128, 8, tile_n=128, blocks=2)
+    # o / down blocks off the 16-column unit (a 64-column gate tile: 320 / 8 = 40 columns), gate/up on the tile
+    assert not tint4.fused_tail_supported(320, 512, 64, 8, tile_n=64, blocks=8)
+    assert tint4.fused_tail_supported(320, 512, 64, 8, tile_n=64, blocks=4)
     jarch, tarch = _archs("gqa", hidden_size=512, intermediate_size=1024, num_heads=8, vocab_size=96)
     tparams = tdec.params_from_jax(_np_tree(_jax_params(jarch, seed=5, kind="int4")), device="cpu")
     routes = {}
@@ -617,7 +658,7 @@ def test_fused_tail_gate_refuses_blocks_off_the_tile():
         sharded = tdec.shard_params(tparams, build_mesh({"model": n}, [CPU] * n))
         routes[n] = [tdec.tail_route(sharded, tarch, m) for m in (16, 65)]
     assert routes == {2: [tdec.FUSED_TAIL, tdec.PER_PRODUCT], 4: [tdec.FUSED_TAIL, tdec.PER_PRODUCT],
-                      8: [tdec.PER_PRODUCT, tdec.PER_PRODUCT]}
+                      8: [tdec.FUSED_TAIL, tdec.PER_PRODUCT]}
     # a shard on a device the merge device cannot read (a card, from the
     # CPU) takes the per-product route
     sharded = tdec.shard_params(tparams, build_mesh({"model": 2}, [CPU] * 2))
@@ -811,10 +852,15 @@ def _int4_weight_8b(gen, device, k, n):
 # of those blocks (64,128 columns in 2), one 32,064-column shard alone
 # (a distinct card's), and the head over {"model": 8}'s 8 (16,032 columns:
 # a multiple of split-K's 16-column unit, each block's last item 160
-# columns, so one launch up to 64 rows; off wgmma's 128, refused above)
+# columns, so one launch up to 64 rows; off wgmma's 128, refused above);
+# and Qwen2.5-7B's qkv over {"model": 8}'s 8 (K = 3,584, 576 columns a
+# block: 24 split-K tiles against the whole weight's 18; at 8 rows the
+# blocks' tiles alone would take 7 K splits where the whole weight takes 8)
 _BLOCKED_8B = [("qkv", 6144, 2), ("qkv", 6144, 4), ("gate_up", 28672, 2), ("gate_up", 28672, 4),
                ("lm_head", 128256, 2), ("lm_head", 128256, 4), ("lm_head pair", 64128, 2),
-               ("lm_head shard", 32064, 1), ("qkv", 6144, 8), ("gate_up", 28672, 8), ("lm_head", 128256, 8)]
+               ("lm_head shard", 32064, 1), ("qkv", 6144, 8), ("gate_up", 28672, 8), ("lm_head", 128256, 8),
+               ("qwen qkv", 4608, 8)]
+_BLOCKED_K = {"qwen qkv": 3584}  # K of a case; Llama-3.1-8B's 4,096 elsewhere
 
 
 @pytest.mark.cuda
@@ -828,13 +874,15 @@ def test_int4_matmul_over_column_blocks_on_the_card(name, n, blocks, m):
     max |d| printed). Blocks off 128 columns above 64 rows are refused
     (wgmma's unit); a single 32,064-column shard takes split-K up to 64
     rows and mma_sync above. The head over 8 blocks takes the whole
-    head's K splits (504 tiles against 501)."""
+    head's K splits (504 tiles against 501), and so does Qwen2.5-7B's qkv
+    at its K of 3,584 (24 tiles against 18)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(60 + m + blocks)
-    packed, scales = _int4_weight_8b(gen, dev, 4096, n)
-    x = torch.randn(m, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    k = _BLOCKED_K.get(name, 4096)
+    packed, scales = _int4_weight_8b(gen, dev, k, n)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
     cut = split_blocks(packed, -1, [dev] * blocks), split_blocks(scales, -1, [dev] * blocks)
     route = tint4.int4_matmul_route(m, n, blocks)
     if blocks > 1 and route == "mma_sync":
@@ -844,7 +892,7 @@ def test_int4_matmul_over_column_blocks_on_the_card(name, n, blocks, m):
         return
     assert blocks == 1 or tint4.int4_matmul_blocks_supported(m, [p.shape[-1] for p in cut[0]])
     if route == "splitk":  # bit-equality needs the whole weight's K splits
-        plan = functools.partial(tint4.matmul_plan, m, 4096, n, 128, tint4._sm_count(dev),
+        plan = functools.partial(tint4.matmul_plan, m, k, n, 128, tint4._sm_count(dev),
                                  *tint4._splitk_geometry(dev, m))
         assert plan(blocks)["splits"] == plan()["splits"]
     before = (tint4.LAUNCHES.value, tint4.ROUTE_LAUNCHES[route].value)
@@ -889,27 +937,38 @@ def test_column_split_bias_is_added_once_on_the_merged_blocks():
     np.testing.assert_allclose(got.cpu().numpy(), per_shard.cpu().numpy(), rtol=2e-2, atol=2e-2)
 
 
-def _tail_weights_8b(gen, device):
-    """One layer's o, gate/up and down int4 weights at Llama-3.1-8B width."""
-    return [_int4_weight_8b(gen, device, k, n) for k, n in ((4096, 4096), (4096, 2 * 14336), (14336, 4096))]
+def _tail_weights_8b(gen, device, h=4096, inter=14336):
+    """One layer's o, gate/up and down int4 weights at Llama-3.1-8B width
+    (H = h, I = inter)."""
+    return [_int4_weight_8b(gen, device, k, n) for k, n in ((h, h), (h, 2 * inter), (inter, h))]
+
+
+# the fused tail's widths over a one-card model axis, (H, I, blocks): Llama-3.1-8B over 2, 4 and 8 (o / down
+# 2,048, 1,024 and 512 columns a block: whole tiles); Qwen2.5-7B over 8 (448 / 4,736 / 448: each block's last
+# o / down tile 64 columns); H = 512 and 1,536 over 8 (64 and 192 columns: a block narrower than a tile, and
+# one and a half tiles)
+_TAIL_BLOCK_WIDTHS = [(4096, 14336, 2), (4096, 14336, 4), (4096, 14336, 8), (3584, 18944, 8), (512, 1024, 8),
+                      (1536, 512, 8)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 8, 64])
-@pytest.mark.parametrize("n", [2, 4, 8])
-def test_fused_tail_over_column_blocks_on_the_card(n, m):
+@pytest.mark.parametrize("h,inter,n", _TAIL_BLOCK_WIDTHS, ids=[f"H{c[0]}-I{c[1]}-{c[2]}" for c in _TAIL_BLOCK_WIDTHS])
+def test_fused_tail_over_column_blocks_on_the_card(h, inter, n, m):
     """The fused-tail kernel over n column blocks of each weight (one card's
-    model axis) at Llama-3.1-8B width: within the bf16 rule of its plain
-    version (chip_smoke.py's rule for row 6), and bit-equal to the launch
-    over the whole weights (the same plan, items and sums; max |d| printed)."""
+    model axis) at Llama-3.1-8B, Qwen2.5-7B and small widths (o / down
+    blocks off the 128-column tile, on its 16-column block unit, among
+    them): within the bf16 rule of its plain version (chip_smoke.py's rule
+    for row 6), and bit-equal to the launch over the whole weights (the
+    same K splits and sums; max |d| printed)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(40 + m)
-    weights = _tail_weights_8b(gen, dev)
-    ctx = torch.randn(m, 4096, generator=gen, device=dev).to(torch.bfloat16)
-    xres = torch.randn(m, 4096, generator=gen, device=dev)
-    nw = 1.0 + 0.1 * torch.randn(4096, generator=gen, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(40 + m + h)
+    weights = _tail_weights_8b(gen, dev, h, inter)
+    ctx = torch.randn(m, h, generator=gen, device=dev).to(torch.bfloat16)
+    xres = torch.randn(m, h, generator=gen, device=dev)
+    nw = 1.0 + 0.1 * torch.randn(h, generator=gen, device=dev)
     whole = [t for w in weights for t in w]
     blocked = [part for p, sc in weights for part in (split_blocks(p, -1, [dev] * n), split_blocks(sc, -1, [dev] * n))]
     before = tint4.TAIL_LAUNCHES.value
@@ -919,7 +978,7 @@ def test_fused_tail_over_column_blocks_on_the_card(n, m):
     ref = tint4.int4_fused_layer_tail_plain(ctx, xres, nw, *blocked, eps=1e-5)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
     delta = float((got - tint4.int4_fused_layer_tail(ctx, xres, nw, *whole, eps=1e-5)).abs().max())
-    print(f"fused tail over {n} column blocks, M={m}: max |blocks - whole| = {delta}")
+    print(f"fused tail H={h} I={inter} over {n} column blocks, M={m}: max |blocks - whole| = {delta}")
     assert delta == 0.0
 
 

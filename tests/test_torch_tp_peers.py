@@ -40,6 +40,10 @@ SMALL = tdec.DecoderArch(vocab_size=512, hidden_size=512, num_layers=2, num_head
                          intermediate_size=1024, max_seq_len=256)
 LLAMA_8B = tdec.DecoderArch(vocab_size=128256, hidden_size=4096, num_layers=32, num_heads=32, num_kv_heads=8,
                             intermediate_size=14336, max_seq_len=131072)
+# Qwen2.5-7B-Instruct's published config.json shapes (a qwen2-family arch: qkv bias)
+QWEN25_7B = tdec.DecoderArch(vocab_size=152064, hidden_size=3584, num_layers=28, num_heads=28, num_kv_heads=4,
+                             intermediate_size=18944, max_seq_len=32768, rope_theta=1e6, rms_norm_eps=1e-6,
+                             qkv_bias=True)
 
 
 @dataclasses.dataclass
@@ -89,17 +93,16 @@ def _readable_except(monkeypatch, blocked=()):
 # (8 + 1). Across processes each process's own blocks take the same
 # product routes, without the tail (9 at both sizes). A blocked pair puts
 # every product once a shard (16 x 2 + 4). Over 8 shards (qkv 128 columns
-# a shard, o and down 64, gate/up 256, the head 64) the tail's 128-column
-# tile refuses o and down, so the layers take the per-product route; at
-# decode every product's blocks suit splitk's 16-column unit, one call
-# each (4 x 2 + 1); at prefill wgmma's 128-column unit takes qkv and
-# gate/up and refuses o, down and the head, once a shard (2 x (1 + 8 + 1
-# + 8) + 8).
+# a shard, o and down 64, gate/up 256, the head 64) the tail takes o and
+# down on their 16-column unit and gate/up on its 128, so at decode qkv
+# and the head are one call each beside 2 tails (2 + 1), as over 4; at
+# prefill wgmma's 128-column unit takes qkv and gate/up and refuses o,
+# down and the head, once a shard (2 x (1 + 8 + 1 + 8) + 8).
 _SMALL_CASES = [
     ("every peer readable", 4, (), None, tdec.FUSED_TAIL, tdec.BLOCKS, (3, 2), (9, 0)),
     ("cuda:2 not readable from cuda:0", 4, ((0, 2),), None, tdec.PER_PRODUCT, tdec.PER_SHARD, (36, 0), (36, 0)),
     ("across processes", 4, (), (0, 1, 2, 3), tdec.PER_PRODUCT, tdec.BLOCKS, (9, 0), (9, 0)),
-    ("8 shards", 8, (), None, tdec.PER_PRODUCT, tdec.BLOCKS, (9, 0), (44, 0)),
+    ("8 shards", 8, (), None, tdec.FUSED_TAIL, tdec.BLOCKS, (3, 2), (44, 0)),
 ]
 
 
@@ -122,12 +125,12 @@ def test_tail_route_over_distinct_cards(small_int4, monkeypatch, case, n, blocke
     assert tdec.int4_forward_launches(params, SMALL, 65, 65) == prefill
 
 
-def _meta_8b(n: int, cards: int = 0):
-    """The routes' view of Llama-3.1-8B's int4 tree over {"model": n} on
-    cuda:0..n-1 (``cards`` = 1: every position on cuda:0): every product
-    column-split into n blocks of meta tensors (shapes only; nothing is
-    allocated), stacked over the 32 layers."""
-    arch, gs = LLAMA_8B, 128
+def _meta_8b(n: int, cards: int = 0, arch=LLAMA_8B):
+    """The routes' view of Llama-3.1-8B's (``arch``'s) int4 tree over
+    {"model": n} on cuda:0..n-1 (``cards`` = 1: every position on cuda:0):
+    every product column-split into n blocks of meta tensors (shapes only;
+    nothing is allocated), stacked over the layers."""
+    gs = 128
     devices = CARDS[:n] if cards != 1 else (CARDS[0],) * n
     h, i, layers = arch.hidden_size, arch.intermediate_size, arch.num_layers
     q, kv = arch.num_heads * arch.head_dim, arch.num_kv_heads * arch.head_dim
@@ -196,6 +199,31 @@ def test_int4_forward_launches_at_8b_width_over_model_8_on_one_card():
     assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 4096) == (136, 0)
 
 
+@pytest.mark.parametrize("cards", [0, 1], ids=["distinct cards", "one card"])
+def test_int4_forward_launches_at_qwen25_7b_width_over_model_8(monkeypatch, cards):
+    """At Qwen2.5-7B width over {"model": 8}, on 8 readable cards or on
+    one, the o and down shards are 448 columns (3.5 of the tail's
+    128-column tiles; a multiple of its 16-column block unit), gate/up's
+    4,736, qkv's 576 and the head's 19,008: a decode forward takes the
+    tail once a layer over the blocks and int4_matmul once for qkv a layer
+    and once for the head, (29, 28), JAX's launches; a prefill forward
+    runs qkv, o and down once a shard (off wgmma's 128-column unit) and
+    gate/up and the head once: (28 x 25 + 1, 0) against JAX's (113, 0)."""
+    params = _meta_8b(8, cards, QWEN25_7B)
+    _readable_except(monkeypatch)
+    assert [params["layers"][name].shards[0].packed.shape[-1] for name in ("qkv_w", "o_w", "gateup_w", "down_w")] \
+        == [576, 448, 4736, 448]
+    assert tdec.tail_route(params, QWEN25_7B, 8) == tdec.FUSED_TAIL
+    assert tdec.tail_route(params, QWEN25_7B, 65) == tdec.PER_PRODUCT
+    assert tdec.product_route(params["layers"]["qkv_w"], 8, CARDS[0]) == tdec.BLOCKS
+    assert tdec.product_route(params["lm_head"], 8, CARDS[0]) == tdec.BLOCKS
+    assert [tdec.product_route(params["layers"][name], 4096, CARDS[0]) for name in ("qkv_w", "o_w", "gateup_w",
+                                                                                     "down_w")] \
+        == [tdec.PER_SHARD, tdec.PER_SHARD, tdec.BLOCKS, tdec.PER_SHARD]
+    assert tdec.int4_forward_launches(params, QWEN25_7B, 8, 8) == (29, 28)
+    assert tdec.int4_forward_launches(params, QWEN25_7B, 4096, 8) == (701, 0)
+
+
 # (leaf with its last block on cuda:4, which cuda:0 may not read) -> a
 # decode and a prefill forward's launches at Llama-3.1-8B width, every
 # other leaf over readable cuda:0-3: the head alone once a shard (32 + 4;
@@ -230,10 +258,12 @@ def test_peer_readable_on_one_device():
     assert not tint4.peer_readable(CARDS[0], CPU) and not tint4.peer_readable(CPU, CARDS[1])
 
 
-@pytest.mark.parametrize("name,unit", [("int4_matmul", 16), ("int4_fused_layer_tail o", 128)])
+@pytest.mark.parametrize("name,unit", [("int4_matmul", 16), ("int4_fused_layer_tail o", 16),
+                                       ("int4_fused_layer_tail gate/up", 128)])
 def test_block_pointers_refuse_a_block_the_card_cannot_read(name, unit):
     """The kernels' block checks with x or ctx on cuda:0 and a block on the
-    CPU: int4_matmul (split-K's 16-column unit) and the tail keep one rule
+    CPU: int4_matmul and the tail's o (split-K's 16-column unit) and the
+    tail's gate/up (its 128-column tile) keep one rule
     (every block on that card or on a card it may read), and both raise
     naming the device before anything is launched."""
     packed, scales = tint4.quantize_int4_grouped(torch.ones(256, 512), 128)
@@ -249,18 +279,19 @@ def _cards(n: int):
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def _tail_inputs_8b(m: int, seed: int, device):
+def _tail_inputs_8b(m: int, seed: int, device, arch=LLAMA_8B):
     """ctx, x_res, norm_w and one layer's o, gate/up and down int4 weights
-    at Llama-3.1-8B width (random packed bytes, scales of a weight of std
-    ~0.02), on ``device``."""
+    at Llama-3.1-8B width (``arch``'s; random packed bytes, scales of a
+    weight of std ~0.02), on ``device``."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    h, i = arch.hidden_size, arch.intermediate_size
     weights = []
-    for k, n in ((4096, 4096), (4096, 2 * 14336), (14336, 4096)):
+    for k, n in ((h, h), (h, 2 * i), (i, h)):
         packed = torch.randint(-128, 128, (k // 2, n), generator=gen, device=device, dtype=torch.int8)
         weights.append((packed, torch.empty(k // 128, n, device=device).uniform_(0.003, 0.006, generator=gen)))
-    ctx = torch.randn(m, 4096, generator=gen, device=device).to(torch.bfloat16)
-    xres = torch.randn(m, 4096, generator=gen, device=device)
-    nw = 1.0 + 0.1 * torch.randn(4096, generator=gen, device=device)
+    ctx = torch.randn(m, h, generator=gen, device=device).to(torch.bfloat16)
+    xres = torch.randn(m, h, generator=gen, device=device)
+    nw = 1.0 + 0.1 * torch.randn(h, generator=gen, device=device)
     return ctx, xres, nw, weights
 
 
@@ -274,21 +305,26 @@ def _cycled(cards, blocks: int):
     return [cards[i % len(cards)] for i in range(blocks)]
 
 
+_PEER_TAIL_WIDTHS = {"llama-3.1-8b": LLAMA_8B, "qwen2.5-7b": QWEN25_7B}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 8, 64])
-@pytest.mark.parametrize("blocks", [0, 8], ids=["a block a card", "8 blocks"])
+@pytest.mark.parametrize("width,blocks", [("llama-3.1-8b", 0), ("llama-3.1-8b", 8), ("qwen2.5-7b", 8)],
+                         ids=["a block a card", "8 blocks", "qwen2.5-7b 8 blocks"])
 @pytest.mark.parametrize("n", [2, 4])
-def test_fused_tail_over_peer_cards_equals_one_card(n, blocks, m):
+def test_fused_tail_over_peer_cards_equals_one_card(n, width, blocks, m):
     """One launch on cuda:0 over o / gate-up / down blocks on cuda:0..n-1
     (one block a card, or 8 blocks, TAIL_MAX_BLOCKS: {"model": 8}'s 512 /
-    3,584 / 512 columns a block, block i on cuda:(i % n); read in place
-    over NVLink) at Llama-3.1-8B width: bit-equal to the launch over the
+    3,584 / 512 columns a block at Llama-3.1-8B width, 448 / 4,736 / 448
+    at Qwen2.5-7B's, the o and down tiles ragged, block i on cuda:(i %
+    n); read in place over NVLink): bit-equal to the launch over the
     same blocks on cuda:0 (the same plan on cuda:0's SM count, the same
     items and sums; max |d| printed), 8 blocks to the whole weights'
     launch too, and within the bf16 rule of the plain version."""
     cards = _cards(n)
     blocks = blocks or n
-    ctx, xres, nw, weights = _tail_inputs_8b(m, 80 + m + blocks, cards[0])
+    ctx, xres, nw, weights = _tail_inputs_8b(m, 80 + m + blocks, cards[0], _PEER_TAIL_WIDTHS[width])
     spread = _blocks(weights, _cycled(cards, blocks))
     assert [p.device.index for p in spread[0]] == [i % n for i in range(blocks)]
     before = tint4.TAIL_LAUNCHES.value
@@ -301,7 +337,7 @@ def test_fused_tail_over_peer_cards_equals_one_card(n, blocks, m):
     against = {"one card": local, **({"whole": [t for w in weights for t in w]} if blocks == 8 else {})}
     deltas = {tag: float((got - tint4.int4_fused_layer_tail(ctx, xres, nw, *args, eps=1e-5)).abs().max())
               for tag, args in against.items()}
-    print(f"fused tail over {blocks} blocks on {n} cards, M={m}: max |d| {deltas}")
+    print(f"fused tail at {width} width over {blocks} blocks on {n} cards, M={m}: max |d| {deltas}")
     assert deltas == dict.fromkeys(against, 0.0)
 
 
