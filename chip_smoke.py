@@ -166,11 +166,14 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      head (M = 8, splitk, 160 columns in each block's last item) over 8
      column blocks and the fused tail over 8 (M = 8, 64), each held as in
      (c) (bit-equal to the whole-weight launch required) and timed beside
-     it, one 16,032-column head shard alone (splitk, the per-shard route's
-     launch), and split-K blocks narrower than a box (8 x 16 and 2 x 48
-     columns, K = 1,024 at 8 K splits, M = 1, 8, 64) against plain and
-     bit-equal to the whole weight's launch; the seconds of (d) are
-     printed; (e) Qwen2.5-7B-Instruct's width (the qwen2 family, a bias on
+     it, the head at M = 128 over its 8 blocks (wgmma, each block's last
+     tile 32 columns) the same way, one 16,032-column head shard alone
+     (splitk, the per-shard route's launch), and blocks narrower than a
+     box (8 x 16 and 2 x 48 columns, K = 1,024: split-K at 8 K splits at
+     M = 1, 8, 64; wgmma at M = 65, 128, 300) against plain and bit-equal
+     to the whole weight's launch; every wgmma launch's tile count read
+     from the kernel and held against ``int4.wgmma_items``; the seconds
+     of (d) are printed; (e) Qwen2.5-7B-Instruct's width (the qwen2 family, a bias on
      qkv: vocab 152,064, H 3,584, 28 layers, 28 heads, 4 KV heads, I
      18,944), seeded random bf16 weights made on the card after phase
      14's are freed, int4 group 128: the unsharded int4 engine's prefill
@@ -178,16 +181,17 @@ Phases, one line each (any failed check raises and the exit code is not 0):
      H = 3,584), the reference; the same weights over {"model": 8} of the
      card (o and down 448 columns a shard, 3.5 of the tail's 128-column
      tiles, on its 16-column block unit): 29 + 28 launches a decode
-     forward (JAX's), 701 + 0 a prefill forward
+     forward, 113 + 0 a prefill forward, JAX's both
      (``decoder.int4_forward_launches``: qkv's 576 and o / down's 448
-     columns run once a shard off wgmma's 128; JAX's 113 + 0 printed
-     beside), fp32 logits within phase 10's rule of the unsharded
+     columns once over their blocks on wgmma, the last tile of each block
+     ragged), fp32 logits within phase 10's rule of the unsharded
      engine's (max |d| printed); phase 10's 8 requests served over the
      axis at 16 new tokens (no error response, decode route
-     ``fused_tail``, tok/s); the fused tail over the 8 blocks of 448 /
-     4,736 / 448 columns at M = 8 and 64 held as in (c) (bit-equal to the
-     whole-weight launch required) and timed beside it; the seconds of (e)
-     are printed;
+     ``fused_tail``, tok/s); the prefill products over the 8 blocks at M =
+     4,096 (qkv 576, o 448 and down 448 columns a block, wgmma) and the
+     fused tail over the 8 blocks of 448 / 4,736 / 448 columns at M = 8
+     and 64, each held as in (c) (bit-equal to the whole-weight launch
+     required) and timed beside it; the seconds of (e) are printed;
  15. dp x tp training over {"data": 2, "model": 2} of the one card
      (``models/train.py`` and ``train_lm.py`` with ``mesh=``; no
      multi-card speed is read from it): (a) bert-base with phase 12a's
@@ -1174,6 +1178,8 @@ def time_int4_matmul(device, gen, m: int, name: str, packed: torch.Tensor, scale
          "plain_ms": median_ms(lambda: int4.int4_matmul_plain(x, packed[0], scales[0]), runs=3, reps=1, warmup=1),
          "host_us": host_us(lambda: call(0)),
          **int4_yardsticks(x, packed[0], scales[0], ref), **int4_bound(m, k, n)}
+    if route == "wgmma":
+        r["items"] = checked_wgmma_items(m, n, blocks, what)
     if blocks > 1:
         r["whole_route"] = int4.int4_matmul_route(m, n)
         r["whole_splits"] = matmul_splits(device, m, k, n, r["whole_route"])
@@ -1186,6 +1192,8 @@ def time_int4_matmul(device, gen, m: int, name: str, packed: torch.Tensor, scale
                                  f"{r['max_abs_diff_vs_whole_kernel']} (the same items and sums: bit-equal)")
         r.update(whole_ms=median_ms(cycling(whole, layers)), whole_device_ms=device_ms(cycling(whole, layers)),
                  whole_host_us=host_us(lambda: whole(0)))
+        if route == "wgmma":
+            r["whole_items"] = checked_wgmma_items(m, n, 1, what)
     # the library call: tinygemm, the same formula ((q - 8) * scale a group) with bf16 scales and output
     r["library_ms"] = r["int4pack_mm_ms"]
     r["roofline_share"] = r["bound_ms"] / r["ms"]
@@ -1195,7 +1203,19 @@ def time_int4_matmul(device, gen, m: int, name: str, packed: torch.Tensor, scale
     return r
 
 
+def checked_wgmma_items(m: int, n: int, blocks: int, what: str) -> int:
+    """The work items of a wgmma launch of m rows over n columns in
+    ``blocks`` column blocks, as the built kernel counts them (its C
+    entry), held against ``int4.wgmma_items``."""
+    got, want = int4._lib().comorag_int4_matmul_wgmma_items(m, n, blocks), int4.wgmma_items(m, n, blocks)
+    if got != want:
+        raise AssertionError(f"{what}: the kernel counts {got} wgmma tiles, int4.wgmma_items {want}")
+    return got
+
+
 def int4_matmul_line(r: dict) -> str:
+    tiles = "" if "items" not in r else f", {r['items']} tiles" + (
+        f" (the whole weight's {r['whole_items']})" if "whole_items" in r else "")
     blocked = ""
     if r["blocks"] > 1:
         blocked = (f" over {r['blocks']} column blocks of {r['N'] // r['blocks']} in one launch (max |d| against the "
@@ -1203,7 +1223,7 @@ def int4_matmul_line(r: dict) -> str:
                    f"{r['max_abs_diff_vs_whole_kernel']:.4g}; the whole weight {r['whole_ms']:.4f} ms, device alone "
                    f"{r['whole_device_ms']:.4f} ms, host {r['whole_host_us']:.1f} us a call)")
     return (f"int4_matmul M={r['M']} {r['weight']} {r['K']}->{r['N']}{blocked} route {r['route']} ({r['splits']} K "
-            f"split(s)): max_abs_err={r['max_abs_err']:.4g} kernel {r['ms']:.4f} ms (device alone "
+            f"split(s){tiles}): max_abs_err={r['max_abs_err']:.4g} kernel {r['ms']:.4f} ms (device alone "
             f"{r['device_ms']:.4f} ms) plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
             f"roofline share {r['roofline_share']:.3f} (device alone {r['device_roofline_share']:.3f}); wrapper host "
             f"{r['host_us']:.1f} us a call; yardsticks (not this function): bf16 torch.matmul on the dequantized "
@@ -2437,22 +2457,28 @@ TP_WIDE = 8  # (d): {"model": 8}, an 8-card node's axis, on the one card (int4.T
 # 32,064-column head shard alone, as the per-shard route launches it (o,
 # gate/up and down run in the fused tail over their shards at decode);
 # (d) qkv, gate/up and the head over {"model": 8}'s 8 blocks (768, 3,584
-# and 16,032 columns: the head's a multiple of split-K's 16-column unit,
-# each block's last item 160 columns), and one of its eight 16,032-column
-# head shards alone (split-K; the per-shard route's launch)
+# and 16,032 columns: the head's a multiple of the 16-column block unit,
+# each block's last split-K item 160 columns at M = 8 and last wgmma tile
+# 32 columns at M = 128, a prefill that asks for every position's
+# logits), and one of its eight 16,032-column head shards alone (split-K;
+# the per-shard route's launch)
 TP_MATMUL_SHAPES = (("qkv", 8, TP), ("gate_up", 4096, TP), ("lm_head", 8, 2), ("lm_head", 8, TP),
                     ("lm_head shard", 8, 1))
 TP_WIDE_MATMUL_SHAPES = (("qkv", 8, TP_WIDE), ("gate_up", 4096, TP_WIDE), ("lm_head", 8, TP_WIDE),
-                         ("lm_head shard", 8, 1))
-# (d) split-K blocks narrower than a 128-column box, (width, blocks): K =
+                         ("lm_head", 128, TP_WIDE), ("lm_head shard", 8, 1))
+# (d) blocks narrower than a 128-column box or tile, (width, blocks): K =
 # 1,024 (8 groups) gives the blocks and the whole weight 8 K splits each
+# up to 64 rows (split-K); above, one wgmma tile a block (a ragged token
+# tile at 65 and 300)
 NARROW_BLOCKS = ((16, 8), (48, 2))
 NARROW_K = 1024
+NARROW_M = (1, 8, 64, 65, 128, 300)
 TP_ROUTES = (f"int4_matmul: {decoder.BLOCKS} where a column split's shards all lie on the merge device (this "
              f"mesh of one card) or on cards it may read (peer access; phase 21) and the kernel takes them (at "
-             f"most {int4.TAIL_MAX_BLOCKS} of equal width: splitk up to 64 rows, each a multiple of 16 columns, "
-             f"the head's 32,064- and 16,032-column shards among them; wgmma above, each a multiple of 128): one "
-             f"launch a product reads the shards in place; {decoder.PER_SHARD} otherwise (a card without peer access; "
+             f"most {int4.TAIL_MAX_BLOCKS} of equal width, each a multiple of 16 columns, the last tile of each "
+             f"ragged: splitk up to 64 rows, wgmma above; the 8B head's 32,064- and 16,032-column shards and "
+             f"Qwen2.5-7B's 576 / 448-column qkv / o / down shards among them): one launch a product reads the "
+             f"shards in place; {decoder.PER_SHARD} otherwise (a card without peer access; "
              f"blocks off those units): one launch a shard, gathered on the merge device. The layer tail: {decoder.FUSED_TAIL} where every shard lies "
              f"on the merge device or on a card it may read (peer access; phase 21): one launch a layer of "
              f"<= 64 tokens on the merge device reads the o, gate/up and down column shards in place (o and down "
@@ -2463,15 +2489,16 @@ TP_ROUTES = (f"int4_matmul: {decoder.BLOCKS} where a column split's shards all l
              f"activation and residuals in PyTorch")
 
 
-def tp_shard_timings(device, shapes, axis: int) -> list:
+def tp_shard_timings(device, shapes, axis: int, arch=None) -> list:
     """(c, d) int4_matmul over column blocks (``shapes``: (weight, M,
-    blocks)), timed as phase 9 times its shapes (32 layers' weights
-    cycled, plain, bound, tinygemm as the library call), each blocked
-    launch held against and timed beside the whole weight's; the head's
-    per-shard shape (a 1/``axis`` column shard of {"model": axis}) alone.
-    Each row carries ``axis``."""
+    blocks)) at Llama-3.1-8B width (``arch``'s: (e) Qwen2.5-7B's), timed
+    as phase 9 times its shapes (the layers' weights cycled, plain, bound,
+    tinygemm as the library call), each blocked launch held against and
+    timed beside the whole weight's; the head's per-shard shape (a
+    1/``axis`` column shard of {"model": axis}) alone. Each row carries
+    ``axis``."""
     gen = torch.Generator(device=device).manual_seed(SEED + 14)
-    arch = llama_8b()
+    arch = arch or llama_8b()
     rows = []
     for name, m, blocks in shapes:
         k, n = int4_matmul_dims(arch, name.split()[0])
@@ -2543,34 +2570,41 @@ def tp_tail_timings(device, blocks: int, arch=None) -> list:
 
 
 def narrow_block_checks(device) -> list:
-    """(d) int4_matmul over split-K column blocks narrower than a
-    128-column box (``NARROW_BLOCKS``: a box wider than its block, TMA
-    filling the columns past the edge with zeros) at K = ``NARROW_K``, M =
-    1, 8 and 64: one splitk launch at the whole weight's K splits (more
-    than one: the ticketed split sum over ragged tiles), within the bf16
-    rule of the plain version and bit-equal to the whole weight's launch."""
+    """(d) int4_matmul over column blocks narrower than a 128-column box
+    or tile (``NARROW_BLOCKS``: a box wider than its block, TMA filling
+    the columns past the edge with zeros) at K = ``NARROW_K``, M in
+    ``NARROW_M``: up to 64 rows one splitk launch at the whole weight's K
+    splits (more than one: the ticketed split sum over ragged tiles),
+    above one wgmma launch (a tile a block; its tile count the kernel's
+    and ``int4.wgmma_items``'), within the bf16 rule of the plain version
+    and bit-equal to the whole weight's launch."""
     gen = torch.Generator(device=device).manual_seed(SEED + 26)
     rows = []
     for width, blocks in NARROW_BLOCKS:
         n = width * blocks
         packed, scales = (t[0] for t in int4_weights(gen, device, NARROW_K, n, 1))
         cut = split_blocks(packed, -1, [device] * blocks), split_blocks(scales, -1, [device] * blocks)
-        for m in (1, 8, 64):
+        for m in NARROW_M:
             what = f"int4_matmul M={m} over {blocks} column blocks of {width}"
             x = torch.randn(m, NARROW_K, generator=gen, device=device).to(torch.bfloat16)
             route = int4.int4_matmul_route(m, n, blocks)
             splits = matmul_splits(device, m, NARROW_K, n, route, blocks)
-            if route != "splitk" or splits < 2 or splits != matmul_splits(device, m, NARROW_K, n, route):
-                raise AssertionError(f"{what}: route {route} at {splits} K splits, expected splitk at the whole "
-                                     f"weight's, more than one")
+            want = "splitk" if m <= int4.SPLITK_MAX_M else "wgmma"
+            if route != want or (route == "splitk") != (splits > 1) or splits != matmul_splits(
+                    device, m, NARROW_K, n, route):
+                raise AssertionError(f"{what}: route {route} at {splits} K splits, expected {want} at the whole "
+                                     f"weight's (split-K: more than one)")
             before = int4.ROUTE_LAUNCHES[route].value
             got = int4.int4_matmul(x, *cut)
             torch.cuda.synchronize()
             if int4.ROUTE_LAUNCHES[route].value != before + 1:
-                raise AssertionError(f"{what}: {int4.ROUTE_LAUNCHES[route].value - before} splitk launches, expected 1")
+                raise AssertionError(f"{what}: {int4.ROUTE_LAUNCHES[route].value - before} {route} launches, "
+                                     f"expected 1")
             r = {"M": m, "K": NARROW_K, "width": width, "blocks": blocks, "route": route, "splits": splits,
                  "max_abs_err": compare(got, int4.int4_matmul_plain(x, packed, scales), what),
                  "max_abs_diff_vs_whole_kernel": float((got - int4.int4_matmul(x, packed, scales)).abs().max())}
+            if route == "wgmma":
+                r["items"] = checked_wgmma_items(m, n, blocks, what)
             if r["max_abs_diff_vs_whole_kernel"] != 0.0:
                 raise AssertionError(f"{what}: differs from the whole weight's launch by "
                                      f"{r['max_abs_diff_vs_whole_kernel']} (the same splits and sums: bit-equal)")
@@ -2748,10 +2782,11 @@ def phase_tp(device, server: dict, smi: str, max_tokens: int = 64) -> dict:
           f"{json.dumps(wide['logits_fp32_vs_plain'])}; build {wide['build_s']:.3f} s; (d) in all "
           f"{out['wide_s']:.1f} s", flush=True)
     for r in out["shards"]:
-        print(f"phase 14{'d' if r['axis'] == TP_WIDE else 'c'} {int4_matmul_line(r)}", flush=True)
-    print(f"phase 14d int4_matmul over split-K blocks narrower than a box, K = {NARROW_K} ({smi}): one splitk "
-          f"launch each, at the whole weight's K splits, within the bf16 rule of plain and bit-equal to the whole "
-          f"weight's launch (checked): {json.dumps(out['narrow_blocks'])}", flush=True)
+        print(f"phase 14{'d' if r['axis'] == TP_WIDE else 'c'} {int4_matmul_line(r)} ({smi})", flush=True)
+    print(f"phase 14d int4_matmul over blocks narrower than a box or tile, K = {NARROW_K} ({smi}): one splitk "
+          f"launch each up to 64 rows, at the whole weight's K splits, one wgmma launch above (its tiles the "
+          f"kernel's count), within the bf16 rule of plain and bit-equal to the whole weight's launch (checked): "
+          f"{json.dumps(out['narrow_blocks'])}", flush=True)
     for r in out["tail_shards"]:
         print(tail_shards_line(r, "d" if r["blocks"] == TP_WIDE else "c", smi), flush=True)
     return out
@@ -2771,14 +2806,20 @@ def tail_shards_line(r: dict, tag: str, smi: str) -> str:
 QWEN_SEED = SEED + 27
 QWEN_TOKENS = 16  # new tokens a served request (phase 20's count)
 # a forward's (int4_matmul, fused tail) launches at Qwen2.5-7B width over
-# {"model": 8} (28 layers): a prefill chunk runs qkv (576 columns a shard),
-# o and down (448) once a shard, off wgmma's 128-column unit, and gate/up
-# (4,736) and the head (the last position's 8 rows) once, 28 x (3 x 8 + 1)
-# + 1; a decode step qkv and the head once and the tail once a layer, over
-# o / down's 448-column blocks. JAX's: every product once over its gathered
-# shards, (113, 0) and (29, 28)
-QWEN_TP_LAUNCHES = [(701, 0), (29, 28)]
+# {"model": 8} (28 layers): a prefill chunk runs every product once over
+# its blocks, qkv (576 columns a shard), o and down (448) on wgmma with a
+# ragged last tile a block, gate/up (4,736) and the head (the last
+# position's 8 rows) too, 28 x 4 + 1; a decode step qkv and the head once
+# and the tail once a layer, over o / down's 448-column blocks. JAX's:
+# every product once over its gathered shards, the same (113, 0) and (29,
+# 28)
+QWEN_TP_LAUNCHES = [(113, 0), (29, 28)]
 QWEN_JAX_LAUNCHES = [(113, 0), (29, 28)]
+# (e) Qwen2.5-7B's prefill products over {"model": 8}'s blocks at M =
+# 4,096 (8 prompts of a 512-token bucket), off wgmma's 128-column tile:
+# qkv 8 x 576 (five tiles a block, the last 64 columns), o and down 8 x
+# 448 (four, the last 64)
+QWEN_PREFILL_SHAPES = (("qkv", 4096, TP_WIDE), ("o", 4096, TP_WIDE), ("down", 4096, TP_WIDE))
 
 
 def phase_tp_qwen(device, smi: str) -> dict:
@@ -2794,9 +2835,12 @@ def phase_tp_qwen(device, smi: str) -> dict:
     at Qwen's shapes held against its plain version); (c) phase
     10's 8 requests served over the axis at ``QWEN_TOKENS`` new tokens
     (no error response; decode route ``fused_tail``; every forward's
-    launches checked); (d) the fused tail over the 8 blocks of 448 / 4,736
-    / 448 columns at M = 8 and 64 (``tp_tail_timings``: bit-equal to the
-    whole weights' launch)."""
+    launches checked); (d) int4_matmul over the 8 blocks of qkv, o and down
+    at M = 4,096 (``QWEN_PREFILL_SHAPES``, ``tp_shard_timings``: wgmma,
+    bit-equal to the whole weight's launch) and the fused tail over the 8
+    blocks of 448 / 4,736 / 448 columns at M = 8 and 64
+    (``tp_tail_timings``: bit-equal to the whole weights' launch), each
+    timed beside the whole weights."""
     t0 = time.perf_counter()
     arch = qwen25_7b()
     layers = arch.num_layers
@@ -2832,6 +2876,9 @@ def phase_tp_qwen(device, smi: str) -> dict:
                                     "completion_tokens")})
     del engine
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["shards"] = tp_shard_timings(device, QWEN_PREFILL_SHAPES, TP_WIDE, arch)
+    out["shards_s"] = time.perf_counter() - t1
     out["tail_shards"] = tp_tail_timings(device, TP_WIDE, arch)
     out["phase_s"] = time.perf_counter() - t0
     logits = out["logits_fp32_vs_phase_14"]
@@ -2849,9 +2896,12 @@ def phase_tp_qwen(device, smi: str) -> dict:
           f"decode {out['decode_tok_s']:.1f} tok/s, wall {out['wall_s']:.3f} s; launches {out['launches']}, "
           f"int4_matmul by route {out['route_launches']}; per forward (checked) "
           f"{json.dumps(out['served_forwards'])}; completion tokens {out['completion_tokens']}", flush=True)
+    for r in out["shards"]:
+        print(f"phase 14e {int4_matmul_line(r)} ({smi})", flush=True)
     for r in out["tail_shards"]:
         print(tail_shards_line(r, "e", smi), flush=True)
-    print(f"phase 14e in all {out['phase_s']:.1f} s", flush=True)
+    print(f"phase 14e in all {out['phase_s']:.1f} s (the prefill products over blocks {out['shards_s']:.1f} s)",
+          flush=True)
     return out
 
 
@@ -3961,6 +4011,7 @@ def main() -> None:
                                                                for r, c in int4.ROUTE_LAUNCHES.items()},
                             "tp_launches": tp["int4"]["launches"][counter.name],
                             "tp_launches_by_route": tp["int4"]["route_launches"], "tp_shard_shapes": tp["shards"],
+                            "qwen_tp_shard_shapes": qwen["shards"],
                             "narrow_block_checks": tp["narrow_blocks"],
                             "process_tp_launches_by_route": process_tp["int4"]["route_launches"],
                             "mesh_dryrun_launches": mesh_training["dryrun"]["int4_matmul_launches"],
@@ -3979,7 +4030,8 @@ def main() -> None:
                         "process_tp_launches": [r[counter.name] for r in process_tp["int4"]["launches"]],
                         "process_tp_launches_per_forward": process_tp["int4"]["forwards"],
                         "max_abs_err": max(r["max_abs_err"] for r in rows + tiny_checks
-                                           + (tp["shards"] + tp["narrow_blocks"] if counter is int4.LAUNCHES
+                                           + (tp["shards"] + tp["narrow_blocks"] + qwen["shards"]
+                                              if counter is int4.LAUNCHES
                                               else tp["tail_shards"] + qwen["tail_shards"])
                                            + ([] if peer_tp is None else
                                               peer_tp["matmul" if counter is int4.LAUNCHES else "tail"])),

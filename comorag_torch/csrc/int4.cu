@@ -32,10 +32,15 @@
 //   its 8-wide N (W^T x^T), the exact nibble unpack, fp32 partials summed
 //   in split order by the tile's last split to arrive (at one split the
 //   sums go to out directly);
-// - prefill, M > 64 and N a multiple of 128: prefill::matmul_kernel, a
-//   warp-specialized persistent kernel on wgmma. Still W^T x^T: an output
-//   tile is out^T [128 columns][128 tokens]. One producer thread keeps a
-//   ring of TMA stages in flight (x's [128 tokens][64 inputs] box, the
+// - prefill, M > 64 and each block's width a multiple of 16:
+//   prefill::matmul_kernel, a warp-specialized persistent kernel on wgmma.
+//   Still W^T x^T: an output tile is out^T [128 columns][128 tokens],
+//   tiled block by block (a block's last tile holds its ragged rest, any
+//   multiple of 16 columns: TMA fills the packed box past the block's edge
+//   with zeros, the scale copy and the stores stop at the edge; no K
+//   split, so a column's sum is the same in any tile). One producer
+//   thread keeps a ring of TMA stages in flight (x's [128 tokens][64
+//   inputs] box, the
 //   packed [32 rows][128 bytes] box, the scale row); two consumer
 //   warpgroups own 64 columns each and issue m64n128k16 wgmma with the
 //   weights as the register operand (a lane's two columns are one 16-bit
@@ -48,8 +53,8 @@
 //   next stage's bytes already loaded; setmaxnreg moves the producer's
 //   registers to the consumers; the epilogue stages out^T through shared
 //   memory for 16-byte row stores;
-// - every other shape (N no multiple of 16 up to 64 rows, of 128 above,
-//   e.g. a 259-token vocabulary): the first design, int4_matmul_kernel. A block owns a
+// - every other shape (N no multiple of 16, e.g. a 259-token
+//   vocabulary): the first design, int4_matmul_kernel. A block owns a
 //   [BM, BN] output tile and walks K in slabs of 64 through a cp.async
 //   ring (the x rows as bf16, the packed bytes as they are); the
 //   m16n8k16 B fragment of a lane, (k 2t, 2t+1; n g) and (k 2t+8, 2t+9;
@@ -59,11 +64,11 @@
 // The split-K and wgmma routes take the weight whole or as up to
 // splitk::MAX_BLOCKS (8) column blocks (a `model` axis's shards, up to
 // an 8-card node's): each block has its own tensor map and scale
-// pointer; a split-K item lies in one block, and a wgmma tile's global
-// column picks its block, so one launch reads the shards in place with
-// the whole weight's sums (bit-equal output at the same K splits). A
-// block may lie on the launching card or
-// on a peer card (a `model` axis over distinct cards, after
+// pointer; both routes tile each block on its own (a split-K item and a
+// wgmma tile lie in one block, the last of a block ragged), so one launch
+// reads the shards in place with the whole weight's sums (bit-equal
+// output at the same K splits; wgmma has none). A block may lie on the
+// launching card or on a peer card (a `model` axis over distinct cards, after
 // comorag_enable_peer_access), as in the fused tail below: the split-K
 // PRODUCT stage and prefill::matmul_kernel's producer read it through the
 // same tensor map and scale bulk copies, over NVLink, with the same items
@@ -1014,7 +1019,7 @@ constexpr int BN = 128;                   // output columns of a tile: two consu
 constexpr int KS = 64;                    // inputs of a ring stage (a group holds gs / KS stages)
 constexpr int X_BYTES = BT * KS * 2;      // x box [128 tokens][64] bf16, K-major, 128-byte swizzled
 constexpr int P_BYTES = (KS / 2) * BN;    // packed box [32 rows][128 bytes], 128-byte swizzled
-constexpr int S_BYTES = BN * 4;           // the stage's scale row
+constexpr int S_BYTES = BN * 4;           // the stage's scale row (a ragged tile fills its columns in the block)
 constexpr int STAGE = (X_BYTES + P_BYTES + S_BYTES + 1023) / 1024 * 1024;
 constexpr int STAGES = 7;
 constexpr int OLD = 68;                   // staged output row stride in floats (conflict-free float2 writes)
@@ -1031,11 +1036,15 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = (CAP * THREADS - 128 * PRODUCER_REGS) / 256 / 8 * 8;
 static_assert(SMEM <= 232448, "shared-memory plan exceeds a block's 227 KB");
 
-// Item w: token tile m0, column tile n0. Items walk the column tiles of a
-// token tile first, so blocks running side by side share their x tile in L2.
+// Item w: token tile m0 and column tile w % tn of the weight's tn =
+// blocks x bt, tiled block by block (bt = ceil(bw / BN) tiles a block from
+// its column 0, the last of a block ragged where bw is no multiple of BN):
+// block b, first column `local` in the block. Items walk the column tiles
+// of a token tile first, so blocks running side by side share their x
+// tile in L2.
 struct Tile {
-  int m0, n0;
-  __device__ Tile(int w, int tn) : m0((w / tn) * BT), n0((w % tn) * BN) {}
+  int m0, b, local;
+  __device__ Tile(int w, int tn, int bt) : m0((w / tn) * BT), b((w % tn) / bt), local(((w % tn) % bt) * BN) {}
 };
 
 __device__ __forceinline__ void bar_sync(int id, int n) {
@@ -1089,7 +1098,8 @@ __device__ __forceinline__ void fold(float (&acc)[64], const float (&g)[64], flo
 // The weight as 1 to splitk::MAX_BLOCKS column blocks of bw columns each
 // (one block: the whole weight; more: a model axis's column shards, each
 // its own [K/2, bw] packed tensor and [K/gs, bw] scales, read in place).
-// bw is a multiple of BN, so a tile's columns lie in one block.
+// bw is a multiple of splitk::BLOCK_UNIT (16), and each block is tiled on
+// its own (Tile), so a tile's columns lie in one block.
 struct Blocks {
   CUtensorMap pmap[splitk::MAX_BLOCKS];  // per block: packed [K/2, bw] int8, boxes [32][128]
   const float* S[splitk::MAX_BLOCKS];    // per block: [K/gs, bw] scales
@@ -1104,7 +1114,7 @@ matmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
   uint64_t* empty = full + STAGES;
-  const int tn = N / BN, items = (M + BT - 1) / BT * tn, kbs = K / KS;
+  const int bt = (W.bw + BN - 1) / BN, tn = N / W.bw * bt, items = (M + BT - 1) / BT * tn, kbs = K / KS;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -1122,19 +1132,25 @@ matmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
     if (threadIdx.x != 0) return;
     int it = 0;  // stages filled so far
     for (int w = blockIdx.x; w < items; w += gridDim.x) {
-      const Tile u(w, tn);
-      // the tile's block, once a tile: its map at the local column, its scales
-      const int b = u.n0 / W.bw, col = u.n0 - b * W.bw;
-      const CUtensorMap* pmap = &W.pmap[b];
-      const float* S = W.S[b] + col;
+      const Tile u(w, tn, bt);
+      // the tile's block, once a tile: its map at the local column, its
+      // scales, and the bytes of its scale row inside the block. A ragged
+      // tile's packed box runs past the block's edge (TMA fills those
+      // columns with zeros and counts the whole box's bytes); its scale
+      // copy stops at the edge (a multiple of 16 columns: 64 bytes and up),
+      // so the stage's scales past it are stale. A column's sums and scales
+      // meet only in that column's accumulators, which the epilogue drops.
+      const CUtensorMap* pmap = &W.pmap[u.b];
+      const float* S = W.S[u.b] + u.local;
+      const uint32_t s_bytes = min(BN, W.bw - u.local) * 4;
       for (int kb = 0; kb < kbs; ++kb, ++it) {
         const int s = it % STAGES;
         mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[s], X_BYTES + P_BYTES + S_BYTES);
+        mbar_expect_tx(&full[s], X_BYTES + P_BYTES + s_bytes);
         unsigned char* st = smem + s * STAGE;
         tma_load_2d(st, &xmap, &full[s], kb * KS, u.m0);
-        tma_load_2d(st + X_BYTES, pmap, &full[s], col, kb * (KS / 2));
-        bulk_copy(st + X_BYTES + P_BYTES, S + (size_t)(kb * KS / gs) * W.bw, S_BYTES, &full[s]);
+        tma_load_2d(st + X_BYTES, pmap, &full[s], u.local, kb * (KS / 2));
+        bulk_copy(st + X_BYTES + P_BYTES, S + (size_t)(kb * KS / gs) * W.bw, s_bytes, &full[s]);
       }
     }
     return;
@@ -1159,7 +1175,7 @@ matmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
   const int groups = K / gs, spg = gs / KS;
   int it = 0;  // stages consumed so far
   for (int w = blockIdx.x; w < items; w += gridDim.x) {
-    const Tile u(w, tn);
+    const Tile u(w, tn, bt);
     float acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
@@ -1204,7 +1220,10 @@ matmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
 
     // acc[4j + 2h + e] is column 16 warp + 2 g8 + h of this consumer's 64,
     // token 8j + 2 t4 + e: staged as [token][column], then stored as rows of
-    // 16-byte pieces, rows past M dropped
+    // 16-byte pieces, rows past M and columns past the block's edge dropped
+    // (a ragged tile ends on a multiple of 16 columns, so a piece lies
+    // wholly on one side; a consumer wholly past the edge computed on the
+    // zeros TMA filled in, and stores nothing)
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -1212,10 +1231,12 @@ matmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
         *reinterpret_cast<float2*>(staged + (8 * j + 2 * t4 + e) * OLD + 16 * warp + 2 * g8) =
             make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
     bar_sync(1 + c, 128);
+    const int first = u.local + 64 * c, inside = W.bw - first;  // this consumer's first column in the block
+    float* dst = out + (size_t)u.b * W.bw + first;
     for (int i = t; i < BT * 16; i += 128) {
       const int tok = i / 16, q = i % 16;
-      if (u.m0 + tok < M)
-        *reinterpret_cast<float4*>(out + (size_t)(u.m0 + tok) * N + u.n0 + 64 * c + 4 * q) =
+      if (u.m0 + tok < M && 4 * q < inside)
+        *reinterpret_cast<float4*>(dst + (size_t)(u.m0 + tok) * N + 4 * q) =
             *reinterpret_cast<const float4*>(staged + tok * OLD + 4 * q);
     }
     bar_sync(1 + c, 128);  // the staging is read before the next tile writes it
@@ -1242,14 +1263,26 @@ cudaError_t prepare() {
   return cudaSuccess;
 }
 
+// Work items of a launch over `blocks` column blocks of N / blocks columns
+// each: a token tile times ceil(bw / BN) column tiles a block. -1 for a
+// shape the route refuses: blocks of unequal width, or of a width that is
+// no multiple of splitk::BLOCK_UNIT (a tensor map's row stride of bw bytes
+// needs 16), more than splitk::MAX_BLOCKS blocks.
+long long item_count(int M, int N, int blocks) {
+  if (M <= 0 || N <= 0 || blocks < 1 || blocks > splitk::MAX_BLOCKS || N % blocks != 0 ||
+      (N / blocks) % splitk::BLOCK_UNIT != 0)
+    return -1;
+  const int bw = N / blocks;
+  return (long long)((M + BT - 1) / BT) * blocks * ((bw + BN - 1) / BN);
+}
+
 // One launch over the weight's `blocks` column blocks (P[b], S[b]: block
-// b's packed [K/2, N/blocks] bytes and [K/gs, N/blocks] scales). Refuses a
-// block width that is no multiple of BN.
+// b's packed [K/2, N/blocks] bytes and [K/gs, N/blocks] scales). Refuses
+// what `item_count` refuses.
 int launch(const void* x, const void* const* P, const void* const* S, int blocks, void* out, int M, int N, int K,
            int gs, int sm_count, cudaStream_t stream) {
-  if (P == nullptr || S == nullptr || blocks < 1 || blocks > splitk::MAX_BLOCKS || N % blocks != 0 ||
-      (N / blocks) % BN != 0)
-    return cudaErrorInvalidValue;
+  const long long work = item_count(M, N, blocks);
+  if (P == nullptr || S == nullptr || work < 0 || work > (1ll << 31) - 1) return cudaErrorInvalidValue;
   cudaError_t err = prepare();
   if (err != cudaSuccess) return err;
   CUtensorMap xmap;
@@ -1264,9 +1297,7 @@ int launch(const void* x, const void* const* P, const void* const* S, int blocks
     err = splitk::p_map(&W.pmap[b], P[b], K, W.bw);
   }
   if (err != cudaSuccess) return err;
-  const long long items = (long long)((M + BT - 1) / BT) * (N / BN);
-  if (items > (1ll << 31) - 1) return cudaErrorInvalidValue;
-  matmul_kernel<<<(int)(items < sm_count ? items : sm_count), THREADS, SMEM, stream>>>(
+  matmul_kernel<<<(int)(work < sm_count ? work : sm_count), THREADS, SMEM, stream>>>(
       xmap, W, static_cast<float*>(out), M, N, K, gs);
   return cudaGetLastError();
 }
@@ -1298,8 +1329,8 @@ extern "C" int comorag_int4_matmul(const void* x, const void* packed, const void
 // The split-K and wgmma routes take the weight as `blocks` column blocks
 // (1 to comorag_int4_matmul_max_blocks: the whole weight, or a model
 // axis's column shards in order, block b holding columns [b N / blocks,
-// (b + 1) N / blocks), of equal width: a multiple of 16 on split-K, of
-// 128 on wgmma), given as arrays of packed [K/2, N/blocks] int8 and scale
+// (b + 1) N / blocks), of equal width: a multiple of 16 on both), given
+// as arrays of packed [K/2, N/blocks] int8 and scale
 // [K/gs, N/blocks] fp32 pointers read in place; every pointer 16-byte
 // aligned. One launch, whatever the blocks: at the same K splits the
 // output equals the whole weight's bit for bit.
@@ -1347,14 +1378,24 @@ extern "C" int comorag_int4_matmul_splitk_blocks_per_sm(int M) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// The prefill route: N a multiple of 128 (any M; ops/int4 sends it M >
-// 64). sm_count: SMs for the persistent grid.
+// The prefill route: each block's width a multiple of 16 (any M; ops/int4
+// sends it M > 64). Tiles of 128 tokens x 128 columns, laid out block by
+// block, the last of a block ragged where its width is no multiple of
+// 128; no K split, so a column's sum is the whole weight's whatever its
+// tile. sm_count: SMs for the persistent grid.
 extern "C" int comorag_int4_matmul_wgmma(const void* x, const void* const* P, const void* const* S, int blocks,
                                          void* out, int M, int N, int K, int gs, int sm_count, void* stream) {
-  if (M <= 0 || N <= 0 || N % prefill::BN != 0 || gs <= 0 || gs % prefill::KS != 0 || K <= 0 || K % gs != 0 ||
-      sm_count <= 0)
+  if (M <= 0 || N <= 0 || gs <= 0 || gs % prefill::KS != 0 || K <= 0 || K % gs != 0 || sm_count <= 0)
     return cudaErrorInvalidValue;
   return prefill::launch(x, P, S, blocks, out, M, N, K, gs, sm_count, static_cast<cudaStream_t>(stream));
+}
+
+// The prefill route's work items at M rows over N columns in `blocks`
+// column blocks (for ops/int4.wgmma_items), or a negative cudaError_t for
+// a shape comorag_int4_matmul_wgmma refuses.
+extern "C" long long comorag_int4_matmul_wgmma_items(int M, int N, int blocks) {
+  const long long work = prefill::item_count(M, N, blocks);
+  return work < 0 ? -static_cast<long long>(cudaErrorInvalidValue) : work;
 }
 
 // ctx: [M, H] bf16; xres, out: [M, H] fp32; norm_w: [H] fp32; o: [H/2, H]

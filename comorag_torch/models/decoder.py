@@ -388,14 +388,13 @@ def product_route(w, m: int, device: torch.device) -> str:
       - ``PER_SHARD``: ``sharded_matmul``, one product a shard on its
         device, merged on ``device``: a shard on a card ``device`` may not
         read (decided here, before any launch), blocks the kernel refuses
-        (off split-K's 16-column unit up to 64 rows or wgmma's 128-column
-        one above, more than ``TAIL_MAX_BLOCKS`` = 8), float and int8
-        weights, row splits.
-    Over ``{"model": 8}`` at Llama-3.1-8B width qkv (768 columns a shard),
-    o and down (512) and gate/up (3,584) take ``BLOCKS`` at every m, and
-    the head's 16,032-column shards (a multiple of 16, not of 128) up to
-    64 rows: the last-position head of a decode step or a prefill
-    chunk.
+        (off the 16-column block unit of its split-K and wgmma routes, more
+        than ``TAIL_MAX_BLOCKS`` = 8), float and int8 weights, row splits.
+    Over ``{"model": 8}`` every product of Llama-3.1-8B (qkv 768 columns a
+    shard, o and down 512, gate/up 3,584, the head 16,032) and of
+    Qwen2.5-7B (qkv 576, o and down 448, gate/up 4,736, the head 19,008)
+    takes ``BLOCKS`` at every m: a block's last tile is ragged where its
+    width is off a tile.
     Over a model axis that spans processes both routes run over this
     process's shards, and the outputs are then gathered from every
     process."""
@@ -596,8 +595,9 @@ def int4_forward_launches(params: Dict[str, Any], arch: DecoderArch, m: int, hea
     takes the last position's rows (129, 0): JAX's launches. At
     Qwen2.5-7B width over ``{"model": 8}`` a decode forward makes (29,
     28), JAX's, the tail over o / down shards of 448 columns; a prefill
-    forward (701, 0): qkv's 576 and o / down's 448 columns are off
-    wgmma's 128, so each runs once a shard (JAX: 113 + 0)."""
+    forward (113, 0), JAX's too: qkv's 576 and o / down's 448 columns
+    run once over their blocks on wgmma, each block's last tile
+    ragged."""
     device, layer = params["embed"].device, params["layers"]
     tail = tail_route(params, arch, m) == FUSED_TAIL
     names = ("qkv_w",) if tail else ("qkv_w", "o_w", "gateup_w", "down_w")

@@ -15,9 +15,10 @@ or as column blocks (a ``model`` axis's shards: o and down blocks of any
 multiple of 16 columns, so Qwen2.5-7B's 448-column shards over 8 cards
 are one launch; gate/up blocks of 128), and ``int4_matmul`` takes
 column blocks on its ``splitk`` and ``wgmma`` routes
-(``int4_matmul_blocks_supported``: split-K blocks of any multiple of 16
-columns, so Llama-3.1-8B's head over 8 shards of 16,032 columns is one
-launch too): the one launch on ctx's or x's card
+(``int4_matmul_blocks_supported``: blocks of any multiple of 16 columns
+on both, so Llama-3.1-8B's head over 8 shards of 16,032 columns and
+Qwen2.5-7B's qkv / o / down shards of 576 / 448 / 448 are one launch
+too): the one launch on ctx's or x's card
 reads every block in place, there or on a card it may read
 (``peer_readable``: a ``model`` axis over distinct cards, the peers'
 blocks over NVLink), up to ``TAIL_MAX_BLOCKS`` (8) blocks a weight: an
@@ -47,9 +48,9 @@ TAIL_REPLACES = "comorag_tpu/ops/pallas_int4.py:365"
 
 _ACTS = {"silu": 0, "gelu_tanh": 1, "gelu": 2}
 _KERNEL_K_STEP = 64  # the kernels stage K in slabs of 64: group_size must divide by it
-_WGMMA_TILE_N = 128  # output columns of a tile of the wgmma route
-# a split-K block's width unit (csrc/int4.cu BLOCK_UNIT): a block's last item may end anywhere on it. The
-# int4_matmul split-K route's blocks and the fused tail's o and down blocks take it
+_WGMMA_TILE_M = _WGMMA_TILE_N = 128  # tokens and output columns of a tile of the wgmma route
+# a block's width unit (csrc/int4.cu BLOCK_UNIT): a block's last split-K item or wgmma tile may end anywhere on
+# it. int4_matmul's split-K and wgmma blocks and the fused tail's o and down blocks take it
 _BLOCK_UNIT = 16
 SPLITK_MAX_M = 64  # the split-K route's most tokens (its token tiles: 8, 16, 32, 64)
 
@@ -124,6 +125,7 @@ _C_ENTRIES = (
     ("comorag_int4_matmul_splitk_blocks_per_sm", _I32, [_I32]),
     ("comorag_int4_matmul_splitk_tile_n", _I32, []),
     ("comorag_int4_matmul_wgmma", _I32, [_PTR, _PTRS, _PTRS, _I32, _PTR] + [_I32] * 5 + [_PTR]),
+    ("comorag_int4_matmul_wgmma_items", ctypes.c_longlong, [_I32] * 3),
     ("comorag_int4_fused_layer_tail", _I32,
      [_PTR] * 3 + [_PTRS, _PTRS, _I32] * 3 + [_PTR] * 3 + [_I32] * 7 + [ctypes.c_float, _I32, _I32, _I32, _PTR]),
     ("comorag_int4_tail_workspace_bytes", ctypes.c_longlong, [_I32] * 6),
@@ -171,28 +173,32 @@ def int4_matmul_route(m: int, n: int, blocks: int = 1) -> str:
     """The kernel route ``int4_matmul`` takes for a CUDA x of m rows and n
     output columns in ``blocks`` equal column blocks (a whole weight is one
     block; the first two routes copy packed and scales by TMA, which needs
-    both on 16 bytes):
+    a block's rows on 16 bytes, and tile each block on its own, the last
+    tile of a block holding its ragged rest, a multiple of 16 columns):
     - ``"splitk"``, decode (m <= 64, each block a multiple of 16 columns):
       one stage of the fused tail's split-K streaming code, over
-      ``matmul_plan``'s items, laid out block by block (a block's last item
-      holds its ragged rest, a multiple of 16 columns: 160 of each of the
-      8B head's 16,032-column shards);
-    - ``"wgmma"``, prefill (m > 64, each block a multiple of 128 columns):
+      ``matmul_plan``'s items of 256 columns (160 of each of the 8B head's
+      16,032-column shards in the last);
+    - ``"wgmma"``, prefill (m > 64, each block a multiple of 16 columns):
       a warp-specialized wgmma kernel with the weights as its register
-      operand;
-    - ``"mma_sync"``, every other shape (a 259-token vocabulary): the
-      first design (mma.sync tiles), which takes a whole weight only."""
-    if m <= SPLITK_MAX_M:
-        return "splitk" if n % (blocks * _BLOCK_UNIT) == 0 else "mma_sync"
-    return "wgmma" if n % (blocks * _WGMMA_TILE_N) == 0 else "mma_sync"
+      operand, over ``wgmma_items``' tiles of 128 columns (64 of each of
+      Qwen2.5-7B's 576-column qkv shards in the last, 64 of its 448-column
+      o / down shards; 32 of the 8B head's 16,032);
+    - ``"mma_sync"``, every other shape (a 259-token vocabulary, 600
+      columns): the first design (mma.sync tiles), which takes a whole
+      weight only."""
+    if n % (blocks * _BLOCK_UNIT):
+        return "mma_sync"
+    return "splitk" if m <= SPLITK_MAX_M else "wgmma"
 
 
 def int4_matmul_blocks_supported(m: int, widths) -> bool:
     """Whether ``int4_matmul``'s kernel takes a weight of column blocks of
     ``widths`` columns each at m rows in one launch: at most
-    ``TAIL_MAX_BLOCKS`` blocks of equal width, whose route
-    (``int4_matmul_route`` over the blocks) is ``splitk`` (each a multiple
-    of 16 columns) or ``wgmma`` (of 128), whose TMA maps a block each."""
+    ``TAIL_MAX_BLOCKS`` blocks of equal width, each a multiple of 16
+    columns, so that their route (``int4_matmul_route`` over the blocks)
+    is ``splitk`` (m <= 64) or ``wgmma`` (above), whose TMA maps a block
+    each."""
     widths = list(widths)
     return (1 <= len(widths) <= TAIL_MAX_BLOCKS and len(set(widths)) == 1
             and int4_matmul_route(m, sum(widths), len(widths)) != "mma_sync")
@@ -207,15 +213,15 @@ def int4_matmul(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch
     choosing (any M; ``in`` a multiple of group_size, group_size a multiple
     of 64) once on x's device, reading the blocks in place where
     ``int4_matmul_blocks_supported`` holds and raising where it does not
-    (at m <= 64 blocks of a width off 16 raise, as does a block off 128
-    above). On ``splitk`` and ``wgmma`` each block lies on x's device or
+    (blocks of a width off 16 raise, at any m). On ``splitk`` and
+    ``wgmma`` each block lies on x's device or
     on a card it may read (``peer_readable``; a block on any other device
     raises before the launch); ``mma_sync`` takes a whole weight on x's
     device. ``out``, the split-K workspace and its tickets stay on x's
     device, and the plan is its own, so the output equals the same blocks'
     on x's device bit for bit; split-K takes the whole weight's K splits
-    (``matmul_plan``), so it equals the whole weight's too. CPU tensors run
-    ``int4_matmul_plain``."""
+    (``matmul_plan``) and wgmma splits no K, so it equals the whole
+    weight's too. CPU tensors run ``int4_matmul_plain``."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scales, group_size)
     if x.device.type != "cuda":
@@ -230,13 +236,13 @@ def int4_matmul(x: torch.Tensor, packed, scales, group_size: int = 128) -> torch
     route = int4_matmul_route(m, d_out, len(packed))
     if len(packed) > 1 and not int4_matmul_blocks_supported(m, widths):
         raise ValueError(f"int4_matmul: M={m} takes no column blocks of widths {widths} (1 to {TAIL_MAX_BLOCKS} of "
-                         f"equal width: splitk up to {SPLITK_MAX_M} rows takes a multiple of {_BLOCK_UNIT}, "
-                         f"wgmma above a multiple of {_WGMMA_TILE_N})")
+                         f"equal width, each a multiple of {_BLOCK_UNIT}: splitk up to {SPLITK_MAX_M} rows, "
+                         f"wgmma above)")
     if route == "mma_sync":
         _check_weight("int4_matmul", packed[0], scales[0], d_in, d_out, group_size, dev)
     else:  # the TMA copies need every block 16-byte aligned
-        unit = _BLOCK_UNIT if route == "splitk" else _WGMMA_TILE_N
-        p_ptrs, s_ptrs, blocks = _block_pointers("int4_matmul", packed, scales, d_in, d_out, group_size, dev, unit)
+        p_ptrs, s_ptrs, blocks = _block_pointers("int4_matmul", packed, scales, d_in, d_out, group_size, dev,
+                                                 _BLOCK_UNIT)
     xb = _bf16_rows("int4_matmul", x)
     out = torch.empty(m, d_out, dtype=torch.float32, device=dev)
     lib = _lib()
@@ -394,6 +400,17 @@ def splitk_tiles(n: int, tile_n: int, blocks: int = 1) -> int:
     return blocks * -(-(n // blocks) // tile_n)
 
 
+def wgmma_items(m: int, n: int, blocks: int = 1) -> int:
+    """Work items of a wgmma-route launch of m rows over n columns in
+    ``blocks`` equal column blocks (the C entry
+    ``comorag_int4_matmul_wgmma_items``' count): each 128-token tile times
+    ceil(n / blocks / 128) column tiles a block, laid out block by block,
+    the last of a block ragged. Qwen2.5-7B's qkv over 8 blocks at M =
+    4,096: 32 x 8 x 5 = 1,280, against the whole weight's 32 x 36 =
+    1,152."""
+    return -(-m // _WGMMA_TILE_M) * splitk_tiles(n, _WGMMA_TILE_N, blocks)
+
+
 @functools.lru_cache(maxsize=None)
 def _plan_splits(m: int, k: int, n: int, group_size: int, sm_count: int, tile_n: int, blocks_per_sm: int) -> int:
     """The K splits of one [k, n] product of split-K items (``_splits_for``
@@ -530,8 +547,8 @@ def _block_pointers(name: str, packed: list, scales: list, d_in: int, d_out: int
     dtype, shape, device (``device``, x's or ctx's, or a card it may read,
     whose peer access is then enabled), contiguity and 16-byte alignment,
     and that the blocks are at most ``TAIL_MAX_BLOCKS`` of equal width, a
-    multiple of ``unit`` (wgmma's and the tail's gate/up ``TAIL_TILE_N``,
-    split-K's and the tail's o and down 16)."""
+    multiple of ``unit`` (the tail's gate/up ``TAIL_TILE_N``;
+    ``int4_matmul``'s and the tail's o and down 16)."""
     n = len(packed)
     if n > TAIL_MAX_BLOCKS or d_out % n or (d_out // n) % unit:
         raise ValueError(f"{name}: the kernel takes 1 to {TAIL_MAX_BLOCKS} column blocks of equal width, a multiple "

@@ -263,8 +263,9 @@ def test_tail_plan_over_column_blocks_tiles_o_and_down_block_by_block(hidden, in
     (64, 384, "splitk"), (8, 32064, "splitk"), (8, 320, "splitk"),  # a ragged last item of 128 or 64 columns
     (65, 128, "wgmma"), (4096, 28672, "wgmma"), (65, 384, "wgmma"),
     (8, 259, "mma_sync"), (4096, 600, "mma_sync"), (64, 600, "mma_sync"), (8, 96, "splitk"),  # 96: 16-column unit
-    (65, 32064, "mma_sync"), (2, 259, "mma_sync"), (512, 259, "mma_sync"),
-    (8, 16032, "splitk"), (64, 16, "splitk"), (8, 40, "mma_sync"), (8, 24, "mma_sync"), (65, 16032, "mma_sync")])
+    (65, 32064, "wgmma"), (2, 259, "mma_sync"), (512, 259, "mma_sync"),  # 32,064: a ragged last wgmma tile
+    (8, 16032, "splitk"), (64, 16, "splitk"), (8, 40, "mma_sync"), (8, 24, "mma_sync"), (65, 16032, "wgmma"),
+    (130, 320, "wgmma"), (65, 40, "mma_sync"), (300, 24, "mma_sync")])  # off 128 on 16; off 16 above 64 rows
 def test_int4_matmul_route_gates(m, n, route):
     assert tint4.int4_matmul_route(m, n) == route
 
@@ -274,15 +275,40 @@ def test_int4_matmul_route_gates(m, n, route):
 @pytest.mark.parametrize("m,n,blocks,route", [
     (8, 4 * 32064, 4, "splitk"), (8, 2 * 32064, 2, "splitk"), (64, 4 * 320, 4, "splitk"), (1, 4 * 64, 4, "splitk"),
     (8, 2 * 64128, 2, "splitk"), (65, 2 * 64128, 2, "wgmma"), (4096, 4 * 7168, 4, "wgmma"),
-    (65, 4 * 32064, 4, "mma_sync"), (8, 4 * 96, 4, "splitk"), (8, 2 * 32, 2, "splitk"), (8, 1000, 3, "mma_sync"),
+    (65, 4 * 32064, 4, "wgmma"), (8, 4 * 96, 4, "splitk"), (8, 2 * 32, 2, "splitk"), (8, 1000, 3, "mma_sync"),
     (8, 8 * 16032, 8, "splitk"), (1, 8 * 16, 8, "splitk"), (64, 2 * 48, 2, "splitk"),  # the 8B head over 8, narrow
-    (4096, 8 * 16032, 8, "mma_sync"), (8, 4 * 24, 4, "mma_sync"), (8, 2 * 40, 2, "mma_sync")])  # off 128, off 16
+    (4096, 8 * 16032, 8, "wgmma"), (8, 4 * 24, 4, "mma_sync"), (8, 2 * 40, 2, "mma_sync"),  # ragged tiles, off 16
+    (4096, 8 * 576, 8, "wgmma"), (4096, 8 * 448, 8, "wgmma"),  # Qwen2.5-7B's qkv and o / down over {"model": 8}
+    (65, 8 * 16, 8, "wgmma"), (300, 2 * 48, 2, "wgmma"),  # blocks narrower than a wgmma tile
+    (65, 4 * 24, 4, "mma_sync"), (4096, 2 * 40, 2, "mma_sync")])  # blocks off 16 above 64 rows
 def test_int4_matmul_route_over_column_blocks(m, n, blocks, route):
-    """The route of a weight in equal column blocks: split-K up to 64 rows
-    where each block is a multiple of 16 columns, wgmma above where each is
-    a multiple of 128."""
+    """The route of a weight in equal column blocks, each a multiple of 16
+    columns: split-K up to 64 rows, wgmma above; mma_sync (a whole weight
+    only) where a block is off 16 columns."""
     assert tint4.int4_matmul_route(m, n, blocks) == route
     assert tint4.int4_matmul_blocks_supported(m, [n // blocks] * blocks) == (route != "mma_sync" and n % blocks == 0)
+
+
+# (m, n, blocks, items) of the wgmma route: Qwen2.5-7B's qkv (576 columns a
+# block: 5 tiles, the last 64 columns) and o / down (448: 4 tiles) over
+# {"model": 8} at M = 4,096 against their whole weights' 36 and 28 tiles;
+# the 8B head over 8 at M = 128 (126 tiles a block, the last 32 columns)
+# against the whole head's 1,002; whole weights on 128 (gate/up, with a
+# ragged token tile at 4,097), blocks narrower than a tile, a whole
+# 320-column weight
+_WGMMA_ITEMS = [(4096, 8 * 576, 8, 1280), (4096, 4608, 1, 1152), (4096, 8 * 448, 8, 1024), (4096, 3584, 1, 896),
+                (128, 8 * 16032, 8, 1008), (128, 128256, 1, 1002), (4096, 28672, 1, 7168), (4097, 28672, 1, 7392),
+                (65, 8 * 16, 8, 8), (300, 2 * 48, 2, 6), (130, 320, 1, 6)]
+
+
+@pytest.mark.parametrize("m,n,blocks,items", _WGMMA_ITEMS)
+def test_wgmma_items_tile_each_block_on_its_own(m, n, blocks, items):
+    """wgmma_items: a 128-token tile times ceil(width / 128) column tiles
+    a block; on a whole weight of a multiple of 128 columns, the token
+    tiles times n / 128, as before blocks off 128."""
+    assert tint4.wgmma_items(m, n, blocks) == items
+    if blocks == 1 and n % 128 == 0:
+        assert items == -(-m // 128) * (n // 128)
 
 
 # column blocks of the split-K route, (n, blocks): the 8B head over
@@ -450,8 +476,8 @@ def test_int4_matmul_kernel_matches_plain(cuda_device, m, d_in, d_out, gs):
 
 
 # every route's gates crossed: M = 64 / 65, N a multiple of 256, of 128
-# only (384, 640), of 64 only (320, 192, 32064: a ragged last split-K item)
-# or of none (259, 600), group sizes 64 and 128, K of 2
+# only (384, 640), of 64 only (320, 192, 32064: a ragged last split-K item
+# or wgmma tile) or of none (259, 600: mma_sync), group sizes 64 and 128, K of 2
 # groups; N = 128256 at M = 8 and 33792 at M = 40 give every block slot a
 # column tile, so the plan takes one K split (out written directly)
 _ROUTE_CASES = [(1, 256, 256, 128, "splitk"), (8, 256, 512, 128, "splitk"), (8, 4096, 6144, 128, "splitk"),
@@ -461,7 +487,7 @@ _ROUTE_CASES = [(1, 256, 256, 128, "splitk"), (8, 256, 512, 128, "splitk"), (8, 
                 (512, 4096, 1024, 128, "wgmma"), (8, 256, 259, 128, "mma_sync"), (64, 512, 600, 64, "mma_sync"),
                 (64, 256, 384, 128, "splitk"), (8, 256, 320, 128, "splitk"), (40, 512, 192, 64, "splitk"),
                 (8, 4096, 32064, 128, "splitk"), (65, 512, 600, 128, "mma_sync"), (130, 256, 259, 128, "mma_sync"),
-                (130, 256, 320, 128, "mma_sync")]
+                (130, 256, 320, 128, "wgmma")]
 
 
 @pytest.mark.cuda
@@ -541,6 +567,40 @@ def test_int4_matmul_over_narrow_blocks_matches_plain(cuda_device, width, blocks
     assert float((got - tint4.int4_matmul(x, tp, ts, gs)).abs().max()) == 0.0
 
 
+# Qwen2.5-7B's qkv over {"model": 8} (K = 3,584, 8 blocks of 576 columns:
+# five wgmma tiles a block, the last 64 columns), at a ragged and at a
+# whole token tile, and at the 512-token prefill chunk of 8 prompts
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [65, 4096])
+def test_int4_matmul_over_ragged_wgmma_blocks_matches_plain(cuda_device, m):
+    """int4_matmul over column blocks off wgmma's 128-column tile, on its
+    16-column block unit: one wgmma launch over ``wgmma_items``' tiles
+    (the kernel's own count), within the bf16 rule of the plain version,
+    and bit-equal to the launch over the concatenated weight (no K split:
+    a column's sum does not depend on its tile)."""
+    k, width, blocks, gs = 3584, 576, 8, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(700 + m)
+    tp = torch.randint(-128, 128, (k // 2, width * blocks), generator=gen, device=cuda_device, dtype=torch.int8)
+    ts = torch.empty(k // gs, width * blocks, device=cuda_device).uniform_(0.003, 0.006, generator=gen)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+    cut = ([t[:, b * width:(b + 1) * width].contiguous() for b in range(blocks)] for t in (tp, ts))
+    assert tint4.int4_matmul_route(m, width * blocks, blocks) == tint4.int4_matmul_route(m, width * blocks) == "wgmma"
+    assert tint4._lib().comorag_int4_matmul_wgmma_items(m, width * blocks, blocks) == tint4.wgmma_items(
+        m, width * blocks, blocks) == -(-m // 128) * blocks * 5
+    before = tint4.ROUTE_LAUNCHES["wgmma"].value
+    got = tint4.int4_matmul(x, *cut, gs)
+    torch.cuda.synchronize()
+    assert tint4.ROUTE_LAUNCHES["wgmma"].value == before + 1
+    _close(got, tint4.int4_matmul_plain(x, tp, ts, gs))
+    assert float((got - tint4.int4_matmul(x, tp, ts, gs)).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,blocks,items", _WGMMA_ITEMS)
+def test_wgmma_items_are_the_kernels(cuda_device, m, n, blocks, items):
+    assert tint4._lib().comorag_int4_matmul_wgmma_items(m, n, blocks) == tint4.wgmma_items(m, n, blocks) == items
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 33, 64])
 def test_tail_geometry_is_the_kernels(cuda_device, m):
@@ -574,10 +634,10 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
         with pytest.raises(ValueError):
             tint4.int4_matmul(torch.zeros(m, 256, device=cuda_device), p, sc)
     lib, stream = tint4._lib(), torch.cuda.current_stream().cuda_stream
-    # the C entries check their own gates: M above 64 on split-K, N off 128
+    # the C entries check their own gates: M above 64 on split-K, N off 16
     # on wgmma, a block width off 16 on split-K (96 columns in 4 blocks,
-    # and a whole 40) and off 128 on wgmma (384 in 2), and more than 8
-    # blocks, before reading a block pointer
+    # and a whole 40) and on wgmma (80 in 2), and more than 8 blocks,
+    # before reading a block pointer; the wgmma item count refuses the same
     null_ptrs = (ctypes.c_void_p * 16)()
     assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 1, None, None, None, 65, 128, 128, 64, 1, 132,
                                           stream) != 0
@@ -588,8 +648,10 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
                                           stream) != 0
     assert lib.comorag_int4_matmul_splitk(None, null_ptrs, null_ptrs, 16, None, None, None, 8, 2048, 128, 64, 1, 132,
                                           stream) != 0
-    assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 2, None, 128, 384, 128, 64, 132, stream) != 0
+    assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 2, None, 128, 80, 128, 64, 132, stream) != 0
     assert lib.comorag_int4_matmul_wgmma(None, null_ptrs, null_ptrs, 16, None, 128, 2048, 128, 64, 132, stream) != 0
+    assert all(lib.comorag_int4_matmul_wgmma_items(*shape) < 0 for shape in ((128, 200, 1), (128, 80, 2),
+                                                                             (128, 2048, 16), (0, 128, 1)))
     # the wrapper refuses blocks the rule refuses, and a block off x's card
     def cut(*widths):
         return ([torch.zeros(128, w, dtype=torch.int8, device=cuda_device) for w in widths],
@@ -599,8 +661,12 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda_device):
     for widths in ((40,) * 2, (24,) * 4, (128,) * 16, (256, 128, 128)):  # off 16 (twice), > 8, unequal
         with pytest.raises(ValueError, match="no column blocks"):
             tint4.int4_matmul(x8, *cut(*widths))
-    with pytest.raises(ValueError, match="no column blocks"):  # ragged blocks above 64 rows: wgmma's 128
-        tint4.int4_matmul(torch.zeros(96, 256, device=cuda_device), *cut(192, 192))
+    x96 = torch.zeros(96, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="no column blocks"):  # blocks off 16 above 64 rows
+        tint4.int4_matmul(x96, *cut(40, 40))
+    # blocks off wgmma's 128-column tile, on its 16: one launch, the last tile of each ragged
+    for widths in ((192,) * 2, (16,) * 8, (48,) * 2):
+        assert tint4.int4_matmul(x96, *cut(*widths)).shape == (96, sum(widths))
     # ragged split-K blocks, 8 blocks, blocks narrower than a 128-column box: one launch
     for widths in ((64,) * 4, (128,) * 3, (128,) * 8, (96,) * 2, (32,) * 4, (16,) * 8):
         assert tint4.int4_matmul(x8, *cut(*widths)).shape == (8, sum(widths))

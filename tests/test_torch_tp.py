@@ -406,10 +406,12 @@ def _int4_sharded(widths, device=CPU):
     ([32] * 4, 8, True), ([96] * 2, 8, True),  # multiples of the split-K route's 16-column unit
     ([24] * 4, 8, False), ([40] * 2, 8, False),  # widths off it
     ([16] * 8, 8, True), ([48] * 2, 64, True),  # blocks narrower than a 128-column box
-    ([192] * 2, 65, False), ([32064] * 4, 65, False),  # ragged blocks above 64 rows: wgmma keeps 128
+    ([192] * 2, 65, True), ([32064] * 4, 65, True),  # ragged blocks above 64 rows: wgmma's last tile a block ragged
+    ([40] * 2, 65, False), ([24] * 4, 4096, False),  # widths off 16 above 64 rows
     ([128] * 8, 8, True),  # 8 blocks (TAIL_MAX_BLOCKS): an 8-card node's model axis
     ([768] * 8, 8, True), ([3584] * 8, 4096, True),  # the 8B qkv at decode, gate/up at prefill, {"model": 8}
-    ([16032] * 8, 8, True), ([16032] * 8, 4096, False),  # the 8B head at {"model": 8}: splitk, off wgmma's 128
+    ([16032] * 8, 8, True), ([16032] * 8, 4096, True),  # the 8B head at {"model": 8}: splitk, wgmma (ragged)
+    ([576] * 8, 4096, True), ([448] * 8, 4096, True),  # Qwen2.5-7B's qkv, o / down at {"model": 8}: wgmma (ragged)
     ([128] * 16, 8, False),  # more than TAIL_MAX_BLOCKS
     ([256, 128, 128], 65, False),  # unequal blocks
     ([128] * 3, 8, True),  # 384 columns at decode: splitk, the last item of each block half full
@@ -434,8 +436,8 @@ def test_int4_forward_launches_one_head_launch_over_ragged_blocks(m):
     head's 320-column shards are a multiple of 64 but not of 128: the head
     is one launch over its 4 blocks (product_route BLOCKS), and a
     process's share of the axis (2 of the 4 blocks, ``Sharded.indices``)
-    is one launch too; at 80 rows (wgmma's 128-column unit) it is one a
-    shard."""
+    is one launch too; at 80 rows too (wgmma, each block's last tile 64
+    columns)."""
     jarch, tarch = _archs("gqa", **_RAGGED_HEAD_ARCH)
     tparams = tdec.params_from_jax(_np_tree(_jax_params(jarch, seed=9, kind="int4")), device="cpu")
     sharded = tdec.shard_params(tparams, build_mesh({"model": 4}, [CPU] * 4))
@@ -449,7 +451,7 @@ def test_int4_forward_launches_one_head_launch_over_ragged_blocks(m):
     share = dataclasses.replace(head, shards=head.shards[2:], devices=head.devices[2:], indices=(2, 3))
     assert tdec.product_route(share, m, CPU) == tdec.BLOCKS
     assert tdec._product_launches(share, m, CPU) == 1
-    assert tdec._product_launches(head, 80, CPU) == 4 and tdec._product_launches(share, 80, CPU) == 2
+    assert tdec._product_launches(head, 80, CPU) == 1 and tdec._product_launches(share, 80, CPU) == 1
 
 
 @pytest.mark.parametrize("p", [8, 40])  # 32 tokens, 160 tokens
@@ -569,20 +571,26 @@ _QWEN_BLOCKS = {512: (_BLOCKS_ARCH, 64),
                        192)}
 
 
+@pytest.mark.parametrize("p", [8, 40])  # 32 tokens, 160 tokens
 @pytest.mark.parametrize("hidden", sorted(_QWEN_BLOCKS))
-def test_int4_forward_over_model_8_with_ragged_tail_blocks_matches_jax(hidden, monkeypatch):
+def test_int4_forward_over_model_8_with_ragged_tail_blocks_matches_jax(hidden, p, monkeypatch):
     """A qwen2-family arch over {"model": 8} with o / down shards of 64 or
-    192 columns (off the tail's 128-column tile; on its 16-column block
-    unit): a decode-sized forward (32 tokens) takes the fused tail over
-    the blocks, (layers + 1, layers) calls as JAX launches, and the
-    logits, JAX's forward and the unsharded port forward as
-    ``_model_8_against_jax`` holds them."""
+    192 columns (off the 128-column tile of the tail and of wgmma; on
+    their 16-column block unit): a decode-sized forward (32 tokens) takes
+    the fused tail over the blocks, (layers + 1, layers) calls, and a
+    prefill-sized one (160 tokens) every product once over its blocks on
+    wgmma (qkv's 128 or 320 columns too), (4 x layers + 1, 0) calls, as
+    JAX launches; the logits, JAX's forward and the unsharded port
+    forward as ``_model_8_against_jax`` holds them."""
     arch, width = _QWEN_BLOCKS[hidden]
-    sharded, calls = _model_8_against_jax(8, monkeypatch, seed=17, arch=arch)
-    layers = TINY["num_layers"]
+    sharded, calls = _model_8_against_jax(p, monkeypatch, seed=17, arch=arch)
+    layers, m = TINY["num_layers"], 4 * p  # 4 prompts of p tokens
     assert [sharded["layers"][name].shards[0].packed.shape[-1] for name in ("o_w", "down_w")] == [width, width]
-    assert tdec.tail_route(sharded, _archs("gqa", **dict(arch, vocab_size=1024))[1], 32) == tdec.FUSED_TAIL
-    assert calls == (layers + 1, layers)
+    tarch = _archs("gqa", **dict(arch, vocab_size=1024))[1]
+    assert tdec.tail_route(sharded, tarch, m) == (tdec.FUSED_TAIL if p == 8 else tdec.PER_PRODUCT)
+    products = [sharded["layers"][name] for name in ("qkv_w", "o_w", "gateup_w", "down_w")] + [sharded["lm_head"]]
+    assert [tdec.product_route(w, m, CPU) for w in products] == [tdec.BLOCKS] * 5
+    assert calls == ((layers + 1, layers) if p == 8 else (4 * layers + 1, 0))
 
 
 def test_product_route_takes_no_blocks_off_the_merge_device_or_outside_int4_columns():
@@ -852,7 +860,8 @@ def _int4_weight_8b(gen, device, k, n):
 # of those blocks (64,128 columns in 2), one 32,064-column shard alone
 # (a distinct card's), and the head over {"model": 8}'s 8 (16,032 columns:
 # a multiple of split-K's 16-column unit, each block's last item 160
-# columns, so one launch up to 64 rows; off wgmma's 128, refused above);
+# columns, so one launch up to 64 rows; above, one wgmma launch, each
+# block's last tile 32 columns);
 # and Qwen2.5-7B's qkv over {"model": 8}'s 8 (K = 3,584, 576 columns a
 # block: 24 split-K tiles against the whole weight's 18; at 8 rows the
 # blocks' tiles alone would take 7 K splits where the whole weight takes 8)
@@ -871,11 +880,11 @@ def test_int4_matmul_over_column_blocks_on_the_card(name, n, blocks, m):
     shard_params cuts a one-card model axis's shards) at Llama-3.1-8B
     widths: one launch, within the bf16 rule of the plain version, and
     bit-equal to the whole weight's launch (the same K splits and sums;
-    max |d| printed). Blocks off 128 columns above 64 rows are refused
-    (wgmma's unit); a single 32,064-column shard takes split-K up to 64
-    rows and mma_sync above. The head over 8 blocks takes the whole
-    head's K splits (504 tiles against 501), and so does Qwen2.5-7B's qkv
-    at its K of 3,584 (24 tiles against 18)."""
+    max |d| printed). Blocks off 128 columns above 64 rows take wgmma,
+    the last tile of a block ragged; a single 32,064-column shard takes
+    split-K up to 64 rows and wgmma above. The head over 8 blocks takes
+    the whole head's K splits (504 tiles against 501), and so does
+    Qwen2.5-7B's qkv at its K of 3,584 (24 tiles against 18)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda", 0)
@@ -885,11 +894,6 @@ def test_int4_matmul_over_column_blocks_on_the_card(name, n, blocks, m):
     x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
     cut = split_blocks(packed, -1, [dev] * blocks), split_blocks(scales, -1, [dev] * blocks)
     route = tint4.int4_matmul_route(m, n, blocks)
-    if blocks > 1 and route == "mma_sync":
-        assert not tint4.int4_matmul_blocks_supported(m, [p.shape[-1] for p in cut[0]])
-        with pytest.raises(ValueError, match="no column blocks"):
-            tint4.int4_matmul(x, *cut)
-        return
     assert blocks == 1 or tint4.int4_matmul_blocks_supported(m, [p.shape[-1] for p in cut[0]])
     if route == "splitk":  # bit-equality needs the whole weight's K splits
         plan = functools.partial(tint4.matmul_plan, m, k, n, 128, tint4._sm_count(dev),

@@ -96,13 +96,13 @@ def _readable_except(monkeypatch, blocked=()):
 # a shard, o and down 64, gate/up 256, the head 64) the tail takes o and
 # down on their 16-column unit and gate/up on its 128, so at decode qkv
 # and the head are one call each beside 2 tails (2 + 1), as over 4; at
-# prefill wgmma's 128-column unit takes qkv and gate/up and refuses o,
-# down and the head, once a shard (2 x (1 + 8 + 1 + 8) + 8).
+# prefill wgmma takes every product once over its blocks (o, down and the
+# head each one ragged 64-column tile a block): 9, as over 4.
 _SMALL_CASES = [
     ("every peer readable", 4, (), None, tdec.FUSED_TAIL, tdec.BLOCKS, (3, 2), (9, 0)),
     ("cuda:2 not readable from cuda:0", 4, ((0, 2),), None, tdec.PER_PRODUCT, tdec.PER_SHARD, (36, 0), (36, 0)),
     ("across processes", 4, (), (0, 1, 2, 3), tdec.PER_PRODUCT, tdec.BLOCKS, (9, 0), (9, 0)),
-    ("8 shards", 8, (), None, tdec.FUSED_TAIL, tdec.BLOCKS, (3, 2), (44, 0)),
+    ("8 shards", 8, (), None, tdec.FUSED_TAIL, tdec.BLOCKS, (3, 2), (9, 0)),
 ]
 
 
@@ -187,16 +187,16 @@ def test_int4_forward_launches_at_8b_width_over_model_8_on_one_card():
     a shard) and int4_matmul once over qkv's (768) and over the head's
     eight 16,032-column shards at its 8 rows (split-K's 16-column unit):
     (33, 32) a decode forward, (129, 0) a prefill one, JAX's launches.
-    A head of every position's logits (4,096 rows) is off wgmma's
-    128-column unit and runs once a shard."""
+    A head of every position's logits (4,096 rows) is one wgmma launch
+    over its blocks too, each block's last tile 32 columns: (129, 0)."""
     params = _meta_8b(8, cards=1)
     assert tdec.tail_route(params, LLAMA_8B, 8) == tdec.FUSED_TAIL
     assert tdec.product_route(params["layers"]["qkv_w"], 8, CARDS[0]) == tdec.BLOCKS
     assert tdec.product_route(params["lm_head"], 8, CARDS[0]) == tdec.BLOCKS
-    assert tdec.product_route(params["lm_head"], 4096, CARDS[0]) == tdec.PER_SHARD
+    assert tdec.product_route(params["lm_head"], 4096, CARDS[0]) == tdec.BLOCKS
     assert tdec.int4_forward_launches(params, LLAMA_8B, 8, 8) == (33, 32)
     assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 8) == (129, 0)
-    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 4096) == (136, 0)
+    assert tdec.int4_forward_launches(params, LLAMA_8B, 4096, 4096) == (129, 0)
 
 
 @pytest.mark.parametrize("cards", [0, 1], ids=["distinct cards", "one card"])
@@ -207,8 +207,9 @@ def test_int4_forward_launches_at_qwen25_7b_width_over_model_8(monkeypatch, card
     4,736, qkv's 576 and the head's 19,008: a decode forward takes the
     tail once a layer over the blocks and int4_matmul once for qkv a layer
     and once for the head, (29, 28), JAX's launches; a prefill forward
-    runs qkv, o and down once a shard (off wgmma's 128-column unit) and
-    gate/up and the head once: (28 x 25 + 1, 0) against JAX's (113, 0)."""
+    runs every product once over its blocks, qkv, o and down on wgmma with
+    a ragged last tile a block (576 = 4 x 128 + 64, 448 = 3 x 128 + 64):
+    (28 x 4 + 1, 0) = (113, 0), JAX's too."""
     params = _meta_8b(8, cards, QWEN25_7B)
     _readable_except(monkeypatch)
     assert [params["layers"][name].shards[0].packed.shape[-1] for name in ("qkv_w", "o_w", "gateup_w", "down_w")] \
@@ -218,10 +219,11 @@ def test_int4_forward_launches_at_qwen25_7b_width_over_model_8(monkeypatch, card
     assert tdec.product_route(params["layers"]["qkv_w"], 8, CARDS[0]) == tdec.BLOCKS
     assert tdec.product_route(params["lm_head"], 8, CARDS[0]) == tdec.BLOCKS
     assert [tdec.product_route(params["layers"][name], 4096, CARDS[0]) for name in ("qkv_w", "o_w", "gateup_w",
-                                                                                     "down_w")] \
-        == [tdec.PER_SHARD, tdec.PER_SHARD, tdec.BLOCKS, tdec.PER_SHARD]
+                                                                                     "down_w")] == [tdec.BLOCKS] * 4
+    assert tdec.product_route(params["lm_head"], 4096, CARDS[0]) == tdec.BLOCKS
     assert tdec.int4_forward_launches(params, QWEN25_7B, 8, 8) == (29, 28)
-    assert tdec.int4_forward_launches(params, QWEN25_7B, 4096, 8) == (701, 0)
+    assert tdec.int4_forward_launches(params, QWEN25_7B, 4096, 8) == (113, 0)
+    assert tdec.int4_forward_launches(params, QWEN25_7B, 4096, 4096) == (113, 0)
 
 
 # (leaf with its last block on cuda:4, which cuda:0 may not read) -> a
@@ -364,11 +366,13 @@ def test_fused_tail_refuses_a_card_it_may_not_read(monkeypatch):
 # 2) at M = 8 (splitk), gate/up at M = 128 (wgmma). 8 blocks
 # ({"model": 8}): qkv at decode (768 columns a block, splitk), gate/up at
 # M = 128 (3,584, wgmma), the head at decode (16,032 columns a block,
-# splitk on its 16-column unit, one K split as the whole head)
+# splitk on its 16-column unit, one K split as the whole head).
+# Qwen2.5-7B's qkv (K 3,584, 576 columns a block) and down (K 18,944, 448)
+# over 8 blocks at M = 128 on wgmma, the last tile of each block ragged
 _PEER_PRODUCTS = [("qkv", 4096, 6144, 1, 0), ("qkv", 4096, 6144, 8, 0), ("qkv", 4096, 6144, 64, 0),
                   ("lm_head", 4096, 128256, 8, 0), ("gate_up", 4096, 28672, 128, 0),
                   ("qkv", 4096, 6144, 8, 8), ("qkv", 4096, 6144, 64, 8), ("gate_up", 4096, 28672, 128, 8),
-                  ("lm_head", 4096, 128256, 8, 8)]
+                  ("lm_head", 4096, 128256, 8, 8), ("qwen qkv", 3584, 4608, 128, 8), ("qwen down", 18944, 3584, 128, 8)]
 
 
 @pytest.mark.cuda
